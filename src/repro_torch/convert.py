@@ -1,0 +1,42 @@
+"""Carry weights and packed stores from the JAX package into the port.
+
+Inputs are numpy arrays, never JAX objects, so this module imports neither
+package's JAX code: a caller brings params to the host
+(``jax.device_get``) and hands the nested dict over.  bf16 leaves arrive
+as uint16 views of their bits (``np.asarray(x).view(np.uint16)``) and
+come out as ``torch.bfloat16`` with the same bits.
+"""
+
+from __future__ import annotations
+
+from collections.abc import Mapping
+
+import numpy as np
+import torch
+
+from repro_torch.core.packed_store import PackedStore
+
+
+def to_tensor(x, device: str | torch.device = "cpu") -> torch.Tensor:
+    """numpy array -> tensor with the same bits (uint16 -> bf16)."""
+    a = np.array(x)                  # a writable copy that torch may own
+    if a.dtype == np.uint16:
+        return torch.from_numpy(a.view(np.int16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def params_from_jax(params: Mapping, device: str | torch.device = "cpu"
+                    ) -> dict:
+    """Nested dict of numpy arrays (``embed_table``, ``net.bot.l{i}.{w,b}``,
+    ``net.top.l{i}.{w,b}``) -> the same nesting of tensors."""
+    return {k: params_from_jax(v, device) if isinstance(v, Mapping)
+            else to_tensor(v, device) for k, v in params.items()}
+
+
+def packed_from_jax(leaves, device: str | torch.device = "cpu"
+                    ) -> PackedStore:
+    """A reference ``PackedStore`` with its six leaves brought to numpy
+    -> the port's ``PackedStore``."""
+    return PackedStore(*(to_tensor(getattr(leaves, f), device)
+                         for f in PackedStore._fields))

@@ -1,0 +1,196 @@
+"""Tier-partitioned serving store for F-Quantization.
+
+Port of ``repro/core/packed_store.py``.  Rows are partitioned by tier into
+three dense arrays with one int32 indirection word per row:
+
+    payload8   int8 [V8,  D]   + scale8  fp32[V8]
+    payload16  bf16 [V16, D]   + scale16 fp32[V16]   (fp16 if strict)
+    payload32  fp32 [V32, D]
+    indirect   int32[V]        code = tier << 28 | local_index
+
+A tier with no rows keeps a one-row placeholder (its quantized zeros), as
+the reference does.  ``pack`` builds the store from a whole table;
+``build_chunked`` snaps and packs chunk by chunk into preallocated tier
+payloads, for tables that do not fit beside their pack (the full
+``dlrm-rm2`` table is 52.3 GB fp32, a 50% pack ~27.6 GB).  Snap and pack
+are row-wise, so both give the same leaves.  ``lookup`` is the plain
+gather + dequant; ``lookup_fused`` is the serving path, one fused
+dequant-bag kernel launch per tier (``kernels.dequant_bag``).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import torch
+
+from repro_torch.core import rowwise_quant as rq
+from repro_torch.core.qat_store import (FQuantConfig, QATStore,
+                                        current_tiers, snap)
+from repro_torch.core.tiers import Tier, assign_tiers, tier_counts
+
+_TIER_SHIFT = 28
+_IDX_MASK = (1 << _TIER_SHIFT) - 1
+
+
+class PackedStore(NamedTuple):
+    payload8: torch.Tensor    # int8 [V8, D]
+    scale8: torch.Tensor      # fp32 [V8]
+    payload16: torch.Tensor   # bf16/fp16 [V16, D]
+    scale16: torch.Tensor     # fp32 [V16]
+    payload32: torch.Tensor   # fp32 [V32, D]
+    indirect: torch.Tensor    # int32 [V]
+
+    @property
+    def vocab(self) -> int:
+        return self.indirect.shape[0]
+
+    @property
+    def dim(self) -> int:
+        return self.payload32.shape[-1]
+
+    def nbytes(self, by_tier: bool = False):
+        """Store bytes: total (default) or the per-tier breakdown
+        ``{"int8", "half", "fp32", "indirect"}``.  Placeholder rows of
+        empty tiers are counted: they are allocated."""
+        size = [leaf.numel() * leaf.element_size() for leaf in self]
+        per = {"int8": size[0] + size[1], "half": size[2] + size[3],
+               "fp32": size[4], "indirect": size[5]}
+        return per if by_tier else sum(per.values())
+
+
+def _quantize_tier(rows: torch.Tensor, tier: Tier, cfg: FQuantConfig):
+    """Quantize fp32 rows for one tier exactly as ``pack`` does:
+    (payload, scale (N,) or None)."""
+    if tier is Tier.INT8:
+        q, s = rq.quantize_rowwise(rows, cfg.bits, mode=cfg.mode)
+        return q, s[:, 0]
+    if tier is Tier.HALF:
+        q, s = rq.quantize_half(rows, strict_fp16=cfg.strict_fp16,
+                                scaled=cfg.scaled_half)
+        return q, s[:, 0]
+    return rows.to(torch.float32), None
+
+
+def _assemble(parts, indirect: torch.Tensor) -> PackedStore:
+    (p8, s8), (p16, s16), (p32, _) = parts
+    return PackedStore(payload8=p8, scale8=s8, payload16=p16, scale16=s16,
+                       payload32=p32, indirect=indirect)
+
+
+def pack(store: QATStore, cfg: FQuantConfig) -> PackedStore:
+    """Partition rows by tier and quantize each tier's payload."""
+    table = store.table.to(torch.float32)
+    tiers = current_tiers(store, cfg)
+    dim = table.shape[1]
+    indirect = torch.zeros(table.shape[0], dtype=torch.int32,
+                           device=table.device)
+    parts = []
+    for tier in Tier:
+        idx = torch.nonzero(tiers == tier.value).reshape(-1)
+        rows = table[idx] if idx.numel() else table.new_zeros((1, dim))
+        parts.append(_quantize_tier(rows, tier, cfg))
+        indirect[idx] = (int(tier.value) << _TIER_SHIFT) | torch.arange(
+            idx.numel(), dtype=torch.int32, device=table.device)
+    return _assemble(parts, indirect)
+
+
+def build_chunked(rows_fn: Callable[[int, int], torch.Tensor],
+                  priority: torch.Tensor, dim: int, cfg: FQuantConfig, *,
+                  chunk_rows: int) -> PackedStore:
+    """Snap and pack a table chunk by chunk into preallocated payloads.
+
+    ``rows_fn(r0, r1)`` returns fp32 table rows [r0, r1) on the device of
+    ``priority``; it is called once per chunk, in order, and no more than
+    ``chunk_rows`` rows of the table exist at a time.  The result equals
+    ``pack(QATStore(snap(table, tiers, cfg), priority), cfg)`` leaf for
+    leaf: snap and the tier quantizers are row-wise, and a tier's rows
+    keep ascending global order, so local indices match ``pack``'s.
+    """
+    dev = priority.device
+    if cfg.strict_fp16 and dev.type == "cuda":
+        raise ValueError("strict_fp16: the CUDA dequant-bag kernel has no "
+                         "fp16 payload yet; build this store on the CPU")
+    tiers = assign_tiers(priority, cfg.tiers)
+    counts = tier_counts(tiers)
+    half = torch.float16 if cfg.strict_fp16 else torch.bfloat16
+    dtypes = (torch.int8, half, torch.float32)
+    payloads = [torch.empty((max(c, 1), dim), dtype=dt, device=dev)
+                for c, dt in zip(counts, dtypes)]
+    scales = [torch.empty((max(c, 1),), dtype=torch.float32, device=dev)
+              for c in counts[:2]] + [None]
+    indirect = torch.empty(tiers.shape[0], dtype=torch.int32, device=dev)
+    offset = [0, 0, 0]
+    for r0 in range(0, tiers.shape[0], chunk_rows):
+        r1 = min(tiers.shape[0], r0 + chunk_rows)
+        tc = tiers[r0:r1]
+        snapped = snap(rows_fn(r0, r1).to(torch.float32), tc, cfg)
+        for tier in Tier:
+            t = int(tier.value)
+            sel = torch.nonzero(tc == t).reshape(-1)
+            n = sel.numel()
+            if n == 0:
+                continue
+            q, s = _quantize_tier(snapped[sel], tier, cfg)
+            o = offset[t]
+            payloads[t][o:o + n] = q
+            if s is not None:
+                scales[t][o:o + n] = s
+            indirect[r0 + sel] = (t << _TIER_SHIFT) | torch.arange(
+                o, o + n, dtype=torch.int32, device=dev)
+            offset[t] = o + n
+        del snapped
+    for tier in Tier:
+        t = int(tier.value)
+        if counts[t] == 0:
+            # pack()'s placeholder for an empty tier: quantized zeros
+            q, s = _quantize_tier(torch.zeros((1, dim), device=dev), tier,
+                                  cfg)
+            payloads[t].copy_(q)
+            if s is not None:
+                scales[t].copy_(s)
+    return _assemble(list(zip(payloads, scales)), indirect)
+
+
+def _split(packed: PackedStore, indices: torch.Tensor):
+    code = packed.indirect[indices.to(torch.int64)]
+    return code >> _TIER_SHIFT, code & _IDX_MASK
+
+
+def lookup(packed: PackedStore, indices: torch.Tensor) -> torch.Tensor:
+    """Gather + inline dequant.  indices: int (...,) -> fp32 (..., D).
+
+    The plain version: three tier-local gathers and a select, the oracle
+    that the fused kernel path is held to bit for bit.
+    """
+    tier, loc = _split(packed, indices)
+    loc = loc.to(torch.int64)
+
+    def rows(payload, scale):
+        li = loc.clamp(0, payload.shape[0] - 1)
+        e = payload[li].to(torch.float32)
+        return e if scale is None else e * scale[li][..., None]
+
+    e8 = rows(packed.payload8, packed.scale8)
+    e16 = rows(packed.payload16, packed.scale16)
+    e32 = rows(packed.payload32, None)
+    t = tier[..., None]
+    return torch.where(t == Tier.INT8.value, e8,
+                       torch.where(t == Tier.HALF.value, e16, e32))
+
+
+def lookup_fused(packed: PackedStore, indices: torch.Tensor) -> torch.Tensor:
+    """Serving-path ``lookup``: one fused dequant-bag launch per tier,
+    bit-identical to ``lookup`` (see ``kernels.dequant_bag.ops``)."""
+    from repro_torch.kernels.dequant_bag.ops import packed_lookup_fused
+    return packed_lookup_fused(packed, indices)
+
+
+def packed_tiers(packed: PackedStore) -> torch.Tensor:
+    """Per-row tier materialised in ``packed``: int8 (V,) on its device."""
+    return (packed.indirect >> _TIER_SHIFT).to(torch.int8)
+
+
+def live_counts(packed: PackedStore) -> list[int]:
+    """Per-tier live row counts, excluding an empty tier's placeholder."""
+    return tier_counts(packed_tiers(packed))

@@ -1,0 +1,92 @@
+"""Row-wise quantization / dequantization (SHARK Eq. 5-6).
+
+Port of the round-to-nearest (serving) path of ``repro/core/rowwise_quant.py``:
+
+    scale = max(max_abs(row), 1e-12) / denom                    (Eq. 6)
+    e_q   = clip(round(e / scale), I_min, I_max)                (Eq. 5)
+    e_dq  = scale * e_q
+
+with ``denom = I_max`` ("narrow", the system default: idempotent, so the
+packed store equals the snapped values exactly) or ``(I_max - I_min)/2``
+("full", the literal Eq. 6).  The 2-byte tier normalises each row by its
+max-abs and stores it in bf16 (IEEE fp16 with ``strict_fp16``).  Every op
+is elementwise or a per-row max in fp32 and rounds half to even, so the
+results are bit-identical to the reference.  The stochastic-rounding
+training path arrives with training.
+"""
+
+from __future__ import annotations
+
+from typing import Literal
+
+import torch
+
+_EPS = 1e-12
+
+
+def int_range(bits: int) -> tuple[int, int]:
+    """[I_min, I_max] for a signed b-bit integer type (paper Sec 3.2)."""
+    return -(2 ** (bits - 1)), 2 ** (bits - 1) - 1
+
+
+def rowwise_scale(e: torch.Tensor, bits: int = 8,
+                  mode: Literal["full", "narrow"] = "narrow") -> torch.Tensor:
+    """Per-row scale, Eq. 6.  e: (..., D) -> scale: (..., 1) fp32."""
+    imin, imax = int_range(bits)
+    max_abs = e.abs().amax(dim=-1, keepdim=True)
+    denom = float(imax - imin) / 2.0 if mode == "full" else float(imax)
+    return max_abs.clamp_min(_EPS) / denom
+
+
+def quantize_rowwise(e: torch.Tensor, bits: int = 8, *,
+                     mode: Literal["full", "narrow"] = "narrow"
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Round-to-nearest row-wise quantization.
+
+    Returns (q, scale): q int8 (int32 for widths above 8 bits), scale fp32
+    of shape e.shape[:-1] + (1,).
+    """
+    imin, imax = int_range(bits)
+    scale = rowwise_scale(e, bits, mode).to(torch.float32)
+    r = torch.round(e.to(torch.float32) / scale).clamp_(imin, imax)
+    return r.to(torch.int8 if bits <= 8 else torch.int32), scale
+
+
+def dequantize_rowwise(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Eq. 5 second line: e_dq = scale * e_q."""
+    return q.to(torch.float32) * scale
+
+
+def fake_quant_rowwise(e: torch.Tensor, bits: int = 8, *,
+                       mode: Literal["full", "narrow"] = "narrow"
+                       ) -> torch.Tensor:
+    """Quantize-dequantize round trip in value space (QAT 'snap')."""
+    return dequantize_rowwise(*quantize_rowwise(e, bits, mode=mode))
+
+
+def half_scale(e: torch.Tensor) -> torch.Tensor:
+    """Row-wise scale for the 2-byte tier: normalise rows to [-1, 1]."""
+    return e.abs().amax(dim=-1, keepdim=True).clamp_min(_EPS).to(
+        torch.float32)
+
+
+def quantize_half(e: torch.Tensor, *, strict_fp16: bool = False,
+                  scaled: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+    """2-byte tier (paper 'fp16'; bf16 unless strict_fp16)."""
+    dtype = torch.float16 if strict_fp16 else torch.bfloat16
+    if scaled:
+        scale = half_scale(e)
+        return (e.to(torch.float32) / scale).to(dtype), scale
+    ones = torch.ones(e.shape[:-1] + (1,), dtype=torch.float32,
+                      device=e.device)
+    return e.to(dtype), ones
+
+
+def dequantize_half(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return q.to(torch.float32) * scale
+
+
+def fake_quant_half(e: torch.Tensor, *, strict_fp16: bool = False,
+                    scaled: bool = True) -> torch.Tensor:
+    q, scale = quantize_half(e, strict_fp16=strict_fp16, scaled=scaled)
+    return dequantize_half(q, scale)

@@ -1,0 +1,73 @@
+"""Public op: fused dequant embedding-bag over the tier-partitioned store.
+
+Port of ``repro/kernels/dequant_bag/ops.py``.  ``dequant_bag`` takes the
+plain version for CPU tensors and launches the CUDA kernel for CUDA
+tensors (it raises for anything the kernel does not take).
+``packed_bag_lookup`` runs it once per tier with tier-local indices and
+sums the three partial bags in the reference's order; slots of other
+tiers get weight 0, which the kernel skips without reading their rows.
+``packed_lookup_fused`` is the K = 1 serving gather, bit-identical to
+``packed_store.lookup``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.packed_store import PackedStore, _split
+from repro_torch.kernels.dequant_bag.kernel import dequant_bag_cuda
+from repro_torch.kernels.dequant_bag.ref import dequant_bag_ref
+
+
+def dequant_bag(payload: torch.Tensor, scales: torch.Tensor | None,
+                indices: torch.Tensor,
+                weights: torch.Tensor | None = None) -> torch.Tensor:
+    """payload (V, D), scales (V,) or None, indices (B, K) -> (B, D) fp32.
+
+    ``out[b] = sum_k (f32(payload[i_bk]) * scale[i_bk]) * w_bk`` in k
+    order, zero-weight slots skipped.  Dispatch is by ``payload``'s
+    device.
+    """
+    if weights is None:
+        weights = torch.ones(indices.shape, dtype=torch.float32,
+                             device=indices.device)
+    if payload.device.type == "cpu":
+        return dequant_bag_ref(payload, scales, indices, weights)
+    return dequant_bag_cuda(payload, scales, indices, weights)
+
+
+def packed_bag_lookup(packed: PackedStore, indices: torch.Tensor,
+                      weights: torch.Tensor | None = None) -> torch.Tensor:
+    """Bag-sum lookup over a PackedStore.  indices (B, K) -> (B, D) fp32.
+
+    One ``dequant_bag`` per tier over that tier's payload, with the local
+    indices clamped into it and the other tiers' slots masked by weight
+    0; optional ``weights`` (B, K) multiply per slot.  The partials are
+    summed as ``zeros + int8 + half + fp32``, the reference's order.  The
+    fp32 tier passes no scales (unit scales multiply exactly).
+    """
+    tier, loc = _split(packed, indices)
+    out = torch.zeros((indices.shape[0], packed.dim), dtype=torch.float32,
+                      device=packed.payload32.device)
+    for t, payload, scales in ((0, packed.payload8, packed.scale8),
+                               (1, packed.payload16, packed.scale16),
+                               (2, packed.payload32, None)):
+        w = (tier == t).to(torch.float32)
+        if weights is not None:
+            w = w * weights
+        li = loc.clamp(0, payload.shape[0] - 1).to(torch.int32)
+        out = out + dequant_bag(payload, scales, li.contiguous(),
+                                w.contiguous())
+    return out
+
+
+def packed_lookup_fused(packed: PackedStore, indices: torch.Tensor
+                        ) -> torch.Tensor:
+    """Fused per-index serving gather.  int (...,) -> fp32 (..., D).
+
+    The K = 1 case of ``packed_bag_lookup``: each slot's row comes from
+    exactly one tier's launch (the others skip it), so the sum is
+    bit-identical to ``packed_store.lookup``.
+    """
+    out = packed_bag_lookup(packed, indices.reshape(-1, 1))
+    return out.reshape(*indices.shape, packed.dim)

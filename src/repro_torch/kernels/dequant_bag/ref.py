@@ -1,0 +1,67 @@
+"""Plain PyTorch version of the fused dequant embedding-bag.
+
+The kernel (``kernel.py``) is held to this bit for bit, so it follows the
+kernel's contract rather than the shortest expression: it loops over k in
+order, skips zero-weight slots, and accumulates
+
+    acc = fma(row * scale, weight, acc)
+
+that is, the scale product rounded on its own and the weight product and
+the sum rounded once together.  That is what the reference kernel
+computes where its tests run it (Pallas interpret mode: XLA on the CPU
+fuses its ``out += (row * s) * w`` into that FMA), and the CUDA kernel
+writes the same FMA explicitly.  Torch has no fp32 FMA op, so
+``fma_f32`` computes one exactly in float64.  Runs on any device; the CPU
+tests use it and ``chip_smoke.py`` compares the kernel with it on the
+card.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
+            ) -> torch.Tensor:
+    """fp32 ``a * b + c`` with one rounding, exactly.
+
+    ``a * b`` of two fp32 values is exact in float64 (48 of 53 bits).  The
+    float64 sum is made round-to-odd (its rounding error, from TwoSum,
+    sets the last bit), and a round-to-odd float64 rounds to the
+    correctly rounded fp32 because 53 >= 2 * 24 + 2.
+    """
+    p = a.double() * b.double()
+    q = c.double()
+    s = p + q
+    bb = s - p
+    err = (p - (s - bb)) + (q - bb)
+    sb = s.view(torch.int64)
+    inexact = (err != 0) & ((sb & 1) == 0) & torch.isfinite(s)
+    toward = torch.where((err > 0) == (s > 0), 1, -1)
+    return torch.where(inexact, sb + toward, sb).view(torch.float64).float()
+
+
+def dequant_bag_ref(payload: torch.Tensor, scales: torch.Tensor | None,
+                    indices: torch.Tensor, weights: torch.Tensor
+                    ) -> torch.Tensor:
+    """payload (V, D) int8|bf16|fp16|fp32, scales (V,) fp32 or None (unit
+    scales), indices (B, K) in [0, V), weights (B, K) fp32 -> (B, D) fp32:
+
+        out[b] = sum_k (f32(payload[i_bk]) * scale[i_bk]) * w_bk
+
+    summed over k in order as ``fma(row * s, w, acc)``, skipping slots
+    with w_bk == 0.
+    """
+    b, k = indices.shape
+    idx = indices.to(torch.int64)
+    w = weights.to(torch.float32)
+    acc = torch.zeros((b, payload.shape[1]), dtype=torch.float32,
+                      device=payload.device)
+    for kk in range(k):
+        rows = payload[idx[:, kk]].to(torch.float32)
+        if scales is not None:
+            rows = rows * scales[idx[:, kk]][:, None]
+        wk = w[:, kk][:, None]
+        acc = torch.where(wk != 0, fma_f32(rows, wk.expand_as(rows), acc),
+                          acc)
+    return acc

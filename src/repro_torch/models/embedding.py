@@ -1,0 +1,62 @@
+"""Embedding substrate: field-stacked tables.
+
+Port of ``repro/models/embedding.py`` (the parts serving needs).  All
+feature fields of a model share ONE physical (sum_f V_f, D) table;
+field-local indices are shifted by per-field offsets, so F-Quantization's
+priority and tier state is global across fields (one score per row).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+
+class FieldSpec(NamedTuple):
+    """Static metadata for a stacked multi-field embedding.
+
+    ``total_rows`` is padded up to a multiple of ``pad_to``; the pad rows
+    sit after the last field and are never indexed.
+    """
+    cardinalities: tuple[int, ...]   # V_f per field
+    dim: int
+    pad_to: int = 512
+
+    @property
+    def num_fields(self) -> int:
+        return len(self.cardinalities)
+
+    @property
+    def total_rows(self) -> int:
+        raw = int(sum(self.cardinalities))
+        return -(-raw // self.pad_to) * self.pad_to
+
+    def offsets(self) -> np.ndarray:
+        return np.concatenate([[0], np.cumsum(self.cardinalities)[:-1]]
+                              ).astype(np.int32)
+
+
+def globalize(indices: torch.Tensor, spec: FieldSpec) -> torch.Tensor:
+    """Field-local (B, F) indices -> global row ids in the stacked table."""
+    offsets = torch.from_numpy(spec.offsets()).to(indices.device)
+    return indices + offsets[None, :]
+
+
+def table_rows(spec: FieldSpec, seed: int, device: torch.device,
+               scale: float = 0.01):
+    """``rows(r0, r1)``: rows [r0, r1) of a random N(0, scale^2) table.
+
+    Each call draws from a generator seeded by (seed, r0), so the table
+    is a function of the seed and of the chunk boundaries, and is never
+    held whole.  The reference draws its table with ``jax.random``,
+    which torch cannot reproduce; tests carry it across with
+    ``convert.py`` instead.
+    """
+    def rows(r0: int, r1: int) -> torch.Tensor:
+        g = torch.Generator(device=device)
+        g.manual_seed(seed * 1_000_003 + r0)
+        return torch.randn((r1 - r0, spec.dim), generator=g,
+                           device=device) * scale
+    return rows

@@ -1,0 +1,74 @@
+"""Rules of the port: what it imports and where it runs.
+
+``repro_torch`` and ``chip_smoke.py`` import neither ``jax`` nor anything
+of ``repro``; entry points run on CUDA unless asked for the CPU, raise
+when there is no GPU, and never carry on on the CPU by themselves.
+"""
+
+from __future__ import annotations
+
+import ast
+from pathlib import Path
+
+import pytest
+import torch
+
+import repro_torch
+from repro_torch.kernels import build
+from repro_torch.launch import serve as tserve
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "attr", getattr(node.func, "id", ""))
+              in ("import_module", "__import__") and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            roots.add(str(node.args[0].value).split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_jax_and_no_reference(path):
+    assert path.exists(), path
+    bad = _imported_roots(path) & {"jax", "jaxlib", "repro"}
+    assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+def test_resolve_device_rule():
+    assert repro_torch.resolve_device("cpu") == torch.device("cpu")
+    if torch.cuda.is_available():
+        pytest.skip("the no-GPU rule is checked where there is no GPU")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        repro_torch.resolve_device(None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        repro_torch.resolve_device("cuda")
+
+
+def test_serve_raises_without_cuda_unless_cpu_is_asked():
+    if torch.cuda.is_available():
+        pytest.skip("the no-GPU rule is checked where there is no GPU")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tserve.run(tserve.parse_args(["--model", "smoke", "--requests", "1"]))
+    rec = tserve.run(tserve.parse_args(
+        ["--model", "smoke", "--requests", "2", "--batch", "8",
+         "--device", "cpu"])).record
+    assert rec["kernel_launches"] == 0 and rec["device"] == "cpu"
+
+
+def test_kernel_build_is_keyed_by_source_hash():
+    path = build.library_path("dequant_bag")
+    assert path.parent == ROOT / "build" / "repro_torch"
+    assert path.name.startswith("dequant_bag-") and path.suffix == ".so"
+    assert path == build.library_path("dequant_bag")       # stable
+    assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
