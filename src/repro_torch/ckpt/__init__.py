@@ -1,0 +1,1 @@
+"""Atomic, versioned checkpoints in the reference's on-disk format."""

@@ -23,3 +23,5 @@ class RecsysArch:
     num_dense: int = 13              # dense features of the full model
     smoke_num_dense: int = 5         # reduced config's dense width
     name: str = ""
+    cfg: Any = None                  # the full model's config dataclass
+    smoke_cfg: Any = None            # the reduced one's

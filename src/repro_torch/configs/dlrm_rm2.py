@@ -32,4 +32,5 @@ SMOKE_CFG = R.DLRMConfig(
 
 def arch() -> RecsysArch:
     return RecsysArch(name="dlrm-rm2", model=R.make_dlrm(FULL_CFG),
-                      smoke_model=R.make_dlrm(SMOKE_CFG), num_dense=13)
+                      smoke_model=R.make_dlrm(SMOKE_CFG), num_dense=13,
+                      cfg=FULL_CFG, smoke_cfg=SMOKE_CFG)

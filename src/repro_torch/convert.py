@@ -1,4 +1,5 @@
-"""Carry weights and packed stores from the JAX package into the port.
+"""Carry weights, packed stores and train states from the JAX package
+into the port.
 
 Inputs are numpy arrays, never JAX objects, so this module imports neither
 package's JAX code: a caller brings params to the host
@@ -15,6 +16,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.packed_store import PackedStore
+from repro_torch.optim.optimizers import AdamState
+from repro_torch.train.accum import TaylorAccum
+from repro_torch.train.steps import TrainState
 
 
 def to_tensor(x, device: str | torch.device = "cpu") -> torch.Tensor:
@@ -40,3 +44,27 @@ def packed_from_jax(leaves, device: str | torch.device = "cpu"
     -> the port's ``PackedStore``."""
     return PackedStore(*(to_tensor(getattr(leaves, f), device)
                          for f in PackedStore._fields))
+
+
+def train_state_from_jax(state, device: str | torch.device = "cpu"
+                         ) -> TrainState:
+    """A reference compressed-step ``TrainState`` with its leaves brought
+    to numpy (``jax.device_get``) -> the port's ``TrainState``: params
+    (``embed_table`` and ``net``), Adam ``step``/``mu``/``nu``, the
+    row-wise adagrad accumulator, the step, the priorities, the rng key
+    leaf and the ``TaylorAccum``."""
+    adam_state, accum_sq = state.opt
+
+    def t(x):
+        return None if x is None else to_tensor(x, device)
+
+    acc = state.accum
+    return TrainState(
+        params=params_from_jax(state.params, device),
+        opt=(AdamState(step=t(adam_state.step),
+                       mu=params_from_jax(adam_state.mu, device),
+                       nu=params_from_jax(adam_state.nu, device)),
+             t(accum_sq)),
+        step=t(state.step), priority=t(state.priority), rng=t(state.rng),
+        accum=None if acc is None else TaylorAccum(
+            *(t(getattr(acc, f)) for f in TaylorAccum._fields)))

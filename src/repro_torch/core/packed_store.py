@@ -108,9 +108,6 @@ def build_chunked(rows_fn: Callable[[int, int], torch.Tensor],
     keep ascending global order, so local indices match ``pack``'s.
     """
     dev = priority.device
-    if cfg.strict_fp16 and dev.type == "cuda":
-        raise ValueError("strict_fp16: the CUDA dequant-bag kernel has no "
-                         "fp16 payload yet; build this store on the CPU")
     tiers = assign_tiers(priority, cfg.tiers)
     counts = tier_counts(tiers)
     half = torch.float16 if cfg.strict_fp16 else torch.bfloat16

@@ -1,17 +1,101 @@
-"""Frequency-based row priority scores (SHARK Eq. 7): configuration.
+"""Frequency-based row priority scores (SHARK Eq. 7).
 
     w_r^(t+1) = (1 - beta) * w_r^(t) + beta * (alpha * c+ + c-)
 
-Port of ``repro/core/priority.py``.  Only the configuration is here yet:
-``FQuantConfig`` carries it.  The Eq. 7 update arrives with online
-serving, which folds every served batch into the scores.
+Port of ``repro/core/priority.py``.  c+ / c- count the positive /
+negative examples of the batch whose feature values hit row r; alpha
+(=2) up-weights positives, beta (=0.99) is the time-decay rate.  Every
+row decays each batch; untouched rows have c+ = c- = 0.
+
+The reference's segment sums become ``index_add_``: the counts are
+integers (exact in fp32 below 2^24), so the order of the adds does not
+matter and the result is the same on every device.  The EMA is written
+as the reference's jitted train step computes it: XLA contracts it into
+one FMA, ``fma(1 - beta, w, beta * target)``, which ``fma_f32``
+reproduces exactly (in float64, in chunks to bound the temporaries).
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import torch
+
+from repro_torch.kernels.dequant_bag.ref import fma_f32
+
+_CHUNK = 1 << 24
+
 
 class PriorityConfig(NamedTuple):
     alpha: float = 2.0   # importance weight of positive examples
     beta: float = 0.99   # time-decay rate
+
+
+def batch_counts(indices: torch.Tensor, labels: torch.Tensor, vocab: int,
+                 valid: torch.Tensor | None = None
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-row positive/negative hit counts for one batch.
+
+    indices: int (B, F) with per-sample ``labels`` (B,) in {0, 1}, or
+    flat (N,) with labels (N,).  ``valid`` (same shape as indices) masks
+    padding out.  Returns (c_pos, c_neg), each fp32 (vocab,).
+    """
+    if indices.dim() == 2:
+        lab = labels[:, None].expand(indices.shape).reshape(-1)
+    else:
+        lab = labels.reshape(-1)
+    idx = indices.reshape(-1).to(torch.int64)
+    pos = lab.to(torch.float32)
+    neg = 1.0 - pos
+    if valid is not None:
+        m = valid.reshape(-1).to(torch.float32)
+        pos, neg = pos * m, neg * m
+
+    def count(x):
+        return torch.zeros(vocab, dtype=torch.float32,
+                           device=idx.device).index_add_(0, idx, x)
+    return count(pos), count(neg)
+
+
+def priority_update(w: torch.Tensor, c_pos: torch.Tensor,
+                    c_neg: torch.Tensor,
+                    cfg: PriorityConfig = PriorityConfig()) -> torch.Tensor:
+    """One Eq. 7 step.  w, c_pos, c_neg: (vocab,) fp32 -> new (vocab,)."""
+    decay = torch.tensor(1.0 - cfg.beta, dtype=torch.float32,
+                         device=w.device)
+    out = torch.empty_like(w)
+    for r0 in range(0, w.shape[0], _CHUNK):
+        sl = slice(r0, r0 + _CHUNK)
+        target = cfg.alpha * c_pos[sl] + c_neg[sl]
+        out[sl] = fma_f32(decay, w[sl], cfg.beta * target)
+    return out
+
+
+def priority_update_from_batch(w: torch.Tensor, indices: torch.Tensor,
+                               labels: torch.Tensor,
+                               cfg: PriorityConfig = PriorityConfig(),
+                               valid: torch.Tensor | None = None
+                               ) -> torch.Tensor:
+    c_pos, c_neg = batch_counts(indices, labels, w.shape[0], valid)
+    return priority_update(w, c_pos, c_neg, cfg)
+
+
+def access_counts(indices: torch.Tensor, vocab: int,
+                  valid: torch.Tensor | None = None) -> torch.Tensor:
+    """Label-free per-row hit counts of a serving batch: every access
+    counts as one unlabeled example.  indices any shape -> fp32 (vocab,).
+    """
+    idx = indices.reshape(-1).to(torch.int64)
+    ones = torch.ones(idx.shape, dtype=torch.float32, device=idx.device)
+    if valid is not None:
+        ones = ones * valid.reshape(-1).to(torch.float32)
+    return torch.zeros(vocab, dtype=torch.float32,
+                       device=idx.device).index_add_(0, idx, ones)
+
+
+def serve_update(w: torch.Tensor, indices: torch.Tensor,
+                 cfg: PriorityConfig = PriorityConfig(),
+                 valid: torch.Tensor | None = None) -> torch.Tensor:
+    """Serving-time Eq. 7 fold: accesses enter the EMA as c- (c+ = 0)."""
+    c = access_counts(indices, w.shape[0], valid)
+    return priority_update(w, torch.zeros_like(c), c, cfg)

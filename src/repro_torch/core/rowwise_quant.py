@@ -11,8 +11,14 @@ packed store equals the snapped values exactly) or ``(I_max - I_min)/2``
 ("full", the literal Eq. 6).  The 2-byte tier normalises each row by its
 max-abs and stores it in bf16 (IEEE fp16 with ``strict_fp16``).  Every op
 is elementwise or a per-row max in fp32 and rounds half to even, so the
-results are bit-identical to the reference.  The stochastic-rounding
-training path arrives with training.
+results are bit-identical to the reference.
+
+``reciprocal=True`` computes the scale as the reference's jitted train
+step does: under ``jit`` XLA folds the division by the constant
+``denom`` into a multiply by its fp32 reciprocal, which differs from the
+division in the last bit for some rows.  The serving path (``pack``,
+eager in the reference) divides.  The stochastic-rounding write path is
+``qat_store._sr_quant``.
 """
 
 from __future__ import annotations
@@ -30,16 +36,21 @@ def int_range(bits: int) -> tuple[int, int]:
 
 
 def rowwise_scale(e: torch.Tensor, bits: int = 8,
-                  mode: Literal["full", "narrow"] = "narrow") -> torch.Tensor:
+                  mode: Literal["full", "narrow"] = "narrow", *,
+                  reciprocal: bool = False) -> torch.Tensor:
     """Per-row scale, Eq. 6.  e: (..., D) -> scale: (..., 1) fp32."""
     imin, imax = int_range(bits)
-    max_abs = e.abs().amax(dim=-1, keepdim=True)
+    max_abs = e.abs().amax(dim=-1, keepdim=True).clamp_min(_EPS)
     denom = float(imax - imin) / 2.0 if mode == "full" else float(imax)
-    return max_abs.clamp_min(_EPS) / denom
+    if reciprocal:
+        one = torch.ones((), dtype=torch.float32, device=e.device)
+        return max_abs * (one / denom)
+    return max_abs / denom
 
 
 def quantize_rowwise(e: torch.Tensor, bits: int = 8, *,
-                     mode: Literal["full", "narrow"] = "narrow"
+                     mode: Literal["full", "narrow"] = "narrow",
+                     reciprocal: bool = False
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """Round-to-nearest row-wise quantization.
 
@@ -47,7 +58,8 @@ def quantize_rowwise(e: torch.Tensor, bits: int = 8, *,
     of shape e.shape[:-1] + (1,).
     """
     imin, imax = int_range(bits)
-    scale = rowwise_scale(e, bits, mode).to(torch.float32)
+    scale = rowwise_scale(e, bits, mode,
+                          reciprocal=reciprocal).to(torch.float32)
     r = torch.round(e.to(torch.float32) / scale).clamp_(imin, imax)
     return r.to(torch.int8 if bits <= 8 else torch.int32), scale
 
@@ -58,10 +70,11 @@ def dequantize_rowwise(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 
 def fake_quant_rowwise(e: torch.Tensor, bits: int = 8, *,
-                       mode: Literal["full", "narrow"] = "narrow"
-                       ) -> torch.Tensor:
+                       mode: Literal["full", "narrow"] = "narrow",
+                       reciprocal: bool = False) -> torch.Tensor:
     """Quantize-dequantize round trip in value space (QAT 'snap')."""
-    return dequantize_rowwise(*quantize_rowwise(e, bits, mode=mode))
+    return dequantize_rowwise(*quantize_rowwise(e, bits, mode=mode,
+                                                reciprocal=reciprocal))
 
 
 def half_scale(e: torch.Tensor) -> torch.Tensor:

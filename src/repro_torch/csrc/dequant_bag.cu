@@ -5,7 +5,7 @@
 //
 //   out[b, :] = sum_k (f32(payload[idx[b,k], :]) * scale[idx[b,k]]) * w[b,k]
 //
-// payload (V, D) int8 | bf16 | fp32, scales (V,) fp32 or null (unit
+// payload (V, D) int8 | bf16 | fp16 | fp32, scales (V,) fp32 or null (unit
 // scales: the fp32 tier), idx (B, K) int32, w (B, K) fp32 -> out (B, D)
 // fp32.  Slots with w == 0 (padding, or rows of another tier) read
 // neither their row nor their scale.
@@ -36,6 +36,7 @@
 // full int8 tier holds ~81.7M rows x 64 = 5.2e9 elements.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
@@ -46,6 +47,7 @@ __device__ __forceinline__ float to_f32(int8_t x) { return (float)x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 __device__ __forceinline__ float to_f32(float x) { return x; }
 
 template <typename T, int VEC>
@@ -130,9 +132,10 @@ int launch(const void* payload, const float* scales, const int32_t* indices,
 
 }  // namespace
 
-// dtype: 0 = int8, 1 = bf16, 2 = fp32.  vec: 1, or 16 / itemsize when
-// every row starts on a 16-byte boundary (the wrapper checks).  Returns
-// the cudaError_t of the launch (0 = success).
+// dtype: 0 = int8, 1 = bf16, 2 = fp32, 3 = fp16 (the strict_fp16 half
+// tier).  vec: 1, or 16 / itemsize when every row starts on a 16-byte
+// boundary (the wrapper checks).  Returns the cudaError_t of the launch
+// (0 = success).
 extern "C" int dequant_bag_launch(const void* payload, int dtype,
                                   const void* scales, const void* indices,
                                   const void* weights, void* out,
@@ -168,6 +171,14 @@ extern "C" int dequant_bag_launch(const void* payload, int dtype,
       if (vec == 1)
         return launch<float, 1>(payload, s, i, w, o, num_bags, k_slots,
                                 dim, st);
+      break;
+    case 3:
+      if (vec == 8)
+        return launch<__half, 8>(payload, s, i, w, o, num_bags, k_slots,
+                                 dim, st);
+      if (vec == 1)
+        return launch<__half, 1>(payload, s, i, w, o, num_bags, k_slots,
+                                 dim, st);
       break;
   }
   return (int)cudaErrorInvalidValue;

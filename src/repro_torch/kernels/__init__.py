@@ -1,7 +1,8 @@
 """Hand-written Hopper kernels for SHARK's hot spots.
 
-  dequant_bag    fused gather + int8/bf16 dequant + embedding-bag reduce
-                 (the serving path behind the paper's +30% QPS)
+  dequant_bag    fused gather + int8/bf16/fp16 dequant + embedding-bag
+                 reduce (the serving path behind the paper's +30% QPS),
+                 and bag_grad, its scatter-add backward (training)
 
 Each kernel package: ref.py (plain PyTorch version), kernel.py (the CUDA
 kernel's binding and launch counter), ops.py (public ops).  An op picks

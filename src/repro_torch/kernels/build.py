@@ -40,26 +40,42 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its library exists; its path.
+def build_all(names) -> list[Path]:
+    """Compile ``csrc/<name>.cu`` for each name whose library is missing,
+    one ``nvcc`` per source, all started together; the library paths.
 
     The ``ptxas`` report of a fresh build is kept beside it as
-    ``<name>-<hash>.log``.  Raises if ``nvcc`` fails.
+    ``<name>-<hash>.log``.  Raises if any ``nvcc`` fails.
     """
-    path = library_path(name)
-    if path.exists():
-        return path
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    path.with_suffix(".log").write_text(proc.stdout)
-    if proc.returncode != 0:
-        raise RuntimeError(f"CUDA build of {name} failed: nvcc exit "
-                           f"{proc.returncode}\n{proc.stdout}")
-    os.replace(tmp, path)
-    return path
+    paths = [library_path(n) for n in names]
+    jobs = []
+    for name, path in zip(names, paths):
+        if path.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.Popen(
+            [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+             str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs.append((name, path, tmp, proc))
+    failed = []
+    for name, path, tmp, proc in jobs:
+        out = proc.communicate()[0]
+        path.with_suffix(".log").write_text(out)
+        if proc.returncode != 0:
+            failed.append(f"CUDA build of {name} failed: nvcc exit "
+                          f"{proc.returncode}\n{out}")
+        else:
+            os.replace(tmp, path)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return paths
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless its library exists; its path."""
+    return build_all([name])[0]
 
 
 def load(name: str) -> ctypes.CDLL:

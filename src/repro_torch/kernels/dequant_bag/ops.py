@@ -7,7 +7,8 @@ tensors (it raises for anything the kernel does not take).
 sums the three partial bags in the reference's order; slots of other
 tiers get weight 0, which the kernel skips without reading their rows.
 ``packed_lookup_fused`` is the K = 1 serving gather, bit-identical to
-``packed_store.lookup``.
+``packed_store.lookup``.  ``bag_grad`` is the scatter-add backward, with
+the same dispatch.
 """
 
 from __future__ import annotations
@@ -15,8 +16,11 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.packed_store import PackedStore, _split
-from repro_torch.kernels.dequant_bag.kernel import dequant_bag_cuda
-from repro_torch.kernels.dequant_bag.ref import dequant_bag_ref
+from repro_torch.kernels.dequant_bag.kernel import (bag_grad_cuda,
+                                                    dequant_bag_cuda)
+from repro_torch.kernels.dequant_bag.ref import (bag_grad_coeff,
+                                                 bag_grad_ref,
+                                                 dequant_bag_ref)
 
 
 def dequant_bag(payload: torch.Tensor, scales: torch.Tensor | None,
@@ -34,6 +38,26 @@ def dequant_bag(payload: torch.Tensor, scales: torch.Tensor | None,
     if payload.device.type == "cpu":
         return dequant_bag_ref(payload, scales, indices, weights)
     return dequant_bag_cuda(payload, scales, indices, weights)
+
+
+def bag_grad(g: torch.Tensor, scales: torch.Tensor | None,
+             indices: torch.Tensor, weights: torch.Tensor | None,
+             vocab: int) -> torch.Tensor:
+    """Transpose of ``dequant_bag`` w.r.t. the payload: g (B, D) fp32,
+    indices (B, K) -> dtable (vocab, D) fp32.
+
+    ``dtable[i]`` is the (b, k)-ordered FMA sum of ``coeff * g[b]`` over
+    the slots of row i, ``coeff = w * scale[idx]`` (``None`` = ones).
+    Dispatch is by ``g``'s device: the plain version on the CPU; on CUDA
+    a zero fill of (vocab, D) and the kernel.
+    """
+    if g.device.type == "cpu":
+        return bag_grad_ref(g, scales, indices, weights, vocab)
+    coeff = bag_grad_coeff(scales, indices, weights).contiguous()
+    out = torch.zeros((vocab, g.shape[1]), dtype=torch.float32,
+                      device=g.device)
+    return bag_grad_cuda(g.to(torch.float32).contiguous(),
+                         indices.to(torch.int32).contiguous(), coeff, out)
 
 
 def packed_bag_lookup(packed: PackedStore, indices: torch.Tensor,

@@ -14,6 +14,11 @@ writes the same FMA explicitly.  Torch has no fp32 FMA op, so
 ``fma_f32`` computes one exactly in float64.  Runs on any device; the CPU
 tests use it and ``chip_smoke.py`` compares the kernel with it on the
 card.
+
+``bag_grad_ref`` is the plain version of the scatter-add backward
+(``csrc/bag_grad.cu``): each row's gradient is the FMA chain of its
+slots' ``coeff * g[b]`` in (b, k) order, as the reference kernel
+accumulates it.
 """
 
 from __future__ import annotations
@@ -65,3 +70,60 @@ def dequant_bag_ref(payload: torch.Tensor, scales: torch.Tensor | None,
         acc = torch.where(wk != 0, fma_f32(rows, wk.expand_as(rows), acc),
                           acc)
     return acc
+
+
+def bag_grad_coeff(scales: torch.Tensor | None, indices: torch.Tensor,
+                   weights: torch.Tensor | None) -> torch.Tensor:
+    """Per-slot coefficient ``w * scale[idx]``, rounded to fp32: (B, K).
+
+    The reference computes it outside its kernel (``kernel.py:429-432``);
+    ``weights=None`` means unit weights, ``scales=None`` unit scales.
+    """
+    coeff = (torch.ones(indices.shape, dtype=torch.float32,
+                        device=indices.device)
+             if weights is None else weights.to(torch.float32))
+    if scales is not None:
+        coeff = coeff * scales[indices.to(torch.int64)]
+    return coeff
+
+
+def bag_grad_ref(g: torch.Tensor, scales: torch.Tensor | None,
+                 indices: torch.Tensor, weights: torch.Tensor | None,
+                 vocab: int) -> torch.Tensor:
+    """g (B, D) fp32, indices (B, K) in [0, vocab) -> dtable (vocab, D):
+
+        dtable[i] = fma(c_n, g[b_n], ... fma(c_1, g[b_1], 0))
+
+    over the slots (b, k) with idx[b, k] == i in lexicographic order,
+    where c = ``bag_grad_coeff`` and slots with c == 0 are skipped; rows
+    no slot touches stay zero.
+
+    Vectorised by depth: live slots are stably sorted by row, each gets
+    its rank within its row, and one FMA step per rank updates every row
+    that has a slot of that rank (the rows of one rank are distinct).
+    The loop runs as many times as the longest row's slot count.
+    """
+    b, k = indices.shape
+    d = g.shape[1]
+    out = torch.zeros((vocab, d), dtype=torch.float32, device=g.device)
+    coeff = bag_grad_coeff(scales, indices, weights).reshape(-1)
+    live = torch.nonzero(coeff != 0).reshape(-1)
+    if live.numel() == 0:
+        return out
+    rows, order = torch.sort(indices.reshape(-1)[live].to(torch.int64),
+                             stable=True)
+    slot = live[order]                       # (b, k) order within a row
+    pos = torch.arange(rows.numel(), device=g.device)
+    head = torch.ones_like(rows, dtype=torch.bool)
+    head[1:] = rows[1:] != rows[:-1]
+    rank = pos - torch.cummax(torch.where(head, pos, 0), 0).values
+    by_rank = torch.sort(rank, stable=True).indices
+    rows, slot = rows[by_rank], slot[by_rank]
+    c = coeff[slot][:, None]
+    gb = g.to(torch.float32)
+    s = 0
+    for n in torch.bincount(rank).tolist():
+        r, sl = rows[s:s + n], slot[s:s + n]
+        out[r] = fma_f32(c[s:s + n], gb[sl // k], out[r])
+        s += n
+    return out

@@ -128,7 +128,7 @@ def run(args: argparse.Namespace) -> Served:
     t0 = time.perf_counter()
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED)
-    params = model.init(gen, device)
+    params = model.init(gen, device, with_table=False)
     packed, cfg = build_store(spec, device)
     _sync(device)
     build_s = time.perf_counter() - t0

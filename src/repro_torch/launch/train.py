@@ -1,0 +1,110 @@
+"""Training CLI: ``python -m repro_torch.launch.train --arch dlrm-rm2``.
+
+Port of the recsys path of ``repro/launch/train.py``: the compressed
+train step (the dequant_bag gather, the bag_grad scatter backward,
+row-wise adagrad, Adam, the Eq. 5-8 fold, in-training Taylor/access
+accumulation) under ``train.loop.run`` with atomic versioned
+checkpoints.  Rerun the same command after a kill and it resumes at the
+newest checkpoint in ``--ckpt-dir``.
+
+``--model full`` (the default) trains dlrm-rm2 at its published widths
+(26 fields x 64, MLPs 13-512-256-64 and 415-512-512-256-1) with every
+field capped at ``--max-ind-range`` rows (default 24,000,000: 124,185,088
+rows, the most one 80 GB card holds beside the dense table gradient).
+Its final checkpoint is about 34 GB.  ``--model smoke`` trains the
+reduced size, the reference CLI's model.  The run is on the GPU
+unless ``--device cpu`` is given.
+
+The last stdout line is a JSON record: arch, model, device,
+device_name, batch, steps_run, resumed_from, loss_first, loss_last,
+step_ms_p50, kernel_launches (per kernel), rows, reduced, stragglers,
+nan_skips.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import tempfile
+
+import numpy as np
+import torch
+
+from repro_torch import configs, resolve_device
+from repro_torch.kernels.dequant_bag import kernel as bag_kernel
+from repro_torch.train import loop as loop_lib
+from repro_torch.train.setup import build_recsys_training
+
+FULL_MAX_IND_RANGE = 24_000_000
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(
+        description="Train a recsys model with the compressed train step.",
+        epilog="Not ported yet (later slices): --mesh, the hashed table, "
+               "and the family smoke of non-recsys archs (--smoke).")
+    ap.add_argument("--arch", default="dlrm-rm2", choices=configs.names())
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=64)
+    ap.add_argument("--lr", type=float, default=0.05)
+    ap.add_argument("--ckpt-dir", default=os.path.join(
+        tempfile.gettempdir(), "repro_torch_train"))
+    ap.add_argument("--ckpt-every", type=int, default=25)
+    ap.add_argument("--model", default="full", choices=("full", "smoke"),
+                    help="full = the published widths, smoke = the "
+                         "reduced test size")
+    ap.add_argument("--max-ind-range", type=int, default=None,
+                    help="cap on every field's rows (default "
+                         f"{FULL_MAX_IND_RANGE:,} for full, none for smoke)")
+    ap.add_argument("--device", default=None,
+                    help="torch device; default cuda (raises when absent)")
+    return ap.parse_args(argv)
+
+
+def run(args: argparse.Namespace) -> dict:
+    device = resolve_device(args.device)
+    arch = configs.get(args.arch)
+    cap = args.max_ind_range
+    if cap is None and args.model == "full":
+        cap = FULL_MAX_IND_RANGE
+    setup = build_recsys_training(arch, batch=args.batch, device=device,
+                                  model=args.model, lr=args.lr,
+                                  max_ind_range=cap)
+    name = (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else "cpu")
+    print(f"arch {args.arch} ({args.model}): {setup.spec.total_rows:,} rows "
+          f"x {setup.spec.dim} on {name}", flush=True)
+    cfg = loop_lib.LoopConfig(
+        total_steps=args.steps, ckpt_every=args.ckpt_every,
+        ckpt_dir=args.ckpt_dir, log_every=max(args.steps // 5, 1))
+    bag_kernel.reset_launches()
+    result = loop_lib.run(
+        setup.state, setup.step, setup.batch_fn, cfg,
+        metrics_cb=lambda s, m: print(f"step {s}: loss "
+                                      f"{float(m['loss']):.4f}", flush=True))
+    losses = result.losses
+    if losses and not math.isfinite(losses[-1]):
+        raise SystemExit("training ended on a non-finite loss")
+    return {
+        "arch": args.arch, "model": args.model, "device": device.type,
+        "device_name": name, "batch": args.batch,
+        "steps_run": len(losses), "resumed_from": result.resumed_from,
+        "loss_first": losses[0] if losses else None,
+        "loss_last": losses[-1] if losses else None,
+        "step_ms_p50": (float(np.median(result.step_seconds)) * 1e3
+                        if losses else None),
+        "kernel_launches": {
+            "dequant_bag": bag_kernel.total_launches(),
+            "bag_grad": sum(bag_kernel.bag_grad_launches.values())},
+        "rows": setup.spec.total_rows, "reduced": setup.reduced,
+        "stragglers": result.stragglers, "nan_skips": result.nan_skips}
+
+
+def main(argv=None) -> None:
+    print(json.dumps(run(parse_args(argv))))
+
+
+if __name__ == "__main__":
+    main()

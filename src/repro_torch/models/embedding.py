@@ -1,9 +1,10 @@
 """Embedding substrate: field-stacked tables.
 
-Port of ``repro/models/embedding.py`` (the parts serving needs).  All
-feature fields of a model share ONE physical (sum_f V_f, D) table;
-field-local indices are shifted by per-field offsets, so F-Quantization's
-priority and tier state is global across fields (one score per row).
+Port of ``repro/models/embedding.py`` (the parts serving and training
+need).  All feature fields of a model share ONE physical (sum_f V_f, D)
+table; field-local indices are shifted by per-field offsets, so
+F-Quantization's priority and tier state is global across fields (one
+score per row).
 """
 
 from __future__ import annotations
@@ -42,6 +43,36 @@ def globalize(indices: torch.Tensor, spec: FieldSpec) -> torch.Tensor:
     """Field-local (B, F) indices -> global row ids in the stacked table."""
     offsets = torch.from_numpy(spec.offsets()).to(indices.device)
     return indices + offsets[None, :]
+
+
+def init_table(gen: torch.Generator, spec: FieldSpec,
+               device: torch.device, scale: float = 0.01,
+               chunk_rows: int = 1 << 22) -> torch.Tensor:
+    """A (total_rows, D) fp32 N(0, scale^2) table, drawn in place.
+
+    Filled chunk by chunk from ``gen`` (a generator on ``device``), so no
+    temporary the size of the table exists: at 124M x 64 the table alone
+    is 31.8 GB.  The reference draws it with ``jax.random``, which torch
+    cannot reproduce; tests carry tables across with ``convert.py``.
+    """
+    table = torch.empty((spec.total_rows, spec.dim), dtype=torch.float32,
+                        device=device)
+    for r0 in range(0, spec.total_rows, chunk_rows):
+        table[r0:r0 + chunk_rows].normal_(generator=gen).mul_(scale)
+    return table
+
+
+def field_lookup(table: torch.Tensor, indices: torch.Tensor,
+                 spec: FieldSpec, field_mask: torch.Tensor | None = None
+                 ) -> torch.Tensor:
+    """(B, F) field-local indices -> (B, F, D) embeddings.
+
+    ``field_mask`` (F,) zeroes pruned fields (F-Permutation masking).
+    """
+    emb = table[globalize(indices, spec).to(torch.int64)]
+    if field_mask is not None:
+        emb = emb * field_mask.to(emb.dtype)[None, :, None]
+    return emb
 
 
 def table_rows(spec: FieldSpec, seed: int, device: torch.device,

@@ -1,0 +1,126 @@
+"""Fault-tolerant training loop.
+
+Port of ``repro/train/loop.py``:
+
+  * **checkpoint/restart**: atomic versioned checkpoints every
+    ``ckpt_every`` steps (async: the write overlaps the next steps); on
+    (re)start the loop restores the newest valid checkpoint and resumes
+    at its step;
+  * **data determinism across restarts**: batches are a pure function of
+    the step index, so a resume replays the exact stream;
+  * **straggler count**: steps slower than ``straggler_factor`` x the
+    trailing median of the last 20 are counted;
+  * **NaN guard**: a non-finite loss keeps the last good state (the
+    step returns it untouched, see ``train.steps``) and is counted;
+    ``max_consecutive_nans`` in a row abort.
+
+A step is timed from its call to ``torch.cuda.synchronize()`` on the
+card (the loss readback alone would leave its tail kernels out).  The
+reference's ``obs`` spans and counters are left out until the port has
+``obs`` (ROADMAP Queue 1).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import tempfile
+import time
+from typing import Callable
+
+import numpy as np
+import torch
+
+from repro_torch.ckpt.manager import CheckpointManager
+from repro_torch.train.steps import TrainState
+
+
+@dataclasses.dataclass
+class LoopConfig:
+    total_steps: int
+    ckpt_every: int = 100
+    ckpt_dir: str = os.path.join(tempfile.gettempdir(), "repro_torch_ckpt")
+    keep: int = 3
+    log_every: int = 50
+    straggler_factor: float = 3.0
+    max_consecutive_nans: int = 5
+    async_ckpt: bool = True
+
+
+@dataclasses.dataclass
+class LoopResult:
+    state: TrainState
+    steps_run: int
+    resumed_from: int | None
+    losses: list
+    stragglers: int
+    nan_skips: int
+    step_seconds: list        # wall time of each step run here
+
+
+def run(state: TrainState, step_fn: Callable, batch_fn: Callable,
+        cfg: LoopConfig, metrics_cb: Callable | None = None) -> LoopResult:
+    """batch_fn(step: int) -> batch dict on the device; step_fn(state,
+    batch) -> (state, metrics)."""
+    mgr = CheckpointManager(cfg.ckpt_dir, keep=cfg.keep)
+    resumed_from = None
+    start = 0
+    try:
+        state, restored_step = mgr.restore(state)
+        start = restored_step
+        resumed_from = restored_step
+    except FileNotFoundError:
+        pass
+    dev = state.step.device
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    losses, step_seconds = [], []
+    durations: list[float] = []
+    stragglers = nan_skips = consecutive_nans = 0
+
+    for step in range(start, cfg.total_steps):
+        batch = batch_fn(step)
+        sync()
+        t0 = time.perf_counter()
+        new_state, metrics = step_fn(state, batch)
+        loss = float(metrics["loss"])
+        sync()
+        dt = time.perf_counter() - t0
+
+        if np.isfinite(loss):
+            state = new_state
+            consecutive_nans = 0
+        else:
+            nan_skips += 1
+            consecutive_nans += 1
+            if consecutive_nans >= cfg.max_consecutive_nans:
+                raise FloatingPointError(
+                    f"{consecutive_nans} consecutive non-finite losses "
+                    f"at step {step}")
+
+        step_seconds.append(dt)
+        durations.append(dt)
+        if len(durations) > 20:
+            durations.pop(0)
+        med = float(np.median(durations))
+        if len(durations) >= 5 and dt > cfg.straggler_factor * med:
+            stragglers += 1
+
+        losses.append(loss)
+        if metrics_cb and step % cfg.log_every == 0:
+            metrics_cb(step, metrics)
+        if (step + 1) % cfg.ckpt_every == 0:
+            mgr.save(step + 1, state, blocking=not cfg.async_ckpt)
+
+    # drain an in-flight async save before deciding whether the final
+    # step is already on disk (latest_step sees only published manifests)
+    mgr.wait()
+    if mgr.latest_step() != cfg.total_steps:
+        mgr.save(cfg.total_steps, state, blocking=True)
+    return LoopResult(state=state, steps_run=cfg.total_steps - start,
+                      resumed_from=resumed_from, losses=losses,
+                      stragglers=stragglers, nan_skips=nan_skips,
+                      step_seconds=step_seconds)

@@ -1,0 +1,95 @@
+"""Recsys training-stage setup for the training CLI.
+
+Port of the single-device part of ``repro/train/setup.py``: a synthetic
+click-log stream matched to the model's FieldSpec, the compressed train
+step and its initial state, on one device.
+
+``model="smoke"`` is the reference's training size (its setup always
+trains the smoke model); ``model="full"`` trains the published widths.
+``max_ind_range`` caps every field's cardinality, as the DLRM
+reference's ``--max-ind-range`` flag does (facebookresearch/dlrm,
+``dlrm_s_pytorch.py``): at full width the table, its dense gradient
+and the (V,) state must fit one 80 GB card, and 204,185,088 rows do not
+(2 x 52.3 GB), so ``launch/train.py`` caps each field at 24,000,000 rows
+(124,185,088 rows).  The cut is listed under ``reduced``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, NamedTuple
+
+import torch
+
+from repro_torch.core.qat_store import FQuantConfig
+from repro_torch.data.criteo import CriteoConfig, CriteoSynth
+from repro_torch.models import embedding as E
+from repro_torch.models.recsys import make_dlrm
+from repro_torch.train.steps import TrainState, make_compressed_train_step
+
+
+class RecsysTrainSetup(NamedTuple):
+    model: object
+    spec: E.FieldSpec
+    ds: CriteoSynth
+    step: Callable          # (state, batch, mark=None) -> (state, metrics)
+    state: TrainState       # initial state, on the device
+    batch_fn: Callable      # step index -> batch dict on the device
+    indices_fn: Callable    # batch -> (B, F) global row ids
+    reduced: list           # scale cuts against the published config
+
+
+def build_recsys_training(arch, *, batch: int, device: torch.device,
+                          model: str = "smoke", lr: float = 0.05,
+                          seed: int = 0, max_ind_range: int | None = None,
+                          fq_cfg: FQuantConfig | None = None
+                          ) -> RecsysTrainSetup:
+    """Dataset + compressed train step + initial state on ``device``.
+
+    The weights are random from ``seed`` (a generator on the device);
+    the data stream is ``CriteoSynth`` seeded as the reference seeds it.
+    """
+    if model not in ("full", "smoke"):
+        raise ValueError(f"model must be 'full' or 'smoke', got {model!r}")
+    full = model == "full"
+    cfg = arch.cfg if full else arch.smoke_cfg
+    num_dense = arch.num_dense if full else arch.smoke_num_dense
+    reduced = []
+    if max_ind_range is not None:
+        capped = tuple(min(int(c), max_ind_range) for c in cfg.cardinalities)
+        cut = [f for f, (a, b) in enumerate(zip(cfg.cardinalities, capped))
+               if a != b]
+        if cut:
+            before = make_dlrm(cfg).spec.total_rows
+            cfg = dataclasses.replace(cfg, cardinalities=capped)
+            after = make_dlrm(cfg).spec.total_rows
+            reduced.append(
+                f"cardinalities capped at max_ind_range={max_ind_range:,} "
+                f"(fields {cut}); rows {before:,} -> {after:,}")
+    net = make_dlrm(cfg)
+    spec = net.spec
+    ds = CriteoSynth(CriteoConfig(
+        num_fields=spec.num_fields,
+        cardinalities=tuple(int(c) for c in spec.cardinalities),
+        num_dense=max(num_dense, 1),
+        important_fields=max(1, spec.num_fields // 2),
+        seed=seed))
+
+    def indices_fn(b: dict) -> torch.Tensor:
+        return E.globalize(b["indices"], spec)
+
+    step = make_compressed_train_step(
+        net.loss_from_emb, indices_fn, lambda b: b["labels"],
+        "embed_table", lr, spec.num_fields,
+        fq_cfg=fq_cfg if fq_cfg is not None else FQuantConfig())
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    state = step.init_state(net.init(gen, device))
+
+    def batch_fn(s: int) -> dict:
+        return {k: torch.from_numpy(v).to(device)
+                for k, v in ds.batch(batch, s).items()}
+
+    return RecsysTrainSetup(model=net, spec=spec, ds=ds, step=step,
+                            state=state, batch_fn=batch_fn,
+                            indices_fn=indices_fn, reduced=reduced)

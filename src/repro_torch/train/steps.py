@@ -1,0 +1,166 @@
+"""The compressed train step: serving kernels + Eq. 5-8 fold + in-training
+Taylor/access accumulation, in one backward.
+
+Port of the single-device, fp32-table branch of
+``repro/train/steps.py::make_compressed_train_step``.  One step computes,
+in the reference's order:
+
+    emb      = lookup_train(table, gidx)        dequant_bag kernel
+    g_emb    = d loss / d emb                   head backward (autograd)
+    g_table  = BagTrain.backward(g_emb)         zero fill + bag_grad kernel
+    table    = rowwise_adagrad(table, g_table)  in place, in row chunks
+    dense    = adam(dense, g_dense)
+    priority = Eq. 7(priority, gidx, labels)    + Eq. 5-6 snap of the
+                                                touched rows, in place
+    accum    = Taylor Eq. 4 fold + Eq. 7 access EMA
+
+The table is updated in place (the reference's update is functional; at
+124M x 64 a second table does not fit beside the gradient).  So the NaN
+guard moves into the step: a non-finite loss returns the state as it was,
+before any update, and the loop counts the skip as the reference's loop
+does.  ``step(state, batch, mark=fn)`` calls ``fn(stage)`` after each
+stage (gather, head, scatter, adagrad, adam, post_step_sparse, accum),
+for per-stage timing; without it the step records nothing.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, NamedTuple
+
+import torch
+
+from repro_torch.core import qat_store
+from repro_torch.core.qat_store import FQuantConfig
+from repro_torch.kernels.dequant_bag.autodiff import lookup_train
+from repro_torch.optim import optimizers as opt_lib
+from repro_torch.train import accum as accum_lib
+
+
+class TrainState(NamedTuple):
+    params: Any
+    opt: Any
+    step: torch.Tensor        # int32 ()
+    priority: Any = None      # fquant row priorities (or None)
+    rng: Any = None           # the reference's PRNG key leaf, uint32 (2,)
+    accum: Any = None         # train.accum.TaylorAccum (or None)
+
+
+def make_compressed_train_step(loss_from_emb: Callable,
+                               indices_fn: Callable, labels_fn: Callable,
+                               table_path: str, lr, num_fields: int,
+                               fq_cfg: FQuantConfig | None = None,
+                               dense_optimizer: opt_lib.Optimizer | None
+                               = None,
+                               mesh=None, with_accum: bool = True,
+                               field_mask=None, hashed_cfg=None,
+                               eps: float = 1e-10) -> Callable:
+    """``step(state, batch, mark=None) -> (state, metrics)``, with
+    ``step.init_state(params)`` the initial state.
+
+    State: ``TrainState`` with opt = (dense_opt_state, adagrad accum (V,))
+    and ``accum`` a ``TaylorAccum``.  ``field_mask`` (F,) zeroes pruned
+    fields inside the loss.  The row-sharded (``mesh``) and hashed
+    (``hashed_cfg``) forms are later slices of the port.
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh=: the row-sharded train step comes with the distributed "
+            "slice (ROADMAP Queue 1 item 7)")
+    if hashed_cfg is not None:
+        raise NotImplementedError(
+            "hashed_cfg=: the hashed table comes with the hashed-backend "
+            "slice (ROADMAP Queue 1 item 4)")
+    dense_optimizer = dense_optimizer or opt_lib.adam(lr)
+    pcfg = (fq_cfg or FQuantConfig()).priority
+
+    def init_state(params) -> TrainState:
+        table = params[table_path]
+        dev = table.device
+        dense = {k: v for k, v in params.items() if k != table_path}
+        vocab, dim = table.shape
+        opt = (dense_optimizer.init(dense),
+               torch.full((vocab,), 0.1, dtype=torch.float32, device=dev))
+        pri = (torch.zeros((vocab,), dtype=torch.float32, device=dev)
+               if fq_cfg is not None else None)
+        acc = (accum_lib.init_accum(vocab, num_fields, dim, dev)
+               if with_accum else None)
+        return TrainState(params=params, opt=opt,
+                          step=torch.zeros((), dtype=torch.int32,
+                                           device=dev),
+                          priority=pri,
+                          rng=torch.zeros((2,), dtype=torch.uint32,
+                                          device=dev),
+                          accum=acc)
+
+    def step(state: TrainState, batch: dict,
+             mark: Callable[[str], None] | None = None):
+        mark = mark or (lambda stage: None)
+        params = state.params
+        table = params[table_path]
+        dense = {k: v for k, v in params.items() if k != table_path}
+        gidx = indices_fn(batch)                       # (B, F) global
+
+        with torch.enable_grad():
+            leaf = table.detach().requires_grad_()
+            emb_out = lookup_train(leaf, gidx)         # dequant_bag kernel
+            mark("gather")
+            emb = emb_out.detach().requires_grad_()
+            dense_in = opt_lib.tree_map(
+                lambda x: x.detach().requires_grad_(), dense)
+            e = emb
+            if field_mask is not None:
+                e = e * torch.as_tensor(field_mask, dtype=torch.float32,
+                                        device=e.device)[None, :, None]
+            p = dict(dense_in)
+            p[table_path] = table       # heads must not touch the table
+            loss = loss_from_emb(p, e, batch).mean()
+            leaves = opt_lib.tree_leaves(dense_in)
+            grads = torch.autograd.grad(loss, leaves + [emb])
+            loss = loss.detach()
+            if not bool(torch.isfinite(loss)):
+                return state, {"loss": loss,
+                               "grad_norm": torch.full_like(loss, torch.nan)}
+            by_id = {id(x): gr for x, gr in zip(leaves, grads)}
+            g_dense = opt_lib.tree_map(lambda x: by_id[id(x)], dense_in)
+            g_emb = grads[-1]
+            mark("head")
+            (g_table,) = torch.autograd.grad(emb_out, leaf, g_emb)
+        del emb_out, leaf
+        mark("scatter")
+
+        dense_opt_state, accum_sq = state.opt
+        opt_lib.rowwise_adagrad_table_update(table, accum_sq, g_table, lr,
+                                             step=state.step, eps=eps)
+        del g_table
+        mark("adagrad")
+
+        upd, dense_opt_state = dense_optimizer.update(g_dense,
+                                                      dense_opt_state, dense)
+        dense = opt_lib.apply_updates(dense, upd)
+        mark("adam")
+
+        priority = state.priority
+        if fq_cfg is not None:
+            store = qat_store.post_step_sparse(
+                qat_store.QATStore(table=table, priority=priority), gidx,
+                labels_fn(batch), fq_cfg, seed=state.step)
+            priority = store.priority
+        mark("post_step_sparse")
+
+        acc = state.accum
+        if acc is not None:
+            acc = accum_lib.update_accum(acc, gidx, emb.detach(), g_emb,
+                                         pcfg)
+        mark("accum")
+
+        params = dict(dense)
+        params[table_path] = table
+        new_state = TrainState(params=params,
+                               opt=(dense_opt_state, accum_sq),
+                               step=state.step + 1, priority=priority,
+                               rng=state.rng, accum=acc)
+        return new_state, {"loss": loss,
+                           "grad_norm": opt_lib.global_norm(g_dense)}
+
+    step.init_state = init_state
+    return step

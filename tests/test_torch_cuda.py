@@ -13,8 +13,10 @@ import torch
 from repro_torch.core import packed_store as tps
 from repro_torch.core import qat_store as tqs
 from repro_torch.core.tiers import TierConfig
+from repro_torch import configs
 from repro_torch.kernels.dequant_bag import kernel, ops, ref
-from repro_torch.launch import serve
+from repro_torch.launch import serve, train
+from repro_torch.train import setup
 
 pytestmark = pytest.mark.cuda
 
@@ -26,7 +28,8 @@ def dev():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("dtype", ["int8", "bfloat16", "float32"])
+@pytest.mark.parametrize("dtype", ["int8", "bfloat16", "float16",
+                                   "float32"])
 @pytest.mark.parametrize("b,k,d", [(1000, 1, 64), (1000, 8, 64),
                                    (7, 3, 33), (300, 8, 200)])
 def test_dequant_bag_kernel_bit_equal_to_plain(dev, dtype, b, k, d):
@@ -67,13 +70,75 @@ def test_packed_lookup_fused_bit_equal_on_card(dev):
                        tps.lookup(packed, idx).view(torch.int32))
 
 
-def test_strict_fp16_store_is_refused_on_card(dev):
-    pri = torch.rand(64, device=dev) * 2e5
+def test_strict_fp16_store_serves_on_card(dev):
+    g = torch.Generator(device=dev)
+    g.manual_seed(2)
+    pri = torch.rand(3000, generator=g, device=dev) * 2e5
     cfg = tqs.FQuantConfig(tiers=TierConfig(5e4, 1.5e5), strict_fp16=True)
-    with pytest.raises(ValueError, match="strict_fp16"):
-        tps.build_chunked(lambda r0, r1: torch.zeros((r1 - r0, 8),
-                                                     device=dev),
-                          pri, 8, cfg, chunk_rows=32)
+    table = torch.randn((3000, 64), generator=g, device=dev) * 0.05
+    packed = tps.build_chunked(lambda r0, r1: table[r0:r1], pri, 64, cfg,
+                               chunk_rows=1000)
+    assert packed.payload16.dtype == torch.float16
+    idx = torch.randint(0, 3000, (512, 26), generator=g, device=dev)
+    kernel.reset_launches()
+    fused = tps.lookup_fused(packed, idx)
+    assert kernel.launches["float16"] == 1
+    assert torch.equal(fused.view(torch.int32),
+                       tps.lookup(packed, idx).view(torch.int32))
+
+
+@pytest.mark.parametrize("b,k,d,v", [(1000, 1, 64, 50_000),
+                                     (1000, 8, 64, 300),
+                                     (37, 3, 33, 20), (300, 2, 200, 7),
+                                     (0, 4, 64, 10)])
+@pytest.mark.parametrize("scaled", [False, True])
+def test_bag_grad_kernel_bit_equal_to_plain(dev, b, k, d, v, scaled):
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    grad = torch.randn((b, d), generator=g, device=dev)
+    idx = torch.randint(0, v, (b, k), generator=g, device=dev,
+                        dtype=torch.int32)
+    w = torch.rand((b, k), generator=g, device=dev)
+    w[torch.rand((b, k), generator=g, device=dev) < 0.4] = 0.0
+    s = torch.rand(v, generator=g, device=dev) * 3 if scaled else None
+    kernel.reset_launches()
+    got = ops.bag_grad(grad, s, idx, w, v)
+    want = ref.bag_grad_ref(grad, s, idx, w, v)
+    torch.cuda.synchronize()
+    assert kernel.bag_grad_launches["float32"] == (1 if b else 0)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_train_step_on_card_matches_cpu(dev):
+    arch = configs.get("dlrm-rm2")
+    gpu = setup.build_recsys_training(arch, batch=256, device=dev)
+    cpu = setup.build_recsys_training(arch, batch=256,
+                                      device=torch.device("cpu"))
+    cpu_state = cpu.state._replace(params=_to(gpu.state.params, "cpu"))
+    kernel.reset_launches()
+    state, m = gpu.step(gpu.state, gpu.batch_fn(0))
+    assert kernel.total_launches() == 1
+    assert kernel.bag_grad_launches["float32"] == 1
+    cstate, cm = cpu.step(cpu_state, cpu.batch_fn(0))
+    assert abs(float(m["loss"]) - float(cm["loss"])) <= 1e-5
+    assert torch.equal(state.priority.cpu(), cstate.priority)
+    torch.testing.assert_close(state.params["embed_table"].cpu(),
+                               cstate.params["embed_table"], rtol=0,
+                               atol=1e-4)
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def test_train_smoke_launches_both_kernels(dev, tmp_path):
+    rec = train.run(train.parse_args(
+        ["--model", "smoke", "--steps", "4", "--batch", "128",
+         "--ckpt-dir", str(tmp_path)]))
+    assert rec["device"] == "cuda"
+    assert rec["kernel_launches"] == {"dequant_bag": 4, "bag_grad": 4}
 
 
 def test_serve_smoke_launches_the_kernel(dev):

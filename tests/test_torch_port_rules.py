@@ -67,8 +67,18 @@ def test_serve_raises_without_cuda_unless_cpu_is_asked():
 
 
 def test_kernel_build_is_keyed_by_source_hash():
-    path = build.library_path("dequant_bag")
-    assert path.parent == ROOT / "build" / "repro_torch"
-    assert path.name.startswith("dequant_bag-") and path.suffix == ".so"
-    assert path == build.library_path("dequant_bag")       # stable
+    for name in ("dequant_bag", "bag_grad"):
+        path = build.library_path(name)
+        assert path.parent == ROOT / "build" / "repro_torch"
+        assert path.name.startswith(f"{name}-") and path.suffix == ".so"
+        assert path == build.library_path(name)            # stable
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+
+
+def test_training_modules_are_covered_by_the_import_rule():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for mod in ("kernels/dequant_bag/autodiff.py", "core/metrics.py",
+                "optim/optimizers.py", "train/steps.py", "train/loop.py",
+                "train/setup.py", "train/accum.py", "ckpt/manager.py",
+                "launch/train.py"):
+        assert f"src/repro_torch/{mod}" in names, mod
