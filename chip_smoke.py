@@ -2,17 +2,23 @@
 measure.
 
     python3 chip_smoke.py            # from the root of a checkout
-    python3 chip_smoke.py --trace trace.txt   # also profile 8 requests
+    python3 chip_smoke.py --trace trace.txt   # also profile requests
 
 Phases, each of which stops the run with a non-zero exit when it fails:
 
 1. build: one ``nvcc`` per CUDA source of ``repro_torch`` (dequant_bag,
-   bag_grad), all started together, for sm_90a into ``build/repro_torch/``;
+   bag_grad, bag_matmul, cin), all started together, for sm_90a into
+   ``build/repro_torch/``;
 2. kernel check: each kernel against its plain PyTorch version on the
    card, bit for bit (tolerance 0): dequant_bag for int8, bf16, fp16 and
    fp32 payloads; bag_grad at K = 1 and 8, with and without scales, 40%
    masked slots, heavy duplicates, B that no block divides, D = 64, 33
-   and 200, B = 0;
+   and 200, B = 0; bag_matmul for every payload dtype, K = 1 and K > 1,
+   30% dead slots, with and without ``scale_after``, B and H that no tile
+   divides, D = 200 and the full-width shapes of wide&deep (B 512, K 40,
+   D 32, H 1024) and xDeepFM (B 512, K 39, D 10, H 400); cin at shapes
+   that no block divides and D = 128 (the full-width layers are checked
+   on served data in phase 9);
 3. serve: ``repro_torch.launch.serve`` at ``--model full`` — dlrm-rm2 at
    its published widths (26 fields, 204,185,088 rows x 64 packed at a 50%
    budget, MLPs 13-512-256-64 and 415-512-512-256-1), batch 512.  Launch
@@ -37,10 +43,27 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    then timed at the training shapes (the full 124,185,088-row output)
    beside the zero fill, its bound, the plain version and ``index_add_``;
 7. resume: ``python -m repro_torch.launch.train --model smoke`` is killed
-   after its first checkpoint and rerun; the rerun must resume from it.
+   after its first checkpoint and rerun; the rerun must resume from it;
+8. online fused serve: ``repro_torch.launch.serve --online --fuse-matmul``
+   for wide-deep and then xdeepfm at their published widths (22,216,000
+   rows x 32 and 86,709,150 rows x 10, nothing cut), batch 512, 16
+   drifting-zipf requests (drift 4.0, seed 0), a re-tier every 2
+   requests, 256 cache rows.  Counts are set to 0 just before each and
+   read just after: ``bag_matmul`` must launch 3 times a request (one per
+   tier) and ``cin`` 3 times a request on xdeepfm.  Before each request,
+   outside its timed window, the unfused ``model.head(params,
+   lookup(packed, gidx), batch)`` runs on the same card on the store the
+   request will read (its own launches are not counted); each request's
+   fused logits must be finite and within 1e-4 * max(1, |ref|) of it;
+9. measure the fused head: ``bag_matmul`` at both archs' serving shapes
+   (the served store's three tier launches of 16 requests) and ``cin``
+   at xdeepfm's three layer shapes on a served batch, each checked bit
+   for bit against its plain version on those inputs (CIN on 64 and on
+   all 512 samples), then timed beside its bound and a library call.
 
-Prints the card's name and power limit, the serve and train records, one
-JSON ``kernels`` line, and as the last line
+Prints the card's name and power limit, the serve, train and both online
+records, one JSON ``kernels`` line (dequant_bag per tier dtype, bag_grad,
+bag_matmul per arch, cin), and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Exits non-zero without that line when there is no CUDA device, or when
 the rest of the repository is missing.
@@ -71,6 +94,12 @@ SOURCE = "src/repro_torch/csrc/dequant_bag.cu"
 TPU_BAG_GRAD = ("src/repro/kernels/dequant_bag/kernel.py:410 "
                 "bag_grad_pallas")
 SOURCE_BAG_GRAD = "src/repro_torch/csrc/bag_grad.cu"
+TPU_BAG_MATMUL = ("src/repro/kernels/bag_matmul/kernel.py:180 "
+                  "bag_matmul_pallas")
+SOURCE_BAG_MATMUL = "src/repro_torch/csrc/bag_matmul.cu"
+TPU_CIN = "src/repro/kernels/cin/kernel.py:53 cin_layer_pallas"
+SOURCE_CIN = "src/repro_torch/csrc/cin.cu"
+ONLINE_ARCHS = ("wide-deep", "xdeepfm")
 REQUESTS = 16
 TRAIN_STEPS = 9
 MAX_IND_RANGE = 24_000_000
@@ -445,6 +474,352 @@ def measure_bag_grad(torch, kernel, ref, gidx, vocab: int, flush,
         "vocab": vocab, "bytes": nbytes}
 
 
+def _payload(torch, dtype, v, d, g, dev):
+    if dtype == torch.int8:
+        return torch.randint(-128, 128, (v, d), generator=g, device=dev,
+                             dtype=torch.int8)
+    return (torch.randn((v, d), generator=g, device=dev) * 0.1).to(dtype)
+
+
+def check_bag_matmul(torch, bm_ops, bm_ref) -> float:
+    """Phase 2: bag_matmul against bag_matmul_ref on the card."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(6)
+    worst, n = 0.0, 0
+    # (B, K, D, H): K = 1; B and H that no 32 x 64 tile divides; the
+    # full-width fused first layers of wide&deep and xDeepFM; D = 200
+    # (dynamic shared memory above 48 KB)
+    shapes = ((512, 1, 32, 1024), (37, 5, 10, 70), (512, 40, 32, 1024),
+              (512, 39, 10, 400), (7, 3, 200, 33))
+    for dtype in (torch.int8, torch.bfloat16, torch.float16, torch.float32):
+        for b, k, d, h in shapes:
+            v = 5000
+            payload = _payload(torch, dtype, v, d, g, dev)
+            scales = torch.rand(v, generator=g, device=dev) * 0.01
+            idx = torch.randint(0, v, (b, k), generator=g, device=dev,
+                                dtype=torch.int32)
+            w = torch.rand((b, k), generator=g, device=dev)
+            w[torch.rand((b, k), generator=g, device=dev) < 0.3] = 0.0
+            w3 = torch.randn((k, d, h), generator=g, device=dev)
+            for after in (False, True):
+                got = bm_ops.bag_matmul(payload, scales, idx, w, w3,
+                                        scale_after=after)
+                want = bm_ref.bag_matmul_ref(payload, scales, idx, w, w3,
+                                             scale_after=after)
+                torch.cuda.synchronize()
+                err = float((got - want).abs().max())
+                if not bits_equal(got, want):
+                    raise SystemExit(
+                        f"bag_matmul != plain: {dtype} B={b} K={k} D={d} "
+                        f"H={h} scale_after={after} max err {err}")
+                worst = max(worst, err)
+                n += 1
+    log(f"kernel check: bag_matmul bit-equal to plain in {n} cases (4 "
+        f"dtypes x 5 shapes x scale_after; max abs err {worst})")
+    return worst
+
+
+def check_cin(torch, cin_ops, cin_ref) -> float:
+    """Phase 2: cin against cin_layer_ref on the card (synthetic)."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(7)
+    worst = 0.0
+    # (B, O, H, M, D): nothing divides a block; D = 128 (one sample a
+    # block); the full-width first layer
+    for b, o, h, m, d in ((13, 17, 9, 8, 6), (5, 3, 1, 1, 128),
+                          (70, 200, 39, 39, 10)):
+        w = torch.randn((o, h, m), generator=g, device=dev) / (h * m) ** 0.5
+        xk = torch.randn((b, h, d), generator=g, device=dev)
+        x0 = torch.randn((b, m, d), generator=g, device=dev)
+        got = cin_ops.cin_layer(w, xk, x0)
+        want = cin_ref.cin_layer_ref(w, xk, x0)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if not bits_equal(got, want):
+            raise SystemExit(f"cin != plain: B={b} O={o} H={h} M={m} D={d} "
+                             f"max err {err}")
+        worst = max(worst, err)
+    log(f"kernel check: cin bit-equal to plain in 3 synthetic cases (max "
+        f"abs err {worst})")
+    return worst
+
+
+class Uncounted:
+    """Launches inside the block are taken back out of the counters: the
+    card check's unfused reference head is not the main path."""
+
+    def __init__(self, counters):
+        self.counters = counters
+
+    def __enter__(self):
+        self.saved = [dict(c) for c in self.counters]
+
+    def __exit__(self, *exc):
+        for c, saved in zip(self.counters, self.saved):
+            c.update(saved)
+
+
+def serve_online(torch, serve, kernels, counters, arch: str) -> tuple:
+    """Phase 8: the online fused serve of one arch at full width, with the
+    counts around it and the unfused head as each request's check."""
+    from repro_torch import configs
+    from repro_torch.configs.common import RECSYS_SHAPES
+    from repro_torch.core import packed_store as ps
+    from repro_torch.models.embedding import globalize
+    from repro_torch.serve.loop import request_batch
+
+    batch_size = RECSYS_SHAPES["serve_p99"]["batch"]
+    argv = ["--arch", arch, "--online", "--fuse-matmul", "--model", "full",
+            "--batch", str(batch_size), "--requests", str(REQUESTS),
+            "--retier-every", "2", "--cache-rows", "256", "--drift", "4.0"]
+    worst = {"abs": 0.0, "rel": 0.0}
+
+    def make_audit(server, model, params):
+        dev = server.device
+
+        def audit(r, idx):
+            with Uncounted(counters), torch.inference_mode():
+                b = request_batch(idx, r, 0, dev)
+                gidx = globalize(b["indices"], model.spec)
+                ref = model.head(params, ps.lookup(server.packed, gidx), b)
+
+            def after(out):
+                if out.shape != (idx.shape[0],) or not bool(
+                        torch.isfinite(out).all()):
+                    raise SystemExit(f"{arch} request {r}: bad logits "
+                                     f"{tuple(out.shape)}")
+                diff = (out - ref).abs()
+                lim = 1e-4 * ref.abs().clamp_min(1.0)
+                if not bool((diff <= lim).all()):
+                    raise SystemExit(f"{arch} request {r}: fused logits off "
+                                     f"the unfused head by "
+                                     f"{float(diff.max())}")
+                worst["abs"] = max(worst["abs"], float(diff.max()))
+                worst["rel"] = max(worst["rel"], float((diff / lim).max()))
+            return after
+        return audit
+
+    kernels.reset_launches()
+    served = serve.run(serve.parse_args(argv), make_audit=make_audit)
+    launches = kernels.launch_counts()
+    rec = served.record
+    # the full model's config, as ``--model full`` serves it
+    cin_layers = len(getattr(configs.get(arch).cfg, "cin_layers", ()))
+    # the record counts the request loop; the global counts add the
+    # server's start (its first cache build: one dequant_bag per tier)
+    in_loop = rec["kernel_launches"]
+    if (launches["bag_matmul"] != 3 * REQUESTS
+            or in_loop["bag_matmul"] != 3 * REQUESTS
+            or launches["cin"] != cin_layers * REQUESTS
+            or in_loop["cin"] != cin_layers * REQUESTS
+            or (arch == "xdeepfm" and in_loop["dequant_bag"] <= 0)):
+        raise SystemExit(f"{arch} online path launches {launches}, record "
+                         f"{rec['kernel_launches']}")
+    if rec["device"] != "cuda" or rec["requests"] != REQUESTS:
+        raise SystemExit(f"unexpected online record {rec}")
+    rec["check_fused_vs_unfused"] = {
+        "max_abs_diff": worst["abs"], "max_diff_over_limit": worst["rel"]}
+    log(f"online {arch}: {REQUESTS} requests, fused logits within "
+        f"{worst['abs']:.3g} of the unfused head ({worst['rel']:.3g} of "
+        f"the limit), launches {launches}, p50 {rec['p50_us']:.0f} us, "
+        f"{rec['retiers']} re-tiers moved {rec['rows_moved']:,} rows")
+    return served, launches
+
+
+def _bound(nbytes: float, flops: float) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def time_once(torch, fn, *args) -> float:
+    """ms of one warm call (the plain versions take seconds)."""
+    fn(*args)
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    fn(*args)
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1)
+
+
+def measure_bag_matmul(torch, served, arch: str, launches: int, flush,
+                       worst: float) -> dict:
+    """Phase 9: bag_matmul's three tier launches at the serving shapes of
+    16 requests on the served store."""
+    import numpy as np
+
+    from repro_torch.core.packed_store import _split
+    from repro_torch.kernels.bag_matmul import kernel as bm_kernel
+    from repro_torch.kernels.bag_matmul import ref as bm_ref
+    from repro_torch.models.embedding import globalize
+    from repro_torch.serve.loop import drifting_zipf_batch
+
+    server, model, params = served.server, served.model, served.params
+    packed, spec = server.packed, model.spec
+    b = served.record["batch"]
+    f, d = spec.num_fields, spec.dim
+    w = params["net"]["deep"]["l0"]["w"]
+    h = w.shape[1]
+    w3 = w.reshape(f, d, h).contiguous()
+    cards = np.asarray(spec.cardinalities, np.int64)
+    tiers = (("int8", packed.payload8, packed.scale8),
+             ("bfloat16", packed.payload16, packed.scale16),
+             ("float32", packed.payload32, None))
+    inputs = {name: [] for name, _, _ in tiers}
+    live = {name: 0 for name, _, _ in tiers}
+    rows = {name: 0 for name, _, _ in tiers}
+    n = 16
+    for r in range(n):
+        idx = torch.from_numpy(drifting_zipf_batch(
+            cards, b, 1000 + r, n)).to(packed.indirect.device)
+        tier, loc = _split(packed, globalize(idx, spec))
+        for t, (name, payload, scales) in enumerate(tiers):
+            wt = (tier == t).to(torch.float32).contiguous()
+            li = loc.clamp(0, payload.shape[0] - 1).to(torch.int32)
+            inputs[name].append((payload, scales, li.contiguous(), wt, w3))
+            live[name] += int((wt != 0).sum())
+            rows[name] += int(torch.unique(li[wt != 0]).numel())
+    for name, _, _ in tiers:
+        for a in inputs[name][:2]:
+            got = bm_kernel.bag_matmul_cuda(*a)
+            want = bm_ref.bag_matmul_ref(*a)
+            torch.cuda.synchronize()
+            if not bits_equal(got, want):
+                raise SystemExit(f"bag_matmul[{arch}, {name}] != plain on the "
+                                 "served store")
+            worst = max(worst, float((got - want).abs().max()))
+    by_tier, bounds, t_bytes, t_flops = {}, [], 0.0, 0.0
+    for name, payload, scales in tiers:
+        args = inputs[name]
+        slots, distinct = live[name] / n, rows[name] / n
+        row_bytes = d * payload.element_size() + (4 if scales is not None
+                                                  else 0)
+        # every weight, the index of each live slot, each distinct live
+        # row (and scale) once, w3 once, the output; 2 D H flops a slot
+        nbytes = (b * f * 4 + slots * 4 + distinct * row_bytes
+                  + f * d * h * 4 + b * h * 4)
+        flops = slots * 2 * d * h
+        bound_ms, _ = _bound(nbytes, flops)
+        bounds.append(bound_ms)
+        t_bytes += nbytes
+        t_flops += flops
+        ms = time_launches(torch, bm_kernel.bag_matmul_cuda, args, flush)
+        plain_ms = time_once(torch, bm_ref.bag_matmul_ref, *args[0])
+        acts = [(bm_ref.slot_rows(p, s, i, wt).reshape(b, f * d),)
+                for p, s, i, wt, _ in args]
+        want = bm_kernel.bag_matmul_cuda(*args[0])
+        lib = torch.matmul(acts[0][0], w)
+        lib_err = float((lib - want).abs().max())
+        library_ms = time_launches(torch, lambda x: torch.matmul(x, w),
+                                   acts, flush)
+        by_tier[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "library_ms": library_ms, "live_slots": slots,
+                         "distinct_live_rows": distinct, "bytes": nbytes,
+                         "flops": flops, "library_max_abs_diff": lib_err}
+        del acts
+    mean = {k: sum(t[k] for t in by_tier.values()) / 3
+            for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+    log(f"bag_matmul[{arch}] at B={b} K={f} D={d} H={h}: "
+        + ", ".join(f"{k} {v['ms']:.4f} ms (bound {v['bound_ms']:.4f}, "
+                    f"matmul {v['library_ms']:.4f}, plain "
+                    f"{v['plain_ms']:.1f})" for k, v in by_tier.items()))
+    return {
+        "name": f"bag_matmul[{arch}]", "route": "cuda",
+        "source": SOURCE_BAG_MATMUL, "replaces": TPU_BAG_MATMUL,
+        "launches": launches, "max_abs_err": worst, "ms": mean["ms"],
+        "plain_ms": mean["plain_ms"], "bound_ms": mean["bound_ms"],
+        "bound_by": _bound(t_bytes, t_flops)[1],
+        "library_ms": mean["library_ms"], "by_tier": by_tier,
+        "shape": {"B": b, "K": f, "D": d, "H": h},
+        "per": "launch (mean of the 3 tier launches of a request)"}
+
+
+def measure_cin(torch, served, launches: int, flush, worst: float) -> dict:
+    """Phase 9: the three CIN layers on a served xDeepFM batch."""
+    import numpy as np
+
+    from repro_torch.kernels.cin import kernel as cin_kernel
+    from repro_torch.kernels.cin import ref as cin_ref
+    from repro_torch.models.embedding import globalize
+    from repro_torch.serve.cache import cached_lookup
+    from repro_torch.serve.loop import drifting_zipf_batch
+
+    server, model, params = served.server, served.model, served.params
+    spec = model.spec
+    b = served.record["batch"]
+    cards = np.asarray(spec.cardinalities, np.int64)
+    idx = torch.from_numpy(drifting_zipf_batch(cards, b, REQUESTS,
+                                               REQUESTS)).to(server.device)
+    with torch.inference_mode():
+        emb, _ = cached_lookup(server.packed, server.cache,
+                               globalize(idx, spec), server.lookup_fn())
+    emb = emb.contiguous()
+    layers, x = [], emb
+    for i in range(len(params["net"]["cin"])):
+        wi = params["net"]["cin"][f"w{i}"].contiguous()
+        layers.append((wi, x, emb))
+        x = cin_kernel.cin_layer_cuda(wi, x, emb)
+    by_layer, t_bytes, t_flops = [], 0.0, 0.0
+    for i, (wi, xk, x0) in enumerate(layers):
+        part = (wi, xk[:64].contiguous(), x0[:64].contiguous())
+        got, want = cin_kernel.cin_layer_cuda(*part), cin_ref.cin_layer_ref(
+            *part)
+        torch.cuda.synchronize()
+        if not bits_equal(got, want):
+            raise SystemExit(f"cin layer {i} != plain on 64 served samples")
+        worst = max(worst, float((got - want).abs().max()))
+        o, h, m = wi.shape
+        d = xk.shape[2]
+        flops = 2 * b * o * h * m * d
+        nbytes = (o * h * m + b * h * d + b * m * d + b * o * d) * 4
+        bound_ms, _ = _bound(nbytes, flops)
+        t_bytes += nbytes
+        t_flops += flops
+        ms = time_launches(torch, cin_kernel.cin_layer_cuda,
+                           [(wi, xk, x0)] * 10, flush)
+        full = cin_kernel.cin_layer_cuda(wi, xk, x0)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        plain = cin_ref.cin_layer_ref(wi, xk, x0)
+        e1.record()
+        torch.cuda.synchronize()
+        plain_ms = e0.elapsed_time(e1)
+        if not bits_equal(full, plain):
+            raise SystemExit(f"cin layer {i} != plain on {b} served samples")
+
+        def library(w_, xk_, x0_):
+            outer = torch.einsum("bhd,bmd->bhmd", xk_, x0_)
+            return torch.einsum("bhmd,ohm->bod", outer, w_)
+        lib_err = float((library(wi, xk, x0) - full).abs().max())
+        library_ms = time_launches(torch, library, [(wi, xk, x0)] * 10,
+                                   flush)
+        by_layer.append({"H": h, "M": m, "O": o, "D": d, "ms": ms,
+                         "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "library_ms": library_ms, "flops": flops,
+                         "bytes": nbytes, "library_max_abs_diff": lib_err})
+        del plain, full
+    mean = {k: sum(t[k] for t in by_layer) / len(by_layer)
+            for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+    log(f"cin at B={b}: " + ", ".join(
+        f"H={t['H']} {t['ms']:.4f} ms (bound {t['bound_ms']:.4f}, einsum "
+        f"{t['library_ms']:.4f}, plain {t['plain_ms']:.0f})"
+        for t in by_layer) + "; bit-equal to plain on 64 and 512 samples")
+    return {
+        "name": "cin[xdeepfm]", "route": "cuda", "source": SOURCE_CIN,
+        "replaces": TPU_CIN, "launches": launches, "max_abs_err": worst,
+        "ms": mean["ms"], "plain_ms": mean["plain_ms"],
+        "bound_ms": mean["bound_ms"],
+        "bound_by": _bound(t_bytes, t_flops)[1],
+        "library_ms": mean["library_ms"], "by_layer": by_layer,
+        "per": "launch (mean of the layer launches of a request)"}
+
+
 def resume_smoke() -> dict:
     """Phase 7: kill the smoke trainer after its first checkpoint, rerun
     it, and check that it resumed there."""
@@ -521,11 +896,48 @@ def trace(torch, serve, served, requests: int, path: str) -> None:
                  "count": e.count} for e in top]}}))
 
 
+def trace_online(torch, served, arch: str, requests: int, path: str
+                 ) -> None:
+    """--trace: kernel time by name over ``requests`` more online fused
+    requests of the served arch (one re-tier every 2, as served); the
+    table goes to ``path``, the busy share and the top kernels are
+    printed."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve.loop import serve_forward_loop
+    server, model = served.server, served.model
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = serve_forward_loop(server, model, model.spec, served.params,
+                                 batch=served.record["batch"],
+                                 requests=requests, fuse_matmul=True)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    ev = prof.key_averages()
+    kernels = [e for e in ev
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "a") as fh:
+        fh.write(f"\n== online {arch}, {requests} requests ==\n")
+        fh.write(ev.table(sort_by="self_device_time_total", row_limit=30))
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
+    print(json.dumps({"trace_online": {
+        "arch": arch, "requests": requests, "wall_us": wall_us,
+        "lat_us": [x * 1e6 for x in res.lat_s],
+        "retiers_total": res.stats["retiers"],
+        "device_busy_us": busy_us, "device_busy_share": busy_us / wall_us,
+        "top": [{"name": e.key[:80], "device_us": e.self_device_time_total,
+                 "count": e.count} for e in top]}}), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--trace", metavar="PATH",
-                    help="also profile 8 served requests; the kernel "
-                         "table goes to PATH")
+                    help="also profile 8 served dlrm requests and 6 more "
+                         "online requests of each fused arch; the kernel "
+                         "tables go to PATH")
     args = ap.parse_args()
 
     import torch
@@ -534,7 +946,14 @@ def main() -> int:
         return 1
     from repro_torch import configs
     from repro_torch.core import packed_store as ps
+    from repro_torch import kernels as kernels_mod
     from repro_torch.kernels import build
+    from repro_torch.kernels.bag_matmul import kernel as bm_kernel
+    from repro_torch.kernels.bag_matmul import ops as bm_ops
+    from repro_torch.kernels.bag_matmul import ref as bm_ref
+    from repro_torch.kernels.cin import kernel as cin_kernel
+    from repro_torch.kernels.cin import ops as cin_ops
+    from repro_torch.kernels.cin import ref as cin_ref
     from repro_torch.kernels.dequant_bag import autodiff, kernel, ops, ref
     from repro_torch.launch import serve
     from repro_torch.train import setup as setup_mod
@@ -545,7 +964,8 @@ def main() -> int:
     print(smi.splitlines()[0], flush=True)
 
     t0 = time.perf_counter()
-    paths = build.build_all(["dequant_bag", "bag_grad"])
+    paths = build.build_all(["dequant_bag", "bag_grad", "bag_matmul",
+                             "cin"])
     log(f"built {[p.name for p in paths]} ({time.perf_counter() - t0:.1f}s)")
     for path in paths:
         report = path.with_suffix(".log")
@@ -554,6 +974,8 @@ def main() -> int:
 
     worst = check_kernels(torch, ops, ref)
     worst_grad = check_bag_grad(torch, ops, ref)
+    worst_bm = check_bag_matmul(torch, bm_ops, bm_ref)
+    worst_cin = check_cin(torch, cin_ops, cin_ref)
     served, launches = serve_full(torch, serve, kernel, ps)
     print(json.dumps(served.record), flush=True)
     kernels = measure(torch, served, kernel, ref, launches, worst)
@@ -584,6 +1006,33 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     resume_smoke()
+
+    counters = (kernel.launches, kernel.bag_grad_launches, bm_kernel.launches,
+                cin_kernel.launches)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    online_dequant = {}
+    for arch in ONLINE_ARCHS:
+        served, launches = serve_online(torch, serve, kernels_mod, counters,
+                                        arch)
+        online_dequant[arch] = dict(kernel.launches)
+        print(json.dumps(served.record), flush=True)
+        kernels.append(measure_bag_matmul(torch, served, arch,
+                                          launches["bag_matmul"], flush,
+                                          worst_bm))
+        if arch == "xdeepfm":
+            kernels.append(measure_cin(torch, served, launches["cin"], flush,
+                                       worst_cin))
+        if args.trace:
+            trace_online(torch, served, arch, 6, args.trace)
+        del served
+        torch.cuda.empty_cache()
+    for k in kernels:
+        if k["name"].startswith("dequant_bag["):
+            dtype = k["name"][len("dequant_bag["):-1]
+            for arch, counts in online_dequant.items():
+                k["launches_by_path"][f"online_{arch}"] = counts[dtype]
+            k["launches"] = sum(k["launches_by_path"].values())
+    del flush
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

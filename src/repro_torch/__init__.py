@@ -37,3 +37,10 @@ def resolve_device(device: str | torch.device | None = None
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def sync(device: torch.device) -> None:
+    """Wait for the device's queued work (a no-op on the CPU): the end of
+    a timed window."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

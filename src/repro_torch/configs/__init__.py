@@ -12,6 +12,8 @@ import importlib
 
 ARCHS = {
     "dlrm-rm2": "repro_torch.configs.dlrm_rm2",
+    "wide-deep": "repro_torch.configs.wide_deep",
+    "xdeepfm": "repro_torch.configs.xdeepfm",
 }
 
 

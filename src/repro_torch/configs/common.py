@@ -21,7 +21,8 @@ class RecsysArch:
     model: Any                       # models.recsys.Model (full size)
     smoke_model: Any                 # reduced
     num_dense: int = 13              # dense features of the full model
-    smoke_num_dense: int = 5         # reduced config's dense width
+    smoke_num_dense: int = 5         # reduced config's dense width (0:
+                                     # the model takes no dense input)
     name: str = ""
     cfg: Any = None                  # the full model's config dataclass
     smoke_cfg: Any = None            # the reduced one's

@@ -1,5 +1,5 @@
-"""Carry weights, packed stores and train states from the JAX package
-into the port.
+"""Carry weights (dlrm, wide&deep, xDeepFM), QAT and packed stores and
+train states from the JAX package into the port.
 
 Inputs are numpy arrays, never JAX objects, so this module imports neither
 package's JAX code: a caller brings params to the host
@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.packed_store import PackedStore
+from repro_torch.core.qat_store import QATStore
 from repro_torch.optim.optimizers import AdamState
 from repro_torch.train.accum import TaylorAccum
 from repro_torch.train.steps import TrainState
@@ -32,8 +33,10 @@ def to_tensor(x, device: str | torch.device = "cpu") -> torch.Tensor:
 
 def params_from_jax(params: Mapping, device: str | torch.device = "cpu"
                     ) -> dict:
-    """Nested dict of numpy arrays (``embed_table``, ``net.bot.l{i}.{w,b}``,
-    ``net.top.l{i}.{w,b}``) -> the same nesting of tensors."""
+    """Nested dict of numpy arrays -> the same nesting of tensors: any
+    model's params (``embed_table``, ``wide_table``, ``net.bot``/``top``
+    for dlrm, ``net.deep``/``bias`` for wide&deep, ``net.cin.w{i}``/
+    ``cin_out``/``deep`` for xDeepFM)."""
     return {k: params_from_jax(v, device) if isinstance(v, Mapping)
             else to_tensor(v, device) for k, v in params.items()}
 
@@ -44,6 +47,14 @@ def packed_from_jax(leaves, device: str | torch.device = "cpu"
     -> the port's ``PackedStore``."""
     return PackedStore(*(to_tensor(getattr(leaves, f), device)
                          for f in PackedStore._fields))
+
+
+def qat_store_from_jax(store, device: str | torch.device = "cpu"
+                       ) -> QATStore:
+    """A reference ``QATStore`` (table, priority) with its leaves brought
+    to numpy -> the port's ``QATStore``."""
+    return QATStore(table=to_tensor(store.table, device),
+                    priority=to_tensor(store.priority, device))
 
 
 def train_state_from_jax(state, device: str | torch.device = "cpu"

@@ -16,6 +16,9 @@ payloads, for tables that do not fit beside their pack (the full
 are row-wise, so both give the same leaves.  ``lookup`` is the plain
 gather + dequant; ``lookup_fused`` is the serving path, one fused
 dequant-bag kernel launch per tier (``kernels.dequant_bag``).
+``bag_matmul`` is the fused bag -> first matmul of the fused heads (one
+``kernels.bag_matmul`` launch per tier); ``repack_delta`` re-tiers the
+rows whose tier crossed, on the store's device.
 """
 
 from __future__ import annotations
@@ -181,6 +184,147 @@ def lookup_fused(packed: PackedStore, indices: torch.Tensor) -> torch.Tensor:
     bit-identical to ``lookup`` (see ``kernels.dequant_bag.ops``)."""
     from repro_torch.kernels.dequant_bag.ops import packed_lookup_fused
     return packed_lookup_fused(packed, indices)
+
+
+def bag_matmul(packed: PackedStore, indices: torch.Tensor, w: torch.Tensor
+               ) -> torch.Tensor:
+    """Fused bag -> first matmul: (B, F) global indices + (F*D, H) weights
+    -> (B, H) without materialising the (B, F*D) embedding activations;
+    one ``bag_matmul`` kernel launch per tier (see
+    ``kernels.bag_matmul.ops.packed_bag_matmul``)."""
+    from repro_torch.kernels.bag_matmul.ops import packed_bag_matmul
+    return packed_bag_matmul(packed, indices, w)
+
+
+def quantize_rows(table: torch.Tensor, ids: torch.Tensor,
+                  tiers: torch.Tensor, cfg: FQuantConfig) -> PackedStore:
+    """Quantize fp32 ``table`` rows ``ids`` into a sub-store (position
+    ``i`` = ``ids[i]``), byte-identical to what ``pack`` produces for them
+    under the same per-row ``tiers``.
+
+    Port of ``repro/core/packed_store.py::quantize_rows`` on the table's
+    device.  Every row runs through all three tier quantizers (row-wise,
+    so a subset quantizes as inside a full ``pack``; the int8 scale
+    divides by 127, as the eager ``pack``), then each tier keeps its own
+    rows.  An empty tier keeps the reference's placeholder: the first
+    quantized row (zeros when ``ids`` is empty) with a unit scale.  The
+    reference pads the row block to a power of two so that XLA compiles
+    one shape per chunk size; eager torch has no compile to spare, so
+    the port does not pad (the leaves are the same).
+    """
+    dim = table.shape[1]
+    ids = ids.reshape(-1).to(torch.int64)
+    n = ids.numel()
+    rows = (table[ids].to(torch.float32) if n else
+            torch.zeros((1, dim), dtype=torch.float32, device=table.device))
+    t = tiers[ids].to(torch.int64)
+    new_ind = torch.zeros(n, dtype=torch.int32, device=table.device)
+    out_p, out_s = [], []
+    for tier in Tier:
+        p_all, s_all = _quantize_tier(rows, tier, cfg)
+        sel = torch.nonzero(t == tier.value).reshape(-1)
+        if sel.numel():
+            p, s = p_all[sel], None if s_all is None else s_all[sel]
+        else:
+            p = p_all[:1]
+            s = None if s_all is None else torch.ones(
+                (1,), dtype=torch.float32, device=table.device)
+        new_ind[sel] = (int(tier.value) << _TIER_SHIFT) | torch.arange(
+            sel.numel(), dtype=torch.int32, device=table.device)
+        out_p.append(p)
+        out_s.append(s)
+    return PackedStore(payload8=out_p[0], scale8=out_s[0],
+                       payload16=out_p[1], scale16=out_s[1],
+                       payload32=out_p[2], indirect=new_ind)
+
+
+def repack_delta(packed: PackedStore, store: QATStore, cfg: FQuantConfig,
+                 changed_rows: torch.Tensor) -> PackedStore:
+    """Incremental re-tier: migrate only tier-crossing rows.
+
+    Port of ``repro/core/packed_store.py::repack_delta`` with torch ops
+    on the packed store's device (the reference copies every payload to
+    the host; at full width that is a 1.4-1.7 GB round trip per
+    re-tier).  ``changed_rows`` is a candidate set; rows whose tier under
+    ``current_tiers(store, cfg)`` equals their packed tier keep their
+    slot byte for byte.  Crossing rows are swap-removed from their source
+    tier (the surviving tail rows of that tier backfill the holes below
+    the new count, their ``indirect`` words rewritten) and appended to
+    their destination tier in ascending row order, quantized as ``pack``
+    does; an emptied tier keeps ``pack``'s quantized-zeros placeholder.
+    The same algorithm as the reference, so the leaves equal its leaves.
+    Contract: the table rows are unchanged since the last (re)pack, so
+    ``unpack(repack_delta(...))`` is bit-identical to ``unpack(pack(store,
+    cfg))``.  The input store is not modified.
+    """
+    dev = packed.indirect.device
+    table = store.table
+    dim = packed.dim
+    indirect = packed.indirect.clone()
+    old_tiers = (indirect >> _TIER_SHIFT).to(torch.int64)
+    new_tiers = current_tiers(store, cfg).to(torch.int64)
+    cand = torch.unique(changed_rows.reshape(-1).to(torch.int64).to(dev))
+    moving = cand[old_tiers[cand] != new_tiers[cand]]
+    if moving.numel() == 0:
+        return packed
+
+    counts = tier_counts(old_tiers)
+    payloads = [packed.payload8, packed.payload16, packed.payload32]
+    scales = [packed.scale8, packed.scale16, None]
+
+    # swap-remove movers from their source tier
+    for t in range(3):
+        locs = torch.sort((indirect[moving[old_tiers[moving] == t]]
+                           & _IDX_MASK).to(torch.int64)).values
+        if locs.numel() == 0:
+            payloads[t] = payloads[t][:counts[t]]
+            if scales[t] is not None:
+                scales[t] = scales[t][:counts[t]]
+            continue
+        c2 = counts[t] - locs.numel()
+        holes = locs[locs < c2]
+        keep = torch.ones(counts[t] - c2, dtype=torch.bool, device=dev)
+        keep[locs[locs >= c2] - c2] = False
+        tail = torch.arange(c2, counts[t], device=dev)[keep]
+        g_of = torch.zeros(counts[t], dtype=torch.int64, device=dev)
+        g_all = torch.nonzero(old_tiers == t).reshape(-1)
+        g_of[(indirect[g_all] & _IDX_MASK).to(torch.int64)] = g_all
+        p = payloads[t][:c2].clone()
+        p[holes] = payloads[t][tail]
+        payloads[t] = p
+        if scales[t] is not None:
+            s = scales[t][:c2].clone()
+            s[holes] = scales[t][tail]
+            scales[t] = s
+        indirect[g_of[tail]] = (t << _TIER_SHIFT) | holes.to(torch.int32)
+        counts[t] = c2
+
+    # append movers to their destination tier, quantized as pack() would
+    for tier in Tier:
+        t = int(tier.value)
+        add = moving[new_tiers[moving] == t]
+        if add.numel() == 0:
+            continue
+        newp, news = _quantize_tier(table[add].to(torch.float32), tier, cfg)
+        base = counts[t]
+        indirect[add] = (t << _TIER_SHIFT) | torch.arange(
+            base, base + add.numel(), dtype=torch.int32, device=dev)
+        payloads[t] = torch.cat([payloads[t], newp])
+        if news is not None:
+            scales[t] = torch.cat([scales[t], news])
+        counts[t] = base + add.numel()
+
+    # emptied tiers keep pack()'s quantized-zeros 1-row placeholder
+    for tier in Tier:
+        t = int(tier.value)
+        if payloads[t].shape[0] == 0:
+            ph, phs = _quantize_tier(
+                torch.zeros((1, dim), dtype=torch.float32, device=dev),
+                tier, cfg)
+            payloads[t] = ph
+            if phs is not None:
+                scales[t] = phs
+    return _assemble(list(zip(payloads, scales)), indirect)
 
 
 def packed_tiers(packed: PackedStore) -> torch.Tensor:

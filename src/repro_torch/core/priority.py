@@ -9,10 +9,20 @@ row decays each batch; untouched rows have c+ = c- = 0.
 
 The reference's segment sums become ``index_add_``: the counts are
 integers (exact in fp32 below 2^24), so the order of the adds does not
-matter and the result is the same on every device.  The EMA is written
-as the reference's jitted train step computes it: XLA contracts it into
-one FMA, ``fma(1 - beta, w, beta * target)``, which ``fma_f32``
-reproduces exactly (in float64, in chunks to bound the temporaries).
+matter and the result is the same on every device.
+
+The reference computes the EMA in two ways, and the port copies each
+where its caller runs it:
+
+* jitted (the train step, and its access accumulator): XLA contracts it
+  into one FMA, ``fma(1 - beta, w, beta * target)``, which
+  ``priority_update`` reproduces exactly with ``fma_f32`` (in float64,
+  in chunks to bound the temporaries);
+* eager (the online server's fold, ``OnlineServer.observe`` ->
+  ``PackedBackend.fold_priority`` -> ``serve_update`` with no ``jit``):
+  each op rounds on its own, ``(1 - beta) * w + beta * target``, which
+  ``serve_fold`` computes.  The two differ
+  in the last bit for some rows, and tiers are cut from these scores.
 """
 
 from __future__ import annotations
@@ -99,3 +109,20 @@ def serve_update(w: torch.Tensor, indices: torch.Tensor,
     """Serving-time Eq. 7 fold: accesses enter the EMA as c- (c+ = 0)."""
     c = access_counts(indices, w.shape[0], valid)
     return priority_update(w, torch.zeros_like(c), c, cfg)
+
+
+def serve_fold(w: torch.Tensor, indices: torch.Tensor,
+               cfg: PriorityConfig = PriorityConfig(),
+               valid: torch.Tensor | None = None) -> torch.Tensor:
+    """The online server's Eq. 7 fold, as the eager reference runs it
+    (``serve_update`` outside ``jit``): accesses enter as c- (c+ = 0),
+    and the EMA rounds each op on its own.  ``serve_update`` keeps the
+    jitted FMA form for the training accumulator.
+
+    With c+ = 0 the target ``alpha * 0 + c`` is the count ``c`` exactly,
+    so it is not computed (two passes over (V,) fewer).
+    """
+    c = access_counts(indices, w.shape[0], valid)
+    f32 = dict(dtype=torch.float32, device=w.device)
+    decay = torch.tensor(1.0 - cfg.beta, **f32)
+    return decay * w + torch.tensor(cfg.beta, **f32) * c

@@ -48,9 +48,28 @@ def assign_tiers(w: torch.Tensor, cfg: TierConfig = TierConfig()
 
 
 def tier_counts(tiers: torch.Tensor) -> list[int]:
-    """Rows per tier, [int8, half, fp32]."""
-    c = torch.bincount(tiers.reshape(-1).to(torch.int64), minlength=3)
-    return [int(x) for x in c[:3].tolist()]
+    """Rows per tier, [int8, half, fp32].  Three comparisons and sums:
+    ``torch.bincount`` into 3 bins serialises on atomics on the card
+    (~5.7 ms over 86.7M rows)."""
+    t = tiers.reshape(-1)
+    return [int(x) for x in torch.stack([(t == k).sum()
+                                         for k in range(3)]).tolist()]
+
+
+def tier_crossings(old_tiers: torch.Tensor, new_tiers: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Rows whose tier changed, and the 3x3 transition histogram.
+
+    Port of ``repro/core/tiers.py::tier_crossings`` on the tiers' device:
+    (changed int64 (M,) ascending, hist int64 (3, 3)) with ``hist[src,
+    dst]`` = rows moving src -> dst.
+    """
+    o = old_tiers.reshape(-1)
+    n = new_tiers.reshape(-1)
+    changed = torch.nonzero(o != n).reshape(-1)
+    code = o[changed].to(torch.int64) * 3 + n[changed].to(torch.int64)
+    hist = torch.stack([(code == j).sum() for j in range(9)])
+    return changed, hist.reshape(3, 3)
 
 
 def memory_bytes(tiers: torch.Tensor, dim: int) -> int:

@@ -3,10 +3,40 @@
   dequant_bag    fused gather + int8/bf16/fp16 dequant + embedding-bag
                  reduce (the serving path behind the paper's +30% QPS),
                  and bag_grad, its scatter-add backward (training)
+  bag_matmul     the same gather fused with the first dense layer of
+                 wide&deep's and xDeepFM's deep branch (fused heads)
+  cin            xDeepFM's Compressed Interaction Network layer
 
 Each kernel package: ref.py (plain PyTorch version), kernel.py (the CUDA
 kernel's binding and launch counter), ops.py (public ops).  An op picks
 by the device of the tensors it is given: CPU tensors take the plain
 version, CUDA tensors launch the kernel or raise.  There is no switch and
 no fallback.  ``build`` compiles ``csrc/*.cu`` at first use.
+``launch_counts`` reads every kernel's launch counter and
+``reset_launches`` sets them all to 0.
 """
+
+from __future__ import annotations
+
+
+def _kernel_modules() -> dict:
+    from repro_torch.kernels.bag_matmul import kernel as bag_matmul
+    from repro_torch.kernels.cin import kernel as cin
+    from repro_torch.kernels.dequant_bag import kernel as dequant_bag
+    return {"dequant_bag": dequant_bag, "bag_matmul": bag_matmul,
+            "cin": cin}
+
+
+def launch_counts() -> dict:
+    """Launches this process made, by kernel: ``dequant_bag``,
+    ``bag_grad``, ``bag_matmul``, ``cin``."""
+    mods = _kernel_modules()
+    return {"dequant_bag": mods["dequant_bag"].total_launches(),
+            "bag_grad": mods["dequant_bag"].bag_grad_launches["float32"],
+            "bag_matmul": mods["bag_matmul"].total_launches(),
+            "cin": mods["cin"].total_launches()}
+
+
+def reset_launches() -> None:
+    for mod in _kernel_modules().values():
+        mod.reset_launches()

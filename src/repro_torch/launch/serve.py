@@ -1,8 +1,9 @@
 """Serving CLI: ``python -m repro_torch.launch.serve --arch dlrm-rm2``.
 
-Port of the flat packed branch of ``repro/launch/serve.py``.  It builds
-the tier-partitioned store and serves a batched request stream through
-the fused dequant-bag kernel:
+Port of the flat packed branches of ``repro/launch/serve.py``, offline
+(the default) and online (``--online``).  Offline, it builds the
+tier-partitioned store and serves a batched request stream through the
+fused dequant-bag kernel:
 
 1. pareto(1.2) x 10 row priorities (numpy, seed 0, as the reference
    draws them) feed ``plan_thresholds_for_ratio`` at a 50% byte budget
@@ -21,10 +22,31 @@ unless ``--device cpu`` is given.  The timed window of a request starts
 with its inputs on the device and ends after ``torch.cuda.synchronize()``;
 the first request is a warm-up and is left out of the percentiles.
 
-The last stdout line is a JSON record (arch, model, device, device_name,
-batch, requests, qps, p50_us, p99_us, packed_mib, packed_fp32_ratio,
-kernel_launches, tier_rows [int8, half, fp32], thresholds [t8, t16],
-build_s).
+The offline record: arch, model, device, device_name, batch, requests,
+qps, p50_us, p99_us, packed_mib, packed_fp32_ratio, kernel_launches,
+tier_rows [int8, half, fp32], thresholds [t8, t16], build_s.
+
+``--online`` serves through ``repro_torch.serve``: the model's random
+table (seed 0) is snapped and packed at the 50% budget over the same
+pareto priorities, and a drifting-zipf stream (``--drift`` ids/request)
+is served cache-first (``--cache-rows`` hot rows in fp32); every batch
+is folded into the Eq. 7 EMA and every ``--retier-every`` requests the
+tier-crossing rows move (``packed_store.repack_delta``, synchronous, on
+the device).  ``--fuse-matmul`` (wide-deep, xdeepfm) serves through the
+model's fused head: the deep branch's first matmul runs in the
+``bag_matmul`` kernel (one launch per tier), and xDeepFM's CIN in the
+``cin`` kernel (one launch per layer).  The online record has the
+reference's keys (qps, steady_qps, p50/p95/p99_us, latency_p50/95/99,
+p99_retier_attributed, p99_while_retiering, requests, lookups, hits,
+cache_hit_rate, retiers, rows_moved, shadow_builds, swaps, cache_rows,
+retier_every, retier_async, drift, serve_batch, fuse_matmul,
+store_backend, packed_mib, packed_fp32_ratio, arch, batch, mesh, online)
+plus model, device, device_name, build_s and ``kernel_launches`` by
+kernel over the request loop.  At full width the online store holds the
+whole fp32 table beside its pack (wide-deep 2.84 GB, xdeepfm 3.47 GB):
+``repack_delta`` re-quantizes crossing rows from it.
+
+The last stdout line is the JSON record.
 """
 
 from __future__ import annotations
@@ -37,13 +59,16 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from repro_torch import configs, resolve_device
+from repro_torch import configs, kernels, resolve_device, sync
 from repro_torch.core.packed_store import (PackedStore, build_chunked,
                                            live_counts, lookup_fused)
-from repro_torch.core.qat_store import FQuantConfig
+from repro_torch.core.qat_store import (FQuantConfig, QATStore,
+                                        current_tiers, snap)
 from repro_torch.core.tiers import plan_thresholds_for_ratio
 from repro_torch.kernels.dequant_bag import kernel as dequant_kernel
 from repro_torch.models import embedding as E
+from repro_torch.serve.loop import serve_forward_loop
+from repro_torch.serve.online import OnlineConfig, OnlineServer
 
 SEED = 0
 CHUNK_ROWS = 1 << 22     # 1 GB of fp32 rows per build step at D = 64
@@ -52,9 +77,13 @@ CHUNK_ROWS = 1 << 22     # 1 GB of fp32 rows per build step at D = 64
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(
         description="Serve a recsys model from the packed SHARK store.",
-        epilog="Not ported yet (later slices): --online, --serve-batch, "
-               "--mesh, --store-backend hier|hashed, --retier-async, "
-               "--fuse-matmul, --metrics-out.")
+        epilog="Not ported yet (later slices): --serve-batch (the "
+               "micro-batched serving loops), --mesh, --store-backend "
+               "hier|hashed with --hbm-budget-mb, --host-budget-mb, "
+               "--store-dir, --verify-hier, --hash-ratio, "
+               "--hash-chunk-dim, --hash-bits; --retier-async, "
+               "--shadow-rows, --verify-swap (shadow re-tiers); "
+               "--autotune-cache; --metrics-out, --metrics-every.")
     ap.add_argument("--arch", default="dlrm-rm2", choices=configs.names())
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--batch", type=int, default=256)
@@ -63,7 +92,28 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "reduced test size")
     ap.add_argument("--device", default=None,
                     help="torch device; default cuda (raises when absent)")
-    return ap.parse_args(argv)
+    ap.add_argument("--online", action="store_true",
+                    help="serve through repro_torch.serve: hot-row cache + "
+                         "priority fold + incremental re-tiering under a "
+                         "drifting-zipf workload")
+    ap.add_argument("--cache-rows", type=int, default=256,
+                    help="top-K fp32 hot rows (--online; 0 disables)")
+    ap.add_argument("--retier-every", type=int, default=2,
+                    help="requests between delta re-tiers (--online; 0 "
+                         "disables)")
+    ap.add_argument("--drift", type=float, default=4.0,
+                    help="zipf hot-set drift in ids/request (--online; 0 = "
+                         "stationary)")
+    ap.add_argument("--fuse-matmul", action="store_true",
+                    help="serve through the model's fused head: the deep "
+                         "branch's first matmul runs fused with the "
+                         "embedding gather (kernels.bag_matmul) so the "
+                         "(B, F*D) activations never materialise "
+                         "(--online; wide-deep / xdeepfm)")
+    args = ap.parse_args(argv)
+    if args.fuse_matmul and not args.online:
+        ap.error("--fuse-matmul requires --online")
+    return args
 
 
 class Served(NamedTuple):
@@ -71,7 +121,8 @@ class Served(NamedTuple):
     model: object
     params: dict
     packed: PackedStore
-    make_request: Callable[[int], dict]
+    make_request: Callable[[int], dict] | None
+    server: OnlineServer | None = None
 
 
 def serve_request(model, params: dict, packed: PackedStore,
@@ -92,45 +143,74 @@ def request_maker(spec: E.FieldSpec, batch: int, num_dense: int
         rr = np.random.default_rng(r)
         idx = (rr.random((batch, spec.num_fields)) * cards[None, :]
                ).astype(np.int32)
-        dense = np.random.default_rng(10_000 + r).standard_normal(
-            (batch, num_dense)).astype(np.float32)
-        return {"indices": torch.from_numpy(idx),
-                "dense": torch.from_numpy(dense)}
+        out = {"indices": torch.from_numpy(idx)}
+        if num_dense:
+            out["dense"] = torch.from_numpy(
+                np.random.default_rng(10_000 + r).standard_normal(
+                    (batch, num_dense)).astype(np.float32))
+        return out
     return make
+
+
+def plan_store(spec: E.FieldSpec, device: torch.device, seed: int = SEED
+               ) -> tuple[torch.Tensor, FQuantConfig]:
+    """The reference CLI's pareto(1.2) x 10 row priorities (numpy) and the
+    50%-budget thresholds planned from them."""
+    pri = (np.random.default_rng(seed).pareto(1.2, spec.total_rows) * 10
+           ).astype(np.float32)
+    pri = torch.from_numpy(pri).to(device)
+    cfg = FQuantConfig(tiers=plan_thresholds_for_ratio(pri, spec.dim, 0.5),
+                       stochastic=False)
+    return pri, cfg
 
 
 def build_store(spec: E.FieldSpec, device: torch.device, seed: int = SEED,
                 chunk_rows: int = CHUNK_ROWS
                 ) -> tuple[PackedStore, FQuantConfig]:
     """Priorities -> 50%-budget thresholds -> chunked snap + pack."""
-    pri = (np.random.default_rng(seed).pareto(1.2, spec.total_rows) * 10
-           ).astype(np.float32)
-    pri = torch.from_numpy(pri).to(device)
-    cfg = FQuantConfig(tiers=plan_thresholds_for_ratio(pri, spec.dim, 0.5))
+    pri, cfg = plan_store(spec, device, seed)
     packed = build_chunked(E.table_rows(spec, seed, device), pri, spec.dim,
                            cfg, chunk_rows=chunk_rows)
     return packed, cfg
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+def online_store(model, spec: E.FieldSpec, device: torch.device,
+                 seed: int = SEED) -> tuple[dict, QATStore, FQuantConfig]:
+    """The online path's start: (head params, snapped ``QATStore``,
+    config).  The model's table is drawn whole (seed ``seed``) and
+    snapped to the tiers of ``plan_store``'s priorities, as the
+    reference CLI does before it hands the store to ``OnlineServer``."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    params = model.init(gen, device, with_table=True)
+    table = params.pop("embed_table")
+    pri, cfg = plan_store(spec, device, seed)
+    store = QATStore(table, pri)
+    store = store._replace(table=snap(table, current_tiers(store, cfg),
+                                      cfg))
+    return params, store, cfg
 
 
-def run(args: argparse.Namespace) -> Served:
+def run(args: argparse.Namespace, make_audit: Callable | None = None
+        ) -> Served:
+    """Serve as ``args`` say.  ``make_audit(server, model, params)``
+    (online only) returns the loop's ``audit`` hook (see
+    ``serve.loop.run_loop``)."""
     device = resolve_device(args.device)
     arch = configs.get(args.arch)
     full = args.model == "full"
     model = arch.model if full else arch.smoke_model
     num_dense = arch.num_dense if full else arch.smoke_num_dense
     spec = model.spec
+    if args.online:
+        return run_online(args, device, model, num_dense, make_audit)
 
     t0 = time.perf_counter()
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED)
     params = model.init(gen, device, with_table=False)
     packed, cfg = build_store(spec, device)
-    _sync(device)
+    sync(device)
     build_s = time.perf_counter() - t0
     fp32 = spec.total_rows * spec.dim * 4
     packed_bytes = packed.nbytes()
@@ -143,16 +223,15 @@ def run(args: argparse.Namespace) -> Served:
     with torch.inference_mode():
         for r in range(args.requests):
             batch = {k: v.to(device) for k, v in make_request(r).items()}
-            _sync(device)
+            sync(device)
             t = time.perf_counter()
             serve_request(model, params, packed, batch)
-            _sync(device)
+            sync(device)
             lat.append(time.perf_counter() - t)
     lat_us = np.asarray(lat[1:] if len(lat) > 1 else lat) * 1e6
     p50 = float(np.percentile(lat_us, 50))
     p99 = float(np.percentile(lat_us, 99))
-    name = (torch.cuda.get_device_name(device) if device.type == "cuda"
-            else "cpu")
+    name = _device_name(device)
     print(f"{args.requests} requests x{args.batch}: p50 {p50:.0f}us "
           f"p99 {p99:.0f}us ({name})")
     record = {"arch": args.arch, "model": args.model,
@@ -166,6 +245,58 @@ def run(args: argparse.Namespace) -> Served:
               "tier_rows": live_counts(packed),
               "thresholds": list(cfg.tiers), "build_s": build_s}
     return Served(record, model, params, packed, make_request)
+
+
+def _device_name(device: torch.device) -> str:
+    return (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else "cpu")
+
+
+def run_online(args: argparse.Namespace, device: torch.device, model,
+               num_dense: int, make_audit: Callable | None) -> Served:
+    spec = model.spec
+    t0 = time.perf_counter()
+    params, store, cfg = online_store(model, spec, device)
+    server = OnlineServer(store, cfg,
+                          OnlineConfig(cache_rows=args.cache_rows,
+                                       retier_every=args.retier_every))
+    del store
+    sync(device)
+    build_s = time.perf_counter() - t0
+    fp32 = spec.total_rows * spec.dim * 4
+    packed_bytes = server.backend.nbytes()
+    print(f"packed {packed_bytes / 2 ** 20:.2f} MiB "
+          f"({packed_bytes / fp32:.1%} of fp32), cache {args.cache_rows} "
+          f"rows, retier every {args.retier_every} requests, built in "
+          f"{build_s:.1f}s")
+    audit = (make_audit(server, model, params) if make_audit is not None
+             else None)
+    launches0 = kernels.launch_counts()
+    result = serve_forward_loop(
+        server, model, spec, params, batch=args.batch,
+        requests=args.requests, drift=args.drift, num_dense=num_dense,
+        fuse_matmul=args.fuse_matmul, audit=audit)
+    launches = {k: v - launches0[k]
+                for k, v in kernels.launch_counts().items()}
+    name = _device_name(device)
+    print(f"{args.requests} requests x{args.batch}: p50 "
+          f"{result.p50_us:.0f}us p99 {result.p99_us:.0f}us steady "
+          f"{result.steady_qps:.0f} qps hit-rate "
+          f"{server.stats.hit_rate:.1%} retiers {server.stats.retiers} "
+          f"rows moved {server.stats.rows_moved} ({name})")
+    rec = {"arch": args.arch, "batch": args.batch,
+           "requests": args.requests, "mesh": 1, "online": True}
+    rec.update(result.as_dict())
+    rec.update({"cache_rows": args.cache_rows,
+                "retier_every": args.retier_every, "retier_async": False,
+                "drift": args.drift, "serve_batch": 0,
+                "fuse_matmul": args.fuse_matmul, "store_backend": "packed",
+                "packed_mib": round(packed_bytes / 2 ** 20, 3),
+                "packed_fp32_ratio": round(packed_bytes / fp32, 4),
+                "model": args.model, "device": device.type,
+                "device_name": name, "build_s": build_s,
+                "kernel_launches": launches})
+    return Served(rec, model, params, server.packed, None, server)
 
 
 def main(argv=None) -> None:

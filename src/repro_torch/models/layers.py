@@ -1,4 +1,5 @@
-"""Shared layers: dense + bias and the MLP (plain functions, dict params).
+"""Shared layers: dense + bias, the MLP and its fused tail (plain
+functions, dict params).
 
 Port of ``repro/models/layers.py``.  Params are nested dicts of tensors
 keyed as in the reference (``l{i}`` -> ``{"w": (d_in, d_out), "b":
@@ -35,6 +36,27 @@ def mlp(params: dict, x: torch.Tensor, final_act: bool = False
         ) -> torch.Tensor:
     n = len(params)
     for i in range(n):
+        x = dense_bias(params[f"l{i}"], x)
+        if i < n - 1 or final_act:
+            x = torch.relu(x)
+    return x
+
+
+def mlp_tail(params: dict, y0: torch.Tensor, final_act: bool = False
+             ) -> torch.Tensor:
+    """Finish an ``mlp`` whose first matmul ran elsewhere.
+
+    ``y0`` is ``x @ params["l0"]["w"]`` before the bias, e.g. the output of
+    the fused bag -> matmul kernel (``kernels.bag_matmul``).  Adds the
+    layer-0 bias, applies its activation, then runs layers 1..n-1, so
+    ``mlp(params, x) == mlp_tail(params, x @ params["l0"]["w"])``.
+    """
+    n = len(params)
+    x = (y0.to(torch.float32)
+         + params["l0"]["b"].to(torch.float32)).to(y0.dtype)
+    if n > 1 or final_act:
+        x = torch.relu(x)
+    for i in range(1, n):
         x = dense_bias(params[f"l{i}"], x)
         if i < n - 1 or final_act:
             x = torch.relu(x)

@@ -1,0 +1,158 @@
+"""Online serving state: live priority EMA + hot cache + delta re-tier.
+
+Port of ``repro/serve/online.py`` with synchronous re-tiers.
+``OnlineServer`` owns the traffic-adaptive state around one packed
+backend (``store.api.PackedBackend``):
+
+  * the backend: the pack, its lookup kernels, the priority vector and
+    the re-tier (``packed_store.repack_delta`` on the device),
+  * the hot-row cache (``serve.cache``), rebuilt after every re-tier,
+  * ``ServeStats`` counters (requests / lookups / hits / retiers /
+    rows_moved).
+
+Per request the serving loop runs its forward over ``server.packed`` /
+``server.cache`` (cache-first: ``serve.cache.cached_lookup``) and then
+calls ``server.observe(indices, hits)``, which
+folds the served rows into the Eq. 7 EMA (the eager form, as the
+reference's un-jitted fold computes it) and re-tiers synchronously every
+``retier_every`` requests.  Shadow re-tiers (``retier_async``) and the
+hierarchical store (``hier=``) raise ``NotImplementedError``: they come
+with later slices (ROADMAP Queue 1 items 6 and 8).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import NamedTuple
+
+import torch
+
+from repro_torch import sync
+from repro_torch.core.priority import PriorityConfig
+from repro_torch.store.api import PackedBackend
+
+
+class OnlineConfig(NamedTuple):
+    cache_rows: int = 0      # top-K fp32 hot rows (0 = cache disabled)
+    retier_every: int = 0    # requests between delta re-tiers (0 = never)
+    priority: PriorityConfig | None = None  # None -> FQuantConfig's
+    retier_async: bool = False     # shadow re-tiers: not ported yet
+
+
+@dataclasses.dataclass
+class ServeStats:
+    requests: int = 0
+    lookups: int = 0       # individual valid row lookups served
+    hits: int = 0          # of which from the hot cache
+    retiers: int = 0
+    rows_moved: int = 0    # tier-crossing rows migrated by repack_delta
+    retier_seconds: float = 0.0  # wall time inside retier()
+    shadow_builds: int = 0   # always 0: the record keeps the reference's
+    swaps: int = 0           # keys, shadow re-tiers are not ported yet
+
+    @property
+    def hit_rate(self) -> float:
+        return self.hits / self.lookups if self.lookups else 0.0
+
+    def as_dict(self) -> dict:
+        return {"requests": self.requests, "lookups": self.lookups,
+                "hits": self.hits, "cache_hit_rate": round(self.hit_rate, 4),
+                "retiers": self.retiers, "rows_moved": self.rows_moved,
+                "shadow_builds": self.shadow_builds, "swaps": self.swaps}
+
+
+class OnlineServer:
+    """Mutable serving-side owner of a packed backend, the hot cache and
+    the serve-side priority fold."""
+
+    def __init__(self, store, cfg, online: OnlineConfig = OnlineConfig(), *,
+                 mesh=None, hier=None):
+        if online.retier_async:
+            raise NotImplementedError(
+                "shadow re-tiers (retier_async) are not ported yet "
+                "(ROADMAP Queue 1 item 6)")
+        if hier is not None:
+            raise NotImplementedError(
+                "the hierarchical store is not ported yet (ROADMAP Queue 1 "
+                "item 8)")
+        self.backend = PackedBackend(store, cfg, mesh=mesh)
+        self.online = online
+        self.stats = ServeStats()
+        self._rebuild_cache()
+
+    # -- backend state proxies -----------------------------------------
+
+    @property
+    def store(self):
+        return self.backend.store
+
+    @property
+    def cfg(self):
+        return self.backend.cfg
+
+    @property
+    def packed(self):
+        """The pack the forward reads (on the serving device)."""
+        return self.backend.packed
+
+    @property
+    def device(self) -> torch.device:
+        return self.backend.device
+
+    def lookup_fn(self):
+        return self.backend.lookup_fn()
+
+    def bag_matmul_fn(self):
+        return self.backend.bag_matmul_fn()
+
+    def _rebuild_cache(self) -> None:
+        self.cache = self.backend.build_cache(self.online.cache_rows)
+
+    # -- request path --------------------------------------------------
+
+    def observe(self, indices: torch.Tensor, hits: int | None = None, *,
+                valid: torch.Tensor | None = None, count: int = 1) -> bool:
+        """Fold one served batch into the online state: the Eq. 7 EMA
+        (c- only), the counters, and a synchronous re-tier when the
+        request counter crosses a multiple of ``retier_every``.  Returns
+        True when the store was repacked (re-read ``server.packed`` and
+        ``server.cache``)."""
+        before = self.stats.requests
+        self.stats.requests += count
+        if valid is None:
+            n_lookups = int(indices.numel())
+            vmask = None
+        else:
+            vmask = valid.to(torch.bool).expand(indices.shape)
+            n_lookups = int(vmask.sum())
+        self.stats.lookups += n_lookups
+        if hits is not None:
+            self.stats.hits += int(hits)
+        pcfg = self.online.priority or self._default_priority_cfg()
+        self.backend.fold_priority(indices, pcfg, valid=vmask)
+        re = self.online.retier_every
+        if re and self.stats.requests // re > before // re:
+            return self.retier()
+        return False
+
+    def _default_priority_cfg(self) -> PriorityConfig:
+        cfg = self.backend.cfg
+        if cfg is not None and cfg.priority is not None:
+            return cfg.priority
+        return PriorityConfig()
+
+    # -- incremental re-tier -------------------------------------------
+
+    def retier(self) -> bool:
+        """Delta-repack the tier-crossing rows and rebuild the hot cache.
+        Wall time (to the device's end of it) accumulates into
+        ``stats.retier_seconds``.  Returns True if anything moved."""
+        t0 = time.perf_counter()
+        res = self.backend.retier()
+        self.stats.retiers += 1
+        self.stats.rows_moved += int(res["rows_moved"])
+        self._rebuild_cache()
+        sync(self.device)
+        self.stats.retier_seconds += time.perf_counter() - t0
+        return bool(res["changed"])

@@ -14,6 +14,12 @@ from repro_torch.core import packed_store as tps
 from repro_torch.core import qat_store as tqs
 from repro_torch.core.tiers import TierConfig
 from repro_torch import configs
+from repro_torch.kernels.bag_matmul import kernel as bm_kernel
+from repro_torch.kernels.bag_matmul import ops as bm_ops
+from repro_torch.kernels.bag_matmul.ref import bag_matmul_ref
+from repro_torch.kernels.cin import kernel as cin_kernel
+from repro_torch.kernels.cin import ops as cin_ops
+from repro_torch.kernels.cin.ref import cin_layer_ref
 from repro_torch.kernels.dequant_bag import kernel, ops, ref
 from repro_torch.launch import serve, train
 from repro_torch.train import setup
@@ -145,3 +151,65 @@ def test_serve_smoke_launches_the_kernel(dev):
     rec = serve.run(serve.parse_args(
         ["--model", "smoke", "--requests", "3", "--batch", "64"])).record
     assert rec["device"] == "cuda" and rec["kernel_launches"] == 9
+
+
+@pytest.mark.parametrize("dtype", ["int8", "bfloat16", "float16",
+                                   "float32"])
+@pytest.mark.parametrize("b,k,d,h", [(512, 1, 32, 1024), (37, 5, 10, 70),
+                                     (512, 40, 32, 1024), (100, 39, 10, 400),
+                                     (7, 3, 200, 33)])
+@pytest.mark.parametrize("scale_after", [False, True])
+def test_bag_matmul_kernel_bit_equal_to_plain(dev, dtype, b, k, d, h,
+                                              scale_after):
+    g = torch.Generator(device=dev)
+    g.manual_seed(4)
+    v = 999
+    if dtype == "int8":
+        payload = torch.randint(-128, 128, (v, d), generator=g, device=dev,
+                                dtype=torch.int8)
+    else:
+        payload = (torch.randn((v, d), generator=g, device=dev) * 0.1).to(
+            getattr(torch, dtype))
+    scales = torch.rand(v, generator=g, device=dev) * 0.01
+    idx = torch.randint(0, v, (b, k), generator=g, device=dev,
+                        dtype=torch.int32)
+    w = torch.rand((b, k), generator=g, device=dev)
+    w[torch.rand((b, k), generator=g, device=dev) < 0.3] = 0.0
+    w3 = torch.randn((k, d, h), generator=g, device=dev)
+    bm_kernel.reset_launches()
+    got = bm_ops.bag_matmul(payload, scales, idx, w, w3,
+                            scale_after=scale_after)
+    want = bag_matmul_ref(payload, scales, idx, w, w3,
+                          scale_after=scale_after)
+    torch.cuda.synchronize()
+    assert bm_kernel.launches[dtype] == 1
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("b,o,h,m,d", [(64, 200, 39, 39, 10),
+                                       (64, 200, 200, 39, 10),
+                                       (13, 17, 9, 8, 6), (5, 3, 1, 1, 128)])
+def test_cin_kernel_bit_equal_to_plain(dev, b, o, h, m, d):
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    w = torch.randn((o, h, m), generator=g, device=dev) / (h * m) ** 0.5
+    xk = torch.randn((b, h, d), generator=g, device=dev)
+    x0 = torch.randn((b, m, d), generator=g, device=dev)
+    cin_kernel.reset_launches()
+    got = cin_ops.cin_layer(w, xk, x0)
+    want = cin_layer_ref(w, xk, x0)
+    torch.cuda.synchronize()
+    assert cin_kernel.launches["float32"] == 1
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("arch", ["wide-deep", "xdeepfm"])
+def test_online_fused_serve_smoke_launches_the_kernels(dev, arch):
+    rec = serve.run(serve.parse_args(
+        ["--arch", arch, "--online", "--fuse-matmul", "--model", "smoke",
+         "--requests", "4", "--batch", "64"])).record
+    launches = rec["kernel_launches"]
+    assert rec["device"] == "cuda" and rec["retiers"] == 2
+    assert launches["bag_matmul"] == 3 * 4
+    layers = len(getattr(configs.get(arch).smoke_cfg, "cin_layers", ()))
+    assert launches["cin"] == layers * 4

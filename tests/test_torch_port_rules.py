@@ -67,7 +67,7 @@ def test_serve_raises_without_cuda_unless_cpu_is_asked():
 
 
 def test_kernel_build_is_keyed_by_source_hash():
-    for name in ("dequant_bag", "bag_grad"):
+    for name in ("dequant_bag", "bag_grad", "bag_matmul", "cin"):
         path = build.library_path(name)
         assert path.parent == ROOT / "build" / "repro_torch"
         assert path.name.startswith(f"{name}-") and path.suffix == ".so"
@@ -82,3 +82,24 @@ def test_training_modules_are_covered_by_the_import_rule():
                 "train/setup.py", "train/accum.py", "ckpt/manager.py",
                 "launch/train.py"):
         assert f"src/repro_torch/{mod}" in names, mod
+
+
+def test_online_modules_are_covered_by_the_import_rule():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for mod in ("kernels/bag_matmul/ref.py", "kernels/bag_matmul/kernel.py",
+                "kernels/bag_matmul/ops.py", "kernels/cin/ref.py",
+                "kernels/cin/kernel.py", "kernels/cin/ops.py",
+                "serve/cache.py", "serve/online.py", "serve/loop.py",
+                "store/api.py", "obs/registry.py", "configs/wide_deep.py",
+                "configs/xdeepfm.py"):
+        assert f"src/repro_torch/{mod}" in names, mod
+
+
+def test_online_serve_raises_without_cuda_unless_cpu_is_asked():
+    if torch.cuda.is_available():
+        pytest.skip("the no-GPU rule is checked where there is no GPU")
+    for arch in ("wide-deep", "xdeepfm"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            tserve.run(tserve.parse_args(
+                ["--arch", arch, "--online", "--fuse-matmul", "--model",
+                 "smoke", "--requests", "1"]))
