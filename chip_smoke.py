@@ -7,8 +7,8 @@ measure.
 Phases, each of which stops the run with a non-zero exit when it fails:
 
 1. build: one ``nvcc`` per CUDA source of ``repro_torch`` (dequant_bag,
-   bag_grad, bag_matmul, cin), all started together, for sm_90a into
-   ``build/repro_torch/``;
+   bag_grad, bag_matmul, cin, hashed_gather, rowwise_quant), all started
+   together, for sm_90a into ``build/repro_torch/``;
 2. kernel check: each kernel against its plain PyTorch version on the
    card, bit for bit (tolerance 0): dequant_bag for int8, bf16, fp16 and
    fp32 payloads; bag_grad at K = 1 and 8, with and without scales, 40%
@@ -18,18 +18,30 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    divides, D = 200 and the full-width shapes of wide&deep (B 512, K 40,
    D 32, H 1024) and xDeepFM (B 512, K 39, D 10, H 400); cin at shapes
    that no block divides and D = 128 (the full-width layers are checked
-   on served data in phase 9);
+   on served data in phase 9); hashed_gather for int8 and fp32 pools, Z
+   = 8, 4 and 5, K = 1 with sign coefficients (B = 20,480, a request's
+   ids, and B = 1001), K = 5 with random weights and 30% zero
+   coefficients, and B = 0; quantize_rowwise in narrow and full mode,
+   round-to-nearest and stochastic, dividing and reciprocal scale, D =
+   64, 32, 10 and 8 at V = 1001, with an all-zero row (the 1e-12 floor),
+   a row of exact .5 multiples of its scale (half to even) and rows
+   holding NaN and inf (NaN and inf scales, codes 0, as the plain
+   version);
 3. serve: ``repro_torch.launch.serve`` at ``--model full`` — dlrm-rm2 at
    its published widths (26 fields, 204,185,088 rows x 64 packed at a 50%
    budget, MLPs 13-512-256-64 and 415-512-512-256-1), batch 512.  Launch
-   counts are set to 0 just before and read just after; one request's
+   counts are set to 0 just before and read just after: the build must
+   quantize its int8 tier through quantize_rowwise, and the pack's tier
+   rows and bytes must be what they were before it did; one request's
    embeddings must equal the plain ``lookup`` bit for bit, and its logits
    the same head run on the CPU within 1e-4 * max(1, |ref|) (GPU and CPU
    GEMMs reduce 512-long dot products in different orders);
 4. measure serving: dequant_bag at the serving shapes (B*F = 13,312
    slots, K = 1, the served store's tiers), checked bit for bit against
    its plain version on those inputs, then timed beside it, its bound and
-   a library call;
+   a library call; quantize_rowwise on the int8 rows of the build's first
+   4M-row chunk (bit-equal to its plain version and to the pack's first
+   int8 rows), timed beside its bound and its plain version;
 5. train: the compressed train step (``train.setup.build_recsys_training
    (model="full", max_ind_range=24_000_000)``: published widths, every
    field capped at 24M rows, 124,185,088 rows x 64) at batch 65,536 for
@@ -50,7 +62,12 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    drifting-zipf requests (drift 4.0, seed 0), a re-tier every 2
    requests, 256 cache rows.  Counts are set to 0 just before each and
    read just after: ``bag_matmul`` must launch 3 times a request (one per
-   tier) and ``cin`` 3 times a request on xdeepfm.  Before each request,
+   tier) and ``cin`` 3 times a request on xdeepfm; the pack and its
+   re-tiers quantize through quantize_rowwise, and the pack's bytes, the
+   rows moved and the cache hits must be what they were before; after
+   the run the pack's int8 rows and scales (the build's and the
+   re-tiers' quantize_rowwise output) must equal the plain quantizer on
+   the table rows they hold, bit for bit.  Before each request,
    outside its timed window, the unfused ``model.head(params,
    lookup(packed, gidx), batch)`` runs on the same card on the store the
    request will read (its own launches are not counted); each request's
@@ -59,11 +76,36 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    (the served store's three tier launches of 16 requests) and ``cin``
    at xdeepfm's three layer shapes on a served batch, each checked bit
    for bit against its plain version on those inputs (CIN on 64 and on
-   all 512 samples), then timed beside its bound and a library call.
+   all 512 samples), then timed beside its bound and a library call;
+10. hashed serve: ``repro_torch.launch.serve --arch wide-deep --online
+   --store-backend hashed`` at full width (22,216,192 rows x 32 fitted
+   into a pool at ratio 100, chunk width 8), first with ``--hash-bits
+   32``, then with ``--hash-bits 8``, batch 512, 16 drifting-zipf
+   requests, the same re-tier and cache settings.  Counts are set to 0
+   just before each and read just after: ``hashed_gather`` must launch
+   once a request and once per cache rebuild, and the start-up exactly
+   as the fit and the first cache build launch them (13 + 1
+   hashed_gather, 14 bag_grad, 1 quantize_rowwise for 8 bits).  Outside
+   each request's timed window its embeddings come from the plain
+   ``hashed_gather_ref`` on the card and must equal the ones the loop
+   served bit for bit (logits finite, within 1e-4 of the head on them).
+   Then the start-up's kernels are held to their plain versions at the
+   shapes it gave them: the fit is rerun (it is deterministic) and must
+   give the served pool; its fwd (hashed_gather over all 22,216,192
+   rows, unit scales), its first adj (bag_grad over the (V*C, NH) plan)
+   and, for 8 bits, quantize_pool's quantize_rowwise over the fitted
+   pool must equal the plain versions bit for bit; the fit-shaped
+   bag_grad is timed beside its bound, its plain version and
+   ``index_add_``.  Prints the fit's seconds, its relative residual
+   ||fwd(pool) - table|| / ||table|| (it must lie in (0, 1): the zero
+   pool gives 1) and the store's bytes, then measures hashed_gather at
+   the served shapes (20,480 ids x C 4 x T 2) beside its bound, its plain
+   version and ``F.embedding_bag`` over the dequantized pool.
 
-Prints the card's name and power limit, the serve, train and both online
-records, one JSON ``kernels`` line (dequant_bag per tier dtype, bag_grad,
-bag_matmul per arch, cin), and as the last line
+Prints the card's name and power limit, the serve, train, both online
+and both hashed records, one JSON ``kernels`` line (dequant_bag per tier
+dtype, bag_grad, bag_matmul per arch, cin, hashed_gather per pool dtype,
+quantize_rowwise), and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Exits non-zero without that line when there is no CUDA device, or when
 the rest of the repository is missing.
@@ -99,6 +141,25 @@ TPU_BAG_MATMUL = ("src/repro/kernels/bag_matmul/kernel.py:180 "
 SOURCE_BAG_MATMUL = "src/repro_torch/csrc/bag_matmul.cu"
 TPU_CIN = "src/repro/kernels/cin/kernel.py:53 cin_layer_pallas"
 SOURCE_CIN = "src/repro_torch/csrc/cin.cu"
+TPU_HASHED = ("src/repro/kernels/hashed_gather/kernel.py:143 "
+              "hashed_gather_pallas")
+SOURCE_HASHED = "src/repro_torch/csrc/hashed_gather.cu"
+TPU_QUANT = ("src/repro/kernels/rowwise_quant/kernel.py:44 "
+             "quantize_rowwise_pallas")
+SOURCE_QUANT = "src/repro_torch/csrc/rowwise_quant.cu"
+SOURCES = ("dequant_bag", "bag_grad", "bag_matmul", "cin", "hashed_gather",
+           "rowwise_quant")
+HASH_BITS = ("32", "8")
+# What the packed paths built and moved before their int8 tier went through
+# the rowwise_quant kernel (the last chip run of the previous slice, same
+# seeds): the kernel must leave every pack and re-tier as it was.
+PACKED_BEFORE = {
+    "dlrm-rm2": {"tier_rows": [177837430, 8992843, 17354815],
+                 "packed_fp32_ratio": 0.3546792262108044},
+    "wide-deep": {"packed_mib": 1227.591, "packed_fp32_ratio": 0.4527,
+                  "rows_moved": 6519629, "lookups": 327680, "hits": 0},
+    "xdeepfm": {"packed_mib": 1707.587, "packed_fp32_ratio": 0.5162,
+                "rows_moved": 11186987, "lookups": 319488, "hits": 36553}}
 ONLINE_ARCHS = ("wide-deep", "xdeepfm")
 REQUESTS = 16
 TRAIN_STEPS = 9
@@ -117,6 +178,16 @@ def bits_equal(a, b) -> bool:
     import torch
     return a.shape == b.shape and torch.equal(a.view(torch.int32),
                                               b.view(torch.int32))
+
+
+def scales_equal(a, b) -> bool:
+    """Bit for bit, except that any NaN equals any NaN (a NaN's payload
+    bits are the arithmetic's, not the function's)."""
+    import torch
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return (a.shape == b.shape and torch.equal(na, nb)
+            and torch.equal(torch.where(na, 0.0, a).view(torch.int32),
+                            torch.where(nb, 0.0, b).view(torch.int32)))
 
 
 def check_kernels(torch, ops, ref) -> float:
@@ -287,23 +358,40 @@ def measure(torch, served, kernel, ref, launches, worst) -> list[dict]:
     return out
 
 
-def serve_full(torch, serve, kernel, ps) -> tuple:
+def check_packed_as_before(rec: dict, arch: str) -> None:
+    """The pack (and, online, the re-tiers and the cache) is what it was
+    before the int8 tier went through the rowwise_quant kernel."""
+    for key, want in PACKED_BEFORE[arch].items():
+        if rec[key] != want:
+            raise SystemExit(f"{arch}: {key} {rec[key]} != {want}, the value "
+                             "before the int8 tier quantized through the "
+                             "kernel")
+
+
+def serve_full(torch, serve, kernels_mod, kernel, ps) -> tuple:
     """Phase 3: the main path at full width, with the counts around it."""
     from repro_torch.configs.common import RECSYS_SHAPES
     batch_size = RECSYS_SHAPES["serve_p99"]["batch"]
     argv = ["--model", "full", "--batch", str(batch_size), "--requests",
             str(REQUESTS)]
-    kernel.reset_launches()
+    kernels_mod.reset_launches()
     served = serve.run(serve.parse_args(argv))
     launches = dict(kernel.launches)
+    quant = kernels_mod.launch_counts()["quantize_rowwise"]
     rec = served.record
     # the served store's tiers: int8, bf16 (strict_fp16 off) and fp32
     tiers = [launches[t] for t in ("int8", "bfloat16", "float32")]
     if min(tiers) <= 0 or rec["kernel_launches"] != sum(tiers):
         raise SystemExit(f"main path did not launch every kernel: "
                          f"{launches}, record {rec['kernel_launches']}")
+    if quant <= 0 or rec["build_kernel_launches"]["quantize_rowwise"] != quant:
+        raise SystemExit(f"the build did not quantize its int8 tier through "
+                         f"the kernel: {quant} launches, record "
+                         f"{rec['build_kernel_launches']}")
+    launches["quantize_rowwise"] = quant
     if rec["device"] != "cuda" or rec["packed_fp32_ratio"] > 0.55:
         raise SystemExit(f"unexpected serve record {rec}")
+    check_packed_as_before(rec, "dlrm-rm2")
 
     from repro_torch.models.embedding import globalize
     dev = served.packed.payload32.device
@@ -329,7 +417,8 @@ def serve_full(torch, serve, kernel, ps) -> tuple:
         raise SystemExit(f"served logits off the CPU head by "
                          f"{float(diff.max())}")
     log(f"serve check: embeddings bit-equal to plain lookup, logits within "
-        f"{float(diff.max()):.3g} of the CPU head")
+        f"{float(diff.max()):.3g} of the CPU head; int8 tier quantized in "
+        f"{quant} rowwise_quant launches, tiers {rec['tier_rows']} as before")
     return served, launches
 
 
@@ -546,6 +635,419 @@ def check_cin(torch, cin_ops, cin_ref) -> float:
     return worst
 
 
+def check_hashed_gather(torch, hg_ops, hg_ref) -> float:
+    """Phase 2: hashed_gather against hashed_gather_ref on the card."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(8)
+    worst, n = 0.0, 0
+    s = 100_003
+    # (B, K, weighted): the serving lookup (K = 1, +-1 signs) at a
+    # request's 20,480 ids and at a B that no block divides; weighted
+    # K = 5 bags with 30% zero coefficients; B = 0
+    cases = ((20_480, 1, False), (1001, 1, False), (333, 5, True),
+             (0, 1, False))
+    for dtype in (torch.int8, torch.float32):
+        for z in (8, 4, 5):
+            pool = _payload(torch, dtype, s, z, g, dev)
+            scales = torch.rand(s, generator=g, device=dev) * 0.01
+            for b, k, weighted in cases:
+                idx = torch.randint(0, 22_216_192, (b, k), generator=g,
+                                    device=dev, dtype=torch.int32)
+                w = None
+                if weighted:
+                    w = torch.randn((b, k), generator=g, device=dev)
+                    w[torch.rand((b, k), generator=g, device=dev) < 0.3] = 0
+                slots, coeff = hg_ops.slot_plan(idx, w, num_chunks=4,
+                                                num_hashes=2, num_slots=s)
+                got = hg_ops.hashed_gather(pool, scales, slots, coeff,
+                                           num_chunks=4)
+                want = hg_ref.hashed_gather_ref(pool, scales, slots, coeff,
+                                                num_chunks=4)
+                torch.cuda.synchronize()
+                if not bits_equal(got, want):
+                    err = float((got - want).abs().max())
+                    raise SystemExit(
+                        f"hashed_gather != plain: {dtype} Z={z} B={b} K={k} "
+                        f"weighted={weighted} max err {err}")
+                if got.numel():
+                    worst = max(worst, float((got - want).abs().max()))
+                n += 1
+    log(f"kernel check: hashed_gather bit-equal to plain in {n} cases "
+        f"(int8/fp32 pools x Z 8/4/5 x K=1 signs, K=5 weighted with 30% "
+        f"zeros, B=0; max abs err {worst})")
+    return worst
+
+
+def check_rowwise_quant(torch, rq_ops, rq_ref) -> float:
+    """Phase 2: quantize_rowwise against quantize_rowwise_ref on the card."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(9)
+    n, worst = 0, 0.0
+    v = 1001                      # no 8-row block divides it
+    for d in (64, 32, 10, 8):
+        x = torch.randn((v, d), generator=g, device=dev) * (
+            torch.rand((v, 1), generator=g, device=dev) * 10 + 1e-3)
+        x[1] = 0.0                # the 1e-12 floor
+        half = (torch.arange(d, device=dev) % 9 - 4).float() + 0.5
+        x[2] = half * 0.25        # exact .5 multiples of the scale 0.25
+        x[2, 0] = 127 * 0.25
+        x[3, d - 1] = float("nan")     # NaN scale, codes 0
+        x[4, 0] = float("inf")         # inf scale, codes 0
+        noise = torch.rand((v, d), generator=g, device=dev)
+        for mode in ("narrow", "full"):
+            for nz in (None, noise):
+                for recip in (False, True):
+                    q, sc = rq_ops.quantize_rowwise(x, nz, mode,
+                                                    reciprocal=recip)
+                    wq, ws = rq_ref.quantize_rowwise_ref(x, nz, mode,
+                                                         reciprocal=recip)
+                    torch.cuda.synchronize()
+                    if not (torch.equal(q, wq) and scales_equal(sc, ws)):
+                        raise SystemExit(
+                            f"quantize_rowwise != plain: D={d} {mode} "
+                            f"stochastic={nz is not None} reciprocal={recip}")
+                    fin = torch.isfinite(sc[:, 0])
+                    worst = max(worst, _quant_err(q[fin], sc[fin], wq[fin],
+                                                  ws[fin]))
+                    n += 1
+    log(f"kernel check: quantize_rowwise bit-equal to plain in {n} cases "
+        f"(D 64/32/10/8 x narrow/full x nearest/stochastic x divide/"
+        f"reciprocal, V=1001 with a zero row, a row of .5 multiples and "
+        f"NaN and inf rows; "
+        f"max abs err {worst})")
+    return worst
+
+
+def _quant_err(q, sc, wq, ws) -> float:
+    """Largest absolute difference of the codes or the scales."""
+    return max(float((q.int() - wq.int()).abs().max()),
+               float((sc - ws).abs().max())) if q.numel() else 0.0
+
+
+def measure_quantize(torch, served, rq_kernel, rq_ref, flush,
+                     worst: float) -> dict:
+    """Phase 4: quantize_rowwise on the first 4M-row chunk of the dlrm-rm2
+    build: the int8 rows of that chunk, snapped as the build snaps them,
+    are the kernel's input there and its output is the pack's first int8
+    rows."""
+    from repro_torch.core import rowwise_quant as rq
+    from repro_torch.launch.serve import CHUNK_ROWS, SEED
+    from repro_torch.models.embedding import table_rows
+
+    packed, spec = served.packed, served.model.spec
+    dev = packed.indirect.device
+    tier = packed.indirect[:CHUNK_ROWS] >> 28
+    sel = torch.nonzero(tier == 0).reshape(-1)
+    x = rq.fake_quant_rowwise(table_rows(spec, SEED, dev)(0, CHUNK_ROWS)[sel],
+                              8).contiguous()
+    v, d = x.shape
+    q, sc = rq_kernel.quantize_rowwise_cuda(x)
+    wq, ws = rq_ref.quantize_rowwise_ref(x)
+    torch.cuda.synchronize()
+    if not (torch.equal(q, wq) and bits_equal(sc, ws)):
+        raise SystemExit("quantize_rowwise != plain on a build chunk")
+    worst = max(worst, _quant_err(q, sc, wq, ws))
+    if not (torch.equal(q, packed.payload8[:v])
+            and bits_equal(sc[:, 0], packed.scale8[:v])):
+        raise SystemExit("quantize_rowwise on a build chunk != the pack's "
+                         "int8 rows")
+    ms = time_launches(torch, rq_kernel.quantize_rowwise_cuda, [(x,)] * 10,
+                       flush)
+    plain_ms = time_launches(torch, rq_ref.quantize_rowwise_ref, [(x,)] * 3,
+                             flush)
+    # 4 bytes read and 1 written an element, 4 bytes of scale a row;
+    # |x|, max, divide, round, clip: 5 operations an element
+    nbytes = v * d * 5 + v * 4
+    bound_ms, bound_by = _bound(nbytes, 5 * v * d)
+    log(f"quantize_rowwise at a build chunk's int8 rows (V={v:,}, D={d}): "
+        f"{ms:.4f} ms (bound {bound_ms:.4f}, plain {plain_ms:.4f}); bit-equal "
+        f"to plain and to the pack's first {v:,} int8 rows")
+    return {"name": "quantize_rowwise", "route": "cuda",
+            "source": SOURCE_QUANT, "replaces": TPU_QUANT, "launches": None,
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "shape": {"V": v, "D": d}, "bytes": nbytes,
+            "per": "launch (the int8 rows of one 4,194,304-row build chunk)"}
+
+
+def serve_hashed(torch, serve, kernels_mod, bits: str) -> tuple:
+    """Phase 10: the hashed online serve of wide-deep at full width, with
+    the counts around it and the plain gather as each request's check."""
+    from repro_torch.configs.common import RECSYS_SHAPES
+    from repro_torch.kernels.hashed_gather import ref as hg_ref
+    from repro_torch.kernels.hashed_gather.ops import slot_plan
+    from repro_torch.models.embedding import globalize
+    from repro_torch.serve.loop import request_batch
+    from repro_torch.store.hashed import CG_ITERS
+
+    batch_size = RECSYS_SHAPES["serve_p99"]["batch"]
+    argv = ["--arch", "wide-deep", "--online", "--store-backend", "hashed",
+            "--hash-bits", bits, "--model", "full", "--batch",
+            str(batch_size), "--requests", str(REQUESTS), "--retier-every",
+            "2", "--cache-rows", "256", "--drift", "4.0"]
+    checked = {"requests": 0, "logit_diff": 0.0}
+
+    def make_audit(server, model, params):
+        hs, hcfg = server.backend.hs, server.backend.hcfg
+
+        def audit(r, idx):
+            with torch.inference_mode():
+                b = request_batch(idx, r, 0, server.device)
+                gidx = globalize(b["indices"], model.spec)
+                slots, coeff = slot_plan(
+                    gidx.reshape(-1, 1), None, num_chunks=hcfg.num_chunks,
+                    num_hashes=hcfg.num_hashes, num_slots=hcfg.num_slots,
+                    seed=hcfg.seed)
+                plain = hg_ref.hashed_gather_ref(
+                    hs.pool, hs.pool_scale, slots, coeff,
+                    num_chunks=hcfg.num_chunks).reshape(*gidx.shape, -1)
+                ref = model.head(params, plain, b)
+
+            def after(out, emb):
+                if emb is None or not bits_equal(emb, plain):
+                    raise SystemExit(f"hashed {bits}b request {r}: served "
+                                     "embeddings != the plain gather")
+                if out.shape != (idx.shape[0],) or not bool(
+                        torch.isfinite(out).all()):
+                    raise SystemExit(f"hashed {bits}b request {r}: bad "
+                                     f"logits {tuple(out.shape)}")
+                diff = float((out - ref).abs().max())
+                if diff > 1e-4 * max(1.0, float(ref.abs().max())):
+                    raise SystemExit(f"hashed {bits}b request {r}: logits "
+                                     f"off the plain head by {diff}")
+                checked["requests"] += 1
+                checked["logit_diff"] = max(checked["logit_diff"], diff)
+            return after
+        return audit
+
+    kernels_mod.reset_launches()
+    served = serve.run(serve.parse_args(argv), make_audit=make_audit)
+    launches = kernels_mod.launch_counts()
+    rec = served.record
+    in_loop, build = rec["kernel_launches"], rec["build_kernel_launches"]
+    per_request = 1                   # one gather of the request's ids
+    # the start-up: the fit (fwd 1 + CG_ITERS times, adj 2 + CG_ITERS
+    # times), the 8-bit pool's quantize_pool, the first cache build
+    want_build = {"hashed_gather": CG_ITERS + 1 + 1,
+                  "bag_grad": CG_ITERS + 2,
+                  "quantize_rowwise": 1 if bits == "8" else 0}
+    want_loop = {"hashed_gather": per_request * REQUESTS + rec["retiers"],
+                 "bag_grad": 0, "quantize_rowwise": 0}   # + cache rebuilds
+    if (any(build[k] != n for k, n in want_build.items())
+            or any(in_loop[k] != n for k, n in want_loop.items())
+            or any(launches[k] != build[k] + in_loop[k] for k in launches)
+            or checked["requests"] != REQUESTS):
+        raise SystemExit(f"hashed {bits}b path launches {launches}, record "
+                         f"{in_loop} / {build}, want {want_loop} / "
+                         f"{want_build}; {checked['requests']} requests "
+                         "checked")
+    if (rec["device"] != "cuda" or rec["store_backend"] != "hashed"
+            or rec["hash_bits"] != int(bits) or rec["rows_moved"] != 0
+            or rec["retiers"] != REQUESTS // 2):
+        raise SystemExit(f"unexpected hashed record {rec}")
+    rec["check_vs_plain"] = {
+        "requests_bit_equal": checked["requests"],
+        "max_logit_diff_vs_plain_head": checked["logit_diff"]}
+    log(f"hashed {bits}b: pool {rec['pool_slots']:,} x 8, "
+        f"{rec['packed_mib']:.3f} MiB ({rec['hash_ratio']}x), fit "
+        f"{rec['fit_s']:.2f} s; {REQUESTS} requests bit-equal to the plain "
+        f"gather, logits within {checked['logit_diff']:.3g} of the plain "
+        f"head; launches {launches} (start-up {build}); p50 "
+        f"{rec['p50_us']:.0f} us p99 {rec['p99_us']:.0f} us")
+    return served, launches
+
+
+def check_hashed_build(torch, served, table, bits: str, counters,
+                       flush) -> dict:
+    """Phase 10: the hashed start-up's kernels against their plain
+    versions at the shapes the start-up gave them.  The fit is rerun on
+    the same table (it is deterministic: bag_grad has no float atomics)
+    and must give the served pool; then its fwd over every row, its first
+    adj and the 8-bit pool's quantize are each held bit for bit, and the
+    fit-shaped bag_grad is timed.  Returns that timing."""
+    from repro_torch.kernels.dequant_bag.ops import bag_grad
+    from repro_torch.kernels.hashed_gather import ref as hg_ref
+    from repro_torch.kernels.hashed_gather.ops import hashed_gather
+    from repro_torch.kernels.rowwise_quant import ref as rq_ref
+    from repro_torch.store import hashed as H
+
+    backend = served.server.backend
+    hs, hcfg = backend.hs, backend.hcfg
+    v = table.shape[0]
+    c, z, nh, s = (hcfg.num_chunks, hcfg.chunk_dim, hcfg.num_hashes,
+                   hcfg.num_slots)
+    with Uncounted(counters), torch.inference_mode():
+        fit = H.fit_pool_from_table(table, hcfg)
+        if bits == "8":
+            q = H.quantize_pool(fit)
+            wq, ws = rq_ref.quantize_rowwise_ref(fit.pool)
+            torch.cuda.synchronize()
+            if not (torch.equal(q.pool, wq)
+                    and bits_equal(q.pool_scale, ws[:, 0])):
+                raise SystemExit(f"hashed 8b: quantize_pool != plain at "
+                                 f"{tuple(fit.pool.shape)}")
+            if not (torch.equal(q.pool, hs.pool)
+                    and bits_equal(q.pool_scale, hs.pool_scale)):
+                raise SystemExit("hashed 8b: a rerun fit + quantize_pool != "
+                                 "the served pool")
+            del q, wq, ws
+        elif not bits_equal(fit.pool, hs.pool):
+            raise SystemExit("hashed 32b: a rerun fit != the served pool")
+        # the fit's slot plan, as fit_pool_from_table builds it
+        slots, signs = hg_ref.hash_slots(
+            torch.arange(v, dtype=torch.int32, device=table.device),
+            num_chunks=c, num_hashes=nh, num_slots=s, seed=hcfg.seed)
+        plan, coeff = slots.reshape(v, c * nh), signs.reshape(v, c * nh)
+        del slots, signs
+        # fwd: one launch over every row, unit scales
+        got = hashed_gather(fit.pool, None, plan, coeff, num_chunks=c)
+        step = 1 << 22
+        for r0 in range(0, v, step):
+            want = hg_ref.hashed_gather_ref(fit.pool, None,
+                                            plan[r0:r0 + step],
+                                            coeff[r0:r0 + step],
+                                            num_chunks=c)
+            if not bits_equal(got[r0:r0 + step], want):
+                raise SystemExit(f"hashed {bits}b: the fit's fwd != plain "
+                                 f"at rows {r0}+")
+        del got, want
+        # the first adj(x): bag_grad on the (V*C, NH) plan
+        g = table.reshape(v * c, z)
+        bags, bag_signs = plan.reshape(v * c, nh), coeff.reshape(v * c, nh)
+        got = bag_grad(g, None, bags, bag_signs, s)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = hg_ref.hashed_grad_ref(table, None, plan, coeff, s,
+                                      num_chunks=c)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        if not bits_equal(got, want):
+            raise SystemExit(f"hashed {bits}b: the fit's adj (bag_grad over "
+                             f"{v * c:,} x {nh} bags) != plain, max err "
+                             f"{float((got - want).abs().max())}")
+        del got, want
+        ms = time_launches(torch, bag_grad,
+                           [(g, None, bags, bag_signs, s)] * 3, flush)
+        flat = bags.reshape(-1).to(torch.int64)
+        out = torch.zeros((s, z), device=table.device)
+
+        def library(o):
+            return o.index_add_(0, flat, (bag_signs[:, :, None]
+                                          * g[:, None, :]).reshape(-1, z))
+        library_ms = time_launches(torch, library, [(out,)] * 3, flush)
+        del flat, out
+    # g once, each slot's index and coefficient once, the (S, Z) output;
+    # 2 flops a column per slot
+    n = v * c * nh
+    nbytes = v * c * z * 4 + n * 8 + s * z * 4
+    bound_ms, bound_by = _bound(nbytes, 2 * n * z)
+    log(f"hashed {bits}b start-up at its shapes: fit rerun = served pool; "
+        f"fwd over {v:,} rows, adj over {v * c:,} x {nh} bags"
+        f"{', quantize_pool' if bits == '8' else ''} bit-equal to plain; "
+        f"fit-shaped bag_grad {ms:.4f} ms (bound {bound_ms:.4f}, plain "
+        f"{plain_ms:.1f}, index_add_ {library_ms:.4f})")
+    return {"path": f"online_hashed_{bits}b", "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "bytes": nbytes,
+            "shape": {"bags": v * c, "K": nh, "D": z, "vocab": s},
+            "per": "launch (the fit's adj: zero fill, sort and kernel)"}
+
+
+def hashed_residual(torch, served, table) -> float:
+    """||fwd(pool) - table|| / ||table|| over every row, fwd through the
+    kernel (the pool read back as the fit's materialisation)."""
+    from repro_torch.store.hashed import hashed_lookup
+    backend = served.server.backend
+    num = torch.zeros((), dtype=torch.float64, device=table.device)
+    step = 1 << 22
+    with torch.inference_mode():
+        for r0 in range(0, table.shape[0], step):
+            ids = torch.arange(r0, min(r0 + step, table.shape[0]),
+                               dtype=torch.int32, device=table.device)
+            fit = hashed_lookup(backend.hs, backend.hcfg, ids)
+            num += ((fit - table[r0:r0 + step]).double() ** 2).sum()
+    return float(num.sqrt() / table.double().norm())
+
+
+def measure_hashed_gather(torch, served, launches: int, flush,
+                          worst: float) -> dict:
+    """Phase 10: hashed_gather at the served shapes: 16 requests' ids
+    (20,480 a request, C 4, T 2) on the served pool."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.hashed_gather import kernel as hg_kernel
+    from repro_torch.kernels.hashed_gather import ref as hg_ref
+    from repro_torch.kernels.hashed_gather.ops import slot_plan
+    from repro_torch.models.embedding import globalize
+    from repro_torch.serve.loop import drifting_zipf_batch
+    from repro_torch.store.hashed import pool_f32
+
+    backend, spec = served.server.backend, served.model.spec
+    hs, hcfg = backend.hs, backend.hcfg
+    b = served.record["batch"]
+    c, z = hcfg.num_chunks, hcfg.chunk_dim
+    cards = np.asarray(spec.cardinalities, np.int64)
+    args, live, rows = [], 0, 0
+    n = 16
+    for r in range(n):
+        idx = torch.from_numpy(drifting_zipf_batch(
+            cards, b, 1000 + r, n)).to(backend.device)
+        slots, coeff = slot_plan(globalize(idx, spec).reshape(-1, 1), None,
+                                 num_chunks=c, num_hashes=hcfg.num_hashes,
+                                 num_slots=hcfg.num_slots, seed=hcfg.seed)
+        args.append((hs.pool, hs.pool_scale, slots, coeff))
+        live += int((coeff != 0).sum())
+        rows += int(torch.unique(slots[coeff != 0]).numel())
+    for a in args[:4]:
+        got = hg_kernel.hashed_gather_cuda(*a, num_chunks=c)
+        want = hg_ref.hashed_gather_ref(*a, num_chunks=c)
+        torch.cuda.synchronize()
+        if not bits_equal(got, want):
+            raise SystemExit("hashed_gather != plain at the served shapes")
+        worst = max(worst, float((got - want).abs().max()))
+    nb, t = args[0][2].shape[0], args[0][2].shape[1] // c
+    # the slot plan (4 + 4 bytes a slot), each distinct live pool row and
+    # its scale once, the output; 3 flops an element of a live slot
+    slots_n, rows_n = live / n, rows / n
+    nbytes = (nb * c * t * 8 + rows_n * (z * hs.pool.element_size() + 4)
+              + nb * c * z * 4)
+    bound_ms, bound_by = _bound(nbytes, 3 * z * slots_n)
+
+    def kernel_fn(p, s, sl, cf):
+        return hg_kernel.hashed_gather_cuda(p, s, sl, cf, num_chunks=c)
+
+    def plain_fn(p, s, sl, cf):
+        return hg_ref.hashed_gather_ref(p, s, sl, cf, num_chunks=c)
+
+    ms = time_launches(torch, kernel_fn, args, flush)
+    plain_ms = time_launches(torch, plain_fn, args[:4], flush)
+    dq = pool_f32(hs)
+
+    def library(sl, cf):
+        return F.embedding_bag(sl.reshape(-1, t), dq, mode="sum",
+                               per_sample_weights=cf.reshape(-1, t)
+                               ).reshape(nb, c * z)
+    lib_args = [(a[2], a[3]) for a in args]
+    lib_diff = float((library(*lib_args[0]) - kernel_fn(*args[0])).abs().max())
+    library_ms = time_launches(torch, library, lib_args, flush)
+    name = str(hs.pool.dtype).removeprefix("torch.")
+    log(f"hashed_gather[{name}] at B={nb} C={c} T={t} Z={z}: {ms:.4f} ms "
+        f"(bound {bound_ms:.5f}, embedding_bag {library_ms:.4f}, plain "
+        f"{plain_ms:.3f}); {rows_n:,.0f} distinct pool rows a request")
+    return {"name": f"hashed_gather[{name}]", "route": "cuda",
+            "source": SOURCE_HASHED, "replaces": TPU_HASHED,
+            "launches": launches, "max_abs_err": worst, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "library_max_abs_diff": lib_diff,
+            "shape": {"B": nb, "C": c, "T": t, "Z": z,
+                      "S": hcfg.num_slots},
+            "live_slots": slots_n, "distinct_pool_rows": rows_n,
+            "bytes": nbytes, "per": "launch (one request's lookup)"}
+
+
 class Uncounted:
     """Launches inside the block are taken back out of the counters: the
     card check's unfused reference head is not the main path."""
@@ -585,7 +1087,7 @@ def serve_online(torch, serve, kernels, counters, arch: str) -> tuple:
                 gidx = globalize(b["indices"], model.spec)
                 ref = model.head(params, ps.lookup(server.packed, gidx), b)
 
-            def after(out):
+            def after(out, emb):
                 if out.shape != (idx.shape[0],) or not bool(
                         torch.isfinite(out).all()):
                     raise SystemExit(f"{arch} request {r}: bad logits "
@@ -619,6 +1121,14 @@ def serve_online(torch, serve, kernels, counters, arch: str) -> tuple:
                          f"{rec['kernel_launches']}")
     if rec["device"] != "cuda" or rec["requests"] != REQUESTS:
         raise SystemExit(f"unexpected online record {rec}")
+    if (launches["quantize_rowwise"] <= 0
+            or rec["build_kernel_launches"]["quantize_rowwise"] <= 0
+            or in_loop["quantize_rowwise"] <= 0):
+        raise SystemExit(f"{arch}: the pack or its re-tiers did not quantize "
+                         f"through the kernel: {launches}, record "
+                         f"{rec['build_kernel_launches']}, {in_loop}")
+    check_packed_as_before(rec, arch)
+    rec["int8_rows_checked"] = check_int8_tier(torch, served.server, arch)
     rec["check_fused_vs_unfused"] = {
         "max_abs_diff": worst["abs"], "max_diff_over_limit": worst["rel"]}
     log(f"online {arch}: {REQUESTS} requests, fused logits within "
@@ -626,6 +1136,33 @@ def serve_online(torch, serve, kernels, counters, arch: str) -> tuple:
         f"the limit), launches {launches}, p50 {rec['p50_us']:.0f} us, "
         f"{rec['retiers']} re-tiers moved {rec['rows_moved']:,} rows")
     return served, launches
+
+
+def check_int8_tier(torch, server, arch: str) -> int:
+    """Phase 8: the pack's int8 tier after the run (the build's and every
+    re-tier's quantize_rowwise output) against the plain quantizer on the
+    table rows it holds, bit for bit.  Returns the rows checked."""
+    from repro_torch.core.packed_store import _IDX_MASK, _TIER_SHIFT
+    from repro_torch.kernels.rowwise_quant import ref as rq_ref
+
+    packed, backend = server.packed, server.backend
+    with torch.inference_mode():
+        rows = torch.nonzero((packed.indirect >> _TIER_SHIFT) == 0
+                             ).reshape(-1)
+        loc = (packed.indirect[rows] & _IDX_MASK).to(torch.int64)
+        wq, ws = rq_ref.quantize_rowwise_ref(
+            backend.store.table[rows].to(torch.float32),
+            mode=backend.cfg.mode)
+        torch.cuda.synchronize()
+        n = rows.numel()
+        if (packed.payload8.shape[0] != max(n, 1)
+                or not torch.equal(packed.payload8[loc], wq)
+                or not bits_equal(packed.scale8[loc], ws[:, 0])):
+            raise SystemExit(f"{arch}: the pack's int8 rows != the plain "
+                             f"quantizer on the {n:,} table rows they hold")
+    log(f"online {arch}: the pack's {n:,} int8 rows x {wq.shape[1]} and "
+        f"scales bit-equal to the plain quantizer on their table rows")
+    return n
 
 
 def _bound(nbytes: float, flops: float) -> tuple[float, str]:
@@ -896,12 +1433,12 @@ def trace(torch, serve, served, requests: int, path: str) -> None:
                  "count": e.count} for e in top]}}))
 
 
-def trace_online(torch, served, arch: str, requests: int, path: str
-                 ) -> None:
-    """--trace: kernel time by name over ``requests`` more online fused
-    requests of the served arch (one re-tier every 2, as served); the
-    table goes to ``path``, the busy share and the top kernels are
-    printed."""
+def trace_online(torch, served, arch: str, requests: int, path: str,
+                 fuse_matmul: bool = True) -> None:
+    """--trace: kernel time by name over ``requests`` more online
+    requests of the served arch (one re-tier every 2, as served; through
+    the fused head unless ``fuse_matmul`` is False); the table goes to
+    ``path``, the busy share and the top kernels are printed."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serve.loop import serve_forward_loop
@@ -911,7 +1448,8 @@ def trace_online(torch, served, arch: str, requests: int, path: str
         t0 = time.perf_counter()
         res = serve_forward_loop(server, model, model.spec, served.params,
                                  batch=served.record["batch"],
-                                 requests=requests, fuse_matmul=True)
+                                 requests=requests,
+                                 fuse_matmul=fuse_matmul)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     ev = prof.key_averages()
@@ -936,8 +1474,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--trace", metavar="PATH",
                     help="also profile 8 served dlrm requests and 6 more "
-                         "online requests of each fused arch; the kernel "
-                         "tables go to PATH")
+                         "online requests of each fused arch and of each "
+                         "hashed pool; the kernel tables go to PATH")
     args = ap.parse_args()
 
     import torch
@@ -955,6 +1493,12 @@ def main() -> int:
     from repro_torch.kernels.cin import ops as cin_ops
     from repro_torch.kernels.cin import ref as cin_ref
     from repro_torch.kernels.dequant_bag import autodiff, kernel, ops, ref
+    from repro_torch.kernels.hashed_gather import kernel as hg_kernel
+    from repro_torch.kernels.hashed_gather import ops as hg_ops
+    from repro_torch.kernels.hashed_gather import ref as hg_ref
+    from repro_torch.kernels.rowwise_quant import kernel as rq_kernel
+    from repro_torch.kernels.rowwise_quant import ops as rq_ops
+    from repro_torch.kernels.rowwise_quant import ref as rq_ref
     from repro_torch.launch import serve
     from repro_torch.train import setup as setup_mod
 
@@ -964,8 +1508,7 @@ def main() -> int:
     print(smi.splitlines()[0], flush=True)
 
     t0 = time.perf_counter()
-    paths = build.build_all(["dequant_bag", "bag_grad", "bag_matmul",
-                             "cin"])
+    paths = build.build_all(list(SOURCES))
     log(f"built {[p.name for p in paths]} ({time.perf_counter() - t0:.1f}s)")
     for path in paths:
         report = path.with_suffix(".log")
@@ -976,9 +1519,16 @@ def main() -> int:
     worst_grad = check_bag_grad(torch, ops, ref)
     worst_bm = check_bag_matmul(torch, bm_ops, bm_ref)
     worst_cin = check_cin(torch, cin_ops, cin_ref)
-    served, launches = serve_full(torch, serve, kernel, ps)
+    worst_hg = check_hashed_gather(torch, hg_ops, hg_ref)
+    worst_rq = check_rowwise_quant(torch, rq_ops, rq_ref)
+    served, launches = serve_full(torch, serve, kernels_mod, kernel, ps)
     print(json.dumps(served.record), flush=True)
     kernels = measure(torch, served, kernel, ref, launches, worst)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    quant_entry = measure_quantize(torch, served, rq_kernel, rq_ref, flush,
+                                   worst_rq)
+    quant_by_path = {"serve": launches["quantize_rowwise"], "train": 0}
+    del flush
     if args.trace:
         trace(torch, serve, served, 8, args.trace)
     del served
@@ -1008,13 +1558,14 @@ def main() -> int:
     resume_smoke()
 
     counters = (kernel.launches, kernel.bag_grad_launches, bm_kernel.launches,
-                cin_kernel.launches)
+                cin_kernel.launches, hg_kernel.launches, rq_kernel.launches)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     online_dequant = {}
     for arch in ONLINE_ARCHS:
         served, launches = serve_online(torch, serve, kernels_mod, counters,
                                         arch)
         online_dequant[arch] = dict(kernel.launches)
+        quant_by_path[f"online_{arch}"] = launches["quantize_rowwise"]
         print(json.dumps(served.record), flush=True)
         kernels.append(measure_bag_matmul(torch, served, arch,
                                           launches["bag_matmul"], flush,
@@ -1032,7 +1583,51 @@ def main() -> int:
             for arch, counts in online_dequant.items():
                 k["launches_by_path"][f"online_{arch}"] = counts[dtype]
             k["launches"] = sum(k["launches_by_path"].values())
-    del flush
+
+    table = None
+    for bits in HASH_BITS:
+        served, launches = serve_hashed(torch, serve, kernels_mod, bits)
+        if table is None:         # the fit's target: the snapped table
+            model = served.model
+            table = serve.online_store(model, model.spec,
+                                       torch.device("cuda"))[1].table
+        rec = served.record
+        path = f"online_hashed_{bits}b"
+        grad_entry.setdefault("fit_shapes", []).append(
+            check_hashed_build(torch, served, table, bits, counters, flush))
+        res = hashed_residual(torch, served, table)
+        if not 0.0 < res < 1.0:
+            raise SystemExit(f"hashed {bits}b: fit residual {res} outside "
+                             "(0, 1)")
+        rec["fit_relative_residual"] = res
+        print(json.dumps({"hashed_fit": {
+            "hash_bits": rec["hash_bits"], "fit_s": rec["fit_s"],
+            "relative_residual": rec["fit_relative_residual"],
+            "pool_slots": rec["pool_slots"],
+            "store_bytes": served.server.backend.nbytes(),
+            "hash_ratio": rec["hash_ratio"],
+            "packed_fp32_ratio": rec["packed_fp32_ratio"]}}), flush=True)
+        print(json.dumps(rec), flush=True)
+        entry = measure_hashed_gather(torch, served,
+                                      launches["hashed_gather"], flush,
+                                      worst_hg)
+        entry["launches_by_path"] = {path: launches["hashed_gather"]}
+        entry["launches_at_start"] = (
+            rec["build_kernel_launches"]["hashed_gather"])
+        entry["launches_in_requests"] = rec["kernel_launches"]["hashed_gather"]
+        kernels.append(entry)
+        grad_entry["launches_by_path"][path] = launches["bag_grad"]
+        if args.trace:
+            trace_online(torch, served, f"wide-deep hashed {bits}b", 6,
+                         args.trace, fuse_matmul=False)
+        quant_by_path[path] = launches["quantize_rowwise"]
+        del served
+        torch.cuda.empty_cache()
+    grad_entry["launches"] = sum(grad_entry["launches_by_path"].values())
+    del table, flush
+    quant_entry["launches_by_path"] = quant_by_path
+    quant_entry["launches"] = sum(quant_by_path.values())
+    kernels.append(quant_entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,5 @@
-"""Carry weights (dlrm, wide&deep, xDeepFM), QAT and packed stores and
-train states from the JAX package into the port.
+"""Carry weights (dlrm, wide&deep, xDeepFM), QAT, packed and hashed stores
+and train states from the JAX package into the port.
 
 Inputs are numpy arrays, never JAX objects, so this module imports neither
 package's JAX code: a caller brings params to the host
@@ -18,6 +18,7 @@ import torch
 from repro_torch.core.packed_store import PackedStore
 from repro_torch.core.qat_store import QATStore
 from repro_torch.optim.optimizers import AdamState
+from repro_torch.store.hashed import HashedConfig, HashedStore
 from repro_torch.train.accum import TaylorAccum
 from repro_torch.train.steps import TrainState
 
@@ -55,6 +56,20 @@ def qat_store_from_jax(store, device: str | torch.device = "cpu"
     to numpy -> the port's ``QATStore``."""
     return QATStore(table=to_tensor(store.table, device),
                     priority=to_tensor(store.priority, device))
+
+
+def hashed_store_from_jax(hs, device: str | torch.device = "cpu"
+                          ) -> HashedStore:
+    """A reference ``HashedStore`` (pool, pool_scale, priority) with its
+    leaves brought to numpy -> the port's ``HashedStore``."""
+    return HashedStore(*(to_tensor(getattr(hs, f), device)
+                         for f in HashedStore._fields))
+
+
+def hashed_config_from_jax(hcfg) -> HashedConfig:
+    """A reference ``HashedConfig`` -> the port's (the same fields)."""
+    return HashedConfig(**{f: int(getattr(hcfg, f))
+                           for f in HashedConfig._fields})
 
 
 def train_state_from_jax(state, device: str | torch.device = "cpu"

@@ -18,7 +18,8 @@ gather + dequant; ``lookup_fused`` is the serving path, one fused
 dequant-bag kernel launch per tier (``kernels.dequant_bag``).
 ``bag_matmul`` is the fused bag -> first matmul of the fused heads (one
 ``kernels.bag_matmul`` launch per tier); ``repack_delta`` re-tiers the
-rows whose tier crossed, on the store's device.
+rows whose tier crossed, on the store's device.  Every int8 tier payload
+(pack, build, re-tier) is quantized by ``kernels.rowwise_quant``.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from repro_torch.core import rowwise_quant as rq
 from repro_torch.core.qat_store import (FQuantConfig, QATStore,
                                         current_tiers, snap)
 from repro_torch.core.tiers import Tier, assign_tiers, tier_counts
+from repro_torch.kernels.rowwise_quant.ops import quantize_rowwise
 
 _TIER_SHIFT = 28
 _IDX_MASK = (1 << _TIER_SHIFT) - 1
@@ -64,9 +66,15 @@ class PackedStore(NamedTuple):
 
 def _quantize_tier(rows: torch.Tensor, tier: Tier, cfg: FQuantConfig):
     """Quantize fp32 rows for one tier exactly as ``pack`` does:
-    (payload, scale (N,) or None)."""
+    (payload, scale (N,) or None).  The 8-bit int8 tier goes through the
+    row-wise quantization kernel (``kernels.rowwise_quant``, dividing
+    form, as the eager reference ``pack`` divides by 127); other widths
+    keep the torch expression, as the reference packs them with jnp."""
     if tier is Tier.INT8:
-        q, s = rq.quantize_rowwise(rows, cfg.bits, mode=cfg.mode)
+        if cfg.bits == 8:
+            q, s = quantize_rowwise(rows, mode=cfg.mode, reciprocal=False)
+        else:
+            q, s = rq.quantize_rowwise(rows, cfg.bits, mode=cfg.mode)
         return q, s[:, 0]
     if tier is Tier.HALF:
         q, s = rq.quantize_half(rows, strict_fp16=cfg.strict_fp16,

@@ -13,6 +13,7 @@ max-abs and stores it in bf16 (IEEE fp16 with ``strict_fp16``).  Every op
 is elementwise or a per-row max in fp32 and rounds half to even, so the
 results are bit-identical to the reference.
 
+The division by ``denom`` is IEEE on every device (``denominator``).
 ``reciprocal=True`` computes the scale as the reference's jitted train
 step does: under ``jit`` XLA folds the division by the constant
 ``denom`` into a multiply by its fp32 reciprocal, which differs from the
@@ -45,7 +46,19 @@ def rowwise_scale(e: torch.Tensor, bits: int = 8,
     if reciprocal:
         one = torch.ones((), dtype=torch.float32, device=e.device)
         return max_abs * (one / denom)
-    return max_abs / denom
+    return max_abs / denominator(denom, e.device)
+
+
+def denominator(denom: float, device) -> torch.Tensor:
+    """``denom`` as a 0-d fp32 tensor on ``device``, for an IEEE division.
+
+    Divided by a Python number, a CUDA tensor is multiplied by the
+    number's fp32 reciprocal instead (PyTorch's CUDA ``div`` takes that
+    shortcut for a host scalar divisor), which differs from the division
+    in the last bit for some rows; a tensor divisor is divided on every
+    device.
+    """
+    return torch.full((), denom, dtype=torch.float32, device=device)
 
 
 def quantize_rowwise(e: torch.Tensor, bits: int = 8, *,

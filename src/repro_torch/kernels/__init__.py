@@ -6,6 +6,10 @@
   bag_matmul     the same gather fused with the first dense layer of
                  wide&deep's and xDeepFM's deep branch (fused heads)
   cin            xDeepFM's Compressed Interaction Network layer
+  hashed_gather  the hashed store's chunk-pool gather + sign/scale
+                 combine (ROBE-style rows materialised from a pool)
+  rowwise_quant  per-row max-abs -> scale -> round -> int8 (the packed
+                 store's int8 tier and the hashed store's int8 pool)
 
 Each kernel package: ref.py (plain PyTorch version), kernel.py (the CUDA
 kernel's binding and launch counter), ops.py (public ops).  An op picks
@@ -23,18 +27,24 @@ def _kernel_modules() -> dict:
     from repro_torch.kernels.bag_matmul import kernel as bag_matmul
     from repro_torch.kernels.cin import kernel as cin
     from repro_torch.kernels.dequant_bag import kernel as dequant_bag
+    from repro_torch.kernels.hashed_gather import kernel as hashed_gather
+    from repro_torch.kernels.rowwise_quant import kernel as rowwise_quant
     return {"dequant_bag": dequant_bag, "bag_matmul": bag_matmul,
-            "cin": cin}
+            "cin": cin, "hashed_gather": hashed_gather,
+            "quantize_rowwise": rowwise_quant}
 
 
 def launch_counts() -> dict:
     """Launches this process made, by kernel: ``dequant_bag``,
-    ``bag_grad``, ``bag_matmul``, ``cin``."""
+    ``bag_grad``, ``bag_matmul``, ``cin``, ``hashed_gather``,
+    ``quantize_rowwise``."""
     mods = _kernel_modules()
     return {"dequant_bag": mods["dequant_bag"].total_launches(),
             "bag_grad": mods["dequant_bag"].bag_grad_launches["float32"],
             "bag_matmul": mods["bag_matmul"].total_launches(),
-            "cin": mods["cin"].total_launches()}
+            "cin": mods["cin"].total_launches(),
+            "hashed_gather": mods["hashed_gather"].total_launches(),
+            "quantize_rowwise": mods["quantize_rowwise"].total_launches()}
 
 
 def reset_launches() -> None:

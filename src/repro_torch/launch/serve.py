@@ -1,7 +1,8 @@
 """Serving CLI: ``python -m repro_torch.launch.serve --arch dlrm-rm2``.
 
-Port of the flat packed branches of ``repro/launch/serve.py``, offline
-(the default) and online (``--online``).  Offline, it builds the
+Port of the flat packed and the hashed branches of
+``repro/launch/serve.py``, offline (the default, packed) and online
+(``--online``).  Offline, it builds the
 tier-partitioned store and serves a batched request stream through the
 fused dequant-bag kernel:
 
@@ -41,10 +42,24 @@ p99_retier_attributed, p99_while_retiering, requests, lookups, hits,
 cache_hit_rate, retiers, rows_moved, shadow_builds, swaps, cache_rows,
 retier_every, retier_async, drift, serve_batch, fuse_matmul,
 store_backend, packed_mib, packed_fp32_ratio, arch, batch, mesh, online)
-plus model, device, device_name, build_s and ``kernel_launches`` by
-kernel over the request loop.  At full width the online store holds the
-whole fp32 table beside its pack (wide-deep 2.84 GB, xdeepfm 3.47 GB):
-``repack_delta`` re-quantizes crossing rows from it.
+plus model, device, device_name, build_s, ``kernel_launches`` by kernel
+over the request loop and ``build_kernel_launches`` over the build (the
+int8 tier's ``quantize_rowwise`` launches).  At full width the online
+store holds the whole fp32 table beside its pack (wide-deep 2.84 GB,
+xdeepfm 3.47 GB): ``repack_delta`` re-quantizes crossing rows from it.
+
+``--online --store-backend hashed`` serves from the ROBE-style hashed
+store (``store.hashed``) instead of the pack: the snapped table is
+fitted into a pool of ``plan_pool_slots`` rows of ``--hash-chunk-dim``
+values at a ``--hash-ratio`` fp32-bytes / pool-bytes target (12 CG
+steps, ``fit_pool_from_table``), quantized to int8 with per-slot scales
+with ``--hash-bits 8`` (``quantize_pool``), and the table is dropped.
+Each request materialises its rows through one ``hashed_gather`` launch;
+a re-tier moves no rows and refreshes the hot-row cache.  The record
+adds the reference's pool_slots, hash_bits and hash_ratio, and fit_s.
+As in the reference, hashed needs ``--online`` and has no fused head
+(``--fuse-matmul`` is refused), and ``--hash-chunk-dim`` must divide the
+embedding dim (xdeepfm's 10 refuses the default 8).
 
 The last stdout line is the JSON record.
 """
@@ -69,6 +84,8 @@ from repro_torch.kernels.dequant_bag import kernel as dequant_kernel
 from repro_torch.models import embedding as E
 from repro_torch.serve.loop import serve_forward_loop
 from repro_torch.serve.online import OnlineConfig, OnlineServer
+from repro_torch.store import hashed as H
+from repro_torch.store.api import build as build_backend
 
 SEED = 0
 CHUNK_ROWS = 1 << 22     # 1 GB of fp32 rows per build step at D = 64
@@ -79,9 +96,8 @@ def parse_args(argv=None) -> argparse.Namespace:
         description="Serve a recsys model from the packed SHARK store.",
         epilog="Not ported yet (later slices): --serve-batch (the "
                "micro-batched serving loops), --mesh, --store-backend "
-               "hier|hashed with --hbm-budget-mb, --host-budget-mb, "
-               "--store-dir, --verify-hier, --hash-ratio, "
-               "--hash-chunk-dim, --hash-bits; --retier-async, "
+               "hier with --hbm-budget-mb, --host-budget-mb, "
+               "--store-dir, --verify-hier; --retier-async, "
                "--shadow-rows, --verify-swap (shadow re-tiers); "
                "--autotune-cache; --metrics-out, --metrics-every.")
     ap.add_argument("--arch", default="dlrm-rm2", choices=configs.names())
@@ -110,9 +126,32 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "embedding gather (kernels.bag_matmul) so the "
                          "(B, F*D) activations never materialise "
                          "(--online; wide-deep / xdeepfm)")
+    ap.add_argument("--store-backend", default="packed",
+                    choices=("packed", "hashed"),
+                    help="embedding store backend (store.api.build): "
+                         "'packed' = flat tier-partitioned store, "
+                         "'hashed' = ROBE-style compositional rows "
+                         "materialized from a shared chunk pool (--online)")
+    ap.add_argument("--hash-ratio", type=float, default=100.0,
+                    help="target fp32-table / pool compression ratio for "
+                         "--store-backend hashed (pool rows are planned "
+                         "from it)")
+    ap.add_argument("--hash-chunk-dim", type=int, default=8,
+                    help="pool row width Z for --store-backend hashed "
+                         "(must divide the embedding dim)")
+    ap.add_argument("--hash-bits", type=int, default=32, choices=(32, 8),
+                    help="pool element width for --store-backend hashed: "
+                         "32 = fp32 pool, 8 = int8 pool + per-slot scales "
+                         "(the SHARK-rowwise x hashing combined mode)")
     args = ap.parse_args(argv)
     if args.fuse_matmul and not args.online:
         ap.error("--fuse-matmul requires --online")
+    if args.store_backend == "hashed":
+        if not args.online:
+            ap.error("--store-backend hashed requires --online")
+        if args.fuse_matmul:
+            ap.error("--store-backend hashed has no fused bag->matmul path "
+                     "(rows materialize on the fly)")
     return args
 
 
@@ -206,12 +245,14 @@ def run(args: argparse.Namespace, make_audit: Callable | None = None
         return run_online(args, device, model, num_dense, make_audit)
 
     t0 = time.perf_counter()
+    launches0 = kernels.launch_counts()
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED)
     params = model.init(gen, device, with_table=False)
     packed, cfg = build_store(spec, device)
     sync(device)
     build_s = time.perf_counter() - t0
+    build_launches = _launches_since(launches0)
     fp32 = spec.total_rows * spec.dim * 4
     packed_bytes = packed.nbytes()
     print(f"packed {packed_bytes / 2 ** 20:.2f} MiB "
@@ -243,7 +284,8 @@ def run(args: argparse.Namespace, make_audit: Callable | None = None
               "packed_fp32_ratio": packed_bytes / fp32,
               "kernel_launches": dequant_kernel.total_launches() - launches0,
               "tier_rows": live_counts(packed),
-              "thresholds": list(cfg.tiers), "build_s": build_s}
+              "thresholds": list(cfg.tiers), "build_s": build_s,
+              "build_kernel_launches": build_launches}
     return Served(record, model, params, packed, make_request)
 
 
@@ -252,19 +294,59 @@ def _device_name(device: torch.device) -> str:
             else "cpu")
 
 
+def _launches_since(before: dict) -> dict:
+    return {k: v - before[k] for k, v in kernels.launch_counts().items()}
+
+
+def hashed_backend(args: argparse.Namespace, spec: E.FieldSpec,
+                   store: QATStore):
+    """The hashed store of the reference CLI: a pool planned for
+    ``--hash-ratio``, fitted to the snapped table (with the store's
+    priorities) and, for ``--hash-bits 8``, quantized to int8."""
+    hcfg = H.HashedConfig(
+        vocab=spec.total_rows, dim=spec.dim, chunk_dim=args.hash_chunk_dim,
+        num_slots=H.plan_pool_slots(spec.total_rows, spec.dim,
+                                    args.hash_chunk_dim, args.hash_ratio,
+                                    pool_bits=args.hash_bits),
+        pool_bits=args.hash_bits)
+    hs = H.fit_pool_from_table(store.table, hcfg, priority=store.priority)
+    if args.hash_bits == 8:
+        hs = H.quantize_pool(hs)
+    return build_backend("hashed", hs, hcfg), hcfg
+
+
 def run_online(args: argparse.Namespace, device: torch.device, model,
                num_dense: int, make_audit: Callable | None) -> Served:
     spec = model.spec
     t0 = time.perf_counter()
+    launches0 = kernels.launch_counts()
     params, store, cfg = online_store(model, spec, device)
-    server = OnlineServer(store, cfg,
-                          OnlineConfig(cache_rows=args.cache_rows,
-                                       retier_every=args.retier_every))
-    del store
+    online = OnlineConfig(cache_rows=args.cache_rows,
+                          retier_every=args.retier_every)
+    fp32 = spec.total_rows * spec.dim * 4
+    hashed = {}
+    if args.store_backend == "hashed":
+        t1 = time.perf_counter()
+        backend, hcfg = hashed_backend(args, spec, store)
+        sync(device)
+        hashed["fit_s"] = time.perf_counter() - t1
+        del store              # the pool replaces the table
+        server = OnlineServer(online=online, backend=backend)
+    else:
+        server = OnlineServer(store, cfg, online)
+        del store
     sync(device)
     build_s = time.perf_counter() - t0
-    fp32 = spec.total_rows * spec.dim * 4
+    build_launches = _launches_since(launches0)
     packed_bytes = server.backend.nbytes()
+    if hashed:
+        hashed.update({"pool_slots": int(hcfg.num_slots),
+                       "hash_bits": args.hash_bits,
+                       "hash_ratio": round(fp32 / packed_bytes, 2)})
+        print(f"hashed pool {hcfg.num_slots} x {hcfg.chunk_dim} @ "
+              f"{args.hash_bits}b = {packed_bytes / 2 ** 20:.3f} MiB "
+              f"({fp32 / packed_bytes:.0f}x vs fp32 table), fitted in "
+              f"{hashed['fit_s']:.1f}s")
     print(f"packed {packed_bytes / 2 ** 20:.2f} MiB "
           f"({packed_bytes / fp32:.1%} of fp32), cache {args.cache_rows} "
           f"rows, retier every {args.retier_every} requests, built in "
@@ -276,8 +358,7 @@ def run_online(args: argparse.Namespace, device: torch.device, model,
         server, model, spec, params, batch=args.batch,
         requests=args.requests, drift=args.drift, num_dense=num_dense,
         fuse_matmul=args.fuse_matmul, audit=audit)
-    launches = {k: v - launches0[k]
-                for k, v in kernels.launch_counts().items()}
+    launches = _launches_since(launches0)
     name = _device_name(device)
     print(f"{args.requests} requests x{args.batch}: p50 "
           f"{result.p50_us:.0f}us p99 {result.p99_us:.0f}us steady "
@@ -290,12 +371,15 @@ def run_online(args: argparse.Namespace, device: torch.device, model,
     rec.update({"cache_rows": args.cache_rows,
                 "retier_every": args.retier_every, "retier_async": False,
                 "drift": args.drift, "serve_batch": 0,
-                "fuse_matmul": args.fuse_matmul, "store_backend": "packed",
+                "fuse_matmul": args.fuse_matmul,
+                "store_backend": args.store_backend,
                 "packed_mib": round(packed_bytes / 2 ** 20, 3),
-                "packed_fp32_ratio": round(packed_bytes / fp32, 4),
-                "model": args.model, "device": device.type,
+                "packed_fp32_ratio": round(packed_bytes / fp32, 4)})
+    rec.update(hashed)
+    rec.update({"model": args.model, "device": device.type,
                 "device_name": name, "build_s": build_s,
-                "kernel_launches": launches})
+                "kernel_launches": launches,
+                "build_kernel_launches": build_launches})
     return Served(rec, model, params, server.packed, None, server)
 
 

@@ -2,11 +2,12 @@
 
 Port of ``repro/serve/cache.py``.  The Eq. 7 scores that pick the fp32
 tier also pick the cache residents; the cache is consulted before the
-packed gather: hits read a contiguous fp32 (K, D) array, misses go to the
-tier-partitioned store.  Cache rows are exact dequantized copies of the
-packed payloads, so the cached gather is bit-identical to a plain
-``packed_store.lookup``: served values do not depend on the cache's
-contents, only the hit counts do.
+store's gather: hits read a contiguous fp32 (K, D) array, misses go to
+the store (the tier-partitioned pack, or the hashed pool of
+``store.hashed``).  Cache rows are exact copies of what the store's
+gather returns for them, so the cached gather is bit-identical to the
+plain lookup: served values do not depend on the cache's contents, only
+the hit counts do.
 
 ``build_cache`` takes the top k by a stable descending sort, so among
 tied scores the lower row id comes first, as ``jax.lax.top_k`` does
@@ -22,7 +23,7 @@ import torch
 from repro_torch.core import packed_store as ps
 from repro_torch.core.packed_store import PackedStore
 
-LookupFn = Callable[[PackedStore, torch.Tensor], torch.Tensor]
+LookupFn = Callable[..., torch.Tensor]   # (store, ids) -> rows
 
 
 class HotRowCache(NamedTuple):
@@ -106,16 +107,18 @@ def cache_select(cache: HotRowCache, indices: torch.Tensor,
     return torch.where(hit[..., None], cached, rows), counted.sum()
 
 
-def cached_lookup(packed: PackedStore, cache: HotRowCache,
-                  indices: torch.Tensor, lookup_fn: LookupFn | None = None,
+def cached_lookup(packed, cache: HotRowCache, indices: torch.Tensor,
+                  lookup_fn: LookupFn | None = None,
                   valid: torch.Tensor | None = None
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """Cache-first gather: int (...,) -> (fp32 (..., D), hit count).
 
-    Hits read ``cache.rows``; misses go through ``lookup_fn`` (the fused
-    serving gather by default) with hit positions redirected to row 0,
-    so the packed gather touches only the miss set's rows.  Bit-identical
-    to ``lookup_fn(packed, indices)`` for any cache ``build_cache`` made.
+    Hits read ``cache.rows``; misses go through ``lookup_fn(packed, ids)``
+    (the packed store's fused serving gather by default; the hashed
+    backend passes its pool and ``hashed_lookup``) over the full id set
+    with hit positions redirected to row 0, so the gather touches only
+    the miss set's rows.  Bit-identical to ``lookup_fn(packed, indices)``
+    for any cache whose rows that gather made.
     """
     hit = cache.slot_of[indices.to(torch.int64)] >= 0
     miss_idx = torch.where(hit, torch.zeros_like(indices), indices)

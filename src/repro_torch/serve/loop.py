@@ -178,7 +178,9 @@ def serve_forward_loop(server: OnlineServer, model, spec, params, *,
     ``fuse_matmul`` through ``extras["fused_head"]`` (the deep branch's
     first matmul fused with the gather; heads that take no raw
     embeddings skip the cache, hits = 0), then fold each batch.
-    ``audit`` as in ``run_loop``."""
+    ``audit`` as in ``run_loop``, except that the callable it returns
+    gets ``(out, emb)``: the request's output and the embeddings it was
+    served (None when the fused head took none)."""
     lfn = server.lookup_fn()
     fused, needs_emb, bmfn = _fused_entry(server, model, fuse_matmul)
     device = server.device
@@ -190,25 +192,33 @@ def serve_forward_loop(server: OnlineServer, model, spec, params, *,
                 return bmfn(packed, gidx, w)
             if needs_emb:
                 emb, hits = cached_lookup(packed, cache, gidx, lfn)
-                return fused(net, b, bm, emb), hits, gidx
-            return fused(net, b, bm), 0, gidx
+                return fused(net, b, bm, emb), hits, gidx, emb
+            return fused(net, b, bm), 0, gidx, None
         emb, hits = cached_lookup(packed, cache, gidx, lfn)
-        return model.head(net, emb, b), hits, gidx
+        return model.head(net, emb, b), hits, gidx, emb
 
     counter = {"r": 0}
+    served = {"emb": None}
 
     def serve_fn(idx: np.ndarray):
         r = counter["r"]
         counter["r"] += 1
         b = request_batch(idx, r, num_dense, device)
         with torch.inference_mode():
-            out, hits, gidx = fwd(server.packed, server.cache, params, b)
+            out, hits, gidx, served["emb"] = fwd(server.packed,
+                                                 server.cache, params, b)
             server.observe(gidx, int(hits))
         return out
+
+    def audit_emb(r: int, idx: np.ndarray):
+        after = audit(r, idx)
+        if after is None:
+            return None
+        return lambda out: after(out, served["emb"])
 
     cards = np.asarray(spec.cardinalities, np.int64)
     return run_loop(
         server, serve_fn,
         lambda r: drifting_zipf_batch(cards, batch, r, requests, a=a,
                                       drift=drift, seed=seed),
-        requests, batch, audit=audit)
+        requests, batch, audit=None if audit is None else audit_emb)

@@ -1,23 +1,25 @@
 """Online serving state: live priority EMA + hot cache + delta re-tier.
 
 Port of ``repro/serve/online.py`` with synchronous re-tiers.
-``OnlineServer`` owns the traffic-adaptive state around one packed
-backend (``store.api.PackedBackend``):
+``OnlineServer`` owns the traffic-adaptive state around one backend of
+``store.api`` (packed, or hashed through ``backend=``):
 
-  * the backend: the pack, its lookup kernels, the priority vector and
-    the re-tier (``packed_store.repack_delta`` on the device),
+  * the backend: the store, its lookup kernels, the priority vector and
+    the re-tier (``packed_store.repack_delta`` on the device for the
+    packed store; a cache refresh for the hashed pool, whose shared slots
+    cannot re-tier),
   * the hot-row cache (``serve.cache``), rebuilt after every re-tier,
   * ``ServeStats`` counters (requests / lookups / hits / retiers /
     rows_moved).
 
 Per request the serving loop runs its forward over ``server.packed`` /
 ``server.cache`` (cache-first: ``serve.cache.cached_lookup``) and then
-calls ``server.observe(indices, hits)``, which
-folds the served rows into the Eq. 7 EMA (the eager form, as the
-reference's un-jitted fold computes it) and re-tiers synchronously every
-``retier_every`` requests.  Shadow re-tiers (``retier_async``) and the
-hierarchical store (``hier=``) raise ``NotImplementedError``: they come
-with later slices (ROADMAP Queue 1 items 6 and 8).
+calls ``server.observe(indices, hits)``, which folds the served rows into
+the Eq. 7 EMA (the eager form, as the reference's un-jitted fold
+computes it) and re-tiers synchronously every ``retier_every`` requests.
+Shadow re-tiers (``retier_async``) and the hierarchical store (``hier=``)
+raise ``NotImplementedError``: they come with later slices (ROADMAP
+Queue 1 items 6 and 8).
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ import torch
 
 from repro_torch import sync
 from repro_torch.core.priority import PriorityConfig
-from repro_torch.store.api import PackedBackend
+from repro_torch.store.api import build
 
 
 class OnlineConfig(NamedTuple):
@@ -63,11 +65,15 @@ class ServeStats:
 
 
 class OnlineServer:
-    """Mutable serving-side owner of a packed backend, the hot cache and
+    """Mutable serving-side owner of a store backend, the hot cache and
     the serve-side priority fold."""
 
-    def __init__(self, store, cfg, online: OnlineConfig = OnlineConfig(), *,
-                 mesh=None, hier=None):
+    def __init__(self, store=None, cfg=None,
+                 online: OnlineConfig = OnlineConfig(), *, mesh=None,
+                 hier=None, backend=None):
+        """``backend`` (a ``store.api`` backend, e.g. ``build("hashed", hs,
+        hcfg)``) is served as given; otherwise the ``(store, cfg)``
+        ``QATStore`` pair builds the ``packed`` backend."""
         if online.retier_async:
             raise NotImplementedError(
                 "shadow re-tiers (retier_async) are not ported yet "
@@ -76,7 +82,12 @@ class OnlineServer:
             raise NotImplementedError(
                 "the hierarchical store is not ported yet (ROADMAP Queue 1 "
                 "item 8)")
-        self.backend = PackedBackend(store, cfg, mesh=mesh)
+        if backend is None:
+            if store is None or cfg is None:
+                raise ValueError("OnlineServer needs either backend= or the "
+                                 "(store, cfg) QATStore pair")
+            backend = build("packed", store, cfg, mesh=mesh)
+        self.backend = backend
         self.online = online
         self.stats = ServeStats()
         self._rebuild_cache()
@@ -85,6 +96,7 @@ class OnlineServer:
 
     @property
     def store(self):
+        """The backend's ``QATStore`` (None for hashed)."""
         return self.backend.store
 
     @property
@@ -93,7 +105,8 @@ class OnlineServer:
 
     @property
     def packed(self):
-        """The pack the forward reads (on the serving device)."""
+        """The store the forward reads, on the serving device (the pack,
+        or the hashed backend's ``HashedStore``)."""
         return self.backend.packed
 
     @property

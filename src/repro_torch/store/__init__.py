@@ -1,2 +1,3 @@
-"""Embedding-store backends (port of ``repro.store``: the flat packed
-backend; the hier and hashed backends come with later slices)."""
+"""Embedding-store backends (port of ``repro.store``: the flat packed and
+the ROBE-style hashed backends and their registry; the hier backend
+comes with a later slice)."""

@@ -1,19 +1,40 @@
-"""The flat packed embedding-store backend.
+"""Embedding-store backends and their registry.
 
-Port of ``repro/store/api.py::PackedBackend`` (``mesh=None`` only): the
-``QATStore`` (table + Eq. 7 priority) is authoritative and ``packed`` is
-its serving pack, both on one device.  The reference keeps a host pack
-and places a device copy; the port packs on the device and serves that
-pack directly.  The ``EmbeddingStore`` protocol, the registry and the
-hier and hashed backends come with later slices (ROADMAP Queue 1 items 4
-and 8); so do the shadow re-tier (``begin_retier``, ``prewarm_retier``,
-item 6) and the mesh (item 7).
+Port of ``repro/store/api.py`` for the flat packed and the hashed
+backends, on one device (``mesh=None``).  Both answer the surface the
+online server and its loop dispatch on, so the request path has no
+backend branches:
+
+  identity     kind, device, vocab, dim, nbytes()
+  serving      packed (the store the forward reads), lookup_fn(),
+               bag_matmul_fn(), build_cache(k)
+  adaptation   fold_priority(idx, pcfg) (the eager Eq. 7 fold,
+               ``priority.serve_fold``, as the reference's un-jitted
+               ``serve_update`` computes it), retier()
+
+``PackedBackend``: the ``QATStore`` (table + Eq. 7 priority) is
+authoritative and ``packed`` is its serving pack.  The reference keeps a
+host pack and places a device copy; the port packs on the device and
+serves that pack directly.  ``HashedBackend``: the ROBE-style pool of
+``store.hashed``; rows materialise through the ``hashed_gather`` kernel,
+a re-tier moves no rows (pool slots are shared) and only refreshes the
+hot-row cache, whose rows are materialised on the card through the same
+kernel.  Persistence: ``HashedBackend.snapshot_manifest`` and
+``from_manifest`` (``hashed_store/v1``).
+
+Registry: ``register_backend(name, factory)`` + ``build(name, ...)``
+over ``packed`` and ``hashed``; ``from_manifest`` picks the backend by
+the manifest's kind tag.  Not ported yet: the hier backend (ROADMAP
+Queue 1 item 8), the packed backend's manifest, shadow re-tiers of the
+packed backend (``begin_retier``, ``prewarm_retier``, item 6) and the
+mesh (item 7).
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Any, Callable
 
+import numpy as np
 import torch
 
 from repro_torch.core import packed_store as ps
@@ -21,16 +42,23 @@ from repro_torch.core.priority import PriorityConfig, serve_fold
 from repro_torch.core.qat_store import FQuantConfig, QATStore, current_tiers
 from repro_torch.core.tiers import tier_crossings
 from repro_torch.serve import cache as C
+from repro_torch.store import hashed as H
+
+
+def _no_mesh(mesh, backend: str) -> None:
+    if mesh is not None:
+        raise NotImplementedError(
+            f"the {backend} backend's mesh placement is not ported yet "
+            "(ROADMAP Queue 1 item 7, distributed)")
 
 
 class PackedBackend:
     """Flat tier-partitioned store on one device."""
 
+    kind = "packed"
+
     def __init__(self, store: QATStore, cfg: FQuantConfig, *, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "the packed backend's mesh placement is not ported yet "
-                "(ROADMAP Queue 1 item 7, distributed)")
+        _no_mesh(mesh, "packed")
         self.store = store
         self.cfg = cfg
         self.packed = ps.pack(store, cfg)
@@ -82,3 +110,148 @@ class PackedBackend:
             self.packed = ps.repack_delta(self.packed, self.store, self.cfg,
                                           changed)
         return {"rows_moved": n, "changed": bool(n)}
+
+
+class HashedBackend:
+    """ROBE-style compositional store: rows materialise on the fly from
+    the shared chunk pool through the ``hashed_gather`` kernel.  Memory
+    is bounded by the pool, independent of the vocabulary; a re-tier
+    only refreshes the priority-driven hot-row fp32 cache."""
+
+    kind = "hashed"
+
+    def __init__(self, hs: H.HashedStore, hcfg: H.HashedConfig, *,
+                 mesh=None):
+        _no_mesh(mesh, "hashed")
+        self.hs = hs
+        self.hcfg = hcfg
+        self.cfg = None      # no FQuantConfig: the pool is the pack
+        self.store = None    # no QATStore behind this backend
+
+    @property
+    def device(self) -> torch.device:
+        return self.hs.pool.device
+
+    @property
+    def packed(self) -> H.HashedStore:
+        """The store the forward reads (``lookup_fn``'s first argument)."""
+        return self.hs
+
+    @property
+    def vocab(self) -> int:
+        return int(self.hcfg.vocab)
+
+    @property
+    def dim(self) -> int:
+        return int(self.hcfg.dim)
+
+    def nbytes(self) -> int:
+        return int(self.hs.nbytes())
+
+    # -- serving surface -----------------------------------------------
+
+    def lookup_fn(self) -> Callable:
+        hcfg = self.hcfg
+        return lambda hs, idx: H.hashed_lookup(hs, hcfg, idx)
+
+    def bag_matmul_fn(self) -> Callable:
+        raise ValueError("fused bag->matmul serving requires a fully "
+                         "resident packed store (hashed rows materialize "
+                         "on the fly)")
+
+    def build_cache(self, cache_rows: int) -> C.HotRowCache:
+        """The top ``cache_rows`` rows by priority (ties to the lower id,
+        as ``jax.lax.top_k``), materialised by the kernel on the store's
+        device: at K = 1 they equal the reference's host oracle."""
+        k = int(min(cache_rows, self.vocab))
+        if k <= 0:
+            return C.empty_cache(self.vocab, self.dim, self.device)
+        ids = C.top_rows(self.hs.priority, k).to(torch.int32)
+        return C.cache_from_rows(ids, self.lookup(ids), self.vocab)
+
+    # -- lookups -------------------------------------------------------
+
+    def lookup(self, indices: torch.Tensor) -> torch.Tensor:
+        return H.hashed_lookup(self.hs, self.hcfg, indices)
+
+    def bag_lookup(self, indices: torch.Tensor,
+                   weights: torch.Tensor | None = None) -> torch.Tensor:
+        return H.hashed_bag_lookup(self.hs, self.hcfg, indices, weights)
+
+    # -- adaptation ----------------------------------------------------
+
+    def fold_priority(self, indices: torch.Tensor, pcfg: PriorityConfig,
+                      valid: torch.Tensor | None = None) -> None:
+        """The eager Eq. 7 fold (``priority.serve_fold``)."""
+        self.hs = self.hs._replace(
+            priority=serve_fold(self.hs.priority, indices, pcfg,
+                                valid=valid))
+
+    def retier(self) -> dict:
+        """Nothing migrates (pool slots are shared): the caller refreshes
+        the cache."""
+        return {"rows_moved": 0, "changed": False}
+
+    # -- persistence ---------------------------------------------------
+
+    def snapshot_manifest(self) -> dict:
+        return H.hashed_state_tree(self.hs, self.hcfg)
+
+    @classmethod
+    def from_manifest(cls, tree: dict, *, mesh=None,
+                      device: str | torch.device | None = None, **_):
+        hcfg = H.HashedConfig(**{k: int(v)
+                                 for k, v in tree["config"].items()})
+        hs = H.HashedStore(*(_tensor(tree[f], device)
+                             for f in H.HashedStore._fields))
+        return cls(hs, hcfg, mesh=mesh)
+
+
+def _tensor(x, device) -> torch.Tensor:
+    """A manifest leaf (tensor, or numpy from the reference) as a tensor."""
+    t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.array(x))
+    return t if device is None else t.to(device)
+
+
+# ------------------------------------------------------------------ registry
+
+_BACKENDS: dict[str, Callable[..., Any]] = {}
+_MANIFEST_KINDS: dict[str, Callable[..., Any]] = {}
+
+
+def register_backend(name: str, factory: Callable[..., Any],
+                     manifest_kind: str | None = None) -> None:
+    """Register ``factory`` under ``name`` for ``build``; optionally bind
+    a ``snapshot_manifest`` kind tag for ``from_manifest``."""
+    _BACKENDS[name] = factory
+    if manifest_kind is not None:
+        _MANIFEST_KINDS[manifest_kind] = factory
+
+
+def backend_names() -> tuple[str, ...]:
+    return tuple(sorted(_BACKENDS))
+
+
+def build(name: str, *args, **kwargs):
+    """``build("packed", store, cfg)`` or ``build("hashed", hs, hcfg)``:
+    the arguments go straight to the backend's factory."""
+    if name not in _BACKENDS:
+        raise ValueError(f"unknown store backend {name!r}; registered: "
+                         f"{', '.join(backend_names())}")
+    return _BACKENDS[name](*args, **kwargs)
+
+
+def from_manifest(tree: dict, **kwargs):
+    """Rebuild a backend from a ``snapshot_manifest`` tree: its kind tag
+    picks the backend."""
+    kind = tree.get("kind") or tree.get("schema")
+    if kind is None:
+        raise ValueError("manifest carries no 'kind'/'schema' tag")
+    factory = _MANIFEST_KINDS.get(str(kind))
+    if factory is None:
+        raise ValueError(f"no backend registered for manifest kind {kind!r}")
+    return factory.from_manifest(tree, **kwargs)
+
+
+register_backend("packed", PackedBackend)
+register_backend("hashed", HashedBackend, manifest_kind="hashed_store/v1")

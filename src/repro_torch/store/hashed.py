@@ -1,0 +1,229 @@
+"""``HashedStore``: ROBE-style compositional embedding storage.
+
+Port of ``repro/store/hashed.py``.  No row is stored: row ``r`` is
+materialised on the fly from a shared ``(S, Z)`` chunk pool,
+
+    row[r, c*Z:(c+1)*Z] = sum_j  sign_j(r, c) * pool[h_j(r, c)]
+
+with ``num_hashes`` uint32-hash draws per chunk (arXiv:2207.10731), so
+the memory is fixed by the pool size and does not grow with the
+vocabulary: compression is ``V*D / (S*Z)``.  The serving gather is the
+``hashed_gather`` kernel (one launch per lookup); ``quantize_pool`` is
+the SHARK-rowwise x hashing combined mode (the pool snapped to int8 with
+per-slot scales by the ``rowwise_quant`` kernel, dividing form, as the
+reference's eager ``quantize_pool`` divides by 127).  The Eq. 7 priority
+stays per row (V,): it cannot re-tier shared pool slots, but it picks
+the hot-row fp32 cache in front of the hash path.
+
+``fit_pool_from_table`` seeds a pool from a dense table by least
+squares.  Materialisation is linear in the pool (A = ``fwd``), so the
+pool solves ``A^T A p = A^T x`` by conjugate gradients from the
+scatter-mean seed.  ``fwd`` is ``hashed_gather`` over every row with
+unit scales (bit-equal to the reference's ``(chunks * signs).sum(-2)``:
+at K = 1 every product is exact); ``adj`` is ``bag_grad`` on the
+(V*C, NH) reshape with the signs as coefficients, which sums each pool
+row's contributions in the reference's ``segment_sum`` (v, c, j) order,
+deterministically (no float atomics).  The CG vectors stay fp32, as in
+the reference; its dot products reduce in another order than XLA's, so
+the fitted pool meets the reference's within a tolerance, not bit for
+bit.
+
+``init_hashed`` draws the pool from a ``torch.Generator``: the same
+distribution as the reference's ``jax.random`` draw, not the same
+numbers.  The host oracle ``gather_rows_host`` has no counterpart: the
+port materialises cache rows through the kernel on the store's device.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.kernels.dequant_bag.ops import bag_grad
+from repro_torch.kernels.hashed_gather.ops import hashed_gather, slot_plan
+from repro_torch.kernels.hashed_gather.ref import hash_slots
+from repro_torch.kernels.rowwise_quant.ops import quantize_rowwise
+
+
+class HashedConfig(NamedTuple):
+    """Static shape and hash parameters, carried beside the arrays."""
+    vocab: int
+    dim: int
+    chunk_dim: int = 8       # Z: pool row width; must divide dim
+    num_slots: int = 2048    # S: pool rows
+    num_hashes: int = 2      # draws combined per chunk
+    pool_bits: int = 32      # 32 = fp32 pool; 8 = int8 + per-slot scale
+    seed: int = 0
+
+    @property
+    def num_chunks(self) -> int:
+        if self.dim % self.chunk_dim:
+            raise ValueError(f"chunk_dim {self.chunk_dim} must divide "
+                             f"dim {self.dim}")
+        return self.dim // self.chunk_dim
+
+    def pool_nbytes(self) -> int:
+        per_elem = 1 if self.pool_bits == 8 else 4
+        scale = self.num_slots * 4 if self.pool_bits == 8 else 0
+        return self.num_slots * self.chunk_dim * per_elem + scale
+
+    def compression_ratio(self) -> float:
+        """fp32 table bytes / pool bytes (>= 1 means compressed)."""
+        return (self.vocab * self.dim * 4) / max(self.pool_nbytes(), 1)
+
+
+def plan_pool_slots(vocab: int, dim: int, chunk_dim: int,
+                    target_ratio: float, pool_bits: int = 32) -> int:
+    """Pool rows S hitting a target fp32-bytes / pool-bytes ratio."""
+    per_slot = chunk_dim + 4 if pool_bits == 8 else chunk_dim * 4
+    s = int(round(vocab * dim * 4 / (max(target_ratio, 1e-9) * per_slot)))
+    return max(s, 1)
+
+
+class HashedStore(NamedTuple):
+    """pool (S, Z) fp32 or int8; pool_scale (S,) fp32 per-slot dequant
+    scale (ones for fp32 pools, so ``pool * scale`` is exact); priority
+    (V,) the Eq. 7 EMA that picks the hot-row cache."""
+    pool: torch.Tensor
+    pool_scale: torch.Tensor
+    priority: torch.Tensor
+
+    @property
+    def num_slots(self) -> int:
+        return self.pool.shape[0]
+
+    @property
+    def chunk_dim(self) -> int:
+        return self.pool.shape[1]
+
+    def nbytes(self) -> int:
+        """Serving bytes: the pool and, for a quantized pool, its scales
+        (the priority EMA is bookkeeping, as in ``PackedStore.nbytes``)."""
+        scale = (0 if self.pool.dtype == torch.float32 else
+                 self.pool_scale.numel() * self.pool_scale.element_size())
+        return self.pool.numel() * self.pool.element_size() + scale
+
+
+def _priority(priority, vocab: int, device) -> torch.Tensor:
+    if priority is None:
+        return torch.zeros((vocab,), dtype=torch.float32, device=device)
+    return priority.to(device=device, dtype=torch.float32)
+
+
+def init_hashed(cfg: HashedConfig, seed: int | None = None,
+                priority: torch.Tensor | None = None,
+                device: str | torch.device = "cpu") -> HashedStore:
+    """Fresh fp32 pool ~ N(0, 0.05 / sqrt(num_hashes)): materialised rows
+    then match a 0.05-std dense init in variance."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(cfg.seed if seed is None else seed)
+    std = 0.05 / float(cfg.num_hashes) ** 0.5
+    pool = std * torch.randn((cfg.num_slots, cfg.chunk_dim), generator=gen,
+                             device=device)
+    return HashedStore(
+        pool=pool,
+        pool_scale=torch.ones((cfg.num_slots,), dtype=torch.float32,
+                              device=device),
+        priority=_priority(priority, cfg.vocab, device))
+
+
+CG_ITERS = 12      # the reference's default: 1 + CG_ITERS fwd and
+                   # 2 + CG_ITERS adj launches a fit
+
+
+def fit_pool_from_table(table: torch.Tensor, cfg: HashedConfig,
+                        priority: torch.Tensor | None = None,
+                        cg_iters: int = CG_ITERS) -> HashedStore:
+    """Least-squares fit of an fp32 pool to ``table`` (V, D), on the
+    table's device: ``cg_iters`` conjugate-gradient steps on the normal
+    equations from the scatter-mean seed (already exact when draws never
+    collide).  The residual at high compression is the hashing scheme's
+    own loss, not the solver's."""
+    v, d = table.shape
+    c, z, nh = cfg.num_chunks, cfg.chunk_dim, cfg.num_hashes
+    dev = table.device
+    x = table.to(torch.float32)
+    ids = torch.arange(v, dtype=torch.int32, device=dev)
+    slots, signs = hash_slots(ids, num_chunks=c, num_hashes=nh,
+                              num_slots=cfg.num_slots, seed=cfg.seed)
+    plan = slots.reshape(v, c * nh)          # the K = 1 slot plan, (V, C*NH)
+    coeff = signs.reshape(v, c * nh)
+    bags, bag_signs = slots.reshape(v * c, nh), signs.reshape(v * c, nh)
+    del slots, signs
+
+    def fwd(p):          # A: pool -> materialised table (V, D)
+        return hashed_gather(p, None, plan, coeff, num_chunks=c)
+
+    def adj(r):          # A^T: table cotangent -> pool scatter (S, Z)
+        return bag_grad(r.reshape(v * c, z), None, bags, bag_signs,
+                        cfg.num_slots)
+
+    def vdot(a, b):
+        return torch.dot(a.reshape(-1), b.reshape(-1))
+
+    counts = torch.bincount(plan.reshape(-1).to(torch.int64),
+                            minlength=cfg.num_slots).to(torch.float32)
+    b = adj(x)
+    pool = b / counts.clamp_min(1.0)[:, None]      # scatter-mean seed
+    if cg_iters > 0:
+        def gram(p):
+            return adj(fwd(p))
+        r = b - gram(pool)
+        p_dir = r
+        rs = vdot(r, r)
+        for _ in range(cg_iters):
+            gp = gram(p_dir)
+            alpha = rs / vdot(p_dir, gp).clamp_min(1e-30)
+            pool = pool + alpha * p_dir
+            r = r - alpha * gp
+            rs_new = vdot(r, r)
+            p_dir = r + (rs_new / rs.clamp_min(1e-30)) * p_dir
+            rs = rs_new
+    return HashedStore(
+        pool=pool,
+        pool_scale=torch.ones((cfg.num_slots,), dtype=torch.float32,
+                              device=dev),
+        priority=_priority(priority, v, dev))
+
+
+def quantize_pool(hs: HashedStore) -> HashedStore:
+    """SHARK-rowwise x hashing combined mode: the pool snapped to int8
+    with per-slot scales (Eq. 5-6 round-to-nearest on pool rows), through
+    the ``rowwise_quant`` kernel in its dividing form."""
+    q, scale = quantize_rowwise(hs.pool.to(torch.float32), mode="narrow",
+                                reciprocal=False)
+    return hs._replace(pool=q, pool_scale=scale.reshape(-1))
+
+
+def pool_f32(hs: HashedStore) -> torch.Tensor:
+    """Dequantized pool view (exact for fp32 pools: the scale is ones)."""
+    return hs.pool.to(torch.float32) * hs.pool_scale[:, None]
+
+
+def hashed_bag_lookup(hs: HashedStore, cfg: HashedConfig,
+                      indices: torch.Tensor,
+                      weights: torch.Tensor | None = None) -> torch.Tensor:
+    """Bag-sum lookup: indices (B, K) [+ weights (B, K)] -> (B, D) fp32,
+    materialised by one ``hashed_gather`` (zero weights skip their
+    slots)."""
+    slots, coeff = slot_plan(indices, weights, num_chunks=cfg.num_chunks,
+                             num_hashes=cfg.num_hashes,
+                             num_slots=cfg.num_slots, seed=cfg.seed)
+    return hashed_gather(hs.pool, hs.pool_scale, slots, coeff,
+                         num_chunks=cfg.num_chunks)
+
+
+def hashed_lookup(hs: HashedStore, cfg: HashedConfig,
+                  indices: torch.Tensor) -> torch.Tensor:
+    """Per-index materialisation: int (...,) -> fp32 (..., D), the K = 1
+    bag (the serving gather)."""
+    out = hashed_bag_lookup(hs, cfg, indices.reshape(-1, 1))
+    return out.reshape(*indices.shape, cfg.dim)
+
+
+def hashed_state_tree(hs: HashedStore, cfg: HashedConfig) -> dict:
+    """Checkpointable manifest payload (``hashed_store/v1``)."""
+    return {"kind": "hashed_store/v1", "config": dict(cfg._asdict()),
+            "pool": hs.pool, "pool_scale": hs.pool_scale,
+            "priority": hs.priority}

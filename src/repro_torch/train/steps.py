@@ -60,7 +60,8 @@ def make_compressed_train_step(loss_from_emb: Callable,
     State: ``TrainState`` with opt = (dense_opt_state, adagrad accum (V,))
     and ``accum`` a ``TaylorAccum``.  ``field_mask`` (F,) zeroes pruned
     fields inside the loss.  The row-sharded (``mesh``) and hashed
-    (``hashed_cfg``) forms are later slices of the port.
+    (``hashed_cfg``) forms are later slices of the port (ROADMAP Queue 1
+    items 7 and 4).
     """
     if mesh is not None:
         raise NotImplementedError(
@@ -68,8 +69,10 @@ def make_compressed_train_step(loss_from_emb: Callable,
             "slice (ROADMAP Queue 1 item 7)")
     if hashed_cfg is not None:
         raise NotImplementedError(
-            "hashed_cfg=: the hashed table comes with the hashed-backend "
-            "slice (ROADMAP Queue 1 item 4)")
+            "hashed_cfg=: the hashed train step is not ported yet; the "
+            "hashed store serves (store.hashed), and ROADMAP Queue 1 item 4 "
+            "keeps this branch with dist/hashed.py and the pipeline's "
+            "--store-backend hashed")
     dense_optimizer = dense_optimizer or opt_lib.adam(lr)
     pcfg = (fq_cfg or FQuantConfig()).priority
 

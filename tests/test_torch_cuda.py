@@ -21,6 +21,12 @@ from repro_torch.kernels.cin import kernel as cin_kernel
 from repro_torch.kernels.cin import ops as cin_ops
 from repro_torch.kernels.cin.ref import cin_layer_ref
 from repro_torch.kernels.dequant_bag import kernel, ops, ref
+from repro_torch.kernels.hashed_gather import kernel as hg_kernel
+from repro_torch.kernels.hashed_gather import ops as hg_ops
+from repro_torch.kernels.hashed_gather.ref import hashed_gather_ref
+from repro_torch.kernels.rowwise_quant import kernel as rq_kernel
+from repro_torch.kernels.rowwise_quant import ops as rq_ops
+from repro_torch.kernels.rowwise_quant.ref import quantize_rowwise_ref
 from repro_torch.launch import serve, train
 from repro_torch.train import setup
 
@@ -213,3 +219,109 @@ def test_online_fused_serve_smoke_launches_the_kernels(dev, arch):
     assert launches["bag_matmul"] == 3 * 4
     layers = len(getattr(configs.get(arch).smoke_cfg, "cin_layers", ()))
     assert launches["cin"] == layers * 4
+
+
+@pytest.mark.parametrize("dtype", ["int8", "float32"])
+@pytest.mark.parametrize("b,k,c,z", [(20_480, 1, 4, 8), (333, 5, 4, 8),
+                                     (77, 3, 2, 5), (0, 1, 2, 4)])
+def test_hashed_gather_kernel_bit_equal_to_plain(dev, dtype, b, k, c, z):
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    s = 4001
+    if dtype == "int8":
+        pool = torch.randint(-128, 128, (s, z), generator=g, device=dev,
+                             dtype=torch.int8)
+    else:
+        pool = torch.randn((s, z), generator=g, device=dev) * 0.1
+    scales = torch.rand(s, generator=g, device=dev) * 0.01
+    idx = torch.randint(0, 10 ** 6, (b, k), generator=g, device=dev,
+                        dtype=torch.int32)
+    w = torch.rand((b, k), generator=g, device=dev)
+    w[torch.rand((b, k), generator=g, device=dev) < 0.3] = 0.0
+    slots, coeff = hg_ops.slot_plan(idx, w if k > 1 else None, num_chunks=c,
+                                    num_hashes=2, num_slots=s)
+    hg_kernel.reset_launches()
+    got = hg_ops.hashed_gather(pool, scales, slots, coeff, num_chunks=c)
+    want = hashed_gather_ref(pool, scales, slots, coeff, num_chunks=c)
+    torch.cuda.synchronize()
+    assert hg_kernel.launches[dtype] == (1 if b else 0)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("v,d", [(1001, 64), (257, 32), (33, 10), (9, 8)])
+@pytest.mark.parametrize("mode", ["narrow", "full"])
+@pytest.mark.parametrize("stochastic", [False, True])
+@pytest.mark.parametrize("reciprocal", [False, True])
+def test_rowwise_quant_kernel_bit_equal_to_plain(dev, v, d, mode,
+                                                 stochastic, reciprocal):
+    g = torch.Generator(device=dev)
+    g.manual_seed(v + d)
+    x = torch.randn((v, d), generator=g, device=dev) * (
+        torch.rand((v, 1), generator=g, device=dev) * 10)
+    x[0] = 0.0
+    noise = (torch.rand((v, d), generator=g, device=dev) if stochastic
+             else None)
+    rq_kernel.reset_launches()
+    q, sc = rq_ops.quantize_rowwise(x, noise, mode, reciprocal=reciprocal)
+    wq, ws = quantize_rowwise_ref(x, noise, mode, reciprocal=reciprocal)
+    torch.cuda.synchronize()
+    assert rq_kernel.launches["float32"] == 1
+    assert torch.equal(q, wq)
+    assert torch.equal(sc.view(torch.int32), ws.view(torch.int32))
+
+
+@pytest.mark.parametrize("stochastic", [False, True])
+@pytest.mark.parametrize("reciprocal", [False, True])
+def test_rowwise_quant_kernel_non_finite_rows_as_plain(dev, stochastic,
+                                                       reciprocal):
+    """A NaN row keeps its NaN in the scale (the kernel's max must not
+    drop it) and NaN codes store 0, as the plain version's cast does."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(11)
+    v, d = 70, 40
+    x = torch.randn((v, d), generator=g, device=dev)
+    x[3, 33] = float("nan")            # in the second pass of a lane
+    x[4, 0] = float("inf")
+    x[5] = -float("inf")
+    x[6, 7] = float("nan")
+    x[6, 8] = float("inf")
+    noise = (torch.rand((v, d), generator=g, device=dev) if stochastic
+             else None)
+    q, sc = rq_ops.quantize_rowwise(x, noise, reciprocal=reciprocal)
+    wq, ws = quantize_rowwise_ref(x, noise, reciprocal=reciprocal)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(sc[3, 0])) and bool(torch.isinf(sc[4, 0]))
+    assert torch.equal(q, wq)
+    torch.testing.assert_close(sc, ws, rtol=0, atol=0, equal_nan=True)
+
+
+def test_packed_int8_tier_quantizes_through_the_kernel(dev):
+    g = torch.Generator(device=dev)
+    g.manual_seed(4)
+    table = torch.randn((3000, 64), generator=g, device=dev) * 0.05
+    pri = torch.rand(3000, generator=g, device=dev) * 2e5
+    cfg = tqs.FQuantConfig(tiers=TierConfig(5e4, 1.5e5))
+    store = tqs.QATStore(table, pri)
+    rq_kernel.reset_launches()
+    packed = tps.pack(store, cfg)
+    assert rq_kernel.launches["float32"] == 1
+    cpu = tps.pack(tqs.QATStore(table.cpu(), pri.cpu()), cfg)
+    for name in tps.PackedStore._fields:
+        a, b = getattr(packed, name).cpu(), getattr(cpu, name)
+        if a.dtype == torch.bfloat16:
+            a, b = a.view(torch.int16), b.view(torch.int16)
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("bits", ["32", "8"])
+def test_hashed_online_serve_smoke_launches_the_kernels(dev, bits):
+    rec = serve.run(serve.parse_args(
+        ["--arch", "wide-deep", "--online", "--store-backend", "hashed",
+         "--hash-bits", bits, "--model", "smoke", "--requests", "4",
+         "--batch", "64"])).record
+    assert rec["device"] == "cuda" and rec["retiers"] == 2
+    assert rec["rows_moved"] == 0 and rec["hash_bits"] == int(bits)
+    # one gather a request and one per cache rebuild (2 re-tiers)
+    assert rec["kernel_launches"]["hashed_gather"] == 4 + 2
+    assert rec["build_kernel_launches"]["quantize_rowwise"] == (
+        1 if bits == "8" else 0)

@@ -67,7 +67,8 @@ def test_serve_raises_without_cuda_unless_cpu_is_asked():
 
 
 def test_kernel_build_is_keyed_by_source_hash():
-    for name in ("dequant_bag", "bag_grad", "bag_matmul", "cin"):
+    for name in ("dequant_bag", "bag_grad", "bag_matmul", "cin",
+                 "hashed_gather", "rowwise_quant"):
         path = build.library_path(name)
         assert path.parent == ROOT / "build" / "repro_torch"
         assert path.name.startswith(f"{name}-") and path.suffix == ".so"
@@ -103,3 +104,18 @@ def test_online_serve_raises_without_cuda_unless_cpu_is_asked():
             tserve.run(tserve.parse_args(
                 ["--arch", arch, "--online", "--fuse-matmul", "--model",
                  "smoke", "--requests", "1"]))
+
+
+def test_hashed_modules_are_covered_by_the_import_rule():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for mod in ("kernels/hashed_gather/ref.py",
+                "kernels/hashed_gather/kernel.py",
+                "kernels/hashed_gather/ops.py",
+                "kernels/hashed_gather/autodiff.py",
+                "kernels/rowwise_quant/ref.py",
+                "kernels/rowwise_quant/kernel.py",
+                "kernels/rowwise_quant/ops.py", "store/hashed.py",
+                "store/api.py"):
+        assert f"src/repro_torch/{mod}" in names, mod
+    for src in ("hashed_gather.cu", "rowwise_quant.cu"):
+        assert (ROOT / "src" / "repro_torch" / "csrc" / src).exists(), src
