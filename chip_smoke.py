@@ -7,8 +7,9 @@ measure.
 Phases, each of which stops the run with a non-zero exit when it fails:
 
 1. build: one ``nvcc`` per CUDA source of ``repro_torch`` (dequant_bag,
-   bag_grad, bag_matmul, cin, hashed_gather, rowwise_quant), all started
-   together, for sm_90a into ``build/repro_torch/``;
+   bag_grad, bag_matmul, cin, hashed_gather, rowwise_quant,
+   dequant_bag_rowgrid, bag_grad_rowgrid), all started together, for
+   sm_90a into ``build/repro_torch/``;
 2. kernel check: each kernel against its plain PyTorch version on the
    card, bit for bit (tolerance 0): dequant_bag for int8, bf16, fp16 and
    fp32 payloads; bag_grad at K = 1 and 8, with and without scales, 40%
@@ -26,7 +27,13 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    64, 32, 10 and 8 at V = 1001, with an all-zero row (the 1e-12 floor),
    a row of exact .5 multiples of its scale (half to even) and rows
    holding NaN and inf (NaN and inf scales, codes 0, as the plain
-   version);
+   version); the two (B, K)-grid oracles against their plain versions and
+   against the tiled kernels: dequant_bag_rowgrid for every payload
+   dtype, D = 64 and 33, K = 1 and 8, B = 0, and a NaN row (a NaN scale
+   for int8) in a zero-weight slot, where the rowgrid forms give NaN bags
+   and the tiled forms finite ones, each equal to its own plain version;
+   bag_grad_rowgrid at bag_grad's shapes and a NaN cotangent under zero
+   coefficients (skipped by both);
 3. serve: ``repro_torch.launch.serve`` at ``--model full`` — dlrm-rm2 at
    its published widths (26 fields, 204,185,088 rows x 64 packed at a 50%
    budget, MLPs 13-512-256-64 and 415-512-512-256-1), batch 512.  Launch
@@ -35,13 +42,19 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    rows and bytes must be what they were before it did; one request's
    embeddings must equal the plain ``lookup`` bit for bit, and its logits
    the same head run on the CPU within 1e-4 * max(1, |ref|) (GPU and CPU
-   GEMMs reduce 512-long dot products in different orders);
+   GEMMs reduce 512-long dot products in different orders); after the
+   counts are read, a training batch's 65,536 x 26 uniform ids through
+   ``lookup_fused`` must equal the plain ``lookup`` bit for bit, with
+   slots in each of the three tiers;
 4. measure serving: dequant_bag at the serving shapes (B*F = 13,312
    slots, K = 1, the served store's tiers), checked bit for bit against
    its plain version on those inputs, then timed beside it, its bound and
    a library call; quantize_rowwise on the int8 rows of the build's first
    4M-row chunk (bit-equal to its plain version and to the pack's first
    int8 rows), timed beside its bound and its plain version;
+   dequant_bag_rowgrid on the same tier inputs (all 13,312 slots read),
+   bit-equal to its plain version and to dequant_bag, timed beside the
+   tiled kernel, its bound, its plain version and ``F.embedding_bag``;
 5. train: the compressed train step (``train.setup.build_recsys_training
    (model="full", max_ind_range=24_000_000)``: published widths, every
    field capped at 24M rows, 124,185,088 rows x 64) at batch 65,536 for
@@ -54,6 +67,11 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    plain version's dense output fits beside the kernel's) bit for bit,
    then timed at the training shapes (the full 124,185,088-row output)
    beside the zero fill, its bound, the plain version and ``index_add_``;
+   bag_grad_rowgrid on the same slots (bit-equal to bag_grad, one serial
+   launch timed at the full vocab) and at the pipeline gradcheck's shape
+   (8 samples x 26 fields into the rows they touch: bit-equal to its plain
+   version and to bag_grad, timed beside both, its bound and
+   ``index_add_``);
 7. resume: ``python -m repro_torch.launch.train --model smoke`` is killed
    after its first checkpoint and rerun; the rerun must resume from it;
 8. online fused serve: ``repro_torch.launch.serve --online --fuse-matmul``
@@ -100,12 +118,39 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    ||fwd(pool) - table|| / ||table|| (it must lie in (0, 1): the zero
    pool gives 1) and the store's bytes, then measures hashed_gather at
    the served shapes (20,480 ids x C 4 x T 2) beside its bound, its plain
-   version and ``F.embedding_bag`` over the dequantized pool.
+   version and ``F.embedding_bag`` over the dequantized pool;
+11. pipeline: ``python -m repro_torch.launch.pipeline --model full
+   --max-ind-range 24000000 --batch 65536 --steps 40`` through its
+   ``main``: dlrm-rm2 at its published widths over 124,185,088 rows
+   trained 40 steps (one checkpoint of the ~33 GB train state), gradcheck,
+   Taylor field pruning to 85% of the table bytes with a 16-step masked
+   finetune, Eq. 8 quantization at a 50% budget, pack and its
+   ``packed_store/v1`` checkpoint round trip, eval of 8 held-out batches
+   and 96 requests served micro-batched by 8 (a re-tier every 24, 64
+   cache rows, drift 2.0).  Counts are set to 0 just before and read just
+   after: dequant_bag and bag_grad once a train and a finetune step, the
+   pack's int8 tier through quantize_rowwise, the eval and the serve
+   through dequant_bag, the rowgrid oracles never; all four ``verify_*``
+   flags true and every loss finite.  The served lookups are held bit
+   for bit to the plain gather on the pipeline's own inputs: the first
+   eval batch's 1,703,936 slots through the restored pack (every tier)
+   against ``packed_store.lookup``, and every micro-batch that did not
+   re-tier against the plain gather of the pack that served it.  Prints
+   the record, the stage seconds, the peak memory and each checkpoint's
+   bytes and write rate;
+12. hashed pipeline: the same pipeline with ``--store-backend hashed``
+   at the published widths, every field capped at 3,600,000 rows
+   (22,184,960 rows, batch 65,536, 40 steps): the fit's hashed_gather
+   and bag_grad launches, hashed_gather in the eval and the serve, the
+   eval batch and the micro-batches held bit for bit to
+   ``hashed_gather_ref`` over the restored pool.
 
-Prints the card's name and power limit, the serve, train, both online
-and both hashed records, one JSON ``kernels`` line (dequant_bag per tier
-dtype, bag_grad, bag_matmul per arch, cin, hashed_gather per pool dtype,
-quantize_rowwise), and as the last line
+Prints the card's name and power limit, the serve, train, both online,
+both hashed and both pipeline records, one JSON ``kernels`` line
+(dequant_bag per tier dtype, bag_grad, bag_matmul per arch, cin,
+hashed_gather per pool dtype, quantize_rowwise, dequant_bag_rowgrid per
+tier dtype, bag_grad_rowgrid; each with its launches on every path), and
+as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Exits non-zero without that line when there is no CUDA device, or when
 the rest of the repository is missing.
@@ -147,8 +192,14 @@ SOURCE_HASHED = "src/repro_torch/csrc/hashed_gather.cu"
 TPU_QUANT = ("src/repro/kernels/rowwise_quant/kernel.py:44 "
              "quantize_rowwise_pallas")
 SOURCE_QUANT = "src/repro_torch/csrc/rowwise_quant.cu"
+TPU_ROWGRID = ("src/repro/kernels/dequant_bag/kernel.py:251 "
+               "dequant_bag_pallas_rowgrid")
+SOURCE_ROWGRID = "src/repro_torch/csrc/dequant_bag_rowgrid.cu"
+TPU_GRAD_ROWGRID = ("src/repro/kernels/dequant_bag/kernel.py:488 "
+                    "bag_grad_pallas_rowgrid")
+SOURCE_GRAD_ROWGRID = "src/repro_torch/csrc/bag_grad_rowgrid.cu"
 SOURCES = ("dequant_bag", "bag_grad", "bag_matmul", "cin", "hashed_gather",
-           "rowwise_quant")
+           "rowwise_quant", "dequant_bag_rowgrid", "bag_grad_rowgrid")
 HASH_BITS = ("32", "8")
 # What the packed paths built and moved before their int8 tier went through
 # the rowwise_quant kernel (the last chip run of the previous slice, same
@@ -164,6 +215,14 @@ ONLINE_ARCHS = ("wide-deep", "xdeepfm")
 REQUESTS = 16
 TRAIN_STEPS = 9
 MAX_IND_RANGE = 24_000_000
+# the full-width pipeline: 40 steps, so that one checkpoint of the train
+# state is written (the reference's ckpt_every 40)
+PIPELINE_STEPS = 40
+# the hashed pipeline at the published widths with every field capped at
+# 3,600,000 rows (22,184,960 rows, about the 22.2M of the hashed serve
+# phase): the fit's slot plan is not chunked yet (ROADMAP Queue 1), so a
+# fit of all 124M rows waits for it
+HASHED_PIPELINE_MAX_IND_RANGE = 3_600_000
 
 
 T0 = time.monotonic()
@@ -267,6 +326,117 @@ def check_bag_grad(torch, ops, ref) -> float:
     return worst
 
 
+def check_rowgrid(torch, ops, ref) -> tuple[float, float]:
+    """Phase 2: the two (B, K)-grid oracles against their plain versions
+    and against the tiled kernels on the card, bit for bit."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(9)
+    worst_dq, n_dq = 0.0, 0
+    for dtype in (torch.int8, torch.bfloat16, torch.float16,
+                  torch.float32):
+        for d in (64, 33):
+            v = 5000
+            payload = _payload(torch, dtype, v, d, g, dev)
+            scales = torch.rand(v, generator=g, device=dev) * 0.01
+            for b, k in ((1000, 1), (1000, 8), (7, 8), (13_312, 1), (0, 3)):
+                idx = torch.randint(0, v, (b, k), generator=g, device=dev,
+                                    dtype=torch.int32)
+                w = torch.rand((b, k), generator=g, device=dev)
+                w[torch.rand((b, k), generator=g, device=dev) < 0.4] = 0.0
+                for s in ((scales, None) if dtype == torch.float32
+                          else (scales,)):
+                    got = ops.dequant_bag_rowgrid(payload, s, idx, w)
+                    want = ref.dequant_bag_rowgrid_ref(payload, s, idx, w)
+                    tiled = ops.dequant_bag(payload, s, idx, w)
+                    torch.cuda.synchronize()
+                    if not (bits_equal(got, want) and bits_equal(got, tiled)):
+                        raise SystemExit(
+                            f"dequant_bag_rowgrid != plain or tiled: {dtype} "
+                            f"D={d} B={b} K={k} scales={s is not None}")
+                    if got.numel():
+                        worst_dq = max(worst_dq,
+                                       float((got - want).abs().max()))
+                    n_dq += 1
+        # the rule each kernel keeps: a NaN row (a NaN scale for int8) in
+        # a zero-weight slot makes the rowgrid bag NaN, the tiled kernel
+        # skips the slot
+        b, k, bad = 64, 4, 17
+        payload = _payload(torch, dtype, v, 64, g, dev)
+        scales = torch.rand(v, generator=g, device=dev) * 0.01
+        idx = torch.randint(0, v, (b, k), generator=g, device=dev,
+                            dtype=torch.int32)
+        idx[idx == bad] = bad + 1
+        w = torch.rand((b, k), generator=g, device=dev) + 0.5
+        idx[::2, 1], w[::2, 1] = bad, 0.0
+        if dtype == torch.int8:
+            scales[bad] = float("nan")
+        else:
+            payload[bad] = float("nan")
+        got = ops.dequant_bag_rowgrid(payload, scales, idx, w)
+        want = ref.dequant_bag_rowgrid_ref(payload, scales, idx, w)
+        tiled = ops.dequant_bag(payload, scales, idx, w)
+        tiled_want = ref.dequant_bag_ref(payload, scales, idx, w)
+        torch.cuda.synchronize()
+        if not (scales_equal(got, want) and bits_equal(tiled, tiled_want)
+                and bool(torch.isnan(got[::2]).all())
+                and bool(torch.isfinite(tiled).all())
+                and bits_equal(got[1::2], tiled[1::2])):
+            raise SystemExit(f"dequant_bag_rowgrid NaN rule broken: {dtype}")
+        n_dq += 1
+    log(f"kernel check: dequant_bag_rowgrid bit-equal to its plain version "
+        f"and to dequant_bag in {n_dq} cases (4 dtypes, D 64/33, K 1/8, B 0;"
+        f" a NaN row in a zero-weight slot: NaN bags in both rowgrid forms, "
+        f"finite in both tiled forms; max abs err {worst_dq})")
+
+    worst_grad, n_grad = 0.0, 0
+    shapes = ((4096, 1, 1_000_000), (1001, 8, 5000), (1001, 8, 50),
+              (37, 3, 7), (0, 4, 10))
+    for d in (64, 33, 200):
+        for b, k, v in shapes:
+            grad = torch.randn((b, d), generator=g, device=dev)
+            idx = torch.randint(0, v, (b, k), generator=g, device=dev,
+                                dtype=torch.int32)
+            scales = torch.rand(v, generator=g, device=dev) * 3
+            w = torch.rand((b, k), generator=g, device=dev)
+            masked = w.clone()
+            masked[torch.rand((b, k), generator=g, device=dev) < 0.4] = 0.0
+            for s in (None, scales):
+                for wt in (None, w, masked):
+                    got = ops.bag_grad_rowgrid(grad, s, idx, wt, v)
+                    want = ref.bag_grad_rowgrid_ref(grad, s, idx, wt, v)
+                    tiled = ops.bag_grad(grad, s, idx, wt, v)
+                    torch.cuda.synchronize()
+                    if not (bits_equal(got, want) and bits_equal(got, tiled)):
+                        raise SystemExit(
+                            f"bag_grad_rowgrid != plain or tiled: B={b} K={k}"
+                            f" D={d} V={v} scales={s is not None}")
+                    if got.numel():
+                        worst_grad = max(worst_grad,
+                                         float((got - want).abs().max()))
+                    n_grad += 1
+    # a NaN cotangent in a bag whose coefficients are all zero: skipped
+    grad = torch.randn((64, 64), generator=g, device=dev)
+    idx = torch.randint(0, 100, (64, 4), generator=g, device=dev,
+                        dtype=torch.int32)
+    w = torch.rand((64, 4), generator=g, device=dev) + 0.5
+    grad[5], w[5] = float("nan"), 0.0
+    got = ops.bag_grad_rowgrid(grad, None, idx, w, 100)
+    want = ref.bag_grad_rowgrid_ref(grad, None, idx, w, 100)
+    tiled = ops.bag_grad(grad, None, idx, w, 100)
+    torch.cuda.synchronize()
+    if not (bits_equal(got, want) and bits_equal(got, tiled)
+            and bool(torch.isfinite(got).all())):
+        raise SystemExit("bag_grad_rowgrid: a NaN cotangent under zero "
+                         "coefficients leaked")
+    n_grad += 1
+    log(f"kernel check: bag_grad_rowgrid bit-equal to its plain version and "
+        f"to bag_grad in {n_grad} cases (K 1-8, scales on/off, 40% masked, "
+        f"duplicates, D 64/33/200, B=0, a NaN cotangent under zero "
+        f"coefficients; max abs err {worst_grad})")
+    return worst_dq, worst_grad
+
+
 def time_launches(torch, fn, args_list, flush) -> float:
     """Mean ms of ``fn(*args)`` over ``args_list``, each launch timed by
     its own CUDA events with the 50 MB L2 flushed before it (a request's
@@ -285,23 +455,23 @@ def time_launches(torch, fn, args_list, flush) -> float:
     return sum(a.elapsed_time(b) for a, b in pairs) / len(pairs)
 
 
-def measure(torch, served, kernel, ref, launches, worst) -> list[dict]:
-    """Phase 4: each tier's launch at the serving shapes."""
-    import torch.nn.functional as F
-
+def serve_tier_inputs(torch, served, n: int = 64) -> tuple:
+    """Each tier's dequant_bag launch inputs for ``n`` served requests
+    (B*F = 13,312 slots, K = 1; other tiers' slots weigh 0), and per tier
+    the mean live slots, distinct live rows and distinct rows over all
+    slots a request."""
     from repro_torch.core.packed_store import _split
     from repro_torch.models.embedding import globalize
 
     packed = served.packed
     dev = packed.payload32.device
-    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     tiers = (("int8", packed.payload8, packed.scale8),
              ("bfloat16", packed.payload16, packed.scale16),
              ("float32", packed.payload32, None))
     inputs = {name: [] for name, _, _ in tiers}
     live_slots = {name: 0 for name, _, _ in tiers}
     touched = {name: 0 for name, _, _ in tiers}
-    n = 64
+    read = {name: 0 for name, _, _ in tiers}
     for r in range(n):
         idx = served.make_request(1000 + r)["indices"].to(dev)
         tier, loc = _split(packed, globalize(idx, served.model.spec)
@@ -312,6 +482,20 @@ def measure(torch, served, kernel, ref, launches, worst) -> list[dict]:
             inputs[name].append((payload, scales, li.contiguous(), w))
             live_slots[name] += int((w != 0).sum())
             touched[name] += int(torch.unique(li[w != 0]).numel())
+            read[name] += int(torch.unique(li).numel())
+    per = {name: {"live_slots": live_slots[name] / n,
+                  "distinct_live_rows": touched[name] / n,
+                  "distinct_rows": read[name] / n} for name in inputs}
+    return tiers, inputs, per
+
+
+def measure(torch, served, kernel, ref, launches, worst) -> list[dict]:
+    """Phase 4: each tier's launch at the serving shapes."""
+    import torch.nn.functional as F
+
+    dev = served.packed.payload32.device
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    tiers, inputs, per = serve_tier_inputs(torch, served)
     out = []
     for name, payload, scales in tiers:
         args = inputs[name]
@@ -320,8 +504,8 @@ def measure(torch, served, kernel, ref, launches, worst) -> list[dict]:
         # Bytes the function must move: every weight, the index of each
         # live slot (w != 0), each distinct live row with its scale once,
         # and the output; flops: 3 per element of a live slot (2 unscaled).
-        slots = live_slots[name] / n
-        rows = touched[name] / n
+        slots = per[name]["live_slots"]
+        rows = per[name]["distinct_live_rows"]
         row_bytes = d * payload.element_size() + (4 if scales is not None
                                                   else 0)
         nbytes = b * k * 4 + slots * 4 + rows * row_bytes + b * d * 4
@@ -355,6 +539,65 @@ def measure(torch, served, kernel, ref, launches, worst) -> list[dict]:
             "library_ms": library_ms,
             "slots": b * k, "live_slots": slots, "distinct_live_rows": rows,
             "bytes": nbytes})
+    return out
+
+
+def measure_dequant_rowgrid(torch, served, kernel, ref, worst: float
+                            ) -> list[dict]:
+    """Phase 4: the (B, K)-grid oracle on each tier's launch inputs of 64
+    served requests (13,312 slots, all read: the other tiers' slots weigh
+    0 but the oracle reads their clamped rows too), held to its plain
+    version and to the tiled kernel, then timed beside both, its bound and
+    a library call."""
+    import torch.nn.functional as F
+
+    dev = served.packed.payload32.device
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    tiers, inputs, per = serve_tier_inputs(torch, served)
+    out = []
+    for name, payload, scales in tiers:
+        args = inputs[name]
+        b, k = args[0][2].shape
+        d = payload.shape[1]
+        for a in args[:4]:
+            got = kernel.dequant_bag_rowgrid_cuda(*a)
+            want = ref.dequant_bag_rowgrid_ref(*a)
+            if not (bits_equal(got, want)
+                    and bits_equal(got, kernel.dequant_bag_cuda(*a))):
+                raise SystemExit(f"dequant_bag_rowgrid[{name}] != plain or "
+                                 "tiled on the served store")
+            worst = max(worst, float((got - want).abs().max()))
+        ms = time_launches(torch, kernel.dequant_bag_rowgrid_cuda, args,
+                           flush)
+        tiled_ms = time_launches(torch, kernel.dequant_bag_cuda, args, flush)
+        plain_ms = time_launches(torch, ref.dequant_bag_rowgrid_ref, args,
+                                 flush)
+        library_ms = None
+        if scales is None:
+            library_ms = time_launches(
+                torch, lambda p, s, i, w: F.embedding_bag(
+                    i, p, mode="sum", per_sample_weights=w), args, flush)
+        # bytes the oracle's function must move: every slot's index and
+        # weight, each distinct row any slot reads (with its scale), the
+        # output; 3 flops an element of every slot (2 unscaled)
+        row_bytes = d * payload.element_size() + (4 if scales is not None
+                                                  else 0)
+        nbytes = (b * k * 8 + per[name]["distinct_rows"] * row_bytes
+                  + b * d * 4)
+        bound_ms, bound_by = _bound(
+            nbytes, b * k * d * (3 if scales is not None else 2))
+        out.append({
+            "name": f"dequant_bag_rowgrid[{name}]", "route": "cuda",
+            "source": SOURCE_ROWGRID, "replaces": TPU_ROWGRID,
+            "launches": 0, "max_abs_err": worst, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms,
+            "tiled_ms": tiled_ms, "slots": b * k,
+            "distinct_rows": per[name]["distinct_rows"], "bytes": nbytes,
+            "per": "launch (one tier of a dlrm serve request)"})
+        log(f"dequant_bag_rowgrid[{name}] at the serve request's {b * k:,} "
+            f"slots: {ms:.4f} ms (tiled {tiled_ms:.4f}, plain {plain_ms:.4f},"
+            f" bound {bound_ms:.5f}); bit-equal to plain and tiled")
     return out
 
 
@@ -416,7 +659,30 @@ def serve_full(torch, serve, kernels_mod, kernel, ps) -> tuple:
     if not bool((diff <= 1e-4 * ref_logits.abs().clamp_min(1.0)).all()):
         raise SystemExit(f"served logits off the CPU head by "
                          f"{float(diff.max())}")
-    log(f"serve check: embeddings bit-equal to plain lookup, logits within "
+    # every tier at a training batch's 1,703,936 slots (uniform ids): the
+    # pipeline's pack has no bf16 row at its priorities, this one has all
+    # three tiers
+    n = RECSYS_SHAPES["train_batch"]["batch"]
+    spec = served.model.spec
+    gen = torch.Generator(device=dev).manual_seed(0)
+    with torch.inference_mode():
+        ids = torch.randint(0, 1 << 62, (n, spec.num_fields), generator=gen,
+                            device=dev) % torch.tensor(
+                                spec.cardinalities, device=dev)
+        gidx = globalize(ids, spec)
+        emb = ps.lookup_fused(served.packed, gidx)
+        plain = ps.lookup(served.packed, gidx)
+        by_tier = torch.bincount(
+            ps.packed_tiers(served.packed)[gidx.to(torch.int64)].reshape(-1)
+            .to(torch.int64), minlength=3).tolist()
+    if not bits_equal(emb, plain) or min(by_tier) <= 0:
+        raise SystemExit(f"a {n}-sample lookup differs from the plain one "
+                         f"or misses a tier: slots by tier {by_tier}")
+    rec["check_full_batch_lookup"] = {"slots": int(gidx.numel()),
+                                      "slots_by_tier": by_tier}
+    del ids, gidx, emb, plain
+    log(f"serve check: embeddings bit-equal to plain lookup (a request, and "
+        f"{n} x {spec.num_fields} slots by tier {by_tier}), logits within "
         f"{float(diff.max()):.3g} of the CPU head; int8 tier quantized in "
         f"{quant} rowwise_quant launches, tiers {rec['tier_rows']} as before")
     return served, launches
@@ -517,7 +783,13 @@ def measure_bag_grad(torch, kernel, ref, gidx, vocab: int, flush,
     if not bits_equal(got, want):
         raise SystemExit("bag_grad != plain on a training batch's slots")
     worst = max(worst, float((got - want).abs().max()))
-    del got, want, cidx, inv
+    got_rg = kernel.bag_grad_rowgrid_cuda(grad, cidx, coeff,
+                                          torch.zeros((u, d), device=dev))
+    torch.cuda.synchronize()
+    if not bits_equal(got_rg, got):
+        raise SystemExit("bag_grad_rowgrid != bag_grad on a training "
+                         "batch's slots")
+    del got, want, got_rg, cidx, inv
     log(f"kernel check: bag_grad bit-equal to plain on one training "
         f"batch ({n:,} slots, {u:,} distinct rows, longest row {depth:,} "
         f"slots)")
@@ -542,6 +814,22 @@ def measure_bag_grad(torch, kernel, ref, gidx, vocab: int, flush,
     if not bits_equal(out[uniq], plain[uniq]):
         raise SystemExit("bag_grad != plain at the full training vocab")
     del plain
+    # the (B, K)-grid oracle at the same shapes: one launch (a serial
+    # walk of all slots), bit-equal to the tiled kernel's rows
+    tiled_rows = out[uniq].clone()
+    out.zero_()
+    flush.zero_()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    kernel.bag_grad_rowgrid_cuda(grad, idx, coeff, out)
+    e1.record()
+    torch.cuda.synchronize()
+    rowgrid_ms = e0.elapsed_time(e1)
+    if not bits_equal(out[uniq], tiled_rows):
+        raise SystemExit("bag_grad_rowgrid != bag_grad at the full training "
+                         "vocab")
+    del tiled_rows
     # bytes the function must move: g, the indices and coefficients
     # once, and each distinct touched row written once; 2 flops a
     # column per slot
@@ -550,8 +838,13 @@ def measure_bag_grad(torch, kernel, ref, gidx, vocab: int, flush,
     bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3
     log(f"bag_grad at the training shapes: {ms:.4f} ms (sort {sort_ms:.4f}),"
         f" zero fill {zero_ms:.4f} ms, plain {plain_ms:.1f} ms, index_add_ "
-        f"{library_ms:.4f} ms, bound {bound_ms:.5f} ms")
-    return {
+        f"{library_ms:.4f} ms, bound {bound_ms:.5f} ms; bag_grad_rowgrid "
+        f"{rowgrid_ms:.1f} ms, bit-equal")
+    rowgrid_train = {"ms": rowgrid_ms, "tiled_ms": ms, "bound_ms": bound_ms,
+                     "library_ms": library_ms, "slots": n,
+                     "distinct_rows": u, "longest_row": depth,
+                     "vocab": vocab}
+    return rowgrid_train, {
         "name": "bag_grad", "route": "cuda", "source": SOURCE_BAG_GRAD,
         "replaces": TPU_BAG_GRAD, "launches": None, "max_abs_err": worst,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -561,6 +854,57 @@ def measure_bag_grad(torch, kernel, ref, gidx, vocab: int, flush,
         "zero_fill_ms": zero_ms, "zero_fill_bytes": vocab * d * 4,
         "slots": n, "distinct_rows": u, "longest_row": depth,
         "vocab": vocab, "bytes": nbytes}
+
+
+def measure_bag_grad_rowgrid(torch, kernel, ref, gidx, flush,
+                             worst: float) -> dict:
+    """Phase 6: the (B, K)-grid scatter oracle at the pipeline gradcheck's
+    shape (8 training samples x 26 fields, K = 1, into the sub-table of
+    the rows they touch), held to its plain version and to bag_grad, then
+    timed beside both, its bound and ``index_add_``."""
+    dev = gidx.device
+    flat = gidx[:8].reshape(-1)
+    uniq, inv = torch.unique(flat, return_inverse=True)
+    n, u, d = flat.numel(), uniq.numel(), 64
+    g = torch.Generator(device=dev)
+    g.manual_seed(10)
+    grad = torch.randn((n, d), generator=g, device=dev)
+    idx = inv.to(torch.int32).reshape(-1, 1).contiguous()
+    coeff = torch.ones(idx.shape, dtype=torch.float32, device=dev)
+    got = kernel.bag_grad_rowgrid_cuda(grad, idx, coeff,
+                                       torch.zeros((u, d), device=dev))
+    tiled = kernel.bag_grad_cuda(grad, idx, coeff,
+                                 torch.zeros((u, d), device=dev))
+    want = ref.bag_grad_rowgrid_ref(grad, None, idx, coeff, u)
+    torch.cuda.synchronize()
+    if not (bits_equal(got, want) and bits_equal(got, tiled)):
+        raise SystemExit("bag_grad_rowgrid != plain or tiled at the "
+                         "gradcheck shape")
+    worst = max(worst, float((got - want).abs().max()))
+    out = torch.zeros((u, d), device=dev)
+    reps = [(grad, idx, coeff, out)] * 10
+    ms = time_launches(torch, kernel.bag_grad_rowgrid_cuda, reps, flush)
+    tiled_ms = time_launches(torch, kernel.bag_grad_cuda, reps, flush)
+    plain_ms = time_once(torch, ref.bag_grad_rowgrid_ref, grad, None, idx,
+                         coeff, u)
+    flat64 = idx.reshape(-1).to(torch.int64)
+    library_ms = time_launches(
+        torch, lambda o: o.index_add_(0, flat64, coeff * grad), [(out,)] * 10,
+        flush)
+    nbytes = n * d * 4 + n * 4 + n * 4 + u * d * 4
+    bound_ms, bound_by = _bound(nbytes, 2 * n * d)
+    log(f"bag_grad_rowgrid at the gradcheck shape ({n} slots, {u} rows): "
+        f"{ms:.4f} ms (tiled {tiled_ms:.4f}, plain {plain_ms:.2f}, "
+        f"index_add_ {library_ms:.4f}, bound {bound_ms:.6f}); bit-equal to "
+        f"plain and tiled")
+    return {"name": "bag_grad_rowgrid", "route": "cuda",
+            "source": SOURCE_GRAD_ROWGRID, "replaces": TPU_GRAD_ROWGRID,
+            "launches": 0, "max_abs_err": worst, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "tiled_ms": tiled_ms,
+            "shape": {"slots": n, "K": 1, "D": d, "distinct_rows": u},
+            "bytes": nbytes,
+            "per": "launch (the pipeline gradcheck's 8 x 26 slots)"}
 
 
 def _payload(torch, dtype, v, d, g, dev):
@@ -1398,6 +1742,114 @@ def resume_smoke() -> dict:
     return rec
 
 
+def pipeline_audit(torch, kernels_mod, label: str) -> tuple:
+    """(audit, seen) for ``pipeline.main``: the pipeline's served lookups
+    (its first served-table eval batch, every micro-batch that did not
+    re-tier) held bit for bit to the plain gather of the store that
+    served them, on the card: ``packed_store.lookup`` of the pack (the
+    eval: the restored pack at the full batch, every tier's slots), or
+    ``hashed_gather_ref`` over the hashed backend's pool.  The plain
+    gathers launch no kernel (checked), so the run's counts stay the
+    main path's."""
+    from repro_torch.core import packed_store as ps
+    from repro_torch.kernels.hashed_gather import ref as hg_ref
+    from repro_torch.kernels.hashed_gather.ops import slot_plan
+
+    seen = {"eval": {"batches": 0, "slots": 0},
+            "serve": {"batches": 0, "slots": 0}, "eval_slots_by_tier": None}
+
+    def audit(stage, store, gidx, emb):
+        before = kernels_mod.launch_counts()
+        with torch.inference_mode():
+            if isinstance(store, ps.PackedStore):
+                plain = ps.lookup(store, gidx)
+                by_tier = torch.bincount(
+                    ps.packed_tiers(store)[gidx.to(torch.int64)].reshape(-1)
+                    .to(torch.int64), minlength=3).tolist()
+            else:
+                hs, hcfg = store.hs, store.hcfg
+                slots, coeff = slot_plan(
+                    gidx.reshape(-1, 1), None, num_chunks=hcfg.num_chunks,
+                    num_hashes=hcfg.num_hashes, num_slots=hcfg.num_slots,
+                    seed=hcfg.seed)
+                plain = hg_ref.hashed_gather_ref(
+                    hs.pool, hs.pool_scale, slots, coeff,
+                    num_chunks=hcfg.num_chunks).reshape(*gidx.shape, -1)
+                by_tier = None
+        if kernels_mod.launch_counts() != before:
+            raise SystemExit(f"pipeline {label}: the plain {stage} gather "
+                             "launched a kernel")
+        if emb is None or not bits_equal(emb, plain):
+            raise SystemExit(f"pipeline {label}: served {stage} embeddings "
+                             "!= the plain gather")
+        seen[stage]["batches"] += 1
+        seen[stage]["slots"] += int(gidx.numel())
+        if stage == "eval":
+            seen["eval_slots_by_tier"] = by_tier
+    return audit, seen
+
+
+def pipeline_phase(torch, kernels_mod, kernel, pipeline, argv: list,
+                   label: str) -> tuple[dict, dict]:
+    """Phases 11 and 12: ``repro_torch.launch.pipeline`` as its CLI runs,
+    with the counts set to 0 just before and read just after, and its
+    served lookups held to the plain gather (``pipeline_audit``).
+    Returns (the record, the run's launches by kernel and, for
+    dequant_bag, by payload dtype)."""
+    audit, seen = pipeline_audit(torch, kernels_mod, label)
+    with tempfile.TemporaryDirectory() as ckpt:
+        kernels_mod.reset_launches()
+        t0 = time.perf_counter()
+        # prints the record; raises on a false verify_* or a non-finite loss
+        rec = pipeline.main([*argv, "--ckpt-dir", ckpt], audit=audit)
+        wall = time.perf_counter() - t0
+        counts = kernels_mod.launch_counts()
+        counts["dequant_bag_by_dtype"] = dict(kernel.launches)
+    kl = rec["kernel_launches"]
+    micro_batches = -(-rec["serve_requests"] // rec["serve_batch"])
+    steps, ft = len(rec["train_losses"]), len(rec["finetune_losses"])
+    summed = {k: sum(stage[k] for stage in kl.values()) for k in kl["train"]}
+    hashed = rec["store_backend"] == "hashed"
+    wanted = [
+        rec["device"] == "cuda", steps == rec["train_steps"],
+        {k: counts[k] for k in summed} == summed,
+        kl["train"]["dequant_bag"] == steps, kl["train"]["bag_grad"] == steps,
+        kl["finetune"]["dequant_bag"] == ft, kl["finetune"]["bag_grad"] == ft,
+        ft > 0, kl["gradcheck"]["bag_grad"] == 1,
+        counts["dequant_bag_rowgrid"] == counts["bag_grad_rowgrid"] == 0,
+        seen["eval"]["batches"] == 1,
+        seen["eval"]["slots"] == rec["batch"] * rec["fields_total"],
+        seen["serve"]["batches"] == micro_batches - rec["retiers"] > 0]
+    if hashed:
+        wanted += [kl["pack"]["hashed_gather"] > 0,
+                   kl["pack"]["bag_grad"] > 0,
+                   kl["serve"]["hashed_gather"] > 0]
+    else:
+        wanted += [kl["pack"]["quantize_rowwise"] > 0,
+                   kl["eval"]["dequant_bag"] > 0,
+                   kl["serve"]["dequant_bag"] > 0]
+    if not all(wanted):
+        raise SystemExit(f"pipeline {label}: unexpected launches, record "
+                         f"or audit: {wanted}, {counts}, {kl}, {seen}")
+    writes = rec["checkpoints"]["train"] + rec["checkpoints"]["pack"]
+    summary = {
+        "label": label, "wall_s": wall, "stage_seconds": rec["stage_seconds"],
+        "max_memory_allocated_bytes": rec["max_memory_allocated_bytes"],
+        "rows": rec["rows"], "reduced": rec["reduced"],
+        "checkpoints": [dict(w, write_gb_per_s=w["bytes"] / w["write_s"]
+                             / 1e9) for w in writes],
+        "launches": counts, "device_name": rec["device_name"],
+        "served_vs_plain_bit_equal": seen}
+    print(json.dumps({"pipeline": summary}), flush=True)
+    log(f"pipeline {label}: {wall:.1f}s, stages {rec['stage_seconds']}, "
+        f"peak {(rec['max_memory_allocated_bytes'] or 0) / 1e9:.2f} GB, "
+        f"{rec['fields_pruned']}/{rec['fields_total']} fields pruned, ratio "
+        f"{rec['compression_ratio']}, AUC {rec['eval_auc_fp32']} -> "
+        f"{rec['eval_auc_packed']}, all verify_* true, served lookups "
+        f"bit-equal to the plain gather {seen}, launches {counts}")
+    return rec, counts
+
+
 def trace(torch, serve, served, requests: int, path: str) -> None:
     """--trace: kernel time by name over served requests (the table goes
     to ``path``) and the device busy share (printed)."""
@@ -1499,7 +1951,7 @@ def main() -> int:
     from repro_torch.kernels.rowwise_quant import kernel as rq_kernel
     from repro_torch.kernels.rowwise_quant import ops as rq_ops
     from repro_torch.kernels.rowwise_quant import ref as rq_ref
-    from repro_torch.launch import serve
+    from repro_torch.launch import pipeline, serve
     from repro_torch.train import setup as setup_mod
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1521,9 +1973,15 @@ def main() -> int:
     worst_cin = check_cin(torch, cin_ops, cin_ref)
     worst_hg = check_hashed_gather(torch, hg_ops, hg_ref)
     worst_rq = check_rowwise_quant(torch, rq_ops, rq_ref)
+    worst_rg, worst_grad_rg = check_rowgrid(torch, ops, ref)
+    # the rowgrid oracles on each main path: no entry point runs them
+    rowgrid_by_path = {}
     served, launches = serve_full(torch, serve, kernels_mod, kernel, ps)
+    rowgrid_by_path["serve"] = dict(kernel.rowgrid_launches)
     print(json.dumps(served.record), flush=True)
     kernels = measure(torch, served, kernel, ref, launches, worst)
+    rowgrid_entries = measure_dequant_rowgrid(torch, served, kernel, ref,
+                                              worst_rg)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     quant_entry = measure_quantize(torch, served, rq_kernel, rq_ref, flush,
                                    worst_rq)
@@ -1536,6 +1994,7 @@ def main() -> int:
 
     train_rec, gidx, vocab = train_full(torch, kernel, autodiff, setup_mod,
                                         configs.get("dlrm-rm2"))
+    rowgrid_by_path["train"] = dict(kernel.rowgrid_launches)
     print(json.dumps(train_rec), flush=True)
     torch.cuda.empty_cache()
     train_launches = train_rec["train"]["kernel_launches"]
@@ -1546,8 +2005,11 @@ def main() -> int:
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
-    grad_entry = measure_bag_grad(torch, kernel, ref, gidx, vocab, flush,
-                                  worst_grad)
+    rowgrid_train, grad_entry = measure_bag_grad(torch, kernel, ref, gidx,
+                                                 vocab, flush, worst_grad)
+    grad_rg_entry = measure_bag_grad_rowgrid(torch, kernel, ref, gidx, flush,
+                                             worst_grad_rg)
+    grad_rg_entry["train_shape"] = rowgrid_train
     grad_entry["launches"] = train_launches["bag_grad"]
     grad_entry["launches_by_path"] = {"serve": 0,
                                       "train": train_launches["bag_grad"]}
@@ -1564,6 +2026,7 @@ def main() -> int:
     for arch in ONLINE_ARCHS:
         served, launches = serve_online(torch, serve, kernels_mod, counters,
                                         arch)
+        rowgrid_by_path[f"online_{arch}"] = dict(kernel.rowgrid_launches)
         online_dequant[arch] = dict(kernel.launches)
         quant_by_path[f"online_{arch}"] = launches["quantize_rowwise"]
         print(json.dumps(served.record), flush=True)
@@ -1587,6 +2050,8 @@ def main() -> int:
     table = None
     for bits in HASH_BITS:
         served, launches = serve_hashed(torch, serve, kernels_mod, bits)
+        rowgrid_by_path[f"online_hashed_{bits}b"] = dict(
+            kernel.rowgrid_launches)
         if table is None:         # the fit's target: the snapped table
             model = served.model
             table = serve.online_store(model, model.spec,
@@ -1623,11 +2088,56 @@ def main() -> int:
         quant_by_path[path] = launches["quantize_rowwise"]
         del served
         torch.cuda.empty_cache()
-    grad_entry["launches"] = sum(grad_entry["launches_by_path"].values())
     del table, flush
+    torch.cuda.empty_cache()
+
+    # the slice's main path: the SHARK pipeline at full width, then its
+    # hashed branch at the published widths over fewer rows
+    for label, argv in (
+            ("pipeline", ["--model", "full", "--max-ind-range",
+                          str(MAX_IND_RANGE), "--batch", "65536", "--steps",
+                          str(PIPELINE_STEPS)]),
+            ("pipeline_hashed", ["--model", "full", "--max-ind-range",
+                                 str(HASHED_PIPELINE_MAX_IND_RANGE),
+                                 "--batch", "65536", "--steps",
+                                 str(PIPELINE_STEPS), "--store-backend",
+                                 "hashed"])):
+        _, counts = pipeline_phase(torch, kernels_mod, kernel, pipeline, argv,
+                                   label)
+        torch.cuda.empty_cache()
+        rowgrid_by_path[label] = {k: counts[k] for k in kernel.rowgrid_launches}
+        for k in kernels:
+            if k["name"].startswith("dequant_bag["):
+                dtype = k["name"][len("dequant_bag["):-1]
+                k["launches_by_path"][label] = counts[
+                    "dequant_bag_by_dtype"][dtype]
+            elif k["name"] == "hashed_gather[float32]":
+                # the pipeline's hashed pool is fp32
+                k["launches_by_path"][label] = counts["hashed_gather"]
+            elif k["name"].startswith("hashed_gather["):
+                k["launches_by_path"][label] = 0
+            elif k["name"].startswith(("bag_matmul[", "cin[")):
+                kern, arch = k["name"][:-1].split("[")
+                k.setdefault("launches_by_path",
+                             {f"online_{arch}": k["launches"]})
+                k["launches_by_path"][label] = counts[kern]
+        grad_entry["launches_by_path"][label] = counts["bag_grad"]
+        quant_by_path[label] = counts["quantize_rowwise"]
+    for k in kernels:
+        k["launches"] = sum(k["launches_by_path"].values())
+    grad_entry["launches"] = sum(grad_entry["launches_by_path"].values())
     quant_entry["launches_by_path"] = quant_by_path
     quant_entry["launches"] = sum(quant_by_path.values())
     kernels.append(quant_entry)
+    for entry, key in ([(e, "dequant_bag_rowgrid") for e in rowgrid_entries]
+                       + [(grad_rg_entry, "bag_grad_rowgrid")]):
+        entry["launches_by_path"] = {path: counts[key] for path, counts
+                                     in rowgrid_by_path.items()}
+        entry["launches"] = sum(entry["launches_by_path"].values())
+        if entry["launches"]:
+            raise SystemExit(f"{key} ran on a main path: "
+                             f"{entry['launches_by_path']}")
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,7 +17,10 @@ any without a manifest or that fails to load (a crash during save).
 
 ``save(..., blocking=False)`` copies every leaf to host memory before it
 returns (the train step updates the table in place) and writes in a
-daemon thread, one save in flight at a time.
+daemon thread, one save in flight at a time.  Python scalars and strings
+(a store manifest's ``kind`` tag) are 0-d arrays on disk and come back
+as the template leaf's type, as in the reference; so a ``packed_store/v1``
+or ``hashed_store/v1`` manifest round-trips.
 """
 
 from __future__ import annotations
@@ -38,19 +41,19 @@ def _is_namedtuple(x) -> bool:
     return isinstance(x, tuple) and hasattr(x, "_fields")
 
 
-def _paths(tree: Any, prefix: str = ""):
+def tree_paths(tree: Any, prefix: str = ""):
     """(keystr path, leaf) pairs in the reference's flattening order."""
     if tree is None:
         return
     if _is_namedtuple(tree):
         for f in tree._fields:
-            yield from _paths(getattr(tree, f), f"{prefix}.{f}")
+            yield from tree_paths(getattr(tree, f), f"{prefix}.{f}")
     elif isinstance(tree, (tuple, list)):
         for i, x in enumerate(tree):
-            yield from _paths(x, f"{prefix}[{i}]")
+            yield from tree_paths(x, f"{prefix}[{i}]")
     elif isinstance(tree, dict):
         for k in sorted(tree):
-            yield from _paths(tree[k], f"{prefix}[{k!r}]")
+            yield from tree_paths(tree[k], f"{prefix}[{k!r}]")
     else:
         yield prefix, tree
 
@@ -90,9 +93,11 @@ def _restore_leaf(key: str, arr: np.ndarray, dtype_name: str | None,
         t = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)
                              ).view(torch.bfloat16)
     elif isinstance(leaf, torch.Tensor):
-        t = torch.from_numpy(np.array(arr))
+        t = torch.from_numpy(arr if arr.flags.writeable else np.array(arr))
     elif isinstance(leaf, (int, float, bool)):
         return type(leaf)(arr.item())
+    elif isinstance(leaf, str):
+        return str(arr.item())
     else:
         return np.array(arr)
     if tuple(t.shape) != tuple(leaf.shape):
@@ -112,6 +117,9 @@ class CheckpointManager:
         os.makedirs(directory, exist_ok=True)
         self._thread: threading.Thread | None = None
         self._last_error: Exception | None = None
+        # one entry a published save: step, bytes on disk, seconds to
+        # copy the leaves to host memory and to write them
+        self.writes: list[dict] = []
 
     # ------------------------------------------------------------------ save
 
@@ -119,14 +127,17 @@ class CheckpointManager:
              extra: dict | None = None) -> None:
         """Checkpoint ``tree`` at ``step``.  Atomic: manifest written last."""
         self.wait()                               # one save in flight
+        t0 = time.perf_counter()
         flat, dtypes = {}, {}
-        for key, leaf in _paths(tree):            # host snapshot NOW
+        for key, leaf in tree_paths(tree):            # host snapshot NOW
             flat[key], dt = _to_host(leaf)
             if dt is not None:
                 dtypes[key] = dt
+        snapshot_s = time.perf_counter() - t0
 
         def _write():
             try:
+                t1 = time.perf_counter()
                 tmp = os.path.join(
                     self.dir, f".tmp_{step}_{uuid.uuid4().hex[:8]}")
                 final = os.path.join(self.dir, f"step_{step:010d}")
@@ -142,6 +153,12 @@ class CheckpointManager:
                 if os.path.exists(final):
                     shutil.rmtree(final)
                 os.rename(tmp, final)             # atomic publish
+                self.writes.append({
+                    "step": step,
+                    "bytes": os.path.getsize(
+                        os.path.join(final, "host_0.npz")),
+                    "snapshot_s": snapshot_s,
+                    "write_s": time.perf_counter() - t1})
                 self._gc()
             except Exception as e:                # surfaced on next wait()
                 self._last_error = e
@@ -204,7 +221,7 @@ class CheckpointManager:
         dtypes = manifest.get("dtypes", {})
         leaves = {}
         with np.load(os.path.join(path, "host_0.npz")) as data:
-            for key, leaf in _paths(template):
+            for key, leaf in tree_paths(template):
                 if key not in data:
                     raise KeyError(f"checkpoint missing {key}")
                 leaves[key] = _restore_leaf(key, data[key], dtypes.get(key),

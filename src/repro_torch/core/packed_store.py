@@ -29,7 +29,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from repro_torch.core import rowwise_quant as rq
-from repro_torch.core.qat_store import (FQuantConfig, QATStore,
+from repro_torch.core.qat_store import (CHUNK_ROWS, FQuantConfig, QATStore,
                                         current_tiers, snap)
 from repro_torch.core.tiers import Tier, assign_tiers, tier_counts
 from repro_torch.kernels.rowwise_quant.ops import quantize_rowwise
@@ -90,20 +90,15 @@ def _assemble(parts, indirect: torch.Tensor) -> PackedStore:
 
 
 def pack(store: QATStore, cfg: FQuantConfig) -> PackedStore:
-    """Partition rows by tier and quantize each tier's payload."""
-    table = store.table.to(torch.float32)
-    tiers = current_tiers(store, cfg)
-    dim = table.shape[1]
-    indirect = torch.zeros(table.shape[0], dtype=torch.int32,
-                           device=table.device)
-    parts = []
-    for tier in Tier:
-        idx = torch.nonzero(tiers == tier.value).reshape(-1)
-        rows = table[idx] if idx.numel() else table.new_zeros((1, dim))
-        parts.append(_quantize_tier(rows, tier, cfg))
-        indirect[idx] = (int(tier.value) << _TIER_SHIFT) | torch.arange(
-            idx.numel(), dtype=torch.int32, device=table.device)
-    return _assemble(parts, indirect)
+    """Partition rows by tier and quantize each tier's payload, in blocks
+    of ``CHUNK_ROWS`` rows into preallocated payloads (``build_chunked``
+    without its snap): no temporary the size of a tier's rows exists (at
+    124M x 64 the int8 tier's gathered fp32 rows alone would be ~31 GB).
+    """
+    table = store.table
+    return _fill_chunked(lambda r0, r1: table[r0:r1],
+                         current_tiers(store, cfg), table.shape[1], cfg,
+                         CHUNK_ROWS, snap_rows=False)
 
 
 def build_chunked(rows_fn: Callable[[int, int], torch.Tensor],
@@ -118,8 +113,14 @@ def build_chunked(rows_fn: Callable[[int, int], torch.Tensor],
     leaf: snap and the tier quantizers are row-wise, and a tier's rows
     keep ascending global order, so local indices match ``pack``'s.
     """
-    dev = priority.device
-    tiers = assign_tiers(priority, cfg.tiers)
+    return _fill_chunked(rows_fn, assign_tiers(priority, cfg.tiers), dim,
+                         cfg, chunk_rows, snap_rows=True)
+
+
+def _fill_chunked(rows_fn: Callable[[int, int], torch.Tensor],
+                  tiers: torch.Tensor, dim: int, cfg: FQuantConfig,
+                  chunk_rows: int, snap_rows: bool) -> PackedStore:
+    dev = tiers.device
     counts = tier_counts(tiers)
     half = torch.float16 if cfg.strict_fp16 else torch.bfloat16
     dtypes = (torch.int8, half, torch.float32)
@@ -132,14 +133,16 @@ def build_chunked(rows_fn: Callable[[int, int], torch.Tensor],
     for r0 in range(0, tiers.shape[0], chunk_rows):
         r1 = min(tiers.shape[0], r0 + chunk_rows)
         tc = tiers[r0:r1]
-        snapped = snap(rows_fn(r0, r1).to(torch.float32), tc, cfg)
+        block = rows_fn(r0, r1).to(torch.float32)
+        if snap_rows:
+            block = snap(block, tc, cfg)
         for tier in Tier:
             t = int(tier.value)
             sel = torch.nonzero(tc == t).reshape(-1)
             n = sel.numel()
             if n == 0:
                 continue
-            q, s = _quantize_tier(snapped[sel], tier, cfg)
+            q, s = _quantize_tier(block[sel], tier, cfg)
             o = offset[t]
             payloads[t][o:o + n] = q
             if s is not None:
@@ -147,7 +150,7 @@ def build_chunked(rows_fn: Callable[[int, int], torch.Tensor],
             indirect[r0 + sel] = (t << _TIER_SHIFT) | torch.arange(
                 o, o + n, dtype=torch.int32, device=dev)
             offset[t] = o + n
-        del snapped
+        del block
     for tier in Tier:
         t = int(tier.value)
         if counts[t] == 0:
@@ -333,6 +336,14 @@ def repack_delta(packed: PackedStore, store: QATStore, cfg: FQuantConfig,
             if phs is not None:
                 scales[t] = phs
     return _assemble(list(zip(payloads, scales)), indirect)
+
+
+def unpack(packed: PackedStore, r0: int = 0, r1: int | None = None
+           ) -> torch.Tensor:
+    """Dequantized table rows [r0, r1) (default: all), fp32 (r1 - r0, D):
+    the plain ``lookup`` of those ids, as the reference's ``unpack``."""
+    r1 = packed.vocab if r1 is None else r1
+    return lookup(packed, torch.arange(r0, r1, device=packed.indirect.device))
 
 
 def packed_tiers(packed: PackedStore) -> torch.Tensor:

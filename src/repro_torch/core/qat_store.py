@@ -9,7 +9,8 @@ store produces.
     table    fp32[V, D]   tier-exact values
     priority fp32[V]      Eq. 7 EMA scores
 
-``snap`` is the round-to-nearest projection that serving packs;
+``snap`` is the round-to-nearest projection that serving packs (``snap_``
+its in-place, chunked form);
 ``post_step`` (whole table) and ``post_step_sparse`` (touched rows only,
 the training path) fold a batch into the priorities, re-tier and snap,
 with stochastic rounding on the int8 tier when ``cfg.stochastic``.  The
@@ -33,6 +34,7 @@ from repro_torch.core.priority import (PriorityConfig,
 from repro_torch.core.tiers import Tier, TierConfig, assign_tiers
 
 _U32 = 0xFFFFFFFF
+CHUNK_ROWS = 1 << 22      # rows a chunked step holds (1 GB of fp32 at D 64)
 
 
 class FQuantConfig(NamedTuple):
@@ -68,6 +70,17 @@ def snap(table: torch.Tensor, tiers: torch.Tensor,
     t = tiers[:, None]
     return torch.where(t == Tier.INT8.value, q8,
                        torch.where(t == Tier.HALF.value, qh, table))
+
+
+def snap_(table: torch.Tensor, tiers: torch.Tensor, cfg: FQuantConfig
+          ) -> torch.Tensor:
+    """``snap`` in place, ``CHUNK_ROWS`` rows at a time (row-wise, so the
+    same values); returns ``table``.  At 124M x 64 a second table does not
+    fit beside the first."""
+    for r0 in range(0, table.shape[0], CHUNK_ROWS):
+        r1 = min(table.shape[0], r0 + CHUNK_ROWS)
+        table[r0:r1] = snap(table[r0:r1], tiers[r0:r1], cfg)
+    return table
 
 
 def post_step(store: QATStore, indices: torch.Tensor,

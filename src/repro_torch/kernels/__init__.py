@@ -2,7 +2,10 @@
 
   dequant_bag    fused gather + int8/bf16/fp16 dequant + embedding-bag
                  reduce (the serving path behind the paper's +30% QPS),
-                 and bag_grad, its scatter-add backward (training)
+                 and bag_grad, its scatter-add backward (training); with
+                 the reference's (B, K)-grid tiling oracles of both
+                 (dequant_bag_rowgrid, bag_grad_rowgrid), which no path
+                 runs
   bag_matmul     the same gather fused with the first dense layer of
                  wide&deep's and xDeepFM's deep branch (fused heads)
   cin            xDeepFM's Compressed Interaction Network layer
@@ -36,11 +39,12 @@ def _kernel_modules() -> dict:
 
 def launch_counts() -> dict:
     """Launches this process made, by kernel: ``dequant_bag``,
-    ``bag_grad``, ``bag_matmul``, ``cin``, ``hashed_gather``,
-    ``quantize_rowwise``."""
+    ``bag_grad``, ``dequant_bag_rowgrid``, ``bag_grad_rowgrid``,
+    ``bag_matmul``, ``cin``, ``hashed_gather``, ``quantize_rowwise``."""
     mods = _kernel_modules()
     return {"dequant_bag": mods["dequant_bag"].total_launches(),
             "bag_grad": mods["dequant_bag"].bag_grad_launches["float32"],
+            **mods["dequant_bag"].rowgrid_launches,
             "bag_matmul": mods["bag_matmul"].total_launches(),
             "cin": mods["cin"].total_launches(),
             "hashed_gather": mods["hashed_gather"].total_launches(),

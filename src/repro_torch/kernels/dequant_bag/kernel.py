@@ -3,12 +3,18 @@
 ``dequant_bag_cuda`` (``csrc/dequant_bag.cu``) replaces
 ``repro/kernels/dequant_bag/kernel.py::dequant_bag_pallas``;
 ``bag_grad_cuda`` (``csrc/bag_grad.cu``) replaces ``bag_grad_pallas``,
-its scatter-add backward.  Each library is built at first call
+its scatter-add backward.  ``dequant_bag_rowgrid_cuda``
+(``csrc/dequant_bag_rowgrid.cu``) and ``bag_grad_rowgrid_cuda``
+(``csrc/bag_grad_rowgrid.cu``) replace ``dequant_bag_pallas_rowgrid`` and
+``bag_grad_pallas_rowgrid``, the reference's (B, K)-grid tiling oracles
+of the two; no entry point runs them, tests and ``chip_smoke.py`` hold
+the tiled kernels to them.  Each library is built at first call
 (``kernels.build``) and loaded with ``ctypes``; a launch goes on
 PyTorch's current stream and does not synchronise.  ``launches`` counts
 the dequant-bag launches this process made, by payload dtype (each dtype
-is its own instantiation of the kernel), and ``bag_grad_launches`` the
-backward's, so a run can show that its path went through the kernels.
+is its own instantiation of the kernel), ``bag_grad_launches`` the
+backward's and ``rowgrid_launches`` the two oracles', so a run can show
+which kernels its path went through.
 """
 
 from __future__ import annotations
@@ -25,10 +31,11 @@ _DTYPE_CODE = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2,
 
 launches = {str(dt).removeprefix("torch."): 0 for dt in _DTYPE_CODE}
 bag_grad_launches = {"float32": 0}
+rowgrid_launches = {"dequant_bag_rowgrid": 0, "bag_grad_rowgrid": 0}
 
 
 def reset_launches() -> None:
-    for counts in (launches, bag_grad_launches):
+    for counts in (launches, bag_grad_launches, rowgrid_launches):
         for key in counts:
             counts[key] = 0
 
@@ -57,15 +64,12 @@ def _check(name: str, t: torch.Tensor, dtype, ndim: int,
         raise ValueError(f"{name} must be contiguous")
 
 
-def dequant_bag_cuda(payload: torch.Tensor, scales: torch.Tensor | None,
-                     indices: torch.Tensor, weights: torch.Tensor
-                     ) -> torch.Tensor:
-    """Launch the kernel: payload (V, D) int8|bf16|fp16|fp32, scales (V,) fp32
-    or None, indices (B, K) int32 in [0, V), weights (B, K) fp32 -> (B, D)
-    fp32.  All on one CUDA device and contiguous; raises otherwise."""
+def _check_bag_inputs(fn: str, payload: torch.Tensor,
+                      scales: torch.Tensor | None, indices: torch.Tensor,
+                      weights: torch.Tensor) -> None:
     dev = payload.device
     if dev.type != "cuda":
-        raise ValueError(f"dequant_bag_cuda needs CUDA tensors, got {dev}")
+        raise ValueError(f"{fn} needs CUDA tensors, got {dev}")
     if payload.dtype not in _DTYPE_CODE:
         raise TypeError("payload must be int8, bfloat16, float16 or "
                         "float32, got "
@@ -81,6 +85,16 @@ def dequant_bag_cuda(payload: torch.Tensor, scales: torch.Tensor | None,
         if scales.shape[0] != payload.shape[0]:
             raise ValueError(f"scales has {scales.shape[0]} rows, payload "
                              f"{payload.shape[0]}")
+
+
+def dequant_bag_cuda(payload: torch.Tensor, scales: torch.Tensor | None,
+                     indices: torch.Tensor, weights: torch.Tensor
+                     ) -> torch.Tensor:
+    """Launch the kernel: payload (V, D) int8|bf16|fp16|fp32, scales (V,) fp32
+    or None, indices (B, K) int32 in [0, V), weights (B, K) fp32 -> (B, D)
+    fp32.  All on one CUDA device and contiguous; raises otherwise."""
+    _check_bag_inputs("dequant_bag_cuda", payload, scales, indices, weights)
+    dev = payload.device
     b, k = indices.shape
     d = payload.shape[1]
     out = torch.empty((b, d), dtype=torch.float32, device=dev)
@@ -103,6 +117,23 @@ def dequant_bag_cuda(payload: torch.Tensor, scales: torch.Tensor | None,
     return out
 
 
+def _check_grad_inputs(fn: str, g: torch.Tensor, indices: torch.Tensor,
+                       coeff: torch.Tensor, out: torch.Tensor) -> None:
+    dev = g.device
+    if dev.type != "cuda":
+        raise ValueError(f"{fn} needs CUDA tensors, got {dev}")
+    _check("g", g, torch.float32, 2, dev)
+    _check("indices", indices, torch.int32, 2, dev)
+    _check("coeff", coeff, torch.float32, 2, dev)
+    _check("out", out, torch.float32, 2, dev)
+    if coeff.shape != indices.shape or indices.shape[0] != g.shape[0]:
+        raise ValueError(f"indices {tuple(indices.shape)}, coeff "
+                         f"{tuple(coeff.shape)} and g {tuple(g.shape)} "
+                         "disagree")
+    if out.shape[1] != g.shape[1]:
+        raise ValueError(f"out has {out.shape[1]} columns, g {g.shape[1]}")
+
+
 @functools.cache
 def _grad_launcher():
     fn = build.load("bag_grad").bag_grad_launch
@@ -123,19 +154,8 @@ def bag_grad_cuda(g: torch.Tensor, indices: torch.Tensor,
     and contiguous; raises otherwise.  The slots are grouped by row with
     one stable sort here; the kernel does the accumulation.
     """
+    _check_grad_inputs("bag_grad_cuda", g, indices, coeff, out)
     dev = g.device
-    if dev.type != "cuda":
-        raise ValueError(f"bag_grad_cuda needs CUDA tensors, got {dev}")
-    _check("g", g, torch.float32, 2, dev)
-    _check("indices", indices, torch.int32, 2, dev)
-    _check("coeff", coeff, torch.float32, 2, dev)
-    _check("out", out, torch.float32, 2, dev)
-    if coeff.shape != indices.shape or indices.shape[0] != g.shape[0]:
-        raise ValueError(f"indices {tuple(indices.shape)}, coeff "
-                         f"{tuple(coeff.shape)} and g {tuple(g.shape)} "
-                         "disagree")
-    if out.shape[1] != g.shape[1]:
-        raise ValueError(f"out has {out.shape[1]} columns, g {g.shape[1]}")
     b, k = indices.shape
     d = g.shape[1]
     n = b * k
@@ -155,4 +175,73 @@ def bag_grad_cuda(g: torch.Tensor, indices: torch.Tensor,
         raise RuntimeError(f"bag_grad launch failed: cudaError {rc} "
                            f"(B={b}, K={k}, D={d}, V={out.shape[0]})")
     bag_grad_launches["float32"] += 1
+    return out
+
+
+@functools.cache
+def _rowgrid_launcher():
+    fn = build.load("dequant_bag_rowgrid").dequant_bag_rowgrid_launch
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn.argtypes = [p, i, p, p, p, p, ll, i, ll, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def dequant_bag_rowgrid_cuda(payload: torch.Tensor,
+                             scales: torch.Tensor | None,
+                             indices: torch.Tensor, weights: torch.Tensor
+                             ) -> torch.Tensor:
+    """Launch the (B, K)-grid oracle: the inputs and output of
+    ``dequant_bag_cuda``; every slot is read, zero weights included."""
+    _check_bag_inputs("dequant_bag_rowgrid_cuda", payload, scales, indices,
+                      weights)
+    dev = payload.device
+    b, k = indices.shape
+    d = payload.shape[1]
+    out = torch.empty((b, d), dtype=torch.float32, device=dev)
+    if b == 0 or d == 0:
+        return out
+    with torch.cuda.device(dev):
+        rc = _rowgrid_launcher()(
+            payload.data_ptr(), _DTYPE_CODE[payload.dtype],
+            None if scales is None else scales.data_ptr(),
+            indices.data_ptr(), weights.data_ptr(), out.data_ptr(), b, k, d,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"dequant_bag_rowgrid launch failed: cudaError "
+                           f"{rc} (B={b}, K={k}, D={d}, {payload.dtype})")
+    rowgrid_launches["dequant_bag_rowgrid"] += 1
+    return out
+
+
+@functools.cache
+def _grad_rowgrid_launcher():
+    fn = build.load("bag_grad_rowgrid").bag_grad_rowgrid_launch
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn.argtypes = [p, p, p, p, ll, i, ll, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def bag_grad_rowgrid_cuda(g: torch.Tensor, indices: torch.Tensor,
+                          coeff: torch.Tensor, out: torch.Tensor
+                          ) -> torch.Tensor:
+    """Launch the (B, K)-grid scatter oracle into ``out`` and return it:
+    the inputs and contract of ``bag_grad_cuda`` (``out`` zero on entry),
+    without the sort — the kernel walks the slots in (b, k) order."""
+    _check_grad_inputs("bag_grad_rowgrid_cuda", g, indices, coeff, out)
+    dev = g.device
+    b, k = indices.shape
+    d = g.shape[1]
+    if b * k == 0 or d == 0:
+        return out
+    with torch.cuda.device(dev):
+        rc = _grad_rowgrid_launcher()(
+            g.data_ptr(), indices.data_ptr(), coeff.data_ptr(),
+            out.data_ptr(), b * k, k, d,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"bag_grad_rowgrid launch failed: cudaError {rc} "
+                           f"(B={b}, K={k}, D={d}, V={out.shape[0]})")
+    rowgrid_launches["bag_grad_rowgrid"] += 1
     return out

@@ -8,7 +8,9 @@ sums the three partial bags in the reference's order; slots of other
 tiers get weight 0, which the kernel skips without reading their rows.
 ``packed_lookup_fused`` is the K = 1 serving gather, bit-identical to
 ``packed_store.lookup``.  ``bag_grad`` is the scatter-add backward, with
-the same dispatch.
+the same dispatch.  ``dequant_bag_rowgrid`` and ``bag_grad_rowgrid`` are
+the reference's (B, K)-grid tiling oracles of the two, with the same
+dispatch; no serving or training path calls them.
 """
 
 from __future__ import annotations
@@ -16,11 +18,12 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.packed_store import PackedStore, _split
-from repro_torch.kernels.dequant_bag.kernel import (bag_grad_cuda,
-                                                    dequant_bag_cuda)
-from repro_torch.kernels.dequant_bag.ref import (bag_grad_coeff,
-                                                 bag_grad_ref,
-                                                 dequant_bag_ref)
+from repro_torch.kernels.dequant_bag.kernel import (
+    bag_grad_cuda, bag_grad_rowgrid_cuda, dequant_bag_cuda,
+    dequant_bag_rowgrid_cuda)
+from repro_torch.kernels.dequant_bag.ref import (
+    bag_grad_coeff, bag_grad_ref, bag_grad_rowgrid_ref, dequant_bag_ref,
+    dequant_bag_rowgrid_ref)
 
 
 def dequant_bag(payload: torch.Tensor, scales: torch.Tensor | None,
@@ -53,11 +56,45 @@ def bag_grad(g: torch.Tensor, scales: torch.Tensor | None,
     """
     if g.device.type == "cpu":
         return bag_grad_ref(g, scales, indices, weights, vocab)
+    return _scatter_on_card(bag_grad_cuda, g, scales, indices, weights,
+                            vocab)
+
+
+def _scatter_on_card(launch, g, scales, indices, weights, vocab: int
+                     ) -> torch.Tensor:
+    """The coefficients, a zero (vocab, D) output and one ``launch``."""
     coeff = bag_grad_coeff(scales, indices, weights).contiguous()
     out = torch.zeros((vocab, g.shape[1]), dtype=torch.float32,
                       device=g.device)
-    return bag_grad_cuda(g.to(torch.float32).contiguous(),
-                         indices.to(torch.int32).contiguous(), coeff, out)
+    return launch(g.to(torch.float32).contiguous(),
+                  indices.to(torch.int32).contiguous(), coeff, out)
+
+
+def dequant_bag_rowgrid(payload: torch.Tensor, scales: torch.Tensor | None,
+                        indices: torch.Tensor,
+                        weights: torch.Tensor | None = None) -> torch.Tensor:
+    """The (B, K)-grid oracle of ``dequant_bag``: the same bags, but every
+    slot is read, so a NaN or inf row in a zero-weight slot makes its
+    bag NaN.  Dispatch is by ``payload``'s device."""
+    if weights is None:
+        weights = torch.ones(indices.shape, dtype=torch.float32,
+                             device=indices.device)
+    if payload.device.type == "cpu":
+        return dequant_bag_rowgrid_ref(payload, scales, indices, weights)
+    return dequant_bag_rowgrid_cuda(payload, scales, indices, weights)
+
+
+def bag_grad_rowgrid(g: torch.Tensor, scales: torch.Tensor | None,
+                     indices: torch.Tensor, weights: torch.Tensor | None,
+                     vocab: int) -> torch.Tensor:
+    """The (B, K)-grid oracle of ``bag_grad``: the same (vocab, D)
+    gradient, one slot's read-modify-write at a time in (b, k) order.
+    Dispatch is by ``g``'s device: the plain version on the CPU; on CUDA
+    a zero fill of (vocab, D) and the kernel."""
+    if g.device.type == "cpu":
+        return bag_grad_rowgrid_ref(g, scales, indices, weights, vocab)
+    return _scatter_on_card(bag_grad_rowgrid_cuda, g, scales, indices,
+                            weights, vocab)
 
 
 def packed_bag_lookup(packed: PackedStore, indices: torch.Tensor,

@@ -19,6 +19,14 @@ card.
 (``csrc/bag_grad.cu``): each row's gradient is the FMA chain of its
 slots' ``coeff * g[b]`` in (b, k) order, as the reference kernel
 accumulates it.
+
+``dequant_bag_rowgrid_ref`` and ``bag_grad_rowgrid_ref`` are the plain
+versions of the (B, K)-grid tiling oracles (``csrc/dequant_bag_rowgrid.cu``,
+``csrc/bag_grad_rowgrid.cu``).  They compute the same FMA chains with one
+difference each kernel keeps from the reference: the dequant oracle reads
+every slot, zero weights included, so a NaN or inf row in a zero-weight
+slot turns its bag to NaN where the tiled kernel skips it; the scatter
+oracle skips ``c == 0`` slots as the tiled kernel does.
 """
 
 from __future__ import annotations
@@ -126,4 +134,65 @@ def bag_grad_ref(g: torch.Tensor, scales: torch.Tensor | None,
         r, sl = rows[s:s + n], slot[s:s + n]
         out[r] = fma_f32(c[s:s + n], gb[sl // k], out[r])
         s += n
+    return out
+
+
+def dequant_bag_rowgrid_ref(payload: torch.Tensor,
+                            scales: torch.Tensor | None,
+                            indices: torch.Tensor, weights: torch.Tensor
+                            ) -> torch.Tensor:
+    """The (B, K)-grid oracle of ``dequant_bag_ref``
+    (``repro/kernels/dequant_bag/kernel.py:213-261``): the same
+    ``acc = fma(row * s, w, acc)`` over k in order, but every slot is
+    read, zero weights included.  On finite rows it equals
+    ``dequant_bag_ref`` bit for bit (``x * 0`` adds a zero to a sum that
+    is never -0); a NaN or inf row in a zero-weight slot makes its bag
+    NaN."""
+    b, k = indices.shape
+    idx = indices.to(torch.int64)
+    w = weights.to(torch.float32)
+    acc = torch.zeros((b, payload.shape[1]), dtype=torch.float32,
+                      device=payload.device)
+    for kk in range(k):
+        rows = payload[idx[:, kk]].to(torch.float32)
+        if scales is not None:
+            rows = rows * scales[idx[:, kk]][:, None]
+        acc = fma_f32(rows, w[:, kk][:, None].expand_as(rows), acc)
+    return acc
+
+
+def bag_grad_rowgrid_ref(g: torch.Tensor, scales: torch.Tensor | None,
+                         indices: torch.Tensor,
+                         weights: torch.Tensor | None, vocab: int
+                         ) -> torch.Tensor:
+    """The (B, K)-grid oracle of ``bag_grad_ref``
+    (``repro/kernels/dequant_bag/kernel.py:439-500``), transcribed: one
+    read-modify-write ``out[i] = fma(c, g[b], out[i])`` per slot in (b, k)
+    order, ``c = w * scale[idx]``, slots with ``c == 0`` skipped.
+
+    The serial walk is batched into runs of consecutive live slots whose
+    rows are distinct (a run ends where a row repeats), so each run is one
+    vectorised step and each row still takes its slots in (b, k) order.
+    The runs are found on the host, one Python step per live slot.  It
+    equals ``bag_grad_ref``, which groups the same chains by row instead.
+    """
+    b, k = indices.shape
+    out = torch.zeros((vocab, g.shape[1]), dtype=torch.float32,
+                      device=g.device)
+    coeff = bag_grad_coeff(scales, indices, weights).reshape(-1)
+    live = torch.nonzero(coeff != 0).reshape(-1)
+    rows = indices.reshape(-1).to(torch.int64)[live]
+    cuts, seen = [0], set()
+    for j, r in enumerate(rows.tolist()):
+        if r in seen:
+            cuts.append(j)
+            seen = set()
+        seen.add(r)
+    cuts.append(live.numel())
+    gb = g.to(torch.float32)
+    for a, e in zip(cuts[:-1], cuts[1:]):
+        if a == e:
+            continue
+        sl, r = live[a:e], rows[a:e]
+        out[r] = fma_f32(coeff[sl][:, None], gb[sl // k], out[r])
     return out

@@ -48,6 +48,13 @@ int8 tier's ``quantize_rowwise`` launches).  At full width the online
 store holds the whole fp32 table beside its pack (wide-deep 2.84 GB,
 xdeepfm 3.47 GB): ``repack_delta`` re-quantizes crossing rows from it.
 
+``--serve-batch N`` (with ``--online``) switches to the micro-batched
+loop (``serve.loop.serve_forward``): single-user requests accumulate
+into fixed-shape (N, F) batches (pad + mask), each batch runs one
+forward and one vectorised priority fold, and ``--requests`` then counts
+single-user requests; the packed record adds the reference's
+bytes_per_request_fp32 / bytes_per_request_packed.
+
 ``--online --store-backend hashed`` serves from the ROBE-style hashed
 store (``store.hashed``) instead of the pack: the snapped table is
 fitted into a pool of ``plan_pool_slots`` rows of ``--hash-chunk-dim``
@@ -76,26 +83,26 @@ import torch
 
 from repro_torch import configs, kernels, resolve_device, sync
 from repro_torch.core.packed_store import (PackedStore, build_chunked,
-                                           live_counts, lookup_fused)
-from repro_torch.core.qat_store import (FQuantConfig, QATStore,
+                                           live_counts, lookup_fused,
+                                           packed_tiers)
+from repro_torch.core.qat_store import (CHUNK_ROWS, FQuantConfig, QATStore,
                                         current_tiers, snap)
 from repro_torch.core.tiers import plan_thresholds_for_ratio
 from repro_torch.kernels.dequant_bag import kernel as dequant_kernel
 from repro_torch.models import embedding as E
-from repro_torch.serve.loop import serve_forward_loop
+from repro_torch.serve.loop import (serve_forward, serve_forward_loop,
+                                    stream_bytes_per_request)
 from repro_torch.serve.online import OnlineConfig, OnlineServer
 from repro_torch.store import hashed as H
 from repro_torch.store.api import build as build_backend
 
 SEED = 0
-CHUNK_ROWS = 1 << 22     # 1 GB of fp32 rows per build step at D = 64
 
 
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(
         description="Serve a recsys model from the packed SHARK store.",
-        epilog="Not ported yet (later slices): --serve-batch (the "
-               "micro-batched serving loops), --mesh, --store-backend "
+        epilog="Not ported yet (later slices): --mesh, --store-backend "
                "hier with --hbm-budget-mb, --host-budget-mb, "
                "--store-dir, --verify-hier; --retier-async, "
                "--shadow-rows, --verify-swap (shadow re-tiers); "
@@ -120,6 +127,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--drift", type=float, default=4.0,
                     help="zipf hot-set drift in ids/request (--online; 0 = "
                          "stationary)")
+    ap.add_argument("--serve-batch", type=int, default=0,
+                    help="micro-batch N single-user requests per forward "
+                         "(--online; 0 = request-at-a-time batches of "
+                         "--batch users); --requests then counts "
+                         "single-user requests")
     ap.add_argument("--fuse-matmul", action="store_true",
                     help="serve through the model's fused head: the deep "
                          "branch's first matmul runs fused with the "
@@ -146,6 +158,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     args = ap.parse_args(argv)
     if args.fuse_matmul and not args.online:
         ap.error("--fuse-matmul requires --online")
+    if args.serve_batch > 0 and not args.online:
+        ap.error("--serve-batch requires --online")
     if args.store_backend == "hashed":
         if not args.online:
             ap.error("--store-backend hashed requires --online")
@@ -351,26 +365,44 @@ def run_online(args: argparse.Namespace, device: torch.device, model,
           f"({packed_bytes / fp32:.1%} of fp32), cache {args.cache_rows} "
           f"rows, retier every {args.retier_every} requests, built in "
           f"{build_s:.1f}s")
-    audit = (make_audit(server, model, params) if make_audit is not None
-             else None)
+    stream = {}
     launches0 = kernels.launch_counts()
-    result = serve_forward_loop(
-        server, model, spec, params, batch=args.batch,
-        requests=args.requests, drift=args.drift, num_dense=num_dense,
-        fuse_matmul=args.fuse_matmul, audit=audit)
+    if args.serve_batch > 0:
+        if make_audit is not None:
+            raise ValueError("the audit hook runs on request-at-a-time "
+                             "serving; --serve-batch has none")
+        if not hashed:
+            stream = stream_bytes_per_request(
+                packed_tiers(server.packed), spec, args.requests,
+                drift=args.drift)
+        result = serve_forward(
+            server, model, spec, params, serve_batch=args.serve_batch,
+            requests=args.requests, drift=args.drift, num_dense=num_dense,
+            fuse_matmul=args.fuse_matmul)
+        shape_note = (f"{args.requests} requests micro-batched "
+                      f"x{args.serve_batch}")
+    else:
+        audit = (make_audit(server, model, params)
+                 if make_audit is not None else None)
+        result = serve_forward_loop(
+            server, model, spec, params, batch=args.batch,
+            requests=args.requests, drift=args.drift, num_dense=num_dense,
+            fuse_matmul=args.fuse_matmul, audit=audit)
+        shape_note = f"{args.requests} requests x{args.batch}"
     launches = _launches_since(launches0)
     name = _device_name(device)
-    print(f"{args.requests} requests x{args.batch}: p50 "
+    print(f"{shape_note}: p50 "
           f"{result.p50_us:.0f}us p99 {result.p99_us:.0f}us steady "
           f"{result.steady_qps:.0f} qps hit-rate "
           f"{server.stats.hit_rate:.1%} retiers {server.stats.retiers} "
           f"rows moved {server.stats.rows_moved} ({name})")
     rec = {"arch": args.arch, "batch": args.batch,
            "requests": args.requests, "mesh": 1, "online": True}
+    rec.update(stream)
     rec.update(result.as_dict())
     rec.update({"cache_rows": args.cache_rows,
                 "retier_every": args.retier_every, "retier_async": False,
-                "drift": args.drift, "serve_batch": 0,
+                "drift": args.drift, "serve_batch": args.serve_batch,
                 "fuse_matmul": args.fuse_matmul,
                 "store_backend": args.store_backend,
                 "packed_mib": round(packed_bytes / 2 ** 20, 3),

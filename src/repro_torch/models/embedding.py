@@ -38,6 +38,11 @@ class FieldSpec(NamedTuple):
         return np.concatenate([[0], np.cumsum(self.cardinalities)[:-1]]
                               ).astype(np.int32)
 
+    def table_bytes(self, bytes_per_elem: int = 4) -> list[int]:
+        """Bytes of each field's table (F-Permutation's memory account)."""
+        return [int(v) * self.dim * bytes_per_elem
+                for v in self.cardinalities]
+
 
 def globalize(indices: torch.Tensor, spec: FieldSpec) -> torch.Tensor:
     """Field-local (B, F) indices -> global row ids in the stacked table."""
@@ -71,7 +76,7 @@ def field_lookup(table: torch.Tensor, indices: torch.Tensor,
     """
     emb = table[globalize(indices, spec).to(torch.int64)]
     if field_mask is not None:
-        emb = emb * field_mask.to(emb.dtype)[None, :, None]
+        emb = emb * field_mask.to(emb.device, emb.dtype)[None, :, None]
     return emb
 
 

@@ -1,2 +1,12 @@
-"""Observability: the streaming latency histogram (port of part of
-``repro.obs``; the registry, spans and sinks come with a later slice)."""
+"""Observability: the streaming latency histogram (``registry``) and the
+span / wall-clock helpers (``trace``); port of part of ``repro.obs`` (the
+counters, gauges, registry recording and sinks come with a later slice)."""
+
+from repro_torch.obs.registry import Histogram  # noqa: F401
+from repro_torch.obs.trace import (  # noqa: F401
+    Span,
+    Timeblock,
+    current_path,
+    span,
+    timeblock,
+)

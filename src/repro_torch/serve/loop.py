@@ -1,19 +1,28 @@
-"""Online request loop over a synthetic drifting-zipf workload.
+"""Online request loops over a synthetic drifting-zipf workload.
 
-Port of the request-at-a-time part of ``repro/serve/loop.py``.
-``drifting_zipf_batch`` draws per-field zipf-ranked ids whose hot set
-moves ``drift`` ids per request (the same numpy draws as the reference);
-``run_loop`` times a request stream; ``serve_forward_loop`` is the online
-serving loop behind ``repro_torch.launch.serve --online``: cache-first forward
-(or the model's fused head with ``fuse_matmul``) + priority fold +
-synchronous re-tiers.
+Port of ``repro/serve/loop.py``.  ``drifting_zipf_batch`` draws
+per-field zipf-ranked ids whose hot set moves ``drift`` ids per request
+(the same numpy draws as the reference); ``run_loop`` times a request
+stream; ``serve_forward_loop`` is the online serving loop behind
+``repro_torch.launch.serve --online``: cache-first forward (or the
+model's fused head with ``fuse_matmul``) + priority fold + synchronous
+re-tiers.
 
-Timing: a request's window covers building its batch on the device, the
-forward, the fold and any re-tier, and ends after
-``torch.cuda.synchronize()`` on the card.  Percentiles come from the
-streaming ``obs.registry.Histogram``, as in the reference.  The
-micro-batched loops (``MicroBatcher``, ``serve_forward``) come with a
-later slice (ROADMAP Queue 1 item 6).
+Micro-batching (``MicroBatcher``, ``run_microbatched_loop``,
+``serve_forward_microbatched``, and ``serve_forward``, the one entry
+point for every backend, behind ``--serve-batch``): single-user requests
+accumulate into fixed-shape (N, F) batches, padded with row 0 and a
+validity mask when the stream ends mid-batch, and each batch runs one
+forward, one vectorised fold and one cache pass.  The staged branch of
+``serve_forward`` (the hier backend) raises until that backend is
+ported (ROADMAP Queue 1 item 8).  ``stream_bytes_per_request`` is the
+``bench_qps/v1`` byte account of the stream against a tier vector.
+
+Timing: a request's (or micro-batch's) window covers building its batch
+on the device, the forward, the fold and any re-tier, and ends after
+``torch.cuda.synchronize()`` on the card (``obs.timeblock``'s
+``sync``).  Percentiles come from the streaming
+``obs.registry.Histogram``, as in the reference.
 """
 
 from __future__ import annotations
@@ -27,6 +36,7 @@ import torch
 from repro_torch import sync
 from repro_torch.models import embedding as E
 from repro_torch.obs.registry import Histogram
+from repro_torch.obs.trace import timeblock
 from repro_torch.serve.cache import cached_lookup
 from repro_torch.serve.online import OnlineServer
 
@@ -154,15 +164,40 @@ def _fused_entry(server: OnlineServer, model, fuse_matmul: bool):
             server.bag_matmul_fn())
 
 
+def _forward(server: OnlineServer, model, spec, fuse_matmul: bool):
+    """The online forward, ``fwd(packed, cache, net, b, valid=None) ->
+    (logits, hits, gidx, emb)``: cache-first gather and ``model.head``,
+    or with ``fuse_matmul`` the model's fused head (the deep branch's
+    first matmul fused with the gather; heads that take no raw
+    embeddings skip the cache: hits 0, emb None).  ``valid`` masks
+    padded slots out of the hit count."""
+    lfn = server.lookup_fn()
+    fused, needs_emb, bmfn = _fused_entry(server, model, fuse_matmul)
+
+    def fwd(packed, cache, net, b, valid=None):
+        gidx = E.globalize(b["indices"], spec)
+        if fused is not None:
+            def bm(w):
+                return bmfn(packed, gidx, w)
+            if needs_emb:
+                emb, hits = cached_lookup(packed, cache, gidx, lfn, valid)
+                return fused(net, b, bm, emb), hits, gidx, emb
+            return fused(net, b, bm), 0, gidx, None
+        emb, hits = cached_lookup(packed, cache, gidx, lfn, valid)
+        return model.head(net, emb, b), hits, gidx, emb
+    return fwd
+
+
 def request_batch(idx: np.ndarray, r: int, num_dense: int,
-                  device: torch.device) -> dict:
+                  device: torch.device, dense_seed: int = 10_000) -> dict:
     """Request ``r``'s batch on ``device``: the ids, zero labels and, for
     ``num_dense > 0``, standard-normal dense features drawn from seed
-    ``10_000 + r`` (the reference's draw)."""
+    ``dense_seed + r`` (the reference's draws: 10_000 + r a request,
+    20_000 + r a micro-batch)."""
     b = {"indices": torch.from_numpy(idx).to(device),
          "labels": torch.zeros((idx.shape[0],), device=device)}
     if num_dense:
-        rr = np.random.default_rng(10_000 + r)
+        rr = np.random.default_rng(dense_seed + r)
         b["dense"] = torch.from_numpy(rr.standard_normal(
             (idx.shape[0], num_dense)).astype(np.float32)).to(device)
     return b
@@ -181,22 +216,8 @@ def serve_forward_loop(server: OnlineServer, model, spec, params, *,
     ``audit`` as in ``run_loop``, except that the callable it returns
     gets ``(out, emb)``: the request's output and the embeddings it was
     served (None when the fused head took none)."""
-    lfn = server.lookup_fn()
-    fused, needs_emb, bmfn = _fused_entry(server, model, fuse_matmul)
+    fwd = _forward(server, model, spec, fuse_matmul)
     device = server.device
-
-    def fwd(packed, cache, net, b):
-        gidx = E.globalize(b["indices"], spec)
-        if fused is not None:
-            def bm(w):
-                return bmfn(packed, gidx, w)
-            if needs_emb:
-                emb, hits = cached_lookup(packed, cache, gidx, lfn)
-                return fused(net, b, bm, emb), hits, gidx, emb
-            return fused(net, b, bm), 0, gidx, None
-        emb, hits = cached_lookup(packed, cache, gidx, lfn)
-        return model.head(net, emb, b), hits, gidx, emb
-
     counter = {"r": 0}
     served = {"emb": None}
 
@@ -222,3 +243,213 @@ def serve_forward_loop(server: OnlineServer, model, spec, params, *,
         lambda r: drifting_zipf_batch(cards, batch, r, requests, a=a,
                                       drift=drift, seed=seed),
         requests, batch, audit=None if audit is None else audit_emb)
+
+
+class MicroBatch(NamedTuple):
+    indices: np.ndarray   # (N, F) int32; padded slots hold row 0
+    valid: np.ndarray     # (N,) bool; False marks padding
+    count: int            # live requests in this batch
+
+
+class MicroBatcher:
+    """Accumulates single-request index vectors into fixed-shape batches.
+
+    ``add`` returns a full ``MicroBatch`` every ``capacity`` requests and
+    ``None`` otherwise; ``flush`` pads a partial tail batch (row 0
+    indices, ``valid=False``), so every batch has the same (capacity, F)
+    shape.
+    """
+
+    def __init__(self, capacity: int, num_fields: int):
+        if capacity < 1:
+            raise ValueError("micro-batch capacity must be >= 1")
+        self.capacity = int(capacity)
+        self.num_fields = int(num_fields)
+        self._buf = np.zeros((self.capacity, self.num_fields), np.int32)
+        self._n = 0
+
+    def __len__(self) -> int:
+        return self._n
+
+    def add(self, request) -> MicroBatch | None:
+        req = np.asarray(request, np.int32).reshape(-1)
+        if req.shape[0] != self.num_fields:
+            raise ValueError(f"request has {req.shape[0]} fields, expected "
+                             f"{self.num_fields}")
+        self._buf[self._n] = req
+        self._n += 1
+        return self.flush() if self._n == self.capacity else None
+
+    def flush(self) -> MicroBatch | None:
+        if self._n == 0:
+            return None
+        n = self._n
+        valid = np.zeros((self.capacity,), bool)
+        valid[:n] = True
+        batch = MicroBatch(indices=self._buf.copy(), valid=valid, count=n)
+        self._buf[:] = 0
+        self._n = 0
+        return batch
+
+
+def run_microbatched_loop(server: OnlineServer,
+                          serve_fn: Callable[[MicroBatch], object],
+                          make_request: Callable[[int], np.ndarray],
+                          requests: int, serve_batch: int,
+                          after: Callable[[bool], None] | None = None
+                          ) -> LoopResult:
+    """Drive ``requests`` single-user requests through ``serve_fn`` in
+    fixed-shape micro-batches of ``serve_batch`` and time the batches.
+
+    ``make_request(r)`` yields one (F,) index vector; ``serve_fn`` gets a
+    ``MicroBatch`` and runs the forward and ``server.observe(...,
+    valid=..., count=...)``; the window ends when its output's device is
+    idle.  QPS counts requests, not batches.  The steady window is the
+    second half of the batch stream without the batches that re-tiered
+    and their successors.  ``after(retiered)``, when given, runs after
+    each batch's window, outside it.
+    """
+    first = np.asarray(make_request(0), np.int32).reshape(-1)
+    batcher = MicroBatcher(serve_batch, first.shape[0])
+    lat, counts, retiered, retier_s = [], [], [], []
+
+    def run_batch(mb: MicroBatch) -> None:
+        n_retiers = server.stats.retiers
+        r0 = server.stats.retier_seconds
+        sync(server.device)
+        with timeblock("serve.request") as tb:
+            tb.sync(serve_fn(mb))
+        lat.append(tb.seconds)
+        counts.append(mb.count)
+        retiered.append(server.stats.retiers > n_retiers)
+        retier_s.append(server.stats.retier_seconds - r0)
+        if after is not None:
+            after(retiered[-1])
+
+    pending = batcher.add(first)
+    if pending is not None:
+        run_batch(pending)
+    for r in range(1, requests):
+        pending = batcher.add(make_request(r))
+        if pending is not None:
+            run_batch(pending)
+    tail = batcher.flush()
+    if tail is not None:
+        run_batch(tail)
+
+    lat_arr = np.asarray(lat)
+    cnt_arr = np.asarray(counts, np.float64)
+    warm = slice(1, None) if len(lat) > 1 else slice(None)
+    half = len(lat) // 2
+    steady = [i for i in range(half, len(lat))
+              if not (i == 0 or retiered[i] or retiered[i - 1])]
+    if not steady:
+        steady = list(range(half, len(lat)))
+    p50, p95, p99, attributed, p99_while = _latency_summary(
+        lat_arr * 1e6, np.asarray(retier_s) * 1e6, warm, retiered)
+    return LoopResult(
+        lat_s=tuple(lat),
+        qps=float(cnt_arr[warm].sum() / lat_arr[warm].sum()),
+        steady_qps=float(cnt_arr[steady].sum() / lat_arr[steady].sum()),
+        p50_us=p50, p95_us=p95, p99_us=p99,
+        p99_retier_attributed=attributed, p99_while_retiering=p99_while,
+        stats=server.stats.as_dict())
+
+
+def serve_forward_microbatched(server: OnlineServer, model, spec, params, *,
+                               serve_batch: int, requests: int,
+                               drift: float = 4.0, num_dense: int = 0,
+                               a: float = 1.2, seed: int = 0,
+                               fuse_matmul: bool = False,
+                               audit: Callable | None = None) -> LoopResult:
+    """Micro-batched online loop: one forward per ``serve_batch`` requests.
+
+    Single-user drifting-zipf requests accumulate into (serve_batch, F)
+    batches; each runs one cache-first forward through ``model.head``
+    (or the fused head, as in ``serve_forward_loop``) and one
+    ``server.observe`` fold, with padded slots masked out of the hit
+    count and the priority EMA.  Dense features of batch ``r`` come from
+    seed ``20_000 + r`` (the reference's draw).  The request stream
+    depends only on the seed, not on ``serve_batch``.
+
+    ``audit(packed, gidx, emb)``, when given, gets each batch that did
+    not re-tier after its timed window: the store the forward read (not
+    repacked since), the batch's global ids and the embeddings it was
+    served (None when the fused head took none).
+    """
+    fwd = _forward(server, model, spec, fuse_matmul)
+    device = server.device
+    counter = {"b": 0}
+    served: dict = {}
+
+    def serve_fn(mb: MicroBatch):
+        r = counter["b"]
+        counter["b"] += 1
+        b = request_batch(mb.indices, r, num_dense, device,
+                          dense_seed=20_000)
+        # one upload of the batcher's mask serves the hit count and the
+        # fold; the lookups are counted on the host
+        valid = torch.from_numpy(mb.valid).to(device)[:, None]
+        with torch.inference_mode():
+            packed = server.packed
+            out, hits, gidx, emb = fwd(packed, server.cache, params, b,
+                                       valid)
+            if audit is not None:
+                served.update(packed=packed, gidx=gidx, emb=emb)
+            server.observe(gidx, int(hits), valid=valid, count=mb.count,
+                           lookups=int(mb.valid.sum()) * gidx.shape[1])
+        return out
+
+    def after(retiered: bool) -> None:
+        if not retiered:
+            audit(served["packed"], served["gidx"], served["emb"])
+        served.clear()
+
+    cards = np.asarray(spec.cardinalities, np.int64)
+    return run_microbatched_loop(
+        server, serve_fn,
+        lambda r: drifting_zipf_batch(cards, 1, r, requests, a=a,
+                                      drift=drift, seed=seed)[0],
+        requests, serve_batch, after=None if audit is None else after)
+
+
+def serve_forward(server: OnlineServer, model, spec, params, *,
+                  serve_batch: int, requests: int, drift: float = 4.0,
+                  num_dense: int = 0, a: float = 1.2, seed: int = 0,
+                  fuse_matmul: bool = False,
+                  audit: Callable | None = None) -> LoopResult:
+    """The one micro-batched entry point for every store backend,
+    dispatched on the backend's ``needs_staging``: fully resident
+    backends (packed, hashed) run ``serve_forward_microbatched`` (``audit``
+    as there); the staged pipeline of a backend whose misses stage
+    through the host (hier) is not ported yet."""
+    if server.backend.needs_staging:
+        raise NotImplementedError(
+            "staged serving (a backend with needs_staging, the hier store) "
+            "is not ported yet (ROADMAP Queue 1 item 8)")
+    return serve_forward_microbatched(
+        server, model, spec, params, serve_batch=serve_batch,
+        requests=requests, drift=drift, num_dense=num_dense, a=a, seed=seed,
+        fuse_matmul=fuse_matmul, audit=audit)
+
+
+def stream_bytes_per_request(tiers, spec, requests: int, drift: float = 4.0,
+                             a: float = 1.2, seed: int = 0) -> dict:
+    """Mean bytes per single-user request over the drifting-zipf stream,
+    against a fixed per-row tier vector ``tiers`` (V,): fp32 bytes and
+    packed bytes (payload + scale + indirection word a row, as
+    ``repro/core/tiers.py::row_bytes`` counts them)."""
+    cards = np.asarray(spec.cardinalities, np.int64)
+    idx = np.stack([drifting_zipf_batch(cards, 1, r, requests, a=a,
+                                        drift=drift, seed=seed)[0]
+                    for r in range(requests)])              # (R, F)
+    gidx = idx.astype(np.int64) + np.asarray(spec.offsets(),
+                                             np.int64)[None, :]
+    t = (tiers.cpu().numpy() if isinstance(tiers, torch.Tensor)
+         else np.asarray(tiers))
+    per_row = np.array([spec.dim + 8, 2 * spec.dim + 8, 4 * spec.dim + 4],
+                       np.int64)
+    packed_bytes = int(per_row[t[gidx.reshape(-1)].astype(np.int64)].sum())
+    return {"bytes_per_request_fp32": int(gidx.size * spec.dim * 4
+                                          // requests),
+            "bytes_per_request_packed": packed_bytes // requests}

@@ -28,6 +28,7 @@ import dataclasses
 import time
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch import sync
@@ -110,6 +111,12 @@ class OnlineServer:
         return self.backend.packed
 
     @property
+    def host_packed(self):
+        """The packed backend's pack of record (the reference's host
+        pack; here the device pack the forward reads)."""
+        return self.backend.host_packed
+
+    @property
     def device(self) -> torch.device:
         return self.backend.device
 
@@ -125,20 +132,42 @@ class OnlineServer:
     # -- request path --------------------------------------------------
 
     def observe(self, indices: torch.Tensor, hits: int | None = None, *,
-                valid: torch.Tensor | None = None, count: int = 1) -> bool:
+                valid: np.ndarray | torch.Tensor | None = None,
+                count: int = 1, lookups: int | None = None) -> bool:
         """Fold one served batch into the online state: the Eq. 7 EMA
         (c- only), the counters, and a synchronous re-tier when the
         request counter crosses a multiple of ``retier_every``.  Returns
         True when the store was repacked (re-read ``server.packed`` and
-        ``server.cache``)."""
+        ``server.cache``).
+
+        Micro-batched serving passes one batch of ``count`` live requests
+        with ``valid``, the batcher's numpy mask (bool, broadcastable to
+        ``indices``), which keeps padded slots out of the counters and
+        the fold.  ``valid`` may instead be that mask already on the
+        indices' device, with ``lookups``, its live slots counted on the
+        host by the caller.  A call whose ``count`` spans several
+        ``retier_every`` boundaries runs one re-tier, as the reference's
+        does.
+        """
         before = self.stats.requests
         self.stats.requests += count
         if valid is None:
             n_lookups = int(indices.numel())
             vmask = None
+        elif isinstance(valid, torch.Tensor):
+            if lookups is None:
+                raise ValueError("a device mask needs its host-side count "
+                                 "(lookups=)")
+            n_lookups = int(lookups)
+            vmask = valid.expand(indices.shape)
         else:
-            vmask = valid.to(torch.bool).expand(indices.shape)
-            n_lookups = int(vmask.sum())
+            # counted on the host, from the batcher's numpy mask: no device
+            # round trip on the timed path
+            vnp = np.broadcast_to(np.asarray(valid, bool),
+                                  tuple(indices.shape))
+            n_lookups = int(vnp.sum())
+            vmask = torch.from_numpy(np.ascontiguousarray(vnp)).to(
+                indices.device)
         self.stats.lookups += n_lookups
         if hits is not None:
             self.stats.hits += int(hits)

@@ -7,27 +7,31 @@ backend branches:
 
   identity     kind, device, vocab, dim, nbytes()
   serving      packed (the store the forward reads), lookup_fn(),
-               bag_matmul_fn(), build_cache(k)
+               bag_matmul_fn(), build_cache(k), needs_staging (False:
+               both are fully resident), gather_fp32_host(ids)
   adaptation   fold_priority(idx, pcfg) (the eager Eq. 7 fold,
                ``priority.serve_fold``, as the reference's un-jitted
                ``serve_update`` computes it), retier()
+  persistence  snapshot_manifest(), from_manifest(tree)
 
 ``PackedBackend``: the ``QATStore`` (table + Eq. 7 priority) is
 authoritative and ``packed`` is its serving pack.  The reference keeps a
 host pack and places a device copy; the port packs on the device and
-serves that pack directly.  ``HashedBackend``: the ROBE-style pool of
+serves that pack directly, so ``host_packed`` (the pack of record, the
+reference's name) is that same device pack.  ``HashedBackend``: the ROBE-style pool of
 ``store.hashed``; rows materialise through the ``hashed_gather`` kernel,
 a re-tier moves no rows (pool slots are shared) and only refreshes the
 hot-row cache, whose rows are materialised on the card through the same
-kernel.  Persistence: ``HashedBackend.snapshot_manifest`` and
-``from_manifest`` (``hashed_store/v1``).
+kernel.  Persistence: ``snapshot_manifest`` and ``from_manifest``
+(``packed_store/v1``: the pack and the priorities; ``hashed_store/v1``),
+round-tripped through ``ckpt.CheckpointManager`` in the reference's
+format.
 
 Registry: ``register_backend(name, factory)`` + ``build(name, ...)``
 over ``packed`` and ``hashed``; ``from_manifest`` picks the backend by
 the manifest's kind tag.  Not ported yet: the hier backend (ROADMAP
-Queue 1 item 8), the packed backend's manifest, shadow re-tiers of the
-packed backend (``begin_retier``, ``prewarm_retier``, item 6) and the
-mesh (item 7).
+Queue 1 item 8), shadow re-tiers of the packed backend
+(``begin_retier``, ``prewarm_retier``, item 6) and the mesh (item 7).
 """
 
 from __future__ import annotations
@@ -56,21 +60,36 @@ class PackedBackend:
     """Flat tier-partitioned store on one device."""
 
     kind = "packed"
+    needs_staging = False
 
-    def __init__(self, store: QATStore, cfg: FQuantConfig, *, mesh=None):
+    def __init__(self, store: QATStore, cfg: FQuantConfig, *, mesh=None,
+                 packed: ps.PackedStore | None = None):
+        """``packed`` adopts a pack of ``store`` (a restored manifest's)
+        instead of packing."""
         _no_mesh(mesh, "packed")
         self.store = store
         self.cfg = cfg
-        self.packed = ps.pack(store, cfg)
+        self.packed = ps.pack(store, cfg) if packed is None else packed
 
     @property
     def device(self) -> torch.device:
         return self.packed.indirect.device
 
+    @property
+    def host_packed(self) -> ps.PackedStore:
+        """The pack of record (the reference's host pack); here the
+        device pack the forward reads."""
+        return self.packed
+
     def nbytes(self) -> int:
         return int(self.packed.nbytes())
 
     # -- serving surface -----------------------------------------------
+
+    def gather_fp32_host(self, ids) -> np.ndarray:
+        """fp32 rows ``ids`` through the plain ``lookup``, on the host."""
+        idx = torch.as_tensor(np.asarray(ids, np.int64), device=self.device)
+        return ps.lookup(self.packed, idx).cpu().numpy()
 
     def lookup_fn(self) -> Callable:
         return ps.lookup_fused
@@ -111,6 +130,28 @@ class PackedBackend:
                                           changed)
         return {"rows_moved": n, "changed": bool(n)}
 
+    # -- persistence ---------------------------------------------------
+
+    def snapshot_manifest(self) -> dict:
+        return {"kind": "packed_store/v1", "packed": self.packed,
+                "priority": self.store.priority}
+
+    @classmethod
+    def from_manifest(cls, tree: dict, *, store: QATStore | None = None,
+                      cfg: FQuantConfig | None = None, mesh=None,
+                      device: str | torch.device | None = None):
+        """Rebuild from ``snapshot_manifest`` output (or the reference's
+        numpy leaves).  ``store`` / ``cfg`` re-attach the training-side
+        state the pack was made from (the pack itself is the artifact of
+        record); without ``store`` the table is the unpacked pack."""
+        packed = ps.PackedStore(*(_tensor(x, device) for x in tree["packed"]))
+        priority = _tensor(tree["priority"], device)
+        if store is None:
+            store = QATStore(table=ps.unpack(packed), priority=priority)
+        else:
+            store = store._replace(priority=priority)
+        return cls(store, cfg, mesh=mesh, packed=packed)
+
 
 class HashedBackend:
     """ROBE-style compositional store: rows materialise on the fly from
@@ -119,6 +160,7 @@ class HashedBackend:
     only refreshes the priority-driven hot-row fp32 cache."""
 
     kind = "hashed"
+    needs_staging = False
 
     def __init__(self, hs: H.HashedStore, hcfg: H.HashedConfig, *,
                  mesh=None):
@@ -173,6 +215,11 @@ class HashedBackend:
 
     def lookup(self, indices: torch.Tensor) -> torch.Tensor:
         return H.hashed_lookup(self.hs, self.hcfg, indices)
+
+    def gather_fp32_host(self, ids) -> np.ndarray:
+        """fp32 rows ``ids`` materialised from the pool, on the host."""
+        idx = torch.as_tensor(np.asarray(ids, np.int32), device=self.device)
+        return self.lookup(idx).cpu().numpy()
 
     def bag_lookup(self, indices: torch.Tensor,
                    weights: torch.Tensor | None = None) -> torch.Tensor:
@@ -253,5 +300,5 @@ def from_manifest(tree: dict, **kwargs):
     return factory.from_manifest(tree, **kwargs)
 
 
-register_backend("packed", PackedBackend)
+register_backend("packed", PackedBackend, manifest_kind="packed_store/v1")
 register_backend("hashed", HashedBackend, manifest_kind="hashed_store/v1")

@@ -56,6 +56,8 @@ class LoopResult:
     stragglers: int
     nan_skips: int
     step_seconds: list        # wall time of each step run here
+    ckpt_writes: list = dataclasses.field(default_factory=list)
+                              # CheckpointManager.writes of this run
 
 
 def run(state: TrainState, step_fn: Callable, batch_fn: Callable,
@@ -123,4 +125,4 @@ def run(state: TrainState, step_fn: Callable, batch_fn: Callable,
     return LoopResult(state=state, steps_run=cfg.total_steps - start,
                       resumed_from=resumed_from, losses=losses,
                       stragglers=stragglers, nan_skips=nan_skips,
-                      step_seconds=step_seconds)
+                      step_seconds=step_seconds, ckpt_writes=mgr.writes)

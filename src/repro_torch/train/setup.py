@@ -28,6 +28,20 @@ from repro_torch.models.recsys import make_dlrm
 from repro_torch.train.steps import TrainState, make_compressed_train_step
 
 
+def tree_to(tree, device: torch.device):
+    """Every tensor of a (NamedTuple / tuple / list / dict) tree on
+    ``device``; other leaves as they are."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_to(x, device) for x in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_to(x, device) for x in tree)
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    return tree
+
+
 class RecsysTrainSetup(NamedTuple):
     model: object
     spec: E.FieldSpec
@@ -42,12 +56,16 @@ class RecsysTrainSetup(NamedTuple):
 def build_recsys_training(arch, *, batch: int, device: torch.device,
                           model: str = "smoke", lr: float = 0.05,
                           seed: int = 0, max_ind_range: int | None = None,
-                          fq_cfg: FQuantConfig | None = None
+                          fq_cfg: FQuantConfig | None = None,
+                          state: TrainState | None = None
                           ) -> RecsysTrainSetup:
     """Dataset + compressed train step + initial state on ``device``.
 
-    The weights are random from ``seed`` (a generator on the device);
-    the data stream is ``CriteoSynth`` seeded as the reference seeds it.
+    The weights are random from ``seed`` (a generator on the device),
+    unless ``state`` is given: then training starts from it (moved to
+    ``device``), e.g. the reference's initial state carried across by
+    ``convert.train_state_from_jax``.  The data stream is
+    ``CriteoSynth`` seeded as the reference seeds it.
     """
     if model not in ("full", "smoke"):
         raise ValueError(f"model must be 'full' or 'smoke', got {model!r}")
@@ -82,9 +100,12 @@ def build_recsys_training(arch, *, batch: int, device: torch.device,
         net.loss_from_emb, indices_fn, lambda b: b["labels"],
         "embed_table", lr, spec.num_fields,
         fq_cfg=fq_cfg if fq_cfg is not None else FQuantConfig())
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
-    state = step.init_state(net.init(gen, device))
+    if state is None:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        state = step.init_state(net.init(gen, device))
+    else:
+        state = tree_to(state, device)
 
     def batch_fn(s: int) -> dict:
         return {k: torch.from_numpy(v).to(device)

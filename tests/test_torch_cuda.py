@@ -325,3 +325,104 @@ def test_hashed_online_serve_smoke_launches_the_kernels(dev, bits):
     assert rec["kernel_launches"]["hashed_gather"] == 4 + 2
     assert rec["build_kernel_launches"]["quantize_rowwise"] == (
         1 if bits == "8" else 0)
+
+
+def _nan_equal(a, b) -> bool:
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return bool(torch.equal(na, nb)) and torch.equal(
+        torch.where(na, 0.0, a).view(torch.int32),
+        torch.where(nb, 0.0, b).view(torch.int32))
+
+
+@pytest.mark.parametrize("dtype", ["int8", "bfloat16", "float16",
+                                   "float32"])
+@pytest.mark.parametrize("b,k,d", [(1000, 1, 64), (1000, 8, 64),
+                                   (7, 3, 33), (0, 2, 64)])
+def test_dequant_bag_rowgrid_kernel_bit_equal_to_plain_and_tiled(dev, dtype,
+                                                                 b, k, d):
+    g = torch.Generator(device=dev)
+    g.manual_seed(11)
+    v = 3000
+    dt = getattr(torch, dtype)
+    payload = (torch.randint(-128, 128, (v, d), generator=g, device=dev,
+                             dtype=torch.int8) if dt == torch.int8 else
+               (torch.randn((v, d), generator=g, device=dev) * 0.1).to(dt))
+    scales = torch.rand(v, generator=g, device=dev) * 0.01
+    idx = torch.randint(0, v, (b, k), generator=g, device=dev,
+                        dtype=torch.int32)
+    w = torch.rand((b, k), generator=g, device=dev)
+    w[torch.rand((b, k), generator=g, device=dev) < 0.4] = 0.0
+    kernel.reset_launches()
+    got = ops.dequant_bag_rowgrid(payload, scales, idx, w)
+    want = ref.dequant_bag_rowgrid_ref(payload, scales, idx, w)
+    tiled = ops.dequant_bag(payload, scales, idx, w)
+    torch.cuda.synchronize()
+    assert kernel.rowgrid_launches["dequant_bag_rowgrid"] == (1 if b else 0)
+    assert _nan_equal(got, want) and _nan_equal(got, tiled)
+
+
+@pytest.mark.parametrize("dtype", ["int8", "bfloat16", "float32"])
+def test_dequant_bag_rowgrid_kernel_reads_zero_weight_slots(dev, dtype):
+    g = torch.Generator(device=dev)
+    g.manual_seed(12)
+    v, b, k, bad = 200, 16, 4, 9
+    dt = getattr(torch, dtype)
+    payload = (torch.randint(-128, 128, (v, 8), generator=g, device=dev,
+                             dtype=torch.int8) if dt == torch.int8 else
+               torch.randn((v, 8), generator=g, device=dev).to(dt))
+    scales = torch.rand(v, generator=g, device=dev)
+    idx = torch.randint(0, v, (b, k), generator=g, device=dev,
+                        dtype=torch.int32)
+    idx[idx == bad] = bad + 1
+    w = torch.rand((b, k), generator=g, device=dev) + 0.5
+    idx[::2, 2], w[::2, 2] = bad, 0.0
+    if dt == torch.int8:
+        scales[bad] = float("nan")
+    else:
+        payload[bad] = float("nan")
+    got = ops.dequant_bag_rowgrid(payload, scales, idx, w)
+    tiled = ops.dequant_bag(payload, scales, idx, w)
+    torch.cuda.synchronize()
+    assert _nan_equal(got, ref.dequant_bag_rowgrid_ref(payload, scales, idx,
+                                                       w))
+    assert _nan_equal(tiled, ref.dequant_bag_ref(payload, scales, idx, w))
+    assert torch.isnan(got[::2]).all() and torch.isfinite(tiled).all()
+
+
+@pytest.mark.parametrize("b,k,d,v", [(1000, 1, 64, 50_000),
+                                     (300, 8, 64, 40), (37, 3, 33, 20),
+                                     (0, 4, 64, 10)])
+@pytest.mark.parametrize("scaled", [False, True])
+def test_bag_grad_rowgrid_kernel_bit_equal_to_plain_and_tiled(dev, b, k, d,
+                                                              v, scaled):
+    g = torch.Generator(device=dev)
+    g.manual_seed(13)
+    grad = torch.randn((b, d), generator=g, device=dev)
+    idx = torch.randint(0, v, (b, k), generator=g, device=dev,
+                        dtype=torch.int32)
+    w = torch.rand((b, k), generator=g, device=dev)
+    w[torch.rand((b, k), generator=g, device=dev) < 0.4] = 0.0
+    s = torch.rand(v, generator=g, device=dev) * 3 if scaled else None
+    kernel.reset_launches()
+    got = ops.bag_grad_rowgrid(grad, s, idx, w, v)
+    want = ref.bag_grad_rowgrid_ref(grad, s, idx, w, v)
+    tiled = ops.bag_grad(grad, s, idx, w, v)
+    torch.cuda.synchronize()
+    assert kernel.rowgrid_launches["bag_grad_rowgrid"] == (1 if b else 0)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(got.view(torch.int32), tiled.view(torch.int32))
+
+
+@pytest.mark.parametrize("backend", ["packed", "hashed"])
+def test_pipeline_smoke_launches_the_kernels(dev, tmp_path, backend):
+    from repro_torch import kernels
+    from repro_torch.launch import pipeline
+    kernels.reset_launches()
+    rec = pipeline.run_pipeline(pipeline.fast_config(
+        ckpt_dir=str(tmp_path), store_backend=backend))
+    kl = rec["kernel_launches"]
+    assert rec["device"] == "cuda" and pipeline.verify_failures(rec) == []
+    assert kl["train"]["dequant_bag"] == kl["train"]["bag_grad"] == 24
+    assert kl["finetune"]["dequant_bag"] == len(rec["finetune_losses"]) > 0
+    key = "hashed_gather" if backend == "hashed" else "dequant_bag"
+    assert kl["serve"][key] > 0 and kl["eval"][key] > 0

@@ -344,8 +344,8 @@ def test_online_fused_serve_matches_jax_loop(name):
                                    batch=batch, requests=requests,
                                    fuse_matmul=True, audit=audit)
     assert tkernels.launch_counts() == dict.fromkeys(
-        ("dequant_bag", "bag_grad", "bag_matmul", "cin", "hashed_gather",
-         "quantize_rowwise"), 0)
+        ("dequant_bag", "bag_grad", "dequant_bag_rowgrid", "bag_grad_rowgrid",
+         "bag_matmul", "cin", "hashed_gather", "quantize_rowwise"), 0)
     assert len(outs) == len(jouts) == requests
     for want, got in zip(jouts, outs):
         _close(want, got)
@@ -411,7 +411,8 @@ def test_online_cli_on_cpu_records_zero_launches():
                     "model"):
             assert key in rec, key
         assert rec["kernel_launches"] == dict.fromkeys(
-            ("dequant_bag", "bag_grad", "bag_matmul", "cin", "hashed_gather",
+            ("dequant_bag", "bag_grad", "dequant_bag_rowgrid",
+             "bag_grad_rowgrid", "bag_matmul", "cin", "hashed_gather",
              "quantize_rowwise"), 0)
         assert rec["device"] == "cpu" and rec["online"] is True
         assert rec["requests"] == 3 and rec["retiers"] == 1

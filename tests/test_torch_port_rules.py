@@ -68,7 +68,8 @@ def test_serve_raises_without_cuda_unless_cpu_is_asked():
 
 def test_kernel_build_is_keyed_by_source_hash():
     for name in ("dequant_bag", "bag_grad", "bag_matmul", "cin",
-                 "hashed_gather", "rowwise_quant"):
+                 "hashed_gather", "rowwise_quant", "dequant_bag_rowgrid",
+                 "bag_grad_rowgrid"):
         path = build.library_path(name)
         assert path.parent == ROOT / "build" / "repro_torch"
         assert path.name.startswith(f"{name}-") and path.suffix == ".so"
@@ -119,3 +120,29 @@ def test_hashed_modules_are_covered_by_the_import_rule():
         assert f"src/repro_torch/{mod}" in names, mod
     for src in ("hashed_gather.cu", "rowwise_quant.cu"):
         assert (ROOT / "src" / "repro_torch" / "csrc" / src).exists(), src
+
+
+def test_pipeline_modules_are_covered_by_the_import_rule():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for mod in ("core/taylor.py", "core/pruning.py", "obs/trace.py",
+                "obs/__init__.py", "serve/loop.py", "store/api.py",
+                "ckpt/manager.py", "launch/serve.py", "train/setup.py",
+                "launch/pipeline.py", "kernels/dequant_bag/ref.py",
+                "kernels/dequant_bag/kernel.py", "kernels/dequant_bag/ops.py",
+                "models/embedding.py", "core/packed_store.py",
+                "core/qat_store.py"):
+        assert f"src/repro_torch/{mod}" in names, mod
+    for src in ("dequant_bag_rowgrid.cu", "bag_grad_rowgrid.cu"):
+        assert (ROOT / "src" / "repro_torch" / "csrc" / src).exists(), src
+
+
+def test_pipeline_raises_without_cuda_unless_cpu_is_asked(tmp_path):
+    from repro_torch.launch import pipeline
+    if torch.cuda.is_available():
+        pytest.skip("the no-GPU rule is checked where there is no GPU")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pipeline.run_pipeline(pipeline.fast_config(ckpt_dir=str(tmp_path)))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tserve.run(tserve.parse_args(
+            ["--model", "smoke", "--online", "--serve-batch", "4",
+             "--requests", "4"]))

@@ -1,0 +1,170 @@
+"""Parity of the port's (B, K)-grid oracles with the JAX package, on the
+CPU.
+
+``dequant_bag_rowgrid`` and ``bag_grad_rowgrid`` take their plain
+versions on the CPU; here those are held bit for bit to the reference's
+Pallas rowgrid kernels run in interpret mode (as ``tests/test_kernels.py``
+and ``tests/test_bag_backward.py`` run them), at K = 1 and K > 1, with
+the NaN rule each kernel keeps: the dequant oracle reads every slot, so a
+NaN row in a zero-weight slot makes its bag NaN where the tiled kernel
+skips it; the scatter oracle skips ``c == 0`` slots, so a NaN cotangent
+under zero coefficients leaks nowhere.  On finite inputs both plain
+oracles equal the tiled plain versions bit for bit.  Tolerance 0
+throughout (NaN compared by position).
+"""
+
+from __future__ import annotations
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.dequant_bag.kernel import (bag_grad_pallas_rowgrid,
+                                              dequant_bag_pallas_rowgrid)
+from repro_torch.convert import to_tensor
+from repro_torch.kernels.dequant_bag import kernel as tkernel
+from repro_torch.kernels.dequant_bag import ops as tops
+from repro_torch.kernels.dequant_bag import ref as tref
+
+
+def bits(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    a = np.asarray(x, np.float32)
+    return np.where(np.isnan(a), np.float32(np.nan), a).view(np.uint32)
+
+
+def _payload(dtype: str, v: int, d: int, rng) -> np.ndarray:
+    if dtype == "int8":
+        return rng.integers(-128, 128, (v, d)).astype(np.int8)
+    x = (rng.standard_normal((v, d)) * 0.1).astype(np.float32)
+    if dtype == "bfloat16":
+        return np.array(jnp.asarray(x, jnp.bfloat16)).view(np.uint16)
+    return x
+
+
+def _jpay(payload: np.ndarray, dtype: str):
+    return (jnp.asarray(payload).view(jnp.bfloat16) if dtype == "bfloat16"
+            else jnp.asarray(payload))
+
+
+def _bag_inputs(dtype, v, d, b, k, seed=0):
+    rng = np.random.default_rng(seed)
+    payload = _payload(dtype, v, d, rng)
+    scales = (rng.random(v) * 0.01).astype(np.float32)
+    idx = rng.integers(0, v, (b, k)).astype(np.int32)
+    w = rng.random((b, k)).astype(np.float32)
+    w[rng.random((b, k)) < 0.4] = 0.0             # masked slots
+    return payload, scales, idx, w
+
+
+@pytest.mark.parametrize("dtype", ["int8", "bfloat16", "float32"])
+@pytest.mark.parametrize("v,d,b,k", [(64, 16, 7, 4), (40, 9, 5, 1)])
+def test_dequant_rowgrid_bit_equal_to_pallas_rowgrid(dtype, v, d, b, k):
+    payload, scales, idx, w = _bag_inputs(dtype, v, d, b, k)
+    want = dequant_bag_pallas_rowgrid(
+        _jpay(payload, dtype), jnp.asarray(scales), jnp.asarray(idx),
+        jnp.asarray(w), interpret=True)
+    tkernel.reset_launches()
+    args = (to_tensor(payload), torch.from_numpy(scales),
+            torch.from_numpy(idx), torch.from_numpy(w))
+    got = tops.dequant_bag_rowgrid(*args)
+    assert tkernel.rowgrid_launches["dequant_bag_rowgrid"] == 0
+    np.testing.assert_array_equal(bits(got), bits(want))
+    # finite inputs: the oracle equals the tiled plain version
+    np.testing.assert_array_equal(bits(got), bits(tref.dequant_bag_ref(*args)))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32", "int8"])
+@pytest.mark.parametrize("k", [1, 4])
+def test_dequant_rowgrid_reads_zero_weight_slots(dtype, k):
+    """A NaN row (a NaN scale for int8) in a zero-weight slot: NaN bags
+    from the rowgrid oracle, as the interpret-mode Pallas rowgrid gives;
+    finite bags from the tiled plain version."""
+    v, d, b, bad = 30, 8, 6, 3
+    payload, scales, idx, w = _bag_inputs(dtype, v, d, b, k, seed=1)
+    idx[idx == bad] = bad + 1
+    w[w == 0] = 0.5
+    idx[::2, k - 1], w[::2, k - 1] = bad, 0.0
+    if dtype == "int8":
+        scales[bad] = np.nan
+    elif dtype == "float32":
+        payload[bad] = np.nan
+    else:
+        payload[bad] = np.asarray(jnp.full((d,), jnp.nan, jnp.bfloat16)
+                                  ).view(np.uint16)
+    want = dequant_bag_pallas_rowgrid(
+        _jpay(payload, dtype), jnp.asarray(scales), jnp.asarray(idx),
+        jnp.asarray(w), interpret=True)
+    args = (to_tensor(payload), torch.from_numpy(scales),
+            torch.from_numpy(idx), torch.from_numpy(w))
+    got = tops.dequant_bag_rowgrid(*args)
+    np.testing.assert_array_equal(bits(got), bits(want))
+    assert torch.isnan(got[::2]).all() and torch.isfinite(got[1::2]).all()
+    tiled = tref.dequant_bag_ref(*args)
+    assert torch.isfinite(tiled).all()
+    np.testing.assert_array_equal(bits(got[1::2]), bits(tiled[1::2]))
+
+
+def _grad_inputs(b, k, v, d, seed=0):
+    rng = np.random.default_rng(seed)
+    g = rng.standard_normal((b, d)).astype(np.float32)
+    idx = rng.integers(0, v, (b, k)).astype(np.int32)
+    idx[:, 0] = rng.integers(0, 3, b)              # hot duplicate rows
+    scales = (rng.random(v) * 3).astype(np.float32)
+    w = rng.random((b, k)).astype(np.float32)
+    w[rng.random((b, k)) < 0.4] = 0.0
+    return g, idx, scales, w
+
+
+@pytest.mark.parametrize("b,k,v,d", [(16, 1, 10, 8), (9, 5, 12, 7)])
+@pytest.mark.parametrize("scaled", [False, True])
+def test_bag_grad_rowgrid_bit_equal_to_pallas_rowgrid(b, k, v, d, scaled):
+    g, idx, scales, w = _grad_inputs(b, k, v, d)
+    s = scales if scaled else None
+    want = bag_grad_pallas_rowgrid(
+        jnp.asarray(g), None if s is None else jnp.asarray(s),
+        jnp.asarray(idx), jnp.asarray(w), v, interpret=True)
+    args = (torch.from_numpy(g), None if s is None else torch.from_numpy(s),
+            torch.from_numpy(idx), torch.from_numpy(w), v)
+    got = tops.bag_grad_rowgrid(*args)
+    np.testing.assert_array_equal(bits(got), bits(want))
+    np.testing.assert_array_equal(bits(got), bits(tref.bag_grad_ref(*args)))
+
+
+def test_bag_grad_rowgrid_skips_zero_coefficients():
+    """A NaN cotangent in a bag whose coefficients are all zero leaks
+    nowhere, in the Pallas rowgrid and in the port's oracle alike."""
+    b, k, v, d = 8, 3, 6, 5
+    g, idx, _, w = _grad_inputs(b, k, v, d, seed=2)
+    w[w == 0] = 0.25
+    g[3], w[3] = np.nan, 0.0
+    want = bag_grad_pallas_rowgrid(jnp.asarray(g), None, jnp.asarray(idx),
+                                   jnp.asarray(w), v, interpret=True)
+    got = tops.bag_grad_rowgrid(torch.from_numpy(g), None,
+                                torch.from_numpy(idx), torch.from_numpy(w), v)
+    assert torch.isfinite(got).all()
+    np.testing.assert_array_equal(bits(got), bits(want))
+
+
+def test_rowgrid_refs_on_empty_batches():
+    payload = torch.zeros((4, 3))
+    out = tops.dequant_bag_rowgrid(payload, None,
+                                   torch.zeros((0, 2), dtype=torch.int32))
+    assert out.shape == (0, 3)
+    grad = tops.bag_grad_rowgrid(torch.zeros((0, 3)), None,
+                                 torch.zeros((0, 2), dtype=torch.int32), None,
+                                 4)
+    assert torch.equal(grad, torch.zeros((4, 3)))
+
+
+def test_rowgrid_cuda_wrappers_refuse_cpu_tensors():
+    with pytest.raises(ValueError, match="CUDA"):
+        tkernel.dequant_bag_rowgrid_cuda(
+            torch.zeros((4, 3)), None, torch.zeros((1, 1), dtype=torch.int32),
+            torch.ones((1, 1)))
+    with pytest.raises(ValueError, match="CUDA"):
+        tkernel.bag_grad_rowgrid_cuda(
+            torch.zeros((1, 3)), torch.zeros((1, 1), dtype=torch.int32),
+            torch.ones((1, 1)), torch.zeros((4, 3)))

@@ -355,8 +355,8 @@ def test_jax_checkpoint_restores_in_port(tmp_path):
     got, step = TManager(str(tmp_path)).restore(template)
     assert step == 1
     want = jax.tree_util.tree_flatten_with_path(jax.device_get(jstate))[0]
-    from repro_torch.ckpt.manager import _paths
-    got_leaves = dict(_paths(got))
+    from repro_torch.ckpt.manager import tree_paths
+    got_leaves = dict(tree_paths(got))
     assert set(got_leaves) == {jax.tree_util.keystr(p) for p, _ in want}
     for p, w in want:
         g = got_leaves[jax.tree_util.keystr(p)]
