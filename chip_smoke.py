@@ -14,10 +14,16 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    card, bit for bit (tolerance 0): dequant_bag for int8, bf16, fp16 and
    fp32 payloads; bag_grad at K = 1 and 8, with and without scales, 40%
    masked slots, heavy duplicates, B that no block divides, D = 64, 33
-   and 200, B = 0; bag_matmul for every payload dtype, K = 1 and K > 1,
+   and 200, B = 0, and on its schedules (``kernels/cases.py``: one row of
+   65,536 slots, runs at the heavy-run threshold and one either side,
+   zero coefficients over a NaN cotangent, D 1/8/10/64/128 off 16-byte
+   alignment), with and without a precomputed grouping, also against
+   bag_grad_rowgrid; bag_matmul for every payload dtype, K = 1 and K > 1,
    30% dead slots, with and without ``scale_after``, B and H that no tile
    divides, D = 200 and the full-width shapes of wide&deep (B 512, K 40,
-   D 32, H 1024) and xDeepFM (B 512, K 39, D 10, H 400); cin at shapes
+   D 32, H 1024) and xDeepFM (B 512, K 39, D 10, H 400), and on B
+   1/31/512/513, K 1/39/40, D 1/10/32/384, H 1/63/400/1024 and dead
+   fields over a NaN in w3 (NaN in both); cin at shapes
    that no block divides and D = 128 (the full-width layers are checked
    on served data in phase 9); hashed_gather for int8 and fp32 pools, Z
    = 8, 4 and 5, K = 1 with sign coefficients (B = 20,480, a request's
@@ -65,8 +71,10 @@ Phases, each of which stops the run with a non-zero exit when it fails:
 6. measure training: bag_grad on the real duplicate pattern of one
    training batch (1,703,936 slots, rows renumbered by rank so that the
    plain version's dense output fits beside the kernel's) bit for bit,
-   then timed at the training shapes (the full 124,185,088-row output)
-   beside the zero fill, its bound, the plain version and ``index_add_``;
+   then timed at the training shapes (the full 124,185,088-row output),
+   with its sort and with the slots grouped beforehand, beside the zero
+   fill, its byte bound and chain bound (the longest row's slots x the FMA
+   latency at the card's top clock), the plain version and ``index_add_``;
    bag_grad_rowgrid on the same slots (bit-equal to bag_grad, one serial
    launch timed at the full vocab) and at the pipeline gradcheck's shape
    (8 samples x 26 fields into the rows they touch: bit-equal to its plain
@@ -113,7 +121,8 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    rows, unit scales), its first adj (bag_grad over the (V*C, NH) plan)
    and, for 8 bits, quantize_pool's quantize_rowwise over the fitted
    pool must equal the plain versions bit for bit; the fit-shaped
-   bag_grad is timed beside its bound, its plain version and
+   bag_grad is timed with the fit's grouping (made once a fit) and with
+   its own sort, beside its bounds, its plain version and
    ``index_add_``.  Prints the fit's seconds, its relative residual
    ||fwd(pool) - table|| / ||table|| (it must lie in (0, 1): the zero
    pool gives 1) and the store's bytes, then measures hashed_gather at
@@ -323,6 +332,43 @@ def check_bag_grad(torch, ops, ref) -> float:
     log(f"kernel check: bag_grad bit-equal to plain in {n} cases (K 1-8, "
         f"scales on/off, 40% masked, duplicates, D 64/33/200, B=0; max abs "
         f"err {worst})")
+    return worst
+
+
+def check_bag_grad_schedules(torch, kernel, ref) -> float:
+    """Phase 2: bag_grad's schedules (one row of every slot, runs at the
+    heavy-run threshold and one either side, zero coefficients over a NaN
+    cotangent, D 1-128 off 16-byte alignment), each with and without a
+    precomputed grouping, bit for bit against its plain version and the
+    (B, K)-grid oracle."""
+    from repro_torch.kernels import cases
+    dev = torch.device("cuda")
+    worst, n = 0.0, 0
+    for case in cases.bag_grad_cases(dev, kernel.HEAVY_RUN):
+        want = ref.bag_grad_ref(case.g, None, case.indices, case.coeff,
+                                case.vocab)
+        oracle = kernel.bag_grad_rowgrid_cuda(
+            case.g, case.indices, case.coeff, torch.zeros_like(want))
+        for plan in (None, kernel.plan_slots(case.indices)):
+            case.out.zero_()
+            got = kernel.bag_grad_cuda(case.g, case.indices, case.coeff,
+                                       case.out, plan=plan)
+            torch.cuda.synchronize()
+            if not (bits_equal(got, want) and bits_equal(oracle, want)
+                    and bool(torch.isfinite(got).all())):
+                raise SystemExit(
+                    f"bag_grad[{case.name}, plan={plan is not None}] != "
+                    f"plain or rowgrid: max err "
+                    f"{float((got - want).abs().max())}, rowgrid "
+                    f"{float((oracle - want).abs().max())}")
+            worst = max(worst, float((got - want).abs().max()))
+            n += 1
+    log(f"kernel check: bag_grad bit-equal to plain and to "
+        f"bag_grad_rowgrid in {n} schedule cases (one row of 65,536 slots; "
+        f"runs of {kernel.HEAVY_RUN} +- 1 and {16 * kernel.HEAVY_RUN} + 0/1 "
+        f"slots; 30% zero coefficients over a NaN cotangent; D 1/8/10/64/"
+        f"128 off 16-byte alignment; each with and without a precomputed "
+        f"grouping; max abs err {worst})")
     return worst
 
 
@@ -797,6 +843,10 @@ def measure_bag_grad(torch, kernel, ref, gidx, vocab: int, flush,
     out = torch.zeros((vocab, d), device=dev)
     reps = [(grad, idx, coeff, out)] * 10
     ms = time_launches(torch, kernel.bag_grad_cuda, reps, flush)
+    plan = kernel.plan_slots(idx)
+    ms_grouped = time_launches(
+        torch, lambda *a: kernel.bag_grad_cuda(*a, plan=plan), reps, flush)
+    del plan
     flat = idx.reshape(-1)
     sort_ms = time_launches(
         torch, lambda x: torch.sort(x, stable=True), [(flat,)] * 10, flush)
@@ -836,9 +886,12 @@ def measure_bag_grad(torch, kernel, ref, gidx, vocab: int, flush,
     nbytes = n * d * 4 + n * 4 + n * 4 + u * d * 4
     flops = 2 * n * d
     bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3
-    log(f"bag_grad at the training shapes: {ms:.4f} ms (sort {sort_ms:.4f}),"
-        f" zero fill {zero_ms:.4f} ms, plain {plain_ms:.1f} ms, index_add_ "
-        f"{library_ms:.4f} ms, bound {bound_ms:.5f} ms; bag_grad_rowgrid "
+    chain_ms = chain_bound_ms(depth)
+    log(f"bag_grad at the training shapes: {ms:.4f} ms with its sort "
+        f"({sort_ms:.4f}), {ms_grouped:.4f} ms grouped beforehand, zero fill "
+        f"{zero_ms:.4f} ms, plain {plain_ms:.1f} ms, index_add_ "
+        f"{library_ms:.4f} ms, bound {bound_ms:.5f} ms, chain bound "
+        f"{chain_ms:.4f} ms ({depth:,} slots); bag_grad_rowgrid "
         f"{rowgrid_ms:.1f} ms, bit-equal")
     rowgrid_train = {"ms": rowgrid_ms, "tiled_ms": ms, "bound_ms": bound_ms,
                      "library_ms": library_ms, "slots": n,
@@ -850,7 +903,8 @@ def measure_bag_grad(torch, kernel, ref, gidx, vocab: int, flush,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
         >= flops / FP32_FLOPS else "operations",
-        "library_ms": library_ms, "sort_ms": sort_ms,
+        "library_ms": library_ms, "chain_bound_ms": chain_ms,
+        "sort_ms": sort_ms, "grouped_ms": ms_grouped,
         "zero_fill_ms": zero_ms, "zero_fill_bytes": vocab * d * 4,
         "slots": n, "distinct_rows": u, "longest_row": depth,
         "vocab": vocab, "bytes": nbytes}
@@ -948,8 +1002,32 @@ def check_bag_matmul(torch, bm_ops, bm_ref) -> float:
                         f"H={h} scale_after={after} max err {err}")
                 worst = max(worst, err)
                 n += 1
+    # B 1/31/512/513, K 1/39/40, D 1/10/32/384, H 1/63/400/1024, and two
+    # dead fields with a NaN in w3 under one: that column is NaN in both
+    from repro_torch.kernels import cases
+    n_cases = 0
+    for dtype in (torch.int8, torch.bfloat16, torch.float16, torch.float32):
+        for case in cases.bag_matmul_cases(dev, dtype):
+            for after in (False, True):
+                got = bm_ops.bag_matmul(*case[1:], scale_after=after)
+                want = bm_ref.bag_matmul_ref(*case[1:], scale_after=after)
+                torch.cuda.synchronize()
+                if not scales_equal(got, want):
+                    raise SystemExit(
+                        f"bag_matmul[{case.name}] != plain: {dtype} "
+                        f"scale_after={after}")
+                if case.name.startswith("dead") and not bool(
+                        torch.isnan(got[:, 7]).all()):
+                    raise SystemExit("bag_matmul: a NaN in w3 under dead "
+                                     "slots did not reach its column")
+                fin = torch.isfinite(want)
+                if bool(fin.any()):
+                    worst = max(worst, float((got - want)[fin].abs().max()))
+                n_cases += 1
     log(f"kernel check: bag_matmul bit-equal to plain in {n} cases (4 "
-        f"dtypes x 5 shapes x scale_after; max abs err {worst})")
+        f"dtypes x 5 shapes x scale_after) and {n_cases} schedule cases "
+        f"(B 1/31/512/513, K 1/39/40, D 1/10/32/384, H 1/63/400/1024; dead "
+        f"fields over a NaN in w3: NaN in both); max abs err {worst})")
     return worst
 
 
@@ -1211,7 +1289,7 @@ def check_hashed_build(torch, served, table, bits: str, counters,
     and must give the served pool; then its fwd over every row, its first
     adj and the 8-bit pool's quantize are each held bit for bit, and the
     fit-shaped bag_grad is timed.  Returns that timing."""
-    from repro_torch.kernels.dequant_bag.ops import bag_grad
+    from repro_torch.kernels.dequant_bag.ops import bag_grad, plan_slots
     from repro_torch.kernels.hashed_gather import ref as hg_ref
     from repro_torch.kernels.hashed_gather.ops import hashed_gather
     from repro_torch.kernels.rowwise_quant import ref as rq_ref
@@ -1272,8 +1350,15 @@ def check_hashed_build(torch, served, table, bits: str, counters,
                              f"{v * c:,} x {nh} bags) != plain, max err "
                              f"{float((got - want).abs().max())}")
         del got, want
-        ms = time_launches(torch, bag_grad,
+        # the fit groups its slots once and each adj reuses the grouping
+        plan = plan_slots(bags)
+        ms = time_launches(torch, lambda *a: bag_grad(*a, plan=plan),
                            [(g, None, bags, bag_signs, s)] * 3, flush)
+        ms_sorted = time_launches(torch, bag_grad,
+                                  [(g, None, bags, bag_signs, s)] * 3, flush)
+        sort_ms = time_launches(torch, plan_slots, [(bags,)] * 3, flush)
+        longest = int(torch.bincount(plan.rows.to(torch.int64)).max())
+        del plan
         flat = bags.reshape(-1).to(torch.int64)
         out = torch.zeros((s, z), device=table.device)
 
@@ -1290,13 +1375,19 @@ def check_hashed_build(torch, served, table, bits: str, counters,
     log(f"hashed {bits}b start-up at its shapes: fit rerun = served pool; "
         f"fwd over {v:,} rows, adj over {v * c:,} x {nh} bags"
         f"{', quantize_pool' if bits == '8' else ''} bit-equal to plain; "
-        f"fit-shaped bag_grad {ms:.4f} ms (bound {bound_ms:.4f}, plain "
+        f"fit-shaped bag_grad {ms:.4f} ms with the fit's grouping, "
+        f"{ms_sorted:.4f} ms with its own sort ({sort_ms:.4f}) (bound "
+        f"{bound_ms:.4f}, chain bound {chain_bound_ms(longest):.4f}, plain "
         f"{plain_ms:.1f}, index_add_ {library_ms:.4f})")
     return {"path": f"online_hashed_{bits}b", "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
+            "chain_bound_ms": chain_bound_ms(longest),
             "library_ms": library_ms, "bytes": nbytes,
+            "sorted_ms": ms_sorted, "sort_ms": sort_ms,
+            "longest_row": longest,
             "shape": {"bags": v * c, "K": nh, "D": z, "vocab": s},
-            "per": "launch (the fit's adj: zero fill, sort and kernel)"}
+            "per": "launch (the fit's adj: zero fill and kernel, its slots "
+                   "grouped once a fit; sorted_ms sorts them anew)"}
 
 
 def hashed_residual(torch, served, table) -> float:
@@ -1507,6 +1598,16 @@ def check_int8_tier(torch, server, arch: str) -> int:
     log(f"online {arch}: the pack's {n:,} int8 rows x {wq.shape[1]} and "
         f"scales bit-equal to the plain quantizer on their table rows")
     return n
+
+
+FMA_CYCLES = 4          # latency of a dependent fp32 FMA on Hopper
+SM_CLOCK_HZ = 1.98e9    # the card's top SM clock; main() reads the card's
+
+
+def chain_bound_ms(longest_run: int) -> float:
+    """The least time one row's (b, k)-ordered FMA chain can take: its
+    slots, one dependent FMA latency each, at the SM clock."""
+    return longest_run * FMA_CYCLES / SM_CLOCK_HZ * 1e3
 
 
 def _bound(nbytes: float, flops: float) -> tuple[float, str]:
@@ -1958,6 +2059,12 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
     print(smi.splitlines()[0], flush=True)
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0]
+    global SM_CLOCK_HZ
+    SM_CLOCK_HZ = float(clock) * 1e6
 
     t0 = time.perf_counter()
     paths = build.build_all(list(SOURCES))
@@ -1968,7 +2075,8 @@ def main() -> int:
             log(report.read_text().strip())
 
     worst = check_kernels(torch, ops, ref)
-    worst_grad = check_bag_grad(torch, ops, ref)
+    worst_grad = max(check_bag_grad(torch, ops, ref),
+                     check_bag_grad_schedules(torch, kernel, ref))
     worst_bm = check_bag_matmul(torch, bm_ops, bm_ref)
     worst_cin = check_cin(torch, cin_ops, cin_ref)
     worst_hg = check_hashed_gather(torch, hg_ops, hg_ref)

@@ -19,7 +19,7 @@
 // (repro_torch/kernels/dequant_bag/ref.py::bag_grad_rowgrid_ref).
 //
 // Design: the TPU grid's schedule, not bag_grad.cu's.  bag_grad.cu sorts
-// the slots by row and gives each row to one warp; this kernel has no
+// the slots by row and gives each row one owner; this kernel has no
 // sort and no owner per row.  One thread owns one column and walks ALL
 // slots in (b, k) order, doing each slot's read-modify-write of its
 // column itself, so no two threads ever touch one address and the order

@@ -8,7 +8,10 @@ its scatter-add backward.  ``dequant_bag_rowgrid_cuda``
 (``csrc/bag_grad_rowgrid.cu``) replace ``dequant_bag_pallas_rowgrid`` and
 ``bag_grad_pallas_rowgrid``, the reference's (B, K)-grid tiling oracles
 of the two; no entry point runs them, tests and ``chip_smoke.py`` hold
-the tiled kernels to them.  Each library is built at first call
+the tiled kernels to them.  ``plan_slots`` is the grouping ``bag_grad_cuda``
+accumulates by (the stable sort of the flat indices); a caller that
+scatters over the same indices many times makes it once and passes it
+back in.  Each library is built at first call
 (``kernels.build``) and loaded with ``ctypes``; a launch goes on
 PyTorch's current stream and does not synchronise.  ``launches`` counts
 the dequant-bag launches this process made, by payload dtype (each dtype
@@ -21,6 +24,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -31,6 +35,8 @@ _DTYPE_CODE = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2,
 
 launches = {str(dt).removeprefix("torch."): 0 for dt in _DTYPE_CODE}
 bag_grad_launches = {"float32": 0}
+# runs of more slots than this take bag_grad's block-a-run path
+HEAVY_RUN = 256
 rowgrid_launches = {"dequant_bag_rowgrid": 0, "bag_grad_rowgrid": 0}
 
 
@@ -138,13 +144,39 @@ def _check_grad_inputs(fn: str, g: torch.Tensor, indices: torch.Tensor,
 def _grad_launcher():
     fn = build.load("bag_grad").bag_grad_launch
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = [p, p, p, p, p, ll, i, ll, i, p]
+    fn.argtypes = [p, p, p, p, p, ll, i, ll, i, i, p, i, p]
     fn.restype = ctypes.c_int
     return fn
 
 
+class SlotPlan(NamedTuple):
+    """The slots of a (B, K) index array grouped by row: ``rows`` the flat
+    indices sorted stably (int32), ``slots`` their flat positions ``b * K +
+    k`` (int64, the sort's permutation), so each row's slots stay in (b,
+    k) order."""
+    rows: torch.Tensor
+    slots: torch.Tensor
+
+
+def plan_slots(indices: torch.Tensor) -> SlotPlan:
+    """The grouping ``bag_grad_cuda`` accumulates by, on ``indices``'
+    device: one stable sort of the flat indices."""
+    rows, slots = torch.sort(indices.to(torch.int32).reshape(-1),
+                             stable=True)
+    return SlotPlan(rows, slots)
+
+
+def _check_plan(plan: SlotPlan, n: int, device: torch.device) -> None:
+    _check("plan.rows", plan.rows, torch.int32, 1, device)
+    _check("plan.slots", plan.slots, torch.int64, 1, device)
+    if plan.rows.shape[0] != n or plan.slots.shape[0] != n:
+        raise ValueError(f"plan has {plan.rows.shape[0]} rows and "
+                         f"{plan.slots.shape[0]} slots, the indices {n}")
+
+
 def bag_grad_cuda(g: torch.Tensor, indices: torch.Tensor,
-                  coeff: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+                  coeff: torch.Tensor, out: torch.Tensor,
+                  plan: SlotPlan | None = None) -> torch.Tensor:
     """Launch the scatter-add backward into ``out`` and return it.
 
     g (B, D) fp32, indices (B, K) int32 in [0, V), coeff (B, K) fp32,
@@ -152,7 +184,9 @@ def bag_grad_cuda(g: torch.Tensor, indices: torch.Tensor,
     reference's aliased zeros operand): every touched row of ``out`` is
     overwritten with its (b, k)-ordered FMA sum.  All on one CUDA device
     and contiguous; raises otherwise.  The slots are grouped by row with
-    one stable sort here; the kernel does the accumulation.
+    one stable sort here, unless ``plan`` (``plan_slots(indices)``, made
+    once by a caller that scatters over the same indices again) is given;
+    the kernel does the accumulation.  Nothing here waits on the device.
     """
     _check_grad_inputs("bag_grad_cuda", g, indices, coeff, out)
     dev = g.device
@@ -161,16 +195,26 @@ def bag_grad_cuda(g: torch.Tensor, indices: torch.Tensor,
     n = b * k
     if n == 0 or d == 0:
         return out
-    rows, slots = torch.sort(indices.reshape(-1), stable=True)
+    if n >= 2**31 - 1:
+        raise ValueError(f"bag_grad_cuda takes fewer than 2**31 - 1 slots, "
+                         f"got {n}")
+    if plan is None:
+        plan = plan_slots(indices)
+    else:
+        _check_plan(plan, n, dev)
     vec = next(v for v in (4, 2, 1)
-               if d % v == 0 and (v < 4 or d >= 128)
-               and g.data_ptr() % (4 * v) == 0
+               if d % v == 0 and g.data_ptr() % (4 * v) == 0
                and out.data_ptr() % (4 * v) == 0)
-    launch = _grad_launcher()
+    # the heavy-run list: 4 counters, then room for every run that can be
+    # longer than HEAVY_RUN
+    cap = n // (HEAVY_RUN + 1) + 1
+    scratch = torch.empty(4 + cap, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        rc = launch(g.data_ptr(), rows.data_ptr(), slots.data_ptr(),
-                    coeff.data_ptr(), out.data_ptr(), n, k, d, vec,
-                    torch.cuda.current_stream(dev).cuda_stream)
+        rc = _grad_launcher()(
+            g.data_ptr(), plan.rows.data_ptr(), plan.slots.data_ptr(),
+            coeff.data_ptr(), out.data_ptr(), n, k, d, vec, HEAVY_RUN,
+            scratch.data_ptr(), cap,
+            torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"bag_grad launch failed: cudaError {rc} "
                            f"(B={b}, K={k}, D={d}, V={out.shape[0]})")

@@ -8,7 +8,8 @@ sums the three partial bags in the reference's order; slots of other
 tiers get weight 0, which the kernel skips without reading their rows.
 ``packed_lookup_fused`` is the K = 1 serving gather, bit-identical to
 ``packed_store.lookup``.  ``bag_grad`` is the scatter-add backward, with
-the same dispatch.  ``dequant_bag_rowgrid`` and ``bag_grad_rowgrid`` are
+the same dispatch; ``plan_slots`` groups its slots once for callers that
+scatter over the same indices many times.  ``dequant_bag_rowgrid`` and ``bag_grad_rowgrid`` are
 the reference's (B, K)-grid tiling oracles of the two, with the same
 dispatch; no serving or training path calls them.
 """
@@ -19,8 +20,8 @@ import torch
 
 from repro_torch.core.packed_store import PackedStore, _split
 from repro_torch.kernels.dequant_bag.kernel import (
-    bag_grad_cuda, bag_grad_rowgrid_cuda, dequant_bag_cuda,
-    dequant_bag_rowgrid_cuda)
+    SlotPlan, bag_grad_cuda, bag_grad_rowgrid_cuda, dequant_bag_cuda,
+    dequant_bag_rowgrid_cuda, plan_slots)
 from repro_torch.kernels.dequant_bag.ref import (
     bag_grad_coeff, bag_grad_ref, bag_grad_rowgrid_ref, dequant_bag_ref,
     dequant_bag_rowgrid_ref)
@@ -45,29 +46,32 @@ def dequant_bag(payload: torch.Tensor, scales: torch.Tensor | None,
 
 def bag_grad(g: torch.Tensor, scales: torch.Tensor | None,
              indices: torch.Tensor, weights: torch.Tensor | None,
-             vocab: int) -> torch.Tensor:
+             vocab: int, plan: SlotPlan | None = None) -> torch.Tensor:
     """Transpose of ``dequant_bag`` w.r.t. the payload: g (B, D) fp32,
     indices (B, K) -> dtable (vocab, D) fp32.
 
     ``dtable[i]`` is the (b, k)-ordered FMA sum of ``coeff * g[b]`` over
     the slots of row i, ``coeff = w * scale[idx]`` (``None`` = ones).
     Dispatch is by ``g``'s device: the plain version on the CPU; on CUDA
-    a zero fill of (vocab, D) and the kernel.
+    a zero fill of (vocab, D) and the kernel.  ``plan`` is
+    ``plan_slots(indices)``, for callers that scatter over the same
+    indices again (the kernel then skips its sort; the plain version
+    needs no grouping).
     """
     if g.device.type == "cpu":
         return bag_grad_ref(g, scales, indices, weights, vocab)
     return _scatter_on_card(bag_grad_cuda, g, scales, indices, weights,
-                            vocab)
+                            vocab, plan=plan)
 
 
-def _scatter_on_card(launch, g, scales, indices, weights, vocab: int
-                     ) -> torch.Tensor:
+def _scatter_on_card(launch, g, scales, indices, weights, vocab: int,
+                     **kw) -> torch.Tensor:
     """The coefficients, a zero (vocab, D) output and one ``launch``."""
     coeff = bag_grad_coeff(scales, indices, weights).contiguous()
     out = torch.zeros((vocab, g.shape[1]), dtype=torch.float32,
                       device=g.device)
     return launch(g.to(torch.float32).contiguous(),
-                  indices.to(torch.int32).contiguous(), coeff, out)
+                  indices.to(torch.int32).contiguous(), coeff, out, **kw)
 
 
 def dequant_bag_rowgrid(payload: torch.Tensor, scales: torch.Tensor | None,

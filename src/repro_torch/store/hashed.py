@@ -23,7 +23,8 @@ unit scales (bit-equal to the reference's ``(chunks * signs).sum(-2)``:
 at K = 1 every product is exact); ``adj`` is ``bag_grad`` on the
 (V*C, NH) reshape with the signs as coefficients, which sums each pool
 row's contributions in the reference's ``segment_sum`` (v, c, j) order,
-deterministically (no float atomics).  The CG vectors stay fp32, as in
+deterministically (no float atomics); its slots are grouped by pool row
+once a fit (``plan_slots``), not once an ``adj``.  The CG vectors stay fp32, as in
 the reference; its dot products reduce in another order than XLA's, so
 the fitted pool meets the reference's within a tolerance, not bit for
 bit.
@@ -40,7 +41,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels.dequant_bag.ops import bag_grad
+from repro_torch.kernels.dequant_bag.ops import bag_grad, plan_slots
 from repro_torch.kernels.hashed_gather.ops import hashed_gather, slot_plan
 from repro_torch.kernels.hashed_gather.ref import hash_slots
 from repro_torch.kernels.rowwise_quant.ops import quantize_rowwise
@@ -151,13 +152,15 @@ def fit_pool_from_table(table: torch.Tensor, cfg: HashedConfig,
     coeff = signs.reshape(v, c * nh)
     bags, bag_signs = slots.reshape(v * c, nh), signs.reshape(v * c, nh)
     del slots, signs
+    # every adj scatters over the same bags: group their slots once
+    bag_plan = plan_slots(bags)
 
     def fwd(p):          # A: pool -> materialised table (V, D)
         return hashed_gather(p, None, plan, coeff, num_chunks=c)
 
     def adj(r):          # A^T: table cotangent -> pool scatter (S, Z)
         return bag_grad(r.reshape(v * c, z), None, bags, bag_signs,
-                        cfg.num_slots)
+                        cfg.num_slots, plan=bag_plan)
 
     def vdot(a, b):
         return torch.dot(a.reshape(-1), b.reshape(-1))

@@ -16,8 +16,12 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (caps torch's CPU threads)
+
 from repro.kernels.dequant_bag import autodiff as jad
 from repro.kernels.dequant_bag.kernel import bag_grad_pallas
+from repro.kernels.dequant_bag.ref import bag_grad_ref as j_bag_grad_ref
+from repro_torch.kernels import cases
 from repro_torch.kernels.dequant_bag import autodiff as tad
 from repro_torch.kernels.dequant_bag import kernel as tkernel
 from repro_torch.kernels.dequant_bag import ops as tops
@@ -127,3 +131,112 @@ def test_bag_lookup_train_weight_grads_match_jax():
     # different orders
     np.testing.assert_allclose(gw.numpy(), np.asarray(jw), rtol=1e-6,
                                atol=1e-7)
+
+
+def _hot_row_case():
+    """Row 0 holds 2,000 slots among 39 short rows, K = 2, 30% zero
+    weights; one bag's weights are both 0 and its cotangent is NaN."""
+    rng = np.random.default_rng(16)
+    v, d, k = 40, 8, 2
+    lengths = [2000] + [int(x) for x in rng.integers(1, 30, v - 1)]
+    lengths[1] += sum(lengths) % k
+    rows = np.repeat(np.arange(v), lengths)
+    rng.shuffle(rows)
+    idx = rows.reshape(-1, k).astype(np.int32)
+    b = idx.shape[0]
+    g = rng.standard_normal((b, d)).astype(np.float32)
+    w = (rng.random((b, k)) + 0.5).astype(np.float32)
+    w[rng.random((b, k)) < 0.3] = 0.0
+    nan_bag = int(np.nonzero(idx[:, 0] == 0)[0][0])
+    w[nan_bag] = 0.0
+    g[nan_bag] = np.nan
+    return g, idx, w, v, nan_bag
+
+
+def test_bag_grad_ref_hot_row_matches_jax_plain_reference():
+    g, idx, w, v, nan_bag = _hot_row_case()
+    got = bag_grad_ref(torch.from_numpy(g), None, torch.from_numpy(idx),
+                       torch.from_numpy(w), v).numpy()
+    # zero weights skip their slots, as the reference's Pallas kernel
+    # does: the NaN cotangent never reaches a row
+    assert np.isfinite(got).all()
+    # the reference's plain version multiplies it by 0 instead: NaN rows
+    want_nan = np.asarray(j_bag_grad_ref(jnp.asarray(g), None,
+                                         jnp.asarray(idx), jnp.asarray(w), v))
+    assert np.isnan(want_nan[np.unique(idx[nan_bag])]).all()
+    # with that cotangent zeroed, the two sum the same n products of a
+    # row in different orders: the port as one FMA chain ((n - 1)
+    # roundings), the reference as rounded products summed by XLA (at
+    # most 2n - 1 roundings); each rounding is within eps/2 of the sum of
+    # |c g| so far, hence |got - want| <= 2 n eps sum |c g|
+    g0 = g.copy()
+    g0[nan_bag] = 0.0
+    want = np.asarray(j_bag_grad_ref(jnp.asarray(g0), None, jnp.asarray(idx),
+                                     jnp.asarray(w), v))
+    terms = np.abs(w.reshape(-1, 1) * np.repeat(g0, idx.shape[1], axis=0))
+    absum = np.zeros((v, g.shape[1]))
+    np.add.at(absum, idx.reshape(-1), terms)
+    n = np.bincount(idx.reshape(-1), minlength=v)[:, None]
+    tol = 2 * n * np.finfo(np.float32).eps * absum
+    assert n.max() == 2000 and (np.abs(got - want) <= tol).all()
+    got0 = bag_grad_ref(torch.from_numpy(g0), None, torch.from_numpy(idx),
+                        torch.from_numpy(w), v).numpy()
+    np.testing.assert_array_equal(bits(got0), bits(got))
+
+
+@pytest.mark.parametrize("k", [1, 2, 5])
+def test_plan_slots_groups_each_row_in_bk_order(k):
+    rng = np.random.default_rng(k)
+    idx = torch.from_numpy(rng.integers(0, 30, (200, k)).astype(np.int32))
+    plan = tkernel.plan_slots(idx)
+    flat = idx.reshape(-1)
+    assert plan.rows.dtype == torch.int32 and plan.slots.dtype == torch.int64
+    # every slot once, its row beside it, the rows sorted
+    assert torch.equal(torch.sort(plan.slots).values,
+                       torch.arange(flat.numel()))
+    assert torch.equal(plan.rows, flat[plan.slots])
+    assert bool((plan.rows[1:] >= plan.rows[:-1]).all())
+    # within a row the slots keep their (b, k) order
+    same = plan.rows[1:] == plan.rows[:-1]
+    assert bool((plan.slots[1:][same] > plan.slots[:-1][same]).all())
+    # the plain version needs no grouping: a plan changes nothing there
+    g = torch.from_numpy(rng.standard_normal((200, 8)).astype(np.float32))
+    w = torch.from_numpy(rng.random((200, k)).astype(np.float32))
+    tkernel.reset_launches()
+    with_plan = tops.bag_grad(g, None, idx, w, 30, plan=plan)
+    assert tkernel.bag_grad_launches["float32"] == 0
+    np.testing.assert_array_equal(bits(with_plan),
+                                  bits(tops.bag_grad(g, None, idx, w, 30)))
+
+
+def test_card_check_cases_cover_the_schedules():
+    heavy = tkernel.HEAVY_RUN
+    by_name = {c.name: c for c in cases.bag_grad_cases(torch.device("cpu"),
+                                                       heavy)}
+    assert by_name["one_row"].indices.shape == (65_536, 1)
+    assert set(torch.unique(by_name["one_row"].indices).tolist()) == {3}
+    for d in (64, 8):
+        c = by_name[f"threshold_d{d}"]
+        runs = set(torch.bincount(c.indices.reshape(-1).long()).tolist())
+        assert {heavy - 1, heavy, heavy + 1, 16 * heavy,
+                16 * heavy + 1} <= runs
+        assert c.g.shape[1] == d
+    c = by_name["zeros_nan"]
+    nan_bags = torch.isnan(c.g).any(1)
+    assert int(nan_bags.sum()) == 1 and not c.coeff[nan_bags].any()
+    assert int(torch.bincount(c.indices.reshape(-1).long()).max()) == 3000
+    assert float((c.coeff == 0).float().mean()) > 0.2
+    for d in (1, 8, 10, 64, 128):
+        c = by_name[f"misaligned_d{d}"]
+        assert c.g.shape[1] == d and c.g.is_contiguous()
+        assert c.g.data_ptr() % 16 and c.out.data_ptr() % 16
+    shapes = [tuple(x.shape[i] for x, i in ((m.indices, 0), (m.indices, 1),
+                                             (m.payload, 1), (m.w3, 2)))
+              for m in cases.bag_matmul_cases(torch.device("cpu"),
+                                              torch.int8)]
+    for axis, values in enumerate(((1, 31, 512, 513), (1, 39, 40),
+                                   (1, 10, 32, 384), (1, 63, 400, 1024))):
+        assert set(values) <= {s_[axis] for s_ in shapes}
+    dead = cases.bag_matmul_cases(torch.device("cpu"), torch.float32)[-1]
+    assert not dead.weights[:, 2].any() and not dead.weights[:, 5].any()
+    assert torch.isnan(dead.w3[5]).any()

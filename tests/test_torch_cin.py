@@ -15,6 +15,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (caps torch's CPU threads)
+
 from repro.kernels.cin.kernel import cin_layer_pallas
 from repro.models.recsys import cin_layer as j_cin_layer
 from repro_torch.kernels.cin import kernel as tkernel

@@ -10,10 +10,13 @@ from __future__ import annotations
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (caps torch's CPU threads)
+
 from repro_torch.core import packed_store as tps
 from repro_torch.core import qat_store as tqs
 from repro_torch.core.tiers import TierConfig
 from repro_torch import configs
+from repro_torch.kernels import cases
 from repro_torch.kernels.bag_matmul import kernel as bm_kernel
 from repro_torch.kernels.bag_matmul import ops as bm_ops
 from repro_torch.kernels.bag_matmul.ref import bag_matmul_ref
@@ -119,6 +122,74 @@ def test_bag_grad_kernel_bit_equal_to_plain(dev, b, k, d, v, scaled):
     torch.cuda.synchronize()
     assert kernel.bag_grad_launches["float32"] == (1 if b else 0)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+GRAD_CASES = ("one_row", "threshold_d64", "threshold_d8", "zeros_nan",
+              "misaligned_d1", "misaligned_d8", "misaligned_d10",
+              "misaligned_d64", "misaligned_d128")
+
+
+@pytest.mark.parametrize("name", GRAD_CASES)
+@pytest.mark.parametrize("grouped", [False, True])
+def test_bag_grad_schedules_bit_equal_to_plain_and_rowgrid(dev, name,
+                                                           grouped):
+    """bag_grad's schedules (one row of every slot, runs at the heavy-run
+    threshold and one either side, zero coefficients over a NaN
+    cotangent, widths off 16-byte alignment), with and without a
+    precomputed grouping: bit-equal to the plain version and to the
+    (B, K)-grid oracle, and finite."""
+    by_name = {c.name: c for c in cases.bag_grad_cases(dev,
+                                                       kernel.HEAVY_RUN)}
+    c = by_name[name]
+    plan = kernel.plan_slots(c.indices) if grouped else None
+    kernel.reset_launches()
+    got = kernel.bag_grad_cuda(c.g, c.indices, c.coeff, c.out, plan=plan)
+    want = ref.bag_grad_ref(c.g, None, c.indices, c.coeff, c.vocab)
+    oracle = kernel.bag_grad_rowgrid_cuda(c.g, c.indices, c.coeff,
+                                          torch.zeros_like(want))
+    torch.cuda.synchronize()
+    assert kernel.bag_grad_launches["float32"] == 1
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(oracle.view(torch.int32), want.view(torch.int32))
+
+
+def test_bag_grad_fit_shaped_grouping_bit_equal(dev):
+    """The hashed fit's adj: (V*C, 2) bags of +-1 signs over S pool rows
+    at D = 8, the grouping made once and reused."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(14)
+    bags = torch.randint(0, 3001, (400_000, 2), generator=g, device=dev,
+                         dtype=torch.int32)
+    signs = (torch.randint(0, 2, (400_000, 2), generator=g, device=dev)
+             * 2 - 1).float()
+    x = torch.randn((400_000, 8), generator=g, device=dev)
+    plan = ops.plan_slots(bags)
+    want = ref.bag_grad_ref(x, None, bags, signs, 3001)
+    for _ in range(2):
+        got = ops.bag_grad(x, None, bags, signs, 3001, plan=plan)
+        torch.cuda.synchronize()
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("dtype", ["int8", "bfloat16", "float16",
+                                   "float32"])
+@pytest.mark.parametrize("which", range(len(cases.MATMUL_SHAPES) + 1))
+@pytest.mark.parametrize("scale_after", [False, True])
+def test_bag_matmul_schedules_bit_equal_to_plain(dev, dtype, which,
+                                                 scale_after):
+    """B 1/31/512/513, K 1/39/40, D 1/10/32/384, H 1/63/400/1024, and two
+    dead fields over a NaN in w3 (every slot is multiplied: that column
+    is NaN in both)."""
+    c = cases.bag_matmul_cases(dev, getattr(torch, dtype))[which]
+    bm_kernel.reset_launches()
+    got = bm_ops.bag_matmul(*c[1:], scale_after=scale_after)
+    want = bag_matmul_ref(*c[1:], scale_after=scale_after)
+    torch.cuda.synchronize()
+    assert bm_kernel.launches[dtype] == 1
+    assert _nan_equal(got, want)
+    if c.name.startswith("dead"):
+        assert bool(torch.isnan(got[:, 7]).all())
 
 
 def test_train_step_on_card_matches_cpu(dev):

@@ -18,6 +18,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (caps torch's CPU threads)
+
 from repro import configs as jconfigs
 from repro.core import packed_store as jps
 from repro.core import qat_store as jqs

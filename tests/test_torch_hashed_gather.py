@@ -20,6 +20,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (caps torch's CPU threads)
+
 from repro.kernels.hashed_gather import autodiff as jad
 from repro.kernels.hashed_gather import ops as jops
 from repro.kernels.hashed_gather.kernel import hashed_gather_pallas

@@ -26,6 +26,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (caps torch's CPU threads)
+
 from repro import configs as jconfigs
 from repro.core.priority import PriorityConfig as JPriorityConfig
 from repro.launch import serve as jserve_cli

@@ -27,6 +27,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (caps torch's CPU threads)
+
 from repro import configs as jconfigs
 from repro.ckpt.manager import CheckpointManager as JManager
 from repro.core import packed_store as jps

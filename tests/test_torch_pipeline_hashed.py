@@ -11,6 +11,8 @@ AUC is the hashing scheme's own loss: it is compared, not bounded.
 
 from __future__ import annotations
 
+import torch_threads  # noqa: F401  (caps torch's CPU threads)
+
 from repro.launch.pipeline import fast_config as jfast
 from repro.launch.pipeline import run_pipeline as jrun
 from repro_torch.convert import train_state_from_jax

@@ -8,10 +8,13 @@ when there is no GPU, and never carry on on the CPU by themselves.
 from __future__ import annotations
 
 import ast
+import os
 from pathlib import Path
 
 import pytest
 import torch
+
+import torch_threads  # noqa: F401  (caps torch's CPU threads)
 
 import repro_torch
 from repro_torch.kernels import build
@@ -146,3 +149,34 @@ def test_pipeline_raises_without_cuda_unless_cpu_is_asked(tmp_path):
         tserve.run(tserve.parse_args(
             ["--model", "smoke", "--online", "--serve-batch", "4",
              "--requests", "4"]))
+
+
+PORT_TESTS = sorted((ROOT / "tests").glob("test_torch_*.py"))
+
+
+@pytest.mark.parametrize("path", PORT_TESTS, ids=lambda p: p.name)
+def test_port_tests_cap_torch_threads(path):
+    """Every port test module imports ``torch_threads`` (torch's CPU
+    threads capped to the cores an xdist worker gets), and one that starts
+    a subprocess hands it ``torch_threads.subprocess_env()``."""
+    roots = _imported_roots(path)
+    assert "torch_threads" in roots, f"{path.name} does not import it"
+    if "subprocess" in roots:
+        assert "subprocess_env" in path.read_text(), path.name
+
+
+def test_torch_threads_caps_to_the_workers_cores(monkeypatch):
+    import importlib
+
+    import torch_threads
+    try:
+        monkeypatch.setenv("PYTEST_XDIST_WORKER_COUNT", "6")
+        importlib.reload(torch_threads)
+        want = max(1, (os.cpu_count() or 1) // 6)
+        assert torch_threads.THREADS == want
+        assert torch.get_num_threads() == want
+        assert torch_threads.subprocess_env({})["OMP_NUM_THREADS"] == str(
+            want)
+    finally:
+        monkeypatch.undo()
+        importlib.reload(torch_threads)

@@ -20,6 +20,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (caps torch's CPU threads)
+
 from repro.kernels.dequant_bag.kernel import (bag_grad_pallas_rowgrid,
                                               dequant_bag_pallas_rowgrid)
 from repro_torch.convert import to_tensor

@@ -25,6 +25,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (caps torch's CPU threads)
+
 from repro.core import rowwise_quant as jrq
 from repro.kernels.rowwise_quant.kernel import quantize_rowwise_pallas
 from repro.kernels.rowwise_quant.ref import quantize_rowwise_ref as j_ref

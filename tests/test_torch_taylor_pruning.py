@@ -19,6 +19,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (caps torch's CPU threads)
+
 from repro import configs as jconfigs
 from repro.core import pruning as jpruning
 from repro.core import taylor as jtaylor

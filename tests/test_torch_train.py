@@ -21,6 +21,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (caps torch's CPU threads)
+
 from repro import configs as jconfigs
 from repro.ckpt.manager import CheckpointManager as JManager
 from repro.core import metrics as jmetrics
