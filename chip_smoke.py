@@ -24,8 +24,11 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    D 32, H 1024) and xDeepFM (B 512, K 39, D 10, H 400), and on B
    1/31/512/513, K 1/39/40, D 1/10/32/384, H 1/63/400/1024 and dead
    fields over a NaN in w3 (NaN in both); cin at shapes
-   that no block divides and D = 128 (the full-width layers are checked
-   on served data in phase 9); hashed_gather for int8 and fp32 pools, Z
+   that no block divides and D = 128, and on its tile cases
+   (``kernels/cases.py``: O 17, 200, 201 and 400, a sample's D = 6 or
+   D = 128 columns split across n tiles, K of 72, 1,521 and 7,800, H = M
+   = 1, W off 16-byte alignment at K = 72, a NaN in W; the full-width layers are checked on served data in phase
+   9); hashed_gather for int8 and fp32 pools, Z
    = 8, 4 and 5, K = 1 with sign coefficients (B = 20,480, a request's
    ids, and B = 1001), K = 5 with random weights and 30% zero
    coefficients, and B = 0; quantize_rowwise in narrow and full mode,
@@ -33,7 +36,10 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    64, 32, 10 and 8 at V = 1001, with an all-zero row (the 1e-12 floor),
    a row of exact .5 multiples of its scale (half to even) and rows
    holding NaN and inf (NaN and inf scales, codes 0, as the plain
-   version); the two (B, K)-grid oracles against their plain versions and
+   version), and on its path cases (``kernels/cases.py``: D = 64, 32, 10,
+   8, 3, 68 and 133 at V = 1001, NaN and inf rows beside finite rows of one
+   warp step, x or noise off 16-byte alignment); the two (B, K)-grid
+   oracles against their plain versions and
    against the tiled kernels: dequant_bag_rowgrid for every payload
    dtype, D = 64 and 33, K = 1 and 8, B = 0, and a NaN row (a NaN scale
    for int8) in a zero-weight slot, where the rowgrid forms give NaN bags
@@ -103,6 +109,9 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    at xdeepfm's three layer shapes on a served batch, each checked bit
    for bit against its plain version on those inputs (CIN on 64 and on
    all 512 samples), then timed beside its bound and a library call;
+   and quantize_rowwise (D = 10, the scalar path) on the int8 rows of the
+   xdeepfm pack's first 4M-row chunk, bit-equal to the plain quantizer
+   and to the pack's rows, timed beside its bound and plain version;
 10. hashed serve: ``repro_torch.launch.serve --arch wide-deep --online
    --store-backend hashed`` at full width (22,216,192 rows x 32 fitted
    into a pool at ratio 100, chunk width 8), first with ``--hash-bits
@@ -1052,8 +1061,27 @@ def check_cin(torch, cin_ops, cin_ref) -> float:
             raise SystemExit(f"cin != plain: B={b} O={o} H={h} M={m} D={d} "
                              f"max err {err}")
         worst = max(worst, err)
-    log(f"kernel check: cin bit-equal to plain in 3 synthetic cases (max "
-        f"abs err {worst})")
+    # the kernel's 200 x 40 tiles and 32-deep chunks: O 17 / 200 / 201 /
+    # 400, a sample's columns split across n tiles (D = 6, D = 128), K of
+    # 72, 1,521 and 7,800, H = M = 1, W off alignment at K = 72, and a NaN
+    # in W (its output channel NaN in both)
+    from repro_torch.kernels import cases
+    for case in cases.cin_cases(dev):
+        got = cin_ops.cin_layer(*case[1:])
+        want = cin_ref.cin_layer_ref(*case[1:])
+        torch.cuda.synchronize()
+        if not scales_equal(got, want):
+            raise SystemExit(f"cin[{case.name}] != plain")
+        nan = torch.isnan(got)
+        if int(nan.sum()) != (nan[:, 5].numel() if case.name == "nan_w"
+                              else 0):
+            raise SystemExit(f"cin[{case.name}]: NaN outputs {int(nan.sum())}")
+        worst = max(worst, float((got - want)[~nan].abs().max()))
+    log(f"kernel check: cin bit-equal to plain in 3 synthetic cases and "
+        f"{len(cases.CIN_CASE_NAMES)} tile cases (O 17/200/201/400, a "
+        f"sample's D=6 or D=128 columns split across tiles, K 72/1521/7800, "
+        f"H=M=1, W off alignment at K=72, a NaN in W: NaN in its channel "
+        f"in both; max abs err {worst})")
     return worst
 
 
@@ -1134,11 +1162,35 @@ def check_rowwise_quant(torch, rq_ops, rq_ref) -> float:
                     worst = max(worst, _quant_err(q[fin], sc[fin], wq[fin],
                                                   ws[fin]))
                     n += 1
+    # the vector, scalar and wide-row paths: D 64/32/10/8/3/68/133 with
+    # zero, .5-multiple, NaN and inf rows beside finite rows of the same
+    # warp step, and x or noise off 16-byte alignment
+    from repro_torch.kernels import cases
+    from repro_torch.kernels.rowwise_quant import kernel as rq_kernel
+    n_cases = 0
+    for case in cases.quant_cases(dev):
+        for mode in ("narrow", "full"):
+            for nz in (None, case.noise):
+                for recip in (False, True):
+                    q, sc = rq_kernel.quantize_rowwise_cuda(
+                        case.x, nz, mode, reciprocal=recip)
+                    wq, ws = rq_ref.quantize_rowwise_ref(case.x, nz, mode,
+                                                         reciprocal=recip)
+                    torch.cuda.synchronize()
+                    if not (torch.equal(q, wq) and scales_equal(sc, ws)):
+                        raise SystemExit(
+                            f"quantize_rowwise[{case.name}] != plain: {mode} "
+                            f"stochastic={nz is not None} reciprocal={recip}")
+                    fin = torch.isfinite(sc[:, 0])
+                    worst = max(worst, _quant_err(q[fin], sc[fin], wq[fin],
+                                                  ws[fin]))
+                    n_cases += 1
     log(f"kernel check: quantize_rowwise bit-equal to plain in {n} cases "
         f"(D 64/32/10/8 x narrow/full x nearest/stochastic x divide/"
         f"reciprocal, V=1001 with a zero row, a row of .5 multiples and "
-        f"NaN and inf rows; "
-        f"max abs err {worst})")
+        f"NaN and inf rows) and {n_cases} path cases (D 64/32/10/8/3/68/133, "
+        f"NaN and inf rows beside finite ones, x or noise off 16-byte "
+        f"alignment); max abs err {worst})")
     return worst
 
 
@@ -1175,23 +1227,70 @@ def measure_quantize(torch, served, rq_kernel, rq_ref, flush,
             and bits_equal(sc[:, 0], packed.scale8[:v])):
         raise SystemExit("quantize_rowwise on a build chunk != the pack's "
                          "int8 rows")
-    ms = time_launches(torch, rq_kernel.quantize_rowwise_cuda, [(x,)] * 10,
-                       flush)
-    plain_ms = time_launches(torch, rq_ref.quantize_rowwise_ref, [(x,)] * 3,
-                             flush)
+    t = _time_quantize(torch, x, "narrow", rq_kernel, rq_ref, flush)
+    log(f"quantize_rowwise at a build chunk's int8 rows (V={v:,}, D={d}): "
+        f"{t['ms']:.4f} ms, {t['gb_per_s']:.0f} GB/s (bound "
+        f"{t['bound_ms']:.4f}, {t['bound_ms'] / t['ms']:.1%} of it; plain "
+        f"{t['plain_ms']:.4f}); bit-equal to plain and to the pack's first "
+        f"{v:,} int8 rows")
+    return {"name": "quantize_rowwise", "route": "cuda",
+            "source": SOURCE_QUANT, "replaces": TPU_QUANT, "launches": None,
+            "max_abs_err": worst, "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None, "shape": {"V": v, "D": d},
+            "bytes": t["bytes"], "gb_per_s": t["gb_per_s"],
+            "per": "launch (the int8 rows of one 4,194,304-row build chunk)"}
+
+
+def _time_quantize(torch, x, mode: str, rq_kernel, rq_ref, flush) -> dict:
+    """The kernel's and the plain version's ms on ``x``, and the bound."""
+    v, d = x.shape
+    ms = time_launches(torch, lambda a: rq_kernel.quantize_rowwise_cuda(
+        a, None, mode), [(x,)] * 10, flush)
+    plain_ms = time_launches(torch, lambda a: rq_ref.quantize_rowwise_ref(
+        a, None, mode), [(x,)] * 3, flush)
     # 4 bytes read and 1 written an element, 4 bytes of scale a row;
     # |x|, max, divide, round, clip: 5 operations an element
     nbytes = v * d * 5 + v * 4
     bound_ms, bound_by = _bound(nbytes, 5 * v * d)
-    log(f"quantize_rowwise at a build chunk's int8 rows (V={v:,}, D={d}): "
-        f"{ms:.4f} ms (bound {bound_ms:.4f}, plain {plain_ms:.4f}); bit-equal "
-        f"to plain and to the pack's first {v:,} int8 rows")
-    return {"name": "quantize_rowwise", "route": "cuda",
-            "source": SOURCE_QUANT, "replaces": TPU_QUANT, "launches": None,
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "shape": {"V": v, "D": d}, "bytes": nbytes,
-            "per": "launch (the int8 rows of one 4,194,304-row build chunk)"}
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "bytes": nbytes,
+            "gb_per_s": nbytes / ms / 1e6}
+
+
+def measure_quantize_tier(torch, served, rq_kernel, rq_ref, flush) -> dict:
+    """Phase 9: quantize_rowwise on the int8 rows of the first 4M-row chunk
+    of the xdeepfm pack after its online run (D = 10: the kernel's scalar
+    path, which each of the pack's build chunks and re-tiers runs), bit
+    for bit against the plain version and the pack's rows, then timed."""
+    from repro_torch.core.packed_store import _IDX_MASK, _TIER_SHIFT
+    from repro_torch.launch.serve import CHUNK_ROWS
+
+    packed, backend = served.server.packed, served.server.backend
+    mode = backend.cfg.mode
+    with torch.inference_mode():
+        rows = torch.nonzero((packed.indirect[:CHUNK_ROWS] >> _TIER_SHIFT)
+                             == 0).reshape(-1)
+        loc = (packed.indirect[rows] & _IDX_MASK).to(torch.int64)
+        x = backend.store.table[rows].to(torch.float32).contiguous()
+        v, d = x.shape
+        q, sc = rq_kernel.quantize_rowwise_cuda(x, None, mode)
+        wq, ws = rq_ref.quantize_rowwise_ref(x, None, mode)
+        torch.cuda.synchronize()
+        if not (torch.equal(q, wq) and bits_equal(sc, ws)
+                and torch.equal(q, packed.payload8[loc])
+                and bits_equal(sc[:, 0], packed.scale8[loc])):
+            raise SystemExit("quantize_rowwise on the xdeepfm chunk != plain "
+                             "or the pack's rows")
+        t = _time_quantize(torch, x, mode, rq_kernel, rq_ref, flush)
+    log(f"quantize_rowwise at the xdeepfm pack's first chunk's int8 rows "
+        f"(V={v:,}, D={d}, {mode}): {t['ms']:.4f} ms, {t['gb_per_s']:.0f} "
+        f"GB/s (bound {t['bound_ms']:.4f}, {t['bound_ms'] / t['ms']:.1%} of "
+        f"it; plain {t['plain_ms']:.4f}); bit-equal to plain and to the "
+        f"pack's rows")
+    return {"shape": {"V": v, "D": d}, "mode": mode, **t,
+            "per": "launch (the int8 rows of the first 4,194,304-row chunk "
+                   "of the xdeepfm pack)"}
 
 
 def serve_hashed(torch, serve, kernels_mod, bits: str) -> tuple:
@@ -1784,14 +1883,18 @@ def measure_cin(torch, served, launches: int, flush, worst: float) -> dict:
         by_layer.append({"H": h, "M": m, "O": o, "D": d, "ms": ms,
                          "plain_ms": plain_ms, "bound_ms": bound_ms,
                          "library_ms": library_ms, "flops": flops,
-                         "bytes": nbytes, "library_max_abs_diff": lib_err})
+                         "bytes": nbytes, "library_max_abs_diff": lib_err,
+                         "ratio_to_library": ms / library_ms})
         del plain, full
     mean = {k: sum(t[k] for t in by_layer) / len(by_layer)
             for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
     log(f"cin at B={b}: " + ", ".join(
         f"H={t['H']} {t['ms']:.4f} ms (bound {t['bound_ms']:.4f}, einsum "
-        f"{t['library_ms']:.4f}, plain {t['plain_ms']:.0f})"
-        for t in by_layer) + "; bit-equal to plain on 64 and 512 samples")
+        f"{t['library_ms']:.4f}: {t['ms'] / t['library_ms']:.2f}x it, plain "
+        f"{t['plain_ms']:.0f})" for t in by_layer)
+        + f"; mean {mean['ms']:.4f} ms against a {mean['bound_ms']:.4f} ms "
+        f"bound ({mean['bound_ms'] / mean['ms']:.1%}); bit-equal to plain on "
+        "64 and 512 samples")
     return {
         "name": "cin[xdeepfm]", "route": "cuda", "source": SOURCE_CIN,
         "replaces": TPU_CIN, "launches": launches, "max_abs_err": worst,
@@ -2144,6 +2247,8 @@ def main() -> int:
         if arch == "xdeepfm":
             kernels.append(measure_cin(torch, served, launches["cin"], flush,
                                        worst_cin))
+            quant_entry["xdeepfm_chunk"] = measure_quantize_tier(
+                torch, served, rq_kernel, rq_ref, flush)
         if args.trace:
             trace_online(torch, served, arch, 6, args.trace)
         del served

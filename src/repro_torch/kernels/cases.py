@@ -1,4 +1,5 @@
-"""Adversarial inputs for the card checks of ``bag_grad`` and ``bag_matmul``.
+"""Adversarial inputs for the card checks of ``bag_grad``, ``bag_matmul``,
+``cin`` and ``rowwise_quant``.
 
 ``chip_smoke.py`` (phase 2) and ``tests/test_torch_cuda.py`` hold the
 kernels to their plain versions on these, bit for bit.  The inputs are
@@ -15,10 +16,26 @@ cotangent under them (the zeros must be skipped); D in {1, 8, 10, 64,
 in {1, 10, 32, 384} and H in {1, 63, 400, 1024}, and all-dead fields
 with a NaN in ``w3`` under a dead slot (every slot is multiplied, so the
 NaN reaches its column).
+``cin_cases`` aims at the CIN kernel's 200 (o) x 40 (n) tiles and
+32-deep k chunks: O of 17 (one partial o tile), 200 (one full tile), 201
+(a second tile of one row) and 400 (two full tiles); a sample's columns
+split across n tiles (D = 6, as 40 is no multiple of 6, and D = 128,
+which spans four tiles; D = 10 divides 40, so its samples never
+straddle); H * M of 72 (9 x 8), 1,521 and 7,800 (ragged last chunks);
+H = M = 1; W one float off 16-byte alignment at H * M = 72 (a multiple
+of 4, so only the pointer sends it to the shifted W reads); and a NaN in
+W (its output channel NaN in both).
+``quant_cases`` aims at the quantizer's vector, scalar and wide-row
+paths: D in {64, 32, 10, 8, 3, 68, 133} at V = 1001 (no block's rows
+divide it), each with an all-zero row (the 1e-12 floor), a row of exact
+.5 multiples of its scale (half to even), and NaN, inf and all -inf rows
+beside finite rows of the same warp step; and x or noise one float off
+16-byte alignment (views a caller can pass), which take the scalar path.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -35,7 +52,7 @@ class GradCase(NamedTuple):
 
 def _off_aligned(shape, device) -> torch.Tensor:
     """Zeros of ``shape``, contiguous, one float past 16-byte alignment."""
-    n = shape[0] * shape[1]
+    n = math.prod(shape)
     return torch.zeros(n + 1, device=device)[1:].view(shape)
 
 
@@ -148,3 +165,100 @@ def bag_matmul_cases(device, dtype) -> list[MatmulCase]:
                             torch.rand(v, generator=gen, device=device)
                             * 0.01, idx, w, w3))
     return cases
+
+
+class CinCase(NamedTuple):
+    name: str
+    w: torch.Tensor           # (O, H, M) fp32
+    xk: torch.Tensor          # (B, H, D) fp32
+    x0: torch.Tensor          # (B, M, D) fp32
+
+
+# (B, O, H, M, D)
+CIN_SHAPES = ((13, 17, 9, 8, 6),        # O < a tile, K = 72, D = 6 straddles
+              (70, 200, 39, 39, 10),    # 700 columns: a last n tile of 20
+              (3, 17, 200, 39, 10),     # K = 7,800: a last chunk of 24
+              (5, 3, 1, 1, 128),        # H = M = 1, D = 128
+              (3, 200, 1, 1, 10),       # H = M = 1, O = 200
+              (2, 70, 20, 39, 128),     # D = 128: a sample over four tiles
+              (7, 201, 9, 8, 10),       # a second o tile of one row
+              (5, 400, 39, 39, 6))      # two full o tiles, K = 1,521
+CIN_CASE_NAMES = tuple(f"b{b}_o{o}_h{h}_m{m}_d{d}"
+                       for b, o, h, m, d in CIN_SHAPES) + ("w_off_k72",
+                                                           "nan_w")
+
+
+def cin_cases(device) -> list[CinCase]:
+    gen = torch.Generator(device=device)
+    gen.manual_seed(18)
+    cases = []
+
+    def add(name, b, o, h, m, d):
+        w = torch.randn((o, h, m), generator=gen, device=device) / (
+            h * m) ** 0.5
+        xk = torch.randn((b, h, d), generator=gen, device=device)
+        x0 = torch.randn((b, m, d), generator=gen, device=device)
+        cases.append(CinCase(name, w, xk, x0))
+
+    for b, o, h, m, d in CIN_SHAPES:
+        add(f"b{b}_o{o}_h{h}_m{m}_d{d}", b, o, h, m, d)
+    # K = 72 is a multiple of 4, but W lies one float off alignment
+    add("w_off_k72", 9, 200, 9, 8, 10)
+    w = cases[-1].w
+    cases[-1] = cases[-1]._replace(w=_off(w))
+    # a NaN in W: output channel 5 is NaN for every (b, d)
+    add("nan_w", 6, 200, 39, 39, 10)
+    cases[-1].w[5, 3, 7] = float("nan")
+    return cases
+
+
+class QuantCase(NamedTuple):
+    name: str
+    x: torch.Tensor           # (V, D) fp32, maybe off alignment
+    noise: torch.Tensor       # (V, D) fp32 uniforms, maybe off alignment
+
+
+QUANT_DIMS = (64, 32, 10, 8, 3, 68, 133)
+QUANT_OFF_DIMS = (64, 8)
+QUANT_CASE_NAMES = (tuple(f"d{d}" for d in QUANT_DIMS)
+                    + tuple(f"{what}_off_d{d}" for d in QUANT_OFF_DIMS
+                            for what in ("x", "noise")))
+
+
+def _quant_rows(v: int, d: int, gen, device) -> torch.Tensor:
+    x = torch.randn((v, d), generator=gen, device=device) * (
+        torch.rand((v, 1), generator=gen, device=device) * 10 + 1e-3)
+    x[1] = 0.0                            # the 1e-12 floor
+    half = (torch.arange(d, device=device) % 9 - 4).float() + 0.5
+    x[2] = half * 0.25                    # exact .5 multiples of 0.25
+    x[2, 0] = 127 * 0.25
+    # non-finite rows beside finite rows of the same warp step
+    x[5, d // 2] = float("nan")
+    x[6, d - 1] = float("inf")
+    x[9] = -float("inf")
+    x[10, 0] = float("nan")
+    x[10, d - 1] = -float("inf")
+    return x
+
+
+def _off(t: torch.Tensor) -> torch.Tensor:
+    """A copy of ``t``, contiguous, one float past 16-byte alignment."""
+    return _off_aligned(t.shape, t.device).copy_(t)
+
+
+def quant_cases(device) -> list[QuantCase]:
+    gen = torch.Generator(device=device)
+    gen.manual_seed(19)
+    v = 1001
+    cases = []
+    for d in QUANT_DIMS:
+        x = _quant_rows(v, d, gen, device)
+        noise = torch.rand((v, d), generator=gen, device=device)
+        cases.append(QuantCase(f"d{d}", x, noise))
+    for d in QUANT_OFF_DIMS:
+        x = _quant_rows(v, d, gen, device)
+        noise = torch.rand((v, d), generator=gen, device=device)
+        cases.append(QuantCase(f"x_off_d{d}", _off(x), noise))
+        cases.append(QuantCase(f"noise_off_d{d}", x, _off(noise)))
+    return cases
+

@@ -19,6 +19,7 @@ import torch_threads  # noqa: F401  (caps torch's CPU threads)
 
 from repro.kernels.cin.kernel import cin_layer_pallas
 from repro.models.recsys import cin_layer as j_cin_layer
+from repro_torch.kernels import cases
 from repro_torch.kernels.cin import kernel as tkernel
 from repro_torch.kernels.cin import ops as tops
 from repro_torch.kernels.cin.ref import cin_layer_ref
@@ -90,3 +91,27 @@ def test_wrapper_checks():
     w, xk, x0 = (torch.from_numpy(a) for a in _inputs(2, 3, 4, 5, 6))
     with pytest.raises(ValueError, match="CUDA"):
         tkernel.cin_layer_cuda(w, xk, x0)
+
+
+@pytest.mark.parametrize("name", cases.CIN_CASE_NAMES)
+def test_plain_within_tolerance_on_the_kernel_cases(name):
+    """The card check's adversarial shapes (``kernels/cases.py``): the
+    plain version the kernel is held to is within tolerance of the
+    reference's Pallas kernel (interpret mode) and its einsum pair; a
+    NaN in W is NaN in the same outputs of all three."""
+    c = {c.name: c for c in cases.cin_cases("cpu")}[name]
+    assert (c.w.data_ptr() % 16 != 0) == (name == "w_off_k72")
+    w, xk, x0 = (t.numpy() for t in c[1:])
+    got = tops.cin_layer(c.w, c.xk, c.x0).numpy().astype(np.float64)
+    terms = _abs_terms(w, xk, x0)
+    nan = np.isnan(terms)
+    assert nan.any() == (name == "nan_w")
+    for want in (cin_layer_pallas(jnp.asarray(w), jnp.asarray(xk),
+                                  jnp.asarray(x0), interpret=True),
+                 j_cin_layer(jnp.asarray(w), jnp.asarray(xk),
+                             jnp.asarray(x0))):
+        want = np.asarray(want, np.float64)
+        assert want.shape == got.shape
+        np.testing.assert_array_equal(np.isnan(want), nan)
+        np.testing.assert_array_equal(np.isnan(got), nan)
+        assert np.all(np.abs(got - want)[~nan] <= TOL * terms[~nan])

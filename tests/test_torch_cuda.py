@@ -497,3 +497,46 @@ def test_pipeline_smoke_launches_the_kernels(dev, tmp_path, backend):
     assert kl["finetune"]["dequant_bag"] == len(rec["finetune_losses"]) > 0
     key = "hashed_gather" if backend == "hashed" else "dequant_bag"
     assert kl["serve"][key] > 0 and kl["eval"][key] > 0
+
+
+@pytest.mark.parametrize("name", cases.CIN_CASE_NAMES)
+def test_cin_cases_bit_equal_to_plain(dev, name):
+    """CIN on shapes that the 200 (o) x 40 (n) tiles and 32-deep k chunks
+    do not divide (O 17 / 201 / 400, a sample's D = 6 or D = 128 columns
+    split across n tiles, H * M of 72, 1,521 and 7,800), H = M = 1, W one
+    float off alignment at H * M = 72, and a NaN in W (NaN in its output
+    channel in both)."""
+    c = {c.name: c for c in cases.cin_cases(dev)}[name]
+    assert (c.w.data_ptr() % 16 != 0) == (name == "w_off_k72")
+    cin_kernel.reset_launches()
+    got = cin_ops.cin_layer(c.w, c.xk, c.x0)
+    want = cin_layer_ref(c.w, c.xk, c.x0)
+    torch.cuda.synchronize()
+    assert cin_kernel.launches["float32"] == 1
+    assert _nan_equal(got, want)
+    nan = torch.isnan(got)
+    if name == "nan_w":
+        assert bool(nan[:, 5].all()) and int(nan.sum()) == nan[:, 5].numel()
+    else:
+        assert not bool(nan.any())
+
+
+@pytest.mark.parametrize("name", cases.QUANT_CASE_NAMES)
+@pytest.mark.parametrize("mode", ["narrow", "full"])
+@pytest.mark.parametrize("stochastic", [False, True])
+@pytest.mark.parametrize("reciprocal", [False, True])
+def test_rowwise_quant_cases_bit_equal_to_plain(dev, name, mode, stochastic,
+                                                reciprocal):
+    """The quantizer's vector, scalar and wide-row paths: D
+    64/32/10/8/3/68/133 with zero, .5-multiple, NaN and inf rows beside
+    finite ones, and x or noise off 16-byte alignment."""
+    c = {c.name: c for c in cases.quant_cases(dev)}[name]
+    nz = c.noise if stochastic else None
+    rq_kernel.reset_launches()
+    q, sc = rq_kernel.quantize_rowwise_cuda(c.x, nz, mode,
+                                            reciprocal=reciprocal)
+    wq, ws = quantize_rowwise_ref(c.x, nz, mode, reciprocal=reciprocal)
+    torch.cuda.synchronize()
+    assert rq_kernel.launches["float32"] == 1
+    assert torch.equal(q, wq)
+    assert _nan_equal(sc, ws)

@@ -34,6 +34,7 @@ from repro_torch.core import packed_store as tps
 from repro_torch.core import qat_store as tqs
 from repro_torch.core import rowwise_quant as trq
 from repro_torch.core.tiers import Tier
+from repro_torch.kernels import cases
 from repro_torch.kernels.rowwise_quant import kernel as tkernel
 from repro_torch.kernels.rowwise_quant import ops as tops
 
@@ -183,3 +184,37 @@ def test_empty_input_and_cuda_wrapper_refuses_cpu_tensors():
     assert q.shape == (0, 8) and s.shape == (0, 1)
     with pytest.raises(ValueError, match="CUDA"):
         tkernel.quantize_rowwise_cuda(torch.zeros((4, 8)))
+
+
+def _scales_equal(want, got) -> None:
+    """Bit for bit, any NaN equal to any NaN."""
+    want, got = np.asarray(want), np.asarray(got)
+    nan = np.isnan(want)
+    np.testing.assert_array_equal(nan, np.isnan(got))
+    np.testing.assert_array_equal(bits(want[~nan]), bits(got[~nan]))
+
+
+@pytest.mark.parametrize("name", cases.QUANT_CASE_NAMES)
+@pytest.mark.parametrize("reciprocal", [False, True])
+def test_plain_bit_equal_on_the_kernel_cases(name, reciprocal):
+    """The card check's adversarial inputs (``kernels/cases.py``) in both
+    modes, round to nearest and stochastic: the reciprocal form against
+    the interpret kernel, the dividing form against the eager jnp
+    oracle, codes and scales bit for bit."""
+    c = {c.name: c for c in cases.quant_cases("cpu")}[name]
+    x, noise = c.x.numpy(), c.noise.numpy()
+    for mode in ("narrow", "full"):
+        for nz in (None, noise):
+            jn = None if nz is None else jnp.asarray(nz)
+            if reciprocal:
+                wq, ws = quantize_rowwise_pallas(jnp.asarray(x), jn,
+                                                 mode=mode, interpret=True)
+            else:
+                wq, ws = j_ref(jnp.asarray(x), jn, mode)
+            q, s = tops.quantize_rowwise(
+                c.x, None if nz is None else c.noise, mode,
+                reciprocal=reciprocal)
+            np.testing.assert_array_equal(bits(wq), bits(q))
+            _scales_equal(ws, s.numpy())
+            assert bool(s[5, 0].isnan()) and bool(s[6, 0].isinf())
+            assert not q[5].any() and not q[9].any() and not q[10].any()
