@@ -12,7 +12,14 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    sm_90a into ``build/repro_torch/``;
 2. kernel check: each kernel against its plain PyTorch version on the
    card, bit for bit (tolerance 0): dequant_bag for int8, bf16, fp16 and
-   fp32 payloads; bag_grad at K = 1 and 8, with and without scales, 40%
+   fp32 payloads, and on its cases (``kernels/cases.py``: every dtype at
+   D 1/10/32/33/64/128, K 1/8/40, B 61/37/64, 30% zero weights, a NaN row
+   under zero weights, payloads off 16-byte alignment, an int8 payload
+   over 2.1 GB read past 2^31 bytes); its tiered entry on the tiered
+   cases (int32 and int64 ids, K 1/8/40, fp16 half tiers, empty int8 and
+   fp32 tiers, NaN and inf weights: NaN bags) against the per-tier
+   composition through the plain bag and through three single-tier
+   launches; bag_grad at K = 1 and 8, with and without scales, 40%
    masked slots, heavy duplicates, B that no block divides, D = 64, 33
    and 200, B = 0, and on its schedules (``kernels/cases.py``: one row of
    65,536 slots, runs at the heavy-run threshold and one either side,
@@ -31,7 +38,9 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    9); hashed_gather for int8 and fp32 pools, Z
    = 8, 4 and 5, K = 1 with sign coefficients (B = 20,480, a request's
    ids, and B = 1001), K = 5 with random weights and 30% zero
-   coefficients, and B = 0; quantize_rowwise in narrow and full mode,
+   coefficients, and B = 0, and on its cases (Z 4/5/8, T 1/2/6, S no
+   power of two, seeds 0 and 7, int64 ids past 2^32), its plan and ids
+   entries both; quantize_rowwise in narrow and full mode,
    round-to-nearest and stochastic, dividing and reciprocal scale, D =
    64, 32, 10 and 8 at V = 1001, with an all-zero row (the 1e-12 floor),
    a row of exact .5 multiples of its scale (half to even) and rows
@@ -49,21 +58,25 @@ Phases, each of which stops the run with a non-zero exit when it fails:
 3. serve: ``repro_torch.launch.serve`` at ``--model full`` — dlrm-rm2 at
    its published widths (26 fields, 204,185,088 rows x 64 packed at a 50%
    budget, MLPs 13-512-256-64 and 415-512-512-256-1), batch 512.  Launch
-   counts are set to 0 just before and read just after: the build must
+   counts are set to 0 just before and read just after: one tiered
+   dequant_bag launch a request and no single-tier one; the build must
    quantize its int8 tier through quantize_rowwise, and the pack's tier
    rows and bytes must be what they were before it did; one request's
    embeddings must equal the plain ``lookup`` bit for bit, and its logits
    the same head run on the CPU within 1e-4 * max(1, |ref|) (GPU and CPU
    GEMMs reduce 512-long dot products in different orders); after the
    counts are read, a training batch's 65,536 x 26 uniform ids through
-   ``lookup_fused`` must equal the plain ``lookup`` bit for bit, with
-   slots in each of the three tiers;
+   ``lookup_fused`` must equal the plain ``lookup`` and the per-tier
+   composition bit for bit, with slots in each of the three tiers;
 4. measure serving: dequant_bag at the serving shapes (B*F = 13,312
    slots, K = 1, the served store's tiers), checked bit for bit against
    its plain version on those inputs, then timed beside it, its bound and
-   a library call; quantize_rowwise on the int8 rows of the build's first
-   4M-row chunk (bit-equal to its plain version and to the pack's first
-   int8 rows), timed beside its bound and its plain version;
+   a library call; the tiered entry on the same requests' ids, bit-equal
+   to the per-tier composition, timed beside it (three single-tier
+   launches and their glue, events around the whole call), its plain
+   version and its bound; quantize_rowwise on the int8 rows of the
+   build's first 4M-row chunk (bit-equal to its plain version and to the
+   pack's first int8 rows), timed beside its bound and its plain version;
    dequant_bag_rowgrid on the same tier inputs (all 13,312 slots read),
    bit-equal to its plain version and to dequant_bag, timed beside the
    tiled kernel, its bound, its plain version and ``F.embedding_bag``;
@@ -74,7 +87,10 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    kernel must launch once a step; every loss must be finite; one step's
    embeddings must equal ``table[gidx]`` bit for bit.  Prints the step
    time, the per-stage device split (CUDA events) and the peak memory;
-6. measure training: bag_grad on the real duplicate pattern of one
+6. measure training: dequant_bag at the training forward (one batch's
+   1,703,936 slots over the 124,185,088-row table) bit for bit against
+   its plain version and ``F.embedding_bag``, timed beside both and its
+   bound; bag_grad on the real duplicate pattern of one
    training batch (1,703,936 slots, rows renumbered by rank so that the
    plain version's dense output fits beside the kernel's) bit for bit,
    then timed at the training shapes (the full 124,185,088-row output),
@@ -94,7 +110,9 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    drifting-zipf requests (drift 4.0, seed 0), a re-tier every 2
    requests, 256 cache rows.  Counts are set to 0 just before each and
    read just after: ``bag_matmul`` must launch 3 times a request (one per
-   tier) and ``cin`` 3 times a request on xdeepfm; the pack and its
+   tier) and ``cin`` 3 times a request on xdeepfm, dequant_bag once a
+   packed lookup (a tiered launch a cache build and, on xdeepfm, a
+   request); the pack and its
    re-tiers quantize through quantize_rowwise, and the pack's bytes, the
    rows moved and the cache hits must be what they were before; after
    the run the pack's int8 rows and scales (the build's and the
@@ -120,23 +138,26 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    just before each and read just after: ``hashed_gather`` must launch
    once a request and once per cache rebuild, and the start-up exactly
    as the fit and the first cache build launch them (13 + 1
-   hashed_gather, 14 bag_grad, 1 quantize_rowwise for 8 bits).  Outside
+   hashed_gather, 14 bag_grad, 1 quantize_rowwise for 8 bits), every
+   gather through the ids entry.  Outside
    each request's timed window its embeddings come from the plain
    ``hashed_gather_ref`` on the card and must equal the ones the loop
    served bit for bit (logits finite, within 1e-4 of the head on them).
    Then the start-up's kernels are held to their plain versions at the
    shapes it gave them: the fit is rerun (it is deterministic) and must
-   give the served pool; its fwd (hashed_gather over all 22,216,192
-   rows, unit scales), its first adj (bag_grad over the (V*C, NH) plan)
-   and, for 8 bits, quantize_pool's quantize_rowwise over the fitted
-   pool must equal the plain versions bit for bit; the fit-shaped
-   bag_grad is timed with the fit's grouping (made once a fit) and with
-   its own sort, beside its bounds, its plain version and
+   give the served pool; its fwd over all 22,216,192 rows (unit scales;
+   the ids entry it runs and the plan entry, both also timed beside
+   their bounds and ``F.embedding_bag``), its first adj (bag_grad over
+   the (V*C, NH) plan) and, for 8 bits, quantize_pool's quantize_rowwise
+   over the fitted pool must equal the plain versions bit for bit; the
+   fit-shaped bag_grad is timed with the fit's grouping (made once a fit)
+   and with its own sort, beside its bounds, its plain version and
    ``index_add_``.  Prints the fit's seconds, its relative residual
    ||fwd(pool) - table|| / ||table|| (it must lie in (0, 1): the zero
    pool gives 1) and the store's bytes, then measures hashed_gather at
-   the served shapes (20,480 ids x C 4 x T 2) beside its bound, its plain
-   version and ``F.embedding_bag`` over the dequantized pool;
+   the served shapes (20,480 ids x C 4 x T 2), both entries, beside their
+   bounds, their plain versions and ``F.embedding_bag`` over the
+   dequantized pool;
 11. pipeline: ``python -m repro_torch.launch.pipeline --model full
    --max-ind-range 24000000 --batch 65536 --steps 40`` through its
    ``main``: dlrm-rm2 at its published widths over 124,185,088 rows
@@ -146,9 +167,10 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    ``packed_store/v1`` checkpoint round trip, eval of 8 held-out batches
    and 96 requests served micro-batched by 8 (a re-tier every 24, 64
    cache rows, drift 2.0).  Counts are set to 0 just before and read just
-   after: dequant_bag and bag_grad once a train and a finetune step, the
-   pack's int8 tier through quantize_rowwise, the eval and the serve
-   through dequant_bag, the rowgrid oracles never; all four ``verify_*``
+   after: dequant_bag (single-tier) and bag_grad once a train and a
+   finetune step, the pack's int8 tier through quantize_rowwise, the eval
+   and the serve through one tiered dequant_bag launch a lookup (one an
+   eval batch), the rowgrid oracles never; all four ``verify_*``
    flags true and every loss finite.  The served lookups are held bit
    for bit to the plain gather on the pipeline's own inputs: the first
    eval batch's 1,703,936 slots through the restored pack (every tier)
@@ -159,15 +181,18 @@ Phases, each of which stops the run with a non-zero exit when it fails:
 12. hashed pipeline: the same pipeline with ``--store-backend hashed``
    at the published widths, every field capped at 3,600,000 rows
    (22,184,960 rows, batch 65,536, 40 steps): the fit's hashed_gather
-   and bag_grad launches, hashed_gather in the eval and the serve, the
+   (ids entry) and bag_grad launches, the ids entry in the eval and the
+   serve, the
    eval batch and the micro-batches held bit for bit to
    ``hashed_gather_ref`` over the restored pool.
 
 Prints the card's name and power limit, the serve, train, both online,
 both hashed and both pipeline records, one JSON ``kernels`` line
-(dequant_bag per tier dtype, bag_grad, bag_matmul per arch, cin,
-hashed_gather per pool dtype, quantize_rowwise, dequant_bag_rowgrid per
-tier dtype, bag_grad_rowgrid; each with its launches on every path), and
+(dequant_bag per tier dtype and its tiered entry, bag_grad, bag_matmul
+per arch, cin, hashed_gather and hashed_gather_ids per pool dtype,
+quantize_rowwise, dequant_bag_rowgrid per tier dtype, bag_grad_rowgrid;
+each with its launches on every path; the run fails if a kernel of a
+main path launched no time on it), and
 as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Exits non-zero without that line when there is no CUDA device, or when
@@ -259,7 +284,8 @@ def bits_equal(a, b) -> bool:
 
 def scales_equal(a, b) -> bool:
     """Bit for bit, except that any NaN equals any NaN (a NaN's payload
-    bits are the arithmetic's, not the function's)."""
+    bits are the arithmetic's, not the function's): quantizer scales, and
+    the NaN bags of non-finite weights."""
     import torch
     na, nb = torch.isnan(a), torch.isnan(b)
     return (a.shape == b.shape and torch.equal(na, nb)
@@ -302,6 +328,46 @@ def check_kernels(torch, ops, ref) -> float:
                             f"K={k} scales={s is not None} max err {err}")
     log(f"kernel check: dequant_bag bit-equal to plain over 4 dtypes x "
         f"D in (64, 33) x (B, K) in 4 shapes (max abs err {worst})")
+    return worst
+
+
+def check_gather_cases(torch, kernel, ops, ref, cases) -> float:
+    """Phase 2: the single-tier kernel on ``cases.gather_cases`` (finite
+    bags over a NaN row under zero weights; the 2.1 GB int8 payload read
+    past 2^31 bytes) and the tiered entry on ``cases.tiered_cases``,
+    against the per-tier composition through the plain bag and through
+    three single-tier launches (NaN bags under NaN and inf weights)."""
+    from repro_torch.core.packed_store import PackedStore
+
+    dev = torch.device("cuda")
+    worst = 0.0
+    gather = cases.gather_cases(dev)
+    for c in gather:
+        got = kernel.dequant_bag_cuda(c.payload, c.scales, c.indices,
+                                      c.weights)
+        want = ref.dequant_bag_ref(c.payload, c.scales, c.indices, c.weights)
+        torch.cuda.synchronize()
+        if not (bits_equal(got, want) and bool(torch.isfinite(got).all())):
+            raise SystemExit(f"dequant_bag != plain on case {c.name}")
+        worst = max(worst, float((got - want).abs().max()))
+    del gather
+    tiered = cases.tiered_cases(dev)
+    for c in tiered:
+        packed = PackedStore(*c.leaves)
+        got = ops.packed_bag_lookup(packed, c.ids, c.weights)
+        plain = ops.packed_bag_lookup_tiers(packed, c.ids, c.weights,
+                                            bag=ref.dequant_bag_ref)
+        composed = ops.packed_bag_lookup_tiers(packed, c.ids, c.weights)
+        torch.cuda.synchronize()
+        if not (scales_equal(got, plain) and scales_equal(got, composed)):
+            raise SystemExit(f"dequant_bag[tiered] != the composition on "
+                             f"case {c.name}")
+        live = torch.isfinite(got)
+        worst = max(worst, float((got[live] - plain[live]).abs().max()))
+    log(f"kernel check: dequant_bag bit-equal to plain on "
+        f"{len(cases.GATHER_CASE_NAMES) + 1} gather cases, the tiered entry "
+        f"to the plain and the three-launch composition on "
+        f"{len(tiered)} tiered cases (max abs err {worst})")
     return worst
 
 
@@ -597,6 +663,65 @@ def measure(torch, served, kernel, ref, launches, worst) -> list[dict]:
     return out
 
 
+def measure_tiered(torch, served, ops, ref, launches: int, worst: float,
+                   flush) -> dict:
+    """Phase 4: the tiered entry on 64 served requests' ids (512 x 26
+    global ids a request, K = 1) against the per-tier composition (three
+    single-tier launches and the glue that splits, masks, clamps and adds:
+    events around the whole call), its plain version (the composition
+    through the plain bag) and its bound."""
+    from repro_torch.core.packed_store import _TIER_SHIFT
+    from repro_torch.models.embedding import globalize
+
+    packed = served.packed
+    dev = packed.payload32.device
+    args, nbytes = [], 0.0
+    row_bytes = (packed.dim * 1 + 4, packed.dim * packed.payload16
+                 .element_size() + 4, packed.dim * 4)
+    n = 64
+    for r in range(n):
+        ids = globalize(served.make_request(1000 + r)["indices"].to(dev),
+                        served.model.spec).reshape(-1, 1)
+        args.append((packed, ids))
+        # the ids, each distinct id's indirect word, its row (and scale)
+        # once, the output
+        distinct = torch.unique(ids)
+        tiers = (packed.indirect[distinct] >> _TIER_SHIFT).to(torch.int64)
+        by_tier = torch.bincount(tiers, minlength=3).tolist()
+        nbytes += (ids.numel() * ids.element_size() + distinct.numel() * 4
+                   + sum(c * b for c, b in zip(by_tier, row_bytes))
+                   + ids.shape[0] * packed.dim * 4) / n
+    for a in args[:4]:
+        got = ops.packed_bag_lookup(*a)
+        plain = ops.packed_bag_lookup_tiers(*a, bag=ref.dequant_bag_ref)
+        composed = ops.packed_bag_lookup_tiers(*a)
+        torch.cuda.synchronize()
+        if not (bits_equal(got, plain) and bits_equal(got, composed)):
+            raise SystemExit("dequant_bag[tiered] != the per-tier composition "
+                             "on the served store")
+        worst = max(worst, float((got - plain).abs().max()))
+    b, d = args[0][1].shape[0], packed.dim
+    ms = time_launches(torch, ops.packed_bag_lookup, args, flush)
+    composed_ms = time_launches(torch, ops.packed_bag_lookup_tiers, args,
+                                flush)
+    plain_ms = time_launches(
+        torch, lambda p, i: ops.packed_bag_lookup_tiers(
+            p, i, bag=ref.dequant_bag_ref), args[:4], flush)
+    bound_ms, bound_by = _bound(nbytes, 3 * b * d)
+    log(f"dequant_bag[tiered] at a dlrm request's {b:,} ids: {ms:.4f} ms "
+        f"(per-tier composition {composed_ms:.4f}, plain {plain_ms:.3f}, "
+        f"bound {bound_ms:.5f}); bit-equal to both compositions")
+    return {"name": "dequant_bag[tiered]", "route": "cuda",
+            "source": SOURCE, "replaces": TPU_KERNEL + " (one call a tier, "
+            "src/repro/kernels/dequant_bag/ops.py:181-207)",
+            "launches": launches, "max_abs_err": worst, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None, "composition_ms": composed_ms,
+            "slots": b, "bytes": nbytes,
+            "per": "call (one dlrm request's lookup: the tiered launch; "
+                   "composition_ms the three single-tier launches and glue)"}
+
+
 def measure_dequant_rowgrid(torch, served, kernel, ref, worst: float
                             ) -> list[dict]:
     """Phase 4: the (B, K)-grid oracle on each tier's launch inputs of 64
@@ -666,7 +791,7 @@ def check_packed_as_before(rec: dict, arch: str) -> None:
                              "kernel")
 
 
-def serve_full(torch, serve, kernels_mod, kernel, ps) -> tuple:
+def serve_full(torch, serve, kernels_mod, kernel, ops, ps) -> tuple:
     """Phase 3: the main path at full width, with the counts around it."""
     from repro_torch.configs.common import RECSYS_SHAPES
     batch_size = RECSYS_SHAPES["serve_p99"]["batch"]
@@ -677,11 +802,13 @@ def serve_full(torch, serve, kernels_mod, kernel, ps) -> tuple:
     launches = dict(kernel.launches)
     quant = kernels_mod.launch_counts()["quantize_rowwise"]
     rec = served.record
-    # the served store's tiers: int8, bf16 (strict_fp16 off) and fp32
-    tiers = [launches[t] for t in ("int8", "bfloat16", "float32")]
-    if min(tiers) <= 0 or rec["kernel_launches"] != sum(tiers):
-        raise SystemExit(f"main path did not launch every kernel: "
-                         f"{launches}, record {rec['kernel_launches']}")
+    # one tiered launch a request, no single-tier launch
+    single = sum(n for t, n in launches.items() if t != "tiered")
+    if (launches["tiered"] != REQUESTS or single
+            or rec["kernel_launches"] != REQUESTS):
+        raise SystemExit(f"main path did not launch the tiered kernel once "
+                         f"a request: {launches}, record "
+                         f"{rec['kernel_launches']}")
     if quant <= 0 or rec["build_kernel_launches"]["quantize_rowwise"] != quant:
         raise SystemExit(f"the build did not quantize its int8 tier through "
                          f"the kernel: {quant} launches, record "
@@ -727,17 +854,23 @@ def serve_full(torch, serve, kernels_mod, kernel, ps) -> tuple:
         gidx = globalize(ids, spec)
         emb = ps.lookup_fused(served.packed, gidx)
         plain = ps.lookup(served.packed, gidx)
+        # the per-tier composition: three single-tier launches and glue
+        composed = ops.packed_bag_lookup_tiers(
+            served.packed, gidx.reshape(-1, 1)).reshape(emb.shape)
         by_tier = torch.bincount(
             ps.packed_tiers(served.packed)[gidx.to(torch.int64)].reshape(-1)
             .to(torch.int64), minlength=3).tolist()
-    if not bits_equal(emb, plain) or min(by_tier) <= 0:
+    if (not bits_equal(emb, plain) or not bits_equal(emb, composed)
+            or min(by_tier) <= 0):
         raise SystemExit(f"a {n}-sample lookup differs from the plain one "
-                         f"or misses a tier: slots by tier {by_tier}")
+                         f"or the per-tier composition, or misses a tier: "
+                         f"slots by tier {by_tier}")
     rec["check_full_batch_lookup"] = {"slots": int(gidx.numel()),
                                       "slots_by_tier": by_tier}
-    del ids, gidx, emb, plain
-    log(f"serve check: embeddings bit-equal to plain lookup (a request, and "
-        f"{n} x {spec.num_fields} slots by tier {by_tier}), logits within "
+    del ids, gidx, emb, plain, composed
+    log(f"serve check: one tiered launch a request; embeddings bit-equal to "
+        f"plain lookup (a request, and {n} x {spec.num_fields} slots by tier "
+        f"{by_tier}, also to the per-tier composition), logits within "
         f"{float(diff.max()):.3g} of the CPU head; int8 tier quantized in "
         f"{quant} rowwise_quant launches, tiers {rec['tier_rows']} as before")
     return served, launches
@@ -813,6 +946,55 @@ def train_full(torch, kernel, autodiff, setup_mod, arch) -> tuple:
         f"{losses[-1]:.4f}, one launch of each kernel a step, gather "
         f"bit-equal to table[gidx]; peak {peak / 1e9:.2f} GB")
     return rec, gidx, vocab
+
+
+def measure_train_forward(torch, kernel, ref, gidx, vocab: int,
+                          flush) -> dict:
+    """Phase 6: the single-tier kernel at the training forward's shape
+    (one batch's 65,536 x 26 slots, K = 1, unit weights, no scales) over
+    a (V, 64) fp32 table whose touched rows are drawn from a seed: bit for
+    bit against its plain version and ``F.embedding_bag``, then timed
+    beside both and its bound."""
+    import torch.nn.functional as F
+
+    dev = gidx.device
+    idx = gidx.reshape(-1, 1).to(torch.int32).contiguous()
+    w = torch.ones(idx.shape, dtype=torch.float32, device=dev)
+    distinct = torch.unique(idx).to(torch.int64)
+    table = torch.empty((vocab, 64), device=dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    table[distinct] = torch.randn((distinct.numel(), 64), generator=g,
+                                  device=dev) * 0.01
+    args = [(table, None, idx, w)]
+    got = kernel.dequant_bag_cuda(*args[0])
+    want = ref.dequant_bag_ref(*args[0])
+
+    def library(p, s, i, wt):
+        return F.embedding_bag(i, p, mode="sum", per_sample_weights=wt)
+    lib = library(*args[0])
+    torch.cuda.synchronize()
+    if not (bits_equal(got, want) and bits_equal(got, lib)):
+        raise SystemExit("dequant_bag at the training shape != plain or "
+                         "embedding_bag")
+    del got, want, lib
+    ms = time_launches(torch, kernel.dequant_bag_cuda, args * 5, flush)
+    library_ms = time_launches(torch, library, args * 5, flush)
+    plain_ms = time_once(torch, ref.dequant_bag_ref, *args[0])
+    n = idx.numel()
+    # each slot's index and weight, each distinct row once, the output
+    nbytes = n * 8 + distinct.numel() * 256 + n * 256
+    bound_ms, bound_by = _bound(nbytes, 2 * n * 64)
+    log(f"dequant_bag[float32] at the training forward ({n:,} slots over "
+        f"{vocab:,} rows, {distinct.numel():,} distinct): {ms:.4f} ms "
+        f"({bound_ms / ms:.1%} of its {bound_ms:.4f} ms bound; "
+        f"embedding_bag {library_ms:.4f}, plain {plain_ms:.2f}); bit-equal "
+        f"to both")
+    del table
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms, "bytes": nbytes,
+            "slots": n, "distinct_rows": int(distinct.numel()),
+            "vocab": vocab, "per": "launch (the training forward)"}
 
 
 def measure_bag_grad(torch, kernel, ref, gidx, vocab: int, flush,
@@ -1112,20 +1294,41 @@ def check_hashed_gather(torch, hg_ops, hg_ref) -> float:
                                                 num_hashes=2, num_slots=s)
                 got = hg_ops.hashed_gather(pool, scales, slots, coeff,
                                            num_chunks=4)
+                by_ids = hg_ops.hashed_gather_ids(pool, scales, idx, w,
+                                                  num_chunks=4, num_hashes=2)
                 want = hg_ref.hashed_gather_ref(pool, scales, slots, coeff,
                                                 num_chunks=4)
                 torch.cuda.synchronize()
-                if not bits_equal(got, want):
+                if not (bits_equal(got, want) and bits_equal(by_ids, want)):
                     err = float((got - want).abs().max())
                     raise SystemExit(
-                        f"hashed_gather != plain: {dtype} Z={z} B={b} K={k} "
-                        f"weighted={weighted} max err {err}")
+                        f"hashed_gather (plan or ids) != plain: {dtype} Z={z} "
+                        f"B={b} K={k} weighted={weighted} max err {err}")
                 if got.numel():
                     worst = max(worst, float((got - want).abs().max()))
                 n += 1
-    log(f"kernel check: hashed_gather bit-equal to plain in {n} cases "
-        f"(int8/fp32 pools x Z 8/4/5 x K=1 signs, K=5 weighted with 30% "
-        f"zeros, B=0; max abs err {worst})")
+    from repro_torch.kernels import cases
+    for c in cases.hashed_cases(dev):
+        kw = dict(num_chunks=c.num_chunks, num_hashes=c.num_hashes,
+                  seed=c.seed)
+        slots, coeff = hg_ops.slot_plan(c.ids, c.weights,
+                                        num_slots=c.pool.shape[0], **kw)
+        got = hg_ops.hashed_gather(c.pool, c.scales, slots, coeff,
+                                   num_chunks=c.num_chunks)
+        by_ids = hg_ops.hashed_gather_ids(c.pool, c.scales, c.ids,
+                                          c.weights, **kw)
+        want = hg_ref.hashed_gather_ref(c.pool, c.scales, slots, coeff,
+                                        num_chunks=c.num_chunks)
+        torch.cuda.synchronize()
+        if not (bits_equal(got, want) and bits_equal(by_ids, want)):
+            raise SystemExit(f"hashed_gather (plan or ids) != plain on case "
+                             f"{c.name}")
+        worst = max(worst, float((got - want).abs().max()))
+        n += 1
+    log(f"kernel check: hashed_gather's plan and ids entries bit-equal to "
+        f"plain in {n} cases (int8/fp32 pools x Z 8/4/5 x K=1 signs, K=5 "
+        f"weighted with 30% zeros, B=0, and the {len(cases.HASH_CASE_NAMES)} "
+        f"hashed_cases; max abs err {worst})")
     return worst
 
 
@@ -1297,6 +1500,7 @@ def serve_hashed(torch, serve, kernels_mod, bits: str) -> tuple:
     """Phase 10: the hashed online serve of wide-deep at full width, with
     the counts around it and the plain gather as each request's check."""
     from repro_torch.configs.common import RECSYS_SHAPES
+    from repro_torch.kernels.hashed_gather import kernel as hg_kernel
     from repro_torch.kernels.hashed_gather import ref as hg_ref
     from repro_torch.kernels.hashed_gather.ops import slot_plan
     from repro_torch.models.embedding import globalize
@@ -1346,8 +1550,16 @@ def serve_hashed(torch, serve, kernels_mod, bits: str) -> tuple:
     kernels_mod.reset_launches()
     served = serve.run(serve.parse_args(argv), make_audit=make_audit)
     launches = kernels_mod.launch_counts()
+    by_entry = dict(hg_kernel.launches)
     rec = served.record
     in_loop, build = rec["kernel_launches"], rec["build_kernel_launches"]
+    # every gather (the fit's forward, the cache builds, the requests)
+    # takes the ids entry; the plan entry runs on no path
+    if (by_entry["int8"] or by_entry["float32"]
+            or by_entry["ids_int8"] + by_entry["ids_float32"]
+            != launches["hashed_gather"]):
+        raise SystemExit(f"hashed {bits}b: hashed_gather launches by entry "
+                         f"{by_entry}, want the ids entry only")
     per_request = 1                   # one gather of the request's ids
     # the start-up: the fit (fwd 1 + CG_ITERS times, adj 2 + CG_ITERS
     # times), the 8-bit pool's quantize_pool, the first cache build
@@ -1375,9 +1587,10 @@ def serve_hashed(torch, serve, kernels_mod, bits: str) -> tuple:
         f"{rec['packed_mib']:.3f} MiB ({rec['hash_ratio']}x), fit "
         f"{rec['fit_s']:.2f} s; {REQUESTS} requests bit-equal to the plain "
         f"gather, logits within {checked['logit_diff']:.3g} of the plain "
-        f"head; launches {launches} (start-up {build}); p50 "
+        f"head; launches {launches} (start-up {build}; by entry "
+        f"{by_entry}); p50 "
         f"{rec['p50_us']:.0f} us p99 {rec['p99_us']:.0f} us")
-    return served, launches
+    return served, launches, by_entry
 
 
 def check_hashed_build(torch, served, table, bits: str, counters,
@@ -1385,12 +1598,17 @@ def check_hashed_build(torch, served, table, bits: str, counters,
     """Phase 10: the hashed start-up's kernels against their plain
     versions at the shapes the start-up gave them.  The fit is rerun on
     the same table (it is deterministic: bag_grad has no float atomics)
-    and must give the served pool; then its fwd over every row, its first
-    adj and the 8-bit pool's quantize are each held bit for bit, and the
-    fit-shaped bag_grad is timed.  Returns that timing."""
+    and must give the served pool; then its fwd over every row (the ids
+    entry it runs and the plan entry), its first adj and the 8-bit pool's
+    quantize are each held bit for bit, and the fit-shaped fwd (both
+    entries) and bag_grad are timed.  Returns (the bag_grad timing, the
+    fwd timings by entry)."""
+    import torch.nn.functional as F
+
     from repro_torch.kernels.dequant_bag.ops import bag_grad, plan_slots
     from repro_torch.kernels.hashed_gather import ref as hg_ref
-    from repro_torch.kernels.hashed_gather.ops import hashed_gather
+    from repro_torch.kernels.hashed_gather.ops import (hashed_gather,
+                                                       hashed_gather_ids)
     from repro_torch.kernels.rowwise_quant import ref as rq_ref
     from repro_torch.store import hashed as H
 
@@ -1422,18 +1640,43 @@ def check_hashed_build(torch, served, table, bits: str, counters,
             num_chunks=c, num_hashes=nh, num_slots=s, seed=hcfg.seed)
         plan, coeff = slots.reshape(v, c * nh), signs.reshape(v, c * nh)
         del slots, signs
-        # fwd: one launch over every row, unit scales
+        # fwd over every row, unit scales: the ids entry (what the fit
+        # runs) and the plan entry, one launch each
+        ids = torch.arange(v, dtype=torch.int32,
+                           device=table.device).reshape(v, 1)
+        kw = dict(num_chunks=c, num_hashes=nh, seed=hcfg.seed)
+        by_ids = hashed_gather_ids(fit.pool, None, ids, **kw)
         got = hashed_gather(fit.pool, None, plan, coeff, num_chunks=c)
-        step = 1 << 22
+        step, fwd_plain_ms = 1 << 22, 0.0
         for r0 in range(0, v, step):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
             want = hg_ref.hashed_gather_ref(fit.pool, None,
                                             plan[r0:r0 + step],
                                             coeff[r0:r0 + step],
                                             num_chunks=c)
-            if not bits_equal(got[r0:r0 + step], want):
-                raise SystemExit(f"hashed {bits}b: the fit's fwd != plain "
-                                 f"at rows {r0}+")
-        del got, want
+            torch.cuda.synchronize()
+            fwd_plain_ms += (time.perf_counter() - t0) * 1e3
+            if not (bits_equal(got[r0:r0 + step], want)
+                    and bits_equal(by_ids[r0:r0 + step], want)):
+                raise SystemExit(f"hashed {bits}b: the fit's fwd (plan or "
+                                 f"ids entry) != plain at rows {r0}+")
+        del got, by_ids, want
+        ids_ms = time_launches(
+            torch, lambda: hashed_gather_ids(fit.pool, None, ids, **kw),
+            [()] * 3, flush)
+        plan_ms = time_launches(
+            torch, lambda: hashed_gather(fit.pool, None, plan, coeff,
+                                         num_chunks=c), [()] * 3, flush)
+
+        def fwd_library():       # (V*C, NH) bags over the pool
+            return F.embedding_bag(plan.reshape(-1, nh), fit.pool,
+                                   mode="sum", per_sample_weights=coeff
+                                   .reshape(-1, nh)).reshape(v, c * z)
+        fwd_library_diff = float((fwd_library() - hashed_gather_ids(
+            fit.pool, None, ids, **kw)).abs().max())
+        fwd_library_ms = time_launches(torch, fwd_library, [()] * 3, flush)
+        del ids
         # the first adj(x): bag_grad on the (V*C, NH) plan
         g = table.reshape(v * c, z)
         bags, bag_signs = plan.reshape(v * c, nh), coeff.reshape(v * c, nh)
@@ -1478,6 +1721,25 @@ def check_hashed_build(torch, served, table, bits: str, counters,
         f"{ms_sorted:.4f} ms with its own sort ({sort_ms:.4f}) (bound "
         f"{bound_ms:.4f}, chain bound {chain_bound_ms(longest):.4f}, plain "
         f"{plain_ms:.1f}, index_add_ {library_ms:.4f})")
+    # the fwd: the ids (4 bytes a row) or the plan (8 bytes a slot), the
+    # pool once, the (V, C*Z) output; 3 flops a column per slot
+    out_bytes, pool_bytes = v * c * z * 4, s * z * 4
+    fwd = {}
+    for entry, fwd_ms, in_bytes in (("ids", ids_ms, v * 4),
+                                    ("plan", plan_ms, n * 8)):
+        fb = in_bytes + pool_bytes + out_bytes
+        f_bound, f_by = _bound(fb, 2 * n * z)
+        fwd[entry] = {"path": f"online_hashed_{bits}b", "ms": fwd_ms,
+                      "plain_ms": fwd_plain_ms, "bound_ms": f_bound,
+                      "bound_by": f_by, "library_ms": fwd_library_ms,
+                      "library_max_abs_diff": fwd_library_diff, "bytes": fb,
+                      "shape": {"B": v, "C": c, "T": nh, "Z": z, "S": s},
+                      "per": "launch (the fit's forward over every row)"}
+    log(f"hashed {bits}b fit-shaped fwd over {v:,} rows: ids entry "
+        f"{ids_ms:.4f} ms ({fwd['ids']['bound_ms'] / ids_ms:.1%} of its "
+        f"{fwd['ids']['bound_ms']:.4f} ms bound), plan entry {plan_ms:.4f} "
+        f"ms ({fwd['plan']['bound_ms'] / plan_ms:.1%} of "
+        f"{fwd['plan']['bound_ms']:.4f}); plain {fwd_plain_ms:.1f} ms")
     return {"path": f"online_hashed_{bits}b", "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "chain_bound_ms": chain_bound_ms(longest),
@@ -1486,7 +1748,7 @@ def check_hashed_build(torch, served, table, bits: str, counters,
             "longest_row": longest,
             "shape": {"bags": v * c, "K": nh, "D": z, "vocab": s},
             "per": "launch (the fit's adj: zero fill and kernel, its slots "
-                   "grouped once a fit; sorted_ms sorts them anew)"}
+                   "grouped once a fit; sorted_ms sorts them anew)"}, fwd
 
 
 def hashed_residual(torch, served, table) -> float:
@@ -1505,16 +1767,18 @@ def hashed_residual(torch, served, table) -> float:
     return float(num.sqrt() / table.double().norm())
 
 
-def measure_hashed_gather(torch, served, launches: int, flush,
-                          worst: float) -> dict:
-    """Phase 10: hashed_gather at the served shapes: 16 requests' ids
-    (20,480 a request, C 4, T 2) on the served pool."""
+def measure_hashed_gather(torch, served, by_entry: dict, flush,
+                          worst: float) -> list[dict]:
+    """Phase 10: hashed_gather's plan and ids entries at the served
+    shapes: 16 requests' ids (20,480 a request, C 4, T 2) on the served
+    pool; one entry each."""
     import numpy as np
     import torch.nn.functional as F
 
     from repro_torch.kernels.hashed_gather import kernel as hg_kernel
     from repro_torch.kernels.hashed_gather import ref as hg_ref
-    from repro_torch.kernels.hashed_gather.ops import slot_plan
+    from repro_torch.kernels.hashed_gather.ops import (hashed_gather_ids_ref,
+                                                       slot_plan)
     from repro_torch.models.embedding import globalize
     from repro_torch.serve.loop import drifting_zipf_batch
     from repro_torch.store.hashed import pool_f32
@@ -1523,41 +1787,52 @@ def measure_hashed_gather(torch, served, launches: int, flush,
     hs, hcfg = backend.hs, backend.hcfg
     b = served.record["batch"]
     c, z = hcfg.num_chunks, hcfg.chunk_dim
+    kw = dict(num_chunks=c, num_hashes=hcfg.num_hashes, seed=hcfg.seed)
     cards = np.asarray(spec.cardinalities, np.int64)
-    args, live, rows = [], 0, 0
+    args, ids_args, live, rows = [], [], 0, 0
     n = 16
     for r in range(n):
         idx = torch.from_numpy(drifting_zipf_batch(
             cards, b, 1000 + r, n)).to(backend.device)
-        slots, coeff = slot_plan(globalize(idx, spec).reshape(-1, 1), None,
-                                 num_chunks=c, num_hashes=hcfg.num_hashes,
-                                 num_slots=hcfg.num_slots, seed=hcfg.seed)
+        gidx = globalize(idx, spec).reshape(-1, 1)
+        slots, coeff = slot_plan(gidx, None, num_slots=hcfg.num_slots, **kw)
         args.append((hs.pool, hs.pool_scale, slots, coeff))
+        ids_args.append((hs.pool, hs.pool_scale, gidx, None))
         live += int((coeff != 0).sum())
         rows += int(torch.unique(slots[coeff != 0]).numel())
-    for a in args[:4]:
+    for a, ia in zip(args[:4], ids_args[:4]):
         got = hg_kernel.hashed_gather_cuda(*a, num_chunks=c)
+        by_ids = hg_kernel.hashed_gather_ids_cuda(*ia, **kw)
         want = hg_ref.hashed_gather_ref(*a, num_chunks=c)
         torch.cuda.synchronize()
-        if not bits_equal(got, want):
-            raise SystemExit("hashed_gather != plain at the served shapes")
+        if not (bits_equal(got, want) and bits_equal(by_ids, want)):
+            raise SystemExit("hashed_gather (plan or ids) != plain at the "
+                             "served shapes")
         worst = max(worst, float((got - want).abs().max()))
     nb, t = args[0][2].shape[0], args[0][2].shape[1] // c
-    # the slot plan (4 + 4 bytes a slot), each distinct live pool row and
-    # its scale once, the output; 3 flops an element of a live slot
+    # the slot plan (4 + 4 bytes a slot) or the ids (8 bytes each), each
+    # distinct live pool row and its scale once, the output; 3 flops an
+    # element of a live slot
     slots_n, rows_n = live / n, rows / n
-    nbytes = (nb * c * t * 8 + rows_n * (z * hs.pool.element_size() + 4)
-              + nb * c * z * 4)
-    bound_ms, bound_by = _bound(nbytes, 3 * z * slots_n)
+    common = rows_n * (z * hs.pool.element_size() + 4) + nb * c * z * 4
+    plan_bytes, ids_bytes = nb * c * t * 8 + common, nb * 8 + common
 
     def kernel_fn(p, s, sl, cf):
         return hg_kernel.hashed_gather_cuda(p, s, sl, cf, num_chunks=c)
 
+    def ids_fn(p, s, i, w):
+        return hg_kernel.hashed_gather_ids_cuda(p, s, i, w, **kw)
+
     def plain_fn(p, s, sl, cf):
         return hg_ref.hashed_gather_ref(p, s, sl, cf, num_chunks=c)
 
+    def ids_plain_fn(p, s, i, w):
+        return hashed_gather_ids_ref(p, s, i, w, **kw)
+
     ms = time_launches(torch, kernel_fn, args, flush)
+    ids_ms = time_launches(torch, ids_fn, ids_args, flush)
     plain_ms = time_launches(torch, plain_fn, args[:4], flush)
+    ids_plain_ms = time_launches(torch, ids_plain_fn, ids_args[:4], flush)
     dq = pool_f32(hs)
 
     def library(sl, cf):
@@ -1568,18 +1843,28 @@ def measure_hashed_gather(torch, served, launches: int, flush,
     lib_diff = float((library(*lib_args[0]) - kernel_fn(*args[0])).abs().max())
     library_ms = time_launches(torch, library, lib_args, flush)
     name = str(hs.pool.dtype).removeprefix("torch.")
-    log(f"hashed_gather[{name}] at B={nb} C={c} T={t} Z={z}: {ms:.4f} ms "
-        f"(bound {bound_ms:.5f}, embedding_bag {library_ms:.4f}, plain "
-        f"{plain_ms:.3f}); {rows_n:,.0f} distinct pool rows a request")
-    return {"name": f"hashed_gather[{name}]", "route": "cuda",
+    out = []
+    for entry, counter, t_ms, p_ms, nbytes in (
+            ("hashed_gather", name, ms, plain_ms, plan_bytes),
+            ("hashed_gather_ids", "ids_" + name, ids_ms, ids_plain_ms,
+             ids_bytes)):
+        bound_ms, bound_by = _bound(nbytes, 3 * z * slots_n)
+        out.append({
+            "name": f"{entry}[{name}]", "route": "cuda",
             "source": SOURCE_HASHED, "replaces": TPU_HASHED,
-            "launches": launches, "max_abs_err": worst, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "launches": by_entry[counter], "counter": counter,
+            "max_abs_err": worst, "ms": t_ms, "plain_ms": p_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms, "library_max_abs_diff": lib_diff,
-            "shape": {"B": nb, "C": c, "T": t, "Z": z,
-                      "S": hcfg.num_slots},
+            "shape": {"B": nb, "C": c, "T": t, "Z": z, "S": hcfg.num_slots},
             "live_slots": slots_n, "distinct_pool_rows": rows_n,
-            "bytes": nbytes, "per": "launch (one request's lookup)"}
+            "bytes": nbytes, "per": "launch (one request's lookup)"})
+    log(f"hashed_gather[{name}] at B={nb} C={c} T={t} Z={z}: plan entry "
+        f"{ms:.4f} ms (bound {out[0]['bound_ms']:.5f}), ids entry "
+        f"{ids_ms:.4f} ms (bound {out[1]['bound_ms']:.5f}); embedding_bag "
+        f"{library_ms:.4f}, plain {plain_ms:.3f} / {ids_plain_ms:.3f}; "
+        f"{rows_n:,.0f} distinct pool rows a request")
+    return out
 
 
 class Uncounted:
@@ -1655,6 +1940,14 @@ def serve_online(torch, serve, kernels, counters, arch: str) -> tuple:
                          f"{rec['kernel_launches']}")
     if rec["device"] != "cuda" or rec["requests"] != REQUESTS:
         raise SystemExit(f"unexpected online record {rec}")
+    # one tiered launch a packed lookup: each cache build (the server's
+    # first and one a re-tier) and, on xdeepfm, each request's embeddings
+    dq = counters[0]
+    lookups = (REQUESTS if arch == "xdeepfm" else 0) + 1 + rec["retiers"]
+    if dq["tiered"] != lookups or any(
+            n for t, n in dq.items() if t != "tiered"):
+        raise SystemExit(f"{arch}: dequant_bag launches {dq}, want "
+                         f"{lookups} tiered and no single-tier launch")
     if (launches["quantize_rowwise"] <= 0
             or rec["build_kernel_launches"]["quantize_rowwise"] <= 0
             or in_loop["quantize_rowwise"] <= 0):
@@ -2000,6 +2293,8 @@ def pipeline_phase(torch, kernels_mod, kernel, pipeline, argv: list,
     served lookups held to the plain gather (``pipeline_audit``).
     Returns (the record, the run's launches by kernel and, for
     dequant_bag, by payload dtype)."""
+    from repro_torch.kernels.hashed_gather import kernel as hg_kernel
+
     audit, seen = pipeline_audit(torch, kernels_mod, label)
     with tempfile.TemporaryDirectory() as ckpt:
         kernels_mod.reset_launches()
@@ -2009,6 +2304,7 @@ def pipeline_phase(torch, kernels_mod, kernel, pipeline, argv: list,
         wall = time.perf_counter() - t0
         counts = kernels_mod.launch_counts()
         counts["dequant_bag_by_dtype"] = dict(kernel.launches)
+        counts["hashed_gather_by_entry"] = dict(hg_kernel.launches)
     kl = rec["kernel_launches"]
     micro_batches = -(-rec["serve_requests"] // rec["serve_batch"])
     steps, ft = len(rec["train_losses"]), len(rec["finetune_losses"])
@@ -2024,13 +2320,26 @@ def pipeline_phase(torch, kernels_mod, kernel, pipeline, argv: list,
         seen["eval"]["batches"] == 1,
         seen["eval"]["slots"] == rec["batch"] * rec["fields_total"],
         seen["serve"]["batches"] == micro_batches - rec["retiers"] > 0]
+    # the train forward is the single-tier kernel on the fp32 table; every
+    # packed lookup one tiered launch (one an eval batch); every hashed
+    # gather the ids entry on the fp32 pool
+    by_dtype, by_entry = (counts["dequant_bag_by_dtype"],
+                          counts["hashed_gather_by_entry"])
+    lookups = sum(kl[s]["dequant_bag"] for s in ("pack", "eval", "serve"))
+    wanted += [
+        by_dtype["int8"] == by_dtype["bfloat16"] == by_dtype["float16"] == 0,
+        by_dtype["tiered"] == lookups,
+        by_dtype["float32"] + by_dtype["tiered"] == counts["dequant_bag"],
+        by_entry["int8"] == by_entry["float32"] == by_entry["ids_int8"] == 0,
+        by_entry["ids_float32"] == counts["hashed_gather"]]
     if hashed:
         wanted += [kl["pack"]["hashed_gather"] > 0,
                    kl["pack"]["bag_grad"] > 0,
                    kl["serve"]["hashed_gather"] > 0]
     else:
         wanted += [kl["pack"]["quantize_rowwise"] > 0,
-                   kl["eval"]["dequant_bag"] > 0,
+                   kl["eval"]["dequant_bag"]
+                   == pipeline.PipelineConfig().eval_batches,
                    kl["serve"]["dequant_bag"] > 0]
     if not all(wanted):
         raise SystemExit(f"pipeline {label}: unexpected launches, record "
@@ -2141,7 +2450,7 @@ def main() -> int:
     from repro_torch import configs
     from repro_torch.core import packed_store as ps
     from repro_torch import kernels as kernels_mod
-    from repro_torch.kernels import build
+    from repro_torch.kernels import build, cases
     from repro_torch.kernels.bag_matmul import kernel as bm_kernel
     from repro_torch.kernels.bag_matmul import ops as bm_ops
     from repro_torch.kernels.bag_matmul import ref as bm_ref
@@ -2178,6 +2487,7 @@ def main() -> int:
             log(report.read_text().strip())
 
     worst = check_kernels(torch, ops, ref)
+    worst_cases = check_gather_cases(torch, kernel, ops, ref, cases)
     worst_grad = max(check_bag_grad(torch, ops, ref),
                      check_bag_grad_schedules(torch, kernel, ref))
     worst_bm = check_bag_matmul(torch, bm_ops, bm_ref)
@@ -2187,13 +2497,15 @@ def main() -> int:
     worst_rg, worst_grad_rg = check_rowgrid(torch, ops, ref)
     # the rowgrid oracles on each main path: no entry point runs them
     rowgrid_by_path = {}
-    served, launches = serve_full(torch, serve, kernels_mod, kernel, ps)
+    served, launches = serve_full(torch, serve, kernels_mod, kernel, ops, ps)
     rowgrid_by_path["serve"] = dict(kernel.rowgrid_launches)
     print(json.dumps(served.record), flush=True)
     kernels = measure(torch, served, kernel, ref, launches, worst)
     rowgrid_entries = measure_dequant_rowgrid(torch, served, kernel, ref,
                                               worst_rg)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    kernels.append(measure_tiered(torch, served, ops, ref,
+                                  launches["tiered"], worst_cases, flush))
     quant_entry = measure_quantize(torch, served, rq_kernel, rq_ref, flush,
                                    worst_rq)
     quant_by_path = {"serve": launches["quantize_rowwise"], "train": 0}
@@ -2216,6 +2528,10 @@ def main() -> int:
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    next(k for k in kernels if k["name"] == "dequant_bag[float32]")[
+        "train_shape"] = measure_train_forward(torch, kernel, ref, gidx,
+                                               vocab, flush)
+    torch.cuda.empty_cache()
     rowgrid_train, grad_entry = measure_bag_grad(torch, kernel, ref, gidx,
                                                  vocab, flush, worst_grad)
     grad_rg_entry = measure_bag_grad_rowgrid(torch, kernel, ref, gidx, flush,
@@ -2261,8 +2577,10 @@ def main() -> int:
             k["launches"] = sum(k["launches_by_path"].values())
 
     table = None
+    hashed_by_path, fit_fwd = {}, []
     for bits in HASH_BITS:
-        served, launches = serve_hashed(torch, serve, kernels_mod, bits)
+        served, launches, by_entry = serve_hashed(torch, serve, kernels_mod,
+                                                  bits)
         rowgrid_by_path[f"online_hashed_{bits}b"] = dict(
             kernel.rowgrid_launches)
         if table is None:         # the fit's target: the snapped table
@@ -2271,8 +2589,11 @@ def main() -> int:
                                        torch.device("cuda"))[1].table
         rec = served.record
         path = f"online_hashed_{bits}b"
-        grad_entry.setdefault("fit_shapes", []).append(
-            check_hashed_build(torch, served, table, bits, counters, flush))
+        hashed_by_path[path] = by_entry
+        fit_grad, fwd = check_hashed_build(torch, served, table, bits,
+                                           counters, flush)
+        grad_entry.setdefault("fit_shapes", []).append(fit_grad)
+        fit_fwd.append(fwd)
         res = hashed_residual(torch, served, table)
         if not 0.0 < res < 1.0:
             raise SystemExit(f"hashed {bits}b: fit residual {res} outside "
@@ -2286,14 +2607,13 @@ def main() -> int:
             "hash_ratio": rec["hash_ratio"],
             "packed_fp32_ratio": rec["packed_fp32_ratio"]}}), flush=True)
         print(json.dumps(rec), flush=True)
-        entry = measure_hashed_gather(torch, served,
-                                      launches["hashed_gather"], flush,
-                                      worst_hg)
-        entry["launches_by_path"] = {path: launches["hashed_gather"]}
-        entry["launches_at_start"] = (
-            rec["build_kernel_launches"]["hashed_gather"])
-        entry["launches_in_requests"] = rec["kernel_launches"]["hashed_gather"]
-        kernels.append(entry)
+        for entry in measure_hashed_gather(torch, served, by_entry, flush,
+                                           worst_hg):
+            entry["launches_at_start"] = (
+                rec["build_kernel_launches"]["hashed_gather"])
+            entry["launches_in_requests"] = (
+                rec["kernel_launches"]["hashed_gather"])
+            kernels.append(entry)
         grad_entry["launches_by_path"][path] = launches["bag_grad"]
         if args.trace:
             trace_online(torch, served, f"wide-deep hashed {bits}b", 6,
@@ -2301,6 +2621,15 @@ def main() -> int:
         quant_by_path[path] = launches["quantize_rowwise"]
         del served
         torch.cuda.empty_cache()
+    # the fit's pool is fp32 on both paths: its forward's launches and
+    # times go to the float32 entries
+    for k in kernels:
+        if k.get("counter") is not None:
+            k["launches_by_path"] = {path: counts[k["counter"]] for path,
+                                     counts in hashed_by_path.items()}
+            if k["name"].endswith("[float32]"):
+                k["fit_shapes"] = [fwd["ids" if k["counter"].startswith(
+                    "ids_") else "plan"] for fwd in fit_fwd]
     del table, flush
     torch.cuda.empty_cache()
 
@@ -2324,11 +2653,11 @@ def main() -> int:
                 dtype = k["name"][len("dequant_bag["):-1]
                 k["launches_by_path"][label] = counts[
                     "dequant_bag_by_dtype"][dtype]
-            elif k["name"] == "hashed_gather[float32]":
-                # the pipeline's hashed pool is fp32
-                k["launches_by_path"][label] = counts["hashed_gather"]
-            elif k["name"].startswith("hashed_gather["):
-                k["launches_by_path"][label] = 0
+            elif k.get("counter") is not None:
+                # hashed_gather's entries by pool dtype (the pipeline's
+                # hashed pool is fp32)
+                k["launches_by_path"][label] = counts[
+                    "hashed_gather_by_entry"][k["counter"]]
             elif k["name"].startswith(("bag_matmul[", "cin[")):
                 kern, arch = k["name"][:-1].split("[")
                 k.setdefault("launches_by_path",
@@ -2351,6 +2680,16 @@ def main() -> int:
             raise SystemExit(f"{key} ran on a main path: "
                              f"{entry['launches_by_path']}")
         kernels.append(entry)
+    # every kernel of a main path ran on it (the single-tier int8 / bf16
+    # instances and the plan-taking hashed gather now run on none: the
+    # tiered and ids entries took their places)
+    ran = {k["name"]: k["launches"] for k in kernels}
+    for name in ("dequant_bag[tiered]", "dequant_bag[float32]", "bag_grad",
+                 "bag_matmul[wide-deep]", "bag_matmul[xdeepfm]",
+                 "cin[xdeepfm]", "hashed_gather_ids[float32]",
+                 "hashed_gather_ids[int8]", "quantize_rowwise"):
+        if ran.get(name, 0) <= 0:
+            raise SystemExit(f"{name} did not run on a main path: {ran}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

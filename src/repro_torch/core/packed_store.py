@@ -14,8 +14,8 @@ the reference does.  ``pack`` builds the store from a whole table;
 payloads, for tables that do not fit beside their pack (the full
 ``dlrm-rm2`` table is 52.3 GB fp32, a 50% pack ~27.6 GB).  Snap and pack
 are row-wise, so both give the same leaves.  ``lookup`` is the plain
-gather + dequant; ``lookup_fused`` is the serving path, one fused
-dequant-bag kernel launch per tier (``kernels.dequant_bag``).
+gather + dequant; ``lookup_fused`` is the serving path, one launch of
+the fused dequant-bag kernel's tiered entry (``kernels.dequant_bag``).
 ``bag_matmul`` is the fused bag -> first matmul of the fused heads (one
 ``kernels.bag_matmul`` launch per tier); ``repack_delta`` re-tiers the
 rows whose tier crossed, on the store's device.  Every int8 tier payload
@@ -191,8 +191,9 @@ def lookup(packed: PackedStore, indices: torch.Tensor) -> torch.Tensor:
 
 
 def lookup_fused(packed: PackedStore, indices: torch.Tensor) -> torch.Tensor:
-    """Serving-path ``lookup``: one fused dequant-bag launch per tier,
-    bit-identical to ``lookup`` (see ``kernels.dequant_bag.ops``)."""
+    """Serving-path ``lookup``: one launch of the fused dequant-bag
+    kernel over all three tiers, bit-identical to ``lookup`` (see
+    ``kernels.dequant_bag.ops``)."""
     from repro_torch.kernels.dequant_bag.ops import packed_lookup_fused
     return packed_lookup_fused(packed, indices)
 

@@ -5,137 +5,432 @@
 //
 //   out[b, :] = sum_k (f32(payload[idx[b,k], :]) * scale[idx[b,k]]) * w[b,k]
 //
-// payload (V, D) int8 | bf16 | fp16 | fp32, scales (V,) fp32 or null (unit
-// scales: the fp32 tier), idx (B, K) int32, w (B, K) fp32 -> out (B, D)
-// fp32.  Slots with w == 0 (padding, or rows of another tier) read
-// neither their row nor their scale.
+// Two entries:
+//
+// * dequant_bag_launch, one tier: payload (V, D) int8 | bf16 | fp16 |
+//   fp32, scales (V,) fp32 or null (unit scales: the fp32 tier), idx (B,
+//   K) int32, w (B, K) fp32 -> out (B, D) fp32.  The train forward, the
+//   rowgrid checks and ops.dequant_bag run it.
+// * dequant_bag_tiered_launch, the packed store: what the reference's
+//   packed_bag_lookup computes from the store's leaves (repro/kernels/
+//   dequant_bag/ops.py:181-207: one dequant_bag_pallas a tier, the
+//   partial bags summed), in one launch.  Inputs: indirect (V,) int32
+//   words tier << 28 | local row, payload8 (V8, D) int8 + scale8, payload16
+//   (V16, D) bf16 or fp16 + scale16, payload32 (V32, D) fp32, global ids
+//   (B, K) int32 or int64, w (B, K) fp32 or null (ones).
 //
 // Contract with the reference (kernel.py:38-45): accumulate over k in
 // order and multiply the scale in first, (row * s) * w.  Where the
 // reference's tests run its kernel (Pallas interpret mode, XLA on the
 // CPU), XLA fuses the weight product with the sum, so the reference
-// computes acc = fma(row * s, w, acc): the unfused form differs from it
-// in the last bit at K > 1.  This kernel writes that FMA explicitly,
+// computes acc = fma(row * s, w, acc).  Both entries write that FMA,
 // __fmaf_rn(__fmul_rn(row, s), w, acc), so nvcc's contraction choices
-// cannot change it, and it is bit-identical to the plain PyTorch version
-// (repro_torch/kernels/dequant_bag/ref.py), which computes the same FMA
-// exactly in float64.  With null scales the scale product is left out:
-// row * 1.0f == row exactly, so nothing changes.  At K = 1 the FMA is a
-// plain product, so the serving lookup equals packed_store.lookup.
+// cannot change it; with unit scales the scale product is left out (row
+// * 1.0f == row exactly).  A slot whose weight is 0 reads neither its row
+// nor its scale.  The single-tier entry is bit-identical to the plain
+// PyTorch version (repro_torch/kernels/dequant_bag/ref.py), which
+// computes the same FMA exactly in float64.  The tiered entry keeps one
+// FMA chain a tier and column in k order, its slots those of that tier
+// (the composition gives the other tiers' slots weight 0, which they
+// skip), and writes ((0 + o8) + o16) + o32 with __fadd_rn: the reference's
+// zeros + int8 + half + fp32.  A slot's local row is clamped to its
+// tier's rows as the composition clamps it.  A NaN or +-inf weight gives
+// the composition's other tiers the weight 0 * w = NaN, so they read
+// their clamped rows and the bag comes out NaN in every column; the
+// tiered entry writes that NaN without the reads.  It is bit-identical
+// to the per-tier composition (ops.packed_bag_lookup_tiers), and at K = 1
+// to packed_store.lookup.
 //
-// What bounds it on an H100: bytes.  Each live slot moves D * itemsize
-// payload bytes (+4 for its scale), each bag writes D * 4 output bytes,
-// and the arithmetic is 3 flops per payload element — far below the
-// card's ~300 flops/byte ridge.  Design: one thread owns VEC consecutive
-// columns of one bag and walks that bag's K slots in order; blockDim.x
-// threads cover a stripe of the row, blockDim.y bags share a block.
-// Rows are read with 16-byte vector loads where D * itemsize allows
-// (VEC = 16 / itemsize), so a bag's row stripe is one coalesced segment.
-// The loop over k is the TPU grid's sequential reduction axis; bags run
-// in parallel, so nothing crosses blocks.  Row offsets are int64: the
-// full int8 tier holds ~81.7M rows x 64 = 5.2e9 elements.
+// What bounds it on an H100: bytes, and at a request's size the latency
+// of its dependent loads.  Each live slot moves D * itemsize payload
+// bytes (+4 for its scale) and its index and weight; each bag writes D *
+// 4 output bytes; 3 flops a payload element is far below the card's ~20
+// flops a byte.  A dlrm-rm2 request (13,312 slots, K = 1, D = 64) moves
+// ~4 MB, ~1.2 us at 3.35 TB/s; its chain is id -> indirect word -> row,
+// three trips to device memory after a cold L2, and the rows lie in a
+// 5.2 GB int8 tier, so TLB misses add to the trips.  The training
+// forward (1,703,936 slots, K = 1, D = 64 fp32) is a stream of ~0.87 GB.
+//
+// What held the parent back: each thread loaded w[k], branched on it,
+// then loaded idx[k], then the row and scale: three dependent trips a
+// slot and nothing in flight across k; rows whose D * itemsize was not a
+// multiple of 16 (every xDeepFM tier, D = 10) fell back to one element a
+// thread; and the packed store ran one launch a tier, each writing a full
+// (B, D) output that was mostly zeros and added in, plus ~20 glue ops of
+// splitting, masking and clamping.
+//
+// Design: a lane owns 4 consecutive columns of a row (gather_io.cuh),
+// read with the widest loads the row's alignment allows (16 bytes for
+// fp32 at D = 64, 2 bytes a piece for int8 at D = 10), so a bag is a
+// group of ceil(D / 4) lanes, 256 / that many bags side by side in a
+// block (16 bags at D = 64, 85 at D = 10).  A group walks NB bags and WK
+// slots at once: it loads every index and weight of the window, then
+// every live row and scale (the tiered entry first loads the window's
+// indirect words), and only then runs the FMA chains, so NB * WK
+// dependent trips overlap: at K = 1 NB = 4 bags (2 tiered) where that
+// still gives every SM two blocks (the training forward's stream runs
+// faster so), else one bag a group (a request's 13,312 or 19,968 bags
+// then spread over every SM: with 4 a group xDeepFM's D = 10 tiers ran
+// no faster than the parent's one element a thread); a window
+// of 8 slots (4 tiered) at K > 1.  Bags are indexed within a
+// block by 32-bit arithmetic; row offsets are int64: the full int8 tier
+// holds ~81.7M rows x 64 = 5.2e9 elements.  Columns past 1,024 take
+// further blocks along the grid's y axis.
+
+#include "gather_io.cuh"
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-#include <string.h>
 
 namespace {
 
-__device__ __forceinline__ float to_f32(int8_t x) { return (float)x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
-__device__ __forceinline__ float to_f32(float x) { return x; }
-
-template <typename T, int VEC>
-__device__ __forceinline__ void load_row(const T* __restrict__ src,
-                                         T (&vals)[VEC]) {
-  if constexpr (VEC * sizeof(T) == 16) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(src);
-    memcpy(vals, &raw, 16);
-  } else {
-#pragma unroll
-    for (int v = 0; v < VEC; ++v) vals[v] = src[v];
-  }
-}
-
-template <typename T, int VEC>
-__global__ void dequant_bag_kernel(const T* __restrict__ payload,
-                                   const float* __restrict__ scales,
-                                   const int32_t* __restrict__ indices,
-                                   const float* __restrict__ weights,
-                                   float* __restrict__ out, int64_t num_bags,
-                                   int k_slots, int64_t dim) {
-  const int64_t b = (int64_t)blockIdx.x * blockDim.y + threadIdx.y;
-  const int64_t c0 =
-      ((int64_t)blockIdx.y * blockDim.x + threadIdx.x) * VEC;
-  if (b >= num_bags || c0 >= dim) return;
-
-  float acc[VEC];
-#pragma unroll
-  for (int v = 0; v < VEC; ++v) acc[v] = 0.0f;
-
-  const int32_t* idx = indices + b * k_slots;
-  const float* wts = weights + b * k_slots;
-  for (int k = 0; k < k_slots; ++k) {
-    const float w = wts[k];
-    if (w != 0.0f) {
-      const int64_t row = idx[k];
-      T vals[VEC];
-      load_row<T, VEC>(payload + row * dim + c0, vals);
-      if (scales != nullptr) {
-        const float s = scales[row];
-#pragma unroll
-        for (int v = 0; v < VEC; ++v)
-          acc[v] = __fmaf_rn(__fmul_rn(to_f32(vals[v]), s), w, acc[v]);
-      } else {
-#pragma unroll
-        for (int v = 0; v < VEC; ++v)
-          acc[v] = __fmaf_rn(to_f32(vals[v]), w, acc[v]);
-      }
-    }
-  }
-
-  float* dst = out + b * dim + c0;
-  if constexpr (VEC % 4 == 0) {
-#pragma unroll
-    for (int v = 0; v < VEC; v += 4)
-      *reinterpret_cast<float4*>(dst + v) =
-          make_float4(acc[v], acc[v + 1], acc[v + 2], acc[v + 3]);
-  } else {
-#pragma unroll
-    for (int v = 0; v < VEC; ++v) dst[v] = acc[v];
-  }
-}
+using gather_io::elem;
+using gather_io::raw_words;
+using gather_io::read_cols;
+using gather_io::write_cols;
 
 constexpr int kThreads = 256;
+constexpr int kCols = 4;              // columns a lane owns
+constexpr int kTierShift = 28;
+constexpr int32_t kIdxMask = (1 << kTierShift) - 1;
 
-template <typename T, int VEC>
+// The lane's group and columns: blockDim.x = kThreads lanes, `lanes` a
+// group (ceil(D / 4), at most kThreads), `groups` groups a block.
+struct Lane {
+  int group;       // < groups, or the lane is idle
+  int c0;          // first column
+  int n;           // columns it owns (1..4), <= 0 past the row
+};
+
+__device__ __forceinline__ Lane lane_of(int lanes, int dim) {
+  Lane l;
+  l.group = threadIdx.x / lanes;
+  const int j = threadIdx.x - l.group * lanes;
+  l.c0 = (blockIdx.y * lanes + j) * kCols;
+  l.n = min(kCols, dim - l.c0);
+  return l;
+}
+
+template <typename T, int NB, int WK>
+__global__ void __launch_bounds__(kThreads)
+    bag_kernel(const T* __restrict__ payload,
+               const float* __restrict__ scales,
+               const int32_t* __restrict__ indices,
+               const float* __restrict__ weights, float* __restrict__ out,
+               int64_t num_bags, int k_slots, int dim, int lanes, int groups,
+               int w_in, int w_out) {
+  constexpr int R = raw_words<T, kCols>();
+  const Lane l = lane_of(lanes, dim);
+  if (l.group >= groups || l.n <= 0) return;
+  const int64_t b0 = ((int64_t)blockIdx.x * groups + l.group) * NB;
+
+  float acc[NB][kCols];
+#pragma unroll
+  for (int i = 0; i < NB; ++i)
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) acc[i][c] = 0.0f;
+
+  for (int k0 = 0; k0 < k_slots; k0 += WK) {
+    int32_t row[NB][WK];
+    float w[NB][WK];
+#pragma unroll
+    for (int i = 0; i < NB; ++i)
+#pragma unroll
+      for (int kk = 0; kk < WK; ++kk) {
+        const int64_t b = b0 + i;
+        const int k = k0 + kk;
+        w[i][kk] = 0.0f;
+        row[i][kk] = 0;
+        if (b < num_bags && k < k_slots) {
+          const int64_t at = b * k_slots + k;
+          w[i][kk] = __ldg(weights + at);
+          row[i][kk] = __ldg(indices + at);
+        }
+      }
+    uint32_t raw[NB][WK][R];
+    float s[NB][WK];
+#pragma unroll
+    for (int i = 0; i < NB; ++i)
+#pragma unroll
+      for (int kk = 0; kk < WK; ++kk) {
+#pragma unroll
+        for (int r = 0; r < R; ++r) raw[i][kk][r] = 0u;
+        s[i][kk] = 1.0f;
+        if (w[i][kk] != 0.0f) {
+          const int64_t r = row[i][kk];
+          read_cols<T, kCols>(payload + r * dim + l.c0, l.n, w_in,
+                              raw[i][kk]);
+          if (scales != nullptr) s[i][kk] = __ldg(scales + r);
+        }
+      }
+#pragma unroll
+    for (int i = 0; i < NB; ++i)
+#pragma unroll
+      for (int kk = 0; kk < WK; ++kk) {
+        if (w[i][kk] != 0.0f) {
+#pragma unroll
+          for (int c = 0; c < kCols; ++c) {
+            float x = elem<T>(raw[i][kk], c);
+            if (scales != nullptr) x = __fmul_rn(x, s[i][kk]);
+            acc[i][c] = __fmaf_rn(x, w[i][kk], acc[i][c]);
+          }
+        }
+      }
+  }
+#pragma unroll
+  for (int i = 0; i < NB; ++i) {
+    const int64_t b = b0 + i;
+    if (b < num_bags) write_cols<kCols>(out + b * dim + l.c0, l.n, w_out,
+                                        acc[i]);
+  }
+}
+
+// One tier's leaves: payload rows, scales (null: unit), last row index
+// (the clamp) and load width.
+template <typename T>
+struct Tier {
+  const T* payload;
+  const float* scales;
+  int32_t last;
+  int w;
+};
+
+template <typename H, typename I, int NB, int WK>
+__global__ void __launch_bounds__(kThreads)
+    tiered_kernel(const int32_t* __restrict__ indirect, Tier<int8_t> t8,
+                  Tier<H> t16, Tier<float> t32, const I* __restrict__ ids,
+                  const float* __restrict__ weights, float* __restrict__ out,
+                  int64_t num_bags, int k_slots, int dim, int lanes,
+                  int groups, int w_out) {
+  constexpr int R = raw_words<float, kCols>();   // room for any tier
+  const Lane l = lane_of(lanes, dim);
+  if (l.group >= groups || l.n <= 0) return;
+  const int64_t b0 = ((int64_t)blockIdx.x * groups + l.group) * NB;
+
+  float a8[NB][kCols], a16[NB][kCols], a32[NB][kCols];
+  bool poison[NB];
+#pragma unroll
+  for (int i = 0; i < NB; ++i) {
+    poison[i] = false;
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) a8[i][c] = a16[i][c] = a32[i][c] = 0.0f;
+  }
+
+  for (int k0 = 0; k0 < k_slots; k0 += WK) {
+    int64_t id[NB][WK];
+    float w[NB][WK];
+    bool in[NB][WK];
+#pragma unroll
+    for (int i = 0; i < NB; ++i)
+#pragma unroll
+      for (int kk = 0; kk < WK; ++kk) {
+        const int64_t b = b0 + i;
+        const int k = k0 + kk;
+        in[i][kk] = b < num_bags && k < k_slots;
+        id[i][kk] = 0;
+        w[i][kk] = 0.0f;
+        if (in[i][kk]) {
+          const int64_t at = b * k_slots + k;
+          id[i][kk] = (int64_t)__ldg(ids + at);
+          w[i][kk] = weights != nullptr ? __ldg(weights + at) : 1.0f;
+        }
+      }
+    int32_t code[NB][WK];
+#pragma unroll
+    for (int i = 0; i < NB; ++i)
+#pragma unroll
+      for (int kk = 0; kk < WK; ++kk)
+        code[i][kk] = in[i][kk] && w[i][kk] != 0.0f
+                          ? __ldg(indirect + id[i][kk]) : -1;
+    uint32_t raw[NB][WK][R];
+    float s[NB][WK];
+    int tier[NB][WK];
+#pragma unroll
+    for (int i = 0; i < NB; ++i)
+#pragma unroll
+      for (int kk = 0; kk < WK; ++kk) {
+#pragma unroll
+        for (int r = 0; r < R; ++r) raw[i][kk][r] = 0u;
+        s[i][kk] = 1.0f;
+        // a non-finite weight: the other tiers' 0 * w is NaN
+        if (in[i][kk] && !isfinite(w[i][kk])) poison[i] = true;
+        // tier 3 (no valid code) weighs 0 in every tier's launch
+        const int t = code[i][kk] < 0 ? 3 : code[i][kk] >> kTierShift;
+        tier[i][kk] = t;
+        const int32_t loc = code[i][kk] & kIdxMask;
+        if (t == 0) {
+          const int64_t r = min(loc, t8.last);
+          read_cols<int8_t, kCols>(t8.payload + r * dim + l.c0, l.n, t8.w,
+                                   raw[i][kk]);
+          s[i][kk] = __ldg(t8.scales + r);
+        } else if (t == 1) {
+          const int64_t r = min(loc, t16.last);
+          read_cols<H, kCols>(t16.payload + r * dim + l.c0, l.n, t16.w,
+                              raw[i][kk]);
+          s[i][kk] = __ldg(t16.scales + r);
+        } else if (t == 2) {
+          const int64_t r = min(loc, t32.last);
+          read_cols<float, kCols>(t32.payload + r * dim + l.c0, l.n, t32.w,
+                                  raw[i][kk]);
+        }
+      }
+#pragma unroll
+    for (int i = 0; i < NB; ++i)
+#pragma unroll
+      for (int kk = 0; kk < WK; ++kk) {
+        const int t = tier[i][kk];
+        if (t > 2) continue;
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) {
+          float x;
+          if (t == 0)
+            x = __fmul_rn(elem<int8_t>(raw[i][kk], c), s[i][kk]);
+          else if (t == 1)
+            x = __fmul_rn(elem<H>(raw[i][kk], c), s[i][kk]);
+          else
+            x = elem<float>(raw[i][kk], c);
+          const float a = t == 0 ? a8[i][c] : t == 1 ? a16[i][c] : a32[i][c];
+          const float y = __fmaf_rn(x, w[i][kk], a);
+          a8[i][c] = t == 0 ? y : a8[i][c];
+          a16[i][c] = t == 1 ? y : a16[i][c];
+          a32[i][c] = t == 2 ? y : a32[i][c];
+        }
+      }
+  }
+#pragma unroll
+  for (int i = 0; i < NB; ++i) {
+    const int64_t b = b0 + i;
+    if (b >= num_bags) continue;
+    float o[kCols];
+#pragma unroll
+    for (int c = 0; c < kCols; ++c)
+      o[c] = poison[i] ? __int_as_float(0x7fffffff)
+                       : __fadd_rn(__fadd_rn(__fadd_rn(0.0f, a8[i][c]),
+                                             a16[i][c]), a32[i][c]);
+    write_cols<kCols>(out + b * dim + l.c0, l.n, w_out, o);
+  }
+}
+
+// Lanes a bag (<= kThreads), bags a block and the grid for a launch.
+struct Shape {
+  int lanes, groups;
+  dim3 grid;
+  bool ok;
+};
+
+Shape shape_of(int64_t num_bags, int64_t dim, int nb) {
+  Shape sh;
+  const int64_t col_lanes = (dim + kCols - 1) / kCols;
+  sh.lanes = (int)(col_lanes < kThreads ? col_lanes : kThreads);
+  sh.groups = kThreads / sh.lanes;
+  const int64_t per_block = (int64_t)sh.groups * nb;
+  const int64_t bx = (num_bags + per_block - 1) / per_block;
+  const int64_t by = (col_lanes + sh.lanes - 1) / sh.lanes;
+  sh.grid = dim3((unsigned)bx, (unsigned)by);
+  sh.ok = bx <= 0x7fffffffLL && by <= 65535 && dim <= 0x7fffffffLL;
+  return sh;
+}
+
+int out_width(const void* out, int64_t dim) {
+  return gather_io::piece_bytes(out, dim * 4, 16);
+}
+
+template <typename T>
+int in_width(const void* payload, int64_t dim) {
+  const int cap = kCols * (int)sizeof(T) < 16 ? kCols * (int)sizeof(T) : 16;
+  return gather_io::piece_bytes(payload, dim * (int64_t)sizeof(T), cap);
+}
+
+// Bags a group walks at once at K = 1: `nb` where that still gives every
+// SM two blocks, else 1 (a request's few bags spread over more SMs).
+int bags_at_once(int64_t num_bags, int64_t dim, int nb) {
+  static const int sms = [] {
+    int dev = 0, n = 132;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    return n;
+  }();
+  return shape_of(num_bags, dim, nb).grid.x >= 2u * (unsigned)sms ? nb : 1;
+}
+
+template <typename T>
 int launch(const void* payload, const float* scales, const int32_t* indices,
            const float* weights, float* out, int64_t num_bags, int k_slots,
            int64_t dim, cudaStream_t stream) {
-  const int64_t groups = (dim + VEC - 1) / VEC;
-  const int tx = (int)(groups < kThreads ? groups : kThreads);
-  const int ty = kThreads / tx;
-  const dim3 block(tx, ty);
-  const dim3 grid((unsigned)((num_bags + ty - 1) / ty),
-                  (unsigned)((groups + tx - 1) / tx));
-  if (grid.y > 65535) return (int)cudaErrorInvalidConfiguration;
-  dequant_bag_kernel<T, VEC><<<grid, block, 0, stream>>>(
-      static_cast<const T*>(payload), scales, indices, weights, out,
-      num_bags, k_slots, dim);
+  const int nb = k_slots == 1 ? bags_at_once(num_bags, dim, 4) : 1;
+  const Shape sh = shape_of(num_bags, dim, nb);
+  if (!sh.ok) return (int)cudaErrorInvalidConfiguration;
+  const T* p = static_cast<const T*>(payload);
+  const int wi = in_width<T>(payload, dim), wo = out_width(out, dim);
+  if (nb == 4)
+    bag_kernel<T, 4, 1><<<sh.grid, kThreads, 0, stream>>>(
+        p, scales, indices, weights, out, num_bags, k_slots, (int)dim,
+        sh.lanes, sh.groups, wi, wo);
+  else if (k_slots == 1)
+    bag_kernel<T, 1, 1><<<sh.grid, kThreads, 0, stream>>>(
+        p, scales, indices, weights, out, num_bags, k_slots, (int)dim,
+        sh.lanes, sh.groups, wi, wo);
+  else
+    bag_kernel<T, 1, 8><<<sh.grid, kThreads, 0, stream>>>(
+        p, scales, indices, weights, out, num_bags, k_slots, (int)dim,
+        sh.lanes, sh.groups, wi, wo);
   return (int)cudaGetLastError();
+}
+
+template <typename H, typename I>
+int launch_tiered(const int32_t* indirect, Tier<int8_t> t8, Tier<H> t16,
+                  Tier<float> t32, const void* ids, const float* weights,
+                  float* out, int64_t num_bags, int k_slots, int64_t dim,
+                  cudaStream_t stream) {
+  const int nb = k_slots == 1 ? bags_at_once(num_bags, dim, 2) : 1;
+  const Shape sh = shape_of(num_bags, dim, nb);
+  if (!sh.ok) return (int)cudaErrorInvalidConfiguration;
+  const I* i = static_cast<const I*>(ids);
+  const int wo = out_width(out, dim);
+  if (nb == 2)
+    tiered_kernel<H, I, 2, 1><<<sh.grid, kThreads, 0, stream>>>(
+        indirect, t8, t16, t32, i, weights, out, num_bags, k_slots,
+        (int)dim, sh.lanes, sh.groups, wo);
+  else if (k_slots == 1)
+    tiered_kernel<H, I, 1, 1><<<sh.grid, kThreads, 0, stream>>>(
+        indirect, t8, t16, t32, i, weights, out, num_bags, k_slots,
+        (int)dim, sh.lanes, sh.groups, wo);
+  else
+    tiered_kernel<H, I, 1, 4><<<sh.grid, kThreads, 0, stream>>>(
+        indirect, t8, t16, t32, i, weights, out, num_bags, k_slots,
+        (int)dim, sh.lanes, sh.groups, wo);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+Tier<T> tier_of(const void* payload, const void* scales, long long rows,
+                long long dim) {
+  return Tier<T>{static_cast<const T*>(payload),
+                 static_cast<const float*>(scales), (int32_t)(rows - 1),
+                 in_width<T>(payload, dim)};
+}
+
+template <typename H>
+int tiered_by_ids(const int32_t* indirect, Tier<int8_t> t8, Tier<H> t16,
+                  Tier<float> t32, const void* ids, int ids64,
+                  const float* weights, float* out, int64_t num_bags,
+                  int k_slots, int64_t dim, cudaStream_t stream) {
+  if (ids64)
+    return launch_tiered<H, int64_t>(indirect, t8, t16, t32, ids, weights,
+                                     out, num_bags, k_slots, dim, stream);
+  return launch_tiered<H, int32_t>(indirect, t8, t16, t32, ids, weights, out,
+                                   num_bags, k_slots, dim, stream);
 }
 
 }  // namespace
 
 // dtype: 0 = int8, 1 = bf16, 2 = fp32, 3 = fp16 (the strict_fp16 half
 // tier).  vec: 1, or 16 / itemsize when every row starts on a 16-byte
-// boundary (the wrapper checks).  Returns the cudaError_t of the launch
-// (0 = success).
+// boundary (the wrapper checks); the entry reads rows with the widest
+// loads that the payload pointer and D allow, so vec only has to be one
+// of the two.  Returns the cudaError_t of the launch (0 = success).
 extern "C" int dequant_bag_launch(const void* payload, int dtype,
                                   const void* scales, const void* indices,
                                   const void* weights, void* out,
@@ -147,39 +442,54 @@ extern "C" int dequant_bag_launch(const void* payload, int dtype,
   float* o = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (num_bags <= 0 || dim <= 0) return 0;
+  if (k_slots < 0) return (int)cudaErrorInvalidValue;
+  const int itemsize[4] = {1, 2, 4, 2};
+  if (dtype < 0 || dtype > 3 || (vec != 1 && vec != 16 / itemsize[dtype]))
+    return (int)cudaErrorInvalidValue;
   switch (dtype) {
     case 0:
-      if (vec == 16)
-        return launch<int8_t, 16>(payload, s, i, w, o, num_bags, k_slots,
-                                  dim, st);
-      if (vec == 1)
-        return launch<int8_t, 1>(payload, s, i, w, o, num_bags, k_slots,
-                                 dim, st);
-      break;
+      return launch<int8_t>(payload, s, i, w, o, num_bags, k_slots, dim, st);
     case 1:
-      if (vec == 8)
-        return launch<__nv_bfloat16, 8>(payload, s, i, w, o, num_bags,
-                                        k_slots, dim, st);
-      if (vec == 1)
-        return launch<__nv_bfloat16, 1>(payload, s, i, w, o, num_bags,
-                                        k_slots, dim, st);
-      break;
+      return launch<__nv_bfloat16>(payload, s, i, w, o, num_bags, k_slots,
+                                   dim, st);
     case 2:
-      if (vec == 4)
-        return launch<float, 4>(payload, s, i, w, o, num_bags, k_slots,
-                                dim, st);
-      if (vec == 1)
-        return launch<float, 1>(payload, s, i, w, o, num_bags, k_slots,
-                                dim, st);
-      break;
+      return launch<float>(payload, s, i, w, o, num_bags, k_slots, dim, st);
     case 3:
-      if (vec == 8)
-        return launch<__half, 8>(payload, s, i, w, o, num_bags, k_slots,
-                                 dim, st);
-      if (vec == 1)
-        return launch<__half, 1>(payload, s, i, w, o, num_bags, k_slots,
-                                 dim, st);
-      break;
+      return launch<__half>(payload, s, i, w, o, num_bags, k_slots, dim, st);
   }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The packed store in one launch.  half_dtype: 1 = bf16, 3 = fp16 (the
+// codes of dequant_bag_launch); rows8 / rows16 / rows32 the tiers' rows
+// (>= 1: an empty tier keeps a one-row placeholder); ids64: 1 for int64
+// ids, 0 for int32; weights may be null (ones).  Returns the cudaError_t
+// of the launch (0 = success).
+extern "C" int dequant_bag_tiered_launch(
+    const void* indirect, const void* payload8, const void* scale8,
+    long long rows8, const void* payload16, int half_dtype,
+    const void* scale16, long long rows16, const void* payload32,
+    long long rows32, const void* ids, int ids64, const void* weights,
+    void* out, long long num_bags, int k_slots, long long dim,
+    void* stream) {
+  const int32_t* ind = static_cast<const int32_t*>(indirect);
+  const float* w = static_cast<const float*>(weights);
+  float* o = static_cast<float*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (num_bags <= 0 || dim <= 0) return 0;
+  if (k_slots < 0 || rows8 < 1 || rows16 < 1 || rows32 < 1 ||
+      rows8 > kIdxMask + 1LL || rows16 > kIdxMask + 1LL ||
+      rows32 > kIdxMask + 1LL)
+    return (int)cudaErrorInvalidValue;
+  const Tier<int8_t> t8 = tier_of<int8_t>(payload8, scale8, rows8, dim);
+  const Tier<float> t32 = tier_of<float>(payload32, nullptr, rows32, dim);
+  if (half_dtype == 1)
+    return tiered_by_ids<__nv_bfloat16>(
+        ind, t8, tier_of<__nv_bfloat16>(payload16, scale16, rows16, dim),
+        t32, ids, ids64, w, o, num_bags, k_slots, dim, st);
+  if (half_dtype == 3)
+    return tiered_by_ids<__half>(
+        ind, t8, tier_of<__half>(payload16, scale16, rows16, dim), t32, ids,
+        ids64, w, o, num_bags, k_slots, dim, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,8 +1,9 @@
 """Hand-written Hopper kernels for SHARK's hot spots.
 
   dequant_bag    fused gather + int8/bf16/fp16 dequant + embedding-bag
-                 reduce (the serving path behind the paper's +30% QPS),
-                 and bag_grad, its scatter-add backward (training); with
+                 reduce (the serving path behind the paper's +30% QPS;
+                 one launch over a packed store's three tiers), and
+                 bag_grad, its scatter-add backward (training); with
                  the reference's (B, K)-grid tiling oracles of both
                  (dequant_bag_rowgrid, bag_grad_rowgrid), which no path
                  runs
@@ -10,7 +11,8 @@
                  wide&deep's and xDeepFM's deep branch (fused heads)
   cin            xDeepFM's Compressed Interaction Network layer
   hashed_gather  the hashed store's chunk-pool gather + sign/scale
-                 combine (ROBE-style rows materialised from a pool)
+                 combine (ROBE-style rows materialised from a pool), from
+                 a slot plan or from the ids, hashing in registers
   rowwise_quant  per-row max-abs -> scale -> round -> int8 (the packed
                  store's int8 tier and the hashed store's int8 pool)
 
@@ -38,9 +40,11 @@ def _kernel_modules() -> dict:
 
 
 def launch_counts() -> dict:
-    """Launches this process made, by kernel: ``dequant_bag``,
-    ``bag_grad``, ``dequant_bag_rowgrid``, ``bag_grad_rowgrid``,
-    ``bag_matmul``, ``cin``, ``hashed_gather``, ``quantize_rowwise``."""
+    """Launches this process made, by kernel: ``dequant_bag`` (its
+    single-tier and tiered entries), ``bag_grad``, ``dequant_bag_rowgrid``,
+    ``bag_grad_rowgrid``, ``bag_matmul``, ``cin``, ``hashed_gather`` (its
+    plan and ids entries), ``quantize_rowwise``.  Each kernel module's
+    ``launches`` splits its count by entry and dtype."""
     mods = _kernel_modules()
     return {"dequant_bag": mods["dequant_bag"].total_launches(),
             "bag_grad": mods["dequant_bag"].bag_grad_launches["float32"],

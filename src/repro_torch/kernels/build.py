@@ -3,9 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into ``build/repro_torch/<name>-<hash>.so`` at the
 root of the checkout, then loaded with ``ctypes``.  The file name carries
-a hash of the source and the flags, so an edited source is never served
-by a stale library.  Nothing here runs at import: the CPU tests import
-every module.
+a hash of the source, the shared headers (``csrc/*.cuh``) and the flags,
+so an edited source or header is never served by a stale library.
+Nothing here runs at import: the CPU tests import every module.
 """
 
 from __future__ import annotations
@@ -36,6 +36,8 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 

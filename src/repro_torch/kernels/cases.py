@@ -1,5 +1,5 @@
 """Adversarial inputs for the card checks of ``bag_grad``, ``bag_matmul``,
-``cin`` and ``rowwise_quant``.
+``cin``, ``rowwise_quant``, ``dequant_bag`` and ``hashed_gather``.
 
 ``chip_smoke.py`` (phase 2) and ``tests/test_torch_cuda.py`` hold the
 kernels to their plain versions on these, bit for bit.  The inputs are
@@ -31,6 +31,23 @@ divide it), each with an all-zero row (the 1e-12 floor), a row of exact
 .5 multiples of its scale (half to even), and NaN, inf and all -inf rows
 beside finite rows of the same warp step; and x or noise one float off
 16-byte alignment (views a caller can pass), which take the scalar path.
+``gather_cases`` aims at the dequant-bag kernel's lane groups (4 columns
+a lane, ceil(D / 4) lanes a bag), its windows (4 bags at K = 1, 8 slots
+at K > 1) and its load widths: every payload dtype at D 1/10/32/33/64/128
+(a lane's last columns partial at D 1, 10 and 33, rows off 16-byte
+alignment at D 10 and 33), K 1/8/40, B of 61, 37 and 64 (no block of 64
+bags divides the first two), 30% zero weights and a NaN row (a NaN scale
+for int8) under zero weights only (the bag stays finite); payload views
+one element off 16-byte alignment at D 64 and 10; and, on the card, an
+int8 payload over 2.1 GB with slots in rows whose byte offset passes
+2^31.  ``tiered_cases`` holds the tiered entry: three live tiers at K = 1
+(int32 and int64 ids), weighted K = 8 and K = 40 bags with zero weights,
+fp16 half tiers, D 10 and 33, an empty int8 and an empty fp32 tier (the
+one-row placeholder), and a NaN and an inf weight (their bags NaN).
+``hashed_cases`` covers Z 4/5/8, T = K * NH of 1, 2 and 6, int8 and fp32
+pools of S rows that are no power of two, seeds 0 and 7, weighted K = 3
+bags with zero weights, and int64 ids past 2^32 (their low 32 bits are
+hashed); the ids entry is held to the plan entry on each.
 """
 
 from __future__ import annotations
@@ -262,3 +279,193 @@ def quant_cases(device) -> list[QuantCase]:
         cases.append(QuantCase(f"noise_off_d{d}", x, _off(noise)))
     return cases
 
+
+
+class GatherCase(NamedTuple):
+    name: str
+    payload: torch.Tensor     # (V, D), maybe off 16-byte alignment
+    scales: torch.Tensor | None   # (V,) fp32
+    indices: torch.Tensor     # (B, K) int32
+    weights: torch.Tensor     # (B, K) fp32, 30% zeros
+
+
+GATHER_DTYPES = (torch.int8, torch.bfloat16, torch.float16, torch.float32)
+# (D, K, B): every D, K and B of the docstring
+GATHER_SHAPES = ((1, 1, 61), (10, 8, 37), (32, 40, 64), (33, 1, 37),
+                 (64, 8, 61), (128, 40, 37), (64, 1, 64), (10, 1, 61))
+GATHER_OFF = ((64, 1, 61), (10, 8, 37))
+GATHER_BIG = "int8_big_offset"
+GATHER_CASE_NAMES = tuple(
+    f"{str(dt).removeprefix('torch.')}_{what}d{d}_k{k}_b{b}"
+    for dt in GATHER_DTYPES
+    for what, shapes in (("", GATHER_SHAPES), ("off_", GATHER_OFF))
+    for d, k, b in shapes)
+
+
+def _bag_slots(v: int, b: int, k: int, bad: int, gen, device):
+    """(B, K) int32 ids in [0, v) and fp32 weights with 30% zeros; the
+    ``bad`` row is reached by zero-weight slots only."""
+    idx = torch.randint(0, v, (b, k), generator=gen, device=device,
+                        dtype=torch.int32)
+    w = torch.rand((b, k), generator=gen, device=device) + 0.25
+    w[torch.rand((b, k), generator=gen, device=device) < 0.3] = 0.0
+    idx[w != 0] = torch.where(idx[w != 0] == bad, bad + 1, idx[w != 0])
+    idx[::3, 0] = bad
+    w[::3, 0] = 0.0
+    return idx, w
+
+
+def _gather_payload(dtype, v: int, d: int, gen, device, off: bool
+                    ) -> torch.Tensor:
+    p = _payload(dtype, v, d, gen, device)
+    if not off:
+        return p
+    flat = torch.empty(v * d + 1, dtype=dtype, device=device)
+    return flat[1:].view(v, d).copy_(p)
+
+
+def gather_cases(device) -> list[GatherCase]:
+    """The dequant-bag cases; the 2.1 GB one only on a CUDA device."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(20)
+    v, bad = 301, 7
+    cases = []
+    for dt in GATHER_DTYPES:
+        name = str(dt).removeprefix("torch.")
+        for what, shapes in (("", GATHER_SHAPES), ("off_", GATHER_OFF)):
+            for n, (d, k, b) in enumerate(shapes):
+                payload = _gather_payload(dt, v, d, gen, device, bool(what))
+                scales = torch.rand(v, generator=gen, device=device) * 0.01
+                if dt == torch.int8:
+                    scales[bad] = float("nan")
+                else:
+                    payload[bad] = float("nan")
+                if dt == torch.float32 and n % 2:
+                    scales = None             # the fp32 tier: unit scales
+                idx, w = _bag_slots(v, b, k, bad, gen, device)
+                cases.append(GatherCase(f"{name}_{what}d{d}_k{k}_b{b}",
+                                        payload, scales, idx, w))
+    if torch.device(device).type == "cuda":
+        # rows past 2^31 bytes: 33,556,432 rows of 64 int8
+        rows = (1 << 31) // 64 + 1000
+        payload = torch.zeros((rows, 64), dtype=torch.int8, device=device)
+        tail = rows - 2000
+        payload[tail:] = _payload(torch.int8, 2000, 64, gen, device)
+        scales = torch.rand(rows, generator=gen, device=device) * 0.01
+        idx, w = _bag_slots(2000, 61, 8, 3, gen, device)
+        cases.append(GatherCase(GATHER_BIG, payload, scales, idx + tail, w))
+    return cases
+
+
+class TieredCase(NamedTuple):
+    name: str
+    leaves: tuple             # PackedStore fields, in order
+    ids: torch.Tensor         # (B, K) int32 or int64 global ids
+    weights: torch.Tensor | None  # (B, K) fp32
+
+
+TIERED_CASE_NAMES = ("k1_d64_int64", "k1_d64_int32", "k8_d10_weighted",
+                     "k40_d33_fp16_weighted", "empty_int8_k1_d64",
+                     "empty_fp32_k8_d10", "nan_inf_weights_d64")
+
+
+def _packed_leaves(counts, d: int, half, gen, device) -> tuple:
+    """PackedStore leaves (payload8, scale8, payload16, scale16,
+    payload32, indirect) with ``counts`` rows a tier (0: the one-row
+    placeholder of zeros), the rows of the vocabulary dealt to the tiers
+    at random."""
+    v = sum(counts)
+    tiers = torch.repeat_interleave(torch.arange(3, device=device),
+                                    torch.tensor(counts, device=device))
+    tiers = tiers[torch.randperm(v, generator=gen, device=device)]
+    loc = torch.zeros(v, dtype=torch.int32, device=device)
+    leaves = []
+    for t, dt in enumerate((torch.int8, half, torch.float32)):
+        sel = torch.nonzero(tiers == t).reshape(-1)
+        loc[sel] = torch.arange(sel.numel(), dtype=torch.int32,
+                                device=device)
+        n = max(counts[t], 1)
+        payload = (_payload(dt, n, d, gen, device) if counts[t] else
+                   torch.zeros((1, d), dtype=dt, device=device))
+        leaves.append(payload)
+        if t < 2:
+            leaves.append(torch.rand(n, generator=gen, device=device) * 0.01)
+    indirect = (tiers.to(torch.int32) << 28) | loc
+    return (*leaves, indirect)
+
+
+def tiered_cases(device) -> list[TieredCase]:
+    gen = torch.Generator(device=device)
+    gen.manual_seed(21)
+    bf16, fp16 = torch.bfloat16, torch.float16
+    cases = []
+
+    def add(name, counts, d, half, b, k, weighted, ids_dtype=torch.int64):
+        leaves = _packed_leaves(counts, d, half, gen, device)
+        v = leaves[-1].shape[0]
+        ids = torch.randint(0, v, (b, k), generator=gen, device=device,
+                            dtype=ids_dtype)
+        w = None
+        if weighted:
+            w = torch.randn((b, k), generator=gen, device=device)
+            w[torch.rand((b, k), generator=gen, device=device) < 0.3] = 0.0
+        cases.append(TieredCase(name, leaves, ids, w))
+
+    add("k1_d64_int64", (150, 60, 90), 64, bf16, 61, 1, False)
+    add("k1_d64_int32", (150, 60, 90), 64, bf16, 64, 1, False, torch.int32)
+    add("k8_d10_weighted", (200, 50, 50), 10, bf16, 37, 8, True)
+    add("k40_d33_fp16_weighted", (120, 120, 60), 33, fp16, 37, 40, True)
+    add("empty_int8_k1_d64", (0, 80, 40), 64, bf16, 61, 1, False)
+    add("empty_fp32_k8_d10", (90, 30, 0), 10, bf16, 37, 8, True)
+    add("nan_inf_weights_d64", (150, 60, 90), 64, bf16, 37, 3, True)
+    w = cases[-1].weights
+    w[5, 1], w[9, 0] = float("nan"), float("inf")
+    w[11, 2] = -float("inf")
+    return cases
+
+
+class HashCase(NamedTuple):
+    name: str
+    pool: torch.Tensor        # (S, Z) fp32 or int8
+    scales: torch.Tensor | None   # (S,) fp32
+    ids: torch.Tensor         # (B, K) int64 or int32
+    weights: torch.Tensor | None  # (B, K) fp32
+    num_chunks: int
+    num_hashes: int
+    seed: int
+
+
+# (Z, K, NH, C, S, seed, weighted): Z 4/5/8, T = K * NH 1/2/6
+HASH_SHAPES = ((4, 1, 1, 3, 1797, 0, False), (5, 1, 2, 4, 211, 7, False),
+               (8, 1, 2, 4, 4001, 0, False), (8, 3, 2, 4, 1797, 7, True),
+               (5, 3, 2, 2, 4001, 0, True), (4, 3, 2, 3, 211, 7, True))
+HASH_CASE_NAMES = tuple(
+    f"{dt}_z{z}_t{k * nh}_c{c}_s{s}_seed{seed}"
+    for dt in ("float32", "int8")
+    for z, k, nh, c, s, seed, _ in HASH_SHAPES)
+
+
+def hashed_cases(device) -> list[HashCase]:
+    gen = torch.Generator(device=device)
+    gen.manual_seed(22)
+    cases = []
+    for dt in (torch.float32, torch.int8):
+        for n, (z, k, nh, c, s, seed, weighted) in enumerate(HASH_SHAPES):
+            pool = _payload(dt, s, z, gen, device)
+            scales = (torch.rand(s, generator=gen, device=device) * 0.02
+                      + 1e-3)
+            if dt == torch.float32 and n % 2:
+                scales = None
+            b = (61, 37, 64)[n % 3]
+            ids = torch.randint(0, 1 << 40, (b, k), generator=gen,
+                                device=device)
+            if n % 2:
+                ids = (ids & 0x7FFFFFFF).to(torch.int32)
+            w = None
+            if weighted:
+                w = torch.randn((b, k), generator=gen, device=device)
+                w[torch.rand((b, k), generator=gen, device=device) < 0.3] = 0
+            cases.append(HashCase(
+                f"{str(dt).removeprefix('torch.')}_z{z}_t{k * nh}_c{c}"
+                f"_s{s}_seed{seed}", pool, scales, ids, w, c, nh, seed))
+    return cases

@@ -1,7 +1,10 @@
 """The CUDA dequant-bag kernels bound to PyTorch.
 
 ``dequant_bag_cuda`` (``csrc/dequant_bag.cu``) replaces
-``repro/kernels/dequant_bag/kernel.py::dequant_bag_pallas``;
+``repro/kernels/dequant_bag/kernel.py::dequant_bag_pallas`` on one
+payload; ``dequant_bag_tiered_cuda`` (the same source) runs it over a
+packed store's three tiers in one launch, what the reference's
+``packed_bag_lookup`` computes with one kernel call a tier;
 ``bag_grad_cuda`` (``csrc/bag_grad.cu``) replaces ``bag_grad_pallas``,
 its scatter-add backward.  ``dequant_bag_rowgrid_cuda``
 (``csrc/dequant_bag_rowgrid.cu``) and ``bag_grad_rowgrid_cuda``
@@ -15,7 +18,8 @@ back in.  Each library is built at first call
 (``kernels.build``) and loaded with ``ctypes``; a launch goes on
 PyTorch's current stream and does not synchronise.  ``launches`` counts
 the dequant-bag launches this process made, by payload dtype (each dtype
-is its own instantiation of the kernel), ``bag_grad_launches`` the
+is its own instantiation of the kernel) and, under ``tiered``, the
+packed store's one-launch entry; ``bag_grad_launches`` the
 backward's and ``rowgrid_launches`` the two oracles', so a run can show
 which kernels its path went through.
 """
@@ -33,7 +37,8 @@ from repro_torch.kernels import build
 _DTYPE_CODE = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2,
                torch.float16: 3}
 
-launches = {str(dt).removeprefix("torch."): 0 for dt in _DTYPE_CODE}
+launches = {**{str(dt).removeprefix("torch."): 0 for dt in _DTYPE_CODE},
+            "tiered": 0}
 bag_grad_launches = {"float32": 0}
 # runs of more slots than this take bag_grad's block-a-run path
 HEAVY_RUN = 256
@@ -120,6 +125,74 @@ def dequant_bag_cuda(payload: torch.Tensor, scales: torch.Tensor | None,
         raise RuntimeError(f"dequant_bag launch failed: cudaError {rc} "
                            f"(B={b}, K={k}, D={d}, {payload.dtype})")
     launches[str(payload.dtype).removeprefix("torch.")] += 1
+    return out
+
+
+@functools.cache
+def _tiered_launcher():
+    fn = build.load("dequant_bag").dequant_bag_tiered_launch
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn.argtypes = [p, p, p, ll, p, i, p, ll, p, ll, p, i, p, p, ll, i, ll, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def dequant_bag_tiered_cuda(indirect: torch.Tensor, payload8: torch.Tensor,
+                            scale8: torch.Tensor, payload16: torch.Tensor,
+                            scale16: torch.Tensor, payload32: torch.Tensor,
+                            ids: torch.Tensor,
+                            weights: torch.Tensor | None = None
+                            ) -> torch.Tensor:
+    """Launch the tiered entry over a packed store's leaves: indirect (V,)
+    int32 (tier << 28 | local row), payload8 (V8, D) int8 + scale8 (V8,),
+    payload16 (V16, D) bf16 or fp16 + scale16 (V16,), payload32 (V32, D)
+    fp32, ids (B, K) int32 or int64 in [0, V), weights (B, K) fp32 or
+    None (ones) -> (B, D) fp32.  All on one CUDA device and contiguous;
+    raises otherwise."""
+    dev = indirect.device
+    if dev.type != "cuda":
+        raise ValueError(f"dequant_bag_tiered_cuda needs CUDA tensors, got "
+                         f"{dev}")
+    _check("indirect", indirect, torch.int32, 1, dev)
+    _check("payload8", payload8, torch.int8, 2, dev)
+    if payload16.dtype not in (torch.bfloat16, torch.float16):
+        raise TypeError(f"payload16 must be bfloat16 or float16, got "
+                        f"{payload16.dtype}")
+    _check("payload16", payload16, payload16.dtype, 2, dev)
+    _check("payload32", payload32, torch.float32, 2, dev)
+    d = payload32.shape[1]
+    for name, payload, scale in (("8", payload8, scale8),
+                                 ("16", payload16, scale16)):
+        _check(f"scale{name}", scale, torch.float32, 1, dev)
+        if payload.shape[1] != d or scale.shape[0] != payload.shape[0]:
+            raise ValueError(f"payload{name} {tuple(payload.shape)} / "
+                             f"scale{name} {tuple(scale.shape)} do not match "
+                             f"D = {d}")
+    if ids.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"ids must be int32 or int64, got {ids.dtype}")
+    _check("ids", ids, ids.dtype, 2, dev)
+    if weights is not None:
+        _check("weights", weights, torch.float32, 2, dev)
+        if weights.shape != ids.shape:
+            raise ValueError(f"weights {tuple(weights.shape)} != ids "
+                             f"{tuple(ids.shape)}")
+    b, k = ids.shape
+    out = torch.empty((b, d), dtype=torch.float32, device=dev)
+    if b == 0 or d == 0:
+        return out
+    with torch.cuda.device(dev):
+        rc = _tiered_launcher()(
+            indirect.data_ptr(), payload8.data_ptr(), scale8.data_ptr(),
+            payload8.shape[0], payload16.data_ptr(),
+            _DTYPE_CODE[payload16.dtype], scale16.data_ptr(),
+            payload16.shape[0], payload32.data_ptr(), payload32.shape[0],
+            ids.data_ptr(), int(ids.dtype == torch.int64),
+            None if weights is None else weights.data_ptr(), out.data_ptr(),
+            b, k, d, torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"dequant_bag_tiered launch failed: cudaError {rc} "
+                           f"(B={b}, K={k}, D={d})")
+    launches["tiered"] += 1
     return out
 
 

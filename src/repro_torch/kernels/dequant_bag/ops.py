@@ -3,9 +3,12 @@
 Port of ``repro/kernels/dequant_bag/ops.py``.  ``dequant_bag`` takes the
 plain version for CPU tensors and launches the CUDA kernel for CUDA
 tensors (it raises for anything the kernel does not take).
-``packed_bag_lookup`` runs it once per tier with tier-local indices and
-sums the three partial bags in the reference's order; slots of other
-tiers get weight 0, which the kernel skips without reading their rows.
+``packed_bag_lookup`` is the bag over a packed store, with the same
+dispatch: on CUDA one launch of the kernel's tiered entry, on the CPU
+``packed_bag_lookup_tiers``, the reference's composition (one bag per
+tier with tier-local indices, slots of other tiers at weight 0, the
+three partial bags summed in the reference's order), which is the tiered
+entry's plain version and, launched on the card, its yardstick.
 ``packed_lookup_fused`` is the K = 1 serving gather, bit-identical to
 ``packed_store.lookup``.  ``bag_grad`` is the scatter-add backward, with
 the same dispatch; ``plan_slots`` groups its slots once for callers that
@@ -21,7 +24,7 @@ import torch
 from repro_torch.core.packed_store import PackedStore, _split
 from repro_torch.kernels.dequant_bag.kernel import (
     SlotPlan, bag_grad_cuda, bag_grad_rowgrid_cuda, dequant_bag_cuda,
-    dequant_bag_rowgrid_cuda, plan_slots)
+    dequant_bag_rowgrid_cuda, dequant_bag_tiered_cuda, plan_slots)
 from repro_torch.kernels.dequant_bag.ref import (
     bag_grad_coeff, bag_grad_ref, bag_grad_rowgrid_ref, dequant_bag_ref,
     dequant_bag_rowgrid_ref)
@@ -105,12 +108,28 @@ def packed_bag_lookup(packed: PackedStore, indices: torch.Tensor,
                       weights: torch.Tensor | None = None) -> torch.Tensor:
     """Bag-sum lookup over a PackedStore.  indices (B, K) -> (B, D) fp32.
 
-    One ``dequant_bag`` per tier over that tier's payload, with the local
-    indices clamped into it and the other tiers' slots masked by weight
-    0; optional ``weights`` (B, K) multiply per slot.  The partials are
-    summed as ``zeros + int8 + half + fp32``, the reference's order.  The
-    fp32 tier passes no scales (unit scales multiply exactly).
-    """
+    Optional ``weights`` (B, K) multiply per slot.  Dispatch is by the
+    store's device: ``packed_bag_lookup_tiers`` on the CPU, one launch
+    of the tiered kernel on CUDA (bit-identical to it)."""
+    if packed.payload32.device.type == "cpu":
+        return packed_bag_lookup_tiers(packed, indices, weights)
+    if indices.dtype not in (torch.int32, torch.int64):
+        indices = indices.to(torch.int64)
+    return dequant_bag_tiered_cuda(
+        packed.indirect, packed.payload8, packed.scale8, packed.payload16,
+        packed.scale16, packed.payload32, indices.contiguous(),
+        None if weights is None else
+        weights.to(torch.float32).contiguous())
+
+
+def packed_bag_lookup_tiers(packed: PackedStore, indices: torch.Tensor,
+                            weights: torch.Tensor | None = None,
+                            bag=dequant_bag) -> torch.Tensor:
+    """The reference's composition: one ``bag`` (default ``dequant_bag``)
+    per tier over that tier's payload, with the local indices clamped into
+    it and the other tiers' slots masked by weight 0 (0 * w with
+    ``weights``), the partials summed as ``zeros + int8 + half + fp32``.
+    The fp32 tier passes no scales (unit scales multiply exactly)."""
     tier, loc = _split(packed, indices)
     out = torch.zeros((indices.shape[0], packed.dim), dtype=torch.float32,
                       device=packed.payload32.device)
@@ -121,8 +140,7 @@ def packed_bag_lookup(packed: PackedStore, indices: torch.Tensor,
         if weights is not None:
             w = w * weights
         li = loc.clamp(0, payload.shape[0] - 1).to(torch.int32)
-        out = out + dequant_bag(payload, scales, li.contiguous(),
-                                w.contiguous())
+        out = out + bag(payload, scales, li.contiguous(), w.contiguous())
     return out
 
 
@@ -131,7 +149,7 @@ def packed_lookup_fused(packed: PackedStore, indices: torch.Tensor
     """Fused per-index serving gather.  int (...,) -> fp32 (..., D).
 
     The K = 1 case of ``packed_bag_lookup``: each slot's row comes from
-    exactly one tier's launch (the others skip it), so the sum is
+    exactly one tier's chain (the others skip it), so the sum is
     bit-identical to ``packed_store.lookup``.
     """
     out = packed_bag_lookup(packed, indices.reshape(-1, 1))

@@ -42,6 +42,11 @@ def _mix(h: torch.Tensor) -> torch.Tensor:
     return h ^ (h >> 16)
 
 
+def salt(seed: int) -> int:
+    """The hash's per-store salt: ``seed * 0x9E3779B1`` mod 2^32."""
+    return (int(seed) * _GOLD) & _U32
+
+
 def hash_slots(indices: torch.Tensor, *, num_chunks: int, num_hashes: int,
                num_slots: int, seed: int = 0
                ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -54,9 +59,8 @@ def hash_slots(indices: torch.Tensor, *, num_chunks: int, num_hashes: int,
     idx = (indices.to(torch.int64) & _U32)[..., None, None]
     c = torch.arange(num_chunks, dtype=torch.int64, device=dev)[:, None]
     j = torch.arange(num_hashes, dtype=torch.int64, device=dev)[None, :]
-    salt = (int(seed) * _GOLD) & _U32
     key = ((idx * _KNUTH) & _U32) + ((c * _MIX1) & _U32) + (
-        (j * _MIX2) & _U32) + salt
+        (j * _MIX2) & _U32) + salt(seed)
     h = _mix(key & _U32)
     slots = (h % int(num_slots)).to(torch.int32)
     g = _mix((h + _GOLD) & _U32)

@@ -8,7 +8,8 @@ materialised on the fly from a shared ``(S, Z)`` chunk pool,
 with ``num_hashes`` uint32-hash draws per chunk (arXiv:2207.10731), so
 the memory is fixed by the pool size and does not grow with the
 vocabulary: compression is ``V*D / (S*Z)``.  The serving gather is the
-``hashed_gather`` kernel (one launch per lookup); ``quantize_pool`` is
+``hashed_gather`` kernel's ids entry (one launch per lookup, the slot
+plan hashed in registers); ``quantize_pool`` is
 the SHARK-rowwise x hashing combined mode (the pool snapped to int8 with
 per-slot scales by the ``rowwise_quant`` kernel, dividing form, as the
 reference's eager ``quantize_pool`` divides by 127).  The Eq. 7 priority
@@ -18,16 +19,17 @@ the hot-row fp32 cache in front of the hash path.
 ``fit_pool_from_table`` seeds a pool from a dense table by least
 squares.  Materialisation is linear in the pool (A = ``fwd``), so the
 pool solves ``A^T A p = A^T x`` by conjugate gradients from the
-scatter-mean seed.  ``fwd`` is ``hashed_gather`` over every row with
-unit scales (bit-equal to the reference's ``(chunks * signs).sum(-2)``:
-at K = 1 every product is exact); ``adj`` is ``bag_grad`` on the
-(V*C, NH) reshape with the signs as coefficients, which sums each pool
-row's contributions in the reference's ``segment_sum`` (v, c, j) order,
+scatter-mean seed.  ``fwd`` is ``hashed_gather_ids`` over every row id
+with unit scales (the slot plan hashed in registers, not read from
+memory; bit-equal to the reference's ``(chunks * signs).sum(-2)``: at K
+= 1 every product is exact); ``adj`` is ``bag_grad`` on the (V*C, NH)
+plan with the signs as coefficients, which sums each pool row's
+contributions in the reference's ``segment_sum`` (v, c, j) order,
 deterministically (no float atomics); its slots are grouped by pool row
-once a fit (``plan_slots``), not once an ``adj``.  The CG vectors stay fp32, as in
-the reference; its dot products reduce in another order than XLA's, so
-the fitted pool meets the reference's within a tolerance, not bit for
-bit.
+once a fit (``plan_slots``), not once an ``adj``.  The CG vectors stay
+fp32, as in the reference; its dot products reduce in another order
+than XLA's, so the fitted pool meets the reference's within a
+tolerance, not bit for bit.
 
 ``init_hashed`` draws the pool from a ``torch.Generator``: the same
 distribution as the reference's ``jax.random`` draw, not the same
@@ -42,7 +44,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels.dequant_bag.ops import bag_grad, plan_slots
-from repro_torch.kernels.hashed_gather.ops import hashed_gather, slot_plan
+from repro_torch.kernels.hashed_gather.ops import hashed_gather_ids
 from repro_torch.kernels.hashed_gather.ref import hash_slots
 from repro_torch.kernels.rowwise_quant.ops import quantize_rowwise
 
@@ -148,15 +150,15 @@ def fit_pool_from_table(table: torch.Tensor, cfg: HashedConfig,
     ids = torch.arange(v, dtype=torch.int32, device=dev)
     slots, signs = hash_slots(ids, num_chunks=c, num_hashes=nh,
                               num_slots=cfg.num_slots, seed=cfg.seed)
-    plan = slots.reshape(v, c * nh)          # the K = 1 slot plan, (V, C*NH)
-    coeff = signs.reshape(v, c * nh)
     bags, bag_signs = slots.reshape(v * c, nh), signs.reshape(v * c, nh)
     del slots, signs
     # every adj scatters over the same bags: group their slots once
     bag_plan = plan_slots(bags)
+    rows = ids.reshape(v, 1)
 
     def fwd(p):          # A: pool -> materialised table (V, D)
-        return hashed_gather(p, None, plan, coeff, num_chunks=c)
+        return hashed_gather_ids(p, None, rows, num_chunks=c,
+                                 num_hashes=nh, seed=cfg.seed)
 
     def adj(r):          # A^T: table cotangent -> pool scatter (S, Z)
         return bag_grad(r.reshape(v * c, z), None, bags, bag_signs,
@@ -165,7 +167,7 @@ def fit_pool_from_table(table: torch.Tensor, cfg: HashedConfig,
     def vdot(a, b):
         return torch.dot(a.reshape(-1), b.reshape(-1))
 
-    counts = torch.bincount(plan.reshape(-1).to(torch.int64),
+    counts = torch.bincount(bags.reshape(-1).to(torch.int64),
                             minlength=cfg.num_slots).to(torch.float32)
     b = adj(x)
     pool = b / counts.clamp_min(1.0)[:, None]      # scatter-mean seed
@@ -208,13 +210,11 @@ def hashed_bag_lookup(hs: HashedStore, cfg: HashedConfig,
                       indices: torch.Tensor,
                       weights: torch.Tensor | None = None) -> torch.Tensor:
     """Bag-sum lookup: indices (B, K) [+ weights (B, K)] -> (B, D) fp32,
-    materialised by one ``hashed_gather`` (zero weights skip their
+    materialised by one ``hashed_gather_ids`` (zero weights skip their
     slots)."""
-    slots, coeff = slot_plan(indices, weights, num_chunks=cfg.num_chunks,
-                             num_hashes=cfg.num_hashes,
-                             num_slots=cfg.num_slots, seed=cfg.seed)
-    return hashed_gather(hs.pool, hs.pool_scale, slots, coeff,
-                         num_chunks=cfg.num_chunks)
+    return hashed_gather_ids(hs.pool, hs.pool_scale, indices, weights,
+                             num_chunks=cfg.num_chunks,
+                             num_hashes=cfg.num_hashes, seed=cfg.seed)
 
 
 def hashed_lookup(hs: HashedStore, cfg: HashedConfig,

@@ -97,7 +97,7 @@ def test_strict_fp16_store_serves_on_card(dev):
     idx = torch.randint(0, 3000, (512, 26), generator=g, device=dev)
     kernel.reset_launches()
     fused = tps.lookup_fused(packed, idx)
-    assert kernel.launches["float16"] == 1
+    assert kernel.launches["tiered"] == kernel.total_launches() == 1
     assert torch.equal(fused.view(torch.int32),
                        tps.lookup(packed, idx).view(torch.int32))
 
@@ -227,7 +227,8 @@ def test_train_smoke_launches_both_kernels(dev, tmp_path):
 def test_serve_smoke_launches_the_kernel(dev):
     rec = serve.run(serve.parse_args(
         ["--model", "smoke", "--requests", "3", "--batch", "64"])).record
-    assert rec["device"] == "cuda" and rec["kernel_launches"] == 9
+    # one tiered launch a request
+    assert rec["device"] == "cuda" and rec["kernel_launches"] == 3
 
 
 @pytest.mark.parametrize("dtype", ["int8", "bfloat16", "float16",
@@ -540,3 +541,71 @@ def test_rowwise_quant_cases_bit_equal_to_plain(dev, name, mode, stochastic,
     assert rq_kernel.launches["float32"] == 1
     assert torch.equal(q, wq)
     assert _nan_equal(sc, ws)
+
+
+@pytest.mark.parametrize("name", cases.GATHER_CASE_NAMES + (cases.GATHER_BIG,))
+def test_dequant_bag_gather_cases_bit_equal_to_plain(dev, name):
+    """The single-tier kernel on its cases: every dtype at D
+    1/10/32/33/64/128, K 1/8/40, B of 61/37/64, 30% zero weights, a NaN
+    row under zero weights (finite bags), payload views off 16-byte
+    alignment, and an int8 payload over 2.1 GB read past 2^31 bytes."""
+    c = {c.name: c for c in cases.gather_cases(dev)}[name]
+    kernel.reset_launches()
+    got = ops.dequant_bag(c.payload, c.scales, c.indices, c.weights)
+    want = ref.dequant_bag_ref(c.payload, c.scales, c.indices, c.weights)
+    torch.cuda.synchronize()
+    assert kernel.launches[str(c.payload.dtype).removeprefix("torch.")] == 1
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("name", cases.TIERED_CASE_NAMES)
+def test_dequant_bag_tiered_cases_bit_equal_to_composition(dev, name):
+    """The tiered entry in one launch against the per-tier composition,
+    through the plain bag and through three single-tier launches (NaN
+    bags where a weight is not finite), and at K = 1 unweighted against
+    packed_store.lookup."""
+    c = {c.name: c for c in cases.tiered_cases(dev)}[name]
+    packed = tps.PackedStore(*c.leaves)
+    kernel.reset_launches()
+    got = ops.packed_bag_lookup(packed, c.ids, c.weights)
+    torch.cuda.synchronize()
+    assert kernel.launches["tiered"] == kernel.total_launches() == 1
+    plain = ops.packed_bag_lookup_tiers(packed, c.ids, c.weights,
+                                        bag=ref.dequant_bag_ref)
+    composed = ops.packed_bag_lookup_tiers(packed, c.ids, c.weights)
+    torch.cuda.synchronize()
+    assert _nan_equal(got, plain) and _nan_equal(got, composed)
+    if c.weights is not None:
+        bad = ~torch.isfinite(c.weights).all(1)
+        assert bool(torch.isnan(got[bad]).all())
+        assert bool(torch.isfinite(got[~bad]).all())
+    elif c.ids.shape[1] == 1:
+        plain = tps.lookup(packed, c.ids[:, 0])
+        assert torch.equal(got.view(torch.int32), plain.view(torch.int32))
+
+
+@pytest.mark.parametrize("name", cases.HASH_CASE_NAMES)
+def test_hashed_gather_cases_both_entries_bit_equal_to_plain(dev, name):
+    """The plan and ids entries on the hashed cases (Z 4/5/8, T 1/2/6,
+    int8 and fp32 pools, S no power of two, seeds 0 and 7, weighted K = 3
+    with zero weights, int64 ids past 2^32): each bit-equal to the plain
+    gather of the slot plan."""
+    c = {c.name: c for c in cases.hashed_cases(dev)}[name]
+    kw = dict(num_chunks=c.num_chunks, num_hashes=c.num_hashes,
+              seed=c.seed)
+    slots, coeff = hg_ops.slot_plan(c.ids, c.weights,
+                                    num_slots=c.pool.shape[0], **kw)
+    hg_kernel.reset_launches()
+    by_ids = hg_ops.hashed_gather_ids(c.pool, c.scales, c.ids, c.weights,
+                                      **kw)
+    by_plan = hg_ops.hashed_gather(c.pool, c.scales, slots, coeff,
+                                   num_chunks=c.num_chunks)
+    want = hashed_gather_ref(c.pool, c.scales, slots, coeff,
+                             num_chunks=c.num_chunks)
+    torch.cuda.synchronize()
+    dtype = str(c.pool.dtype).removeprefix("torch.")
+    assert hg_kernel.launches[dtype] == hg_kernel.launches["ids_" + dtype] \
+        == 1
+    assert torch.equal(by_ids.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(by_plan.view(torch.int32), want.view(torch.int32))

@@ -23,6 +23,7 @@ from repro.kernels.dequant_bag.kernel import dequant_bag_pallas
 from repro.kernels.dequant_bag.ops import packed_bag_lookup as j_bag_lookup
 from repro_torch.convert import packed_from_jax, to_tensor
 from repro_torch.core import packed_store as tps
+from repro_torch.kernels import cases
 from repro_torch.kernels.dequant_bag import kernel as tkernel
 from repro_torch.kernels.dequant_bag import ops as tops
 from repro_torch.kernels.dequant_bag.ref import fma_f32
@@ -145,3 +146,76 @@ def test_fma_f32_is_the_exact_fp32_fma():
                   torch.from_numpy(c)).numpy()
     want = np.array([_fma_exact(*t) for t in zip(a, b, c)], np.float32)
     np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+def _to_jax(t: torch.Tensor):
+    """A CPU tensor as a jax array of the same dtype (bf16 through its
+    bits)."""
+    if t.dtype == torch.bfloat16:
+        return jnp.asarray(t.view(torch.int16).numpy()).view(jnp.bfloat16)
+    return jnp.asarray(t.numpy())
+
+
+def _nan_bits_equal(want, got) -> None:
+    """Bit for bit, except that a NaN equals any NaN (its payload bits
+    are the arithmetic's)."""
+    w, g = np.asarray(want), got.numpy()
+    np.testing.assert_array_equal(np.isnan(w), np.isnan(g))
+    np.testing.assert_array_equal(bits(np.where(np.isnan(w), 0, w)),
+                                  bits(np.where(np.isnan(g), 0, g)))
+
+
+@pytest.mark.parametrize("name", cases.GATHER_CASE_NAMES)
+def test_plain_bit_equal_to_pallas_on_gather_cases(name):
+    """The kernel's cases (every dtype at D 1/10/32/33/64/128, K 1/8/40,
+    B of 61/37/64, 30% zero weights, a NaN row under zero weights,
+    payload views off 16-byte alignment): the plain version against the
+    reference kernel in interpret mode, bit for bit, and finite."""
+    c = {c.name: c for c in cases.gather_cases("cpu")}[name]
+    scales = (torch.ones(c.payload.shape[0]) if c.scales is None
+              else c.scales)
+    want = dequant_bag_pallas(_to_jax(c.payload), _to_jax(scales),
+                              _to_jax(c.indices), _to_jax(c.weights),
+                              interpret=True)
+    tkernel.reset_launches()
+    got = tops.dequant_bag(c.payload, c.scales, c.indices, c.weights)
+    assert tkernel.total_launches() == 0      # CPU tensors: plain version
+    assert bool(torch.isfinite(got).all())
+    np.testing.assert_array_equal(bits(want), bits(got))
+
+
+@pytest.mark.parametrize("name", cases.TIERED_CASE_NAMES)
+def test_packed_bag_lookup_bit_equal_to_pallas_on_tiered_cases(name):
+    """The tiered entry's cases (int32 and int64 ids, K 1/8/40 with zero
+    weights, fp16 half tiers, D 10 and 33, an empty int8 and an empty
+    fp32 tier, NaN and inf weights): the plain composition against the
+    reference's packed_bag_lookup with its kernel in interpret mode, bit
+    for bit; a non-finite weight makes its bag NaN in every column."""
+    c = {c.name: c for c in cases.tiered_cases("cpu")}[name]
+    packed = tps.PackedStore(*c.leaves)
+    jpacked = jps.PackedStore(*(_to_jax(x) for x in c.leaves))
+    w = c.weights
+    want = j_bag_lookup(jpacked, jnp.asarray(c.ids.numpy()),
+                        None if w is None else _to_jax(w), use_pallas=True,
+                        interpret=True)
+    tkernel.reset_launches()
+    got = tops.packed_bag_lookup(packed, c.ids, w)
+    assert tkernel.total_launches() == 0
+    _nan_bits_equal(want, got)
+    bad = (torch.zeros(c.ids.shape[0], dtype=torch.bool) if w is None
+           else ~torch.isfinite(w).all(1))
+    assert bool(torch.isnan(got[bad]).all())
+    assert bool(torch.isfinite(got[~bad]).all())
+    assert int(bad.sum()) == (3 if name.startswith("nan") else 0)
+    if w is None and c.ids.shape[1] == 1:
+        np.testing.assert_array_equal(bits(got), bits(
+            tps.lookup(packed, c.ids[:, 0])))
+
+
+def test_tiered_wrapper_refuses_cpu_tensors():
+    c = cases.tiered_cases("cpu")[0]
+    tkernel.reset_launches()
+    indirect, leaves = c.leaves[5], c.leaves[:5]
+    with pytest.raises(ValueError, match="CUDA"):
+        tkernel.dequant_bag_tiered_cuda(indirect, *leaves, c.ids)
+    assert tkernel.total_launches() == 0

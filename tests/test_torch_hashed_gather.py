@@ -28,6 +28,7 @@ from repro.kernels.hashed_gather.kernel import hashed_gather_pallas
 from repro.kernels.hashed_gather.ref import hash_slots as j_hash_slots
 from repro.kernels.hashed_gather.ref import hashed_gather_ref as j_ref
 from repro_torch import kernels as tkernels
+from repro_torch.kernels import cases
 from repro_torch.kernels.hashed_gather import autodiff as tad
 from repro_torch.kernels.hashed_gather import kernel as tkernel
 from repro_torch.kernels.hashed_gather import ops as tops
@@ -237,3 +238,47 @@ def test_cuda_wrapper_refuses_cpu_tensors():
         tkernel.hashed_gather_cuda(torch.zeros((4, 8)), None,
                                    torch.zeros((2, 2), dtype=torch.int32),
                                    torch.zeros((2, 2)), num_chunks=1)
+
+
+@pytest.mark.parametrize("name", cases.HASH_CASE_NAMES)
+def test_ids_entry_plain_bit_equal_to_interpret_kernel_on_cases(name):
+    """The hashed cases (Z 4/5/8, T 1/2/6, int8 and fp32 pools of S rows
+    that are no power of two, seeds 0 and 7, weighted K = 3 with zero
+    weights, int64 ids past 2^32): the ids op's plain version and the
+    plan op on the port's slot plan, against the reference's slot plan
+    through its kernel in interpret mode, bit for bit."""
+    c = {c.name: c for c in cases.hashed_cases("cpu")}[name]
+    s = c.pool.shape[0]
+    scales = c.scales if c.scales is not None else torch.ones(s)
+    low = (c.ids.to(torch.int64) & 0xFFFFFFFF).numpy().astype(np.uint32)
+    w = None if c.weights is None else c.weights.numpy()
+    js, jc = jops.slot_plan(jnp.asarray(low),
+                            None if w is None else jnp.asarray(w),
+                            num_chunks=c.num_chunks,
+                            num_hashes=c.num_hashes, num_slots=s,
+                            seed=c.seed)
+    want = hashed_gather_pallas(jnp.asarray(c.pool.numpy()),
+                                jnp.asarray(scales.numpy()), js, jc,
+                                num_chunks=c.num_chunks, interpret=True)
+    tkernels.reset_launches()
+    got = tops.hashed_gather_ids(c.pool, c.scales, c.ids, c.weights,
+                                 num_chunks=c.num_chunks,
+                                 num_hashes=c.num_hashes, seed=c.seed)
+    slots, coeff = tops.slot_plan(c.ids, c.weights, num_chunks=c.num_chunks,
+                                  num_hashes=c.num_hashes, num_slots=s,
+                                  seed=c.seed)
+    plan = tops.hashed_gather(c.pool, c.scales, slots, coeff,
+                              num_chunks=c.num_chunks)
+    assert tkernel.total_launches() == 0       # CPU tensors: plain version
+    np.testing.assert_array_equal(np.asarray(js), slots.numpy())
+    np.testing.assert_array_equal(bits(jc), bits(coeff))
+    np.testing.assert_array_equal(bits(want), bits(got))
+    np.testing.assert_array_equal(bits(want), bits(plan))
+
+
+def test_ids_wrapper_refuses_cpu_tensors():
+    with pytest.raises(ValueError, match="CUDA"):
+        tkernel.hashed_gather_ids_cuda(torch.zeros((4, 8)), None,
+                                       torch.zeros((2, 1),
+                                                   dtype=torch.int64),
+                                       None, num_chunks=1, num_hashes=2)
