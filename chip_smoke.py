@@ -175,24 +175,44 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    for bit to the plain gather on the pipeline's own inputs: the first
    eval batch's 1,703,936 slots through the restored pack (every tier)
    against ``packed_store.lookup``, and every micro-batch that did not
-   re-tier against the plain gather of the pack that served it.  Prints
-   the record, the stage seconds, the peak memory and each checkpoint's
-   bytes and write rate;
+   re-tier against the plain gather of the pack that served it.  The run
+   has ``--metrics-out`` (checked in phase 13).  Prints the record, the
+   stage seconds, the peak memory and each checkpoint's bytes and write
+   rate;
 12. hashed pipeline: the same pipeline with ``--store-backend hashed``
    at the published widths, every field capped at 3,600,000 rows
    (22,184,960 rows, batch 65,536, 40 steps): the fit's hashed_gather
    (ids entry) and bag_grad launches, the ids entry in the eval and the
    serve, the
    eval batch and the micro-batches held bit for bit to
-   ``hashed_gather_ref`` over the restored pool.
+   ``hashed_gather_ref`` over the restored pool;
+13. metrics: (a) phase 8's wide-deep serve again, with ``--metrics-out F
+   --metrics-every 4``: every line of F passes the unchanged
+   ``tools/check_bench_schema.py`` (run as a subprocess), the final
+   snapshot's ``serve.requests``, ``serve.lookups``, ``serve.cache.hits``
+   and ``serve.retier.rows_moved`` and the count of ``serve.retier_us``
+   equal the record's ``requests``, ``lookups``, ``hits``, ``rows_moved``
+   and ``retiers`` (which still equal what they were before), each
+   request's fused logits equal phase 8's bit for bit (the audit hook,
+   outside the timed window), the launches are checked as in phase 8, and
+   p50 / p99 are printed beside phase 8's (metrics off); (b) phase 11's
+   stream: every line valid, ``train.steps`` the steps the train loop
+   ran, one observation in each ``pipeline.<stage>_us``,
+   ``serve.requests`` 96; (c) ``python -m repro_torch.benchmarks.qps
+   --online --serve-batch 1,8,32 --emit F`` through its ``main`` at the
+   reference's defaults (the bench DLRM, 384 single-user requests, 512
+   cache rows, a re-tier every 128, drift 4.0): the record validates,
+   its byte columns are equal across the sweep, and the tiered
+   dequant_bag and quantize_rowwise launched (counts set to 0 just
+   before and read just after).
 
 Prints the card's name and power limit, the serve, train, both online,
 both hashed and both pipeline records, one JSON ``kernels`` line
 (dequant_bag per tier dtype and its tiered entry, bag_grad, bag_matmul
 per arch, cin, hashed_gather and hashed_gather_ids per pool dtype,
 quantize_rowwise, dequant_bag_rowgrid per tier dtype, bag_grad_rowgrid;
-each with its launches on every path; the run fails if a kernel of a
-main path launched no time on it), and
+each with its launches on every path, phase 13's two runs included; the
+run fails if a kernel of a main path launched no time on it), and
 as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Exits non-zero without that line when there is no CUDA device, or when
@@ -266,6 +286,10 @@ PIPELINE_STEPS = 40
 # phase): the fit's slot plan is not chunked yet (ROADMAP Queue 1), so a
 # fit of all 124M rows waits for it
 HASHED_PIPELINE_MAX_IND_RANGE = 3_600_000
+# phase 13: a snapshot line every 4 of wide&deep's 16 requests; the
+# bench_qps/v1 sweep at the reference's serve batches
+METRICS_EVERY = 4
+BENCH_QPS_BATCHES = "1,8,32"
 
 
 T0 = time.monotonic()
@@ -1882,9 +1906,14 @@ class Uncounted:
             c.update(saved)
 
 
-def serve_online(torch, serve, kernels, counters, arch: str) -> tuple:
+def serve_online(torch, serve, kernels, counters, arch: str,
+                 metrics_out: str | None = None,
+                 logits_before: list | None = None) -> tuple:
     """Phase 8: the online fused serve of one arch at full width, with the
-    counts around it and the unfused head as each request's check."""
+    counts around it and the unfused head as each request's check.
+    Returns (served, launches, each request's fused logits on the host).
+    Phase 13 runs it again with ``--metrics-out metrics_out``; each
+    request's logits must then equal ``logits_before`` bit for bit."""
     from repro_torch import configs
     from repro_torch.configs.common import RECSYS_SHAPES
     from repro_torch.core import packed_store as ps
@@ -1895,7 +1924,11 @@ def serve_online(torch, serve, kernels, counters, arch: str) -> tuple:
     argv = ["--arch", arch, "--online", "--fuse-matmul", "--model", "full",
             "--batch", str(batch_size), "--requests", str(REQUESTS),
             "--retier-every", "2", "--cache-rows", "256", "--drift", "4.0"]
+    if metrics_out is not None:
+        argv += ["--metrics-out", metrics_out, "--metrics-every",
+                 str(METRICS_EVERY)]
     worst = {"abs": 0.0, "rel": 0.0}
+    logits = []
 
     def make_audit(server, model, params):
         dev = server.device
@@ -1919,6 +1952,7 @@ def serve_online(torch, serve, kernels, counters, arch: str) -> tuple:
                                      f"{float(diff.max())}")
                 worst["abs"] = max(worst["abs"], float(diff.max()))
                 worst["rel"] = max(worst["rel"], float((diff / lim).max()))
+                logits.append(out.cpu())
             return after
         return audit
 
@@ -1958,11 +1992,17 @@ def serve_online(torch, serve, kernels, counters, arch: str) -> tuple:
     rec["int8_rows_checked"] = check_int8_tier(torch, served.server, arch)
     rec["check_fused_vs_unfused"] = {
         "max_abs_diff": worst["abs"], "max_diff_over_limit": worst["rel"]}
+    if logits_before is not None and (
+            len(logits) != REQUESTS or len(logits_before) != REQUESTS
+            or not all(bits_equal(a, b) for a, b in zip(logits,
+                                                         logits_before))):
+        raise SystemExit(f"{arch}: the fused logits with metrics on differ "
+                         "from the run with metrics off")
     log(f"online {arch}: {REQUESTS} requests, fused logits within "
         f"{worst['abs']:.3g} of the unfused head ({worst['rel']:.3g} of "
         f"the limit), launches {launches}, p50 {rec['p50_us']:.0f} us, "
         f"{rec['retiers']} re-tiers moved {rec['rows_moved']:,} rows")
-    return served, launches
+    return served, launches, logits
 
 
 def check_int8_tier(torch, server, arch: str) -> int:
@@ -2363,6 +2403,199 @@ def pipeline_phase(torch, kernels_mod, kernel, pipeline, argv: list,
     return rec, counts
 
 
+def path_counts(kernels_mod, kernel, hg_kernel) -> dict:
+    """The launches since the last reset, by kernel, with dequant_bag by
+    payload dtype (and its tiered entry) and hashed_gather by entry."""
+    counts = kernels_mod.launch_counts()
+    counts["dequant_bag_by_dtype"] = dict(kernel.launches)
+    counts["hashed_gather_by_entry"] = dict(hg_kernel.launches)
+    return counts
+
+
+def record_path(kernels: list, grad_entry: dict, quant_by_path: dict,
+                rowgrid_by_path: dict, label: str, counts: dict,
+                arch: str | None = None) -> None:
+    """Write one main path's launches (``path_counts``) into the kernels
+    line's entries; ``arch``, when given, is the only arch whose fused
+    head ran on the path."""
+    from repro_torch.kernels.dequant_bag import kernel
+    rowgrid_by_path[label] = {k: counts[k] for k in kernel.rowgrid_launches}
+    for k in kernels:
+        if k["name"].startswith("dequant_bag["):
+            dtype = k["name"][len("dequant_bag["):-1]
+            k["launches_by_path"][label] = counts[
+                "dequant_bag_by_dtype"][dtype]
+        elif k.get("counter") is not None:
+            # hashed_gather's entries by pool dtype
+            k["launches_by_path"][label] = counts[
+                "hashed_gather_by_entry"][k["counter"]]
+        elif k["name"].startswith(("bag_matmul[", "cin[")):
+            kern, k_arch = k["name"][:-1].split("[")
+            k.setdefault("launches_by_path",
+                         {f"online_{k_arch}": k["launches"]})
+            k["launches_by_path"][label] = (
+                counts[kern] if arch in (None, k_arch) else 0)
+    grad_entry["launches_by_path"][label] = counts["bag_grad"]
+    quant_by_path[label] = counts["quantize_rowwise"]
+
+
+def check_stream(path: str) -> list[dict]:
+    """Phase 13: every record of ``path`` (one a line for ``.jsonl``)
+    through the unchanged ``tools/check_bench_schema.py``, run as a
+    subprocess; returns the records."""
+    out = subprocess.run([sys.executable, os.path.join(
+        ROOT, "tools", "check_bench_schema.py"), path], capture_output=True,
+        text=True, timeout=300)
+    if out.returncode != 0:
+        raise SystemExit(f"{path} does not validate:\n{out.stdout}"
+                         f"{out.stderr}")
+    log(out.stdout.strip())
+    with open(path) as fh:
+        text = fh.read()
+    if path.endswith(".jsonl"):
+        return [json.loads(ln) for ln in text.splitlines() if ln.strip()]
+    return [json.loads(text)]
+
+
+def metrics_off() -> None:
+    """Close the metrics sink and turn the registry off and empty, so
+    that the next phase runs with metrics off, as before."""
+    from repro_torch import obs
+    obs.close_sink()
+    obs.disable()
+    obs.get_registry().reset()
+
+
+def hist_summary(h: dict) -> dict:
+    return {k: h[k] for k in ("count", "sum", "min", "p50", "p99", "max")}
+
+
+def metrics_online(torch, serve, kernels_mod, counters, logits_before: list,
+                   rec_off: dict, path: str) -> tuple:
+    """Phase 13 (a): phase 8's wide&deep serve again with ``--metrics-out``;
+    its stream validates, its final snapshot's counters equal the record's
+    (which still equal ``PACKED_BEFORE``: ``serve_online`` checks), and
+    each request's fused logits equal phase 8's bit for bit.  Returns
+    (the record, the run's launches by kernel)."""
+    from repro_torch.kernels.dequant_bag import kernel
+    from repro_torch.kernels.hashed_gather import kernel as hg_kernel
+    try:
+        served, _, _ = serve_online(torch, serve, kernels_mod, counters,
+                                    "wide-deep", metrics_out=path,
+                                    logits_before=logits_before)
+        counts = path_counts(kernels_mod, kernel, hg_kernel)
+    finally:
+        metrics_off()
+    rec = served.record
+    lines = check_stream(path)
+    last = lines[-1]
+    want = {"serve.requests": rec["requests"], "serve.lookups": rec["lookups"],
+            "serve.cache.hits": rec["hits"],
+            "serve.retier.rows_moved": rec["rows_moved"],
+            "serve.retier_us": rec["retiers"]}
+    got = {k: last["counters"].get(k) for k in want}
+    got["serve.retier_us"] = last["histograms"]["serve.retier_us"]["count"]
+    if (got != want or last["ticks"] != REQUESTS
+            or len(lines) != REQUESTS // METRICS_EVERY + 1
+            or last["histograms"]["serve.request_us"]["count"] != REQUESTS):
+        raise SystemExit(f"metrics wide-deep: the snapshot {got} (ticks "
+                         f"{last['ticks']}, {len(lines)} lines) != the "
+                         f"record's {want}")
+    h = last["histograms"]
+    summary = {
+        "arch": "wide-deep", "lines": len(lines), "counters": got,
+        "gauges": last["gauges"],
+        "p50_us": {"metrics_on": rec["p50_us"], "metrics_off":
+                   rec_off["p50_us"]},
+        "p99_us": {"metrics_on": rec["p99_us"], "metrics_off":
+                   rec_off["p99_us"]},
+        "spans": {k: hist_summary(v) for k, v in h.items() if v["count"]},
+        "logits_bit_equal_to_metrics_off": True,
+        "device_name": rec["device_name"]}
+    print(json.dumps({"metrics_online": summary}), flush=True)
+    log(f"metrics wide-deep: {len(lines)} valid snapshot lines, counters "
+        f"{got} equal to the record's, logits bit-equal to phase 8's; p50 "
+        f"{rec['p50_us']:.0f} us (metrics off {rec_off['p50_us']:.0f}), p99 "
+        f"{rec['p99_us']:.0f} us (off {rec_off['p99_us']:.0f})")
+    del served
+    torch.cuda.empty_cache()
+    return rec, counts
+
+
+def check_pipeline_metrics(rec: dict, path: str, requests: int) -> dict:
+    """Phase 13 (b): phase 11's ``--metrics-out`` stream validates; the
+    train loop's steps, one observation of each stage and the served
+    requests are the record's."""
+    lines = check_stream(path)
+    last = lines[-1]
+    h, c = last["histograms"], last["counters"]
+    steps = len(rec["train_losses"])
+    stages = {s: h.get(f"pipeline.{s}_us", {}).get("count")
+              for s in rec["stage_seconds"]}
+    if (c.get("train.steps") != steps or h["train.step_us"]["count"] != steps
+            or set(stages.values()) != {1}
+            or c.get("serve.requests") != requests
+            or rec["serve_requests"] != requests):
+        raise SystemExit(f"pipeline metrics: steps {c.get('train.steps')} / "
+                         f"{steps}, stages {stages}, requests "
+                         f"{c.get('serve.requests')} / {requests}")
+    summary = {"lines": len(lines), "counters": c,
+               "stages": {s: hist_summary(h[f"pipeline.{s}_us"])
+                          for s in rec["stage_seconds"]},
+               "spans": {k: hist_summary(v) for k, v in h.items()
+                         if v["count"] and not k.startswith("pipeline.")},
+               "device_name": rec["device_name"]}
+    print(json.dumps({"metrics_pipeline": summary}), flush=True)
+    stage_s = {k: round(v["sum"] / 1e6, 3)
+               for k, v in summary["stages"].items()}
+    log(f"metrics pipeline: {len(lines)} valid snapshot lines, {steps} train "
+        f"steps, {requests} requests, one observation a stage: {stage_s} s")
+    return summary
+
+
+def bench_qps(torch, kernels_mod, path: str) -> dict:
+    """Phase 13 (c): ``python -m repro_torch.benchmarks.qps --online
+    --serve-batch 1,8,32 --emit path`` through its ``main``, with the
+    counts set to 0 just before and read just after.  The record
+    validates, its byte columns are equal across the sweep, and the
+    tiered dequant_bag and rowwise_quant launched."""
+    from repro_torch.benchmarks import qps
+    from repro_torch.kernels.dequant_bag import kernel
+    from repro_torch.kernels.hashed_gather import kernel as hg_kernel
+    kernels_mod.reset_launches()
+    t0 = time.perf_counter()
+    rec = qps.main(["--online", "--serve-batch", BENCH_QPS_BATCHES,
+                    "--emit", path])
+    wall = time.perf_counter() - t0
+    counts = path_counts(kernels_mod, kernel, hg_kernel)
+    (written,) = check_stream(path)
+    sweep = written["sweep"]
+    byte_cols = {(e["bytes_per_request_fp32"], e["bytes_per_request_packed"])
+                 for e in sweep}
+    if (written != json.loads(json.dumps(rec)) or rec["device"] != "cuda"
+            or [e["serve_batch"] for e in sweep]
+            != [int(x) for x in BENCH_QPS_BATCHES.split(",")]
+            or len(byte_cols) != 1
+            or counts["dequant_bag_by_dtype"]["tiered"] <= 0
+            or counts["quantize_rowwise"] <= 0
+            or counts["dequant_bag"] != counts["dequant_bag_by_dtype"][
+                "tiered"]):
+        raise SystemExit(f"bench_qps: unexpected record or launches: "
+                         f"{byte_cols}, {counts}")
+    summary = {"wall_s": wall, "packed_fp32_ratio": rec["packed_fp32_ratio"],
+               "bytes_per_request": sorted(byte_cols)[0],
+               "sweep": [{k: e[k] for k in (
+                   "serve_batch", "qps", "steady_qps", "p50_us", "p99_us",
+                   "requests", "lookups", "hits", "retiers", "rows_moved")}
+                   for e in sweep],
+               "launches": counts, "device_name": rec["device_name"]}
+    print(json.dumps({"bench_qps": summary}), flush=True)
+    log(f"bench_qps: a valid bench_qps/v1 record in {wall:.1f}s, "
+        f"{[(e['serve_batch'], round(e['p50_us'], 1)) for e in sweep]} "
+        f"(serve batch, p50 us), launches {counts}")
+    return counts
+
+
 def trace(torch, serve, served, requests: int, path: str) -> None:
     """--trace: kernel time by name over served requests (the table goes
     to ``path``) and the device busy share (printed)."""
@@ -2549,10 +2782,11 @@ def main() -> int:
     counters = (kernel.launches, kernel.bag_grad_launches, bm_kernel.launches,
                 cin_kernel.launches, hg_kernel.launches, rq_kernel.launches)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
-    online_dequant = {}
+    online_dequant, online_logits, online_recs = {}, {}, {}
     for arch in ONLINE_ARCHS:
-        served, launches = serve_online(torch, serve, kernels_mod, counters,
-                                        arch)
+        served, launches, online_logits[arch] = serve_online(
+            torch, serve, kernels_mod, counters, arch)
+        online_recs[arch] = served.record
         rowgrid_by_path[f"online_{arch}"] = dict(kernel.rowgrid_launches)
         online_dequant[arch] = dict(kernel.launches)
         quant_by_path[f"online_{arch}"] = launches["quantize_rowwise"]
@@ -2633,38 +2867,45 @@ def main() -> int:
     del table, flush
     torch.cuda.empty_cache()
 
-    # the slice's main path: the SHARK pipeline at full width, then its
-    # hashed branch at the published widths over fewer rows
+    # the slice's main path: the SHARK pipeline at full width (with its
+    # metrics stream, checked in phase 13), then its hashed branch at the
+    # published widths over fewer rows
+    metrics_dir = tempfile.TemporaryDirectory()
+    pipeline_metrics = os.path.join(metrics_dir.name, "pipeline.jsonl")
+    pipeline_recs = {}
     for label, argv in (
             ("pipeline", ["--model", "full", "--max-ind-range",
                           str(MAX_IND_RANGE), "--batch", "65536", "--steps",
-                          str(PIPELINE_STEPS)]),
+                          str(PIPELINE_STEPS), "--metrics-out",
+                          pipeline_metrics]),
             ("pipeline_hashed", ["--model", "full", "--max-ind-range",
                                  str(HASHED_PIPELINE_MAX_IND_RANGE),
                                  "--batch", "65536", "--steps",
                                  str(PIPELINE_STEPS), "--store-backend",
                                  "hashed"])):
-        _, counts = pipeline_phase(torch, kernels_mod, kernel, pipeline, argv,
-                                   label)
+        try:
+            pipeline_recs[label], counts = pipeline_phase(
+                torch, kernels_mod, kernel, pipeline, argv, label)
+        finally:
+            metrics_off()
         torch.cuda.empty_cache()
-        rowgrid_by_path[label] = {k: counts[k] for k in kernel.rowgrid_launches}
-        for k in kernels:
-            if k["name"].startswith("dequant_bag["):
-                dtype = k["name"][len("dequant_bag["):-1]
-                k["launches_by_path"][label] = counts[
-                    "dequant_bag_by_dtype"][dtype]
-            elif k.get("counter") is not None:
-                # hashed_gather's entries by pool dtype (the pipeline's
-                # hashed pool is fp32)
-                k["launches_by_path"][label] = counts[
-                    "hashed_gather_by_entry"][k["counter"]]
-            elif k["name"].startswith(("bag_matmul[", "cin[")):
-                kern, arch = k["name"][:-1].split("[")
-                k.setdefault("launches_by_path",
-                             {f"online_{arch}": k["launches"]})
-                k["launches_by_path"][label] = counts[kern]
-        grad_entry["launches_by_path"][label] = counts["bag_grad"]
-        quant_by_path[label] = counts["quantize_rowwise"]
+        record_path(kernels, grad_entry, quant_by_path, rowgrid_by_path,
+                    label, counts)
+
+    # phase 13: the obs layer and the bench_qps/v1 record on the card
+    _, counts = metrics_online(
+        torch, serve, kernels_mod, counters, online_logits["wide-deep"],
+        online_recs["wide-deep"],
+        os.path.join(metrics_dir.name, "wide_deep.jsonl"))
+    record_path(kernels, grad_entry, quant_by_path, rowgrid_by_path,
+                "metrics_online_wide-deep", counts, arch="wide-deep")
+    check_pipeline_metrics(pipeline_recs["pipeline"], pipeline_metrics,
+                           pipeline.PipelineConfig().serve_requests)
+    counts = bench_qps(torch, kernels_mod,
+                       os.path.join(metrics_dir.name, "bench_qps.json"))
+    record_path(kernels, grad_entry, quant_by_path, rowgrid_by_path,
+                "bench_qps", counts)
+    metrics_dir.cleanup()
     for k in kernels:
         k["launches"] = sum(k["launches_by_path"].values())
     grad_entry["launches"] = sum(grad_entry["launches_by_path"].values())

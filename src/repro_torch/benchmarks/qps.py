@@ -1,0 +1,228 @@
+"""Online serving benchmark: the ``bench_qps/v1`` record on the card.
+
+    python -m repro_torch.benchmarks.qps --online --serve-batch 1,8,32 \\
+        [--emit PATH] [--device cpu]
+    python -m repro_torch.benchmarks.qps --online [--batch 256]
+
+Port of the online half of ``benchmarks/qps.py``.  The bench DLRM
+(``common.make_setup(num_fields=10)``) with a pareto(1.2) x 10 priority
+profile packed at ``ratio`` of the fp32 bytes serves a drifting-zipf
+stream through ``serve.online.OnlineServer``: the hot-row cache, the
+Eq. 7 fold and synchronous delta re-tiers (no training warm-up: the
+online loop re-learns the tiering from traffic).
+
+``--online --serve-batch 1,8,32`` (``run_online_sweep``) serves the same
+single-user stream (seeded per request index) at each micro-batch size
+and gives one ``bench_qps/v1`` record with one sweep entry a size: the
+loop's QPS, steady QPS and histogram percentiles (wall time on the
+device it ran on, each batch ending in ``torch.cuda.synchronize()``),
+its counters, and the bytes per request against the pack-time tiers
+(equal across entries by construction: micro-batching changes wall
+time, never traffic).  ``--emit PATH`` writes it (``write_bench_json``;
+nothing is written without it), and ``python tools/check_bench_schema.py
+PATH`` validates it.  ``--online`` alone (``run_online``) serves
+request-at-a-time batches of ``--batch`` and prints one record.
+
+The record adds ``device`` and ``device_name``.  Not ported yet: the
+offline CPU proxy (``run``, whose metrics are CPU forward times) waits
+with ``train_fquant`` for the table benchmarks (ROADMAP Queue 1 item
+10), and ``--retier-async`` raises as ``OnlineConfig(retier_async=True)``
+does until shadow re-tiers are ported (item 6).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+
+import numpy as np
+import torch
+
+from repro_torch.benchmarks.common import make_setup
+from repro_torch.core import packed_store as ps
+from repro_torch.core.qat_store import (FQuantConfig, QATStore,
+                                        current_tiers, snap)
+from repro_torch.core.tiers import plan_thresholds_for_ratio
+from repro_torch.serve.loop import (serve_forward_loop,
+                                    serve_forward_microbatched,
+                                    stream_bytes_per_request)
+from repro_torch.serve.online import OnlineConfig, OnlineServer
+
+BENCH_SCHEMA = "bench_qps/v1"
+
+
+def _bench_store(ratio: float, *, params: dict | None = None,
+                 device: str | torch.device | None = None):
+    """The online benches' fixture: the bench DLRM with a fabricated
+    pareto priority profile (numpy, seed 0) packed at ``ratio`` of the
+    fp32 bytes.  Returns (setup, spec, params, store, cfg)."""
+    setup = make_setup(num_fields=10, important=5, train_steps=0,
+                       params=params, device=device)
+    spec = setup.model.spec
+    params = setup.params
+    rng = np.random.default_rng(0)
+    pri = torch.from_numpy((rng.pareto(1.2, spec.total_rows) * 10)
+                           .astype(np.float32)).to(setup.device)
+    cfg = FQuantConfig(tiers=plan_thresholds_for_ratio(pri, spec.dim, ratio),
+                       stochastic=False)
+    store = QATStore(params["embed_table"], pri)
+    store = store._replace(table=snap(store.table,
+                                      current_tiers(store, cfg), cfg))
+    return setup, spec, params, store, cfg
+
+
+def _device_keys(device: torch.device) -> dict:
+    return {"device": device.type,
+            "device_name": (torch.cuda.get_device_name(device)
+                            if device.type == "cuda" else "cpu")}
+
+
+def write_bench_json(rec: dict, path: str) -> None:
+    """The one writer of ``bench_qps/v1`` files."""
+    with open(path, "w") as f:
+        json.dump(rec, f, indent=1, sort_keys=True)
+        f.write("\n")
+
+
+def run_online(batch=256, requests=24, cache_rows=512, retier_every=4,
+               drift=4.0, ratio=0.5, retier_async=False, *,
+               params: dict | None = None,
+               device: str | torch.device | None = None) -> dict:
+    """Request-at-a-time online serving under drifting zipf: one record."""
+    setup, spec, params, store, cfg = _bench_store(ratio, params=params,
+                                                   device=device)
+    server = OnlineServer(store, cfg,
+                          OnlineConfig(cache_rows=cache_rows,
+                                       retier_every=retier_every,
+                                       retier_async=retier_async))
+    result = serve_forward_loop(
+        server, setup.model, spec, params, batch=batch, requests=requests,
+        drift=drift, num_dense=setup.ds.cfg.num_dense)
+    fp32 = spec.total_rows * spec.dim * 4
+    rec = {"benchmark": "qps_online", "batch": batch,
+           "requests": requests, "cache_rows": cache_rows,
+           "retier_every": retier_every, "drift": drift,
+           "retier_async": retier_async}
+    rec.update(result.as_dict())
+    rec["packed_fp32_ratio"] = round(server.host_packed.nbytes() / fp32, 4)
+    rec.update(_device_keys(setup.device))
+    return rec
+
+
+def _stream_bytes_per_request(packed: ps.PackedStore, spec, requests: int,
+                              drift: float, a: float, seed: int) -> dict:
+    """Mean bytes per single-user request over the benchmark stream,
+    against the pack-time tiers of ``packed``: the same for every sweep
+    entry (the schema check rejects a record where it is not)."""
+    return stream_bytes_per_request(ps.packed_tiers(packed), spec, requests,
+                                    drift=drift, a=a, seed=seed)
+
+
+def run_online_sweep(serve_batches, requests=384, cache_rows=512,
+                     retier_every=128, drift=4.0, ratio=0.5, a=1.2, seed=0,
+                     retier_async=False, *, params: dict | None = None,
+                     device: str | torch.device | None = None) -> dict:
+    """Micro-batched serving sweep: one ``bench_qps/v1`` record.
+
+    Every ``serve_batch`` serves the same drifting-zipf single-user
+    stream on a fresh server over the same store; ``retier_every``
+    counts requests, so the re-tier cadence is the same too."""
+    setup, spec, params, store, cfg = _bench_store(ratio, params=params,
+                                                   device=device)
+    fp32 = spec.total_rows * spec.dim * 4
+    initial_pack = ps.pack(store, cfg)
+    bytes_rec = _stream_bytes_per_request(initial_pack, spec, requests,
+                                          drift, a, seed)
+    sweep = []
+    for sb in serve_batches:
+        server = OnlineServer(store, cfg,
+                              OnlineConfig(cache_rows=cache_rows,
+                                           retier_every=retier_every,
+                                           retier_async=retier_async))
+        result = serve_forward_microbatched(
+            server, setup.model, spec, params, serve_batch=int(sb),
+            requests=requests, drift=drift, a=a,
+            num_dense=setup.ds.cfg.num_dense, seed=seed)
+        entry = {"serve_batch": int(sb)}
+        entry.update(result.as_dict())
+        entry.update(bytes_rec)
+        sweep.append(entry)
+    rec = {"schema": BENCH_SCHEMA, "benchmark": "qps_online_microbatch",
+           "requests": requests, "cache_rows": cache_rows,
+           "retier_every": retier_every, "drift": drift,
+           "retier_async": retier_async,
+           "packed_fp32_ratio": round(initial_pack.nbytes() / fp32, 4),
+           "sweep": sweep}
+    rec.update(bytes_rec)
+    rec.update(_device_keys(setup.device))
+    return rec
+
+
+def _parse_serve_batches(arg: str) -> list[int]:
+    return [int(x) for x in arg.split(",") if x.strip()]
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(
+        description="Online serving benchmark (bench_qps/v1).",
+        epilog="Not ported yet: the offline CPU proxy (run without "
+               "--online); --retier-async raises (shadow re-tiers).")
+    ap.add_argument("--online", action="store_true",
+                    help="drifting-zipf online-serving loop (required)")
+    ap.add_argument("--batch", type=int, default=256)
+    ap.add_argument("--requests", type=int, default=None,
+                    help="request-batches (default 24), or single-user "
+                         "requests with --serve-batch (default 384)")
+    ap.add_argument("--cache-rows", type=int, default=512)
+    ap.add_argument("--retier-every", type=int, default=None,
+                    help="re-tier cadence in request-batches (default 4), "
+                         "or in single-user requests with --serve-batch "
+                         "(default 128)")
+    ap.add_argument("--drift", type=float, default=4.0)
+    ap.add_argument("--retier-async", action="store_true",
+                    help="shadow re-tiers (not ported yet: raises)")
+    ap.add_argument("--serve-batch", default=None, metavar="N[,N...]",
+                    help="micro-batch sweep: serve the same single-user "
+                         "stream at each size; one bench_qps/v1 record")
+    ap.add_argument("--emit", default=None, metavar="PATH",
+                    help="write the bench_qps/v1 record here "
+                         "(--serve-batch)")
+    ap.add_argument("--device", default=None,
+                    help="torch device; default cuda (raises when absent)")
+    args = ap.parse_args(argv)
+    if not args.online:
+        ap.error("the offline CPU proxy is not ported yet; pass --online")
+    if args.emit and not args.serve_batch:
+        ap.error("--emit requires --serve-batch")
+    return args
+
+
+def main(argv=None) -> dict:
+    """The CLI: prints the record (and writes it with ``--emit``)."""
+    args = parse_args(argv)
+    if args.serve_batch:
+        rec = run_online_sweep(
+            _parse_serve_batches(args.serve_batch),
+            requests=args.requests or 384, cache_rows=args.cache_rows,
+            retier_every=(128 if args.retier_every is None
+                          else args.retier_every),
+            drift=args.drift, retier_async=args.retier_async,
+            device=args.device)
+        if args.emit:
+            write_bench_json(rec, args.emit)
+    else:
+        rec = run_online(
+            batch=args.batch, requests=args.requests or 24,
+            cache_rows=args.cache_rows,
+            retier_every=(4 if args.retier_every is None
+                          else args.retier_every),
+            drift=args.drift, retier_async=args.retier_async,
+            device=args.device)
+    print(json.dumps(rec))
+    if args.emit:
+        print(f"wrote {args.emit}")
+    return rec
+
+
+if __name__ == "__main__":
+    main()

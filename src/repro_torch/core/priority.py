@@ -23,6 +23,10 @@ where its caller runs it:
   each op rounds on its own, ``(1 - beta) * w + beta * target``, which
   ``serve_fold`` computes.  The two differ
   in the last bit for some rows, and tiers are cut from these scores.
+
+Both flush subnormal results to zero, as XLA does: with 1 - beta = 0.01
+a row unseen for ~20 steps decays into the subnormal range, where
+PyTorch (on the CPU and the card) would keep what the reference zeroes.
 """
 
 from __future__ import annotations
@@ -34,6 +38,8 @@ import torch
 from repro_torch.kernels.dequant_bag.ref import fma_f32
 
 _CHUNK = 1 << 24
+# |x| at or below it is a subnormal fp32: hardshrink by it flushes to zero
+_LARGEST_SUBNORMAL = 1.1754942106924411e-38
 
 
 class PriorityConfig(NamedTuple):
@@ -70,14 +76,18 @@ def batch_counts(indices: torch.Tensor, labels: torch.Tensor, vocab: int,
 def priority_update(w: torch.Tensor, c_pos: torch.Tensor,
                     c_neg: torch.Tensor,
                     cfg: PriorityConfig = PriorityConfig()) -> torch.Tensor:
-    """One Eq. 7 step.  w, c_pos, c_neg: (vocab,) fp32 -> new (vocab,)."""
+    """One Eq. 7 step.  w, c_pos, c_neg: (vocab,) fp32 -> new (vocab,).
+
+    Subnormal results are flushed to zero, as the reference's XLA
+    flushes them (see ``serve_fold``)."""
     decay = torch.tensor(1.0 - cfg.beta, dtype=torch.float32,
                          device=w.device)
     out = torch.empty_like(w)
     for r0 in range(0, w.shape[0], _CHUNK):
         sl = slice(r0, r0 + _CHUNK)
         target = cfg.alpha * c_pos[sl] + c_neg[sl]
-        out[sl] = fma_f32(decay, w[sl], cfg.beta * target)
+        out[sl] = torch.nn.functional.hardshrink(
+            fma_f32(decay, w[sl], cfg.beta * target), _LARGEST_SUBNORMAL)
     return out
 
 
@@ -121,8 +131,17 @@ def serve_fold(w: torch.Tensor, indices: torch.Tensor,
 
     With c+ = 0 the target ``alpha * 0 + c`` is the count ``c`` exactly,
     so it is not computed (two passes over (V,) fewer).
+
+    The reference's XLA flushes subnormal results to zero, and with a
+    decay of 1 - beta = 0.01 a row unseen for ~20 folds reaches them; the
+    port's PyTorch keeps them, and the hot cache's top-k then breaks the
+    reference's ties at 0 another way.  So the result is flushed as XLA
+    flushes: where the count is non-zero the subnormal ``decay * w`` is
+    absorbed by ``beta * c >= beta`` anyway, so flushing the sum flushes
+    exactly what the reference flushes.
     """
     c = access_counts(indices, w.shape[0], valid)
     f32 = dict(dtype=torch.float32, device=w.device)
     decay = torch.tensor(1.0 - cfg.beta, **f32)
-    return decay * w + torch.tensor(cfg.beta, **f32) * c
+    return torch.nn.functional.hardshrink(
+        decay * w + torch.tensor(cfg.beta, **f32) * c, _LARGEST_SUBNORMAL)

@@ -54,9 +54,16 @@ chunks; and the serve check compares the two unpacked stores in row
 chunks.  The accumulator check restores only the accumulator's leaves
 of the newest checkpoint.
 
+``--metrics-out PATH`` turns the ``obs`` registry on and writes
+``metrics_snapshot/v1`` JSONL there (one line every ``--metrics-every``
+ticks, default 16: a tick is a train step or a served micro-batch, and
+one final line before the record): the ``pipeline.<stage>_us`` stage
+timeblocks (one observation a stage; the eval's two passes are one),
+the train loop's and the server's metrics, and the serving span catalog
+pre-registered.  ``main`` closes the sink on every exit path.
+
 Not ported yet: ``--mesh N > 1`` (the row-sharded step, ROADMAP Queue 1
-item 7) raises; ``--metrics-out`` waits for the ``obs`` export slice
-(item 5).  The training setup is dlrm-rm2's.
+item 7) raises.  The training setup is dlrm-rm2's.
 """
 
 from __future__ import annotations
@@ -72,7 +79,7 @@ import tempfile
 import numpy as np
 import torch
 
-from repro_torch import configs, kernels, resolve_device, sync
+from repro_torch import configs, kernels, obs, resolve_device, sync
 from repro_torch.ckpt.manager import CheckpointManager, tree_paths
 from repro_torch.core import metrics as metrics_lib
 from repro_torch.core import packed_store as ps
@@ -83,7 +90,7 @@ from repro_torch.core.tiers import (assign_tiers, plan_thresholds_for_ratio,
                                     tier_counts)
 from repro_torch.kernels.dequant_bag.autodiff import lookup_train
 from repro_torch.obs.trace import timeblock
-from repro_torch.serve.loop import serve_forward
+from repro_torch.serve.loop import SERVE_PHASES, serve_forward
 from repro_torch.serve.online import OnlineConfig, OnlineServer
 from repro_torch.store import hashed as H
 from repro_torch.store.api import build as store_build
@@ -364,7 +371,9 @@ def run_pipeline(cfg: PipelineConfig, state: TrainState | None = None,
                 aucs.append(float(metrics_lib.auc(logits, b["labels"])))
         return float(np.mean(losses)), float(np.mean(aucs))
 
-    with timeblock("pipeline.eval") as tb_eval:
+    # the eval stage is two passes, one either side of the pack; its
+    # timeblocks record nothing, the stage is observed once below
+    with timeblock() as tb_eval:
         loss_fp32, auc_fp32 = eval_quality(
             lambda g: table[g.to(torch.int64)])
 
@@ -434,7 +443,7 @@ def run_pipeline(cfg: PipelineConfig, state: TrainState | None = None,
     # served-table quality: the restored store through the serving
     # gather (K = 1: bit-equal to the unpacked rows)
     keep = None if audit is None else {}
-    with timeblock("pipeline.eval") as tb:
+    with timeblock() as tb:
         l0 = kernels.launch_counts()
         if hashed_backend is not None:
             loss_packed, auc_packed = eval_quality(hashed_backend.lookup,
@@ -443,6 +452,7 @@ def run_pipeline(cfg: PipelineConfig, state: TrainState | None = None,
             loss_packed, auc_packed = eval_quality(
                 lambda g: ps.lookup_fused(restored_packed, g), keep)
         launches["eval"] = _launches_since(l0)
+    obs.observe("pipeline.eval_us", (tb_eval.seconds + tb.seconds) * 1e6)
     stage_s["eval"] = round(tb_eval.seconds + tb.seconds, 3)
     if audit is not None:
         audit("eval", restored_packed if hashed_backend is None
@@ -526,8 +536,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(
         description="The SHARK pipeline: train, prune, quantize, pack, "
                     "serve.",
-        epilog="Not ported yet (later slices): --mesh N > 1 (raises), "
-               "--metrics-out (the obs export slice).")
+        epilog="Not ported yet (later slices): --mesh N > 1 (raises).")
     ap.add_argument("--arch", default="dlrm-rm2", choices=("dlrm-rm2",))
     ap.add_argument("--fast", action="store_true",
                     help="CI-sized budgets (see fast_config)")
@@ -562,6 +571,14 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "smoke)")
     ap.add_argument("--device", default=None,
                     help="torch device; default cuda (raises when absent)")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="enable the repro_torch.obs registry and write "
+                         "metrics_snapshot/v1 JSONL here (a line every "
+                         "--metrics-every train steps / served batches + "
+                         "a final snapshot); docs/observability.md")
+    ap.add_argument("--metrics-every", type=int, default=16,
+                    help="snapshot cadence in ticks for --metrics-out (0 = "
+                         "final snapshot only)")
     return ap.parse_args(argv)
 
 
@@ -584,9 +601,22 @@ def config_from_args(args: argparse.Namespace) -> PipelineConfig:
 
 
 def main(argv=None, audit=None) -> dict:
-    """The CLI; ``audit`` as in ``run_pipeline``."""
-    args = parse_args(argv)
+    """The CLI; ``audit`` as in ``run_pipeline``.  The metrics sink is
+    closed on every exit path (a failed verify's last window included)."""
+    try:
+        return _main(parse_args(argv), audit)
+    finally:
+        obs.close_sink()
+
+
+def _main(args: argparse.Namespace, audit) -> dict:
+    if args.metrics_out:
+        obs.enable()
+        obs.ensure_histograms(f"{p}_us" for p in SERVE_PHASES)
+        obs.set_sink(obs.JsonlSink(args.metrics_out,
+                                   every=args.metrics_every))
     rec = run_pipeline(config_from_args(args), audit=audit)
+    obs.flush()
     if args.emit:
         with open(args.emit, "w") as f:
             json.dump(rec, f, indent=1, sort_keys=True)

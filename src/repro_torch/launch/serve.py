@@ -68,6 +68,14 @@ As in the reference, hashed needs ``--online`` and has no fused head
 (``--fuse-matmul`` is refused), and ``--hash-chunk-dim`` must divide the
 embedding dim (xdeepfm's 10 refuses the default 8).
 
+``--metrics-out PATH`` turns the ``obs`` registry on and writes
+``metrics_snapshot/v1`` JSONL there: one line every ``--metrics-every``
+served batches (default 16; 0 = the final line only) and one final
+line before the record, with the reference's serving span catalog
+(``serve.loop.SERVE_PHASES``) pre-registered.  ``main`` closes the sink
+on every exit path, so a failed run still writes its last window.
+``python tools/check_bench_schema.py PATH`` validates the stream.
+
 The last stdout line is the JSON record.
 """
 
@@ -81,7 +89,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from repro_torch import configs, kernels, resolve_device, sync
+from repro_torch import configs, kernels, obs, resolve_device, sync
 from repro_torch.core.packed_store import (PackedStore, build_chunked,
                                            live_counts, lookup_fused,
                                            packed_tiers)
@@ -90,7 +98,8 @@ from repro_torch.core.qat_store import (CHUNK_ROWS, FQuantConfig, QATStore,
 from repro_torch.core.tiers import plan_thresholds_for_ratio
 from repro_torch.kernels.dequant_bag import kernel as dequant_kernel
 from repro_torch.models import embedding as E
-from repro_torch.serve.loop import (serve_forward, serve_forward_loop,
+from repro_torch.serve.loop import (SERVE_PHASES, serve_forward,
+                                    serve_forward_loop,
                                     stream_bytes_per_request)
 from repro_torch.serve.online import OnlineConfig, OnlineServer
 from repro_torch.store import hashed as H
@@ -106,7 +115,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                "hier with --hbm-budget-mb, --host-budget-mb, "
                "--store-dir, --verify-hier; --retier-async, "
                "--shadow-rows, --verify-swap (shadow re-tiers); "
-               "--autotune-cache; --metrics-out, --metrics-every.")
+               "--autotune-cache.")
     ap.add_argument("--arch", default="dlrm-rm2", choices=configs.names())
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--batch", type=int, default=256)
@@ -155,6 +164,14 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="pool element width for --store-backend hashed: "
                          "32 = fp32 pool, 8 = int8 pool + per-slot scales "
                          "(the SHARK-rowwise x hashing combined mode)")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="enable the repro_torch.obs registry and write "
+                         "metrics_snapshot/v1 JSONL here (one line every "
+                         "--metrics-every served batches + a final "
+                         "snapshot); docs/observability.md")
+    ap.add_argument("--metrics-every", type=int, default=16,
+                    help="snapshot cadence in served batches for "
+                         "--metrics-out (0 = final snapshot only)")
     args = ap.parse_args(argv)
     if args.fuse_matmul and not args.online:
         ap.error("--fuse-matmul requires --online")
@@ -184,6 +201,26 @@ def serve_request(model, params: dict, packed: PackedStore,
     gidx = E.globalize(batch["indices"], model.spec)
     emb = lookup_fused(packed, gidx)
     return model.head(params, emb, batch)
+
+
+def time_requests(model, params: dict, packed: PackedStore,
+                  make_request: Callable[[int], dict], requests: int,
+                  device: torch.device, start: int = 0) -> list[float]:
+    """The offline loop: requests ``start .. start + requests - 1``, each
+    timed from its inputs on the device to ``torch.cuda.synchronize()``
+    (the ``serve.request`` timeblock, then one ``obs.tick()``); the wall
+    seconds of each."""
+    lat = []
+    with torch.inference_mode():
+        for r in range(start, start + requests):
+            batch = {k: v.to(device) for k, v in make_request(r).items()}
+            sync(device)
+            with obs.timeblock("serve.request") as tb:
+                serve_request(model, params, packed, batch)
+                sync(device)
+            lat.append(tb.seconds)
+            obs.tick()
+    return lat
 
 
 def request_maker(spec: E.FieldSpec, batch: int, num_dense: int
@@ -248,15 +285,26 @@ def run(args: argparse.Namespace, make_audit: Callable | None = None
         ) -> Served:
     """Serve as ``args`` say.  ``make_audit(server, model, params)``
     (online only) returns the loop's ``audit`` hook (see
-    ``serve.loop.run_loop``)."""
+    ``serve.loop.run_loop``).  With ``--metrics-out`` the registry is
+    on from here and one snapshot is flushed before returning; the
+    caller closes the sink (``obs.close_sink``), as ``main`` does."""
     device = resolve_device(args.device)
+    if args.metrics_out:
+        obs.enable()
+        # the whole phase catalog, so snapshots carry every histogram,
+        # phases this run never exercises included
+        obs.ensure_histograms(f"{p}_us" for p in SERVE_PHASES)
+        obs.set_sink(obs.JsonlSink(args.metrics_out,
+                                   every=args.metrics_every))
     arch = configs.get(args.arch)
     full = args.model == "full"
     model = arch.model if full else arch.smoke_model
     num_dense = arch.num_dense if full else arch.smoke_num_dense
     spec = model.spec
     if args.online:
-        return run_online(args, device, model, num_dense, make_audit)
+        served = run_online(args, device, model, num_dense, make_audit)
+        obs.flush()
+        return served
 
     t0 = time.perf_counter()
     launches0 = kernels.launch_counts()
@@ -274,15 +322,8 @@ def run(args: argparse.Namespace, make_audit: Callable | None = None
 
     make_request = request_maker(spec, args.batch, num_dense)
     launches0 = dequant_kernel.total_launches()
-    lat = []
-    with torch.inference_mode():
-        for r in range(args.requests):
-            batch = {k: v.to(device) for k, v in make_request(r).items()}
-            sync(device)
-            t = time.perf_counter()
-            serve_request(model, params, packed, batch)
-            sync(device)
-            lat.append(time.perf_counter() - t)
+    lat = time_requests(model, params, packed, make_request, args.requests,
+                        device)
     lat_us = np.asarray(lat[1:] if len(lat) > 1 else lat) * 1e6
     p50 = float(np.percentile(lat_us, 50))
     p99 = float(np.percentile(lat_us, 99))
@@ -300,6 +341,7 @@ def run(args: argparse.Namespace, make_audit: Callable | None = None
               "tier_rows": live_counts(packed),
               "thresholds": list(cfg.tiers), "build_s": build_s,
               "build_kernel_launches": build_launches}
+    obs.flush()
     return Served(record, model, params, packed, make_request)
 
 
@@ -416,8 +458,13 @@ def run_online(args: argparse.Namespace, device: torch.device, model,
 
 
 def main(argv=None) -> None:
-    served = run(parse_args(argv))
-    print(json.dumps(served.record))
+    """The CLI; the metrics sink is closed on every exit path (its last
+    partial window is what a failed run needs)."""
+    try:
+        served = run(parse_args(argv))
+        print(json.dumps(served.record))
+    finally:
+        obs.close_sink()
 
 
 if __name__ == "__main__":

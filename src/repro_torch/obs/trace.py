@@ -12,11 +12,17 @@ device work drains inside the clock:
         tb.sync(out)
     lat_seconds = tb.seconds
 
-``span(name)`` times a stage and tracks the nesting path
-(``Span.path`` is ``"parent/child"``, a thread-local stack, popped even
-when the body raises).  The reference records both into its metrics
-registry as ``<name>_us``; the port has no registry yet (ROADMAP Queue 1
-item 5, the ``obs`` export slice), so here they only measure.
+Only the registry recording of ``timeblock`` is gated: with metrics
+enabled it records ``<name>_us`` into the current registry
+(``registry.get_registry``).
+
+``span(name)`` times a stage into histogram ``<name>_us`` and tracks the
+nesting path (``Span.path`` is ``"parent/child"``, a thread-local stack,
+popped and recorded even when the body raises).  While the registry is
+disabled, ``span`` returns a shared no-op singleton: one flag check, no
+allocation, no clock and no sync (its ``sync`` returns the value
+untouched), so an instrumented request path costs nothing until a
+driver turns metrics on.
 """
 
 from __future__ import annotations
@@ -25,6 +31,8 @@ import threading
 import time
 
 import torch
+
+from repro_torch.obs import registry as _reg
 
 _tls = threading.local()
 
@@ -59,7 +67,7 @@ def _sync(value):
 
 
 class Span:
-    """Timed, nested stage: ``seconds`` and ``path`` after exit."""
+    """Timed stage: records ``<name>_us`` on exit (even on exception)."""
 
     __slots__ = ("name", "path", "seconds", "_t0")
 
@@ -83,10 +91,38 @@ class Span:
         s = _stack()
         if s and s[-1] == self.name:
             s.pop()
+        reg = _reg.get_registry()
+        if reg.enabled:
+            reg.observe(self.name + "_us", self.seconds * 1e6)
         return False
 
 
-def span(name: str) -> Span:
+class _NullSpan:
+    """Disabled-mode singleton: no clock, no stack, no recording."""
+
+    __slots__ = ()
+    name = path = ""
+    seconds = 0.0
+
+    def __enter__(self):
+        return self
+
+    @staticmethod
+    def sync(value):
+        return value
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        return False
+
+
+_NULL_SPAN = _NullSpan()
+
+
+def span(name: str):
+    """Context manager timing one stage into histogram ``<name>_us``;
+    the shared no-op ``_NULL_SPAN`` while the registry is disabled."""
+    if not _reg.get_registry().enabled:
+        return _NULL_SPAN
     return Span(name)
 
 
@@ -96,7 +132,8 @@ def current_path() -> str:
 
 
 class Timeblock:
-    """Always-on wall clock: ``seconds`` after exit."""
+    """Always-on wall clock (``seconds`` after exit); registry recording
+    of ``<name>_us`` only when metrics are enabled."""
 
     __slots__ = ("name", "seconds", "_t0")
 
@@ -113,6 +150,10 @@ class Timeblock:
 
     def __exit__(self, exc_type, exc, tb) -> bool:
         self.seconds = time.perf_counter() - self._t0
+        if self.name is not None:
+            reg = _reg.get_registry()
+            if reg.enabled:
+                reg.observe(self.name + "_us", self.seconds * 1e6)
         return False
 
     # for regions that do not nest as a ``with`` block (pipeline stages

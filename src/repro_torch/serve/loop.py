@@ -23,22 +23,41 @@ on the device, the forward, the fold and any re-tier, and ends after
 ``torch.cuda.synchronize()`` on the card (``obs.timeblock``'s
 ``sync``).  Percentiles come from the streaming
 ``obs.registry.Histogram``, as in the reference.
+
+Metrics (``obs``, on with ``--metrics-out``): each request's window is
+the ``serve.request`` timeblock, followed by one ``obs.tick()``; inside
+it the ``serve_fn`` closures time ``serve.synth`` (the batch on the
+device), ``serve.lookup`` (the forward, drained by the span's ``sync``)
+and ``serve.combine`` (``server.observe``: the fold and any re-tier).
+With metrics off those spans are the shared no-op span: no clock and no
+sync, so the request path is what it was (its one sync is the hit
+count's readback, or the window's end).  ``SERVE_PHASES`` is the
+reference's span catalog, which the drivers pre-register.
 """
 
 from __future__ import annotations
 
-import time
 from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
-from repro_torch import sync
+from repro_torch import obs, sync
 from repro_torch.models import embedding as E
 from repro_torch.obs.registry import Histogram
-from repro_torch.obs.trace import timeblock
 from repro_torch.serve.cache import cached_lookup
 from repro_torch.serve.online import OnlineServer
+
+# the serving span taxonomy (docs/observability.md), pre-registered by the
+# drivers when metrics are on, so every snapshot carries the whole
+# per-phase histogram catalog, phases that never fire included (the
+# shadow, stage and migrate phases come with later slices)
+SERVE_PHASES = ("serve.request", "serve.synth", "serve.stage",
+                "serve.lookup", "serve.combine", "serve.retier",
+                "serve.shadow.plan", "serve.shadow.chunk",
+                "serve.shadow.build", "serve.shadow.stage",
+                "serve.shadow.verify", "serve.shadow.warmup",
+                "serve.shadow.swap", "store.stage", "store.migrate")
 
 
 class LoopResult(NamedTuple):
@@ -126,12 +145,13 @@ def run_loop(server: OnlineServer, serve_fn: Callable[[np.ndarray], object],
         n_retiers = server.stats.retiers
         r0 = server.stats.retier_seconds
         sync(device)
-        t0 = time.perf_counter()
-        out = serve_fn(idx)
-        sync(device)
-        lat.append(time.perf_counter() - t0)
+        with obs.timeblock("serve.request") as tb:
+            out = serve_fn(idx)
+            sync(device)
+        lat.append(tb.seconds)
         retiered.append(server.stats.retiers > n_retiers)
         retier_s.append(server.stats.retier_seconds - r0)
+        obs.tick()
         if after is not None:
             after(out)
     lat_arr = np.asarray(lat)
@@ -224,11 +244,15 @@ def serve_forward_loop(server: OnlineServer, model, spec, params, *,
     def serve_fn(idx: np.ndarray):
         r = counter["r"]
         counter["r"] += 1
-        b = request_batch(idx, r, num_dense, device)
+        with obs.span("serve.synth"):
+            b = request_batch(idx, r, num_dense, device)
         with torch.inference_mode():
-            out, hits, gidx, served["emb"] = fwd(server.packed,
-                                                 server.cache, params, b)
-            server.observe(gidx, int(hits))
+            with obs.span("serve.lookup") as sp:
+                out, hits, gidx, served["emb"] = fwd(server.packed,
+                                                     server.cache, params, b)
+                sp.sync(out)
+            with obs.span("serve.combine"):
+                server.observe(gidx, int(hits))
         return out
 
     def audit_emb(r: int, idx: np.ndarray):
@@ -317,12 +341,13 @@ def run_microbatched_loop(server: OnlineServer,
         n_retiers = server.stats.retiers
         r0 = server.stats.retier_seconds
         sync(server.device)
-        with timeblock("serve.request") as tb:
+        with obs.timeblock("serve.request") as tb:
             tb.sync(serve_fn(mb))
         lat.append(tb.seconds)
         counts.append(mb.count)
         retiered.append(server.stats.retiers > n_retiers)
         retier_s.append(server.stats.retier_seconds - r0)
+        obs.tick()
         if after is not None:
             after(retiered[-1])
 
@@ -385,19 +410,23 @@ def serve_forward_microbatched(server: OnlineServer, model, spec, params, *,
     def serve_fn(mb: MicroBatch):
         r = counter["b"]
         counter["b"] += 1
-        b = request_batch(mb.indices, r, num_dense, device,
-                          dense_seed=20_000)
-        # one upload of the batcher's mask serves the hit count and the
-        # fold; the lookups are counted on the host
-        valid = torch.from_numpy(mb.valid).to(device)[:, None]
+        with obs.span("serve.synth"):
+            b = request_batch(mb.indices, r, num_dense, device,
+                              dense_seed=20_000)
+            # one upload of the batcher's mask serves the hit count and
+            # the fold; the lookups are counted on the host
+            valid = torch.from_numpy(mb.valid).to(device)[:, None]
         with torch.inference_mode():
-            packed = server.packed
-            out, hits, gidx, emb = fwd(packed, server.cache, params, b,
-                                       valid)
+            with obs.span("serve.lookup") as sp:
+                packed = server.packed
+                out, hits, gidx, emb = fwd(packed, server.cache, params, b,
+                                           valid)
+                sp.sync(out)
             if audit is not None:
                 served.update(packed=packed, gidx=gidx, emb=emb)
-            server.observe(gidx, int(hits), valid=valid, count=mb.count,
-                           lookups=int(mb.valid.sum()) * gidx.shape[1])
+            with obs.span("serve.combine"):
+                server.observe(gidx, int(hits), valid=valid, count=mb.count,
+                               lookups=int(mb.valid.sum()) * gidx.shape[1])
         return out
 
     def after(retiered: bool) -> None:

@@ -12,11 +12,22 @@ Port of ``repro/serve/online.py`` with synchronous re-tiers.
   * ``ServeStats`` counters (requests / lookups / hits / retiers /
     rows_moved).
 
-Per request the serving loop runs its forward over ``server.packed`` /
-``server.cache`` (cache-first: ``serve.cache.cached_lookup``) and then
-calls ``server.observe(indices, hits)``, which folds the served rows into
-the Eq. 7 EMA (the eager form, as the reference's un-jitted fold
-computes it) and re-tiers synchronously every ``retier_every`` requests.
+Per request a caller either calls ``server.lookup(indices)`` (the eager
+cache-first gather, then the fold) or, as the serving loop does, runs
+its forward over ``server.packed`` / ``server.cache`` (cache-first:
+``serve.cache.cached_lookup``) and then calls ``server.observe(indices,
+hits)``, which folds the served rows into the Eq. 7 EMA (the eager form,
+as the reference's un-jitted fold computes it) and re-tiers
+synchronously every ``retier_every`` requests.
+
+With metrics on (``obs.enable()``, ``--metrics-out``) the server records
+the reference's metrics: the ``serve.requests``, ``serve.lookups``,
+``serve.cache.hits`` and ``serve.retier.rows_moved`` counters, the
+``serve.cache.hit_rate`` gauge, the ``serve.retier_us`` histogram, and
+after every cache (re)build the occupancy gauges (``serve.cache.rows``
+and the backend's ``store.*``).  With metrics off they cost one flag
+check each.
+
 Shadow re-tiers (``retier_async``) and the hierarchical store (``hier=``)
 raise ``NotImplementedError``: they come with later slices (ROADMAP
 Queue 1 items 6 and 8).
@@ -25,14 +36,14 @@ Queue 1 items 6 and 8).
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from repro_torch import sync
+from repro_torch import obs, sync
 from repro_torch.core.priority import PriorityConfig
+from repro_torch.serve.cache import cached_lookup
 from repro_torch.store.api import build
 
 
@@ -128,8 +139,42 @@ class OnlineServer:
 
     def _rebuild_cache(self) -> None:
         self.cache = self.backend.build_cache(self.online.cache_rows)
+        if obs.enabled():
+            self._export_gauges()
+
+    def _export_gauges(self) -> None:
+        """Occupancy gauges of the current store (the backend names its
+        own set), refreshed after every cache (re)build."""
+        obs.gauge("serve.cache.rows", float(self.cache.capacity))
+        for name, value in self.backend.occupancy().items():
+            obs.gauge(name, value)
 
     # -- request path --------------------------------------------------
+
+    def lookup(self, indices: torch.Tensor, *,
+               valid: np.ndarray | None = None,
+               count: int | None = None) -> torch.Tensor:
+        """Eager cache-first gather, then the fold: int (...,) -> fp32
+        (..., D) through the backend's gather, bit-identical to it for
+        any cache.
+
+        ``valid`` (bool numpy, broadcastable to ``indices``) keeps padded
+        micro-batch slots out of the hit and lookup counts and out of the
+        priority fold; ``count`` is the number of live requests in the
+        batch (default 1)."""
+        count = 1 if count is None else count
+        vmask = n_lookups = None
+        if valid is not None:
+            vnp = np.broadcast_to(np.asarray(valid, bool),
+                                  tuple(indices.shape))
+            n_lookups = int(vnp.sum())
+            vmask = torch.from_numpy(np.ascontiguousarray(vnp)).to(
+                indices.device)
+        rows, hits = cached_lookup(self.packed, self.cache, indices,
+                                   self.lookup_fn(), valid=vmask)
+        self.observe(indices, int(hits), valid=vmask, count=count,
+                     lookups=n_lookups)
+        return rows
 
     def observe(self, indices: torch.Tensor, hits: int | None = None, *,
                 valid: np.ndarray | torch.Tensor | None = None,
@@ -171,6 +216,12 @@ class OnlineServer:
         self.stats.lookups += n_lookups
         if hits is not None:
             self.stats.hits += int(hits)
+        if obs.enabled():
+            obs.inc("serve.requests", count)
+            obs.inc("serve.lookups", n_lookups)
+            if hits is not None:
+                obs.inc("serve.cache.hits", int(hits))
+            obs.gauge("serve.cache.hit_rate", self.stats.hit_rate)
         pcfg = self.online.priority or self._default_priority_cfg()
         self.backend.fold_priority(indices, pcfg, valid=vmask)
         re = self.online.retier_every
@@ -189,12 +240,16 @@ class OnlineServer:
     def retier(self) -> bool:
         """Delta-repack the tier-crossing rows and rebuild the hot cache.
         Wall time (to the device's end of it) accumulates into
-        ``stats.retier_seconds``.  Returns True if anything moved."""
-        t0 = time.perf_counter()
-        res = self.backend.retier()
-        self.stats.retiers += 1
-        self.stats.rows_moved += int(res["rows_moved"])
-        self._rebuild_cache()
-        sync(self.device)
-        self.stats.retier_seconds += time.perf_counter() - t0
+        ``stats.retier_seconds`` (always: the loops attribute tail latency
+        from it) and into the ``serve.retier_us`` histogram when metrics
+        are on.  Returns True if anything moved."""
+        with obs.timeblock("serve.retier") as tb:
+            res = self.backend.retier()
+            self.stats.retiers += 1
+            if res["rows_moved"]:
+                self.stats.rows_moved += int(res["rows_moved"])
+                obs.inc("serve.retier.rows_moved", int(res["rows_moved"]))
+            self._rebuild_cache()
+            sync(self.device)
+        self.stats.retier_seconds += tb.seconds
         return bool(res["changed"])

@@ -5,10 +5,13 @@ backends, on one device (``mesh=None``).  Both answer the surface the
 online server and its loop dispatch on, so the request path has no
 backend branches:
 
-  identity     kind, device, vocab, dim, nbytes()
+  identity     kind, device, vocab, dim, nbytes(), live_counts();
+               the packed backend's priority
+  lookups      lookup(idx), bag_lookup(idx, w): eager, uncached
   serving      packed (the store the forward reads), lookup_fn(),
                bag_matmul_fn(), build_cache(k), needs_staging (False:
-               both are fully resident), gather_fp32_host(ids)
+               both are fully resident), gather_fp32_host(ids),
+               occupancy() (the ``store.*`` gauges, reference names)
   adaptation   fold_priority(idx, pcfg) (the eager Eq. 7 fold,
                ``priority.serve_fold``, as the reference's un-jitted
                ``serve_update`` computes it), retier()
@@ -45,6 +48,7 @@ from repro_torch.core import packed_store as ps
 from repro_torch.core.priority import PriorityConfig, serve_fold
 from repro_torch.core.qat_store import FQuantConfig, QATStore, current_tiers
 from repro_torch.core.tiers import tier_crossings
+from repro_torch.kernels.dequant_bag.ops import packed_bag_lookup
 from repro_torch.serve import cache as C
 from repro_torch.store import hashed as H
 
@@ -81,8 +85,33 @@ class PackedBackend:
         device pack the forward reads."""
         return self.packed
 
+    @property
+    def vocab(self) -> int:
+        return int(self.packed.vocab)
+
+    @property
+    def dim(self) -> int:
+        return int(self.packed.dim)
+
+    @property
+    def priority(self) -> torch.Tensor:
+        return self.store.priority
+
     def nbytes(self) -> int:
         return int(self.packed.nbytes())
+
+    def live_counts(self) -> dict:
+        """Rows a tier (reads the tier vector back to the host)."""
+        counts = ps.live_counts(self.packed)
+        return {"int8": int(counts[0]), "half": int(counts[1]),
+                "fp32": int(counts[2])}
+
+    def occupancy(self) -> dict:
+        """The occupancy gauges of the flat store."""
+        out = {"store.packed_bytes": float(self.packed.nbytes())}
+        for name, n in self.live_counts().items():
+            out[f"store.tier_rows_{name}"] = float(n)
+        return out
 
     # -- serving surface -----------------------------------------------
 
@@ -100,6 +129,15 @@ class PackedBackend:
     def build_cache(self, cache_rows: int) -> C.HotRowCache:
         return C.build_cache(self.packed, self.store.priority, cache_rows,
                              self.lookup_fn())
+
+    # -- lookups (eager) -----------------------------------------------
+
+    def lookup(self, indices: torch.Tensor) -> torch.Tensor:
+        return ps.lookup_fused(self.packed, indices)
+
+    def bag_lookup(self, indices: torch.Tensor,
+                   weights: torch.Tensor | None = None) -> torch.Tensor:
+        return packed_bag_lookup(self.packed, indices, weights)
 
     # -- adaptation ----------------------------------------------------
 
@@ -189,6 +227,15 @@ class HashedBackend:
 
     def nbytes(self) -> int:
         return int(self.hs.nbytes())
+
+    def live_counts(self) -> dict:
+        return {"pool_slots": int(self.hs.num_slots),
+                "virtual_rows": int(self.hcfg.vocab)}
+
+    def occupancy(self) -> dict:
+        """The occupancy gauges of the pool."""
+        return {"store.pool_bytes": float(self.hs.nbytes()),
+                "store.pool_slots": float(self.hs.num_slots)}
 
     # -- serving surface -----------------------------------------------
 

@@ -15,9 +15,12 @@ Port of ``repro/train/loop.py``:
     ``max_consecutive_nans`` in a row abort.
 
 A step is timed from its call to ``torch.cuda.synchronize()`` on the
-card (the loss readback alone would leave its tail kernels out).  The
-reference's ``obs`` spans and counters are left out until the port has
-``obs`` (ROADMAP Queue 1).
+card (the loss readback alone would leave its tail kernels out), as the
+``train.step`` timeblock.  With metrics on (``obs``) the loop records
+the reference's metrics: ``train.step_us``, the ``train.steps`` and
+``train.stragglers`` counters, the ``train.loss`` gauge, one
+``obs.tick()`` a step, and the ``train.ckpt_save`` / ``train.ckpt_drain``
+spans.
 """
 
 from __future__ import annotations
@@ -25,12 +28,12 @@ from __future__ import annotations
 import dataclasses
 import os
 import tempfile
-import time
 from typing import Callable
 
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.ckpt.manager import CheckpointManager
 from repro_torch.train.steps import TrainState
 
@@ -86,11 +89,11 @@ def run(state: TrainState, step_fn: Callable, batch_fn: Callable,
     for step in range(start, cfg.total_steps):
         batch = batch_fn(step)
         sync()
-        t0 = time.perf_counter()
-        new_state, metrics = step_fn(state, batch)
-        loss = float(metrics["loss"])
-        sync()
-        dt = time.perf_counter() - t0
+        with obs.timeblock("train.step") as tb:
+            new_state, metrics = step_fn(state, batch)
+            loss = float(metrics["loss"])
+            sync()
+        dt = tb.seconds
 
         if np.isfinite(loss):
             state = new_state
@@ -110,18 +113,27 @@ def run(state: TrainState, step_fn: Callable, batch_fn: Callable,
         med = float(np.median(durations))
         if len(durations) >= 5 and dt > cfg.straggler_factor * med:
             stragglers += 1
+            if obs.enabled():
+                obs.inc("train.stragglers")
 
         losses.append(loss)
+        if obs.enabled():
+            obs.inc("train.steps")
+            obs.gauge("train.loss", loss)
+        obs.tick()
         if metrics_cb and step % cfg.log_every == 0:
             metrics_cb(step, metrics)
         if (step + 1) % cfg.ckpt_every == 0:
-            mgr.save(step + 1, state, blocking=not cfg.async_ckpt)
+            with obs.span("train.ckpt_save"):
+                mgr.save(step + 1, state, blocking=not cfg.async_ckpt)
 
     # drain an in-flight async save before deciding whether the final
     # step is already on disk (latest_step sees only published manifests)
-    mgr.wait()
+    with obs.span("train.ckpt_drain"):
+        mgr.wait()
     if mgr.latest_step() != cfg.total_steps:
-        mgr.save(cfg.total_steps, state, blocking=True)
+        with obs.span("train.ckpt_save"):
+            mgr.save(cfg.total_steps, state, blocking=True)
     return LoopResult(state=state, steps_run=cfg.total_steps - start,
                       resumed_from=resumed_from, losses=losses,
                       stragglers=stragglers, nan_skips=nan_skips,

@@ -609,3 +609,106 @@ def test_hashed_gather_cases_both_entries_bit_equal_to_plain(dev, name):
         == 1
     assert torch.equal(by_ids.view(torch.int32), want.view(torch.int32))
     assert torch.equal(by_plan.view(torch.int32), want.view(torch.int32))
+
+
+# -- metrics on the card: served values do not depend on them ---------------
+
+def _metrics_reset():
+    from repro_torch import obs
+    obs.close_sink()
+    obs.disable()
+    obs.get_registry().reset()
+
+
+def test_online_lookup_bit_identical_with_metrics_on_card(dev):
+    from repro_torch import obs
+    from repro_torch.serve.online import OnlineConfig, OnlineServer
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    table = torch.randn((4000, 32), generator=g, device=dev) * 0.05
+    pri = torch.rand(4000, generator=g, device=dev) * 100
+    cfg = tqs.FQuantConfig(tiers=TierConfig(20.0, 60.0), stochastic=False)
+    store = tqs.QATStore(table, pri)
+    store = store._replace(table=tqs.snap(
+        table, tqs.current_tiers(store, cfg), cfg))
+    idx = torch.randint(0, 4000, (64, 8), generator=g, device=dev)
+    valid = (torch.arange(64) < 50).numpy()[:, None]
+
+    def serve_once():
+        srv = OnlineServer(store, cfg, OnlineConfig(cache_rows=128,
+                                                    retier_every=2))
+        out = torch.stack([srv.lookup(idx, valid=valid, count=50)
+                           for _ in range(4)])
+        return out, srv.stats
+
+    try:
+        off, stats_off = serve_once()
+        assert not obs.get_registry().counters
+        obs.enable()
+        on, stats_on = serve_once()
+        reg = obs.get_registry()
+        assert torch.equal(on.view(torch.int32), off.view(torch.int32))
+        assert stats_on.as_dict() == stats_off.as_dict()
+        assert reg.counters["serve.requests"] == 200
+        assert reg.counters["serve.lookups"] == stats_on.lookups == 4 * 400
+        assert reg.counters["serve.cache.hits"] == stats_on.hits
+        assert reg.histograms["serve.retier_us"].count == stats_on.retiers
+        assert reg.gauges["store.packed_bytes"] > 0
+    finally:
+        _metrics_reset()
+
+
+@pytest.mark.parametrize("serve_batch", [0, 8])
+def test_online_serve_bit_identical_with_metrics_on_card(dev, tmp_path,
+                                                         serve_batch):
+    """Request-at-a-time through the fused head (each request's logits),
+    and micro-batched through the unfused one (each batch's served
+    embeddings): the same bits with metrics on and off."""
+    from repro_torch import obs
+    from repro_torch.serve import loop
+    from repro_torch.serve.online import OnlineConfig, OnlineServer
+    model = configs.get("wide-deep").smoke_model
+    spec = model.spec
+    params, store, cfg = serve.online_store(model, spec, dev)
+
+    def serve_once():
+        # micro-batches that re-tier are not audited: one in three here
+        server = OnlineServer(store, cfg, OnlineConfig(
+            cache_rows=64, retier_every=16 if serve_batch else 2))
+        outs = []
+        if serve_batch:
+            res = loop.serve_forward(
+                server, model, spec, params, serve_batch=serve_batch,
+                requests=24, audit=lambda packed, gidx, emb: outs.append(
+                    emb.clone()))
+        else:
+            res = loop.serve_forward_loop(
+                server, model, spec, params, batch=64, requests=6,
+                fuse_matmul=True,
+                audit=lambda r, idx: lambda out, emb: outs.append(
+                    out.clone()))
+        return outs, res.stats, server
+
+    try:
+        off, stats_off, srv_off = serve_once()
+        obs.enable()
+        path = tmp_path / "m.jsonl"
+        obs.set_sink(obs.JsonlSink(str(path), every=2))
+        on, stats_on, srv_on = serve_once()
+        obs.flush()
+        snap = obs.snapshot()
+        assert len(on) == len(off) > 0
+        for a, b in zip(on, off):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        assert stats_on == stats_off
+        assert torch.equal(srv_on.store.priority, srv_off.store.priority)
+        c = snap["counters"]
+        assert c["serve.requests"] == stats_on["requests"]
+        assert c["serve.lookups"] == stats_on["lookups"]
+        assert c.get("serve.retier.rows_moved", 0) == stats_on["rows_moved"]
+        h = snap["histograms"]
+        assert h["serve.retier_us"]["count"] == stats_on["retiers"]
+        assert h["serve.lookup_us"]["count"] == h["serve.request_us"]["count"]
+        assert path.read_text().count("\n") >= 2
+    finally:
+        _metrics_reset()

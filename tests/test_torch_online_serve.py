@@ -121,6 +121,30 @@ def test_eager_fold_with_valid_mask():
     np.testing.assert_array_equal(bits(want), bits(got))
 
 
+@pytest.mark.parametrize("form", ["eager", "jitted"])
+def test_fold_flushes_subnormals_as_jax(form):
+    """Thirty folds decay unseen rows (x 0.01 a fold) through the
+    subnormal range: the reference's XLA flushes them to zero, and so
+    must the port, or the hot cache breaks its ties at 0 another way.
+    Both forms: the online server's eager fold and the train step's
+    jitted one."""
+    rng = np.random.default_rng(2)
+    v = 4000
+    w = (rng.pareto(1.2, v) * 10).astype(np.float32)
+    w[:3] = [1e-39, 2e-38, 1.1754944e-38]   # subnormal, normal, the least
+    jw, tw = jnp.asarray(w), torch.from_numpy(w)
+    jfold = j_serve_update if form == "eager" else jax.jit(j_serve_update)
+    tfold = serve_fold if form == "eager" else serve_update
+    for r in range(30):
+        idx = rng.integers(0, v, (8, 5)).astype(np.int32)
+        jw = jfold(jw, jnp.asarray(idx))         # the default config
+        tw = tfold(tw, torch.from_numpy(idx), PriorityConfig())
+        np.testing.assert_array_equal(bits(jw), bits(tw), err_msg=str(r))
+    got = tw.numpy()
+    assert (got == 0).sum() > v // 2
+    assert not ((got != 0) & (np.abs(got) < np.finfo(np.float32).tiny)).any()
+
+
 # -- re-tier ------------------------------------------------------------------
 
 def test_tier_crossings_equal():

@@ -9,8 +9,11 @@ flags equal the reference's, and whose losses and AUCs are within 1e-4
 rounding (``tests/test_torch_train.py``), and the record rounds to 5
 decimals.  The compact gradcheck gives the (V, D) form's error exactly.
 A ``packed_store/v1`` manifest round-trips between the two packages'
-checkpoint managers bit for bit.  The hashed branch is in
-``test_torch_pipeline_hashed.py``.
+checkpoint managers bit for bit.  Both runs have their package's metrics
+registry on (as ``--metrics-out`` turns it on): the port records every
+histogram the reference records, with the same counts, and the same
+serve counters and store gauges; its ``--metrics-out`` stream validates.
+The hashed branch is in ``test_torch_pipeline_hashed.py``.
 """
 
 from __future__ import annotations
@@ -30,13 +33,16 @@ import torch
 import torch_threads  # noqa: F401  (caps torch's CPU threads)
 
 from repro import configs as jconfigs
+from repro import obs as jobs
 from repro.ckpt.manager import CheckpointManager as JManager
 from repro.core import packed_store as jps
 from repro.core.qat_store import FQuantConfig as JFQuantConfig
 from repro.launch.pipeline import fast_config as jfast
 from repro.launch.pipeline import run_pipeline as jrun
+from repro.serve.loop import SERVE_PHASES as JSERVE_PHASES
 from repro.train.setup import build_recsys_training as jbuild
 from repro_torch import configs as tconfigs
+from repro_torch import obs as tobs
 from repro_torch.ckpt.manager import CheckpointManager as TManager
 from repro_torch.convert import train_state_from_jax
 from repro_torch.core import packed_store as tps
@@ -87,12 +93,35 @@ def compare_records(jrec: dict, trec: dict) -> None:
     assert set(trec["stage_seconds"]) >= set(jrec["stage_seconds"])
 
 
-def test_run_pipeline_matches_jax(tmp_path):
-    jrec = jrun(jfast(ckpt_dir=str(tmp_path / "jax"), **FAST))
-    trec = tpipe.run_pipeline(
-        tpipe.fast_config(ckpt_dir=str(tmp_path / "port"), device="cpu",
-                          **FAST),
-        state=train_state_from_jax(initial_state(FAST["batch"])))
+def _with_metrics(obs, run):
+    """``run()`` with ``obs``'s default registry on and the serving span
+    catalog pre-registered, as the drivers' ``--metrics-out`` does; the
+    result and the registry's snapshot, the registry left off and empty."""
+    obs.enable()
+    obs.ensure_histograms(f"{p}_us" for p in JSERVE_PHASES)
+    try:
+        return run(), obs.snapshot()
+    finally:
+        obs.disable()
+        obs.get_registry().reset()
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """The reference and the port at ``FAST`` from the reference's initial
+    state, each with its metrics on."""
+    tmp = tmp_path_factory.mktemp("pipeline")
+    jrec, jsnap = _with_metrics(jobs, lambda: jrun(
+        jfast(ckpt_dir=str(tmp / "jax"), **FAST)))
+    trec, tsnap = _with_metrics(tobs, lambda: tpipe.run_pipeline(
+        tpipe.fast_config(ckpt_dir=str(tmp / "port"), device="cpu", **FAST),
+        state=train_state_from_jax(initial_state(FAST["batch"]))))
+    return {"tmp": tmp, "jrec": jrec, "trec": trec, "jsnap": jsnap,
+            "tsnap": tsnap}
+
+
+def test_run_pipeline_matches_jax(runs):
+    jrec, trec, tmp_path = runs["jrec"], runs["trec"], runs["tmp"]
     print({k: (jrec[k], trec[k]) for k in jrec if k != "stage_seconds"})
     compare_records(jrec, trec)
     assert trec["fields_pruned"] > 0 and trec["retiers"] == 2
@@ -108,6 +137,52 @@ def test_run_pipeline_matches_jax(tmp_path):
     restored, step = JManager(str(tmp_path / "port" / "train")).restore(
         jstate._replace(params=None, opt=None, priority=None, rng=None))
     assert step == 8 and float(restored.accum.count) == 8 * 16
+
+
+def test_pipeline_metrics_match_jax(runs):
+    js, ts = runs["jsnap"], runs["tsnap"]
+    assert check_schema(ts) == []
+    jh, th = js["histograms"], ts["histograms"]
+    assert set(th) >= set(jh)
+    for name, h in jh.items():
+        assert th[name]["count"] == h["count"], name
+    for stage in runs["trec"]["stage_seconds"]:
+        assert th[f"pipeline.{stage}_us"]["count"] == 1, stage
+    assert th["train.step_us"]["count"] == FAST["steps"]
+    assert ts["counters"]["train.steps"] == js["counters"]["train.steps"] == 8
+    for name in ("serve.requests", "serve.lookups", "serve.cache.hits",
+                 "serve.retier.rows_moved"):
+        assert ts["counters"][name] == js["counters"][name], name
+    assert ts["counters"]["serve.requests"] == FAST["serve_requests"]
+    for name, v in js["gauges"].items():
+        if name.startswith(("store.", "serve.cache.")):
+            assert ts["gauges"][name] == v, name
+    assert ts["ticks"] == js["ticks"]
+
+
+def test_pipeline_cli_metrics_out_validates(tmp_path, runs):
+    path = tmp_path / "m.jsonl"
+    with contextlib.redirect_stdout(io.StringIO()):
+        rec = tpipe.main(["--model", "smoke", "--device", "cpu", "--fast",
+                          "--steps", "4", "--serve-requests", "16",
+                          "--ckpt-dir", str(tmp_path / "ck"),
+                          "--metrics-out", str(path), "--metrics-every",
+                          "3"])
+    try:
+        lines = [json.loads(ln) for ln in path.read_text().splitlines()]
+        micro = -(-16 // rec["serve_batch"])
+        # a line every 3 ticks (4 steps + 2 micro-batches), then the flush
+        assert len(lines) == 3 and lines[-1]["ticks"] == 4 + micro
+        assert all(check_schema(r) == [] for r in lines)
+        last = lines[-1]
+        assert set(last["histograms"]) >= set(runs["jsnap"]["histograms"])
+        assert last["counters"]["train.steps"] == 4
+        assert last["counters"]["serve.requests"] == 16
+        for stage in rec["stage_seconds"]:
+            assert last["histograms"][f"pipeline.{stage}_us"]["count"] == 1
+    finally:
+        tobs.disable()
+        tobs.get_registry().reset()
 
 
 @pytest.mark.parametrize("backend", ["packed", "hashed"])

@@ -139,6 +139,27 @@ def test_pipeline_modules_are_covered_by_the_import_rule():
         assert (ROOT / "src" / "repro_torch" / "csrc" / src).exists(), src
 
 
+def test_obs_and_bench_modules_are_covered_by_the_import_rule():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for mod in ("obs/__init__.py", "obs/registry.py", "obs/trace.py",
+                "obs/export.py", "benchmarks/__init__.py",
+                "benchmarks/common.py", "benchmarks/qps.py",
+                "serve/online.py", "serve/loop.py", "train/loop.py",
+                "launch/serve.py", "launch/pipeline.py", "store/api.py"):
+        assert f"src/repro_torch/{mod}" in names, mod
+    for test in ("test_torch_obs.py", "test_torch_qps.py"):
+        assert ROOT / "tests" / test in PORT_TESTS, test
+
+
+def test_bench_qps_raises_without_cuda_unless_cpu_is_asked():
+    from repro_torch.benchmarks import common
+    if torch.cuda.is_available():
+        pytest.skip("the no-GPU rule is checked where there is no GPU")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        common.make_setup()
+    assert common.make_setup(device="cpu").device == torch.device("cpu")
+
+
 def test_pipeline_raises_without_cuda_unless_cpu_is_asked(tmp_path):
     from repro_torch.launch import pipeline
     if torch.cuda.is_available():
