@@ -204,15 +204,40 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    cache rows, a re-tier every 128, drift 4.0): the record validates,
    its byte columns are equal across the sweep, and the tiered
    dequant_bag and quantize_rowwise launched (counts set to 0 just
-   before and read just after).
+   before and read just after);
+14. shadow re-tiers: (a) phase 8's online fused serve of wide-deep and
+   of xdeepfm again with ``--retier-async --shadow-rows 4194304
+   --verify-swap`` and 32 requests, the same audit of every request (fused logits finite
+   and within 1e-4 * max(1, |ref|) of the unfused head on the store the
+   request read); the record's ``retier_async`` is true, at least two
+   swaps land on request ticks before the final drain, every swap is
+   verified bit for bit against a fresh ``pack`` at its snapshot (a
+   failure stops the run), and the counts (set to 0 just before, read
+   just after) are: ``quantize_rowwise`` the start-up's launches + one a
+   shadow chunk + one a 4M-row block of each verify pack, the tiered
+   dequant_bag one a cache build (and a request on xdeepfm),
+   ``bag_matmul`` three a request, ``cin`` three a request on xdeepfm;
+   the pack's int8 rows equal the plain quantizer on their table rows;
+   builds, chunks, swaps and p50 / p99 / p99 while re-tiering / p99
+   attributed are printed beside phase 8's synchronous run (nothing is
+   gated on the times); (b) on the drained wide-deep server: one
+   drifting fold, ``begin_retier`` and one chunk, whose materialized
+   store unpacks bit for bit to ``repack_delta`` over the movers done;
+   the drain, verified; a second build discarded after a chunk, leaving
+   the live store's tensors (``data_ptr``) and bytes; (c) phase 13's
+   ``bench_qps`` with ``--retier-async``: the record passes the unchanged
+   ``tools/check_bench_schema.py`` (which holds each entry's p99 and p99
+   while re-tiering to 10x its p50), every entry swapped, and
+   quantize_rowwise launched.
 
 Prints the card's name and power limit, the serve, train, both online,
 both hashed and both pipeline records, one JSON ``kernels`` line
 (dequant_bag per tier dtype and its tiered entry, bag_grad, bag_matmul
 per arch, cin, hashed_gather and hashed_gather_ids per pool dtype,
 quantize_rowwise, dequant_bag_rowgrid per tier dtype, bag_grad_rowgrid;
-each with its launches on every path, phase 13's two runs included; the
-run fails if a kernel of a main path launched no time on it), and
+each with its launches on every path, phase 13's and 14's runs
+included; the run fails if a kernel of a main path launched no time on
+it), and
 as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Exits non-zero without that line when there is no CUDA device, or when
@@ -290,6 +315,11 @@ HASHED_PIPELINE_MAX_IND_RANGE = 3_600_000
 # bench_qps/v1 sweep at the reference's serve batches
 METRICS_EVERY = 4
 BENCH_QPS_BATCHES = "1,8,32"
+# phase 14: the shadow build budget in rows a request (a full-width first
+# build moves 6.5M / 11.2M rows: 2 / 3 chunks), and requests enough for
+# two verified swaps to land on request ticks
+SHADOW_ROWS = 1 << 22
+SHADOW_REQUESTS = 32
 
 
 T0 = time.monotonic()
@@ -1908,33 +1938,47 @@ class Uncounted:
 
 def serve_online(torch, serve, kernels, counters, arch: str,
                  metrics_out: str | None = None,
-                 logits_before: list | None = None) -> tuple:
+                 logits_before: list | None = None,
+                 shadow_rows: int | None = None,
+                 requests: int = REQUESTS) -> tuple:
     """Phase 8: the online fused serve of one arch at full width, with the
     counts around it and the unfused head as each request's check.
     Returns (served, launches, each request's fused logits on the host).
     Phase 13 runs it again with ``--metrics-out metrics_out``; each
-    request's logits must then equal ``logits_before`` bit for bit."""
+    request's logits must then equal ``logits_before`` bit for bit.
+    Phase 14 runs it with ``--retier-async --shadow-rows shadow_rows
+    --verify-swap``: every swap verified, at least two of them on request
+    ticks, and each shadow chunk and verify pack counted; it serves
+    ``requests`` requests."""
     from repro_torch import configs
     from repro_torch.configs.common import RECSYS_SHAPES
     from repro_torch.core import packed_store as ps
+    from repro_torch.core.qat_store import CHUNK_ROWS
+    from repro_torch.kernels.rowwise_quant import kernel as rq_kernel
     from repro_torch.models.embedding import globalize
     from repro_torch.serve.loop import request_batch
 
     batch_size = RECSYS_SHAPES["serve_p99"]["batch"]
     argv = ["--arch", arch, "--online", "--fuse-matmul", "--model", "full",
-            "--batch", str(batch_size), "--requests", str(REQUESTS),
+            "--batch", str(batch_size), "--requests", str(requests),
             "--retier-every", "2", "--cache-rows", "256", "--drift", "4.0"]
     if metrics_out is not None:
         argv += ["--metrics-out", metrics_out, "--metrics-every",
                  str(METRICS_EVERY)]
+    if shadow_rows is not None:
+        argv += ["--retier-async", "--shadow-rows", str(shadow_rows),
+                 "--verify-swap"]
     worst = {"abs": 0.0, "rel": 0.0}
     logits = []
+    # the audit launches no quantize_rowwise, and a shadow's staging thread
+    # may launch it while the audit runs: its counter is left alone
+    audited = [c for c in counters if c is not rq_kernel.launches]
 
     def make_audit(server, model, params):
         dev = server.device
 
         def audit(r, idx):
-            with Uncounted(counters), torch.inference_mode():
+            with Uncounted(audited), torch.inference_mode():
                 b = request_batch(idx, r, 0, dev)
                 gidx = globalize(b["indices"], model.spec)
                 ref = model.head(params, ps.lookup(server.packed, gidx), b)
@@ -1959,25 +2003,26 @@ def serve_online(torch, serve, kernels, counters, arch: str,
     kernels.reset_launches()
     served = serve.run(serve.parse_args(argv), make_audit=make_audit)
     launches = kernels.launch_counts()
-    rec = served.record
+    rec, stats = served.record, served.server.stats
     # the full model's config, as ``--model full`` serves it
     cin_layers = len(getattr(configs.get(arch).cfg, "cin_layers", ()))
     # the record counts the request loop; the global counts add the
     # server's start (its first cache build: one dequant_bag per tier)
     in_loop = rec["kernel_launches"]
-    if (launches["bag_matmul"] != 3 * REQUESTS
-            or in_loop["bag_matmul"] != 3 * REQUESTS
-            or launches["cin"] != cin_layers * REQUESTS
-            or in_loop["cin"] != cin_layers * REQUESTS
+    if (launches["bag_matmul"] != 3 * requests
+            or in_loop["bag_matmul"] != 3 * requests
+            or launches["cin"] != cin_layers * requests
+            or in_loop["cin"] != cin_layers * requests
             or (arch == "xdeepfm" and in_loop["dequant_bag"] <= 0)):
         raise SystemExit(f"{arch} online path launches {launches}, record "
                          f"{rec['kernel_launches']}")
-    if rec["device"] != "cuda" or rec["requests"] != REQUESTS:
+    if rec["device"] != "cuda" or rec["requests"] != requests:
         raise SystemExit(f"unexpected online record {rec}")
     # one tiered launch a packed lookup: each cache build (the server's
-    # first and one a re-tier) and, on xdeepfm, each request's embeddings
+    # first and one a re-tier or swap, the final drain's included) and,
+    # on xdeepfm, each request's embeddings
     dq = counters[0]
-    lookups = (REQUESTS if arch == "xdeepfm" else 0) + 1 + rec["retiers"]
+    lookups = (requests if arch == "xdeepfm" else 0) + 1 + stats.retiers
     if dq["tiered"] != lookups or any(
             n for t, n in dq.items() if t != "tiered"):
         raise SystemExit(f"{arch}: dequant_bag launches {dq}, want "
@@ -1988,20 +2033,37 @@ def serve_online(torch, serve, kernels, counters, arch: str,
         raise SystemExit(f"{arch}: the pack or its re-tiers did not quantize "
                          f"through the kernel: {launches}, record "
                          f"{rec['build_kernel_launches']}, {in_loop}")
-    check_packed_as_before(rec, arch)
+    if shadow_rows is None:
+        check_packed_as_before(rec, arch)
+    else:
+        # one launch a shadow chunk, and one a 4M-row block of each swap's
+        # verify pack (the int8 tier holds rows in every block after the
+        # first fold's decay); nothing else quantizes after the start-up
+        blocks = -(-served.server.backend.vocab // CHUNK_ROWS)
+        want = (rec["build_kernel_launches"]["quantize_rowwise"]
+                + stats.shadow_chunks + stats.swaps * blocks)
+        if (launches["quantize_rowwise"] != want or not rec["retier_async"]
+                or rec["swaps"] < 2 or served.server.shadow is not None):
+            raise SystemExit(
+                f"{arch} shadow: quantize_rowwise {launches} against "
+                f"{want}, record swaps {rec['swaps']} (want >= 2 on request "
+                f"ticks), final {stats}")
     rec["int8_rows_checked"] = check_int8_tier(torch, served.server, arch)
     rec["check_fused_vs_unfused"] = {
         "max_abs_diff": worst["abs"], "max_diff_over_limit": worst["rel"]}
     if logits_before is not None and (
-            len(logits) != REQUESTS or len(logits_before) != REQUESTS
+            len(logits) != requests or len(logits_before) != requests
             or not all(bits_equal(a, b) for a, b in zip(logits,
                                                          logits_before))):
         raise SystemExit(f"{arch}: the fused logits with metrics on differ "
                          "from the run with metrics off")
-    log(f"online {arch}: {REQUESTS} requests, fused logits within "
+    log(f"online {arch}: {requests} requests, fused logits within "
         f"{worst['abs']:.3g} of the unfused head ({worst['rel']:.3g} of "
         f"the limit), launches {launches}, p50 {rec['p50_us']:.0f} us, "
-        f"{rec['retiers']} re-tiers moved {rec['rows_moved']:,} rows")
+        f"{rec['retiers']} re-tiers moved {rec['rows_moved']:,} rows"
+        + (f"; shadow {stats.shadow_builds} builds, {stats.shadow_chunks} "
+           f"chunks, {stats.swaps} swaps ({rec['swaps']} on request ticks), "
+           f"each verified" if shadow_rows is not None else ""))
     return served, launches, logits
 
 
@@ -2553,19 +2615,24 @@ def check_pipeline_metrics(rec: dict, path: str, requests: int) -> dict:
     return summary
 
 
-def bench_qps(torch, kernels_mod, path: str) -> dict:
+def bench_qps(torch, kernels_mod, path: str,
+              retier_async: bool = False) -> dict:
     """Phase 13 (c): ``python -m repro_torch.benchmarks.qps --online
     --serve-batch 1,8,32 --emit path`` through its ``main``, with the
     counts set to 0 just before and read just after.  The record
     validates, its byte columns are equal across the sweep, and the
-    tiered dequant_bag and rowwise_quant launched."""
+    tiered dequant_bag and rowwise_quant launched.  Phase 14 (c) adds
+    ``--retier-async``: the schema tool then holds each entry's p99 and
+    ``p99_while_retiering`` to 10x its p50, and every entry must have
+    swapped."""
     from repro_torch.benchmarks import qps
     from repro_torch.kernels.dequant_bag import kernel
     from repro_torch.kernels.hashed_gather import kernel as hg_kernel
     kernels_mod.reset_launches()
     t0 = time.perf_counter()
     rec = qps.main(["--online", "--serve-batch", BENCH_QPS_BATCHES,
-                    "--emit", path])
+                    "--emit", path]
+                   + (["--retier-async"] if retier_async else []))
     wall = time.perf_counter() - t0
     counts = path_counts(kernels_mod, kernel, hg_kernel)
     (written,) = check_stream(path)
@@ -2579,21 +2646,130 @@ def bench_qps(torch, kernels_mod, path: str) -> dict:
             or counts["dequant_bag_by_dtype"]["tiered"] <= 0
             or counts["quantize_rowwise"] <= 0
             or counts["dequant_bag"] != counts["dequant_bag_by_dtype"][
-                "tiered"]):
+                "tiered"]
+            or rec["retier_async"] is not retier_async
+            or (retier_async and not all(e["swaps"] > 0 for e in sweep))):
         raise SystemExit(f"bench_qps: unexpected record or launches: "
-                         f"{byte_cols}, {counts}")
-    summary = {"wall_s": wall, "packed_fp32_ratio": rec["packed_fp32_ratio"],
+                         f"{byte_cols}, {counts}, {sweep}")
+    keys = ("serve_batch", "qps", "steady_qps", "p50_us", "p99_us",
+            "requests", "lookups", "hits", "retiers", "rows_moved")
+    if retier_async:
+        keys += ("p99_while_retiering", "p99_retier_attributed",
+                 "shadow_builds", "swaps")
+    summary = {"wall_s": wall, "retier_async": retier_async,
+               "packed_fp32_ratio": rec["packed_fp32_ratio"],
                "bytes_per_request": sorted(byte_cols)[0],
-               "sweep": [{k: e[k] for k in (
-                   "serve_batch", "qps", "steady_qps", "p50_us", "p99_us",
-                   "requests", "lookups", "hits", "retiers", "rows_moved")}
-                   for e in sweep],
+               "sweep": [{k: e[k] for k in keys} for e in sweep],
                "launches": counts, "device_name": rec["device_name"]}
     print(json.dumps({"bench_qps": summary}), flush=True)
-    log(f"bench_qps: a valid bench_qps/v1 record in {wall:.1f}s, "
+    log(f"bench_qps{' --retier-async' if retier_async else ''}: a valid "
+        f"bench_qps/v1 record in {wall:.1f}s, "
         f"{[(e['serve_batch'], round(e['p50_us'], 1)) for e in sweep]} "
         f"(serve batch, p50 us), launches {counts}")
     return counts
+
+
+def shadow_summary(rec: dict, sync_rec: dict, stats) -> dict:
+    """Phase 14 (a): the async run's counters and tail beside phase 8's
+    synchronous run of the same arch (printed; nothing is gated on the
+    times)."""
+    keys = ("p50_us", "p99_us", "p99_while_retiering",
+            "p99_retier_attributed", "steady_qps", "retiers", "rows_moved")
+    summary = {"arch": rec["arch"], "shadow_rows": SHADOW_ROWS,
+               "requests": rec["requests"],
+               "sync_requests": sync_rec["requests"],
+               "shadow_builds": stats.shadow_builds,
+               "shadow_chunks": stats.shadow_chunks,
+               "swaps_on_request_ticks": rec["swaps"],
+               "swaps_with_drain": stats.swaps,
+               "async": {k: rec[k] for k in keys},
+               "sync_phase_8": {k: sync_rec[k] for k in keys},
+               "device_name": rec["device_name"]}
+    print(json.dumps({"shadow_online": summary}), flush=True)
+    log(f"shadow {rec['arch']}: {stats.shadow_builds} builds, "
+        f"{stats.shadow_chunks} chunks, {stats.swaps} swaps ({rec['swaps']} "
+        f"on request ticks); p50 {rec['p50_us']:.0f} / p99 "
+        f"{rec['p99_us']:.0f} / p99 while re-tiering "
+        f"{rec['p99_while_retiering']:.0f} us (sync {sync_rec['p50_us']:.0f}"
+        f" / {sync_rec['p99_us']:.0f} / {sync_rec['p99_while_retiering']:.0f}"
+        f"), p99 attributed {rec['p99_retier_attributed']:.3f} (sync "
+        f"{sync_rec['p99_retier_attributed']:.3f})")
+    return summary
+
+
+def unpack_equal(torch, ps, a, b) -> bool:
+    """Two packed stores unpack to the same bits, compared in 4M-row
+    blocks (a full-width table unpacked whole is 2.8-3.5 GB)."""
+    step = 1 << 22
+    for r0 in range(0, a.vocab, step):
+        r1 = min(a.vocab, r0 + step)
+        if not bits_equal(ps.unpack(a, r0, r1), ps.unpack(b, r0, r1)):
+            return False
+    return True
+
+
+def shadow_invariants(torch, served) -> dict:
+    """Phase 14 (b), on the drained full-width wide&deep server: after one
+    drifting fold and one chunk, the shadow materializes bit for bit to
+    ``repack_delta`` over the movers done; the build then drains with
+    its verify; a second build is discarded after a chunk and the live
+    store keeps its tensors and bytes."""
+    from repro_torch.core import packed_store as ps
+    from repro_torch.models.embedding import globalize
+    from repro_torch.serve.loop import drifting_zipf_batch
+    server, model = served.server, served.model
+    spec, batch = model.spec, served.record["batch"]
+
+    # explicit begins only: the boundary the last request crossed while a
+    # build was in flight is drained first, and no later fold opens one
+    server.drain_shadow()
+    server.online = server.online._replace(retier_every=0)
+
+    def fold(r: int) -> None:
+        idx = drifting_zipf_batch(spec.cardinalities, batch, r, r + 1)
+        server.observe(globalize(torch.from_numpy(idx).cuda(), spec))
+
+    with torch.inference_mode():
+        fold(REQUESTS)
+        if not server.begin_retier():
+            raise SystemExit("shadow invariants: the fold moved no row")
+        sh = server.shadow
+        sh.step(max(1, sh.moved // 3))
+        delta = ps.repack_delta(server.packed, sh.snapshot, server.cfg,
+                                sh.movers[:sh.pos])
+        chunk_ok = (not sh.staged
+                    and unpack_equal(torch, ps, sh.materialize(), delta))
+        del delta
+        moved, done = sh.moved, sh.pos
+        swaps = server.stats.swaps
+        server.drain_shadow()
+        fold(REQUESTS + 1)
+        if not server.begin_retier():
+            raise SystemExit("shadow invariants: the second fold moved no "
+                             "row")
+        server.shadow.step(max(1, server.shadow.moved // 3))
+        live = server.packed
+        ptrs = [x.data_ptr() for x in live]
+        before = [x.clone() for x in live]
+        server.discard_shadow()
+        kept = (server.packed is live and server.shadow is None
+                and [x.data_ptr() for x in server.packed] == ptrs
+                and all(a.shape == b.shape and torch.equal(
+                    a.view(torch.uint8), b.view(torch.uint8))
+                    for a, b in zip(before, live)))
+        torch.cuda.synchronize()
+    if not (chunk_ok and kept and server.stats.swaps == swaps + 1):
+        raise SystemExit(f"shadow invariants: chunk {chunk_ok}, discard "
+                         f"kept the live store {kept}, swaps "
+                         f"{server.stats.swaps} after {swaps}")
+    out = {"movers": moved, "chunk_rows_done": done,
+           "materialize_equals_repack_delta": True,
+           "drain_verified": True, "discard_kept_live_store": True}
+    print(json.dumps({"shadow_invariants": out}), flush=True)
+    log(f"shadow invariants (wide-deep): {moved:,} movers, materialized "
+        f"after {done:,} bit-equal to repack_delta, drained with verify, "
+        f"a discarded build left the live store's tensors and bytes")
+    return out
 
 
 def trace(torch, serve, served, requests: int, path: str) -> None:
@@ -2905,6 +3081,27 @@ def main() -> int:
                        os.path.join(metrics_dir.name, "bench_qps.json"))
     record_path(kernels, grad_entry, quant_by_path, rowgrid_by_path,
                 "bench_qps", counts)
+
+    # phase 14: shadow re-tiers at full width, then their invariants on the
+    # drained wide&deep server, then the async bench_qps/v1 record
+    for arch in ONLINE_ARCHS:
+        served, _, _ = serve_online(torch, serve, kernels_mod, counters,
+                                    arch, shadow_rows=SHADOW_ROWS,
+                                    requests=SHADOW_REQUESTS)
+        record_path(kernels, grad_entry, quant_by_path, rowgrid_by_path,
+                    f"shadow_online_{arch}",
+                    path_counts(kernels_mod, kernel, hg_kernel), arch=arch)
+        print(json.dumps(served.record), flush=True)
+        shadow_summary(served.record, online_recs[arch], served.server.stats)
+        if arch == "wide-deep":
+            shadow_invariants(torch, served)
+        del served
+        torch.cuda.empty_cache()
+    counts = bench_qps(torch, kernels_mod,
+                       os.path.join(metrics_dir.name, "bench_qps_async.json"),
+                       retier_async=True)
+    record_path(kernels, grad_entry, quant_by_path, rowgrid_by_path,
+                "bench_qps_async", counts)
     metrics_dir.cleanup()
     for k in kernels:
         k["launches"] = sum(k["launches_by_path"].values())

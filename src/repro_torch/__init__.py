@@ -40,7 +40,9 @@ def resolve_device(device: str | torch.device | None = None
 
 
 def sync(device: torch.device) -> None:
-    """Wait for the device's queued work (a no-op on the CPU): the end of
-    a timed window."""
+    """Wait for the work the calling thread queued on the device (its
+    current stream; a no-op on the CPU): the end of a timed window.  Work
+    on another stream, such as a shadow re-tier's staging thread, does
+    not hold it up."""
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        torch.cuda.current_stream(device).synchronize()

@@ -8,14 +8,20 @@ Port of the online half of ``benchmarks/qps.py``.  The bench DLRM
 (``common.make_setup(num_fields=10)``) with a pareto(1.2) x 10 priority
 profile packed at ``ratio`` of the fp32 bytes serves a drifting-zipf
 stream through ``serve.online.OnlineServer``: the hot-row cache, the
-Eq. 7 fold and synchronous delta re-tiers (no training warm-up: the
-online loop re-learns the tiering from traffic).
+Eq. 7 fold and delta re-tiers (no training warm-up: the online loop
+re-learns the tiering from traffic).  ``--retier-async`` runs each
+re-tier as a chunked shadow build and swap (``serve.shadow``) instead of
+a synchronous repack; ``tools/check_bench_schema.py`` then holds every
+entry's p99 and ``p99_while_retiering`` (the p99 over the batches that
+overlapped shadow work) to 10x its p50.  After each timed loop the last
+shadow build is drained (outside the record, which keeps the loop's
+counters).
 
 ``--online --serve-batch 1,8,32`` (``run_online_sweep``) serves the same
 single-user stream (seeded per request index) at each micro-batch size
 and gives one ``bench_qps/v1`` record with one sweep entry a size: the
 loop's QPS, steady QPS and histogram percentiles (wall time on the
-device it ran on, each batch ending in ``torch.cuda.synchronize()``),
+device it ran on, each batch ending when its device work has),
 its counters, and the bytes per request against the pack-time tiers
 (equal across entries by construction: micro-batching changes wall
 time, never traffic).  ``--emit PATH`` writes it (``write_bench_json``;
@@ -26,8 +32,7 @@ request-at-a-time batches of ``--batch`` and prints one record.
 The record adds ``device`` and ``device_name``.  Not ported yet: the
 offline CPU proxy (``run``, whose metrics are CPU forward times) waits
 with ``train_fquant`` for the table benchmarks (ROADMAP Queue 1 item
-10), and ``--retier-async`` raises as ``OnlineConfig(retier_async=True)``
-does until shadow re-tiers are ported (item 6).
+10).
 """
 
 from __future__ import annotations
@@ -98,6 +103,7 @@ def run_online(batch=256, requests=24, cache_rows=512, retier_every=4,
     result = serve_forward_loop(
         server, setup.model, spec, params, batch=batch, requests=requests,
         drift=drift, num_dense=setup.ds.cfg.num_dense)
+    server.drain_shadow()   # finish and join any shadow build in flight
     fp32 = spec.total_rows * spec.dim * 4
     rec = {"benchmark": "qps_online", "batch": batch,
            "requests": requests, "cache_rows": cache_rows,
@@ -126,7 +132,8 @@ def run_online_sweep(serve_batches, requests=384, cache_rows=512,
 
     Every ``serve_batch`` serves the same drifting-zipf single-user
     stream on a fresh server over the same store; ``retier_every``
-    counts requests, so the re-tier cadence is the same too."""
+    counts requests, so the re-tier cadence is the same too.
+    ``retier_async`` runs the re-tiers as shadow builds and swaps."""
     setup, spec, params, store, cfg = _bench_store(ratio, params=params,
                                                    device=device)
     fp32 = spec.total_rows * spec.dim * 4
@@ -143,6 +150,9 @@ def run_online_sweep(serve_batches, requests=384, cache_rows=512,
             server, setup.model, spec, params, serve_batch=int(sb),
             requests=requests, drift=drift, a=a,
             num_dense=setup.ds.cfg.num_dense, seed=seed)
+        # the record keeps the timed loop's counters; draining joins the
+        # staging thread before the next server starts
+        server.drain_shadow()
         entry = {"serve_batch": int(sb)}
         entry.update(result.as_dict())
         entry.update(bytes_rec)
@@ -166,7 +176,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(
         description="Online serving benchmark (bench_qps/v1).",
         epilog="Not ported yet: the offline CPU proxy (run without "
-               "--online); --retier-async raises (shadow re-tiers).")
+               "--online).")
     ap.add_argument("--online", action="store_true",
                     help="drifting-zipf online-serving loop (required)")
     ap.add_argument("--batch", type=int, default=256)
@@ -180,7 +190,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "(default 128)")
     ap.add_argument("--drift", type=float, default=4.0)
     ap.add_argument("--retier-async", action="store_true",
-                    help="shadow re-tiers (not ported yet: raises)")
+                    help="chunked shadow build + swap instead of the "
+                         "synchronous repack")
     ap.add_argument("--serve-batch", default=None, metavar="N[,N...]",
                     help="micro-batch sweep: serve the same single-user "
                          "stream at each size; one bench_qps/v1 record")

@@ -18,7 +18,9 @@ gather + dequant; ``lookup_fused`` is the serving path, one launch of
 the fused dequant-bag kernel's tiered entry (``kernels.dequant_bag``).
 ``bag_matmul`` is the fused bag -> first matmul of the fused heads (one
 ``kernels.bag_matmul`` launch per tier); ``repack_delta`` re-tiers the
-rows whose tier crossed, on the store's device.  Every int8 tier payload
+rows whose tier crossed, on the store's device.  ``extract_rows``,
+``merge_stores`` and ``concat_stores`` cut and join sub-stores on the
+device, bytes untouched (the shadow re-tier's pieces, ``serve.shadow``).  Every int8 tier payload
 (pack, build, re-tier) is quantized by ``kernels.rowwise_quant``.
 """
 
@@ -355,3 +357,103 @@ def packed_tiers(packed: PackedStore) -> torch.Tensor:
 def live_counts(packed: PackedStore) -> list[int]:
     """Per-tier live row counts, excluding an empty tier's placeholder."""
     return tier_counts(packed_tiers(packed))
+
+
+def _placeholder(dtype: torch.dtype, scaled: bool, dim: int,
+                 device: torch.device):
+    """An empty tier's 1-row placeholder in a sub-store: a zero payload and
+    a unit scale (never addressed through ``indirect``), the reference's
+    convention for ``extract_rows`` and ``merge_stores``; not ``pack``'s
+    quantized zeros."""
+    p = torch.zeros((1, dim), dtype=dtype, device=device)
+    s = (torch.ones((1,), dtype=torch.float32, device=device) if scaled
+         else None)
+    return p, s
+
+
+def extract_rows(packed: PackedStore, rows) -> PackedStore:
+    """The sub-store over global ``rows`` (int, any order, repeats allowed,
+    possibly empty): position ``i`` of the result is row ``rows[i]``.
+
+    Port of ``repro/core/packed_store.py::extract_rows`` on the store's
+    device (the reference copies the store to the host).  Payload bytes
+    and scales are carried over untouched, so a lookup on the sub-store
+    is bit-identical to the same lookup on ``packed`` at the matching
+    global ids.  A tier with no selected row keeps a 1-row zero-payload,
+    unit-scale placeholder.  The leaves equal the reference's.
+    """
+    dev = packed.indirect.device
+    rows = torch.as_tensor(rows).reshape(-1).to(device=dev,
+                                                dtype=torch.int64)
+    code = packed.indirect.index_select(0, rows)
+    tier, loc = code >> _TIER_SHIFT, (code & _IDX_MASK).to(torch.int64)
+    payloads = (packed.payload8, packed.payload16, packed.payload32)
+    scales = (packed.scale8, packed.scale16, None)
+    new_ind = torch.zeros(rows.numel(), dtype=torch.int32, device=dev)
+    out_p, out_s = [], []
+    for t in range(3):
+        sel = torch.nonzero(tier == t).reshape(-1)
+        n = sel.numel()
+        if n:
+            li = loc.index_select(0, sel)
+            p = payloads[t].index_select(0, li)
+            s = None if scales[t] is None else scales[t].index_select(0, li)
+        else:
+            p, s = _placeholder(payloads[t].dtype, scales[t] is not None,
+                                packed.dim, dev)
+        new_ind[sel] = (t << _TIER_SHIFT) | torch.arange(
+            n, dtype=torch.int32, device=dev)
+        out_p.append(p)
+        out_s.append(s)
+    return PackedStore(payload8=out_p[0], scale8=out_s[0],
+                       payload16=out_p[1], scale16=out_s[1],
+                       payload32=out_p[2], indirect=new_ind)
+
+
+def merge_stores(stores) -> PackedStore:
+    """N-way row concatenation: result position ``i`` is row ``i - (rows of
+    the stores before it)`` of the store it falls in, in list order.
+
+    Port of ``repro/core/packed_store.py::merge_stores`` on the stores'
+    device.  One concatenation a tier (linear in the rows; a pairwise fold
+    would copy earlier stores again and again).  The placeholder rows of
+    emptied tiers are dropped from the middle (``live_counts``), later
+    stores' local indices are rebased past the running counts, and a tier
+    empty in every store keeps a zero-payload, unit-scale placeholder.
+    Bytes are preserved, so lookups stay bit-identical to the sources;
+    the leaves equal the reference's.
+    """
+    if not stores:
+        raise ValueError("merge_stores needs at least one store")
+    first = stores[0]
+    dev = first.indirect.device
+    counts = [live_counts(s) for s in stores]
+    fields = (("payload8", "scale8"), ("payload16", "scale16"),
+              ("payload32", None))
+    out_p, out_s = [], []
+    for t, (pf, sf) in enumerate(fields):
+        live = [(s, c[t]) for s, c in zip(stores, counts) if c[t]]
+        if live:
+            p = torch.cat([getattr(s, pf)[:n] for s, n in live])
+            sc = None if sf is None else torch.cat(
+                [getattr(s, sf)[:n] for s, n in live])
+        else:
+            p, sc = _placeholder(getattr(first, pf).dtype, sf is not None,
+                                 first.dim, dev)
+        out_p.append(p)
+        out_s.append(sc)
+    parts, off = [], [0, 0, 0]
+    for s, c in zip(stores, counts):
+        tier = (s.indirect >> _TIER_SHIFT).to(torch.int64)
+        base = torch.tensor(off, dtype=torch.int64, device=dev)[tier]
+        loc = (s.indirect & _IDX_MASK).to(torch.int64) + base
+        parts.append(((tier << _TIER_SHIFT) | loc).to(torch.int32))
+        off = [o + n for o, n in zip(off, c)]
+    return PackedStore(payload8=out_p[0], scale8=out_s[0],
+                       payload16=out_p[1], scale16=out_s[1],
+                       payload32=out_p[2], indirect=torch.cat(parts))
+
+
+def concat_stores(a: PackedStore, b: PackedStore) -> PackedStore:
+    """Append ``b``'s rows after ``a``'s: ``merge_stores([a, b])``."""
+    return merge_stores([a, b])

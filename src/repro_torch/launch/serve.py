@@ -20,7 +20,7 @@ fused dequant-bag kernel:
 415-512-512-256-1 (the reference CLI serves only its smoke model);
 ``--model smoke`` the reduced CPU-test size.  The run is on the GPU
 unless ``--device cpu`` is given.  The timed window of a request starts
-with its inputs on the device and ends after ``torch.cuda.synchronize()``;
+with its inputs on the device and ends when the serving stream is idle;
 the first request is a warm-up and is left out of the percentiles.
 
 The offline record: arch, model, device, device_name, batch, requests,
@@ -33,7 +33,14 @@ pareto priorities, and a drifting-zipf stream (``--drift`` ids/request)
 is served cache-first (``--cache-rows`` hot rows in fp32); every batch
 is folded into the Eq. 7 EMA and every ``--retier-every`` requests the
 tier-crossing rows move (``packed_store.repack_delta``, synchronous, on
-the device).  ``--fuse-matmul`` (wide-deep, xdeepfm) serves through the
+the device).  With ``--retier-async`` the re-tier is a shadow build
+instead (``serve.shadow``): the boundary request opens it, every later
+request quantizes ``--shadow-rows`` of its movers, and the finished
+store is staged on a thread (on its own CUDA stream; with
+``--verify-swap`` checked bit for bit against a fresh ``pack`` at the
+snapshot) and swapped in on a later request; after the loop the last
+build is drained and the line ``shadow: N builds, N chunks, N swaps`` is
+printed.  ``--fuse-matmul`` (wide-deep, xdeepfm) serves through the
 model's fused head: the deep branch's first matmul runs in the
 ``bag_matmul`` kernel (one launch per tier), and xDeepFM's CIN in the
 ``cin`` kernel (one launch per layer).  The online record has the
@@ -43,8 +50,9 @@ cache_hit_rate, retiers, rows_moved, shadow_builds, swaps, cache_rows,
 retier_every, retier_async, drift, serve_batch, fuse_matmul,
 store_backend, packed_mib, packed_fp32_ratio, arch, batch, mesh, online)
 plus model, device, device_name, build_s, ``kernel_launches`` by kernel
-over the request loop and ``build_kernel_launches`` over the build (the
-int8 tier's ``quantize_rowwise`` launches).  At full width the online
+over the request loop (and the final shadow drain) and
+``build_kernel_launches`` over the build (the int8 tier's
+``quantize_rowwise`` launches, and the shadow prewarm's one).  At full width the online
 store holds the whole fp32 table beside its pack (wide-deep 2.84 GB,
 xdeepfm 3.47 GB): ``repack_delta`` re-quantizes crossing rows from it.
 
@@ -113,9 +121,7 @@ def parse_args(argv=None) -> argparse.Namespace:
         description="Serve a recsys model from the packed SHARK store.",
         epilog="Not ported yet (later slices): --mesh, --store-backend "
                "hier with --hbm-budget-mb, --host-budget-mb, "
-               "--store-dir, --verify-hier; --retier-async, "
-               "--shadow-rows, --verify-swap (shadow re-tiers); "
-               "--autotune-cache.")
+               "--store-dir, --verify-hier; --autotune-cache.")
     ap.add_argument("--arch", default="dlrm-rm2", choices=configs.names())
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--batch", type=int, default=256)
@@ -141,6 +147,20 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "(--online; 0 = request-at-a-time batches of "
                          "--batch users); --requests then counts "
                          "single-user requests")
+    ap.add_argument("--retier-async", action="store_true",
+                    help="shadow-build re-tiers off the request path "
+                         "(repro_torch.serve.shadow): the boundary request "
+                         "opens a shadow store, later requests advance it "
+                         "in bounded chunks, and the finished generation "
+                         "is swapped in with one pointer flip (--online)")
+    ap.add_argument("--shadow-rows", type=int, default=512,
+                    help="shadow build budget in rows per served request "
+                         "(--retier-async)")
+    ap.add_argument("--verify-swap", action="store_true",
+                    help="at every shadow swap, check that the staged "
+                         "generation is bit-identical to a full pack() at "
+                         "the snapshot fold state (--retier-async; O(vocab) "
+                         "a swap, on the staging thread)")
     ap.add_argument("--fuse-matmul", action="store_true",
                     help="serve through the model's fused head: the deep "
                          "branch's first matmul runs fused with the "
@@ -177,6 +197,10 @@ def parse_args(argv=None) -> argparse.Namespace:
         ap.error("--fuse-matmul requires --online")
     if args.serve_batch > 0 and not args.online:
         ap.error("--serve-batch requires --online")
+    if args.retier_async and not args.online:
+        ap.error("--retier-async requires --online")
+    if args.verify_swap and not args.retier_async:
+        ap.error("--verify-swap requires --retier-async")
     if args.store_backend == "hashed":
         if not args.online:
             ap.error("--store-backend hashed requires --online")
@@ -207,7 +231,7 @@ def time_requests(model, params: dict, packed: PackedStore,
                   make_request: Callable[[int], dict], requests: int,
                   device: torch.device, start: int = 0) -> list[float]:
     """The offline loop: requests ``start .. start + requests - 1``, each
-    timed from its inputs on the device to ``torch.cuda.synchronize()``
+    timed from its inputs on the device to the end of its device work
     (the ``serve.request`` timeblock, then one ``obs.tick()``); the wall
     seconds of each."""
     lat = []
@@ -378,7 +402,10 @@ def run_online(args: argparse.Namespace, device: torch.device, model,
     launches0 = kernels.launch_counts()
     params, store, cfg = online_store(model, spec, device)
     online = OnlineConfig(cache_rows=args.cache_rows,
-                          retier_every=args.retier_every)
+                          retier_every=args.retier_every,
+                          retier_async=args.retier_async,
+                          shadow_rows_per_step=args.shadow_rows,
+                          verify_swap=args.verify_swap)
     fp32 = spec.total_rows * spec.dim * 4
     hashed = {}
     if args.store_backend == "hashed":
@@ -431,6 +458,16 @@ def run_online(args: argparse.Namespace, device: torch.device, model,
             requests=args.requests, drift=args.drift, num_dense=num_dense,
             fuse_matmul=args.fuse_matmul, audit=audit)
         shape_note = f"{args.requests} requests x{args.batch}"
+    if args.retier_async:
+        # finish any shadow build in flight, so the process ends on a
+        # committed generation (verify_swap checks this swap too); the
+        # record keeps the loop's counters, as the reference's does
+        server.drain_shadow()
+        print(f"shadow: {server.stats.shadow_builds} builds, "
+              f"{server.stats.shadow_chunks} chunks, "
+              f"{server.stats.swaps} swaps"
+              + (" (bit-identity verified at every swap)"
+                 if args.verify_swap else ""))
     launches = _launches_since(launches0)
     name = _device_name(device)
     print(f"{shape_note}: p50 "
@@ -443,7 +480,8 @@ def run_online(args: argparse.Namespace, device: torch.device, model,
     rec.update(stream)
     rec.update(result.as_dict())
     rec.update({"cache_rows": args.cache_rows,
-                "retier_every": args.retier_every, "retier_async": False,
+                "retier_every": args.retier_every,
+                "retier_async": args.retier_async,
                 "drift": args.drift, "serve_batch": args.serve_batch,
                 "fuse_matmul": args.fuse_matmul,
                 "store_backend": args.store_backend,

@@ -3,9 +3,9 @@
 Port of ``repro/obs/trace.py``.  ``timeblock(name)`` is the timing idiom
 of the serve, train and pipeline loops: it always measures (the loops
 need wall time whether or not metrics are on), and ``tb.sync(value)``
-is the one sync point, a ``torch.cuda.synchronize`` of the device that
-holds ``value`` (a tensor, or a tuple, list or dict holding tensors), so
-device work drains inside the clock:
+is the one sync point, a synchronize of the calling thread's current
+stream on the device that holds ``value`` (a tensor, or a tuple, list or
+dict holding tensors), so device work drains inside the clock:
 
     with timeblock("serve.request") as tb:
         out = serve_fn(batch)
@@ -57,12 +57,12 @@ def _first_tensor(value):
 
 
 def _sync(value):
-    """Wait for the device work queued on the device of ``value`` (None,
-    or no CUDA tensor in it, is a no-op) so the enclosing clock measures
-    finished work, not dispatch."""
+    """Wait for the work this thread queued on the device of ``value``
+    (its current stream; None, or no CUDA tensor in it, is a no-op) so
+    the enclosing clock measures finished work, not dispatch."""
     t = _first_tensor(value) if value is not None else None
     if t is not None and t.device.type == "cuda":
-        torch.cuda.synchronize(t.device)
+        torch.cuda.current_stream(t.device).synchronize()
     return value
 
 

@@ -5,8 +5,8 @@ per-field zipf-ranked ids whose hot set moves ``drift`` ids per request
 (the same numpy draws as the reference); ``run_loop`` times a request
 stream; ``serve_forward_loop`` is the online serving loop behind
 ``repro_torch.launch.serve --online``: cache-first forward (or the
-model's fused head with ``fuse_matmul``) + priority fold + synchronous
-re-tiers.
+model's fused head with ``fuse_matmul``) + priority fold + re-tiers
+(synchronous, or shadow builds with ``OnlineConfig.retier_async``).
 
 Micro-batching (``MicroBatcher``, ``run_microbatched_loop``,
 ``serve_forward_microbatched``, and ``serve_forward``, the one entry
@@ -19,10 +19,16 @@ ported (ROADMAP Queue 1 item 8).  ``stream_bytes_per_request`` is the
 ``bench_qps/v1`` byte account of the stream against a tier vector.
 
 Timing: a request's (or micro-batch's) window covers building its batch
-on the device, the forward, the fold and any re-tier, and ends after
-``torch.cuda.synchronize()`` on the card (``obs.timeblock``'s
-``sync``).  Percentiles come from the streaming
-``obs.registry.Histogram``, as in the reference.
+on the device, the forward, the fold and any re-tier or shadow step, and
+ends when the serving stream is idle on the card (``obs.timeblock``'s
+``sync``; a shadow re-tier's staging stream is not waited for).
+Percentiles come from the streaming ``obs.registry.Histogram``, as in
+the reference.  ``p99_while_retiering`` is the p99 over the requests
+that overlapped re-tier work: a synchronous re-tier, or a shadow build
+in flight when the request started, a shadow step or a swap during it.
+The loops register no ``warmup_fn`` on the server: the reference's
+warm-up compiles the jitted forward for a staged store's new shapes, and
+eager torch has nothing to compile.
 
 Metrics (``obs``, on with ``--metrics-out``): each request's window is
 the ``serve.request`` timeblock, followed by one ``obs.tick()``; inside
@@ -51,7 +57,8 @@ from repro_torch.serve.online import OnlineServer
 # the serving span taxonomy (docs/observability.md), pre-registered by the
 # drivers when metrics are on, so every snapshot carries the whole
 # per-phase histogram catalog, phases that never fire included (the
-# shadow, stage and migrate phases come with later slices)
+# stage and migrate phases come with the hier store, serve.shadow.build
+# and serve.shadow.warmup with nothing in the port)
 SERVE_PHASES = ("serve.request", "serve.synth", "serve.stage",
                 "serve.lookup", "serve.combine", "serve.retier",
                 "serve.shadow.plan", "serve.shadow.chunk",
@@ -69,7 +76,8 @@ class LoopResult(NamedTuple):
     p99_us: float
     p99_retier_attributed: float  # share of the p99 tail's wall time
                                   # spent inside retier
-    p99_while_retiering: float    # p99 over the requests that re-tiered
+    p99_while_retiering: float    # p99 over the requests that overlapped
+                                  # re-tier work (shadow steps included)
     stats: dict           # ServeStats.as_dict() snapshot
 
     def as_dict(self) -> dict:
@@ -126,6 +134,28 @@ def drifting_zipf_batch(cardinalities, batch: int, request: int,
     return ((ranks + shift) % cards[None, :]).astype(np.int32)
 
 
+def _shadow_mark(server: OnlineServer) -> tuple:
+    """The counters a request's accounting diffs, read before it runs."""
+    st = server.stats
+    return (st.retiers, st.retier_seconds, st.shadow_chunks, st.swaps,
+            server.shadow is not None)
+
+
+def _account(server: OnlineServer, mark: tuple, retiered: list,
+             retier_s: list, window: list) -> None:
+    """Append a finished request's re-tier flag, its seconds inside
+    re-tier work, and whether it overlapped re-tier work (the
+    ``p99_while_retiering`` window: a re-tier, a shadow build in flight
+    at its start, a shadow step or a swap), as the reference's loops
+    do."""
+    n_retiers, r0, c0, s0, active0 = mark
+    st = server.stats
+    retiered.append(st.retiers > n_retiers)
+    retier_s.append(st.retier_seconds - r0)
+    window.append(active0 or retiered[-1] or st.shadow_chunks > c0
+                  or st.swaps > s0)
+
+
 def run_loop(server: OnlineServer, serve_fn: Callable[[np.ndarray], object],
              make_batch: Callable[[int], np.ndarray], requests: int,
              batch: int, audit: Callable | None = None) -> LoopResult:
@@ -138,19 +168,17 @@ def run_loop(server: OnlineServer, serve_fn: Callable[[np.ndarray], object],
     and their successors, are left out of the steady-state window.
     """
     device = server.device
-    lat, retiered, retier_s = [], [], []
+    lat, retiered, retier_s, window = [], [], [], []
     for r in range(requests):
         idx = make_batch(r)
         after = audit(r, idx) if audit is not None else None
-        n_retiers = server.stats.retiers
-        r0 = server.stats.retier_seconds
+        mark = _shadow_mark(server)
         sync(device)
         with obs.timeblock("serve.request") as tb:
             out = serve_fn(idx)
             sync(device)
         lat.append(tb.seconds)
-        retiered.append(server.stats.retiers > n_retiers)
-        retier_s.append(server.stats.retier_seconds - r0)
+        _account(server, mark, retiered, retier_s, window)
         obs.tick()
         if after is not None:
             after(out)
@@ -161,7 +189,7 @@ def run_loop(server: OnlineServer, serve_fn: Callable[[np.ndarray], object],
               if not (i == 0 or retiered[i] or retiered[i - 1])]
     steady = np.asarray(steady) if steady else lat_arr[len(lat) // 2:]
     p50, p95, p99, attributed, p99_while = _latency_summary(
-        lat_arr * 1e6, np.asarray(retier_s) * 1e6, warm_sl, retiered)
+        lat_arr * 1e6, np.asarray(retier_s) * 1e6, warm_sl, window)
     return LoopResult(
         lat_s=tuple(lat), qps=batch / float(warm.mean()),
         steady_qps=batch / float(steady.mean()),
@@ -335,18 +363,16 @@ def run_microbatched_loop(server: OnlineServer,
     """
     first = np.asarray(make_request(0), np.int32).reshape(-1)
     batcher = MicroBatcher(serve_batch, first.shape[0])
-    lat, counts, retiered, retier_s = [], [], [], []
+    lat, counts, retiered, retier_s, window = [], [], [], [], []
 
     def run_batch(mb: MicroBatch) -> None:
-        n_retiers = server.stats.retiers
-        r0 = server.stats.retier_seconds
+        mark = _shadow_mark(server)
         sync(server.device)
         with obs.timeblock("serve.request") as tb:
             tb.sync(serve_fn(mb))
         lat.append(tb.seconds)
         counts.append(mb.count)
-        retiered.append(server.stats.retiers > n_retiers)
-        retier_s.append(server.stats.retier_seconds - r0)
+        _account(server, mark, retiered, retier_s, window)
         obs.tick()
         if after is not None:
             after(retiered[-1])
@@ -371,7 +397,7 @@ def run_microbatched_loop(server: OnlineServer,
     if not steady:
         steady = list(range(half, len(lat)))
     p50, p95, p99, attributed, p99_while = _latency_summary(
-        lat_arr * 1e6, np.asarray(retier_s) * 1e6, warm, retiered)
+        lat_arr * 1e6, np.asarray(retier_s) * 1e6, warm, window)
     return LoopResult(
         lat_s=tuple(lat),
         qps=float(cnt_arr[warm].sum() / lat_arr[warm].sum()),

@@ -1,6 +1,6 @@
 """Online serving state: live priority EMA + hot cache + delta re-tier.
 
-Port of ``repro/serve/online.py`` with synchronous re-tiers.
+Port of ``repro/serve/online.py``: synchronous and shadow re-tiers.
 ``OnlineServer`` owns the traffic-adaptive state around one backend of
 ``store.api`` (packed, or hashed through ``backend=``):
 
@@ -17,8 +17,8 @@ cache-first gather, then the fold) or, as the serving loop does, runs
 its forward over ``server.packed`` / ``server.cache`` (cache-first:
 ``serve.cache.cached_lookup``) and then calls ``server.observe(indices,
 hits)``, which folds the served rows into the Eq. 7 EMA (the eager form,
-as the reference's un-jitted fold computes it) and re-tiers
-synchronously every ``retier_every`` requests.
+as the reference's un-jitted fold computes it) and re-tiers every
+``retier_every`` requests: synchronously, or as a shadow build (below).
 
 With metrics on (``obs.enable()``, ``--metrics-out``) the server records
 the reference's metrics: the ``serve.requests``, ``serve.lookups``,
@@ -28,14 +28,38 @@ after every cache (re)build the occupancy gauges (``serve.cache.rows``
 and the backend's ``store.*``).  With metrics off they cost one flag
 check each.
 
-Shadow re-tiers (``retier_async``) and the hierarchical store (``hier=``)
-raise ``NotImplementedError``: they come with later slices (ROADMAP
-Queue 1 items 6 and 8).
+With ``OnlineConfig.retier_async`` the re-tier runs as a shadow build
+instead (``serve.shadow``): the boundary request only opens the shadow,
+each later request advances it by ``shadow_rows_per_step`` rows (times
+its live requests), and the finished generation is staged on a thread
+(the optional ``verify_swap`` bit-identity check against a fresh
+``pack``) before one pointer swap on a later request: build -> chunk ->
+[verify ->] swap, with ``discard_shadow`` as the crash-before-swap exit.
+The swapped store is bit-identical to a synchronous re-tier at the
+snapshot fold state.  On the card the staging thread issues its work on
+a CUDA stream of its own, after waiting for the serving stream (the last
+chunk and the materialized store were issued there), so a verify is not
+queued in front of the next request's kernels (the two still share the
+card, at one priority); the serving loops' syncs wait for their own
+stream only (``repro_torch.sync``).  The
+shadow metrics are the reference's: the ``serve.shadow.{plan, chunk,
+stage, verify, swap}`` spans, the ``serve.shadow.builds`` and
+``serve.shadow.swaps`` counters, the ``serve.shadow.in_flight`` and
+``serve.shadow.lag_rows`` gauges and the ``serve.shadow.build_us``
+histogram.  The loops register no ``warmup_fn``: the reference's warm-up
+compiles the jitted forward for the new payload shapes, and eager torch
+has nothing to compile.
+
+The hierarchical store (``hier=``) raises ``NotImplementedError``: it
+comes with a later slice (ROADMAP Queue 1 item 8).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -51,7 +75,12 @@ class OnlineConfig(NamedTuple):
     cache_rows: int = 0      # top-K fp32 hot rows (0 = cache disabled)
     retier_every: int = 0    # requests between delta re-tiers (0 = never)
     priority: PriorityConfig | None = None  # None -> FQuantConfig's
-    retier_async: bool = False     # shadow re-tiers: not ported yet
+    retier_async: bool = False    # shadow-build re-tiers off the request
+                                  # path instead of synchronous repacks
+    shadow_rows_per_step: int = 512  # shadow build budget per live
+                                     # request (rows; scaled by count)
+    verify_swap: bool = False     # O(V) bit-identity check against pack()
+                                  # at the snapshot fold state, every swap
 
 
 @dataclasses.dataclass
@@ -61,9 +90,12 @@ class ServeStats:
     hits: int = 0          # of which from the hot cache
     retiers: int = 0
     rows_moved: int = 0    # tier-crossing rows migrated by repack_delta
-    retier_seconds: float = 0.0  # wall time inside retier()
-    shadow_builds: int = 0   # always 0: the record keeps the reference's
-    swaps: int = 0           # keys, shadow re-tiers are not ported yet
+    retier_seconds: float = 0.0  # wall time inside retier() and the
+                                 # shadow ticks (the loops attribute
+                                 # tail latency from it)
+    shadow_builds: int = 0   # shadow generations opened
+    shadow_chunks: int = 0   # bounded build steps taken on request ticks
+    swaps: int = 0           # shadow generations swapped in
 
     @property
     def hit_rate(self) -> float:
@@ -86,10 +118,6 @@ class OnlineServer:
         """``backend`` (a ``store.api`` backend, e.g. ``build("hashed", hs,
         hcfg)``) is served as given; otherwise the ``(store, cfg)``
         ``QATStore`` pair builds the ``packed`` backend."""
-        if online.retier_async:
-            raise NotImplementedError(
-                "shadow re-tiers (retier_async) are not ported yet "
-                "(ROADMAP Queue 1 item 6)")
         if hier is not None:
             raise NotImplementedError(
                 "the hierarchical store is not ported yet (ROADMAP Queue 1 "
@@ -102,7 +130,24 @@ class OnlineServer:
         self.backend = backend
         self.online = online
         self.stats = ServeStats()
+        # shadow re-tier state (OnlineConfig.retier_async)
+        self.shadow = None            # the build in flight (ShadowRepack)
+        self._retier_pending = False  # a boundary crossed while building
+        self._staged = None           # the staged store, before the swap
+        self.warmup_fn = None         # the reference's forward warm-up
+                                      # hook; eager torch compiles nothing,
+                                      # so no loop registers one
+        self._warmup = None           # the staging thread in flight
+        self._stage_err = None        # a staging / verify failure, raised
+                                      # at the swap
+        self._shadow_t0 = 0.0         # perf_counter at begin_retier: the
+                                      # serve.shadow.build_us lifecycle
+        self._stage_stream = None     # the staging thread's CUDA stream,
+                                      # one a server (its allocations are
+                                      # cached for the next build)
         self._rebuild_cache()
+        if online.retier_async:
+            self.backend.prewarm_retier(online.shadow_rows_per_step)
 
     # -- backend state proxies -----------------------------------------
 
@@ -181,9 +226,11 @@ class OnlineServer:
                 count: int = 1, lookups: int | None = None) -> bool:
         """Fold one served batch into the online state: the Eq. 7 EMA
         (c- only), the counters, and a synchronous re-tier when the
-        request counter crosses a multiple of ``retier_every``.  Returns
-        True when the store was repacked (re-read ``server.packed`` and
-        ``server.cache``).
+        request counter crosses a multiple of ``retier_every`` (with
+        ``retier_async`` the boundary marks a shadow build pending, and
+        every call advances the build in flight by ``count`` requests'
+        row budget).  Returns True when the store was repacked or
+        swapped (re-read ``server.packed`` and ``server.cache``).
 
         Micro-batched serving passes one batch of ``count`` live requests
         with ``valid``, the batcher's numpy mask (bool, broadcastable to
@@ -226,7 +273,11 @@ class OnlineServer:
         self.backend.fold_priority(indices, pcfg, valid=vmask)
         re = self.online.retier_every
         if re and self.stats.requests // re > before // re:
-            return self.retier()
+            if not self.online.retier_async:
+                return self.retier()
+            self._retier_pending = True
+        if self.online.retier_async:
+            return self._shadow_tick(count)
         return False
 
     def _default_priority_cfg(self) -> PriorityConfig:
@@ -235,6 +286,170 @@ class OnlineServer:
             return cfg.priority
         return PriorityConfig()
 
+    # -- shadow re-tier (async) ----------------------------------------
+
+    def begin_retier(self) -> bool:
+        """Open a shadow build against the current fold state.
+
+        The backend's ``QATStore`` is the snapshot: the fold replaces its
+        priority tensor with a new one, so the reference the shadow keeps
+        does not drift while live folds go on (the next build picks them
+        up).  Returns True when a shadow was opened.  A backend with
+        nothing to move takes the synchronous no-move path: the re-tier is
+        counted and the cache rebuilt, with no swap.
+        """
+        if self.shadow is not None:     # one generation at a time
+            self._retier_pending = True
+            return False
+        self._shadow_t0 = time.perf_counter()
+        with obs.span("serve.shadow.plan"):
+            sh = self.backend.begin_retier(self.online.shadow_rows_per_step)
+        if sh is None:
+            self.stats.retiers += 1
+            self._rebuild_cache()
+            return False
+        self.shadow = sh
+        self.stats.shadow_builds += 1
+        obs.inc("serve.shadow.builds", 1)
+        obs.gauge("serve.shadow.in_flight", 1.0)
+        return True
+
+    def _shadow_tick(self, count: int = 1) -> bool:
+        """One request's share of shadow work: open a pending build,
+        advance it by the step budget, stage or swap when it is ready.
+        The tick's window ends when its device work has.  Returns True
+        when the live store was swapped (re-read ``server.packed``)."""
+        if self.shadow is None and self._retier_pending:
+            self._retier_pending = False
+            self.begin_retier()
+        if self.shadow is None:
+            return False
+        with obs.timeblock("serve.retier") as tb:
+            swapped = self._shadow_advance(count)
+            sync(self.device)
+        self.stats.retier_seconds += tb.seconds
+        return swapped
+
+    def _shadow_advance(self, count: int) -> bool:
+        sh = self.shadow
+        if not sh.staged:
+            with obs.span("serve.shadow.chunk"):
+                sh.step(self.online.shadow_rows_per_step
+                        * max(int(count), 1))
+            self.stats.shadow_chunks += 1
+            if obs.enabled():
+                obs.gauge("serve.shadow.lag_rows", float(sh.remaining_rows))
+            if sh.staged:
+                # built on this tick: stage now, swap on a later tick, so
+                # that the verify lands on no request
+                self._begin_staging()
+            return False
+        if self._warmup is None:
+            self._begin_staging()
+            return False
+        if self._warmup.is_alive():
+            return False
+        return self._swap()
+
+    def _begin_staging(self) -> None:
+        """Start the staging thread: placement (the shadow is already on
+        the device) and the optional bit-identity verify, off the serving
+        thread.  On CUDA it runs on a stream of its own (one a server)
+        that first waits for the serving stream, and it synchronizes that
+        stream before it ends, so nothing it read is freed under it.  A
+        failure is kept and raised at the swap."""
+        sh = self.shadow
+        verify = self.online.verify_swap
+        # the thread reports into this thread's registry binding
+        reg = obs.get_registry()
+        dev = self.device
+        side = None
+        if dev.type == "cuda":
+            if self._stage_stream is None:
+                self._stage_stream = torch.cuda.Stream(dev)
+            side = self._stage_stream
+            side.wait_stream(torch.cuda.current_stream(dev))
+
+        def _stage() -> None:
+            ctx = (torch.cuda.stream(side) if side is not None
+                   else contextlib.nullcontext())
+            with obs.bind(reg), ctx, torch.inference_mode():
+                try:
+                    try:
+                        with obs.span("serve.shadow.stage"):
+                            staged = sh.place()
+                            if verify:
+                                with obs.span("serve.shadow.verify"):
+                                    sh.verify()
+                    finally:
+                        if side is not None:
+                            side.synchronize()
+                    self._staged = staged
+                except Exception as e:          # raised by _swap
+                    self._stage_err = e
+        self._warmup = threading.Thread(target=_stage, daemon=True)
+        self._warmup.start()
+
+    def _swap(self) -> bool:
+        """The generation flip: commit the staged shadow and rebuild the
+        hot cache, the only point where live serving state changes.  A
+        staging or verify failure surfaces here: the shadow is discarded,
+        the live store stays as it was, and the error is raised."""
+        if self._stage_err is not None:
+            err = self._stage_err
+            self.discard_shadow()
+            raise err
+        with obs.span("serve.shadow.swap"):
+            moved = self.shadow.commit(self, self._staged)
+        self.shadow = None
+        self._staged = None
+        self._warmup = None
+        self.stats.retiers += 1
+        self.stats.swaps += 1
+        self.stats.rows_moved += int(moved)
+        obs.inc("serve.retier.rows_moved", int(moved))
+        obs.inc("serve.shadow.swaps", 1)
+        obs.observe("serve.shadow.build_us",
+                    (time.perf_counter() - self._shadow_t0) * 1e6)
+        obs.gauge("serve.shadow.in_flight", 0.0)
+        self._rebuild_cache()
+        return True
+
+    def drain_shadow(self) -> bool:
+        """Finish any in-flight (or pending) shadow now and swap it in:
+        loop teardown and checks.  Returns True when a swap happened."""
+        if self.shadow is None and self._retier_pending:
+            self._retier_pending = False
+            self.begin_retier()
+        if self.shadow is None:
+            return False
+        with obs.timeblock("serve.retier") as tb:
+            while not self.shadow.staged:
+                self.shadow.step(1 << 30)
+                self.stats.shadow_chunks += 1
+            if self._warmup is None:
+                self._begin_staging()
+            self._warmup.join()
+            out = self._swap()
+            sync(self.device)
+        self.stats.retier_seconds += tb.seconds
+        return out
+
+    def discard_shadow(self) -> None:
+        """Crash-before-swap: drop the shadow generation.  The live store
+        is untouched; serving goes on as if the build never started.  A
+        staging thread still running is joined first."""
+        if self._warmup is not None and self._warmup.is_alive():
+            self._warmup.join()
+        if self.shadow is not None:
+            self.shadow.discard()
+            obs.gauge("serve.shadow.in_flight", 0.0)
+        self.shadow = None
+        self._staged = None
+        self._warmup = None
+        self._stage_err = None
+        self._retier_pending = False
+
     # -- incremental re-tier -------------------------------------------
 
     def retier(self) -> bool:
@@ -242,7 +457,11 @@ class OnlineServer:
         Wall time (to the device's end of it) accumulates into
         ``stats.retier_seconds`` (always: the loops attribute tail latency
         from it) and into the ``serve.retier_us`` histogram when metrics
-        are on.  Returns True if anything moved."""
+        are on.  Returns True if anything moved.  A synchronous re-tier
+        supersedes a shadow build in flight: the shadow is discarded (its
+        snapshot is stale beside the store this call re-tiers from)."""
+        if self.shadow is not None or self._retier_pending:
+            self.discard_shadow()
         with obs.timeblock("serve.retier") as tb:
             res = self.backend.retier()
             self.stats.retiers += 1

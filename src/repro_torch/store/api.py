@@ -14,7 +14,10 @@ backend branches:
                occupancy() (the ``store.*`` gauges, reference names)
   adaptation   fold_priority(idx, pcfg) (the eager Eq. 7 fold,
                ``priority.serve_fold``, as the reference's un-jitted
-               ``serve_update`` computes it), retier()
+               ``serve_update`` computes it), retier(), and the shadow
+               re-tier's prewarm_retier(rows) and begin_retier(rows)
+               (a ``serve.shadow.ShadowRepack`` for the packed store,
+               None for the hashed pool)
   persistence  snapshot_manifest(), from_manifest(tree)
 
 ``PackedBackend``: the ``QATStore`` (table + Eq. 7 priority) is
@@ -33,8 +36,7 @@ format.
 Registry: ``register_backend(name, factory)`` + ``build(name, ...)``
 over ``packed`` and ``hashed``; ``from_manifest`` picks the backend by
 the manifest's kind tag.  Not ported yet: the hier backend (ROADMAP
-Queue 1 item 8), shadow re-tiers of the packed backend
-(``begin_retier``, ``prewarm_retier``, item 6) and the mesh (item 7).
+Queue 1 item 8) and the mesh (item 7).
 """
 
 from __future__ import annotations
@@ -150,12 +152,23 @@ class PackedBackend:
                                 valid=valid))
 
     def prewarm_retier(self, chunk_rows: int) -> None:
-        raise NotImplementedError(
-            "shadow re-tiers are not ported yet (ROADMAP Queue 1 item 6)")
+        """The reference's warm call of a shadow chunk: three zero rows
+        through ``quantize_rows``.  Eager torch has nothing to compile;
+        the call keeps the protocol and checks the quantizers run on the
+        store's device."""
+        dev = self.device
+        ps.quantize_rows(torch.zeros((3, self.dim), device=dev),
+                         torch.arange(3, device=dev),
+                         torch.arange(3, device=dev), self.cfg)
 
     def begin_retier(self, chunk_rows: int):
-        raise NotImplementedError(
-            "shadow re-tiers are not ported yet (ROADMAP Queue 1 item 6)")
+        """A ``ShadowRepack`` against the current fold state, or None when
+        no row's tier crossed.  ``chunk_rows`` (the reference's fixed
+        quantize shape) keeps the protocol: the caller gives each step its
+        budget."""
+        from repro_torch.serve.shadow import ShadowRepack
+        sh = ShadowRepack(self.packed, self.store, self.cfg)
+        return sh if sh.moved else None
 
     def retier(self) -> dict:
         """Synchronous delta re-tier of the rows whose tier crossed."""
@@ -280,6 +293,13 @@ class HashedBackend:
         self.hs = self.hs._replace(
             priority=serve_fold(self.hs.priority, indices, pcfg,
                                 valid=valid))
+
+    def prewarm_retier(self, chunk_rows: int) -> None:
+        """Nothing to quantize: a re-tier is a cache refresh."""
+
+    def begin_retier(self, chunk_rows: int):
+        """No shadow: nothing migrates, the caller refreshes the cache."""
+        return None
 
     def retier(self) -> dict:
         """Nothing migrates (pool slots are shared): the caller refreshes

@@ -712,3 +712,76 @@ def test_online_serve_bit_identical_with_metrics_on_card(dev, tmp_path,
         assert path.read_text().count("\n") >= 2
     finally:
         _metrics_reset()
+
+
+def test_shadow_repack_stages_on_its_own_stream_on_card(dev, monkeypatch):
+    """A shadow re-tier on the card with ``verify_swap``: the staging
+    thread verifies on a CUDA stream of its own, lookups served while it
+    runs are bit-equal to the live store's plain gather, and the swapped
+    store unpacks bit for bit to ``pack`` at the snapshot."""
+    from repro_torch.serve import shadow
+    from repro_torch.serve.cache import cached_lookup
+    from repro_torch.serve.online import OnlineConfig, OnlineServer
+    g = torch.Generator(device=dev)
+    g.manual_seed(7)
+    v, d = 1 << 22, 32
+    table = torch.randn((v, d), generator=g, device=dev) * 0.05
+    pri = torch.rand(v, generator=g, device=dev) * 100
+    cfg = tqs.FQuantConfig(tiers=TierConfig(20.0, 60.0), stochastic=False)
+    store = tqs.QATStore(table, pri)
+    store = store._replace(table=tqs.snap(
+        table, tqs.current_tiers(store, cfg), cfg))
+    streams = []
+    verify = shadow.ShadowRepack.verify
+
+    def spy(self):
+        streams.append(torch.cuda.current_stream(dev))
+        return verify(self)
+    monkeypatch.setattr(shadow.ShadowRepack, "verify", spy)
+    server = OnlineServer(store, cfg, OnlineConfig(
+        cache_rows=256, retier_async=True, shadow_rows_per_step=1 << 20,
+        verify_swap=True))
+    server.observe(torch.randint(0, v, (4096, 8), generator=g, device=dev))
+    assert server.begin_retier()
+    snap = server.shadow.snapshot
+    while not server.shadow.staged:
+        server._shadow_tick(1)
+    live = server.packed
+    assert live is not server.shadow.result
+    overlapped = 0
+    for _ in range(200):
+        alive = server._warmup.is_alive()
+        idx = torch.randint(0, v, (512, 40), generator=g, device=dev)
+        got, _ = cached_lookup(live, server.cache, idx, server.lookup_fn())
+        want = tps.lookup(live, idx)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        overlapped += alive
+        if not alive:
+            break
+    server._warmup.join(timeout=300)
+    assert not server._warmup.is_alive()
+    assert streams and streams[0] != torch.cuda.default_stream(dev)
+    assert overlapped >= 1
+    assert server._shadow_tick(1) and server.stats.swaps == 1
+    ref = tps.pack(snap, cfg)
+    for r0 in range(0, v, 1 << 20):
+        a = tps.unpack(server.packed, r0, r0 + (1 << 20))
+        b = tps.unpack(ref, r0, r0 + (1 << 20))
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("arch", ["wide-deep", "xdeepfm"])
+def test_online_fused_serve_shadow_smoke_on_card(dev, arch):
+    """``--retier-async --verify-swap`` through the fused head: swaps land
+    and the shadow chunks quantize through the kernel."""
+    rq_kernel.reset_launches()
+    served = serve.run(serve.parse_args(
+        ["--arch", arch, "--online", "--fuse-matmul", "--model", "smoke",
+         "--requests", "12", "--batch", "64", "--retier-async",
+         "--verify-swap", "--shadow-rows", "65536"]))
+    rec, server = served.record, served.server
+    assert rec["retier_async"] is True and rec["swaps"] >= 1
+    assert server.shadow is None
+    assert rec["kernel_launches"]["bag_matmul"] == 3 * 12
+    assert rec["kernel_launches"]["quantize_rowwise"] >= (
+        server.stats.shadow_chunks)

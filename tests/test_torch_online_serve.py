@@ -463,12 +463,13 @@ def test_refusals():
              "smoke", "--device", "cpu", "--requests", "1", "--batch", "4"]))
     store = tqs.QATStore(torch.zeros((10, 4)), torch.zeros(10))
     cfg = tqs.FQuantConfig()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        OnlineServer(store, cfg, OnlineConfig(retier_async=True))
+    # shadow re-tiers are ported: a store with nothing to move opens none
+    server = OnlineServer(store, cfg, OnlineConfig(retier_async=True))
+    assert not server.begin_retier() and server.shadow is None
+    assert server.stats.retiers == 1 and server.stats.shadow_builds == 0
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         OnlineServer(store, cfg, hier=object())
     backend = PackedBackend(store, cfg)
-    for call in (backend.begin_retier, backend.prewarm_retier):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call(512)
+    assert backend.prewarm_retier(512) is None
+    assert backend.begin_retier(512) is None
     assert backend.retier() == {"rows_moved": 0, "changed": False}

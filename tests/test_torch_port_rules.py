@@ -151,6 +151,15 @@ def test_obs_and_bench_modules_are_covered_by_the_import_rule():
         assert ROOT / "tests" / test in PORT_TESTS, test
 
 
+def test_shadow_modules_are_covered_by_the_import_rule():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for mod in ("serve/shadow.py", "serve/online.py", "serve/loop.py",
+                "core/packed_store.py", "store/api.py", "launch/serve.py",
+                "benchmarks/qps.py"):
+        assert f"src/repro_torch/{mod}" in names, mod
+    assert ROOT / "tests" / "test_torch_shadow.py" in PORT_TESTS
+
+
 def test_bench_qps_raises_without_cuda_unless_cpu_is_asked():
     from repro_torch.benchmarks import common
     if torch.cuda.is_available():

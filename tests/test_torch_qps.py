@@ -119,9 +119,10 @@ def test_cli_refusals():
             tqps.parse_args([])                       # the offline proxy
         with pytest.raises(SystemExit):
             tqps.parse_args(["--online", "--emit", "x.json"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        tqps.run_online_sweep((1,), requests=4, retier_async=True,
-                              device="cpu")
+    # shadow re-tiers are ported: the async sweep runs
+    rec = tqps.run_online_sweep((1,), requests=4, retier_every=2,
+                                retier_async=True, device="cpu")
+    assert rec["retier_async"] is True and rec["sweep"][0]["requests"] == 4
     if torch.cuda.is_available():
         pytest.skip("the no-GPU rule is checked where there is no GPU")
     with pytest.raises(RuntimeError, match="CUDA"):
