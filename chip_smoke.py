@@ -229,13 +229,26 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    ``tools/check_bench_schema.py`` (which holds each entry's p99 and p99
    while re-tiering to 10x its p50), every entry swapped, and
    quantize_rowwise launched.
+15. paper tables: ``python -m repro_torch.benchmarks.run`` through its
+   ``main``: the paper's six jobs (Table 2-4, Fig. 2-3, the
+   frequency/error study) on the bench DLRM at the reference's full
+   budgets (~16,000 training steps), every CSV row and each job's
+   seconds printed; every AUC finite and in [0, 1], the closed-form
+   memory columns (``mpe_lfu``, ``alpt_int8``, the uniform rows, Table
+   4's F-Permutation share) and Table 2's passes equal their formulas,
+   ``eval_auc`` of Table 3's fp32 params (retrained, same seeds) on the
+   card and on the CPU within 1e-5, and no kernel launched (counts set to
+   0 just before, read just after; the bench looks up by plain indexing,
+   as the reference's uses ``jnp.take``).  Table 2's measured F-P
+   speedup and how many planted-dead fields F-Permutation ranks least
+   important are printed, not checked.
 
 Prints the card's name and power limit, the serve, train, both online,
 both hashed and both pipeline records, one JSON ``kernels`` line
 (dequant_bag per tier dtype and its tiered entry, bag_grad, bag_matmul
 per arch, cin, hashed_gather and hashed_gather_ids per pool dtype,
 quantize_rowwise, dequant_bag_rowgrid per tier dtype, bag_grad_rowgrid;
-each with its launches on every path, phase 13's and 14's runs
+each with its launches on every path, phase 13's, 14's and 15's runs
 included; the run fails if a kernel of a main path launched no time on
 it), and
 as the last line
@@ -247,7 +260,9 @@ the rest of the repository is missing.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -2628,12 +2643,32 @@ def bench_qps(torch, kernels_mod, path: str,
     from repro_torch.benchmarks import qps
     from repro_torch.kernels.dequant_bag import kernel
     from repro_torch.kernels.hashed_gather import kernel as hg_kernel
+    # garbage collections during the run (a full one over a large heap
+    # would stall a request): (generation, ms) each
+    pauses, started = [], {}
+
+    def on_gc(phase, info):
+        if phase == "start":
+            started["t"] = time.perf_counter()
+        else:
+            pauses.append((info["generation"],
+                           (time.perf_counter() - started["t"]) * 1e3))
     kernels_mod.reset_launches()
+    gc.callbacks.append(on_gc)
     t0 = time.perf_counter()
-    rec = qps.main(["--online", "--serve-batch", BENCH_QPS_BATCHES,
-                    "--emit", path]
-                   + (["--retier-async"] if retier_async else []))
+    try:
+        rec = qps.main(["--online", "--serve-batch", BENCH_QPS_BATCHES,
+                        "--emit", path]
+                       + (["--retier-async"] if retier_async else []))
+    finally:
+        gc.callbacks.remove(on_gc)
     wall = time.perf_counter() - t0
+    gcs = {"objects": len(gc.get_objects()),
+           "collections": [sum(g == k for g, _ in pauses) for k in range(3)],
+           "longest_ms": max((ms for _, ms in pauses), default=0.0)}
+    log(f"bench_qps{' --retier-async' if retier_async else ''}: garbage "
+        f"collections by generation {gcs['collections']}, longest "
+        f"{gcs['longest_ms']:.2f} ms, {gcs['objects']} objects tracked")
     counts = path_counts(kernels_mod, kernel, hg_kernel)
     (written,) = check_stream(path)
     sweep = written["sweep"]
@@ -2660,12 +2695,117 @@ def bench_qps(torch, kernels_mod, path: str,
                "packed_fp32_ratio": rec["packed_fp32_ratio"],
                "bytes_per_request": sorted(byte_cols)[0],
                "sweep": [{k: e[k] for k in keys} for e in sweep],
-               "launches": counts, "device_name": rec["device_name"]}
+               "launches": counts, "device_name": rec["device_name"],
+               "gc": gcs}
     print(json.dumps({"bench_qps": summary}), flush=True)
     log(f"bench_qps{' --retier-async' if retier_async else ''}: a valid "
         f"bench_qps/v1 record in {wall:.1f}s, "
         f"{[(e['serve_batch'], round(e['p50_us'], 1)) for e in sweep]} "
         f"(serve batch, p50 us), launches {counts}")
+    return counts
+
+
+def paper_tables(torch, kernels_mod) -> dict:
+    """Phase 15: ``python -m repro_torch.benchmarks.run`` (the paper's six
+    tables and figures at the reference's full budgets, on the card)
+    through its ``main``, with the counts set to 0 just before and read
+    just after: no kernel of the port launches on this path.  Checks
+    every AUC finite and in [0, 1], the closed-form memory columns and
+    Table 2's passes against their formulas, and ``eval_auc`` of Table
+    3's fp32 params (retrained: the same seeds and steps) on the card
+    against the same params on the CPU within 1e-5.  Prints, as a finding
+    and not a check, how many planted-dead fields F-Permutation ranks
+    least important."""
+    import itertools
+
+    from repro_torch.benchmarks import common
+    from repro_torch.benchmarks import run as bench_run
+    from repro_torch.benchmarks.fig2_fperm import rank_fperm
+    from repro_torch.core.baselines import mpe
+    from repro_torch.core.tiers import fp32_bytes
+    from repro_torch.kernels.dequant_bag import kernel
+    from repro_torch.kernels.hashed_gather import kernel as hg_kernel
+    from repro_torch.optim.optimizers import tree_map
+    kernels_mod.reset_launches()
+    t0 = time.perf_counter()
+    out = bench_run.main([])
+    wall = time.perf_counter() - t0
+    counts = path_counts(kernels_mod, kernel, hg_kernel)
+    launched = {k: v for k, v in counts.items() if isinstance(v, int) and v}
+    launched.update({f"{k}[{e}]": n for k in ("dequant_bag_by_dtype",
+                                              "hashed_gather_by_entry")
+                     for e, n in counts[k].items() if n})
+    bad = []
+    if launched:
+        bad.append(f"kernels launched: {launched}")
+    if list(out) != ["table2_time", "table3_fquant", "fig3_thresholds",
+                     "table4_combined", "fig2_fperm", "freq_error"]:
+        bad.append(f"jobs {list(out)}")
+    for name, job in out.items():
+        for row in job["rows"]:
+            if "auc" in row and not (math.isfinite(row["auc"])
+                                     and 0.0 <= row["auc"] <= 1.0):
+                bad.append(f"{name}: AUC {row}")
+    setup = common.make_setup(num_fields=10, important=5, train_steps=800)
+    spec = setup.model.spec
+    v, d = spec.total_rows, spec.dim
+    fp32 = fp32_bytes(v, d)
+    t3 = {r["method"]: r for r in out["table3_fquant"]["rows"]}
+    want = {"fp32": 1.0, "uniform_fp16_sr": 0.5, "uniform_int8_sr": 0.25,
+            "mpe_lfu": round(mpe.memory_bytes(
+                v, d, mpe.MPEConfig(capacity=int(v * 0.18))) / fp32, 3),
+            "alpt_int8": round((v * d + v * 4) / fp32, 3)}
+    for method, mem in want.items():
+        if t3[method]["memory"] != mem:
+            bad.append(f"table3 {method} memory {t3[method]} != {mem}")
+    t4 = {r["method"]: r for r in out["table4_combined"]["rows"]}
+    tb = [float(b) for b in spec.table_bytes()]
+    shares = {round(sum(tb[i] for i in c) / sum(tb), 3)
+              for c in itertools.combinations(range(10), 6)}
+    if t4["baseline"]["memory"] != 1.0 or \
+            t4["f_permutation"]["memory"] not in shares:
+        bad.append(f"table4 memory {t4}")
+    t2 = {r["method"]: r for r in out["table2_time"]["rows"]}
+    speed = t2["speedup f_p vs permutation (measured)"]
+    if ((t2["f_permutation"]["passes"],
+         t2["f_permutation"]["paper_scale_passes"]) != (3, 3)
+            or (t2["permutation"]["passes"],
+                t2["permutation"]["paper_scale_passes"]) != (10 * 2 + 1,
+                                                             180 * 10 + 1)
+            or speed["paper_scale_passes"] != round(1801 / 3, 1)):
+        bad.append(f"table2 passes {t2}")
+    # Table 3's fp32 params again, evaluated on the card and on the CPU
+    t1 = time.perf_counter()
+    params = common.train_fp32(setup)
+    auc_card = common.eval_auc(setup, params)
+    cpu = common.make_setup(num_fields=10, important=5, device="cpu",
+                            params=tree_map(lambda t: t.cpu(), params))
+    auc_cpu = common.eval_auc(cpu, cpu.params)
+    if abs(auc_card - auc_cpu) > 1e-5:
+        bad.append(f"eval_auc card {auc_card} cpu {auc_cpu}")
+    order = rank_fperm(setup, params)
+    dead = sorted(int(f) for f in setup.ds.lossless_fields())
+    found = sorted(set(int(f) for f in order[:len(dead)]) & set(dead))
+    check_s = time.perf_counter() - t1
+    summary = {
+        "wall_s": wall, "seconds": {k: j["seconds"] for k, j in out.items()},
+        "table2_measured_speedup": speed["measured_s"],
+        "table2_s": {m: t2[m]["measured_s"]
+                     for m in ("f_permutation", "permutation")},
+        "table3_fp32_auc_retrained": {"card": auc_card, "cpu": auc_cpu,
+                                      "table3_row": t3["fp32"]["auc"]},
+        "fperm_least_important": [int(f) for f in order],
+        "planted_dead_fields": dead,
+        "dead_fields_ranked_least": f"{len(found)} of {len(dead)}",
+        "check_s": check_s, "launches": counts}
+    print(json.dumps({"paper_tables": summary}), flush=True)
+    log(f"paper tables: six jobs in {wall:.1f}s "
+        f"{ {k: round(j['seconds'], 1) for k, j in out.items()} }, "
+        f"Table 2 F-P speedup {speed['measured_s']:.2f}x, "
+        f"{len(found)} of {len(dead)} planted-dead fields ranked least "
+        f"important by F-P")
+    if bad:
+        raise SystemExit(f"paper tables: {bad}")
     return counts
 
 
@@ -3103,6 +3243,11 @@ def main() -> int:
     record_path(kernels, grad_entry, quant_by_path, rowgrid_by_path,
                 "bench_qps_async", counts)
     metrics_dir.cleanup()
+
+    # phase 15: the paper's tables and figures at full budgets; no kernel
+    record_path(kernels, grad_entry, quant_by_path, rowgrid_by_path,
+                "paper_tables", paper_tables(torch, kernels_mod))
+    torch.cuda.empty_cache()
     for k in kernels:
         k["launches"] = sum(k["launches_by_path"].values())
     grad_entry["launches"] = sum(grad_entry["launches_by_path"].values())

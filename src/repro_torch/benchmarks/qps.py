@@ -30,9 +30,8 @@ PATH`` validates it.  ``--online`` alone (``run_online``) serves
 request-at-a-time batches of ``--batch`` and prints one record.
 
 The record adds ``device`` and ``device_name``.  Not ported yet: the
-offline CPU proxy (``run``, whose metrics are CPU forward times) waits
-with ``train_fquant`` for the table benchmarks (ROADMAP Queue 1 item
-10).
+offline CPU proxy (``run``, whose metrics are CPU forward times; ROADMAP
+Queue 1 item 10).
 """
 
 from __future__ import annotations

@@ -1,5 +1,6 @@
-"""Carry weights (dlrm, wide&deep, xDeepFM), QAT, packed and hashed stores
-and train states from the JAX package into the port.
+"""Carry weights (dlrm, wide&deep, xDeepFM), QAT, packed and hashed stores,
+train states and the MPE / ALPT baselines' states from the JAX package
+into the port.
 
 Inputs are numpy arrays, never JAX objects, so this module imports neither
 package's JAX code: a caller brings params to the host
@@ -15,6 +16,8 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
+from repro_torch.core.baselines.alpt import ALPTState
+from repro_torch.core.baselines.mpe import MPEState
 from repro_torch.core.packed_store import PackedStore
 from repro_torch.core.qat_store import QATStore
 from repro_torch.optim.optimizers import AdamState
@@ -94,3 +97,21 @@ def train_state_from_jax(state, device: str | torch.device = "cpu"
         step=t(state.step), priority=t(state.priority), rng=t(state.rng),
         accum=None if acc is None else TaylorAccum(
             *(t(getattr(acc, f)) for f in TaylorAccum._fields)))
+
+
+def mpe_state_from_jax(state, device: str | torch.device = "cpu"
+                       ) -> MPEState:
+    """A reference ``MPEState`` with its leaves brought to numpy -> the
+    port's (its step a host int)."""
+    return MPEState(table=to_tensor(state.table, device),
+                    priority=to_tensor(state.priority, device),
+                    in_cache=to_tensor(state.in_cache, device),
+                    step=int(state.step))
+
+
+def alpt_state_from_jax(state, device: str | torch.device = "cpu"
+                        ) -> ALPTState:
+    """A reference ``ALPTState`` (q, scale) with its leaves brought to
+    numpy -> the port's."""
+    return ALPTState(q=to_tensor(state.q, device),
+                     scale=to_tensor(state.scale, device))

@@ -9,8 +9,9 @@ store produces.
     table    fp32[V, D]   tier-exact values
     priority fp32[V]      Eq. 7 EMA scores
 
-``snap`` is the round-to-nearest projection that serving packs (``snap_``
-its in-place, chunked form);
+``snap`` is the projection (round-to-nearest, as serving packs it, or
+stochastic from a draw source; ``snap_`` its in-place, chunked
+round-to-nearest form);
 ``post_step`` (whole table) and ``post_step_sparse`` (touched rows only,
 the training path) fold a batch into the priorities, re-tier and snap,
 with stochastic rounding on the int8 tier when ``cfg.stochastic``.  The
@@ -55,15 +56,20 @@ class QATStore(NamedTuple):
 
 
 def snap(table: torch.Tensor, tiers: torch.Tensor,
-         cfg: FQuantConfig, reciprocal: bool = False) -> torch.Tensor:
+         cfg: FQuantConfig, reciprocal: bool = False,
+         draw: rq.Draw | None = None) -> torch.Tensor:
     """Project each row onto its tier's representable value set.
 
-    Round-to-nearest, as the reference's ``snap`` without a key.  Row-wise,
-    so snapping any block of rows equals snapping them inside the whole
+    The int8 tier rounds stochastically with uniforms over the whole
+    table from ``draw`` (a generator or a callable, see ``rowwise_quant``)
+    when one is given and ``cfg.stochastic``, as the reference's ``snap``
+    with a key; else to nearest, as without one.  Row-wise, so snapping
+    any block of rows to nearest equals snapping them inside the whole
     table.  ``reciprocal``: the int8 scale of the reference's jitted
     train step (see ``rowwise_quant``).
     """
-    q8 = rq.fake_quant_rowwise(table, cfg.bits, mode=cfg.mode,
+    sr = draw if cfg.stochastic else None
+    q8 = rq.fake_quant_rowwise(table, cfg.bits, draw=sr, mode=cfg.mode,
                                reciprocal=reciprocal)
     qh = rq.fake_quant_half(table, strict_fp16=cfg.strict_fp16,
                             scaled=cfg.scaled_half)
@@ -85,18 +91,20 @@ def snap_(table: torch.Tensor, tiers: torch.Tensor, cfg: FQuantConfig
 
 def post_step(store: QATStore, indices: torch.Tensor,
               labels: torch.Tensor, cfg: FQuantConfig,
-              valid: torch.Tensor | None = None) -> QATStore:
+              valid: torch.Tensor | None = None,
+              draw: rq.Draw | None = None) -> QATStore:
     """Priority EMA + tier re-assignment + snap of the whole table, as
-    the reference's jitted ``make_train_step`` runs it.
+    the reference's jitted ``post_step`` runs it (its int8 scale).
 
-    Round-to-nearest: the reference rounds this path stochastically only
-    when given a ``jax.random`` key, whose bits torch cannot reproduce;
-    the compressed step uses ``post_step_sparse``.
+    With ``draw`` (and ``cfg.stochastic``) the int8 tier rounds
+    stochastically, as the reference's with a ``jax.random`` key; without
+    one, to nearest.  The compressed step uses ``post_step_sparse``.
     """
     pri = priority_update_from_batch(store.priority, indices, labels,
                                      cfg.priority, valid=valid)
     tiers = assign_tiers(pri, cfg.tiers)
-    return QATStore(table=snap(store.table, tiers, cfg, reciprocal=True),
+    return QATStore(table=snap(store.table, tiers, cfg, reciprocal=True,
+                               draw=draw),
                     priority=pri)
 
 
@@ -125,8 +133,7 @@ def _sr_quant(rows: torch.Tensor, noise: torch.Tensor, cfg: FQuantConfig
     scale = rq.rowwise_scale(rows, cfg.bits, cfg.mode,
                              reciprocal=True).to(torch.float32)
     y = rows.to(torch.float32) / scale
-    lo = torch.floor(y)
-    r = torch.clamp(lo + (noise < (y - lo)).to(torch.float32), imin, imax)
+    r = torch.clamp(rq.stochastic_round(y, lambda shape: noise), imin, imax)
     return r.to(torch.int8), scale
 
 

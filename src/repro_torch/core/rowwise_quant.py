@@ -1,6 +1,6 @@
 """Row-wise quantization / dequantization (SHARK Eq. 5-6).
 
-Port of the round-to-nearest (serving) path of ``repro/core/rowwise_quant.py``:
+Port of ``repro/core/rowwise_quant.py``:
 
     scale = max(max_abs(row), 1e-12) / denom                    (Eq. 6)
     e_q   = clip(round(e / scale), I_min, I_max)                (Eq. 5)
@@ -18,17 +18,40 @@ The division by ``denom`` is IEEE on every device (``denominator``).
 step does: under ``jit`` XLA folds the division by the constant
 ``denom`` into a multiply by its fp32 reciprocal, which differs from the
 division in the last bit for some rows.  The serving path (``pack``,
-eager in the reference) divides.  The stochastic-rounding write path is
-``qat_store._sr_quant``.
+eager in the reference) divides.
+
+Stochastic rounding (``draw=``, the training path) rounds up where a
+uniform draw falls below the fraction, so E[sr(x)] = x.  The uniforms
+come from a *draw source*: a ``torch.Generator`` (drawn on its device),
+or any callable ``shape -> fp32 tensor of uniforms in [0, 1)``, through
+which a test feeds the reference's ``jax.random.uniform`` draws.
 """
 
 from __future__ import annotations
 
-from typing import Literal
+from typing import Callable, Literal, Union
 
 import torch
 
 _EPS = 1e-12
+
+Uniform = Callable[[tuple], torch.Tensor]
+Draw = Union[torch.Generator, Uniform]
+
+
+def uniform_source(draw: Draw) -> Uniform:
+    """A draw source as a callable ``shape -> uniforms in [0, 1)``."""
+    if isinstance(draw, torch.Generator):
+        return lambda shape: torch.rand(shape, generator=draw,
+                                        device=draw.device)
+    return draw
+
+
+def stochastic_round(x: torch.Tensor, draw: Draw) -> torch.Tensor:
+    """Unbiased rounding: floor(x) + (u < frac(x)), u from ``draw``."""
+    lo = torch.floor(x)
+    u = uniform_source(draw)(tuple(x.shape)).to(x.device, x.dtype)
+    return lo + (u < (x - lo)).to(x.dtype)
 
 
 def int_range(bits: int) -> tuple[int, int]:
@@ -62,10 +85,12 @@ def denominator(denom: float, device) -> torch.Tensor:
 
 
 def quantize_rowwise(e: torch.Tensor, bits: int = 8, *,
+                     draw: Draw | None = None,
                      mode: Literal["full", "narrow"] = "narrow",
                      reciprocal: bool = False
                      ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Round-to-nearest row-wise quantization.
+    """Row-wise quantization: stochastic rounding with uniforms from
+    ``draw`` when given, else round-to-nearest.
 
     Returns (q, scale): q int8 (int32 for widths above 8 bits), scale fp32
     of shape e.shape[:-1] + (1,).
@@ -73,7 +98,9 @@ def quantize_rowwise(e: torch.Tensor, bits: int = 8, *,
     imin, imax = int_range(bits)
     scale = rowwise_scale(e, bits, mode,
                           reciprocal=reciprocal).to(torch.float32)
-    r = torch.round(e.to(torch.float32) / scale).clamp_(imin, imax)
+    x = e.to(torch.float32) / scale
+    r = torch.round(x) if draw is None else stochastic_round(x, draw)
+    r = r.clamp_(imin, imax)
     return r.to(torch.int8 if bits <= 8 else torch.int32), scale
 
 
@@ -83,11 +110,12 @@ def dequantize_rowwise(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 
 def fake_quant_rowwise(e: torch.Tensor, bits: int = 8, *,
+                       draw: Draw | None = None,
                        mode: Literal["full", "narrow"] = "narrow",
                        reciprocal: bool = False) -> torch.Tensor:
     """Quantize-dequantize round trip in value space (QAT 'snap')."""
-    return dequantize_rowwise(*quantize_rowwise(e, bits, mode=mode,
-                                                reciprocal=reciprocal))
+    return dequantize_rowwise(*quantize_rowwise(
+        e, bits, draw=draw, mode=mode, reciprocal=reciprocal))
 
 
 def half_scale(e: torch.Tensor) -> torch.Tensor:

@@ -80,6 +80,10 @@ def memory_bytes(tiers: torch.Tensor, dim: int) -> int:
     return payload + (c8 + c16) * 4 + (c8 + c16 + c32) * 4
 
 
+def fp32_bytes(vocab: int, dim: int) -> int:
+    return vocab * dim * 4
+
+
 def _quantile_f32(sorted_w: torch.Tensor, p: float) -> float:
     """``jnp.quantile(w, p)`` (linear) on an ascending-sorted fp32 vector.
 

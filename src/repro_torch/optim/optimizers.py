@@ -8,7 +8,12 @@ Port of the parts of ``repro/optim/optimizers.py`` that training runs:
     params = apply_updates(params, updates)
 
 ``adam`` updates the dense params functionally, as the reference does
-(they are small).  ``rowwise_adagrad_table_update`` is the table's
+(they are small).  ``rowwise_adagrad`` is the reference's tree form (one
+accumulator a row for params of ndim >= 2, a dense one for 1-D params),
+which the paper-table benchmarks train with; a constant learning rate
+stays a Python float there, an fp32 scalar in the product as the
+reference's, so a step copies nothing from the host.
+``rowwise_adagrad_table_update`` is the compressed train step's
 optimizer (one accumulator per row) and runs IN PLACE, in row chunks:
 the reference's per-row arithmetic, without a (V, D) temporary (at 124M
 x 64 one is 31.8 GB).  Scalars (the learning rate, bias corrections) are
@@ -105,6 +110,56 @@ def adam(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
         else:
             upd = tree_map(lambda m, v: upd_fn(m, v, None), mu, nu)
         return upd, AdamState(step=step, mu=mu, nu=nu)
+
+    return Optimizer(init, update)
+
+
+class AdagradState(NamedTuple):
+    step: torch.Tensor   # int32 ()
+    accum: Tree
+
+
+def rowwise_adagrad(lr, eps: float = 1e-10, init_accum: float = 0.1,
+                    min_ndim: int = 2) -> Optimizer:
+    """Adagrad with one accumulator per *row* for >= ``min_ndim``-dim
+    params (state V floats, not V x D); 1-D params (biases) fall back to
+    dense adagrad.
+
+        accum += mean(g^2 over the trailing axes);  u = -lr g / (sqrt(accum) + eps)
+    """
+
+    def _rowwise(p: torch.Tensor) -> bool:
+        return p.ndim >= min_ndim
+
+    def init(params):
+        some = tree_leaves(params)[0]
+
+        def acc(p):
+            shape = p.shape[:1] if _rowwise(p) else p.shape
+            return torch.full(shape, init_accum, dtype=torch.float32,
+                              device=p.device)
+        return AdagradState(
+            step=torch.zeros((), dtype=torch.int32, device=some.device),
+            accum=tree_map(acc, params))
+
+    def update(grads, state, params):
+        neg_eta = -(_resolve_lr(lr, state.step) if callable(lr)
+                    else float(lr))
+        def upd_acc(g, a, p):
+            g = g.to(torch.float32)
+            if _rowwise(p):
+                a2 = a + torch.mean(torch.square(g),
+                                    dim=tuple(range(1, g.ndim)))
+                den = torch.sqrt(a2).reshape(a2.shape + (1,) * (g.ndim - 1))
+            else:
+                a2 = a + torch.square(g)
+                den = torch.sqrt(a2)
+            return neg_eta * g / (den + eps), a2
+
+        pairs = tree_map(upd_acc, grads, state.accum, params)
+        upd = tree_map(lambda t: t[0], pairs)        # a tuple is a leaf
+        accum = tree_map(lambda t: t[1], pairs)
+        return upd, AdagradState(step=state.step + 1, accum=accum)
 
     return Optimizer(init, update)
 

@@ -11,8 +11,8 @@ store, then swapped in with one pointer flip (``serve.online``):
              keeping the reference is the snapshot) and freeze the mover
              set against it
     chunk    each step quantizes at most a row budget of movers
-             (``quantize_rows``, row-wise, so chunking changes no byte);
-             the live store is never written
+             (row-wise, so chunking changes no byte) into per-tier
+             blocks; the live store is never written
     verify   (optional) the finished shadow must be bit-identical to a
              fresh ``pack`` at the snapshot fold state
     swap     one pointer flip; the shadow already lives on the device
@@ -36,9 +36,12 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import packed_store as ps
-from repro_torch.core.packed_store import (PackedStore, extract_rows,
+from repro_torch.core.packed_store import (_TIER_SHIFT, PackedStore,
+                                           _assemble, _placeholder,
+                                           _quantize_tier, extract_rows,
                                            merge_stores)
 from repro_torch.core.qat_store import FQuantConfig, QATStore, current_tiers
+from repro_torch.core.tiers import Tier, tier_counts
 
 # rows of one verify block: bounds the two fp32 unpacks held at a time
 # (the full-width wide&deep table unpacked whole is 2.84 GB, twice)
@@ -49,11 +52,14 @@ class ShadowRepack:
     """Chunked copy-on-write twin of ``repack_delta`` for the flat store.
 
     Freezes the mover set once (rows whose packed tier differs from the
-    snapshot's Eq. 8 tier), quantizes it in bounded steps
-    (``quantize_rows``) and assembles the final store in one O(V) step:
-    surviving rows carry their live bytes (``extract_rows``), the
-    quantized chunks append (``merge_stores``), a permutation restores
-    global-id addressing.  The live store is read, never written.
+    snapshot's Eq. 8 tier) and gives every mover its slot in its new
+    tier's mover block (movers in order, as the reference's chunk stores
+    concatenate).  Each step quantizes at most a row budget of movers
+    and writes them into those blocks; the final store is assembled in
+    one O(V) step whatever the number of steps: surviving rows carry
+    their live bytes (``extract_rows``), the mover blocks append
+    (``merge_stores``), a permutation restores global-id addressing.
+    The live store is read, never written.
     """
 
     def __init__(self, packed: PackedStore, snapshot: QATStore,
@@ -67,8 +73,25 @@ class ShadowRepack:
         self.movers = torch.nonzero(old != self.new_tiers).reshape(-1)
         self._n = int(self.movers.numel())
         self.pos = 0
-        self._chunks: list[PackedStore] = []
         self.result: PackedStore | None = None
+        # each mover's new tier and its slot among that tier's movers
+        mtier = self.new_tiers[self.movers]
+        slots = (mtier[None, :] == torch.arange(3, device=mtier.device)
+                 [:, None]).cumsum(1) - 1
+        self._mtier = mtier
+        self._slot = slots.gather(0, mtier[None, :]).reshape(-1)
+        self._counts = tier_counts(mtier)
+        del slots
+        dim, dev = self.table.shape[1], self.table.device
+        dtypes = (packed.payload8.dtype, packed.payload16.dtype,
+                  packed.payload32.dtype)
+        # plain tensors, written in place by steps inside and outside
+        # inference mode (a build opened on a request drains at teardown)
+        with torch.inference_mode(False):
+            self._payload = [torch.empty((c, dim), dtype=dt, device=dev)
+                             for c, dt in zip(self._counts, dtypes)]
+            self._scale = [torch.empty((c,), dtype=torch.float32,
+                                       device=dev) for c in self._counts[:2]]
 
     @property
     def moved(self) -> int:
@@ -83,28 +106,63 @@ class ShadowRepack:
         return self.result is not None
 
     def step(self, budget: int) -> bool:
-        """Quantize the next ``budget`` (>= 1) movers in one
-        ``quantize_rows`` call, and materialize the final store when the
-        mover set drains.  Returns ``staged``.  (The reference quantizes
-        a step in sub-chunks padded to one shape for XLA's compile cache;
-        eager torch has none to fill, and the leaves are the same.)"""
+        """Quantize the next ``budget`` (>= 1) movers into their tiers'
+        blocks (each tier's quantizer once over the step's rows, row-wise,
+        as ``quantize_rows``; each tier keeps its own rows), and
+        materialize the final store when the mover set drains.  Returns
+        ``staged``.  (The reference quantizes a step in sub-chunks padded
+        to one shape for XLA's compile cache; eager torch has none to
+        fill, and the leaves are the same.)"""
         if self.result is not None:
             return True
         take = min(max(int(budget), 1), self._n - self.pos)
         if take > 0:
-            chunk = self.movers[self.pos:self.pos + take]
-            self._chunks.append(ps.quantize_rows(self.table, chunk,
-                                                 self.new_tiers, self.cfg))
-            self.pos += take
+            p0, p1 = self.pos, self.pos + take
+            rows = self.table[self.movers[p0:p1]].to(torch.float32)
+            mtier, slot = self._mtier[p0:p1], self._slot[p0:p1]
+            for tier in Tier:
+                t = int(tier.value)
+                q, s = _quantize_tier(rows, tier, self.cfg)
+                sel = torch.nonzero(mtier == t).reshape(-1)
+                if sel.numel():
+                    dest = slot.index_select(0, sel)
+                    self._payload[t].index_copy_(0, dest,
+                                                 q.index_select(0, sel))
+                    if s is not None:
+                        self._scale[t].index_copy_(0, dest,
+                                                   s.index_select(0, sel))
+            self.pos = p1
         if self.pos >= self._n:
             self.result = self.materialize()
         return self.result is not None
+
+    def _mover_store(self) -> PackedStore:
+        """The sub-store of the processed movers, position ``i`` = mover
+        ``i``: each tier's block cut to the rows written so far."""
+        pos = self.pos
+        done = (self._counts if pos >= self._n
+                else tier_counts(self._mtier[:pos]))
+        dev = self.table.device
+        parts = []
+        for k, n in enumerate(done):
+            scaled = k < 2
+            if n:
+                parts.append((self._payload[k][:n],
+                              self._scale[k][:n] if scaled else None))
+            else:
+                parts.append(_placeholder(self._payload[k].dtype, scaled,
+                                          self.table.shape[1], dev))
+        indirect = ((self._mtier[:pos] << _TIER_SHIFT)
+                    | self._slot[:pos]).to(torch.int32)
+        return _assemble(parts, indirect)
 
     def materialize(self) -> PackedStore:
         """The store as if swapped now: processed movers re-tiered, every
         other row (the movers not reached yet included) with its live
         bytes.  Its ``unpack`` equals that of ``repack_delta(live,
         snapshot, cfg, movers[:pos])``; its leaves equal the reference's.
+        A constant number of launches and host reads, however many steps
+        the build took.
         """
         done = self.movers[:self.pos]
         vocab = self.live.vocab
@@ -116,8 +174,8 @@ class ShadowRepack:
         perm = torch.empty(vocab, dtype=torch.int64, device=dev)
         perm[keep] = torch.arange(n_keep, device=dev)
         perm[done] = n_keep + torch.arange(done.numel(), device=dev)
-        merged = merge_stores([extract_rows(self.live, keep)]
-                              + self._chunks)
+        merged = merge_stores([extract_rows(self.live, keep),
+                               self._mover_store()])
         del keep, mask
         return extract_rows(merged, perm)
 

@@ -96,7 +96,10 @@ def compare_records(jrec: dict, trec: dict) -> None:
 def _with_metrics(obs, run):
     """``run()`` with ``obs``'s default registry on and the serving span
     catalog pre-registered, as the drivers' ``--metrics-out`` does; the
-    result and the registry's snapshot, the registry left off and empty."""
+    result and the registry's snapshot, the registry left off and empty.
+    The registry is emptied first too: a test of another file that ran
+    earlier in this process may have left observations in it."""
+    obs.get_registry().reset()
     obs.enable()
     obs.ensure_histograms(f"{p}_us" for p in JSERVE_PHASES)
     try:

@@ -1,7 +1,7 @@
 """Rules of the port: what it imports and where it runs.
 
 ``repro_torch`` and ``chip_smoke.py`` import neither ``jax`` nor anything
-of ``repro``; entry points run on CUDA unless asked for the CPU, raise
+of ``repro`` or of the top-level ``benchmarks`` package; entry points run on CUDA unless asked for the CPU, raise
 when there is no GPU, and never carry on on the CPU by themselves.
 """
 
@@ -44,7 +44,7 @@ def _imported_roots(path: Path) -> set[str]:
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_no_jax_and_no_reference(path):
     assert path.exists(), path
-    bad = _imported_roots(path) & {"jax", "jaxlib", "repro"}
+    bad = _imported_roots(path) & {"jax", "jaxlib", "repro", "benchmarks"}
     assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
 
 
@@ -158,6 +158,24 @@ def test_shadow_modules_are_covered_by_the_import_rule():
                 "benchmarks/qps.py"):
         assert f"src/repro_torch/{mod}" in names, mod
     assert ROOT / "tests" / "test_torch_shadow.py" in PORT_TESTS
+
+
+def test_paper_table_modules_are_covered_by_the_import_rule():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for mod in ("core/permutation.py", "core/baselines/__init__.py",
+                "core/baselines/alpt.py", "core/baselines/gumbel.py",
+                "core/baselines/lasso.py", "core/baselines/mpe.py",
+                "core/baselines/uniform.py", "core/rowwise_quant.py",
+                "core/qat_store.py", "optim/__init__.py",
+                "optim/optimizers.py", "convert.py", "benchmarks/common.py",
+                "benchmarks/table2_time.py", "benchmarks/fig2_fperm.py",
+                "benchmarks/table3_fquant.py",
+                "benchmarks/fig3_thresholds.py", "benchmarks/freq_error.py",
+                "benchmarks/table4_combined.py", "benchmarks/run.py"):
+        assert f"src/repro_torch/{mod}" in names, mod
+    for test in ("test_torch_baselines.py", "test_torch_paper_tables.py",
+                 "test_torch_paper_runs.py"):
+        assert ROOT / "tests" / test in PORT_TESTS, test
 
 
 def test_bench_qps_raises_without_cuda_unless_cpu_is_asked():

@@ -259,6 +259,31 @@ def test_shadow_repack_leaf_equal_to_jax_at_every_chunk(seed):
     assert_leaves_equal(jpacked, tpacked)
 
 
+def test_shadow_repack_materializes_in_one_merge_whatever_the_steps(
+        monkeypatch):
+    """A build of one-row steps ends in one two-store merge (the live
+    rows and the mover blocks), not one store a step, and its leaves
+    equal the reference's after the same steps."""
+    from repro.serve.shadow import ShadowRepack as JShadowRepack
+    jpacked, jst2, tpacked, tst2 = _drifted(4)
+    merged = []
+    merge = tshadow.merge_stores
+    monkeypatch.setattr(tshadow, "merge_stores",
+                        lambda stores: merged.append(len(stores))
+                        or merge(stores))
+    tsh = tshadow.ShadowRepack(tpacked, tst2, TCFG)
+    jsh = JShadowRepack(jps.PackedStore(*(np.asarray(x) for x in jpacked)),
+                        jst2, JCFG, chunk_rows=7)
+    steps = 0
+    while not tsh.staged:
+        tsh.step(1)
+        jsh.step(1)
+        steps += 1
+    assert jsh.staged and steps == tsh.moved > 10
+    assert merged == [2]
+    assert_leaves_equal(jsh.result, tsh.result)
+
+
 def _flip_first_row(packed: tps.PackedStore) -> None:
     """Flip one bit of the payload row that global row 0 reads."""
     code = int(packed.indirect[0])
