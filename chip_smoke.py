@@ -180,12 +180,16 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    stage seconds, the peak memory and each checkpoint's bytes and write
    rate;
 12. hashed pipeline: the same pipeline with ``--store-backend hashed``
-   at the published widths, every field capped at 3,600,000 rows
-   (22,184,960 rows, batch 65,536, 40 steps): the fit's hashed_gather
-   (ids entry) and bag_grad launches, the ids entry in the eval and the
-   serve, the
-   eval batch and the micro-batches held bit for bit to
-   ``hashed_gather_ref`` over the restored pool;
+   over the same 124,185,088 rows (batch 65,536, 40 steps), the pool
+   fitted at ratio 100 in 30 row chunks (``store.hashed.fit_chunk_rows``):
+   the fit's hashed_gather (ids entry: 13 a chunk, then the residual's
+   gathers) and bag_grad (14 a chunk) launches, the ids entry in the eval
+   and the serve; each chunk's scatter in the fit's first adj held bit
+   for bit to the plain ``bag_grad`` accumulated onto the same running
+   result, and the eval batch and the micro-batches to
+   ``hashed_gather_ref`` over the restored pool.  Prints the fit's
+   seconds (with and without those checks), chunk count and relative
+   residual (in (0, 1)) and the peak memory;
 13. metrics: (a) phase 8's wide-deep serve again, with ``--metrics-out F
    --metrics-every 4``: every line of F passes the unchanged
    ``tools/check_bench_schema.py`` (run as a subprocess), the final
@@ -241,16 +245,38 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    0 just before, read just after; the bench looks up by plain indexing,
    as the reference's uses ``jnp.take``).  Table 2's measured F-P
    speedup and how many planted-dead fields F-Permutation ranks least
-   important are printed, not checked.
+   important are printed, not checked.  The six jobs run one ``--only``
+   each (the runner's ``qps`` and ``hashed`` jobs launch kernels);
+16. the hashed train step and the runner's records, each with the counts
+   set to 0 just before and read just after: (a) ``python -m
+   repro_torch.benchmarks.run --emit TMP/BENCH_hash.json`` at the
+   reference's full budgets (ratios 1, 4, 20, 100 and 1000, 700 steps
+   each and the dense arm's, 96 requests by 8, 16 eval batches): the
+   record passes ``tools/check_bench_schema.py``; hashed_gather's plan
+   entry and bag_grad launch once a hashed step, dequant_bag and
+   bag_grad once a dense step, quantize_rowwise once a ``quantize_pool``,
+   the ids entry once a materialisation, served micro-batch and cache
+   build; before each hashed arm's first step, outside the counts, that
+   step's forward and pool gradient equal ``hashed_gather_ref`` and
+   ``hashed_grad_ref`` bit for bit, and (first arm) the plan entry is
+   timed at the step's shape; ms a dense and a hashed step are printed;
+   (b) ``benchmarks.run --only qps`` (the offline proxy, 20 timed
+   forwards of each arm): the byte rows equal their formulas over the
+   pack's tiers, the packed embeddings equal the plain ``lookup`` bit for
+   bit, 21 tiered dequant_bag launches; the fp32 and packed forward times
+   are printed; (c) ``--emit TMP/BENCH_qps.json --fast`` and
+   ``--emit-pipeline TMP/p.json --fast``: both records pass the schema
+   tool.
 
 Prints the card's name and power limit, the serve, train, both online,
 both hashed and both pipeline records, one JSON ``kernels`` line
 (dequant_bag per tier dtype and its tiered entry, bag_grad, bag_matmul
 per arch, cin, hashed_gather and hashed_gather_ids per pool dtype,
 quantize_rowwise, dequant_bag_rowgrid per tier dtype, bag_grad_rowgrid;
-each with its launches on every path, phase 13's, 14's and 15's runs
+each with its launches on every path, phase 13's to 16's runs
 included; the run fails if a kernel of a main path launched no time on
-it), and
+it, hashed_gather's fp32 plan entry, the hashed train step's forward,
+among them), and
 as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Exits non-zero without that line when there is no CUDA device, or when
@@ -321,15 +347,14 @@ MAX_IND_RANGE = 24_000_000
 # the full-width pipeline: 40 steps, so that one checkpoint of the train
 # state is written (the reference's ckpt_every 40)
 PIPELINE_STEPS = 40
-# the hashed pipeline at the published widths with every field capped at
-# 3,600,000 rows (22,184,960 rows, about the 22.2M of the hashed serve
-# phase): the fit's slot plan is not chunked yet (ROADMAP Queue 1), so a
-# fit of all 124M rows waits for it
-HASHED_PIPELINE_MAX_IND_RANGE = 3_600_000
 # phase 13: a snapshot line every 4 of wide&deep's 16 requests; the
 # bench_qps/v1 sweep at the reference's serve batches
 METRICS_EVERY = 4
 BENCH_QPS_BATCHES = "1,8,32"
+# phase 15: the paper's six jobs, one ``--only`` run each (the runner's
+# other jobs, qps and hashed, are phase 16's)
+PAPER_JOBS = ("table2_time", "table3_fquant", "fig3_thresholds",
+              "table4_combined", "fig2_fperm", "freq_error")
 # phase 14: the shadow build budget in rows a request (a full-width first
 # build moves 6.5M / 11.2M rows: 2 / 3 chunks), and requests enough for
 # two verified swaps to land on request ticks
@@ -1820,22 +1845,6 @@ def check_hashed_build(torch, served, table, bits: str, counters,
                    "grouped once a fit; sorted_ms sorts them anew)"}, fwd
 
 
-def hashed_residual(torch, served, table) -> float:
-    """||fwd(pool) - table|| / ||table|| over every row, fwd through the
-    kernel (the pool read back as the fit's materialisation)."""
-    from repro_torch.store.hashed import hashed_lookup
-    backend = served.server.backend
-    num = torch.zeros((), dtype=torch.float64, device=table.device)
-    step = 1 << 22
-    with torch.inference_mode():
-        for r0 in range(0, table.shape[0], step):
-            ids = torch.arange(r0, min(r0 + step, table.shape[0]),
-                               dtype=torch.int32, device=table.device)
-            fit = hashed_lookup(backend.hs, backend.hcfg, ids)
-            num += ((fit - table[r0:r0 + step]).double() ** 2).sum()
-    return float(num.sqrt() / table.double().norm())
-
-
 def measure_hashed_gather(torch, served, by_entry: dict, flush,
                           worst: float) -> list[dict]:
     """Phase 10: hashed_gather's plan and ids entries at the served
@@ -2357,20 +2366,45 @@ def resume_smoke() -> dict:
 
 
 def pipeline_audit(torch, kernels_mod, label: str) -> tuple:
-    """(audit, seen) for ``pipeline.main``: the pipeline's served lookups
-    (its first served-table eval batch, every micro-batch that did not
-    re-tier) held bit for bit to the plain gather of the store that
-    served them, on the card: ``packed_store.lookup`` of the pack (the
-    eval: the restored pack at the full batch, every tier's slots), or
-    ``hashed_gather_ref`` over the hashed backend's pool.  The plain
-    gathers launch no kernel (checked), so the run's counts stay the
+    """(audit, fit_audit, seen) for ``pipeline.main``: the pipeline's
+    served lookups (its first served-table eval batch, every micro-batch
+    that did not re-tier) held bit for bit to the plain gather of the
+    store that served them, on the card: ``packed_store.lookup`` of the
+    pack (the eval: the restored pack at the full batch, every tier's
+    slots), or ``hashed_gather_ref`` over the hashed backend's pool; and
+    the hashed fit's first ``adj``, chunk by chunk, to the plain
+    ``bag_grad`` accumulated onto the same running result.  The plain
+    versions launch no kernel (checked), so the run's counts stay the
     main path's."""
     from repro_torch.core import packed_store as ps
+    from repro_torch.kernels.dequant_bag import ref as db_ref
     from repro_torch.kernels.hashed_gather import ref as hg_ref
     from repro_torch.kernels.hashed_gather.ops import slot_plan
 
     seen = {"eval": {"batches": 0, "slots": 0},
-            "serve": {"batches": 0, "slots": 0}, "eval_slots_by_tier": None}
+            "serve": {"batches": 0, "slots": 0}, "eval_slots_by_tier": None,
+            "fit": {"chunks": 0, "rows": 0, "slots": 0, "check_s": 0.0}}
+
+    def check_fit_chunk(hcfg, r0, r1, g, bags, signs, before, after):
+        t0 = time.perf_counter()
+        launched = kernels_mod.launch_counts()
+        with torch.inference_mode():
+            want = db_ref.bag_grad_ref(g, None, bags, signs,
+                                       hcfg.num_slots, out=before)
+            ok = bits_equal(after, want)
+        if kernels_mod.launch_counts() != launched:
+            raise SystemExit(f"pipeline {label}: the plain adj launched a "
+                             "kernel")
+        if not ok:
+            raise SystemExit(f"pipeline {label}: the fit's first adj over "
+                             f"rows [{r0}, {r1}) != the plain bag_grad, max "
+                             f"err {float((after - want).abs().max())}")
+        del want
+        fit = seen["fit"]
+        fit["chunks"] += 1
+        fit["rows"] += r1 - r0
+        fit["slots"] += int(bags.numel())
+        fit["check_s"] += time.perf_counter() - t0
 
     def audit(stage, store, gidx, emb):
         before = kernels_mod.launch_counts()
@@ -2400,7 +2434,7 @@ def pipeline_audit(torch, kernels_mod, label: str) -> tuple:
         seen[stage]["slots"] += int(gidx.numel())
         if stage == "eval":
             seen["eval_slots_by_tier"] = by_tier
-    return audit, seen
+    return audit, check_fit_chunk, seen
 
 
 def pipeline_phase(torch, kernels_mod, kernel, pipeline, argv: list,
@@ -2411,13 +2445,15 @@ def pipeline_phase(torch, kernels_mod, kernel, pipeline, argv: list,
     Returns (the record, the run's launches by kernel and, for
     dequant_bag, by payload dtype)."""
     from repro_torch.kernels.hashed_gather import kernel as hg_kernel
+    from repro_torch.store.hashed import CG_ITERS, FIT_CHUNK_ROWS
 
-    audit, seen = pipeline_audit(torch, kernels_mod, label)
+    audit, fit_audit, seen = pipeline_audit(torch, kernels_mod, label)
     with tempfile.TemporaryDirectory() as ckpt:
         kernels_mod.reset_launches()
         t0 = time.perf_counter()
         # prints the record; raises on a false verify_* or a non-finite loss
-        rec = pipeline.main([*argv, "--ckpt-dir", ckpt], audit=audit)
+        rec = pipeline.main([*argv, "--ckpt-dir", ckpt], audit=audit,
+                            fit_audit=fit_audit)
         wall = time.perf_counter() - t0
         counts = kernels_mod.launch_counts()
         counts["dequant_bag_by_dtype"] = dict(kernel.launches)
@@ -2450,8 +2486,16 @@ def pipeline_phase(torch, kernels_mod, kernel, pipeline, argv: list,
         by_entry["int8"] == by_entry["float32"] == by_entry["ids_int8"] == 0,
         by_entry["ids_float32"] == counts["hashed_gather"]]
     if hashed:
-        wanted += [kl["pack"]["hashed_gather"] > 0,
-                   kl["pack"]["bag_grad"] > 0,
+        # the fit: 1 + CG_ITERS fwd and 2 + CG_ITERS adj passes over its
+        # chunks, then fit_residual's gathers
+        chunks = rec["fit_chunks"]
+        residual = -(-rec["rows"] // FIT_CHUNK_ROWS)
+        wanted += [kl["pack"]["hashed_gather"]
+                   == (CG_ITERS + 1) * chunks + residual,
+                   kl["pack"]["bag_grad"] == (CG_ITERS + 2) * chunks,
+                   seen["fit"]["chunks"] == chunks,
+                   seen["fit"]["rows"] == rec["rows"],
+                   0.0 < rec["fit_relative_residual"] < 1.0,
                    kl["serve"]["hashed_gather"] > 0]
     else:
         wanted += [kl["pack"]["quantize_rowwise"] > 0,
@@ -2464,6 +2508,10 @@ def pipeline_phase(torch, kernels_mod, kernel, pipeline, argv: list,
     writes = rec["checkpoints"]["train"] + rec["checkpoints"]["pack"]
     summary = {
         "label": label, "wall_s": wall, "stage_seconds": rec["stage_seconds"],
+        "fit": ({k: rec[k] for k in ("fit_s", "fit_chunks",
+                                     "fit_relative_residual")}
+                | {"fit_s_without_checks": rec["fit_s"]
+                   - seen["fit"]["check_s"]} if hashed else None),
         "max_memory_allocated_bytes": rec["max_memory_allocated_bytes"],
         "rows": rec["rows"], "reduced": rec["reduced"],
         "checkpoints": [dict(w, write_gb_per_s=w["bytes"] / w["write_s"]
@@ -2471,6 +2519,13 @@ def pipeline_phase(torch, kernels_mod, kernel, pipeline, argv: list,
         "launches": counts, "device_name": rec["device_name"],
         "served_vs_plain_bit_equal": seen}
     print(json.dumps({"pipeline": summary}), flush=True)
+    if hashed:
+        log(f"pipeline {label}: fit of {rec['rows']:,} rows in "
+            f"{rec['fit_chunks']} chunks {rec['fit_s']:.2f} s "
+            f"({summary['fit']['fit_s_without_checks']:.2f} s without the "
+            f"per-chunk plain checks), relative residual "
+            f"{rec['fit_relative_residual']:.4f}; each chunk's first adj "
+            f"bit-equal to the plain bag_grad")
     log(f"pipeline {label}: {wall:.1f}s, stages {rec['stage_seconds']}, "
         f"peak {(rec['max_memory_allocated_bytes'] or 0) / 1e9:.2f} GB, "
         f"{rec['fields_pruned']}/{rec['fields_total']} fields pruned, ratio "
@@ -2728,7 +2783,9 @@ def paper_tables(torch, kernels_mod) -> dict:
     from repro_torch.optim.optimizers import tree_map
     kernels_mod.reset_launches()
     t0 = time.perf_counter()
-    out = bench_run.main([])
+    out = {}
+    for name in PAPER_JOBS:
+        out.update(bench_run.main(["--only", name]))
     wall = time.perf_counter() - t0
     counts = path_counts(kernels_mod, kernel, hg_kernel)
     launched = {k: v for k, v in counts.items() if isinstance(v, int) and v}
@@ -2738,8 +2795,7 @@ def paper_tables(torch, kernels_mod) -> dict:
     bad = []
     if launched:
         bad.append(f"kernels launched: {launched}")
-    if list(out) != ["table2_time", "table3_fquant", "fig3_thresholds",
-                     "table4_combined", "fig2_fperm", "freq_error"]:
+    if list(out) != list(PAPER_JOBS):
         bad.append(f"jobs {list(out)}")
     for name, job in out.items():
         for row in job["rows"]:
@@ -2807,6 +2863,259 @@ def paper_tables(torch, kernels_mod) -> dict:
     if bad:
         raise SystemExit(f"paper tables: {bad}")
     return counts
+
+
+def hash_step_audit(torch, counters, flush, seen: dict):
+    """Phase 16 (a): the audit ``run_hashed_sweep`` calls before each
+    hashed arm's first step.  Outside the counts (``Uncounted``), the
+    step's forward (``hashed_gather``'s plan entry, through the training
+    twin) and its pool gradient (``bag_grad``, the cotangent of the head's
+    loss) on the arm's initial pool and first batch are held bit for bit
+    to ``hashed_gather_ref`` and ``hashed_grad_ref``; at the first arm the
+    forward is also timed at that shape beside its bound, its plain
+    version and ``F.embedding_bag``."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.hashed_gather import ref as hg_ref
+    from repro_torch.kernels.hashed_gather.autodiff import hashed_lookup_train
+    from repro_torch.kernels.hashed_gather.kernel import hashed_gather_cuda
+    from repro_torch.kernels.hashed_gather.ops import slot_plan
+    from repro_torch.models.embedding import globalize
+
+    def audit(model, hcfg, params, batch):
+        c, z, s = hcfg.num_chunks, hcfg.chunk_dim, hcfg.num_slots
+        kw = dict(num_chunks=c, num_hashes=hcfg.num_hashes, seed=hcfg.seed)
+        with Uncounted(counters):
+            pool = params["embed_table"]
+            gidx = globalize(batch["indices"], model.spec)
+            leaf = pool.detach().clone().requires_grad_()
+            with torch.enable_grad():
+                emb = hashed_lookup_train(leaf, gidx, **kw)
+                e = emb.detach().requires_grad_()
+                loss = model.loss_from_emb(params, e, batch).mean()
+                (g_emb,) = torch.autograd.grad(loss, e)
+                (dpool,) = torch.autograd.grad(emb, leaf, g_emb)
+            with torch.inference_mode():
+                slots, coeff = slot_plan(gidx.reshape(-1, 1), None,
+                                         num_slots=s, **kw)
+                want = hg_ref.hashed_gather_ref(pool, None, slots, coeff,
+                                                num_chunks=c)
+                want_grad = hg_ref.hashed_grad_ref(
+                    g_emb.reshape(-1, c * z), None, slots, coeff, s,
+                    num_chunks=c)
+                torch.cuda.synchronize()
+                if not (bits_equal(emb.detach().reshape(want.shape), want)
+                        and bits_equal(dpool, want_grad)):
+                    raise SystemExit(
+                        f"bench_hash S={s}: the first hashed step's forward "
+                        "or pool gradient != plain")
+                seen["steps_checked"] += 1
+                if "train_shape" not in seen:
+                    seen["train_shape"] = time_train_gather(
+                        torch, F, hashed_gather_cuda, hg_ref, pool, slots,
+                        coeff, c, flush)
+    return audit
+
+
+def time_train_gather(torch, F, kernel_fn, hg_ref, pool, slots, coeff,
+                      c: int, flush) -> dict:
+    """Row 6 at the hashed train step's shape (a batch's ids x C x T over
+    the pool): ms a launch beside its bound, its plain version and
+    ``F.embedding_bag``."""
+    nb, z = slots.shape[0], pool.shape[1]
+    t = slots.shape[1] // c
+    reps = [(pool, None, slots, coeff)] * 20
+    ms = time_launches(torch, lambda *a: kernel_fn(*a, num_chunks=c), reps,
+                       flush)
+    plain_ms = time_launches(
+        torch, lambda *a: hg_ref.hashed_gather_ref(*a, num_chunks=c),
+        reps[:3], flush)
+
+    def library():
+        return F.embedding_bag(slots.reshape(-1, t), pool, mode="sum",
+                               per_sample_weights=coeff.reshape(-1, t))
+    library_ms = time_launches(torch, library, [()] * 20, flush)
+    live = slots[coeff != 0]
+    rows = int(torch.unique(live).numel())
+    nbytes = slots.numel() * 8 + rows * z * 4 + nb * c * z * 4
+    bound_ms, bound_by = _bound(nbytes, 3 * z * live.numel())
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+            "shape": {"B": nb, "C": c, "T": t, "Z": z, "S": pool.shape[0]},
+            "distinct_pool_rows": rows,
+            "per": "launch (a hashed train step's forward)"}
+
+
+def bench_hash(torch, kernels_mod, counters, path: str) -> dict:
+    """Phase 16 (a): ``python -m repro_torch.benchmarks.run --emit
+    path/BENCH_hash.json`` through its ``main`` at the reference's full
+    budgets, with the counts set to 0 just before and read just after;
+    the record through the unchanged schema tool; each kernel's launches
+    as the sweep's steps, materialisations and requests make them."""
+    from repro_torch.benchmarks import hashed
+    from repro_torch.benchmarks import run as bench_run
+    from repro_torch.benchmarks.common import make_setup
+    from repro_torch.kernels.dequant_bag import kernel
+    from repro_torch.kernels.hashed_gather import kernel as hg_kernel
+    from repro_torch.store import hashed as H
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    seen = {"steps_checked": 0}
+    audit = hash_step_audit(torch, counters, flush, seen)
+    kernels_mod.reset_launches()
+    t0 = time.perf_counter()
+    out = bench_run.main(["--emit", path], audit=audit)
+    wall = time.perf_counter() - t0
+    counts = path_counts(kernels_mod, kernel, hg_kernel)
+    rec = out["BENCH_hash.json"]["record"]
+    (written,) = check_stream(path)
+    sweep, steps = rec["sweep"], rec["train_steps"]
+    n = len(sweep)
+    by_dtype, by_entry = (counts["dequant_bag_by_dtype"],
+                          counts["hashed_gather_by_entry"])
+    # a serve: one gather a micro-batch, a cache build at the start and at
+    # each re-tier; a ratio's two materialisations (fp32 and int8 pools)
+    serving = sum(-(-rec["requests"] // rec["serve_batch"]) + 1 + e["retiers"]
+                  for e in sweep)
+    wanted = {
+        "record as written": written == json.loads(json.dumps(rec)),
+        "device": rec["device"] == "cuda",
+        "full budgets": (tuple(e["ratio_target"] for e in sweep),
+                         steps, rec["requests"])
+        == (hashed.FULL_RATIOS, 700, 96),
+        "plan entry a hashed step": by_entry["float32"] == n * steps,
+        "bag_grad a step": counts["bag_grad"] == (n + 1) * steps,
+        "dequant_bag a dense step": (by_dtype["float32"], counts[
+            "dequant_bag"]) == (steps, steps),
+        "quantize_rowwise a quantize_pool": counts["quantize_rowwise"] == n,
+        "ids entry, int8 pools": by_entry["ids_int8"] == n,
+        "ids entry, fp32 pools": by_entry["ids_float32"] == n + serving,
+        "no int8 plan entry": by_entry["int8"] == 0,
+        "first steps checked": seen["steps_checked"] == n,
+        "AUCs": all(0.0 <= e[k] <= 1.0 for e in sweep
+                    for k in ("auc", "auc_combined"))
+        and 0.0 <= rec["auc_fp32"] <= 1.0,
+        "rowgrid": counts["dequant_bag_rowgrid"] == counts[
+            "bag_grad_rowgrid"] == 0}
+    bad = [k for k, ok in wanted.items() if not ok]
+    if bad:
+        raise SystemExit(f"bench_hash: {bad}: {counts}, {rec}")
+    # ms a step of each arm, apart from the counted run
+    setup = make_setup(seed=0)
+    v, d = setup.model.spec.total_rows, setup.model.spec.dim
+    step_ms = {}
+    for label, ratio in (("dense", None), ("hashed_100", 100.0)):
+        hcfg = None if ratio is None else H.HashedConfig(
+            vocab=v, dim=d, chunk_dim=8, num_hashes=4,
+            num_slots=H.plan_pool_slots(v, d, 8, ratio))
+        hashed._train(setup, hcfg, 5, 0.2, 0.05)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        hashed._train(setup, hcfg, 100, 0.2, 0.05)
+        torch.cuda.synchronize()
+        step_ms[label] = (time.perf_counter() - t1) * 10.0
+    keys = ("ratio_target", "pool_slots", "bytes", "bytes_combined", "auc",
+            "auc_gap", "auc_combined", "p50_us", "p99_us", "steady_qps",
+            "lookups", "hits", "retiers")
+    summary = {"wall_s": wall, "auc_fp32": rec["auc_fp32"],
+               "step_ms": step_ms, "sweep": [{k: e[k] for k in keys}
+                                             for e in sweep],
+               "row6_train_shape": seen["train_shape"], "launches": counts,
+               "device_name": rec["device_name"]}
+    print(json.dumps({"bench_hash": summary}), flush=True)
+    log(f"bench_hash: a valid bench_hash/v1 record in {wall:.1f}s at the "
+        f"reference's budgets ({n} ratios x {steps} steps + the dense arm; "
+        f"{step_ms['dense']:.2f} / {step_ms['hashed_100']:.2f} ms a dense / "
+        f"hashed step); AUC fp32 {rec['auc_fp32']}, by ratio "
+        f"{[(e['ratio_target'], e['auc'], e['auc_combined']) for e in sweep]}"
+        f"; each arm's first step bit-equal to plain; row 6 at the step's "
+        f"shape {seen['train_shape']['ms']:.4f} ms (bound "
+        f"{seen['train_shape']['bound_ms']:.4f}, embedding_bag "
+        f"{seen['train_shape']['library_ms']:.4f}); launches {counts}")
+    return counts, seen["train_shape"]
+
+
+def offline_qps(torch, kernels_mod) -> dict:
+    """Phase 16 (b): ``python -m repro_torch.benchmarks.run --only qps``
+    (the offline proxy, 20 timed forwards of each arm) through its
+    ``main``, counts set to 0 just before and read just after: one tiered
+    dequant_bag launch a packed forward (20 and the warm-up), the pack's
+    int8 tier through quantize_rowwise; the packed arm's embeddings equal
+    the plain ``lookup`` bit for bit; the byte rows equal their formulas
+    over the pack's own tiers."""
+    from repro_torch.benchmarks import run as bench_run
+    from repro_torch.core import packed_store as ps
+    from repro_torch.kernels.dequant_bag import kernel
+    from repro_torch.kernels.hashed_gather import kernel as hg_kernel
+
+    seen = {}
+
+    def audit(packed, gidx, emb):
+        with torch.inference_mode():
+            plain = ps.lookup(packed, gidx)
+            tiers = ps.packed_tiers(packed)[gidx.reshape(-1).to(
+                torch.int64)].to(torch.int64)
+        d = packed.dim
+        per_tier = torch.tensor([d + 4, 2 * d + 4, 4 * d], device=gidx.device)
+        seen.update(equal=bits_equal(emb, plain), rows=gidx.numel(), dim=d,
+                    packed_bytes=int((per_tier[tiers] + 4).sum()),
+                    memory=round(packed.nbytes() / (packed.vocab * d * 4), 3),
+                    slots_by_tier=torch.bincount(tiers, minlength=3).tolist())
+    kernels_mod.reset_launches()
+    out = bench_run.main(["--only", "qps"], audit=audit)
+    counts = path_counts(kernels_mod, kernel, hg_kernel)
+    rows = {r["metric"]: r["value"] for r in out["qps"]["rows"]}
+    fp32 = seen["rows"] * seen["dim"] * 4
+    want = {"bytes_per_request_fp32": fp32,
+            "bytes_per_request_packed": seen["packed_bytes"],
+            "hbm_bytes_ratio (QPS headroom on bw-bound serving)": round(
+                fp32 / seen["packed_bytes"], 2),
+            "table_memory_ratio": seen["memory"]}
+    bad = [k for k, v in want.items() if rows[k] != v]
+    if (bad or not seen["equal"] or counts["dequant_bag"] != 21
+            or counts["dequant_bag_by_dtype"]["tiered"] != 21
+            or counts["quantize_rowwise"] <= 0 or counts["bag_grad"]
+            or counts["hashed_gather"]):
+        raise SystemExit(f"offline qps: rows {rows} against {want}, "
+                         f"embeddings equal {seen['equal']}, launches "
+                         f"{counts}")
+    ratio = rows["forward_us_fp32"] / rows["forward_us_packed"]
+    print(json.dumps({"offline_qps": {"rows": rows, "seconds": out["qps"][
+        "seconds"], "fp32_over_packed": ratio, "slots_by_tier": seen[
+        "slots_by_tier"], "launches": counts}}), flush=True)
+    log(f"offline qps: forward {rows['forward_us_fp32']} us fp32, "
+        f"{rows['forward_us_packed']} us packed ({ratio:.3f}x), bytes a "
+        f"request {fp32} / {seen['packed_bytes']}; packed embeddings "
+        f"bit-equal to the plain lookup; launches {counts}")
+    return counts
+
+
+def emit_records(torch, kernels_mod, tmp: str) -> dict:
+    """Phase 16 (c): ``benchmarks.run --emit tmp/BENCH_qps.json --fast``
+    and ``--emit-pipeline tmp/p.json --fast`` through ``main``; both
+    records through the unchanged schema tool.  Returns each run's
+    launches (counts set to 0 just before each, read just after)."""
+    from repro_torch.benchmarks import run as bench_run
+    from repro_torch.kernels.dequant_bag import kernel
+    from repro_torch.kernels.hashed_gather import kernel as hg_kernel
+
+    by_path = {}
+    for label, argv, path in (
+            ("emit_qps", ["--emit"], os.path.join(tmp, "BENCH_qps.json")),
+            ("emit_pipeline", ["--emit-pipeline"],
+             os.path.join(tmp, "p.json"))):
+        kernels_mod.reset_launches()
+        out = bench_run.main([*argv, path, "--fast"])
+        by_path[label] = counts = path_counts(kernels_mod, kernel, hg_kernel)
+        (rec,) = out.values()
+        (written,) = check_stream(path)
+        if (written != json.loads(json.dumps(rec["record"]))
+                or written.get("device") != "cuda"
+                or counts["dequant_bag"] <= 0):
+            raise SystemExit(f"{label}: unexpected record or launches "
+                             f"{counts}")
+        log(f"{label}: {path} valid, launches {counts}")
+    return by_path
 
 
 def shadow_summary(rec: dict, sync_rec: dict, stats) -> dict:
@@ -3014,6 +3323,7 @@ def main() -> int:
     from repro_torch.kernels.rowwise_quant import ops as rq_ops
     from repro_torch.kernels.rowwise_quant import ref as rq_ref
     from repro_torch.launch import pipeline, serve
+    from repro_torch.store import hashed as H
     from repro_torch.train import setup as setup_mod
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3144,7 +3454,8 @@ def main() -> int:
                                            counters, flush)
         grad_entry.setdefault("fit_shapes", []).append(fit_grad)
         fit_fwd.append(fwd)
-        res = hashed_residual(torch, served, table)
+        res = H.fit_residual(served.server.backend.hs,
+                             served.server.backend.hcfg, table)
         if not 0.0 < res < 1.0:
             raise SystemExit(f"hashed {bits}b: fit residual {res} outside "
                              "(0, 1)")
@@ -3183,9 +3494,8 @@ def main() -> int:
     del table, flush
     torch.cuda.empty_cache()
 
-    # the slice's main path: the SHARK pipeline at full width (with its
-    # metrics stream, checked in phase 13), then its hashed branch at the
-    # published widths over fewer rows
+    # the SHARK pipeline at full width (with its metrics stream, checked in
+    # phase 13), then its hashed branch over the same 124,185,088 rows
     metrics_dir = tempfile.TemporaryDirectory()
     pipeline_metrics = os.path.join(metrics_dir.name, "pipeline.jsonl")
     pipeline_recs = {}
@@ -3195,7 +3505,7 @@ def main() -> int:
                           str(PIPELINE_STEPS), "--metrics-out",
                           pipeline_metrics]),
             ("pipeline_hashed", ["--model", "full", "--max-ind-range",
-                                 str(HASHED_PIPELINE_MAX_IND_RANGE),
+                                 str(MAX_IND_RANGE),
                                  "--batch", "65536", "--steps",
                                  str(PIPELINE_STEPS), "--store-backend",
                                  "hashed"])):
@@ -3248,6 +3558,23 @@ def main() -> int:
     record_path(kernels, grad_entry, quant_by_path, rowgrid_by_path,
                 "paper_tables", paper_tables(torch, kernels_mod))
     torch.cuda.empty_cache()
+
+    # phase 16: bench_hash/v1 (the hashed train step), the offline QPS
+    # proxy and the runner's --emit records
+    with tempfile.TemporaryDirectory() as tmp:
+        counts, train_shape = bench_hash(
+            torch, kernels_mod, counters, os.path.join(tmp, "BENCH_hash.json"))
+        record_path(kernels, grad_entry, quant_by_path, rowgrid_by_path,
+                    "bench_hash", counts)
+        next(k for k in kernels if k["name"] == "hashed_gather[float32]")[
+            "train_shape"] = train_shape
+        torch.cuda.empty_cache()
+        record_path(kernels, grad_entry, quant_by_path, rowgrid_by_path,
+                    "offline_qps", offline_qps(torch, kernels_mod))
+        for label, counts in emit_records(torch, kernels_mod, tmp).items():
+            record_path(kernels, grad_entry, quant_by_path, rowgrid_by_path,
+                        label, counts)
+    torch.cuda.empty_cache()
     for k in kernels:
         k["launches"] = sum(k["launches_by_path"].values())
     grad_entry["launches"] = sum(grad_entry["launches_by_path"].values())
@@ -3264,12 +3591,14 @@ def main() -> int:
                              f"{entry['launches_by_path']}")
         kernels.append(entry)
     # every kernel of a main path ran on it (the single-tier int8 / bf16
-    # instances and the plan-taking hashed gather now run on none: the
-    # tiered and ids entries took their places)
+    # instances and the int8 plan entry run on none: the tiered and ids
+    # entries took their places; the fp32 plan entry is the hashed train
+    # step's forward)
     ran = {k["name"]: k["launches"] for k in kernels}
     for name in ("dequant_bag[tiered]", "dequant_bag[float32]", "bag_grad",
                  "bag_matmul[wide-deep]", "bag_matmul[xdeepfm]",
-                 "cin[xdeepfm]", "hashed_gather_ids[float32]",
+                 "cin[xdeepfm]", "hashed_gather[float32]",
+                 "hashed_gather_ids[float32]",
                  "hashed_gather_ids[int8]", "quantize_rowwise"):
         if ran.get(name, 0) <= 0:
             raise SystemExit(f"{name} did not run on a main path: {ran}")

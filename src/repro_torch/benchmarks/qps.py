@@ -1,10 +1,28 @@
-"""Online serving benchmark: the ``bench_qps/v1`` record on the card.
+"""Serving benchmarks: the offline QPS proxy and the ``bench_qps/v1``
+record, on the card.
 
+    python -m repro_torch.benchmarks.qps [--batch 512] [--device cpu]
     python -m repro_torch.benchmarks.qps --online --serve-batch 1,8,32 \\
         [--emit PATH] [--device cpu]
     python -m repro_torch.benchmarks.qps --online [--batch 256]
 
-Port of the online half of ``benchmarks/qps.py``.  The bench DLRM
+Port of ``benchmarks/qps.py``.  Without ``--online``, ``run`` is the
+offline proxy of the paper's +30% QPS claim: the bench DLRM trained 60
+F-Quantization steps, packed at half the fp32 bytes (Eq. 8 thresholds
+planned from the trained priorities), and one batch of 512 scored
+through the fp32 forward and through the packed forward
+(``packed_store.lookup_fused``: one tiered ``dequant_bag`` launch, then
+the head).  Its rows are the reference's: bytes a request for the fp32
+table and for the packed store (payload, scale and indirection word a
+row, against the pack-time tiers), their ratio (the headroom a
+bandwidth-bound server has) and the packed store's share of the fp32
+bytes; and the two forwards' times.  The reference timed its jitted
+forwards on a CPU and named them ``cpu_forward_us_*``; here the times
+are the device's (the card's unless ``--device cpu``): the mean of
+``iters`` calls after one warm-up, the device synchronized before each
+clock read, as ``forward_us_fp32`` and ``forward_us_packed``.
+
+The online half: the bench DLRM  The bench DLRM
 (``common.make_setup(num_fields=10)``) with a pareto(1.2) x 10 priority
 profile packed at ``ratio`` of the fp32 bytes serves a drifting-zipf
 stream through ``serve.online.OnlineServer``: the hot-row cache, the
@@ -29,9 +47,7 @@ nothing is written without it), and ``python tools/check_bench_schema.py
 PATH`` validates it.  ``--online`` alone (``run_online``) serves
 request-at-a-time batches of ``--batch`` and prints one record.
 
-The record adds ``device`` and ``device_name``.  Not ported yet: the
-offline CPU proxy (``run``, whose metrics are CPU forward times; ROADMAP
-Queue 1 item 10).
+The record adds ``device`` and ``device_name``.
 """
 
 from __future__ import annotations
@@ -42,17 +58,75 @@ import json
 import numpy as np
 import torch
 
-from repro_torch.benchmarks.common import make_setup
+from repro_torch.benchmarks.common import (device_batch, make_setup, timed,
+                                           train_fquant)
 from repro_torch.core import packed_store as ps
 from repro_torch.core.qat_store import (FQuantConfig, QATStore,
                                         current_tiers, snap)
-from repro_torch.core.tiers import plan_thresholds_for_ratio
+from repro_torch.core.tiers import assign_tiers, plan_thresholds_for_ratio
+from repro_torch.models import embedding as E
 from repro_torch.serve.loop import (serve_forward_loop,
                                     serve_forward_microbatched,
                                     stream_bytes_per_request)
 from repro_torch.serve.online import OnlineConfig, OnlineServer
 
 BENCH_SCHEMA = "bench_qps/v1"
+
+
+def run(batch=512, iters=20, *, device: str | torch.device | None = None,
+        audit=None) -> list[dict]:
+    """The offline proxy's rows (see the module docstring).  ``audit(packed,
+    gidx, emb)``, when given, gets the packed store, the batch's global ids
+    and the packed arm's embeddings, after the timing."""
+    setup = make_setup(num_fields=10, important=5, train_steps=60,
+                       device=device)
+    spec = setup.model.spec
+    model = setup.model
+
+    params, priority = train_fquant(setup, FQuantConfig(), steps=60)
+    planned = plan_thresholds_for_ratio(priority, spec.dim, 0.5)
+    cfg = FQuantConfig(tiers=planned, stochastic=False)
+    store = QATStore(params["embed_table"], priority)
+    store = store._replace(table=snap(store.table,
+                                      current_tiers(store, cfg), cfg))
+    packed = ps.pack(store, cfg)
+
+    b = device_batch(setup.ds.batch(batch, 777), setup.device)
+    gidx = E.globalize(b["indices"], spec)
+
+    # bytes a request (B*F rows of D): payload + scale by tier, and the
+    # indirection word of every row
+    fp32_bytes_req = gidx.numel() * spec.dim * 4
+    touched = assign_tiers(priority, planned)[gidx.reshape(-1).to(
+        torch.int64)].to(torch.int64)
+    per_tier = torch.tensor([spec.dim + 4, 2 * spec.dim + 4, 4 * spec.dim],
+                            dtype=torch.int64, device=touched.device)
+    packed_bytes_req = int((per_tier[touched] + 4).sum())
+
+    last = {}
+
+    def fwd_packed(b):
+        last["emb"] = ps.lookup_fused(packed, E.globalize(b["indices"], spec))
+        return model.head(params, last["emb"], b)
+
+    with torch.inference_mode():
+        _, t_fp32 = timed(model.forward, params, b, repeats=iters)
+        _, t_packed = timed(fwd_packed, b, repeats=iters)
+    if audit is not None:
+        audit(packed, gidx, last["emb"])
+
+    ratio = fp32_bytes_req / packed_bytes_req
+    return [
+        {"metric": "bytes_per_request_fp32", "value": fp32_bytes_req},
+        {"metric": "bytes_per_request_packed", "value": packed_bytes_req},
+        {"metric": "hbm_bytes_ratio (QPS headroom on bw-bound serving)",
+         "value": round(ratio, 2)},
+        {"metric": "table_memory_ratio",
+         "value": round(packed.nbytes() / (spec.total_rows * spec.dim * 4),
+                        3)},
+        {"metric": "forward_us_fp32", "value": round(t_fp32 * 1e6)},
+        {"metric": "forward_us_packed", "value": round(t_packed * 1e6)},
+    ]
 
 
 def _bench_store(ratio: float, *, params: dict | None = None,
@@ -173,12 +247,14 @@ def _parse_serve_batches(arg: str) -> list[int]:
 
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(
-        description="Online serving benchmark (bench_qps/v1).",
-        epilog="Not ported yet: the offline CPU proxy (run without "
-               "--online).")
+        description="Serving benchmarks: the offline QPS proxy, or with "
+                    "--online the online loop (bench_qps/v1).")
     ap.add_argument("--online", action="store_true",
-                    help="drifting-zipf online-serving loop (required)")
-    ap.add_argument("--batch", type=int, default=256)
+                    help="drifting-zipf online-serving loop (without it: "
+                         "the offline proxy)")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="batch a request (default 512 offline, 256 "
+                         "--online)")
     ap.add_argument("--requests", type=int, default=None,
                     help="request-batches (default 24), or single-user "
                          "requests with --serve-batch (default 384)")
@@ -200,8 +276,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--device", default=None,
                     help="torch device; default cuda (raises when absent)")
     args = ap.parse_args(argv)
-    if not args.online:
-        ap.error("the offline CPU proxy is not ported yet; pass --online")
+    if not args.online and (args.serve_batch or args.retier_async):
+        ap.error("--serve-batch and --retier-async need --online")
     if args.emit and not args.serve_batch:
         ap.error("--emit requires --serve-batch")
     return args
@@ -210,6 +286,11 @@ def parse_args(argv=None) -> argparse.Namespace:
 def main(argv=None) -> dict:
     """The CLI: prints the record (and writes it with ``--emit``)."""
     args = parse_args(argv)
+    if not args.online:
+        rows = run(batch=args.batch or 512, device=args.device)
+        for row in rows:
+            print(json.dumps(row))
+        return {"rows": rows}
     if args.serve_batch:
         rec = run_online_sweep(
             _parse_serve_batches(args.serve_batch),
@@ -222,7 +303,7 @@ def main(argv=None) -> dict:
             write_bench_json(rec, args.emit)
     else:
         rec = run_online(
-            batch=args.batch, requests=args.requests or 24,
+            batch=args.batch or 256, requests=args.requests or 24,
             cache_rows=args.cache_rows,
             retier_every=(4 if args.retier_every is None
                           else args.retier_every),

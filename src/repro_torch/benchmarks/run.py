@@ -1,43 +1,66 @@
 """Benchmark runner: one job per paper table or figure, on the card.
 
     python -m repro_torch.benchmarks.run [--fast] [--only NAME] [--device cpu]
+    python -m repro_torch.benchmarks.run --emit PATH [--fast] [--device cpu]
+    python -m repro_torch.benchmarks.run --emit-pipeline PATH [--fast]
 
-Port of ``benchmarks/run.py``'s CSV jobs: prints ``name,us_per_call,
+Port of ``benchmarks/run.py``.  The CSV jobs print ``name,us_per_call,
 derived`` rows (``derived`` carries the table's payload as key=value
 pairs), after one ``#`` line naming the reference's jobs not ported
-yet.  The jobs are the paper's six: ``table2_time``, ``table3_fquant``,
-``fig3_thresholds``, ``table4_combined``, ``fig2_fperm`` and
-``freq_error``, at the reference's budgets (``--fast``: its reduced
-ones).  They run on ``cuda`` unless ``--device cpu``, and raise without
-a GPU.  Unlike the reference, a job's exception is not caught: it
-propagates and the process exits non-zero.  ``--only`` with a job that
-waits (``qps``, ``qps_sharded``, ``hashed``, ``roofline``), ``--emit``
-and ``--emit-pipeline`` raise ``NotImplementedError`` naming its ROADMAP
-item.
+yet.  The jobs are the paper's six (``table2_time``, ``table3_fquant``,
+``fig3_thresholds``, ``table4_combined``, ``fig2_fperm``,
+``freq_error``), the offline QPS proxy ``qps`` (``benchmarks.qps.run``)
+and the hashed ratio sweep ``hashed``, at the reference's budgets
+(``--fast``: its reduced ones).  They run on ``cuda`` unless ``--device
+cpu``, and raise without a GPU.  Unlike the reference, a job's exception
+is not caught: it propagates and the process exits non-zero.  ``--only``
+with a job that waits (``qps_sharded``, ``roofline``) raises
+``NotImplementedError`` naming its ROADMAP item.
+
+``--emit PATH`` writes one record instead, dispatched on the basename
+through ``benchmarks.manifest.COMMITTED_BENCH`` as the reference does:
+``BENCH_qps.json`` the micro-batched sweep (``--serve-batches``,
+``--retier-async``), ``BENCH_pipeline.json`` the pipeline's record (a
+false ``verify_*`` exits non-zero after writing), ``BENCH_hash.json`` the
+hashed sweep.  ``BENCH_hier.json`` and ``BENCH_kernel.json`` raise
+``NotImplementedError`` (items 8 and 9), ``BENCH_fleet.json`` exits
+naming its driver (item 8), any other name exits listing the manifest.
+``--emit-pipeline PATH`` is ``--emit`` of the pipeline's record to
+``PATH``.  The path is the caller's: nothing is written where it did not
+say (the repository's ``BENCH_*.json`` are the JAX package's records).
 """
 
 from __future__ import annotations
 
 import argparse
+import json
+import os
 import sys
+import tempfile
 import time
 from typing import Callable
 
 # the reference's jobs not ported yet, with their ROADMAP Queue 1 items
 WAITING = {
-    "qps": "item 10, the offline bench_qps CPU proxy",
     "qps_sharded": "item 7, the mesh",
-    "hashed": "item 4, the hashed train step with bench_hash/v1",
     "roofline": "item 9, autotune with benchmarks/kernels.py",
 }
-EMIT_ITEM = "item 10, the runner's --emit with benchmarks/manifest.py"
+# the manifest's records whose modules are not ported yet
+EMIT_WAITING = {
+    "BENCH_hier.json": "item 8, the hier store (benchmarks/hier.py)",
+    "BENCH_kernel.json": "item 9, benchmarks/kernels.py with autotune",
+    "BENCH_fleet.json": "item 8, the fleet (launch/fleet.py)",
+}
 
 
-def jobs(fast: bool, device) -> dict[str, Callable[[], list[dict]]]:
-    """The six paper jobs at the reference's budgets, on ``device``."""
+def jobs(fast: bool, device, audit=None
+         ) -> dict[str, Callable[[], list[dict]]]:
+    """The CSV jobs at the reference's budgets, on ``device``; ``audit``
+    goes to ``qps.run``."""
     from repro_torch.benchmarks import (fig2_fperm, fig3_thresholds,
-                                        freq_error, table2_time,
-                                        table3_fquant, table4_combined)
+                                        freq_error, hashed, qps,
+                                        table2_time, table3_fquant,
+                                        table4_combined)
     return {
         "table2_time": lambda: table2_time.run(
             eval_batches=2 if fast else 4, shuffles=1 if fast else 2,
@@ -55,8 +78,11 @@ def jobs(fast: bool, device) -> dict[str, Callable[[], list[dict]]]:
             train_steps=150 if fast else 800,
             keep_counts=(6,) if fast else (8, 6, 4),
             finetune_steps=40 if fast else 150, device=device),
+        "qps": lambda: qps.run(iters=5 if fast else 20, device=device,
+                               audit=audit),
         "freq_error": lambda: freq_error.run(
             train_steps=100 if fast else 400, device=device),
+        "hashed": lambda: hashed.run(fast=fast, device=device),
     }
 
 
@@ -68,35 +94,101 @@ def emit(name: str, seconds: float, rows: list[dict]) -> None:
     sys.stdout.flush()
 
 
+def emit_record(name: str, path: str, args: argparse.Namespace,
+                audit=None) -> dict:
+    """Write one manifest record to ``path``, dispatched on ``name`` (the
+    basename) as the reference's ``_emit_bench_record``; returns it.
+    ``audit`` goes to the hashed sweep."""
+    from repro_torch.benchmarks.manifest import COMMITTED_BENCH
+    from repro_torch.benchmarks.qps import write_bench_json
+
+    fast = args.fast
+    if name not in COMMITTED_BENCH:
+        raise SystemExit(f"--emit {name}: not a committed benchmark record "
+                         f"(manifest: {', '.join(sorted(COMMITTED_BENCH))})")
+    if name == "BENCH_fleet.json":
+        raise SystemExit(f"{name} is written by its own driver "
+                         f"(`{COMMITTED_BENCH[name][1]}`), not ported yet: "
+                         f"ROADMAP Queue 1 {EMIT_WAITING[name]}")
+    if name in EMIT_WAITING:
+        raise NotImplementedError(f"--emit {name}: not ported yet, ROADMAP "
+                                  f"Queue 1 {EMIT_WAITING[name]}")
+    if name == "BENCH_pipeline.json":
+        from repro_torch.launch.pipeline import (PipelineConfig,
+                                                 fast_config, run_pipeline,
+                                                 verify_failures)
+        # the checkpoints go to a directory of this run's own
+        with tempfile.TemporaryDirectory() as ckpt:
+            cfg = (fast_config(device=args.device, ckpt_dir=ckpt) if fast
+                   else PipelineConfig(device=args.device, ckpt_dir=ckpt))
+            rec = run_pipeline(cfg)
+        with open(path, "w") as f:
+            json.dump(rec, f, indent=1, sort_keys=True)
+        print(f"wrote {path}")
+        failures = verify_failures(rec)
+        if failures:
+            raise SystemExit(f"pipeline verify FAILED: {failures}")
+        return rec
+    if name == "BENCH_qps.json":
+        from repro_torch.benchmarks import qps
+        rec = qps.run_online_sweep(
+            qps._parse_serve_batches(args.serve_batches),
+            requests=96 if fast else 384,
+            retier_every=32 if fast else 128,
+            retier_async=args.retier_async, device=args.device)
+    else:                                       # BENCH_hash.json
+        from repro_torch.benchmarks import hashed
+        rec = hashed.run_hashed_sweep(**hashed.sweep_budgets(fast),
+                                      audit=audit, device=args.device)
+    write_bench_json(rec, path)
+    print(f"wrote {path}")
+    return rec
+
+
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(
-        description="The paper's tables and figures (CSV rows).")
+        description="The paper's tables and figures (CSV rows), or one "
+                    "benchmark record (--emit).")
     ap.add_argument("--fast", action="store_true",
                     help="the reference's reduced budgets")
     ap.add_argument("--only", default=None, metavar="NAME",
                     help="run one job")
     ap.add_argument("--emit", default=None, metavar="PATH",
-                    help="not ported yet")
+                    help="write the manifest record named by PATH's "
+                         "basename (BENCH_qps.json, BENCH_pipeline.json, "
+                         "BENCH_hash.json) to PATH and skip the CSV jobs")
     ap.add_argument("--emit-pipeline", default=None, metavar="PATH",
-                    help="not ported yet")
+                    help="run the train -> prune -> quantize -> pack -> "
+                         "serve pipeline and write its bench_pipeline/v1 "
+                         "record to PATH; skips the CSV jobs")
+    ap.add_argument("--serve-batches", default="1,8,32",
+                    help="serve batches of the BENCH_qps.json sweep")
+    ap.add_argument("--retier-async", action="store_true",
+                    help="the BENCH_qps.json sweep re-tiers by shadow "
+                         "builds and swaps")
     ap.add_argument("--device", default=None,
                     help="torch device; default cuda (raises when absent)")
     return ap.parse_args(argv)
 
 
-def main(argv=None) -> dict[str, dict]:
+def main(argv=None, audit=None) -> dict[str, dict]:
     """Runs the jobs and prints their rows; returns ``{name: {"rows":
-    rows, "seconds": s}}``."""
+    rows, "seconds": s}}`` (with ``--emit``: ``{name: {"record": rec}}``).
+    ``audit`` goes to the ``qps`` job (``benchmarks.qps.run``) and to the
+    ``BENCH_hash.json`` sweep (``benchmarks.hashed.run_hashed_sweep``)."""
     from repro_torch import resolve_device
     args = parse_args(argv)
-    if args.emit or args.emit_pipeline:
-        raise NotImplementedError(f"--emit / --emit-pipeline: not ported "
-                                  f"yet, ROADMAP Queue 1 {EMIT_ITEM}")
+    if args.emit_pipeline:
+        return {"BENCH_pipeline.json": {"record": emit_record(
+            "BENCH_pipeline.json", args.emit_pipeline, args)}}
+    if args.emit:
+        name = os.path.basename(args.emit)
+        return {name: {"record": emit_record(name, args.emit, args, audit)}}
     if args.only in WAITING:
         raise NotImplementedError(f"{args.only}: not ported yet, ROADMAP "
                                   f"Queue 1 {WAITING[args.only]}")
     device = resolve_device(args.device)
-    todo = jobs(args.fast, device)
+    todo = jobs(args.fast, device, audit)
     if args.only is not None:
         if args.only not in todo:
             raise SystemExit(f"--only {args.only}: no such job "

@@ -10,11 +10,15 @@
 // g (B, D) fp32, coeff (B, K) fp32 (= w * scale[idx], rounded by the
 // caller), idx (B, K) int32 -> dtable (V, D) fp32.  The caller passes
 // dtable zeroed (the reference's aliased zeros operand); this kernel
-// writes only the rows some slot touches.
+// writes only the rows some slot touches.  With `accumulate` set, each
+// touched row's chain starts from the row's value in dtable instead of
+// 0, so that a scatter split into consecutive runs of bags (the hashed
+// fit's row chunks) sums each row in the same order as one call.
 //
 // Contract with the reference: each row's sum is accumulated in (b, k)
-// lexicographic order as acc = fma(coeff, g[b], acc), starting from 0,
-// with slots of coeff == 0 skipped.  The TPU grid walks the slots one
+// lexicographic order as acc = fma(coeff, g[b], acc), starting from 0
+// (or from dtable's row, accumulating), with slots of coeff == 0
+// skipped.  The TPU grid walks the slots one
 // at a time and its interpret-mode arithmetic (XLA on the CPU) fuses the
 // `row += c * g` read-modify-write into that FMA.  Here the FMA is
 // written as __fmaf_rn, so nvcc's contraction choices cannot change it,
@@ -193,7 +197,7 @@ heavy_rows_kernel(const float* __restrict__ g,
                   const float* __restrict__ coeff, float* __restrict__ out,
                   int64_t n, int k_slots, int k_shift, int64_t dim,
                   int32_t* __restrict__ meta, int cap, int ts, int nring,
-                  int win) {
+                  int win, int accumulate) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int64_t s_job;
   __shared__ __align__(8) uint64_t s_full[kMaxRing], s_empty[kMaxRing];
@@ -309,7 +313,8 @@ heavy_rows_kernel(const float* __restrict__ g,
         }
       } else {
         // ---- consumer warp: the column chains, stage by stage ----
-        float acc = 0.0f;
+        float acc = accumulate && tid < w ? out[(int64_t)row * dim + c0 + tid]
+                                          : 0.0f;
         int r = (int)(streamed % nring);
         unsigned phase = (unsigned)((streamed / nring) & 1);
         for (int64_t i = 0; i < stages; ++i) {
@@ -380,7 +385,7 @@ light_rows_kernel(const float* __restrict__ g,
                   const int64_t* __restrict__ slots,
                   const float* __restrict__ coeff, float* __restrict__ out,
                   int64_t n, int k_slots, int k_shift, int64_t dim,
-                  int heavy) {
+                  int heavy, int accumulate) {
   constexpr int R = 32 / G;              // groups a warp
   constexpr int P = 32 / G;              // batch slots a lane loads
   constexpr int CH = VEC == 4 ? 16 : 32; // g loads in flight a lane
@@ -500,6 +505,8 @@ light_rows_kernel(const float* __restrict__ g,
             open = rt;
 #pragma unroll
             for (int v = 0; v < VEC; ++v) acc[v] = 0.0f;
+            if (accumulate && own && active)
+              load_vec<VEC>(acc, out + (int64_t)open * dim + col);
           }
 #pragma unroll
           for (int v = 0; v < VEC; ++v)
@@ -530,7 +537,7 @@ template <int CB>
 int launch_heavy(const float* g, const int32_t* rows, const int64_t* slots,
                  const float* coeff, float* out, int64_t n, int k_slots,
                  int k_shift, int64_t dim, int32_t* meta, int cap,
-                 cudaStream_t st) {
+                 int accumulate, cudaStream_t st) {
   const int win = (int)(dim < kHeavyWindow ? dim : kHeavyWindow);
   const int lw = kHeavyThreads / 32 - (win + 31) / 32;
   // a stage: 16 vectors a loader lane, a multiple of 8 slots
@@ -553,14 +560,16 @@ int launch_heavy(const float* g, const int32_t* rows, const int64_t* slots,
   const int blocks = sm_count() < cap ? sm_count() : cap;
   kernel<<<blocks, kHeavyThreads, smem, st>>>(g, rows, slots, coeff, out, n,
                                               k_slots, k_shift, dim, meta,
-                                              cap, ts, nring, win);
+                                              cap, ts, nring, win,
+                                              accumulate);
   return (int)cudaGetLastError();
 }
 
 template <int VEC, int G>
 int launch_light(const float* g, const int32_t* rows, const int64_t* slots,
                  const float* coeff, float* out, int64_t n, int k_slots,
-                 int k_shift, int64_t dim, int heavy, cudaStream_t st) {
+                 int k_shift, int64_t dim, int heavy, int accumulate,
+                 cudaStream_t st) {
   // a heavy run inside a stretch must end past it (see the kernel)
   if (heavy < kLightStretch<G>) return (int)cudaErrorInvalidValue;
   const int64_t per_warp = kLightStretch<G> * (32 / G);
@@ -569,14 +578,15 @@ int launch_light(const float* g, const int32_t* rows, const int64_t* slots,
                          (kLightThreads / 32);
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   light_rows_kernel<VEC, G><<<(unsigned)blocks, kLightThreads, 0, st>>>(
-      g, rows, slots, coeff, out, n, k_slots, k_shift, dim, heavy);
+      g, rows, slots, coeff, out, n, k_slots, k_shift, dim, heavy,
+      accumulate);
   return (int)cudaGetLastError();
 }
 
 int launch_light_for(int vec, const float* gp, const int32_t* rp,
                      const int64_t* sp, const float* cp, float* op,
                      int64_t n, int k_slots, int k_shift, int64_t dim,
-                     int heavy, cudaStream_t st) {
+                     int heavy, int acc, cudaStream_t st) {
   // a full warp a row with the fewest column passes at D >= 32; at
   // smaller D one column a lane and 32 / G rows a warp
   if (dim >= 32) {
@@ -584,21 +594,21 @@ int launch_light_for(int vec, const float* gp, const int32_t* rp,
                   p4 = (dim + 127) / 128;
     if (vec == 4 && p4 < p2)
       return launch_light<4, 32>(gp, rp, sp, cp, op, n, k_slots, k_shift,
-                                 dim, heavy, st);
+                                 dim, heavy, acc, st);
     if (vec >= 2 && p2 < p1)
       return launch_light<2, 32>(gp, rp, sp, cp, op, n, k_slots, k_shift,
-                                 dim, heavy, st);
+                                 dim, heavy, acc, st);
     return launch_light<1, 32>(gp, rp, sp, cp, op, n, k_slots, k_shift, dim,
-                               heavy, st);
+                               heavy, acc, st);
   }
   if (dim > 16)
     return launch_light<1, 32>(gp, rp, sp, cp, op, n, k_slots, k_shift, dim,
-                               heavy, st);
+                               heavy, acc, st);
   if (dim > 8)
     return launch_light<1, 16>(gp, rp, sp, cp, op, n, k_slots, k_shift, dim,
-                               heavy, st);
+                               heavy, acc, st);
   return launch_light<1, 8>(gp, rp, sp, cp, op, n, k_slots, k_shift, dim,
-                            heavy, st);
+                            heavy, acc, st);
 }
 
 }  // namespace
@@ -610,13 +620,15 @@ int launch_light_for(int vec, const float* gp, const int32_t* rp,
 // checks).  heavy: runs longer than this many slots (at least 256, the
 // longest light stretch) take the block path.
 // scratch: int32 [4 + cap], cap = n / (heavy + 1) + 1 (the most runs that
-// can be longer than heavy).  Returns the cudaError_t of the launches
-// (0 = success).
+// can be longer than heavy).  accumulate: 0 starts each touched row's sum
+// from 0, 1 from the row's value in out.  Returns the cudaError_t of the
+// launches (0 = success).
 extern "C" int bag_grad_launch(const void* g, const void* rows,
                                const void* slots, const void* coeff,
                                void* out, long long n, int k_slots,
                                long long dim, int vec, int heavy,
-                               void* scratch, int cap, void* stream) {
+                               void* scratch, int cap, int accumulate,
+                               void* stream) {
   const float* gp = static_cast<const float*>(g);
   const int32_t* rp = static_cast<const int32_t*>(rows);
   const int64_t* sp = static_cast<const int64_t*>(slots);
@@ -633,7 +645,7 @@ extern "C" int bag_grad_launch(const void* g, const void* rows,
 
   if (n <= heavy)                        // no run can be heavy
     return launch_light_for(vec, gp, rp, sp, cp, op, n, k_slots, k_shift,
-                            dim, heavy, st);
+                            dim, heavy, accumulate, st);
   if (cap < n / (heavy + 1) + 1) return (int)cudaErrorInvalidValue;
   const cudaError_t err =
       cudaMemsetAsync(meta, 0, kMeta * sizeof(int32_t), st);
@@ -645,12 +657,12 @@ extern "C" int bag_grad_launch(const void* g, const void* rows,
   int rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
   rc = vec == 4 ? launch_heavy<4>(gp, rp, sp, cp, op, n, k_slots, k_shift,
-                                  dim, meta, cap, st)
+                                  dim, meta, cap, accumulate, st)
      : vec == 2 ? launch_heavy<2>(gp, rp, sp, cp, op, n, k_slots, k_shift,
-                                  dim, meta, cap, st)
+                                  dim, meta, cap, accumulate, st)
                 : launch_heavy<1>(gp, rp, sp, cp, op, n, k_slots, k_shift,
-                                  dim, meta, cap, st);
+                                  dim, meta, cap, accumulate, st);
   if (rc != 0) return rc;
   return launch_light_for(vec, gp, rp, sp, cp, op, n, k_slots, k_shift, dim,
-                          heavy, st);
+                          heavy, accumulate, st);
 }

@@ -217,7 +217,7 @@ def _check_grad_inputs(fn: str, g: torch.Tensor, indices: torch.Tensor,
 def _grad_launcher():
     fn = build.load("bag_grad").bag_grad_launch
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = [p, p, p, p, p, ll, i, ll, i, i, p, i, p]
+    fn.argtypes = [p, p, p, p, p, ll, i, ll, i, i, p, i, i, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -249,13 +249,17 @@ def _check_plan(plan: SlotPlan, n: int, device: torch.device) -> None:
 
 def bag_grad_cuda(g: torch.Tensor, indices: torch.Tensor,
                   coeff: torch.Tensor, out: torch.Tensor,
-                  plan: SlotPlan | None = None) -> torch.Tensor:
+                  plan: SlotPlan | None = None,
+                  accumulate: bool = False) -> torch.Tensor:
     """Launch the scatter-add backward into ``out`` and return it.
 
     g (B, D) fp32, indices (B, K) int32 in [0, V), coeff (B, K) fp32,
     out (V, D) fp32 and zero on entry (the caller's zero fill, the
     reference's aliased zeros operand): every touched row of ``out`` is
-    overwritten with its (b, k)-ordered FMA sum.  All on one CUDA device
+    overwritten with its (b, k)-ordered FMA sum.  With ``accumulate`` each
+    touched row's FMA chain starts from its value in ``out`` instead of 0,
+    so consecutive calls over consecutive runs of bags sum each row as one
+    call over all of them does, bit for bit.  All on one CUDA device
     and contiguous; raises otherwise.  The slots are grouped by row with
     one stable sort here, unless ``plan`` (``plan_slots(indices)``, made
     once by a caller that scatters over the same indices again) is given;
@@ -286,7 +290,7 @@ def bag_grad_cuda(g: torch.Tensor, indices: torch.Tensor,
         rc = _grad_launcher()(
             g.data_ptr(), plan.rows.data_ptr(), plan.slots.data_ptr(),
             coeff.data_ptr(), out.data_ptr(), n, k, d, vec, HEAVY_RUN,
-            scratch.data_ptr(), cap,
+            scratch.data_ptr(), cap, int(accumulate),
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"bag_grad launch failed: cudaError {rc} "

@@ -49,7 +49,8 @@ def dequant_bag(payload: torch.Tensor, scales: torch.Tensor | None,
 
 def bag_grad(g: torch.Tensor, scales: torch.Tensor | None,
              indices: torch.Tensor, weights: torch.Tensor | None,
-             vocab: int, plan: SlotPlan | None = None) -> torch.Tensor:
+             vocab: int, plan: SlotPlan | None = None,
+             out: torch.Tensor | None = None) -> torch.Tensor:
     """Transpose of ``dequant_bag`` w.r.t. the payload: g (B, D) fp32,
     indices (B, K) -> dtable (vocab, D) fp32.
 
@@ -59,20 +60,27 @@ def bag_grad(g: torch.Tensor, scales: torch.Tensor | None,
     a zero fill of (vocab, D) and the kernel.  ``plan`` is
     ``plan_slots(indices)``, for callers that scatter over the same
     indices again (the kernel then skips its sort; the plain version
-    needs no grouping).
+    needs no grouping).  ``out`` (vocab, D) fp32, when given, is
+    accumulated onto in place and returned (no zero fill): each touched
+    row's chain starts from its value there, so scattering consecutive
+    runs of bags one call each sums every row as one call does.
     """
     if g.device.type == "cpu":
-        return bag_grad_ref(g, scales, indices, weights, vocab)
+        return bag_grad_ref(g, scales, indices, weights, vocab, out=out)
     return _scatter_on_card(bag_grad_cuda, g, scales, indices, weights,
-                            vocab, plan=plan)
+                            vocab, plan=plan, out=out)
 
 
 def _scatter_on_card(launch, g, scales, indices, weights, vocab: int,
-                     **kw) -> torch.Tensor:
-    """The coefficients, a zero (vocab, D) output and one ``launch``."""
+                     out: torch.Tensor | None = None, **kw) -> torch.Tensor:
+    """The coefficients, a zero (vocab, D) output (or ``out``, accumulated
+    onto) and one ``launch``."""
     coeff = bag_grad_coeff(scales, indices, weights).contiguous()
-    out = torch.zeros((vocab, g.shape[1]), dtype=torch.float32,
-                      device=g.device)
+    if out is not None:
+        kw["accumulate"] = True
+    else:
+        out = torch.zeros((vocab, g.shape[1]), dtype=torch.float32,
+                          device=g.device)
     return launch(g.to(torch.float32).contiguous(),
                   indices.to(torch.int32).contiguous(), coeff, out, **kw)
 

@@ -97,14 +97,17 @@ def bag_grad_coeff(scales: torch.Tensor | None, indices: torch.Tensor,
 
 def bag_grad_ref(g: torch.Tensor, scales: torch.Tensor | None,
                  indices: torch.Tensor, weights: torch.Tensor | None,
-                 vocab: int) -> torch.Tensor:
+                 vocab: int, out: torch.Tensor | None = None
+                 ) -> torch.Tensor:
     """g (B, D) fp32, indices (B, K) in [0, vocab) -> dtable (vocab, D):
 
         dtable[i] = fma(c_n, g[b_n], ... fma(c_1, g[b_1], 0))
 
     over the slots (b, k) with idx[b, k] == i in lexicographic order,
     where c = ``bag_grad_coeff`` and slots with c == 0 are skipped; rows
-    no slot touches stay zero.
+    no slot touches stay zero.  ``out`` (vocab, D) fp32, when given, is
+    accumulated onto in place: each chain starts from ``out[i]`` instead of
+    0, and untouched rows keep their values.
 
     Vectorised by depth: live slots are stably sorted by row, each gets
     its rank within its row, and one FMA step per rank updates every row
@@ -113,7 +116,8 @@ def bag_grad_ref(g: torch.Tensor, scales: torch.Tensor | None,
     """
     b, k = indices.shape
     d = g.shape[1]
-    out = torch.zeros((vocab, d), dtype=torch.float32, device=g.device)
+    if out is None:
+        out = torch.zeros((vocab, d), dtype=torch.float32, device=g.device)
     coeff = bag_grad_coeff(scales, indices, weights).reshape(-1)
     live = torch.nonzero(coeff != 0).reshape(-1)
     if live.numel() == 0:

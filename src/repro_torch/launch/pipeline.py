@@ -25,7 +25,9 @@ command:
      trip of its ``packed_store/v1`` manifest; the restored pack must
      equal the pack and a fresh pack bit for bit
      (``verify_pack_bit_identical``).  ``--store-backend hashed`` fits a
-     ROBE-style pool to the table instead and round-trips its
+     ROBE-style pool to the table instead (in row chunks at full width:
+     ``store.hashed.fit_chunk_rows``; the record adds ``fit_s``,
+     ``fit_chunks`` and ``fit_relative_residual``) and round-trips its
      ``hashed_store/v1`` manifest.
   5. **serve**    BCE and AUC of the fp32 table against the served one on
      held-out batches, then ``OnlineServer`` driven micro-batched
@@ -211,7 +213,7 @@ def _launches_since(before: dict) -> dict:
 
 
 def run_pipeline(cfg: PipelineConfig, state: TrainState | None = None,
-                 audit=None) -> dict:
+                 audit=None, fit_audit=None) -> dict:
     """Run the pipeline as ``cfg`` says; the ``bench_pipeline/v1`` record.
 
     ``state`` starts training from a given ``TrainState`` (e.g. the
@@ -226,6 +228,10 @@ def run_pipeline(cfg: PipelineConfig, state: TrainState | None = None,
     server's in the serve) or the hashed backend; ``gidx`` the global ids
     (B, F), ``emb`` the served embeddings (B, F, D).  It lets a caller
     hold the serving gather to a plain one on the pipeline's own inputs.
+    ``fit_audit(hcfg, r0, r1, g, bags, signs, before, after)``, when
+    given, sees each row chunk's scatter in the hashed fit's first
+    ``adj`` (``store.hashed.fit_pool_from_table``'s ``audit``), inside the
+    pack stage's seconds and the record's ``fit_s``.
     """
     if cfg.mesh > 1:
         raise NotImplementedError(
@@ -407,7 +413,15 @@ def run_pipeline(cfg: PipelineConfig, state: TrainState | None = None,
             vocab=spec.total_rows, dim=spec.dim, chunk_dim=8,
             num_slots=H.plan_pool_slots(spec.total_rows, spec.dim, 8,
                                         cfg.hash_ratio))
-        hs = H.fit_pool_from_table(table, hcfg, priority=priority)
+        with timeblock() as tb_fit:
+            hs = H.fit_pool_from_table(
+                table, hcfg, priority=priority,
+                audit=(None if fit_audit is None
+                       else lambda *a: fit_audit(hcfg, *a)))
+            sync(device)
+        rec["fit_s"] = round(tb_fit.seconds, 3)
+        rec["fit_chunks"] = -(-hcfg.vocab // H.fit_chunk_rows(hcfg))
+        rec["fit_relative_residual"] = H.fit_residual(hs, hcfg, table)
         src_backend = store_build("hashed", hs, hcfg)
         bytes_packed = src_backend.nbytes()
         pmgr.save(cfg.steps, src_backend.snapshot_manifest())
@@ -600,22 +614,24 @@ def config_from_args(args: argparse.Namespace) -> PipelineConfig:
             else PipelineConfig(**overrides))
 
 
-def main(argv=None, audit=None) -> dict:
-    """The CLI; ``audit`` as in ``run_pipeline``.  The metrics sink is
-    closed on every exit path (a failed verify's last window included)."""
+def main(argv=None, audit=None, fit_audit=None) -> dict:
+    """The CLI; ``audit`` and ``fit_audit`` as in ``run_pipeline``.  The
+    metrics sink is closed on every exit path (a failed verify's last
+    window included)."""
     try:
-        return _main(parse_args(argv), audit)
+        return _main(parse_args(argv), audit, fit_audit)
     finally:
         obs.close_sink()
 
 
-def _main(args: argparse.Namespace, audit) -> dict:
+def _main(args: argparse.Namespace, audit, fit_audit) -> dict:
     if args.metrics_out:
         obs.enable()
         obs.ensure_histograms(f"{p}_us" for p in SERVE_PHASES)
         obs.set_sink(obs.JsonlSink(args.metrics_out,
                                    every=args.metrics_every))
-    rec = run_pipeline(config_from_args(args), audit=audit)
+    rec = run_pipeline(config_from_args(args), audit=audit,
+                       fit_audit=fit_audit)
     obs.flush()
     if args.emit:
         with open(args.emit, "w") as f:

@@ -278,8 +278,7 @@ class HashedBackend:
 
     def gather_fp32_host(self, ids) -> np.ndarray:
         """fp32 rows ``ids`` materialised from the pool, on the host."""
-        idx = torch.as_tensor(np.asarray(ids, np.int32), device=self.device)
-        return self.lookup(idx).cpu().numpy()
+        return H.gather_rows_host(self.hs, self.hcfg, ids)
 
     def bag_lookup(self, indices: torch.Tensor,
                    weights: torch.Tensor | None = None) -> torch.Tensor:

@@ -25,22 +25,27 @@ memory; bit-equal to the reference's ``(chunks * signs).sum(-2)``: at K
 = 1 every product is exact); ``adj`` is ``bag_grad`` on the (V*C, NH)
 plan with the signs as coefficients, which sums each pool row's
 contributions in the reference's ``segment_sum`` (v, c, j) order,
-deterministically (no float atomics); its slots are grouped by pool row
-once a fit (``plan_slots``), not once an ``adj``.  The CG vectors stay
-fp32, as in the reference; its dot products reduce in another order
-than XLA's, so the fitted pool meets the reference's within a
-tolerance, not bit for bit.
+deterministically (no float atomics).  Unlike the reference, ``fwd``
+and ``adj`` run over row chunks when the whole plan would be large
+(``fit_chunk_rows``): each chunk is hashed on its own and ``adj``
+scatters chunk after chunk onto one (S, Z) result (``bag_grad(out=)``
+continues each pool row's chain), so a chunked fit equals a one-chunk
+fit bit for bit, and no array of V * C * NH entries is built beside the
+table.  The CG vectors stay fp32, as in the reference; its dot products
+reduce in another order than XLA's, so the fitted pool meets the
+reference's within a tolerance, not bit for bit.
 
 ``init_hashed`` draws the pool from a ``torch.Generator``: the same
 distribution as the reference's ``jax.random`` draw, not the same
-numbers.  The host oracle ``gather_rows_host`` has no counterpart: the
-port materialises cache rows through the kernel on the store's device.
+numbers.  ``gather_rows_host`` materialises through the kernel on the
+pool's device and returns numpy (the reference runs its jnp oracle).
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels.dequant_bag.ops import bag_grad, plan_slots
@@ -132,48 +137,95 @@ def init_hashed(cfg: HashedConfig, seed: int | None = None,
 
 
 CG_ITERS = 12      # the reference's default: 1 + CG_ITERS fwd and
-                   # 2 + CG_ITERS adj launches a fit
+                   # 2 + CG_ITERS adj passes over the rows a fit
+# A fit plans all its rows in one chunk while the plan has at most this
+# many slots (V * C * NH; 16 B of plan and grouping a slot, ~4.3 GB here),
+# and otherwise in chunks of FIT_CHUNK_ROWS rows: dlrm-rm2's 124,185,088
+# rows x 8 chunks x 2 hashes would need ~32 GB of plan beside the table.
+FIT_PLAN_SLOTS = 1 << 28
+FIT_CHUNK_ROWS = 1 << 22
+
+
+def fit_chunk_rows(cfg: HashedConfig) -> int:
+    """Rows a chunk of ``fit_pool_from_table`` holds: every row when the
+    whole plan has at most ``FIT_PLAN_SLOTS`` slots, else
+    ``FIT_CHUNK_ROWS``."""
+    if cfg.vocab * cfg.num_chunks * cfg.num_hashes <= FIT_PLAN_SLOTS:
+        return max(cfg.vocab, 1)
+    return FIT_CHUNK_ROWS
 
 
 def fit_pool_from_table(table: torch.Tensor, cfg: HashedConfig,
                         priority: torch.Tensor | None = None,
-                        cg_iters: int = CG_ITERS) -> HashedStore:
+                        cg_iters: int = CG_ITERS,
+                        audit=None) -> HashedStore:
     """Least-squares fit of an fp32 pool to ``table`` (V, D), on the
     table's device: ``cg_iters`` conjugate-gradient steps on the normal
     equations from the scatter-mean seed (already exact when draws never
     collide).  The residual at high compression is the hashing scheme's
-    own loss, not the solver's."""
+    own loss, not the solver's.
+
+    ``fwd`` and ``adj`` run over row chunks of ``fit_chunk_rows(cfg)``
+    rows, each chunk's slots hashed for that chunk alone: ``adj``
+    scatters chunk after chunk onto one (S, Z) result with
+    ``bag_grad(out=)``, each pool row's chain continuing where the last
+    chunk left it, so the fit equals a one-chunk fit bit for bit.  A
+    one-chunk fit groups its slots once (``plan_slots``); a chunked one
+    hashes and groups each chunk again in each ``adj`` (nothing of size
+    V * C * NH is kept).  ``audit(r0, r1, g, bags, signs, before, after)``,
+    when given, sees each chunk's scatter in the first ``adj`` (of the
+    table): its rows, cotangent (n * C, Z), plan (n * C, NH), and the
+    (S, Z) result before (a copy) and after it.
+    """
     v, d = table.shape
-    c, z, nh = cfg.num_chunks, cfg.chunk_dim, cfg.num_hashes
+    c, z, nh, s = cfg.num_chunks, cfg.chunk_dim, cfg.num_hashes, cfg.num_slots
     dev = table.device
     x = table.to(torch.float32)
-    ids = torch.arange(v, dtype=torch.int32, device=dev)
-    slots, signs = hash_slots(ids, num_chunks=c, num_hashes=nh,
-                              num_slots=cfg.num_slots, seed=cfg.seed)
-    bags, bag_signs = slots.reshape(v * c, nh), signs.reshape(v * c, nh)
-    del slots, signs
-    # every adj scatters over the same bags: group their slots once
-    bag_plan = plan_slots(bags)
-    rows = ids.reshape(v, 1)
+    step = fit_chunk_rows(cfg)
+    bounds = [(r0, min(v, r0 + step)) for r0 in range(0, v, step)]
 
-    def fwd(p):          # A: pool -> materialised table (V, D)
+    def plan(r0, r1):    # the chunk's (n * C, NH) bags and signs
+        ids = torch.arange(r0, r1, dtype=torch.int32, device=dev)
+        slots, signs = hash_slots(ids, num_chunks=c, num_hashes=nh,
+                                  num_slots=s, seed=cfg.seed)
+        return slots.reshape(-1, nh), signs.reshape(-1, nh)
+
+    kept = None
+    if len(bounds) == 1:      # group the slots once a fit
+        bags, bag_signs = plan(0, v)
+        kept = (bags, bag_signs, plan_slots(bags))
+
+    def fwd(p, r0, r1):  # A on rows [r0, r1): pool -> (n, D)
+        rows = torch.arange(r0, r1, dtype=torch.int32,
+                            device=dev).reshape(-1, 1)
         return hashed_gather_ids(p, None, rows, num_chunks=c,
                                  num_hashes=nh, seed=cfg.seed)
 
-    def adj(r):          # A^T: table cotangent -> pool scatter (S, Z)
-        return bag_grad(r.reshape(v * c, z), None, bags, bag_signs,
-                        cfg.num_slots, plan=bag_plan)
+    def adj(rows_of, check=None):   # A^T: (V, D) cotangent -> (S, Z)
+        out = torch.zeros((s, z), dtype=torch.float32, device=dev)
+        for r0, r1 in bounds:
+            bags, bag_signs, grouping = kept or (*plan(r0, r1), None)
+            g = rows_of(r0, r1).reshape(-1, z)
+            before = None if check is None else out.clone()
+            bag_grad(g, None, bags, bag_signs, s, plan=grouping, out=out)
+            if check is not None:
+                check(r0, r1, g, bags, bag_signs, before, out)
+            del g, bags, bag_signs
+        return out
 
     def vdot(a, b):
         return torch.dot(a.reshape(-1), b.reshape(-1))
 
-    counts = torch.bincount(bags.reshape(-1).to(torch.int64),
-                            minlength=cfg.num_slots).to(torch.float32)
-    b = adj(x)
+    counts = torch.zeros((s,), dtype=torch.float32, device=dev)
+    for r0, r1 in bounds:
+        counts += torch.bincount(
+            (kept[0] if kept else plan(r0, r1)[0]).reshape(-1)
+            .to(torch.int64), minlength=s).to(torch.float32)
+    b = adj(lambda r0, r1: x[r0:r1], check=audit)
     pool = b / counts.clamp_min(1.0)[:, None]      # scatter-mean seed
     if cg_iters > 0:
         def gram(p):
-            return adj(fwd(p))
+            return adj(lambda r0, r1: fwd(p, r0, r1))
         r = b - gram(pool)
         p_dir = r
         rs = vdot(r, r)
@@ -190,6 +242,21 @@ def fit_pool_from_table(table: torch.Tensor, cfg: HashedConfig,
         pool_scale=torch.ones((cfg.num_slots,), dtype=torch.float32,
                               device=dev),
         priority=_priority(priority, v, dev))
+
+
+def fit_residual(hs: HashedStore, cfg: HashedConfig,
+                 table: torch.Tensor) -> float:
+    """``||fwd(pool) - table|| / ||table||`` over every row, in row chunks
+    (the pool read back through the serving gather; 1 for a zero pool)."""
+    num = torch.zeros((), dtype=torch.float64, device=table.device)
+    den = torch.zeros((), dtype=torch.float64, device=table.device)
+    for r0 in range(0, table.shape[0], FIT_CHUNK_ROWS):
+        rows = table[r0:r0 + FIT_CHUNK_ROWS].to(torch.float64)
+        ids = torch.arange(r0, r0 + rows.shape[0], dtype=torch.int32,
+                           device=table.device)
+        num += ((hashed_lookup(hs, cfg, ids) - rows) ** 2).sum()
+        den += (rows ** 2).sum()
+    return float(num.sqrt() / den.sqrt())
 
 
 def quantize_pool(hs: HashedStore) -> HashedStore:
@@ -223,6 +290,15 @@ def hashed_lookup(hs: HashedStore, cfg: HashedConfig,
     bag (the serving gather)."""
     out = hashed_bag_lookup(hs, cfg, indices.reshape(-1, 1))
     return out.reshape(*indices.shape, cfg.dim)
+
+
+def gather_rows_host(hs: HashedStore, cfg: HashedConfig, ids):
+    """fp32 rows ``ids`` materialised from the pool through the serving
+    gather on the pool's device (the ids entry), returned on the host as
+    numpy (cache rebuilds, oracles)."""
+    idx = torch.as_tensor(np.asarray(ids, np.int64).reshape(-1),
+                          device=hs.pool.device).to(torch.int32)
+    return hashed_lookup(hs, cfg, idx).cpu().numpy()
 
 
 def hashed_state_tree(hs: HashedStore, cfg: HashedConfig) -> dict:

@@ -1,9 +1,9 @@
 """The compressed train step: serving kernels + Eq. 5-8 fold + in-training
 Taylor/access accumulation, in one backward.
 
-Port of the single-device, fp32-table branch of
-``repro/train/steps.py::make_compressed_train_step``.  One step computes,
-in the reference's order:
+Port of the single-device branches of
+``repro/train/steps.py::make_compressed_train_step``: the fp32 table and
+the hashed pool.  One step computes, in the reference's order:
 
     emb      = lookup_train(table, gidx)        dequant_bag kernel
     g_emb    = d loss / d emb                   head backward (autograd)
@@ -14,8 +14,18 @@ in the reference's order:
                                                 touched rows, in place
     accum    = Taylor Eq. 4 fold + Eq. 7 access EMA
 
-The table is updated in place (the reference's update is functional; at
-124M x 64 a second table does not fit beside the gradient).  So the NaN
+With ``hashed_cfg`` (a ``store.hashed.HashedConfig``) ``params[table]``
+holds the (S, Z) chunk pool instead: the gather is ``HashedTrain`` (the
+``hashed_gather`` kernel's plan entry forward, ``bag_grad`` into the pool
+backward), row-wise adagrad runs per pool slot with an (S,) accumulator,
+there is no Eq. 5-6 snap (pool slots are shared by rows), and Eq. 7 still
+folds per virtual row into a (V,) priority (the jitted reference's FMA
+form, ``priority.priority_update_from_batch``), which picks the serving
+cache.  ``TaylorAccum`` is sized by ``hashed_cfg.vocab`` and ``.dim``.
+
+The table (or pool) is updated in place (the reference's update is
+functional; at 124M x 64 a second table does not fit beside the
+gradient).  So the NaN
 guard moves into the step: a non-finite loss returns the state as it was,
 before any update, and the loop counts the skip as the reference's loop
 does.  ``step(state, batch, mark=fn)`` calls ``fn(stage)`` after each
@@ -29,9 +39,11 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
+from repro_torch.core import priority as priority_lib
 from repro_torch.core import qat_store
 from repro_torch.core.qat_store import FQuantConfig
 from repro_torch.kernels.dequant_bag.autodiff import lookup_train
+from repro_torch.kernels.hashed_gather.autodiff import hashed_lookup_train
 from repro_torch.optim import optimizers as opt_lib
 from repro_torch.train import accum as accum_lib
 
@@ -57,34 +69,40 @@ def make_compressed_train_step(loss_from_emb: Callable,
     """``step(state, batch, mark=None) -> (state, metrics)``, with
     ``step.init_state(params)`` the initial state.
 
-    State: ``TrainState`` with opt = (dense_opt_state, adagrad accum (V,))
-    and ``accum`` a ``TaylorAccum``.  ``field_mask`` (F,) zeroes pruned
-    fields inside the loss.  The row-sharded (``mesh``) and hashed
-    (``hashed_cfg``) forms are later slices of the port (ROADMAP Queue 1
-    items 7 and 4).
+    State: ``TrainState`` with opt = (dense_opt_state, adagrad accum (V,),
+    or (S,) for a pool) and ``accum`` a ``TaylorAccum``.  ``field_mask``
+    (F,) zeroes pruned fields inside the loss.  The row-sharded (``mesh``)
+    form is a later slice of the port (ROADMAP Queue 1 item 7).
     """
     if mesh is not None:
         raise NotImplementedError(
             "mesh=: the row-sharded train step comes with the distributed "
             "slice (ROADMAP Queue 1 item 7)")
-    if hashed_cfg is not None:
-        raise NotImplementedError(
-            "hashed_cfg=: the hashed train step is not ported yet; the "
-            "hashed store serves (store.hashed), and ROADMAP Queue 1 item 4 "
-            "keeps this branch with dist/hashed.py and the pipeline's "
-            "--store-backend hashed")
     dense_optimizer = dense_optimizer or opt_lib.adam(lr)
     pcfg = (fq_cfg or FQuantConfig()).priority
+    if hashed_cfg is not None:
+        def gather(tbl, gidx):      # hashed_gather plan entry + bag_grad
+            return hashed_lookup_train(
+                tbl, gidx, num_chunks=hashed_cfg.num_chunks,
+                num_hashes=hashed_cfg.num_hashes, seed=hashed_cfg.seed)
+    else:
+        gather = lookup_train       # dequant_bag + bag_grad
 
     def init_state(params) -> TrainState:
         table = params[table_path]
         dev = table.device
         dense = {k: v for k, v in params.items() if k != table_path}
-        vocab, dim = table.shape
+        if hashed_cfg is not None:
+            vocab, dim = hashed_cfg.vocab, hashed_cfg.dim
+        else:
+            vocab, dim = table.shape
+        # adagrad accumulator: one cell a trained row (pool slots for the
+        # hashed form, vocab rows otherwise)
         opt = (dense_optimizer.init(dense),
-               torch.full((vocab,), 0.1, dtype=torch.float32, device=dev))
+               torch.full((table.shape[0],), 0.1, dtype=torch.float32,
+                          device=dev))
         pri = (torch.zeros((vocab,), dtype=torch.float32, device=dev)
-               if fq_cfg is not None else None)
+               if fq_cfg is not None or hashed_cfg is not None else None)
         acc = (accum_lib.init_accum(vocab, num_fields, dim, dev)
                if with_accum else None)
         return TrainState(params=params, opt=opt,
@@ -105,7 +123,7 @@ def make_compressed_train_step(loss_from_emb: Callable,
 
         with torch.enable_grad():
             leaf = table.detach().requires_grad_()
-            emb_out = lookup_train(leaf, gidx)         # dequant_bag kernel
+            emb_out = gather(leaf, gidx)               # the gather kernel
             mark("gather")
             emb = emb_out.detach().requires_grad_()
             dense_in = opt_lib.tree_map(
@@ -143,7 +161,12 @@ def make_compressed_train_step(loss_from_emb: Callable,
         mark("adam")
 
         priority = state.priority
-        if fq_cfg is not None:
+        if hashed_cfg is not None:
+            # shared pool slots cannot snap per row; Eq. 7 still folds per
+            # virtual row (the serving cache, field-prune ranking)
+            priority = priority_lib.priority_update_from_batch(
+                priority, gidx, labels_fn(batch), pcfg)
+        elif fq_cfg is not None:
             store = qat_store.post_step_sparse(
                 qat_store.QATStore(table=table, priority=priority), gidx,
                 labels_fn(batch), fq_cfg, seed=state.step)

@@ -785,3 +785,88 @@ def test_online_fused_serve_shadow_smoke_on_card(dev, arch):
     assert rec["kernel_launches"]["bag_matmul"] == 3 * 12
     assert rec["kernel_launches"]["quantize_rowwise"] >= (
         server.stats.shadow_chunks)
+
+
+@pytest.mark.parametrize("d", [8, 64])
+def test_bag_grad_accumulate_over_chunks_bit_equal(dev, d):
+    """Consecutive runs of bags scattered onto one output (``out=``, the
+    hashed fit's row chunks) equal one call over all of them and the plain
+    version, bit for bit; one row takes over the heavy-run threshold in
+    two of the runs, so both the heavy and the light path accumulate."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(15)
+    n, v = 300_000, 3001
+    bags = torch.randint(0, v, (n, 2), generator=g, device=dev,
+                         dtype=torch.int32)
+    bags[100_000:120_000, 0] = 7
+    bags[250_000:280_000, 1] = 7
+    signs = (torch.randint(0, 2, (n, 2), generator=g, device=dev)
+             * 2 - 1).float()
+    x = torch.randn((n, d), generator=g, device=dev)
+    one = ops.bag_grad(x, None, bags, signs, v)
+    want = ref.bag_grad_ref(x, None, bags, signs, v)
+    out = torch.zeros((v, d), device=dev)
+    kernel.reset_launches()
+    for r0, r1 in ((0, 111_111), (111_111, 260_000), (260_000, n)):
+        ops.bag_grad(x[r0:r1], None, bags[r0:r1], signs[r0:r1], v, out=out)
+    torch.cuda.synchronize()
+    assert kernel.bag_grad_launches["float32"] == 3
+    assert torch.equal(one.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(out.view(torch.int32), want.view(torch.int32))
+
+
+def test_chunked_fit_on_card_bit_equal_to_one_call(dev, monkeypatch):
+    from repro_torch.store import hashed as H
+    g = torch.Generator(device=dev)
+    g.manual_seed(16)
+    table = torch.randn((50_003, 16), generator=g, device=dev) * 0.05
+    cfg = H.HashedConfig(vocab=50_003, dim=16, chunk_dim=8, num_slots=3001)
+    checked = []
+
+    def audit(r0, r1, x, bags, signs, before, after):
+        want = ref.bag_grad_ref(x, None, bags, signs, cfg.num_slots,
+                                out=before)
+        checked.append(torch.equal(after.view(torch.int32),
+                                   want.view(torch.int32)))
+    one = H.fit_pool_from_table(table, cfg)
+    monkeypatch.setattr(H, "FIT_PLAN_SLOTS", 0)      # 7,001 rows a chunk
+    monkeypatch.setattr(H, "FIT_CHUNK_ROWS", 7001)
+    chunked = H.fit_pool_from_table(table, cfg, audit=audit)
+    torch.cuda.synchronize()
+    assert checked == [True] * 8
+    assert torch.equal(chunked.pool.view(torch.int32),
+                       one.pool.view(torch.int32))
+    assert 0.0 < H.fit_residual(one, cfg, table) < 1.0
+
+
+def test_hashed_train_step_kernels_bit_equal_to_plain(dev):
+    """The hashed step's forward (``hashed_gather``'s plan entry) and its
+    pool gradient (``bag_grad``) against their plain versions on the same
+    inputs, one launch each."""
+    from repro_torch.kernels.hashed_gather.autodiff import (
+        hashed_lookup_train)
+    from repro_torch.kernels.hashed_gather.ops import slot_plan
+    from repro_torch.kernels.hashed_gather.ref import hashed_grad_ref
+    g = torch.Generator(device=dev)
+    g.manual_seed(17)
+    pool = torch.randn((4001, 8), generator=g, device=dev) * 0.05
+    gidx = torch.randint(0, 200_000, (512, 10), generator=g, device=dev,
+                         dtype=torch.int32)
+    cot = torch.randn((512, 10, 16), generator=g, device=dev)
+    kw = dict(num_chunks=2, num_hashes=4, seed=0)
+    kernel.reset_launches()
+    hg_kernel.reset_launches()
+    leaf = pool.clone().requires_grad_()
+    emb = hashed_lookup_train(leaf, gidx, **kw)
+    (dpool,) = torch.autograd.grad(emb, leaf, cot)
+    torch.cuda.synchronize()
+    assert hg_kernel.launches["float32"] == 1
+    assert kernel.bag_grad_launches["float32"] == 1
+    slots, coeff = slot_plan(gidx.reshape(-1, 1), None, num_chunks=2,
+                             num_hashes=4, num_slots=4001, seed=0)
+    want = hashed_gather_ref(pool, None, slots, coeff, num_chunks=2)
+    assert torch.equal(emb.detach().reshape(-1, 16).view(torch.int32),
+                       want.view(torch.int32))
+    want_grad = hashed_grad_ref(cot.reshape(-1, 16), None, slots, coeff,
+                                4001, num_chunks=2)
+    assert torch.equal(dpool.view(torch.int32), want_grad.view(torch.int32))

@@ -231,25 +231,35 @@ def test_run_at_tiny_budgets_gives_the_reference_rows(name, monkeypatch):
 
 # ------------------------------------------------------------------ runner
 
-def test_runner_refuses_what_is_not_ported():
+def test_runner_refuses_what_is_not_ported(tmp_path):
+    """Every refusal names its ROADMAP item; a refused ``--emit`` writes
+    nothing (the paths are under ``tmp_path``)."""
+    assert set(trun.WAITING) == {"qps_sharded", "roofline"}
     for name in trun.WAITING:
         with pytest.raises(NotImplementedError, match="item"):
             trun.main(["--only", name, "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 10"):
-        trun.main(["--emit", "BENCH_qps.json", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 10"):
-        trun.main(["--emit-pipeline", "x.json", "--device", "cpu"])
+    for name, item in (("BENCH_hier.json", "item 8"),
+                       ("BENCH_kernel.json", "item 9")):
+        with pytest.raises(NotImplementedError, match=item):
+            trun.main(["--emit", str(tmp_path / name), "--device", "cpu"])
+    with pytest.raises(SystemExit, match="item 8"):
+        trun.main(["--emit", str(tmp_path / "BENCH_fleet.json"),
+                   "--device", "cpu"])
+    with pytest.raises(SystemExit, match="manifest: BENCH_fleet.json"):
+        trun.main(["--emit", str(tmp_path / "BENCH_other.json"),
+                   "--device", "cpu"])
     with pytest.raises(SystemExit):
         trun.main(["--only", "nosuch", "--device", "cpu"])
+    assert not any(tmp_path.iterdir())
     assert set(trun.jobs(True, torch.device("cpu"))) == {
         "table2_time", "table3_fquant", "fig3_thresholds",
-        "table4_combined", "fig2_fperm", "freq_error"}
+        "table4_combined", "fig2_fperm", "freq_error", "qps", "hashed"}
 
 
 def test_runner_lets_a_job_exception_propagate(monkeypatch, capsys):
     def boom():
         raise ValueError("job failed")
-    monkeypatch.setattr(trun, "jobs", lambda fast, device: {
+    monkeypatch.setattr(trun, "jobs", lambda fast, device, audit=None: {
         "freq_error": lambda: [{"bucket": "x", "rows": 1}],
         "table2_time": boom})
     with pytest.raises(ValueError, match="job failed"):

@@ -178,6 +178,17 @@ def test_paper_table_modules_are_covered_by_the_import_rule():
         assert ROOT / "tests" / test in PORT_TESTS, test
 
 
+def test_hashed_train_and_record_modules_are_covered_by_the_import_rule():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for mod in ("benchmarks/hashed.py", "benchmarks/manifest.py",
+                "benchmarks/qps.py", "benchmarks/run.py", "train/steps.py",
+                "store/hashed.py", "launch/pipeline.py",
+                "kernels/hashed_gather/autodiff.py"):
+        assert f"src/repro_torch/{mod}" in names, mod
+    for test in ("test_torch_hashed_train.py", "test_torch_bench_hash.py"):
+        assert ROOT / "tests" / test in PORT_TESTS, test
+
+
 def test_bench_qps_raises_without_cuda_unless_cpu_is_asked():
     from repro_torch.benchmarks import common
     if torch.cuda.is_available():
@@ -185,6 +196,11 @@ def test_bench_qps_raises_without_cuda_unless_cpu_is_asked():
     with pytest.raises(RuntimeError, match="CUDA"):
         common.make_setup()
     assert common.make_setup(device="cpu").device == torch.device("cpu")
+    from repro_torch.benchmarks import hashed, qps
+    with pytest.raises(RuntimeError, match="CUDA"):
+        hashed.run_hashed_sweep(ratios=(100.0,), train_steps=1, requests=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        qps.run(iters=1)
 
 
 def test_pipeline_raises_without_cuda_unless_cpu_is_asked(tmp_path):

@@ -5,7 +5,9 @@ the port's ``run_online_sweep`` at about 48 requests, serve batches
 (1, 8) and a re-tier every 16 gives the reference's record in every
 integer field, in ``packed_fp32_ratio`` and in the byte columns, and
 both records pass the unchanged ``tools/check_bench_schema.py``.  The
-CLI writes a valid record, refuses what is not ported, and needs a GPU
+offline proxy ``run`` gives the reference's byte rows (its priorities,
+tiers and pack are the reference's: Eq. 7 is bit-equal).  The CLI writes
+a valid record, refuses flag combinations it cannot run, and needs a GPU
 unless the CPU is asked for.
 """
 
@@ -28,6 +30,7 @@ import torch_threads  # noqa: F401  (caps torch's CPU threads)
 from repro_torch.benchmarks import common as tcommon
 from repro_torch.benchmarks import qps as tqps
 from repro_torch.convert import params_from_jax
+from repro_torch.core import packed_store as tps
 from repro_torch.models import embedding as tE
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -116,9 +119,10 @@ def test_cli_writes_a_valid_record(tmp_path):
 def test_cli_refusals():
     with contextlib.redirect_stderr(io.StringIO()):
         with pytest.raises(SystemExit):
-            tqps.parse_args([])                       # the offline proxy
+            tqps.parse_args(["--serve-batch", "1"])   # needs --online
         with pytest.raises(SystemExit):
             tqps.parse_args(["--online", "--emit", "x.json"])
+    assert not tqps.parse_args([]).online             # the offline proxy
     # shadow re-tiers are ported: the async sweep runs
     rec = tqps.run_online_sweep((1,), requests=4, retier_every=2,
                                 retier_async=True, device="cpu")
@@ -127,3 +131,31 @@ def test_cli_refusals():
         pytest.skip("the no-GPU rule is checked where there is no GPU")
     with pytest.raises(RuntimeError, match="CUDA"):
         tqps.main(["--online", "--serve-batch", "1", "--requests", "2"])
+
+
+OFFLINE_BYTE_ROWS = ("bytes_per_request_fp32", "bytes_per_request_packed",
+                     "hbm_bytes_ratio (QPS headroom on bw-bound serving)",
+                     "table_memory_ratio")
+
+
+def test_offline_proxy_byte_rows_match_the_reference():
+    want = {r["metric"]: r["value"] for r in jqps.run(iters=1)}
+    seen = {}
+
+    def audit(packed, gidx, emb):
+        seen["equal"] = torch.equal(emb, tps.lookup(packed, gidx))
+    rows = tqps.run(iters=1, device="cpu", audit=audit)
+    got = {r["metric"]: r["value"] for r in rows}
+    for key in OFFLINE_BYTE_ROWS:
+        assert got[key] == want[key], key
+    # the times are the device's, named for what they measure
+    assert set(got) - set(OFFLINE_BYTE_ROWS) == {"forward_us_fp32",
+                                                  "forward_us_packed"}
+    assert all(got[k] > 0 for k in ("forward_us_fp32", "forward_us_packed"))
+    assert seen["equal"]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        res = tqps.main(["--batch", "64", "--device", "cpu"])
+    assert [json.loads(ln)["metric"] for ln in out.getvalue().splitlines()
+            ] == [r["metric"] for r in res["rows"]]
+    assert res["rows"][0]["value"] == 64 * 10 * 16 * 4

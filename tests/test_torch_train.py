@@ -326,10 +326,9 @@ def test_field_mask_step_matches_jax():
 
 def test_step_refuses_unported_branches():
     from repro_torch.train.steps import make_compressed_train_step
-    for kw in ({"mesh": object()}, {"hashed_cfg": object()}):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-            make_compressed_train_step(None, None, None, "embed_table", 0.1,
-                                       4, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
+        make_compressed_train_step(None, None, None, "embed_table", 0.1, 4,
+                                   mesh=object())
 
 
 def test_step_skips_nonfinite_loss():
