@@ -233,10 +233,11 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    ``tools/check_bench_schema.py`` (which holds each entry's p99 and p99
    while re-tiering to 10x its p50), every entry swapped, and
    quantize_rowwise launched.
-15. paper tables: ``python -m repro_torch.benchmarks.run`` through its
-   ``main``: the paper's six jobs (Table 2-4, Fig. 2-3, the
-   frequency/error study) on the bench DLRM at the reference's full
-   budgets (~16,000 training steps), every CSV row and each job's
+15. paper tables: ``python -m repro_torch.benchmarks.run --fast`` through
+   its ``main``: the paper's six jobs (Table 2-4, Fig. 2-3, the
+   frequency/error study) on the bench DLRM at the reference's reduced
+   budgets (depth cut from the full ~16,000 training steps, which took
+   ~120 s, to make room for phase 17), every CSV row and each job's
    seconds printed; every AUC finite and in [0, 1], the closed-form
    memory columns (``mpe_lfu``, ``alpt_int8``, the uniform rows, Table
    4's F-Permutation share) and Table 2's passes equal their formulas,
@@ -267,13 +268,39 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    are printed; (c) ``--emit TMP/BENCH_qps.json --fast`` and
    ``--emit-pipeline TMP/p.json --fast``: both records pass the schema
    tool.
+17. the hierarchical store, each run with the counts set to 0 just before
+   and read just after, its cold shards of 1,048,576 rows in a temporary
+   directory removed when the run ends: (a) ``launch.serve --arch
+   wide-deep --online --serve-batch 8 --store-backend hier`` at the
+   published widths (22,216,000 x 32), hot and warm budgets each a tenth
+   of the fully packed bytes, 256 drifting-zipf requests, ``--cache-rows
+   256 --retier-every 64 --drift 4.0 --verify-hier``; (b) the same with
+   ``--retier-async --shadow-rows 4194304 --verify-swap`` and 4,096
+   requests: at least one verified swap on a request tick published a new
+   cold generation; (c) dlrm-rm2 over all 204,185,088 rows x 64, 4 GiB on
+   the card and 8 GiB in host RAM, 64 requests by 8, one synchronous
+   migration, ``--verify-hier``.  Every 4th audited micro-batch (one that
+   did not re-tier): the hot level's fused gather bit-equal to the plain
+   ``lookup`` and the served embeddings to the host oracle
+   (``HierStore.gather_fp32_host``); one tiered dequant_bag launch a
+   micro-batch (and a verify block), no single-tier launch, and
+   quantize_rowwise at the build and in the migrations.  Prints each
+   record (p50 / p99, miss rate, hits, migrations, levels, build / serve /
+   verify seconds, ms a re-tier, the device peak and the host peak RSS).
+   (d) ``python -m repro_torch.benchmarks.hier`` at the reference's
+   budgets (fractions 0.05 / 0.15 / 0.4 / 1.0, 256 requests by 8), again
+   with ``--retier-async``, and ``benchmarks.run --emit
+   TMP/BENCH_hier.json --fast``: each record through the unchanged schema
+   tool, the tiered dequant_bag and quantize_rowwise launched.
+   ``--hier-only`` builds the kernels and runs this phase alone (no
+   kernels line, no ok line).
 
 Prints the card's name and power limit, the serve, train, both online,
 both hashed and both pipeline records, one JSON ``kernels`` line
 (dequant_bag per tier dtype and its tiered entry, bag_grad, bag_matmul
 per arch, cin, hashed_gather and hashed_gather_ids per pool dtype,
 quantize_rowwise, dequant_bag_rowgrid per tier dtype, bag_grad_rowgrid;
-each with its launches on every path, phase 13's to 16's runs
+each with its launches on every path, phase 13's to 17's runs
 included; the run fails if a kernel of a main path launched no time on
 it, hashed_gather's fp32 plan entry, the hashed train step's forward,
 among them), and
@@ -353,6 +380,9 @@ METRICS_EVERY = 4
 BENCH_QPS_BATCHES = "1,8,32"
 # phase 15: the paper's six jobs, one ``--only`` run each (the runner's
 # other jobs, qps and hashed, are phase 16's)
+# at the runner's --fast budgets (one shuffle a field in Table 2's
+# Permutation arm, 150 training steps a job)
+PAPER_SHUFFLES = 1
 PAPER_JOBS = ("table2_time", "table3_fquant", "fig3_thresholds",
               "table4_combined", "fig2_fperm", "freq_error")
 # phase 14: the shadow build budget in rows a request (a full-width first
@@ -360,6 +390,20 @@ PAPER_JOBS = ("table2_time", "table3_fquant", "fig3_thresholds",
 # two verified swaps to land on request ticks
 SHADOW_ROWS = 1 << 22
 SHADOW_REQUESTS = 32
+# phase 17: the hier store at full width.  Cold shards of 1,048,576 rows
+# (tens of shards; the CLI's default of 4,096 would make thousands), the
+# wide&deep budgets each a tenth of the fully packed bytes, dlrm-rm2's
+# 4 GiB on the card and 8 GiB in host RAM; every 4th audited micro-batch
+# is checked bit for bit
+HIER_ROWS_PER_SHARD = 1 << 20
+HIER_FRACTION = 0.1
+HIER_REQUESTS = 256
+HIER_ASYNC_REQUESTS = 4096
+HIER_DLRM_REQUESTS = 64
+HIER_DLRM_RETIER_EVERY = 64
+HIER_DLRM_HBM_MB = 4096
+HIER_DLRM_HOST_MB = 8192
+HIER_AUDIT_EVERY = 4
 
 
 T0 = time.monotonic()
@@ -2761,8 +2805,9 @@ def bench_qps(torch, kernels_mod, path: str,
 
 
 def paper_tables(torch, kernels_mod) -> dict:
-    """Phase 15: ``python -m repro_torch.benchmarks.run`` (the paper's six
-    tables and figures at the reference's full budgets, on the card)
+    """Phase 15: ``python -m repro_torch.benchmarks.run --fast`` (the
+    paper's six tables and figures at the reference's reduced budgets, on
+    the card; phase 17 took the time of the full ones)
     through its ``main``, with the counts set to 0 just before and read
     just after: no kernel of the port launches on this path.  Checks
     every AUC finite and in [0, 1], the closed-form memory columns and
@@ -2785,7 +2830,7 @@ def paper_tables(torch, kernels_mod) -> dict:
     t0 = time.perf_counter()
     out = {}
     for name in PAPER_JOBS:
-        out.update(bench_run.main(["--only", name]))
+        out.update(bench_run.main(["--only", name, "--fast"]))
     wall = time.perf_counter() - t0
     counts = path_counts(kernels_mod, kernel, hg_kernel)
     launched = {k: v for k, v in counts.items() if isinstance(v, int) and v}
@@ -2826,8 +2871,8 @@ def paper_tables(torch, kernels_mod) -> dict:
     if ((t2["f_permutation"]["passes"],
          t2["f_permutation"]["paper_scale_passes"]) != (3, 3)
             or (t2["permutation"]["passes"],
-                t2["permutation"]["paper_scale_passes"]) != (10 * 2 + 1,
-                                                             180 * 10 + 1)
+                t2["permutation"]["paper_scale_passes"]) != (
+                    10 * PAPER_SHUFFLES + 1, 180 * 10 + 1)
             or speed["paper_scale_passes"] != round(1801 / 3, 1)):
         bad.append(f"table2 passes {t2}")
     # Table 3's fp32 params again, evaluated on the card and on the CPU
@@ -3293,12 +3338,232 @@ def trace_online(torch, served, arch: str, requests: int, path: str,
                  "count": e.count} for e in top]}}), flush=True)
 
 
+def hier_budget_mb(torch, serve, arch: str, frac: float) -> float:
+    """Phase 17: ``frac`` of the fully packed bytes of ``arch``'s online
+    store at full width (its tiers from the serve CLI's priorities), in
+    MiB."""
+    from repro_torch import configs
+    from repro_torch.core.tiers import assign_tiers, memory_bytes
+    spec = configs.get(arch).model.spec
+    pri, cfg = serve.plan_store(spec, torch.device("cuda"))
+    total = memory_bytes(assign_tiers(pri, cfg.tiers), spec.dim)
+    del pri
+    return frac * total / 2 ** 20
+
+
+def hier_serve(torch, serve, kernels_mod, counters, label: str, argv: list,
+               store_dir: str) -> tuple:
+    """Phase 17 (a)-(c): ``launch.serve`` through the hier store at full
+    width (``run(rows_per_shard=HIER_ROWS_PER_SHARD)``, with
+    ``--verify-hier``), the counts set to 0 just before and read just
+    after.  Every ``HIER_AUDIT_EVERY``-th audited micro-batch (those that
+    did not re-tier): the hot level's fused gather against the plain
+    ``lookup``, and the embeddings the head got against the host oracle
+    (``HierStore.gather_fp32_host``: ``np_lookup`` of every level), bit
+    for bit (the fused check's launches uncounted).  A shadow run records
+    which swaps published a new cold generation.  Returns (record, the
+    path's counts, the audit's stats, the commits)."""
+    from repro_torch.core import packed_store as ps
+    from repro_torch.kernels.dequant_bag import kernel
+    from repro_torch.kernels.dequant_bag import ops as dq_ops
+    from repro_torch.kernels.hashed_gather import kernel as hg_kernel
+    from repro_torch.kernels.rowwise_quant import kernel as rq_kernel
+    from repro_torch.serve import shadow
+
+    # a shadow's staging thread may quantize while an audit runs: the
+    # quantizer's counter is left alone (the audit launches none)
+    audited = [c for c in counters if c is not rq_kernel.launches]
+    stats = {"batches": 0, "audited": 0, "hot_slots": 0, "staged_rows": 0}
+
+    def make_audit(server, model, params):
+        def audit(hot, sb, gidx, emb):
+            stats["batches"] += 1
+            if (stats["batches"] - 1) % HIER_AUDIT_EVERY:
+                return
+            with Uncounted(audited), torch.inference_mode():
+                fused = dq_ops.packed_lookup_fused(hot, sb.hot_local)
+                plain = ps.lookup(hot, sb.hot_local)
+            want = torch.from_numpy(server.hier.gather_fp32_host(
+                gidx.cpu().numpy()))
+            if not (bits_equal(fused, plain) and bits_equal(emb.cpu(), want)):
+                raise SystemExit(f"{label}: micro-batch {stats['batches']}: "
+                                 "the staged rows are not the plain gather "
+                                 "and the host oracle's")
+            stats["audited"] += 1
+            stats["hot_slots"] += int((sb.stage_slot < 0).sum())
+            stats["staged_rows"] += sb.staged
+        return audit
+
+    commits = []
+    commit = shadow.ShadowMigrate.commit
+
+    def spy(self, server, staged):
+        commits.append({"cold_rewritten": self._cold_needed,
+                        "shards": (self.writer.num_shards
+                                   if self.writer is not None else 0)})
+        return commit(self, server, staged)
+    shadow.ShadowMigrate.commit = spy
+    kernels_mod.reset_launches()
+    try:
+        served = serve.run(serve.parse_args(
+            argv + ["--online", "--model", "full", "--store-backend", "hier",
+                    "--store-dir", store_dir, "--verify-hier"]),
+            make_audit=make_audit, rows_per_shard=HIER_ROWS_PER_SHARD)
+    finally:
+        shadow.ShadowMigrate.commit = commit
+    counts = path_counts(kernels_mod, kernel, hg_kernel)
+    rec = served.record
+    dq = counts["dequant_bag_by_dtype"]
+    batches = -(-rec["requests"] // rec["serve_batch"])
+    if (rec["device"] != "cuda" or stats["audited"] <= 0
+            or dq["tiered"] < batches
+            or any(n for t, n in dq.items() if t != "tiered")
+            or rec["kernel_launches"]["quantize_rowwise"] <= 0
+            and rec["retiers"] > 0
+            or rec["build_kernel_launches"]["quantize_rowwise"] <= 0
+            or counts["quantize_rowwise"] <= 0
+            or rec["level_rows"]["cold_rows"] <= 0):
+        raise SystemExit(f"{label}: unexpected record or launches: {counts}, "
+                         f"{stats}, {rec}")
+    keys = ("arch", "requests", "serve_batch", "retier_every",
+            "retier_async", "qps", "steady_qps", "p50_us", "p99_us",
+            "p99_while_retiering", "cache_hit_rate", "hier_miss_rate",
+            "warm_hits", "cold_hits", "staged_rows", "migrations",
+            "promoted", "demoted", "retiers", "rows_moved", "shadow_builds",
+            "swaps", "hbm_budget_mb", "level_rows", "level_bytes",
+            "packed_mib", "build_s", "serve_s", "retier_ms", "verify_s",
+            "build_device_peak_bytes", "device_peak_bytes",
+            "host_peak_rss_bytes", "kernel_launches",
+            "build_kernel_launches", "device_name")
+    summary = {k: rec[k] for k in keys}
+    summary.update({"path": label, "audit": stats, "path_launches": counts,
+                    "commits": commits})
+    print(json.dumps({"hier": summary}), flush=True)
+    log(f"{label}: {rec['requests']} requests by {rec['serve_batch']}, p50 "
+        f"{rec['p50_us']:.0f} us p99 {rec['p99_us']:.0f} us, miss rate "
+        f"{rec['hier_miss_rate']}, {rec['migrations']} migrations "
+        f"({rec['retier_ms']:.0f} ms a re-tier), {rec['swaps']} swaps on "
+        f"request ticks, levels {rec['level_rows']}, build "
+        f"{rec['build_s']:.1f}s, serve {rec['serve_s']:.1f}s, verify "
+        f"{rec['verify_s']:.1f}s over {sum(rec['level_rows'].values()):,} "
+        f"rows, device peak {rec['build_device_peak_bytes'] / 1e9:.2f} GB "
+        f"after the build, {rec['device_peak_bytes'] / 1e9:.2f} GB, host "
+        f"peak RSS {rec['host_peak_rss_bytes'] / 1e9:.2f} GB; audited "
+        f"{stats['audited']} of {stats['batches']} batches; launches "
+        f"{counts}")
+    del served
+    return rec, counts, stats, commits
+
+
+def hier_phase(torch, serve, kernels_mod, counters) -> dict:
+    """Phase 17: the hierarchical store at full width, then its benchmark.
+    Returns each path's counts."""
+    by_path = {}
+    wd_mb = hier_budget_mb(torch, serve, "wide-deep", HIER_FRACTION)
+    wd = ["--arch", "wide-deep", "--serve-batch", "8", "--cache-rows", "256",
+          "--retier-every", "64", "--drift", "4.0", "--hbm-budget-mb",
+          repr(wd_mb), "--host-budget-mb", repr(wd_mb)]
+    runs = (("hier_wide-deep", wd + ["--requests", str(HIER_REQUESTS)]),
+            ("hier_async_wide-deep",
+             wd + ["--requests", str(HIER_ASYNC_REQUESTS), "--retier-async",
+                   "--shadow-rows", str(SHADOW_ROWS), "--verify-swap"]),
+            ("hier_dlrm-rm2",
+             ["--arch", "dlrm-rm2", "--serve-batch", "8", "--cache-rows",
+              "256", "--retier-every", str(HIER_DLRM_RETIER_EVERY),
+              "--drift", "4.0", "--requests", str(HIER_DLRM_REQUESTS),
+              "--hbm-budget-mb", str(HIER_DLRM_HBM_MB), "--host-budget-mb",
+              str(HIER_DLRM_HOST_MB)]))
+    recs = {}
+    for label, argv in runs:
+        torch.cuda.reset_peak_memory_stats()
+        with tempfile.TemporaryDirectory() as tmp:
+            recs[label], by_path[label], _, commits = hier_serve(
+                torch, serve, kernels_mod, counters, label, argv,
+                os.path.join(tmp, "cold"))
+        torch.cuda.empty_cache()
+        if label.startswith("hier_async"):
+            landed = commits[:recs[label]["swaps"]]
+            if not any(c["cold_rewritten"] for c in landed):
+                raise SystemExit(f"{label}: no swap on a request tick "
+                                 f"published a new cold generation: "
+                                 f"{commits}, {recs[label]['swaps']} swaps")
+            log(f"{label}: p99 while re-tiering "
+                f"{recs[label]['p99_while_retiering']:.0f} us against the "
+                f"synchronous run's p99 {recs['hier_wide-deep']['p99_us']:.0f}"
+                f" us; {len(landed)} swaps on request ticks, "
+                f"{sum(c['cold_rewritten'] for c in landed)} of them with a "
+                f"new cold generation")
+        elif recs[label]["migrations"] <= 0:
+            raise SystemExit(f"{label}: no migration on the serve")
+    by_path.update(bench_hier(torch, kernels_mod))
+    return by_path
+
+
+def bench_hier(torch, kernels_mod) -> dict:
+    """Phase 17 (d): ``python -m repro_torch.benchmarks.hier`` at the
+    reference's budgets (fractions 0.05 / 0.15 / 0.4 / 1.0, 256 requests by
+    8), then with ``--retier-async``, then ``benchmarks.run --emit
+    TMP/BENCH_hier.json --fast``: each record through the unchanged schema
+    tool (``hier_miss_rate`` not rising with the budget; the async one's
+    tail within 10x its p50), the counts set to 0 just before each and
+    read just after."""
+    from repro_torch.benchmarks import hier as bhier
+    from repro_torch.benchmarks import run as bench_run
+    from repro_torch.kernels.dequant_bag import kernel
+    from repro_torch.kernels.hashed_gather import kernel as hg_kernel
+
+    by_path = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, argv in (("bench_hier", []),
+                            ("bench_hier_async", ["--retier-async"]),
+                            ("emit_hier", None)):
+            path = os.path.join(tmp, f"{label}.json")
+            kernels_mod.reset_launches()
+            t0 = time.perf_counter()
+            if argv is None:
+                path = os.path.join(tmp, "BENCH_hier.json")
+                rec = bench_run.main(["--emit", path, "--fast"])[
+                    "BENCH_hier.json"]["record"]
+            else:
+                rec = bhier.main(["--emit", path] + argv)
+            wall = time.perf_counter() - t0
+            by_path[label] = counts = path_counts(kernels_mod, kernel,
+                                                  hg_kernel)
+            (written,) = check_stream(path)
+            if (written != json.loads(json.dumps(rec))
+                    or rec["device"] != "cuda"
+                    or counts["dequant_bag_by_dtype"]["tiered"] <= 0
+                    or counts["quantize_rowwise"] <= 0):
+                raise SystemExit(f"{label}: unexpected record or launches "
+                                 f"{counts}")
+            keys = ("hbm_budget_fraction", "p50_us", "p99_us",
+                    "p99_while_retiering", "steady_qps", "hier_miss_rate",
+                    "cache_hit_rate", "warm_hits", "cold_hits",
+                    "staged_rows", "migrations", "promoted", "demoted",
+                    "swaps", "hot_rows", "warm_rows", "cold_rows")
+            print(json.dumps({"bench_hier": {
+                "path": label, "wall_s": wall,
+                "retier_async": rec["retier_async"],
+                "full_store_bytes": rec["full_store_bytes"],
+                "sweep": [{k: e[k] for k in keys} for e in rec["sweep"]],
+                "launches": counts}}), flush=True)
+            cols = [(e["hbm_budget_fraction"], e["hier_miss_rate"],
+                     round(e["p50_us"], 1)) for e in rec["sweep"]]
+            log(f"{label}: a valid bench_hier/v1 record in {wall:.1f}s, "
+                f"{cols} (fraction, miss rate, p50 us), launches {counts}")
+    return by_path
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--trace", metavar="PATH",
                     help="also profile 8 served dlrm requests and 6 more "
                          "online requests of each fused arch and of each "
                          "hashed pool; the kernel tables go to PATH")
+    ap.add_argument("--hier-only", action="store_true",
+                    help="build the kernels and run phase 17 alone (a "
+                         "quick check of the hier store; prints no kernels "
+                         "line and no ok line)")
     args = ap.parse_args()
 
     import torch
@@ -3344,6 +3609,14 @@ def main() -> int:
         report = path.with_suffix(".log")
         if report.exists():
             log(report.read_text().strip())
+
+    if args.hier_only:
+        counters = (kernel.launches, kernel.bag_grad_launches,
+                    bm_kernel.launches, cin_kernel.launches,
+                    hg_kernel.launches, rq_kernel.launches)
+        by_path = hier_phase(torch, serve, kernels_mod, counters)
+        log(f"phase 17 alone: {sorted(by_path)}")
+        return 0
 
     worst = check_kernels(torch, ops, ref)
     worst_cases = check_gather_cases(torch, kernel, ops, ref, cases)
@@ -3574,6 +3847,13 @@ def main() -> int:
         for label, counts in emit_records(torch, kernels_mod, tmp).items():
             record_path(kernels, grad_entry, quant_by_path, rowgrid_by_path,
                         label, counts)
+    torch.cuda.empty_cache()
+
+    # phase 17: the hierarchical store at full width, then bench_hier/v1
+    for label, counts in hier_phase(torch, serve, kernels_mod,
+                                    counters).items():
+        record_path(kernels, grad_entry, quant_by_path, rowgrid_by_path,
+                    label, counts)
     torch.cuda.empty_cache()
     for k in kernels:
         k["launches"] = sum(k["launches_by_path"].values())

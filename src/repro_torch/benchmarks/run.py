@@ -20,11 +20,12 @@ with a job that waits (``qps_sharded``, ``roofline``) raises
 ``--emit PATH`` writes one record instead, dispatched on the basename
 through ``benchmarks.manifest.COMMITTED_BENCH`` as the reference does:
 ``BENCH_qps.json`` the micro-batched sweep (``--serve-batches``,
-``--retier-async``), ``BENCH_pipeline.json`` the pipeline's record (a
-false ``verify_*`` exits non-zero after writing), ``BENCH_hash.json`` the
-hashed sweep.  ``BENCH_hier.json`` and ``BENCH_kernel.json`` raise
-``NotImplementedError`` (items 8 and 9), ``BENCH_fleet.json`` exits
-naming its driver (item 8), any other name exits listing the manifest.
+``--retier-async``), ``BENCH_hier.json`` the hier store's budget sweep
+(``benchmarks.hier``, ``--retier-async``), ``BENCH_pipeline.json`` the
+pipeline's record (a false ``verify_*`` exits non-zero after writing),
+``BENCH_hash.json`` the hashed sweep.  ``BENCH_kernel.json`` raises
+``NotImplementedError`` (item 9), ``BENCH_fleet.json`` exits naming its
+driver (item 8, the fleet), any other name exits listing the manifest.
 ``--emit-pipeline PATH`` is ``--emit`` of the pipeline's record to
 ``PATH``.  The path is the caller's: nothing is written where it did not
 say (the repository's ``BENCH_*.json`` are the JAX package's records).
@@ -47,7 +48,6 @@ WAITING = {
 }
 # the manifest's records whose modules are not ported yet
 EMIT_WAITING = {
-    "BENCH_hier.json": "item 8, the hier store (benchmarks/hier.py)",
     "BENCH_kernel.json": "item 9, benchmarks/kernels.py with autotune",
     "BENCH_fleet.json": "item 8, the fleet (launch/fleet.py)",
 }
@@ -136,6 +136,11 @@ def emit_record(name: str, path: str, args: argparse.Namespace,
             requests=96 if fast else 384,
             retier_every=32 if fast else 128,
             retier_async=args.retier_async, device=args.device)
+    elif name == "BENCH_hier.json":
+        from repro_torch.benchmarks import hier
+        rec = hier.run_hier_sweep(**hier.sweep_budgets(fast),
+                                  retier_async=args.retier_async,
+                                  device=args.device)
     else:                                       # BENCH_hash.json
         from repro_torch.benchmarks import hashed
         rec = hashed.run_hashed_sweep(**hashed.sweep_budgets(fast),
@@ -155,8 +160,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="run one job")
     ap.add_argument("--emit", default=None, metavar="PATH",
                     help="write the manifest record named by PATH's "
-                         "basename (BENCH_qps.json, BENCH_pipeline.json, "
-                         "BENCH_hash.json) to PATH and skip the CSV jobs")
+                         "basename (BENCH_qps.json, BENCH_hier.json, "
+                         "BENCH_pipeline.json, BENCH_hash.json) to PATH "
+                         "and skip the CSV jobs")
     ap.add_argument("--emit-pipeline", default=None, metavar="PATH",
                     help="run the train -> prune -> quantize -> pack -> "
                          "serve pipeline and write its bench_pipeline/v1 "
@@ -164,8 +170,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--serve-batches", default="1,8,32",
                     help="serve batches of the BENCH_qps.json sweep")
     ap.add_argument("--retier-async", action="store_true",
-                    help="the BENCH_qps.json sweep re-tiers by shadow "
-                         "builds and swaps")
+                    help="the BENCH_qps.json / BENCH_hier.json sweep "
+                         "re-tiers by shadow builds and swaps")
     ap.add_argument("--device", default=None,
                     help="torch device; default cuda (raises when absent)")
     return ap.parse_args(argv)

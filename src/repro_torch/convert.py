@@ -1,12 +1,13 @@
-"""Carry weights (dlrm, wide&deep, xDeepFM), QAT, packed and hashed stores,
-train states and the MPE / ALPT baselines' states from the JAX package
-into the port.
+"""Carry weights (dlrm, wide&deep, xDeepFM), QAT, packed, hierarchical and
+hashed stores, train states and the MPE / ALPT baselines' states from the
+JAX package into the port.
 
 Inputs are numpy arrays, never JAX objects, so this module imports neither
 package's JAX code: a caller brings params to the host
 (``jax.device_get``) and hands the nested dict over.  bf16 leaves arrive
-as uint16 views of their bits (``np.asarray(x).view(np.uint16)``) and
-come out as ``torch.bfloat16`` with the same bits.
+as uint16 views of their bits (``np.asarray(x).view(np.uint16)``), or as
+numpy's 2-byte bfloat16 extension dtype itself, and come out as
+``torch.bfloat16`` with the same bits.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from repro_torch.core.packed_store import PackedStore
 from repro_torch.core.qat_store import QATStore
 from repro_torch.optim.optimizers import AdamState
 from repro_torch.store.hashed import HashedConfig, HashedStore
+from repro_torch.store.hier import HierStore
 from repro_torch.train.accum import TaylorAccum
 from repro_torch.train.steps import TrainState
 
@@ -29,6 +31,8 @@ from repro_torch.train.steps import TrainState
 def to_tensor(x, device: str | torch.device = "cpu") -> torch.Tensor:
     """numpy array -> tensor with the same bits (uint16 -> bf16)."""
     a = np.array(x)                  # a writable copy that torch may own
+    if a.dtype.kind == "V" and a.dtype.itemsize == 2:   # bfloat16
+        a = a.view(np.uint16)
     if a.dtype == np.uint16:
         return torch.from_numpy(a.view(np.int16)).view(
             torch.bfloat16).to(device)
@@ -59,6 +63,18 @@ def qat_store_from_jax(store, device: str | torch.device = "cpu"
     to numpy -> the port's ``QATStore``."""
     return QATStore(table=to_tensor(store.table, device),
                     priority=to_tensor(store.priority, device))
+
+
+def hier_store_from_jax(tree, hier_cfg, device: str | torch.device = "cpu"
+                        ) -> HierStore:
+    """A reference ``HierStore.state_tree()`` with its leaves brought to
+    numpy -> the port's ``HierStore`` on ``device`` (the hot level there,
+    the warm one on the CPU; ``HierBackend.from_manifest``).  The cold
+    shards are opened from ``hier_cfg.store_dir``: both packages write the
+    same ``hier_store/v1`` files."""
+    from repro_torch.store.api import HierBackend
+    return HierBackend.from_manifest(tree, hier_cfg=hier_cfg,
+                                     device=device).hier
 
 
 def hashed_store_from_jax(hs, device: str | torch.device = "cpu"

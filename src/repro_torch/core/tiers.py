@@ -19,6 +19,7 @@ from __future__ import annotations
 import enum
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 
@@ -70,6 +71,18 @@ def tier_crossings(old_tiers: torch.Tensor, new_tiers: torch.Tensor
     code = o[changed].to(torch.int64) * 3 + n[changed].to(torch.int64)
     hist = torch.stack([(code == j).sum() for j in range(9)])
     return changed, hist.reshape(3, 3)
+
+
+def row_bytes(tiers, dim: int):
+    """Serving bytes a row (payload + scale + indirection word), the unit
+    the hierarchical store's budget planner packs against: int64, the
+    shape of ``tiers``; a tensor on its device for a tensor, numpy for
+    anything else (``repro/core/tiers.py::row_bytes``)."""
+    per = [dim + 8, 2 * dim + 8, 4 * dim + 4]
+    if isinstance(tiers, torch.Tensor):
+        return torch.tensor(per, dtype=torch.int64,
+                            device=tiers.device)[tiers.to(torch.int64)]
+    return np.asarray(per, np.int64)[np.asarray(tiers).astype(np.int64)]
 
 
 def memory_bytes(tiers: torch.Tensor, dim: int) -> int:

@@ -1,6 +1,6 @@
 """Serving CLI: ``python -m repro_torch.launch.serve --arch dlrm-rm2``.
 
-Port of the flat packed and the hashed branches of
+Port of the flat packed, the hierarchical and the hashed branches of
 ``repro/launch/serve.py``, offline (the default, packed) and online
 (``--online``).  Offline, it builds the
 tier-partitioned store and serves a batched request stream through the
@@ -76,6 +76,29 @@ As in the reference, hashed needs ``--online`` and has no fused head
 (``--fuse-matmul`` is refused), and ``--hash-chunk-dim`` must divide the
 embedding dim (xdeepfm's 10 refuses the default 8).
 
+``--hbm-budget-mb B`` (with ``--online --serve-batch N``; the
+reference's spelling, ``--store-backend hier`` with it is the same)
+serves through the hierarchical store (``store.hier``): the device holds
+only the priority-hot rows of the pack under B MiB, host RAM the next
+under ``--host-budget-mb`` (0 = unbounded: no cold level), and mmap'd
+cold shards under ``--store-dir`` the rest.  Each micro-batch stages its
+warm and cold misses through one host buffer and one copy; every
+re-tier migrates rows between the levels (``--retier-async``: a
+``ShadowMigrate``, one cold shard a request).  ``--verify-hier`` then
+folds any movement since the last migration in (one more migration) and
+requires every row's lookup to equal the fully resident pack's bit for
+bit: each level's bytes looked up on the device in row blocks, and a
+sample of 1,048,576 ids through the staging path itself (``verify_hier``);
+a mismatch exits non-zero.  The record adds the reference's
+hbm_budget_mb and the loop's hier counters, and here level_rows,
+level_bytes, serve_s (the loop's wall seconds, the final drain included),
+retier_ms (mean wall ms a re-tier), verify_s, build_device_peak_bytes (the
+device's allocator peak after the build), device_peak_bytes (at the end)
+and host_peak_rss_bytes.  As in the reference, ``--hbm-budget-mb`` refuses
+``--fuse-matmul`` (the fused head needs a fully resident store) and
+``--store-backend hashed``.  ``run(rows_per_shard=)`` sets the cold
+shards' rows (the reference's default 4,096; no flag, as there).
+
 ``--metrics-out PATH`` turns the ``obs`` registry on and writes
 ``metrics_snapshot/v1`` JSONL there: one line every ``--metrics-every``
 served batches (default 16; 0 = the final line only) and one final
@@ -91,6 +114,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import resource
 import time
 from typing import Callable, NamedTuple
 
@@ -99,10 +123,10 @@ import torch
 
 from repro_torch import configs, kernels, obs, resolve_device, sync
 from repro_torch.core.packed_store import (PackedStore, build_chunked,
-                                           live_counts, lookup_fused,
-                                           packed_tiers)
+                                           live_counts, lookup, lookup_fused,
+                                           pack, packed_tiers)
 from repro_torch.core.qat_store import (CHUNK_ROWS, FQuantConfig, QATStore,
-                                        current_tiers, snap)
+                                        current_tiers, snap_)
 from repro_torch.core.tiers import plan_thresholds_for_ratio
 from repro_torch.kernels.dequant_bag import kernel as dequant_kernel
 from repro_torch.models import embedding as E
@@ -112,6 +136,7 @@ from repro_torch.serve.loop import (SERVE_PHASES, serve_forward,
 from repro_torch.serve.online import OnlineConfig, OnlineServer
 from repro_torch.store import hashed as H
 from repro_torch.store.api import build as build_backend
+from repro_torch.store.hier import HierConfig, hier_lookup
 
 SEED = 0
 
@@ -119,9 +144,7 @@ SEED = 0
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(
         description="Serve a recsys model from the packed SHARK store.",
-        epilog="Not ported yet (later slices): --mesh, --store-backend "
-               "hier with --hbm-budget-mb, --host-budget-mb, "
-               "--store-dir, --verify-hier; --autotune-cache.")
+        epilog="Not ported yet (later slices): --mesh; --autotune-cache.")
     ap.add_argument("--arch", default="dlrm-rm2", choices=configs.names())
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--batch", type=int, default=256)
@@ -168,11 +191,29 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "(B, F*D) activations never materialise "
                          "(--online; wide-deep / xdeepfm)")
     ap.add_argument("--store-backend", default="packed",
-                    choices=("packed", "hashed"),
+                    choices=("packed", "hier", "hashed"),
                     help="embedding store backend (store.api.build): "
-                         "'packed' = flat tier-partitioned store, "
+                         "'packed' = flat tier-partitioned store, 'hier' = "
+                         "HBM / host / disk levels (--hbm-budget-mb), "
                          "'hashed' = ROBE-style compositional rows "
                          "materialized from a shared chunk pool (--online)")
+    ap.add_argument("--hbm-budget-mb", type=float, default=0.0,
+                    help="serve through the hierarchical store: the device "
+                         "holds only the priority-hot rows under this "
+                         "budget, the spill goes to host RAM / disk "
+                         "(--online --serve-batch; 0 = fully resident)")
+    ap.add_argument("--host-budget-mb", type=float, default=0.0,
+                    help="warm (host RAM) budget of the hierarchical store; "
+                         "0 = unbounded (no cold level), > 0 spills the "
+                         "rest to mmap'd cold shards under --store-dir")
+    ap.add_argument("--store-dir", default=None,
+                    help="directory of the cold shard files and manifest "
+                         "(required when --host-budget-mb makes a cold "
+                         "level)")
+    ap.add_argument("--verify-hier", action="store_true",
+                    help="after serving, check that the hierarchical "
+                         "lookup is bit-identical to a fully resident pack "
+                         "of the live store over the whole vocab")
     ap.add_argument("--hash-ratio", type=float, default=100.0,
                     help="target fp32-table / pool compression ratio for "
                          "--store-backend hashed (pool rows are planned "
@@ -193,20 +234,36 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="snapshot cadence in served batches for "
                          "--metrics-out (0 = final snapshot only)")
     args = ap.parse_args(argv)
-    if args.fuse_matmul and not args.online:
-        ap.error("--fuse-matmul requires --online")
     if args.serve_batch > 0 and not args.online:
         ap.error("--serve-batch requires --online")
+    if args.hbm_budget_mb > 0 and args.serve_batch <= 0:
+        ap.error("--hbm-budget-mb requires --online --serve-batch N")
+    if args.verify_hier and args.hbm_budget_mb <= 0:
+        ap.error("--verify-hier requires --hbm-budget-mb")
     if args.retier_async and not args.online:
         ap.error("--retier-async requires --online")
     if args.verify_swap and not args.retier_async:
         ap.error("--verify-swap requires --retier-async")
+    if args.fuse_matmul and not args.online:
+        ap.error("--fuse-matmul requires --online")
+    if args.fuse_matmul and args.hbm_budget_mb > 0:
+        ap.error("--fuse-matmul requires a fully resident store "
+                 "(no --hbm-budget-mb)")
+    if args.hbm_budget_mb > 0 and args.store_backend == "packed":
+        args.store_backend = "hier"     # the reference's spelling
+    if args.store_backend == "hier" and args.hbm_budget_mb <= 0:
+        ap.error("--store-backend hier needs --hbm-budget-mb")
     if args.store_backend == "hashed":
         if not args.online:
             ap.error("--store-backend hashed requires --online")
+        if args.hbm_budget_mb > 0:
+            ap.error("--store-backend hashed is incompatible with "
+                     "--hbm-budget-mb")
         if args.fuse_matmul:
             ap.error("--store-backend hashed has no fused bag->matmul path "
                      "(rows materialize on the fly)")
+        if args.verify_hier:
+            ap.error("--verify-hier requires the hier backend")
     return args
 
 
@@ -293,23 +350,27 @@ def online_store(model, spec: E.FieldSpec, device: torch.device,
     """The online path's start: (head params, snapped ``QATStore``,
     config).  The model's table is drawn whole (seed ``seed``) and
     snapped to the tiers of ``plan_store``'s priorities, as the
-    reference CLI does before it hands the store to ``OnlineServer``."""
+    reference CLI does before it hands the store to ``OnlineServer``.
+    The snap runs in place in row blocks (``snap_``; row-wise, so the
+    values are a whole snap's): at dlrm-rm2's 204,185,088 x 64 a second
+    52.3 GB table does not fit beside the first."""
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     params = model.init(gen, device, with_table=True)
     table = params.pop("embed_table")
     pri, cfg = plan_store(spec, device, seed)
     store = QATStore(table, pri)
-    store = store._replace(table=snap(table, current_tiers(store, cfg),
-                                      cfg))
-    return params, store, cfg
+    return params, store._replace(
+        table=snap_(table, current_tiers(store, cfg), cfg)), cfg
 
 
-def run(args: argparse.Namespace, make_audit: Callable | None = None
-        ) -> Served:
+def run(args: argparse.Namespace, make_audit: Callable | None = None,
+        rows_per_shard: int = 4096) -> Served:
     """Serve as ``args`` say.  ``make_audit(server, model, params)``
     (online only) returns the loop's ``audit`` hook (see
-    ``serve.loop.run_loop``).  With ``--metrics-out`` the registry is
+    ``serve.loop.run_loop``; with ``--serve-batch``, the hook of
+    ``serve.loop.serve_forward``).  ``rows_per_shard``: the hier store's
+    cold shard rows.  With ``--metrics-out`` the registry is
     on from here and one snapshot is flushed before returning; the
     caller closes the sink (``obs.close_sink``), as ``main`` does."""
     device = resolve_device(args.device)
@@ -326,7 +387,8 @@ def run(args: argparse.Namespace, make_audit: Callable | None = None
     num_dense = arch.num_dense if full else arch.smoke_num_dense
     spec = model.spec
     if args.online:
-        served = run_online(args, device, model, num_dense, make_audit)
+        served = run_online(args, device, model, num_dense, make_audit,
+                            rows_per_shard)
         obs.flush()
         return served
 
@@ -395,8 +457,52 @@ def hashed_backend(args: argparse.Namespace, spec: E.FieldSpec,
     return build_backend("hashed", hs, hcfg), hcfg
 
 
+def hier_config(args: argparse.Namespace,
+                rows_per_shard: int = 4096) -> HierConfig:
+    """The hier store's budgets from the flags (MiB; a host budget of 0 is
+    unbounded: no cold level)."""
+    return HierConfig(
+        hbm_budget_bytes=int(args.hbm_budget_mb * 2 ** 20),
+        host_budget_bytes=(int(args.host_budget_mb * 2 ** 20)
+                           if args.host_budget_mb > 0 else None),
+        rows_per_shard=rows_per_shard, store_dir=args.store_dir)
+
+
+def verify_hier(server: OnlineServer, sample_rows: int = 1 << 20) -> None:
+    """``--verify-hier``: one more migration (so the levels' tiers are the
+    live fold state's), then every row against the fully resident pack,
+    bit for bit: each level's rows in blocks of 4,194,304 cut out of it and
+    looked up on the device (the hot level through the serving gather,
+    ``lookup_fused``), each block against the pack of its own rows
+    (row-wise, so ``pack``'s bytes); and ``sample_rows`` ids spread over
+    the whole table through the serving path itself (``hier_lookup``: the
+    host stage of the warm and cold misses, the combine), against the
+    pack's plain lookup of the same rows.  (The reference sends every row
+    through the staging path: at dlrm-rm2's 204,185,088 rows that is
+    ~52 GB of host dequant.)  Raises ``SystemExit`` on a mismatch."""
+    server.retier()
+    hier, store, cfg = server.hier, server.store, server.cfg
+    dev = server.device
+    with torch.inference_mode():
+        bad = hier.mismatch_pack(store, cfg, lookup_fused)
+        ids = np.unique(np.linspace(0, hier.vocab - 1, sample_rows)
+                        .astype(np.int64))
+        sel = torch.from_numpy(ids).to(dev)
+        ref = lookup(pack(QATStore(store.table[sel], store.priority[sel]),
+                          cfg), torch.arange(ids.size, device=dev))
+        got = hier_lookup(hier, ids)
+        bad |= (ref.view(torch.int32) != got.view(torch.int32)).any()
+    if bool(bad):
+        raise SystemExit("hier verify FAILED: hierarchical lookup is not "
+                         "bit-identical to the fully resident pack")
+    print(f"hier verify OK: {hier.vocab} rows bit-identical across "
+          f"{hier.counts()} after {hier.stats.migrations} migrations "
+          f"({ids.size} of them through the staging path)")
+
+
 def run_online(args: argparse.Namespace, device: torch.device, model,
-               num_dense: int, make_audit: Callable | None) -> Served:
+               num_dense: int, make_audit: Callable | None,
+               rows_per_shard: int = 4096) -> Served:
     spec = model.spec
     t0 = time.perf_counter()
     launches0 = kernels.launch_counts()
@@ -416,10 +522,14 @@ def run_online(args: argparse.Namespace, device: torch.device, model,
         del store              # the pool replaces the table
         server = OnlineServer(online=online, backend=backend)
     else:
-        server = OnlineServer(store, cfg, online)
+        server = OnlineServer(
+            store, cfg, online,
+            hier=(hier_config(args, rows_per_shard)
+                  if args.store_backend == "hier" else None))
         del store
     sync(device)
     build_s = time.perf_counter() - t0
+    build_peak = peak_memory(device)["device_peak_bytes"]
     build_launches = _launches_since(launches0)
     packed_bytes = server.backend.nbytes()
     if hashed:
@@ -430,29 +540,32 @@ def run_online(args: argparse.Namespace, device: torch.device, model,
               f"{args.hash_bits}b = {packed_bytes / 2 ** 20:.3f} MiB "
               f"({fp32 / packed_bytes:.0f}x vs fp32 table), fitted in "
               f"{hashed['fit_s']:.1f}s")
+    hier = server.hier
+    if hier is not None:
+        print(f"hier {packed_bytes / 2 ** 20:.2f} MiB total, levels "
+              f"{hier.nbytes()} rows {hier.counts()}")
     print(f"packed {packed_bytes / 2 ** 20:.2f} MiB "
           f"({packed_bytes / fp32:.1%} of fp32), cache {args.cache_rows} "
           f"rows, retier every {args.retier_every} requests, built in "
           f"{build_s:.1f}s")
     stream = {}
     launches0 = kernels.launch_counts()
+    t_serve = time.perf_counter()
+    audit = (make_audit(server, model, params)
+             if make_audit is not None else None)
     if args.serve_batch > 0:
-        if make_audit is not None:
-            raise ValueError("the audit hook runs on request-at-a-time "
-                             "serving; --serve-batch has none")
         if not hashed:
             stream = stream_bytes_per_request(
-                packed_tiers(server.packed), spec, args.requests,
+                hier.tiers if hier is not None
+                else packed_tiers(server.packed), spec, args.requests,
                 drift=args.drift)
         result = serve_forward(
             server, model, spec, params, serve_batch=args.serve_batch,
             requests=args.requests, drift=args.drift, num_dense=num_dense,
-            fuse_matmul=args.fuse_matmul)
+            fuse_matmul=args.fuse_matmul, audit=audit)
         shape_note = (f"{args.requests} requests micro-batched "
                       f"x{args.serve_batch}")
     else:
-        audit = (make_audit(server, model, params)
-                 if make_audit is not None else None)
         result = serve_forward_loop(
             server, model, spec, params, batch=args.batch,
             requests=args.requests, drift=args.drift, num_dense=num_dense,
@@ -468,6 +581,8 @@ def run_online(args: argparse.Namespace, device: torch.device, model,
               f"{server.stats.swaps} swaps"
               + (" (bit-identity verified at every swap)"
                  if args.verify_swap else ""))
+    sync(device)
+    serve_s = time.perf_counter() - t_serve
     launches = _launches_since(launches0)
     name = _device_name(device)
     print(f"{shape_note}: p50 "
@@ -488,11 +603,35 @@ def run_online(args: argparse.Namespace, device: torch.device, model,
                 "packed_mib": round(packed_bytes / 2 ** 20, 3),
                 "packed_fp32_ratio": round(packed_bytes / fp32, 4)})
     rec.update(hashed)
+    if hier is not None:
+        rec.update({"hbm_budget_mb": args.hbm_budget_mb,
+                    "build_device_peak_bytes": build_peak,
+                    "level_rows": hier.counts(),
+                    "level_bytes": hier.nbytes(),
+                    "serve_s": serve_s,
+                    "retier_ms": (server.stats.retier_seconds * 1e3
+                                  / max(server.stats.retiers, 1))})
     rec.update({"model": args.model, "device": device.type,
                 "device_name": name, "build_s": build_s,
                 "kernel_launches": launches,
                 "build_kernel_launches": build_launches})
+    if hier is not None:
+        if args.verify_hier:
+            t1 = time.perf_counter()
+            verify_hier(server)
+            sync(device)
+            rec["verify_s"] = time.perf_counter() - t1
+        rec.update(peak_memory(device))
     return Served(rec, model, params, server.packed, None, server)
+
+
+def peak_memory(device: torch.device) -> dict:
+    """The device's allocator peak and the process's peak resident set, in
+    bytes."""
+    return {"device_peak_bytes": (torch.cuda.max_memory_allocated(device)
+                                  if device.type == "cuda" else 0),
+            "host_peak_rss_bytes": resource.getrusage(
+                resource.RUSAGE_SELF).ru_maxrss * 1024}
 
 
 def main(argv=None) -> None:

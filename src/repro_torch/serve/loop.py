@@ -14,8 +14,15 @@ point for every backend, behind ``--serve-batch``): single-user requests
 accumulate into fixed-shape (N, F) batches, padded with row 0 and a
 validity mask when the stream ends mid-batch, and each batch runs one
 forward, one vectorised fold and one cache pass.  The staged branch of
-``serve_forward`` (the hier backend) raises until that backend is
-ported (ROADMAP Queue 1 item 8).  ``stream_bytes_per_request`` is the
+``serve_forward`` (``_serve_forward_staged``, for a backend whose misses
+stage through the host: the hier store) splits each batch's forward into
+the host stage (``HierStore.stage``: the levels resolved, the warm and
+cold misses dequantized into one staging buffer, one copy to the device),
+the combine with the hot level's fused gather and the cache-first select,
+then the head; its ``LoopResult.stats`` add the hier counters
+(``warm_hits``, ``cold_hits``, ``staged_rows``, ``migrations``,
+``promoted``, ``demoted``, ``hier_miss_rate`` and the rows of each
+level).  ``stream_bytes_per_request`` is the
 ``bench_qps/v1`` byte account of the stream against a tier vector.
 
 Timing: a request's (or micro-batch's) window covers building its batch
@@ -51,14 +58,14 @@ import torch
 from repro_torch import obs, sync
 from repro_torch.models import embedding as E
 from repro_torch.obs.registry import Histogram
-from repro_torch.serve.cache import cached_lookup
+from repro_torch.serve.cache import cache_select, cached_lookup
 from repro_torch.serve.online import OnlineServer
 
 # the serving span taxonomy (docs/observability.md), pre-registered by the
 # drivers when metrics are on, so every snapshot carries the whole
 # per-phase histogram catalog, phases that never fire included (the
-# stage and migrate phases come with the hier store, serve.shadow.build
-# and serve.shadow.warmup with nothing in the port)
+# stage and migrate phases fire on the hier store, serve.shadow.build
+# and serve.shadow.warmup on nothing in the port)
 SERVE_PHASES = ("serve.request", "serve.synth", "serve.stage",
                 "serve.lookup", "serve.combine", "serve.retier",
                 "serve.shadow.plan", "serve.shadow.chunk",
@@ -475,17 +482,114 @@ def serve_forward(server: OnlineServer, model, spec, params, *,
                   audit: Callable | None = None) -> LoopResult:
     """The one micro-batched entry point for every store backend,
     dispatched on the backend's ``needs_staging``: fully resident
-    backends (packed, hashed) run ``serve_forward_microbatched`` (``audit``
-    as there); the staged pipeline of a backend whose misses stage
-    through the host (hier) is not ported yet."""
+    backends (packed, hashed) run ``serve_forward_microbatched``, a
+    backend whose misses stage through the host (hier) runs
+    ``_serve_forward_staged`` (``audit`` as each says)."""
     if server.backend.needs_staging:
-        raise NotImplementedError(
-            "staged serving (a backend with needs_staging, the hier store) "
-            "is not ported yet (ROADMAP Queue 1 item 8)")
+        if fuse_matmul:
+            raise ValueError("fuse_matmul needs a fully resident packed "
+                             "store (backend stages misses)")
+        return _serve_forward_staged(
+            server, model, spec, params, serve_batch=serve_batch,
+            requests=requests, drift=drift, num_dense=num_dense, a=a,
+            seed=seed, audit=audit)
     return serve_forward_microbatched(
         server, model, spec, params, serve_batch=serve_batch,
         requests=requests, drift=drift, num_dense=num_dense, a=a, seed=seed,
         fuse_matmul=fuse_matmul, audit=audit)
+
+
+def serve_forward_hier(server: OnlineServer, model, spec, params,
+                       **kw) -> LoopResult:
+    """The reference's shim: ``serve_forward`` on a staging backend."""
+    if not server.backend.needs_staging:
+        raise ValueError("serve_forward_hier needs an OnlineServer built "
+                         "with hier=HierConfig(...)")
+    return serve_forward(server, model, spec, params, **kw)
+
+
+def _serve_forward_staged(server: OnlineServer, model, spec, params, *,
+                          serve_batch: int, requests: int,
+                          drift: float = 4.0, num_dense: int = 0,
+                          a: float = 1.2, seed: int = 0,
+                          audit: Callable | None = None) -> LoopResult:
+    """Micro-batched online loop over a staging backend: the stream and
+    cadence of ``serve_forward_microbatched``, each batch's forward split
+    into
+
+      1. host (``serve.stage``): each index's level resolved, the warm and
+         cold misses dequantized into one staging buffer and copied to the
+         device with one non-blocking transfer; positions the fp32 cache
+         serves (``server.cache_mask``) are skipped;
+      2. device (``serve.lookup``): the hot level's fused gather (one
+         tiered ``dequant_bag`` launch), the staged rows where staged, the
+         cache-first select, the head: bit-identical to a fully resident
+         ``cached_lookup``;
+      3. the fold (``serve.combine``): warm and cold misses enter the Eq. 7
+         EMA like every access, so pressured rows climb the ranking and the
+         next re-tier migrates them onto the device.
+
+    ``audit(hot, staged, gidx, emb)``, when given, gets each batch that did
+    not re-tier after its timed window: the hot level the forward read,
+    the ``StagedBatch``, the global ids and the embeddings the head got.
+    The stats add the hier counters and ``hier_miss_rate`` (warm + cold
+    hits over lookups).
+    """
+    from repro_torch.store.hier import combine_rows
+
+    backend = server.backend
+    lfn = server.lookup_fn()
+    offsets = np.asarray(spec.offsets(), np.int64)
+    device = server.device
+    counter = {"b": 0}
+    served: dict = {}
+
+    def serve_fn(mb: MicroBatch):
+        r = counter["b"]
+        counter["b"] += 1
+        with obs.span("serve.stage"):
+            g = mb.indices.astype(np.int64) + offsets[None, :]
+            mask = server.cache_mask
+            sb = backend.stage_host(g, skip=None if mask is None else mask[g],
+                                    valid=mb.valid[:, None])
+        with obs.span("serve.synth"):
+            b = request_batch(mb.indices, r, num_dense, device,
+                              dense_seed=20_000)
+            valid = torch.from_numpy(mb.valid).to(device)[:, None]
+        with torch.inference_mode():
+            with obs.span("serve.lookup") as sp:
+                hot = server.packed
+                gidx = E.globalize(b["indices"], spec)
+                rows = combine_rows(hot, sb.hot_local, sb.stage_slot,
+                                    sb.staging, lfn)
+                emb, hits = cache_select(server.cache, gidx, rows, valid)
+                out = model.head(params, emb, b)
+                sp.sync(out)
+            if audit is not None:
+                served.update(hot=hot, sb=sb, gidx=gidx, emb=emb)
+            with obs.span("serve.combine"):
+                server.observe(gidx, int(hits), valid=valid, count=mb.count,
+                               lookups=int(mb.valid.sum()) * gidx.shape[1])
+        return out
+
+    def after(retiered: bool) -> None:
+        if not retiered:
+            audit(served["hot"], served["sb"], served["gidx"], served["emb"])
+        served.clear()
+
+    cards = np.asarray(spec.cardinalities, np.int64)
+    result = run_microbatched_loop(
+        server, serve_fn,
+        lambda r: drifting_zipf_batch(cards, 1, r, requests, a=a,
+                                      drift=drift, seed=seed)[0],
+        requests, serve_batch, after=None if audit is None else after)
+    hier = server.hier
+    lookups = max(server.stats.lookups, 1)
+    hstats = hier.stats.as_dict()
+    hstats["hier_miss_rate"] = round(
+        (hier.stats.warm_hits + hier.stats.cold_hits) / lookups, 4)
+    hstats.update(hier.counts())
+    return result._replace(stats={**result.stats, **hstats})
 
 
 def stream_bytes_per_request(tiers, spec, requests: int, drift: float = 4.0,

@@ -2,23 +2,28 @@
 
 Port of ``repro/serve/online.py``: synchronous and shadow re-tiers.
 ``OnlineServer`` owns the traffic-adaptive state around one backend of
-``store.api`` (packed, or hashed through ``backend=``):
+``store.api`` (packed; hier through ``hier=HierConfig(...)``; hashed
+through ``backend=``):
 
   * the backend: the store, its lookup kernels, the priority vector and
     the re-tier (``packed_store.repack_delta`` on the device for the
-    packed store; a cache refresh for the hashed pool, whose shared slots
+    packed store; ``HierStore.migrate`` across the hierarchical store's
+    levels; a cache refresh for the hashed pool, whose shared slots
     cannot re-tier),
   * the hot-row cache (``serve.cache``), rebuilt after every re-tier,
   * ``ServeStats`` counters (requests / lookups / hits / retiers /
     rows_moved).
 
 Per request a caller either calls ``server.lookup(indices)`` (the eager
-cache-first gather, then the fold) or, as the serving loop does, runs
-its forward over ``server.packed`` / ``server.cache`` (cache-first:
-``serve.cache.cached_lookup``) and then calls ``server.observe(indices,
-hits)``, which folds the served rows into the Eq. 7 EMA (the eager form,
-as the reference's un-jitted fold computes it) and re-tiers every
-``retier_every`` requests: synchronously, or as a shadow build (below).
+cache-first gather through the backend's ``cached_lookup``, then the
+fold) or, as the serving loops do, runs its forward over
+``server.packed`` / ``server.cache`` (cache-first:
+``serve.cache.cached_lookup``; the hier backend stages its misses first,
+skipping the rows in ``server.cache_mask``) and then calls
+``server.observe(indices, hits)``, which folds the served rows into the
+Eq. 7 EMA (the eager form, as the reference's un-jitted fold computes it)
+and re-tiers every ``retier_every`` requests: synchronously, or as a
+shadow build (below).
 
 With metrics on (``obs.enable()``, ``--metrics-out``) the server records
 the reference's metrics: the ``serve.requests``, ``serve.lookups``,
@@ -50,8 +55,9 @@ histogram.  The loops register no ``warmup_fn``: the reference's warm-up
 compiles the jitted forward for the new payload shapes, and eager torch
 has nothing to compile.
 
-The hierarchical store (``hier=``) raises ``NotImplementedError``: it
-comes with a later slice (ROADMAP Queue 1 item 8).
+The hierarchical store's shadow re-tier is a ``serve.shadow.ShadowMigrate``
+(level builds, then one cold shard a tick), taken through the same state
+machine.
 """
 
 from __future__ import annotations
@@ -67,7 +73,6 @@ import torch
 
 from repro_torch import obs, sync
 from repro_torch.core.priority import PriorityConfig
-from repro_torch.serve.cache import cached_lookup
 from repro_torch.store.api import build
 
 
@@ -117,16 +122,15 @@ class OnlineServer:
                  hier=None, backend=None):
         """``backend`` (a ``store.api`` backend, e.g. ``build("hashed", hs,
         hcfg)``) is served as given; otherwise the ``(store, cfg)``
-        ``QATStore`` pair builds the ``packed`` backend."""
-        if hier is not None:
-            raise NotImplementedError(
-                "the hierarchical store is not ported yet (ROADMAP Queue 1 "
-                "item 8)")
+        ``QATStore`` pair builds the ``hier`` backend under ``hier`` (a
+        ``store.hier.HierConfig``), or the ``packed`` one."""
         if backend is None:
             if store is None or cfg is None:
                 raise ValueError("OnlineServer needs either backend= or the "
                                  "(store, cfg) QATStore pair")
-            backend = build("packed", store, cfg, mesh=mesh)
+            backend = (build("hier", store, cfg, hier, mesh=mesh)
+                       if hier is not None
+                       else build("packed", store, cfg, mesh=mesh))
         self.backend = backend
         self.online = online
         self.stats = ServeStats()
@@ -176,6 +180,20 @@ class OnlineServer:
     def device(self) -> torch.device:
         return self.backend.device
 
+    @property
+    def hier(self):
+        """The hier backend's ``HierStore`` (None for the others)."""
+        return self.backend.hier
+
+    @property
+    def cache_mask(self):
+        """The host mask of the cached rows, which a staging backend skips
+        (None for the fully resident backends)."""
+        return self.backend.cache_mask
+
+    def _place(self) -> None:
+        self.backend.place()
+
     def lookup_fn(self):
         return self.backend.lookup_fn()
 
@@ -215,8 +233,8 @@ class OnlineServer:
             n_lookups = int(vnp.sum())
             vmask = torch.from_numpy(np.ascontiguousarray(vnp)).to(
                 indices.device)
-        rows, hits = cached_lookup(self.packed, self.cache, indices,
-                                   self.lookup_fn(), valid=vmask)
+        rows, hits = self.backend.cached_lookup(self.cache, self.cache_mask,
+                                                indices, valid=vmask)
         self.observe(indices, int(hits), valid=vmask, count=count,
                      lookups=n_lookups)
         return rows

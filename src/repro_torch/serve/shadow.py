@@ -1,6 +1,6 @@
 """Shadow-store re-tiering: a copy-on-write repack off the request path.
 
-Port of the flat half of ``repro/serve/shadow.py``.  The synchronous
+Port of ``repro/serve/shadow.py``.  The synchronous
 re-tier (``packed_store.repack_delta``) stalls the request that runs it
 for the whole rebuild.  ``ShadowRepack`` splits it into a shadow
 generation built in bounded chunks while requests keep reading the live
@@ -27,12 +27,22 @@ the shadow materializes to ``repack_delta(live, snapshot, cfg,
 movers[:pos])`` through ``unpack``, and the finished shadow equals
 ``pack(snapshot)`` through ``unpack``; its leaves equal the reference's.
 
-Not ported yet: ``ShadowMigrate``, the hierarchical twin (ROADMAP Queue 1
-item 8).
+``ShadowMigrate`` is the hierarchical store's twin (``store.hier``): the
+same plan, builders and commit as the synchronous ``HierStore.migrate``,
+on a chunked schedule: the level builds (hot, warm, then cold ids when the
+cold set changes) in bounded row chunks, then one cold shard a step into
+a hidden tmp dir (``manifest.ShardWriter``), then staged.  ``commit``
+publishes the cold generation and runs ``HierStore.commit_retier``, the
+one mutation point the synchronous path uses too; ``discard`` removes the
+unpublished tmp dir.  Its verify works level by level in blocks of
+``VERIFY_ROWS`` rows on the card (the reference unpacks a whole fresh
+pack, 52.3 GB at dlrm-rm2's full width, and dequantizes the host levels on
+the host).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.core import packed_store as ps
@@ -42,6 +52,9 @@ from repro_torch.core.packed_store import (_TIER_SHIFT, PackedStore,
                                            merge_stores)
 from repro_torch.core.qat_store import FQuantConfig, QATStore, current_tiers
 from repro_torch.core.tiers import Tier, tier_counts
+from repro_torch.store.budget import COLD, HOT, WARM
+from repro_torch.store.hier import HierStore, RetierPlan, mismatch_pack
+from repro_torch.store.manifest import ColdShards, ShardWriter
 
 # rows of one verify block: bounds the two fp32 unpacks held at a time
 # (the full-width wide&deep table unpacked whole is 2.84 GB, twice)
@@ -210,3 +223,153 @@ class ShadowRepack:
     def discard(self) -> None:
         """Nothing to undo for the flat store: dropping the object is the
         whole discard, the live store was never written."""
+
+
+class ShadowMigrate:
+    """Chunked twin of ``HierStore.migrate``: the same plan, builders and
+    commit, on another schedule.
+
+    ``step`` order: (1) the level builds, hot, then warm, then the cold
+    ids, at most the step's row budget; (2) the cold generation,
+    one shard a step into ``ShardWriter``'s tmp dir (the live generation
+    sees nothing until the swap publishes); (3) staged.  The steps and
+    their row counts are the reference's.
+    """
+
+    def __init__(self, hier: HierStore, snapshot: QATStore,
+                 cfg: FQuantConfig, chunk_rows: int = 512):
+        self.hier = hier
+        self.snapshot = snapshot
+        self.cfg = cfg
+        self.chunk_rows = max(int(chunk_rows), 1)
+        self.rp: RetierPlan = hier.plan_retier(snapshot, cfg)
+        plan = self.rp.plan
+        self._cold_needed = bool(plan.cold_ids.size
+                                 and hier.cold_changed(self.rp))
+        if self._cold_needed and hier.cfg.store_dir is None:
+            raise ValueError("cold spill requires store_dir")
+        self._levels = [("hot", HOT, plan.hot_ids),
+                        ("warm", WARM, plan.warm_ids)]
+        if self._cold_needed:
+            self._levels.append(("cold", COLD, plan.cold_ids))
+        self._built: dict[str, list] = {n: [] for n, _, _ in self._levels}
+        self._pos = {n: 0 for n, _, _ in self._levels}
+        self.results: dict[str, PackedStore] = {}
+        self.writer: ShardWriter | None = None
+        self.total_rows = int(sum(ids.size for _, _, ids in self._levels))
+        self.done_rows = 0
+        self.staged = False
+
+    @property
+    def moved(self) -> int:
+        return int(np.count_nonzero(self.rp.crossed))
+
+    @property
+    def remaining_rows(self) -> int:
+        return self.total_rows - self.done_rows
+
+    def _empty(self, lev: int) -> PackedStore:
+        return self.hier.build_rows(np.zeros((0,), np.int64), self.rp,
+                                    self.cfg, self.hier.level_device(lev))
+
+    def step(self, budget: int) -> bool:
+        """At most ``budget`` rows of level builds, or one cold shard.
+        Returns ``staged``.  (The reference builds a step in sub-runs of
+        ``chunk_rows`` rows, padded to one shape for XLA's compile cache;
+        eager torch has none to fill, so a step builds its rows of a level
+        in one run: the same rows a step, so the same steps, and the runs
+        merge to the same store.)"""
+        if self.staged:
+            return True
+        budget = max(int(budget), 1)
+        while budget > 0 and self.done_rows < self.total_rows:
+            for name, lev, ids in self._levels:
+                p = self._pos[name]
+                if p < ids.size:
+                    chunk = ids[p:p + budget]
+                    self._built[name].append(self.hier.build_rows(
+                        chunk, self.rp, self.cfg,
+                        self.hier.level_device(lev)))
+                    self._pos[name] = p + int(chunk.size)
+                    self.done_rows += int(chunk.size)
+                    budget -= int(chunk.size)
+                    break
+        if self.done_rows < self.total_rows:
+            return False
+        for name, lev, _ in self._levels:
+            if name not in self.results:
+                # consecutive runs merge back into the one-shot build
+                built = self._built[name]
+                self.results[name] = (merge_stores(built) if built
+                                      else self._empty(lev))
+                self._built[name] = []
+        for name, lev in (("hot", HOT), ("warm", WARM)):
+            if name not in self.results:
+                self.results[name] = self._empty(lev)
+        if self._cold_needed:
+            if self.writer is None:
+                self.writer = ShardWriter(
+                    self.hier.cfg.store_dir, self.results["cold"],
+                    self.rp.plan.cold_ids, self.hier.cfg.rows_per_shard)
+            if self.writer.write_next():
+                return False
+        self.staged = True
+        return True
+
+    def place(self) -> PackedStore:
+        """The new hot level, built on the serving device already."""
+        return self.results["hot"]
+
+    def verify(self) -> None:
+        """Raise ``AssertionError`` unless every row of the built
+        generation looks up bit for bit as a fresh ``pack`` at the snapshot
+        fold state does (``store.hier.mismatch_pack``: level by level, in
+        blocks on the table's device, each against the pack of its own
+        rows; a host level's blocks are cut out of it and looked up on the
+        device, where the reference dequantizes them on the host, whose
+        ``np_lookup`` the tests and the serving audits hold to the device's
+        bits).  A cold level the plan leaves as it is is read from the
+        live shards."""
+        plan = self.rp.plan
+        bad = None
+        for name, lev, ids in (("hot", HOT, plan.hot_ids),
+                               ("warm", WARM, plan.warm_ids),
+                               ("cold", COLD, plan.cold_ids)):
+            if name in self.results:
+                store = self.results[name]
+
+                def block(c0, c1, store=store):
+                    return extract_rows(store, torch.arange(
+                        c0, c1, device=store.indirect.device))
+            else:               # the live cold shards serve on
+                def block(c0, c1, lev=lev):
+                    return self.hier.level_block(lev, c0, c1)
+            b = mismatch_pack(self.snapshot, self.cfg, ids, block,
+                              chunk_rows=VERIFY_ROWS)
+            bad = b if bad is None else bad | b
+        if bool(bad):
+            raise AssertionError(
+                "shadow migrate verify FAILED: the staged generation is not "
+                "bit-identical to pack() at the snapshot fold state")
+
+    def commit(self, server, staged: PackedStore | None) -> int:
+        """Publish the cold generation and flip the hier state (the
+        ``commit_retier`` of the synchronous path)."""
+        new_cold = self.hier.cold
+        if self._cold_needed:
+            self.writer.publish()
+            new_cold = ColdShards(self.hier.cfg.store_dir)
+        elif not self.rp.plan.cold_ids.size:
+            new_cold = None
+        out = self.hier.commit_retier(self.rp, self.results["hot"],
+                                      self.results["warm"], new_cold,
+                                      hot_dev=staged)
+        server._place()
+        return out["crossed"]
+
+    def discard(self) -> None:
+        """Remove the unpublished cold tmp dir; the live generation, and
+        any mapping of it, stays as it was."""
+        if self.writer is not None:
+            self.writer.abort()
+            self.writer = None

@@ -1,42 +1,50 @@
 """Embedding-store backends and their registry.
 
-Port of ``repro/store/api.py`` for the flat packed and the hashed
-backends, on one device (``mesh=None``).  Both answer the surface the
-online server and its loop dispatch on, so the request path has no
-backend branches:
+Port of ``repro/store/api.py`` for the flat packed, the three-level
+hierarchical and the hashed backends, on one device (``mesh=None``).
+Each answers the surface the online server and its loop dispatch on, so
+the request path has no backend branches:
 
   identity     kind, device, vocab, dim, nbytes(), live_counts();
-               the packed backend's priority
+               the packed and hier backends' priority
   lookups      lookup(idx), bag_lookup(idx, w): eager, uncached
   serving      packed (the store the forward reads), lookup_fn(),
-               bag_matmul_fn(), build_cache(k), needs_staging (False:
-               both are fully resident), gather_fp32_host(ids),
-               occupancy() (the ``store.*`` gauges, reference names)
+               bag_matmul_fn(), build_cache(k), cache_mask (the host mask
+               of cached rows a staging backend skips; None for the
+               others), cached_lookup(cache, mask, idx) (the eager
+               cache-first request path), needs_staging (True only for
+               hier, whose misses stage through the host: stage_host),
+               gather_fp32_host(ids), occupancy() (the ``store.*``
+               gauges, reference names)
   adaptation   fold_priority(idx, pcfg) (the eager Eq. 7 fold,
                ``priority.serve_fold``, as the reference's un-jitted
                ``serve_update`` computes it), retier(), and the shadow
                re-tier's prewarm_retier(rows) and begin_retier(rows)
-               (a ``serve.shadow.ShadowRepack`` for the packed store,
-               None for the hashed pool)
+               (a ``serve.shadow.ShadowRepack`` for the packed store, a
+               ``ShadowMigrate`` for hier, None for the hashed pool)
   persistence  snapshot_manifest(), from_manifest(tree)
 
 ``PackedBackend``: the ``QATStore`` (table + Eq. 7 priority) is
 authoritative and ``packed`` is its serving pack.  The reference keeps a
 host pack and places a device copy; the port packs on the device and
 serves that pack directly, so ``host_packed`` (the pack of record, the
-reference's name) is that same device pack.  ``HashedBackend``: the ROBE-style pool of
-``store.hashed``; rows materialise through the ``hashed_gather`` kernel,
-a re-tier moves no rows (pool slots are shared) and only refreshes the
-hot-row cache, whose rows are materialised on the card through the same
-kernel.  Persistence: ``snapshot_manifest`` and ``from_manifest``
-(``packed_store/v1``: the pack and the priorities; ``hashed_store/v1``),
+reference's name) is that same device pack.  ``HierBackend``: the
+``store.hier.HierStore`` over the same ``QATStore``: the priority-hot rows
+on the device under a byte budget, the next in host RAM, the rest in
+mmap'd cold shards; a re-tier migrates rows between the levels.
+``HashedBackend``: the ROBE-style pool of ``store.hashed``; rows
+materialise through the ``hashed_gather`` kernel, a re-tier moves no rows
+(pool slots are shared) and only refreshes the hot-row cache, whose rows
+are materialised on the card through the same kernel.  Persistence:
+``snapshot_manifest`` and ``from_manifest`` (``packed_store/v1``: the
+pack and the priorities; ``hier_store/v1``; ``hashed_store/v1``),
 round-tripped through ``ckpt.CheckpointManager`` in the reference's
 format.
 
 Registry: ``register_backend(name, factory)`` + ``build(name, ...)``
-over ``packed`` and ``hashed``; ``from_manifest`` picks the backend by
-the manifest's kind tag.  Not ported yet: the hier backend (ROADMAP
-Queue 1 item 8) and the mesh (item 7).
+over ``packed``, ``hier`` and ``hashed``; ``from_manifest`` picks the
+backend by the manifest's kind tag.  Not ported yet: the mesh (ROADMAP
+Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -67,6 +75,8 @@ class PackedBackend:
 
     kind = "packed"
     needs_staging = False
+    cache_mask = None
+    hier = None
 
     def __init__(self, store: QATStore, cfg: FQuantConfig, *, mesh=None,
                  packed: ps.PackedStore | None = None):
@@ -131,6 +141,12 @@ class PackedBackend:
     def build_cache(self, cache_rows: int) -> C.HotRowCache:
         return C.build_cache(self.packed, self.store.priority, cache_rows,
                              self.lookup_fn())
+
+    def cached_lookup(self, cache: C.HotRowCache, cache_mask, indices,
+                      valid: torch.Tensor | None = None):
+        """The eager cache-first request path: (rows, hit count)."""
+        return C.cached_lookup(self.packed, cache, indices, self.lookup_fn(),
+                               valid=valid)
 
     # -- lookups (eager) -----------------------------------------------
 
@@ -204,6 +220,175 @@ class PackedBackend:
         return cls(store, cfg, mesh=mesh, packed=packed)
 
 
+class HierBackend(PackedBackend):
+    """Three-level store: the device holds the priority-hot rows, host RAM
+    the warm spill, mmap'd cold shards the rest.  Misses stage through
+    the host (``needs_staging``); the fused bag -> matmul head needs a
+    fully resident store and is refused."""
+
+    kind = "hier"
+    needs_staging = True
+    host_packed = None
+
+    def __init__(self, store: QATStore, cfg: FQuantConfig, hier_cfg=None, *,
+                 mesh=None, hier=None):
+        """``hier`` adopts a built ``HierStore`` (a restored manifest's)
+        instead of building one from ``store`` under ``hier_cfg``."""
+        from repro_torch.store.hier import build_hier
+        _no_mesh(mesh, "hier")
+        self.store = store
+        self.cfg = cfg
+        self.hier = (hier if hier is not None
+                     else build_hier(store, cfg, hier_cfg))
+        self.cache_mask: np.ndarray | None = None
+
+    @property
+    def packed(self) -> ps.PackedStore:
+        """The hot level on the device: what the forward's gather reads."""
+        return self.hier.hot_dev
+
+    @property
+    def device(self) -> torch.device:
+        return self.hier.device
+
+    @property
+    def vocab(self) -> int:
+        return int(self.hier.vocab)
+
+    @property
+    def dim(self) -> int:
+        return int(self.hier.dim)
+
+    def nbytes(self) -> int:
+        return int(sum(self.hier.nbytes().values()))
+
+    def live_counts(self) -> dict:
+        return dict(self.hier.counts())
+
+    def place(self) -> None:
+        self.hier.place()
+
+    def bag_matmul_fn(self) -> Callable:
+        raise ValueError("fused bag->matmul serving requires a fully "
+                         "resident packed store (no hier)")
+
+    def stage_host(self, gidx, *, skip=None, valid=None):
+        return self.hier.stage(gidx, skip=skip, valid=valid)
+
+    def cached_lookup(self, cache: C.HotRowCache, cache_mask, indices,
+                      valid: torch.Tensor | None = None):
+        """Stage (skipping the cached rows), combine, then the cache-first
+        select: (rows, hit count)."""
+        from repro_torch.store.hier import combine_rows
+        g = (indices.cpu().numpy() if isinstance(indices, torch.Tensor)
+             else np.asarray(indices)).astype(np.int64)
+        skip = cache_mask[g] if cache_mask is not None else None
+        vnp = None if valid is None else valid.cpu().numpy()
+        sb = self.hier.stage(g, skip=skip, valid=vnp)
+        rows = combine_rows(self.hier.hot_dev, sb.hot_local, sb.stage_slot,
+                            sb.staging, self.lookup_fn())
+        idx = torch.as_tensor(indices).to(self.device)
+        return C.cache_select(cache, idx, rows, valid=valid)
+
+    def gather_fp32_host(self, ids) -> np.ndarray:
+        return self.hier.gather_fp32_host(np.asarray(ids))
+
+    def build_cache(self, cache_rows: int) -> C.HotRowCache:
+        """The top ``cache_rows`` rows by priority, their rows dequantized
+        on the host (``gather_fp32_host``), and the host mask of the cached
+        rows (``cache_mask``): staging skips what the cache serves."""
+        k = int(min(cache_rows, self.vocab))
+        mask = np.zeros(self.vocab, bool)
+        if k <= 0:
+            cache = C.empty_cache(self.vocab, self.dim, self.device)
+        else:
+            ids = C.top_rows(self.store.priority, k).cpu().numpy()
+            cache = C.cache_from_rows(
+                torch.from_numpy(ids).to(self.device),
+                torch.from_numpy(self.gather_fp32_host(ids)).to(self.device),
+                self.vocab)
+            mask[ids] = True
+        self.cache_mask = mask
+        return cache
+
+    def occupancy(self) -> dict:
+        out = {}
+        for lev, n in self.hier.counts().items():
+            out[f"store.{lev}"] = float(n)          # hot/warm/cold rows
+        for lev, nb in self.hier.nbytes().items():
+            out[f"store.{lev}_bytes"] = float(nb)
+        tiers = np.bincount(self.hier.tiers.reshape(-1).astype(np.int64),
+                            minlength=3)
+        for name, n in zip(("int8", "half", "fp32"), tiers):
+            out[f"store.tier_rows_{name}"] = float(n)
+        return out
+
+    def begin_retier(self, chunk_rows: int):
+        """A ``ShadowMigrate`` against the current fold state (always one,
+        as the reference: a migration may move levels without crossing a
+        tier)."""
+        from repro_torch.serve.shadow import ShadowMigrate
+        return ShadowMigrate(self.hier, self.store, self.cfg,
+                             chunk_rows=chunk_rows)
+
+    def retier(self) -> dict:
+        """Synchronous migration across the levels."""
+        moved = self.hier.migrate(self.store, self.cfg)
+        return {"rows_moved": int(moved["crossed"]),
+                "changed": bool(moved["promoted"] or moved["demoted"]
+                                or moved["crossed"])}
+
+    def lookup(self, indices) -> torch.Tensor:
+        from repro_torch.store.hier import hier_lookup
+        return hier_lookup(self.hier, indices)
+
+    def bag_lookup(self, indices, weights=None) -> torch.Tensor:
+        """(B, K) ids -> (B, D): the rows (times ``weights``) summed a bag
+        in slot order (``hier_bag_lookup``)."""
+        from repro_torch.store.hier import hier_bag_lookup
+        idx = torch.as_tensor(indices)
+        b, k = idx.shape
+        seg = torch.arange(b, dtype=torch.int64).repeat_interleave(k)
+        w = (None if weights is None
+             else torch.as_tensor(weights).reshape(-1))
+        return hier_bag_lookup(self.hier, idx.reshape(-1), seg, b, w)
+
+    def snapshot_manifest(self) -> dict:
+        return self.hier.state_tree()
+
+    @classmethod
+    def from_manifest(cls, tree: dict, *, store: QATStore | None = None,
+                      cfg: FQuantConfig | None = None, hier_cfg=None,
+                      mesh=None, device: str | torch.device | None = None):
+        """Rebuild from ``state_tree`` output (the port's, or the
+        reference's numpy leaves).  The cold shards are on disk already,
+        under ``hier_cfg.store_dir``; ``store`` / ``cfg`` re-attach the
+        training-side state for re-tiers."""
+        from repro_torch.store.hier import HierStore
+        from repro_torch.store.manifest import ColdShards
+        dev = torch.device("cpu" if device is None else device)
+
+        def as_packed(x, d):
+            return ps.PackedStore(*(_tensor(leaf, d) for leaf in x))
+
+        cold_ids = np.asarray(tree["cold_ids"])
+        cold = None
+        if cold_ids.size:
+            if hier_cfg is None or hier_cfg.store_dir is None:
+                raise ValueError("cold shards need hier_cfg.store_dir")
+            cold = ColdShards(hier_cfg.store_dir)
+        hier = HierStore(
+            cfg=hier_cfg, dim=int(tree["dim"]),
+            level=np.asarray(tree["level"]), slot=np.asarray(tree["slot"]),
+            tiers=np.asarray(tree["tiers"]),
+            hot_ids=np.asarray(tree["hot_ids"]),
+            warm_ids=np.asarray(tree["warm_ids"]), cold_ids=cold_ids,
+            hot_dev=as_packed(tree["hot"], dev),
+            warm=as_packed(tree["warm"], torch.device("cpu")),
+            cold=cold, device=dev)
+        return cls(store, cfg, mesh=mesh, hier=hier)
+
+
 class HashedBackend:
     """ROBE-style compositional store: rows materialise on the fly from
     the shared chunk pool through the ``hashed_gather`` kernel.  Memory
@@ -212,6 +397,9 @@ class HashedBackend:
 
     kind = "hashed"
     needs_staging = False
+    cache_mask = None
+    hier = None
+    cached_lookup = PackedBackend.cached_lookup
 
     def __init__(self, hs: H.HashedStore, hcfg: H.HashedConfig, *,
                  mesh=None):
@@ -321,8 +509,16 @@ class HashedBackend:
 
 
 def _tensor(x, device) -> torch.Tensor:
-    """A manifest leaf (tensor, or numpy from the reference) as a tensor."""
-    t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.array(x))
+    """A manifest leaf (tensor, or numpy from the reference; a bf16 leaf
+    as its 2-byte bits) as a tensor."""
+    if isinstance(x, torch.Tensor):
+        t = x
+    else:
+        a = np.array(x)
+        if a.dtype.kind == "V" and a.dtype.itemsize == 2:
+            t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+        else:
+            t = torch.from_numpy(a)
     return t if device is None else t.to(device)
 
 
@@ -346,7 +542,8 @@ def backend_names() -> tuple[str, ...]:
 
 
 def build(name: str, *args, **kwargs):
-    """``build("packed", store, cfg)`` or ``build("hashed", hs, hcfg)``:
+    """``build("packed", store, cfg)``, ``build("hier", store, cfg,
+    hier_cfg)`` or ``build("hashed", hs, hcfg)``:
     the arguments go straight to the backend's factory."""
     if name not in _BACKENDS:
         raise ValueError(f"unknown store backend {name!r}; registered: "
@@ -367,4 +564,5 @@ def from_manifest(tree: dict, **kwargs):
 
 
 register_backend("packed", PackedBackend, manifest_kind="packed_store/v1")
+register_backend("hier", HierBackend, manifest_kind="hier_store/v1")
 register_backend("hashed", HashedBackend, manifest_kind="hashed_store/v1")

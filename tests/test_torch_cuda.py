@@ -870,3 +870,83 @@ def test_hashed_train_step_kernels_bit_equal_to_plain(dev):
     want_grad = hashed_grad_ref(cot.reshape(-1, 16), None, slots, coeff,
                                 4001, num_chunks=2)
     assert torch.equal(dpool.view(torch.int32), want_grad.view(torch.int32))
+
+
+def _hier_on_card(dev, tmp_path, v=1 << 16, d=32, frac=6):
+    """A hier store on the card: a snapped random table, pareto
+    priorities, hot and warm budgets of 1/``frac`` of the pack each, the
+    rest cold."""
+    import numpy as np
+    from repro_torch.store.hier import HierConfig, build_hier
+    g = torch.Generator(device=dev)
+    g.manual_seed(11)
+    table = torch.randn((v, d), generator=g, device=dev) * 0.05
+    pri = torch.from_numpy((np.random.default_rng(0).pareto(1.2, v) * 20
+                            ).astype(np.float32)).to(dev)
+    cfg = tqs.FQuantConfig(tiers=TierConfig(5.0, 50.0), stochastic=False)
+    store = tqs.QATStore(table, pri)
+    store = store._replace(table=tqs.snap(
+        table, tqs.current_tiers(store, cfg), cfg))
+    b = tps.pack(store, cfg).nbytes() // frac
+    hier = build_hier(store, cfg, HierConfig(b, b, 4096,
+                                             str(tmp_path / "cold")))
+    return hier, store, cfg
+
+
+def test_hier_staging_back_to_back_on_card(dev, tmp_path):
+    """Two micro-batches staged back to back, before either is read: each
+    staging buffer on the card holds its own batch's rows (the pinned host
+    block of the first is not handed to the second while its copy is in
+    flight), and the combined rows equal the host oracle bit for bit."""
+    import numpy as np
+    from repro_torch.store.hier import combine_rows
+    hier, _, _ = _hier_on_card(dev, tmp_path)
+    rng = np.random.default_rng(1)
+    batches = [rng.integers(0, hier.vocab, (512, 26)) for _ in range(6)]
+    staged = [hier.stage(b) for b in batches]       # no sync in between
+    for b, sb in zip(batches, staged):
+        rows = combine_rows(hier.hot_dev, sb.hot_local, sb.stage_slot,
+                            sb.staging)
+        want = torch.from_numpy(hier.gather_fp32_host(b)).to(dev)
+        assert sb.staged > 0
+        assert torch.equal(rows.view(torch.int32), want.view(torch.int32))
+
+
+def test_hier_staged_serve_audit_on_card(dev, tmp_path):
+    """The staged serve loop on the card, each audited batch: the hot
+    level's fused gather equals the plain lookup and the served embeddings
+    the host oracle, bit for bit; one tiered dequant_bag launch a
+    micro-batch; migrations quantize through the kernel; after the
+    serve, ``--verify-hier`` is bit-identical over every row."""
+    from repro_torch.kernels.dequant_bag import ops as dops
+    from repro_torch.serve import loop
+    from repro_torch.serve.online import OnlineConfig, OnlineServer
+    from repro_torch.store.hier import HierConfig
+    model = configs.get("wide-deep").smoke_model
+    spec = model.spec
+    params, store, cfg = serve.online_store(model, spec, dev)
+    b = tps.pack(store, cfg).nbytes() // 8
+    server = OnlineServer(store, cfg, OnlineConfig(cache_rows=64,
+                                                   retier_every=16),
+                          hier=HierConfig(b, b, 4096,
+                                          str(tmp_path / "cold")))
+    seen = []
+
+    def audit(hot, sb, gidx, emb):
+        fused = dops.packed_lookup_fused(hot, sb.hot_local)
+        plain = tps.lookup(hot, sb.hot_local)
+        want = server.hier.gather_fp32_host(gidx.cpu().numpy())
+        seen.append(torch.equal(fused.view(torch.int32),
+                                plain.view(torch.int32))
+                    and torch.equal(emb.cpu().view(torch.int32),
+                                    torch.from_numpy(want).view(torch.int32)))
+    kernel.reset_launches()
+    rq_kernel.reset_launches()
+    res = loop.serve_forward(server, model, spec, params, serve_batch=8,
+                             requests=64, audit=audit)
+    assert seen and all(seen)
+    assert res.stats["migrations"] == 4 and res.stats["cold_hits"] > 0
+    # one tiered launch a batch, one more an audited batch's fused check
+    assert kernel.launches["tiered"] == 8 + len(seen)
+    assert rq_kernel.total_launches() >= 1
+    serve.verify_hier(server)

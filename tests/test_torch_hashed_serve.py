@@ -230,8 +230,8 @@ def test_backend_manifest_round_trips(backends):
     with pytest.raises(ValueError, match="no backend"):
         tapi.from_manifest({"kind": "nope/v1"})
     with pytest.raises(ValueError, match="unknown store backend"):
-        tapi.build("hier")
-    assert tapi.backend_names() == ("hashed", "packed")
+        tapi.build("tiered")
+    assert tapi.backend_names() == ("hashed", "hier", "packed")
 
 
 # -- the online serve --------------------------------------------------------
@@ -334,7 +334,9 @@ def test_hashed_serve_cli_matches_reference(hash_bits):
      "no fused bag->matmul"),
     (["--store-backend", "hashed", "--online", "--hash-bits", "16"],
      "invalid choice"),
-    (["--store-backend", "hier", "--online"], "invalid choice")])
+    (["--store-backend", "hier", "--online"], "needs --hbm-budget-mb"),
+    (["--store-backend", "hashed", "--online", "--serve-batch", "8",
+      "--hbm-budget-mb", "1"], "incompatible with --hbm-budget-mb")])
 def test_cli_argument_errors(argv, match):
     err = io.StringIO()
     with pytest.raises(SystemExit), contextlib.redirect_stderr(err):

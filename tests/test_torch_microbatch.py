@@ -262,6 +262,13 @@ def test_serve_batch_needs_online_and_staging_is_refused():
     class Server:
         backend = Staged()
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    # the staged pipeline is ported (tests/test_torch_serve_hier.py); what
+    # it refuses is the fused head, which needs a fully resident store,
+    # and the hier shim refuses a backend that does not stage
+    with pytest.raises(ValueError, match="fully resident"):
         tloop.serve_forward(Server(), None, None, None, serve_batch=2,
-                            requests=2)
+                            requests=2, fuse_matmul=True)
+    Server.backend = type("Resident", (), {"needs_staging": False})()
+    with pytest.raises(ValueError, match="hier=HierConfig"):
+        tloop.serve_forward_hier(Server(), None, None, None, serve_batch=2,
+                                 requests=2)

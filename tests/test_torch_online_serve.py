@@ -467,8 +467,14 @@ def test_refusals():
     server = OnlineServer(store, cfg, OnlineConfig(retier_async=True))
     assert not server.begin_retier() and server.shadow is None
     assert server.stats.retiers == 1 and server.stats.shadow_builds == 0
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        OnlineServer(store, cfg, hier=object())
+    # the hier store is ported: a budget that cannot hold the table spills
+    # to host RAM (no cold level without a host budget)
+    from repro_torch.store.hier import HierConfig
+    hsrv = OnlineServer(store, cfg, hier=HierConfig(hbm_budget_bytes=64))
+    assert hsrv.backend.kind == "hier" and hsrv.hier.counts()["warm_rows"]
+    with pytest.raises(ValueError, match="store_dir"):
+        OnlineServer(store, cfg, hier=HierConfig(hbm_budget_bytes=64,
+                                                 host_budget_bytes=64))
     backend = PackedBackend(store, cfg)
     assert backend.prewarm_retier(512) is None
     assert backend.begin_retier(512) is None
