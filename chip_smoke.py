@@ -294,13 +294,49 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    tool, the tiered dequant_bag and quantize_rowwise launched.
    ``--hier-only`` builds the kernels and runs this phase alone (no
    kernels line, no ok line).
+18. the serving fleet (``repro_torch.serve.fleet``), each run with the
+   counts set to 0 just before and read just after: (a) ``launch.fleet
+   --arch wide-deep --model full --replicas 1,2,4,8`` (22,216,000 x 32,
+   nothing cut) at the CLI's other defaults (256 requests by 8, a merge
+   and a staggered re-tier every 64, 128 cache rows, drift 4.0) with
+   ``--metrics-out`` and ``--emit`` into a temporary directory, through
+   ``run`` in process: the record and every stream pass the unchanged
+   schema tool (capacity rising to 4 replicas, the router under 10% of
+   the per-request p50, ordered percentiles, divergence after the merges
+   no higher than before), the port's ``merge_snapshots`` of each count's
+   per-source streams equals its ``replicasN_fleet.jsonl`` line, the
+   tiered dequant_bag launches once a served micro-batch and once a cache
+   build and no single-tier one launches, quantize_rowwise launches in
+   each server's pack (the same count each) and in the re-tiers, and
+   nowhere else; one micro-batch of each replica (the audit hook, outside
+   its window) is served embeddings bit-equal to the plain ``lookup`` of
+   its pack; after each count's final merge every replica's priority
+   equals the others' and a numpy oracle (the eager fp32 fold of the
+   merge base with the pooled counts of the micro-batches the merge
+   pooled) bit for bit; each replica's int8 rows and scales equal the
+   plain quantizer on their table rows; (b) the same for xdeepfm
+   (86,709,150 x 10) at 1, 2 and 4 replicas, with cin 3 times a
+   micro-batch; (c) the library's ``Fleet`` and ``Replica`` driven
+   directly over wide&deep at full width, async (``OnlineConfig(
+   retier_async=True, shadow_rows_per_step=4194304, verify_swap=True)``),
+   1,024 requests at 1, 2 and 4 replicas: swaps land on request ticks,
+   every swap verified, the ``serve.shadow.*`` histograms in the
+   replicas' registries and none in the default one, quantize_rowwise
+   once a server start's launches, a shadow chunk and a 4M-row block of
+   each verify pack; (d) ``python -m repro_torch.launch.fleet --emit
+   TMP/BENCH_fleet.json`` (the reference record's configuration: smoke
+   dlrm-rm2, 1, 2, 4 and 8 replicas, 256 requests) through the schema
+   tool.  Prints for each count the aggregate and per-replica QPS, the
+   fleet p50 / p99, the route p50, ``fleet.merge_us`` p50, a pulse's ms,
+   the rows moved and the device memory.  ``--fleet-only`` builds the
+   kernels and runs this phase alone (no kernels line, no ok line).
 
 Prints the card's name and power limit, the serve, train, both online,
 both hashed and both pipeline records, one JSON ``kernels`` line
 (dequant_bag per tier dtype and its tiered entry, bag_grad, bag_matmul
 per arch, cin, hashed_gather and hashed_gather_ids per pool dtype,
 quantize_rowwise, dequant_bag_rowgrid per tier dtype, bag_grad_rowgrid;
-each with its launches on every path, phase 13's to 17's runs
+each with its launches on every path, phase 13's to 18's runs
 included; the run fails if a kernel of a main path launched no time on
 it, hashed_gather's fp32 plan entry, the hashed train step's forward,
 among them), and
@@ -404,6 +440,14 @@ HIER_DLRM_RETIER_EVERY = 64
 HIER_DLRM_HBM_MB = 4096
 HIER_DLRM_HOST_MB = 8192
 HIER_AUDIT_EVERY = 4
+# phase 18: the serving fleet at published widths, at the fleet CLI's
+# other defaults (256 requests by 8, a merge and a staggered re-tier every
+# 64, 128 cache rows, drift 4.0); the async fleet at phase 14's shadow
+# budget, with requests enough for swaps to land on request ticks
+FLEET_SYNC = (("fleet_wide-deep", "wide-deep", "1,2,4,8"),
+              ("fleet_xdeepfm", "xdeepfm", "1,2,4"))
+FLEET_ASYNC_REPLICAS = (1, 2, 4)
+FLEET_ASYNC_REQUESTS = 1024
 
 
 T0 = time.monotonic()
@@ -2619,18 +2663,27 @@ def check_stream(path: str) -> list[dict]:
     """Phase 13: every record of ``path`` (one a line for ``.jsonl``)
     through the unchanged ``tools/check_bench_schema.py``, run as a
     subprocess; returns the records."""
+    return check_files([path])[path]
+
+
+def check_files(paths: list) -> dict:
+    """``check_stream`` of many files in one subprocess; returns each
+    path's records."""
     out = subprocess.run([sys.executable, os.path.join(
-        ROOT, "tools", "check_bench_schema.py"), path], capture_output=True,
-        text=True, timeout=300)
+        ROOT, "tools", "check_bench_schema.py"), *paths],
+        capture_output=True, text=True, timeout=300)
     if out.returncode != 0:
-        raise SystemExit(f"{path} does not validate:\n{out.stdout}"
+        raise SystemExit(f"records do not validate:\n{out.stdout}"
                          f"{out.stderr}")
     log(out.stdout.strip())
-    with open(path) as fh:
-        text = fh.read()
-    if path.endswith(".jsonl"):
-        return [json.loads(ln) for ln in text.splitlines() if ln.strip()]
-    return [json.loads(text)]
+    recs = {}
+    for path in paths:
+        with open(path) as fh:
+            text = fh.read()
+        recs[path] = ([json.loads(ln) for ln in text.splitlines()
+                       if ln.strip()] if path.endswith(".jsonl")
+                      else [json.loads(text)])
+    return recs
 
 
 def metrics_off() -> None:
@@ -3554,6 +3607,436 @@ def bench_hier(torch, kernels_mod) -> dict:
     return by_path
 
 
+class FleetProbe:
+    """Phase 18: what a fleet run's hooks and spies see.  ``after_batch``
+    (``launch.fleet.run``'s hook, outside each micro-batch's window) keeps
+    every served micro-batch since the last merge and holds one
+    micro-batch of each replica (one that did not re-tier) to the plain
+    ``lookup`` of the pack that served it, bit for bit; the spies record
+    the merge base and the micro-batches each merge pooled, each pulse's
+    seconds, and the quantizer's launches inside each server's start (its
+    pack and, async, the prewarm) and each synchronous re-tier."""
+
+    def __init__(self, torch, counters):
+        from repro_torch.kernels.rowwise_quant import kernel as rq_kernel
+        from repro_torch.serve import fleet as fleet_mod
+        from repro_torch.serve.online import OnlineServer
+
+        self.torch = torch
+        self.rq = rq_kernel
+        self.audited_counters = [c for c in counters
+                                 if c is not rq_kernel.launches]
+        self.pending, self.merges = [], []
+        self.audited, self.pulses = set(), []
+        self.init_rq, self.retier_rq = [], []
+        probe = self
+        self._saved = [(fleet_mod.Fleet, "merge_priorities"),
+                       (fleet_mod.Fleet, "_pulse"),
+                       (OnlineServer, "__init__"), (OnlineServer, "retier")]
+        self._orig = [getattr(c, n) for c, n in self._saved]
+        merge, pulse, init, retier = self._orig
+
+        def merge_spy(fleet):
+            probe.merges = probe.merges[-1:] + [(fleet._merge_base,
+                                                  probe.pending)]
+            probe.pending = []
+            return merge(fleet)
+
+        def pulse_spy(fleet):
+            t0 = time.perf_counter()
+            pulse(fleet)
+            probe.pulses.append(time.perf_counter() - t0)
+
+        def init_spy(server, *a, **kw):
+            n0 = probe.rq.total_launches()
+            init(server, *a, **kw)
+            probe.init_rq.append(probe.rq.total_launches() - n0)
+
+        def retier_spy(server):
+            n0 = probe.rq.total_launches()
+            out = retier(server)
+            probe.retier_rq.append(probe.rq.total_launches() - n0)
+            return out
+
+        for (cls, name), spy in zip(self._saved, (merge_spy, pulse_spy,
+                                                  init_spy, retier_spy)):
+            setattr(cls, name, spy)
+
+    def close(self) -> None:
+        for (cls, name), orig in zip(self._saved, self._orig):
+            setattr(cls, name, orig)
+
+    def after_batch(self, rep, mb, served) -> None:
+        from repro_torch.core import packed_store as ps
+        self.pending.append((rep.rid, mb))
+        if rep.rid in self.audited or rep._retiered[-1]:
+            return
+        with Uncounted(self.audited_counters), self.torch.inference_mode():
+            plain = ps.lookup(served["packed"], served["gidx"])
+            self.torch.cuda.synchronize()
+        if not bits_equal(served["emb"], plain):
+            raise SystemExit(f"fleet replica {rep.rid}: the served "
+                             "embeddings are not the plain lookup of its "
+                             "pack")
+        self.audited.add(rep.rid)
+
+    def merge_oracle(self, merge, offsets):
+        """A merge recomputed with numpy: the pooled counts of the
+        micro-batches it pooled (float64 ``np.add.at``, as the reference
+        counts), then the eager fp32 fold of its base, each op rounded on
+        its own, subnormals flushed.  Returns (the merged vector, the
+        micro-batches pooled)."""
+        import numpy as np
+
+        from repro_torch.core.priority import PriorityConfig
+        base, batches = merge
+        w = base.cpu().numpy()
+        counts = np.zeros(w.shape[0], np.float64)
+        for _, mb in batches:
+            g = mb.indices.astype(np.int64) + offsets[None, :]
+            np.add.at(counts, g[mb.valid].reshape(-1), 1.0)
+        cfg = PriorityConfig()
+        out = (np.float32(1.0 - cfg.beta) * w
+               + np.float32(cfg.beta) * counts.astype(np.float32))
+        out[np.abs(out) < np.finfo(np.float32).tiny] = 0.0
+        return out, len(batches)
+
+
+def fleet_entry(torch, probe, label: str, n: int, fleet, res, arch: str,
+                stats: dict) -> None:
+    """Phase 18 (a), (b): one replica count's checks, before its fleet is
+    released: every replica's priority after the final merge equals the
+    others' and the numpy oracle of that merge bit for bit, and the
+    oracle of the merge before it equals the final merge's base (so a
+    merge that pooled served micro-batches is checked even when the final
+    one pools none); each replica was audited once, and its int8 rows and
+    scales equal the plain quantizer's on the table rows they hold.  Adds
+    the entry's figures to ``stats``."""
+    import numpy as np
+
+    from repro_torch import configs
+
+    reps = fleet.replicas
+    offsets = np.asarray(configs.get(arch).model.spec.offsets(), np.int64)
+    (prev, final) = probe.merges
+    oracle, pooled_final = probe.merge_oracle(final, offsets)
+    oracle_prev, pooled = probe.merge_oracle(prev, offsets)
+    first = reps[0].server.store.priority
+    if (probe.pending or not pooled
+            or not all(torch.equal(r.server.store.priority, first)
+                       for r in reps)
+            or not bits_equal(first.cpu(), torch.from_numpy(oracle))
+            or not bits_equal(final[0].cpu(), torch.from_numpy(oracle_prev))):
+        raise SystemExit(f"{label} replicas={n}: the merged priorities are "
+                         "not equal to each other and the numpy oracle "
+                         f"({pooled} and {pooled_final} micro-batches "
+                         "pooled)")
+    if probe.audited != set(range(n)):
+        raise SystemExit(f"{label} replicas={n}: audited {probe.audited}")
+    int8_rows = [check_int8_tier(torch, r.server, f"{label}[{r.rid}]")
+                 for r in reps]
+    merge_h = fleet.reg.histograms["fleet.merge_us"]
+    agg = fleet.aggregate()
+    spans = {name: agg.percentiles(f"serve.{name}_us", (50,))[0]
+             for name in ("request", "synth", "lookup", "combine", "retier")}
+    e = res.as_dict()
+    entry = {
+        "replicas": n, "aggregate_qps": e["aggregate_qps"],
+        "per_replica_qps": e["per_replica_qps"], "p50_us": e["p50_us"],
+        "p99_us": e["p99_us"], "route_p50_us": e["route_p50_us"],
+        "router_overhead_frac": e["router_overhead_frac"],
+        "merge_p50_us": merge_h.percentile(50), "merges": res.merges,
+        "span_p50_us": spans,
+        "pulse_ms_mean": 1e3 * sum(probe.pulses) / len(probe.pulses),
+        "pulse_ms_max": 1e3 * max(probe.pulses), "pulses": len(probe.pulses),
+        "divergence_premerge": res.divergence_premerge,
+        "divergence": res.divergence,
+        "batches": sum(len(r._lat) for r in reps),
+        "retiers": sum(r.server.stats.retiers for r in reps),
+        "rows_moved": sum(r.server.stats.rows_moved for r in reps),
+        "cache_builds": sum(1 + r.server.stats.retiers for r in reps),
+        "oracle_pooled_batches": [pooled, pooled_final],
+        "int8_rows_checked": int8_rows,
+        "device_allocated_bytes": torch.cuda.memory_allocated(),
+        "device_peak_bytes": torch.cuda.max_memory_allocated()}
+    stats["entries"].append(entry)
+    probe.audited, probe.pulses, probe.merges = set(), [], []
+    log(f"{label} replicas={n}: aggregate {e['aggregate_qps']} qps "
+        f"(per replica {e['per_replica_qps']}), fleet p50 {e['p50_us']} us "
+        f"p99 {e['p99_us']} us (spans' p50 us: "
+        f"{ {k: round(v) for k, v in spans.items()} }), route p50 "
+        f"{e['route_p50_us']} us, fleet.merge p50 "
+        f"{entry['merge_p50_us']:.0f} us x {res.merges}, a "
+        f"pulse {entry['pulse_ms_mean']:.2f} ms (max "
+        f"{entry['pulse_ms_max']:.2f}), {entry['retiers']} re-tiers moved "
+        f"{entry['rows_moved']:,} rows, divergence "
+        f"{res.divergence_premerge:.4f} -> {res.divergence:.4f}, merged "
+        f"priorities bit-equal to the numpy oracle of the last two merges "
+        f"({pooled} and {pooled_final} micro-batches pooled), device {entry['device_allocated_bytes'] / 1e9:.2f} "
+        f"GB with the fleet live, peak "
+        f"{entry['device_peak_bytes'] / 1e9:.2f} GB")
+
+
+def check_fleet_launches(label: str, counts: dict, bad: bool,
+                         want: str) -> None:
+    """Phase 18: stop the run when a fleet path's launches (``counts``)
+    are not what its micro-batches, cache builds and quantizer calls
+    (``want``) say."""
+    if bad:
+        raise SystemExit(f"{label}: launches {counts} against {want}")
+
+
+def fleet_sync(torch, kernels_mod, counters, label: str, arch: str,
+               replicas: str, tmp: str) -> dict:
+    """Phase 18 (a), (b): ``launch.fleet --arch ARCH --model full
+    --replicas REPLICAS`` at the reference CLI's other defaults, with
+    ``--metrics-out`` and ``--emit`` into ``tmp``, through ``run`` with
+    the probe's hooks, the counts set to 0 just before and read just
+    after.  Returns the path's counts."""
+    from repro_torch import obs
+    from repro_torch.kernels.dequant_bag import kernel
+    from repro_torch.kernels.hashed_gather import kernel as hg_kernel
+    from repro_torch.launch import fleet as fleet_cli
+
+    mdir = os.path.join(tmp, f"{label}_metrics")
+    emit = os.path.join(tmp, f"{label}_BENCH_fleet.json")
+    args = fleet_cli.parse_args(
+        ["--arch", arch, "--model", "full", "--replicas", replicas,
+         "--metrics-out", mdir, "--emit", emit])
+    stats = {"entries": []}
+    probe = FleetProbe(torch, counters)
+    torch.cuda.reset_peak_memory_stats()
+    kernels_mod.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        rec = fleet_cli.run(
+            args, after_batch=probe.after_batch,
+            on_entry=lambda n, fleet, res: fleet_entry(
+                torch, probe, label, n, fleet, res, arch, stats))
+    finally:
+        probe.close()
+    wall = time.perf_counter() - t0
+    counts = path_counts(kernels_mod, kernel, hg_kernel)
+    batches = sum(e["batches"] for e in stats["entries"])
+    builds = sum(e["cache_builds"] for e in stats["entries"])
+    dq = counts["dequant_bag_by_dtype"]
+    cin = 3 * batches if arch == "xdeepfm" else 0
+    rq_want = sum(probe.init_rq) + sum(probe.retier_rq)
+    n_servers = sum(args.replica_counts)
+    check_fleet_launches(
+        label, counts, dq["tiered"] != batches + builds
+        or any(n for t, n in dq.items() if t != "tiered")
+        or counts["cin"] != cin or counts["bag_matmul"]
+        or counts["hashed_gather"] or counts["bag_grad"]
+        or counts["dequant_bag_rowgrid"] or counts["bag_grad_rowgrid"]
+        or len(probe.init_rq) != n_servers
+        or min(probe.init_rq) < 1 or len(set(probe.init_rq)) != 1
+        or counts["quantize_rowwise"] != rq_want
+        or (sum(e["rows_moved"] for e in stats["entries"])
+            and not sum(probe.retier_rq)),
+        f"{batches} micro-batches + {builds} cache builds, cin {cin}, "
+        f"quantize_rowwise {rq_want} (starts {probe.init_rq}, re-tiers "
+        f"{probe.retier_rq})")
+    # the record and every stream validate; each count's per-source
+    # streams re-merge to its fleet stream's line
+    paths = [emit] + sorted(os.path.join(mdir, f) for f in os.listdir(mdir))
+    recs = check_files(paths)
+    if recs[emit][0] != json.loads(json.dumps(rec)):
+        raise SystemExit(f"{label}: the emitted record is not the returned "
+                         "one")
+    for n in args.replica_counts:
+        srcs = [recs[os.path.join(mdir, f"replicas{n}_replica{i}.jsonl")][-1]
+                for i in range(n)]
+        srcs.append(recs[os.path.join(mdir, f"replicas{n}_router.jsonl")][-1])
+        fleet_line = recs[os.path.join(mdir, f"replicas{n}_fleet.jsonl")][-1]
+        if obs.merge_snapshots(srcs) != fleet_line:
+            raise SystemExit(f"{label} replicas={n}: the per-source streams "
+                             "do not re-merge to the fleet stream")
+    print(json.dumps({"fleet": {
+        "path": label, "arch": arch, "wall_s": wall,
+        "record": rec, "entries": stats["entries"],
+        "server_start_quantize_launches": probe.init_rq[0],
+        "retier_quantize_launches": sum(probe.retier_rq),
+        "launches": counts}}), flush=True)
+    log(f"{label}: a valid bench_fleet/v1 record and {len(paths) - 1} valid "
+        f"streams in {wall:.1f}s; {batches} micro-batches, {builds} cache "
+        f"builds, launches {counts}")
+    return counts
+
+
+def fleet_async(torch, kernels_mod, counters) -> dict:
+    """Phase 18 (c): the library's ``Fleet`` and ``Replica`` driven
+    directly, wide&deep at full width, ``OnlineConfig(retier_async=True,
+    shadow_rows_per_step=SHADOW_ROWS, verify_swap=True)``, the launcher's
+    forward (``serve.loop.microbatch_serve_fn``) and cadences (a merge and
+    a staggered re-tier every 64), ``FLEET_ASYNC_REQUESTS`` requests at 1,
+    2 and 4 replicas, the counts set to 0 just before each and read just
+    after.  Swaps must land on request ticks (before the final drain),
+    each verified; the shadow spans must be in the replicas' registries
+    and none in the default one.  Returns each count's counts."""
+    import numpy as np
+
+    from repro_torch import configs, obs
+    from repro_torch.core.qat_store import CHUNK_ROWS
+    from repro_torch.kernels.dequant_bag import kernel
+    from repro_torch.kernels.hashed_gather import kernel as hg_kernel
+    from repro_torch.launch.serve import online_store
+    from repro_torch.serve import (Fleet, FleetConfig, OnlineConfig,
+                                   OnlineServer, Replica,
+                                   drifting_zipf_batch)
+    from repro_torch.serve.loop import microbatch_serve_fn
+
+    dev = torch.device("cuda")
+    model = configs.get("wide-deep").model
+    spec = model.spec
+    params, store, cfg = online_store(model, spec, dev)
+    cards = np.asarray(spec.cardinalities, np.int64)
+    offsets = np.asarray(spec.offsets(), np.int64)
+    blocks = -(-spec.total_rows // CHUNK_ROWS)
+    by_path = {}
+    probe = FleetProbe(torch, counters)
+    try:
+        for n in FLEET_ASYNC_REPLICAS:
+            label = f"fleet_async_wide-deep_{n}"
+            probe.init_rq, probe.pulses = [], []
+            kernels_mod.reset_launches()
+            t0 = time.perf_counter()
+            reps = []
+            for i in range(n):
+                server = OnlineServer(store, cfg, OnlineConfig(
+                    cache_rows=128, retier_every=0, retier_async=True,
+                    shadow_rows_per_step=SHADOW_ROWS, verify_swap=True))
+                reps.append(Replica(
+                    i, server, microbatch_serve_fn(server, model, spec,
+                                                   params),
+                    8, spec.num_fields,
+                    globalize=lambda idx: idx.astype(np.int64)
+                    + offsets[None, :]))
+            fleet = Fleet(reps, FleetConfig(serve_batch=8, merge_every=64,
+                                            retier_every=64))
+            for r in range(FLEET_ASYNC_REQUESTS):
+                fleet.submit(drifting_zipf_batch(
+                    cards, 1, r, FLEET_ASYNC_REQUESTS, drift=4.0)[0])
+            on_ticks = [rep.server.stats.swaps for rep in reps]
+            fleet.flush()
+            fleet.merge_priorities()
+            res = fleet.result()
+            wall = time.perf_counter() - t0
+            counts = path_counts(kernels_mod, kernel, hg_kernel)
+            st = [rep.server.stats for rep in reps]
+            batches = sum(len(rep._lat) for rep in reps)
+            builds = sum(1 + s.retiers for s in st)
+            rq_want = (sum(probe.init_rq) + sum(s.shadow_chunks for s in st)
+                       + blocks * sum(s.swaps for s in st))
+            dq = counts["dequant_bag_by_dtype"]
+            shadow_h = [{k: h.count for k, h in rep.reg.histograms.items()
+                         if k.startswith("serve.shadow.")} for rep in reps]
+            default = obs.get_registry()
+            check_fleet_launches(
+                label, counts, dq["tiered"] != batches + builds
+                or any(c for t, c in dq.items() if t != "tiered")
+                or counts["quantize_rowwise"] != rq_want
+                or counts["cin"] or counts["bag_matmul"],
+                f"{batches} micro-batches + {builds} cache builds, "
+                f"quantize_rowwise {rq_want}")
+            if (sum(on_ticks) < 1 or any(s.shadow is not None for s in
+                                         (rep.server for rep in reps))
+                    or any(h.get("serve.shadow.verify_us", 0)
+                           != h.get("serve.shadow.swap_us", 0)
+                           or h.get("serve.shadow.build_us", 0) != s.swaps
+                           for h, s in zip(shadow_h, st))
+                    or not any(h.get("serve.shadow.stage_us", 0)
+                               for h in shadow_h)
+                    or any(k.startswith("serve.shadow.")
+                           for k in list(default.histograms)
+                           + list(default.counters))):
+                raise SystemExit(
+                    f"{label}: swaps on request ticks {on_ticks}, stats "
+                    f"{[s.as_dict() for s in st]}, shadow histograms "
+                    f"{shadow_h}")
+            e = res.as_dict()
+            summary = {
+                "path": label, "replicas": n, "wall_s": wall,
+                "requests": FLEET_ASYNC_REQUESTS,
+                "result": e, "swaps_on_request_ticks": on_ticks,
+                "swaps": [s.swaps for s in st],
+                "builds": [s.shadow_builds for s in st],
+                "chunks": [s.shadow_chunks for s in st],
+                "rows_moved": [s.rows_moved for s in st],
+                "shadow_histograms": shadow_h,
+                "merge_p50_us": fleet.reg.histograms[
+                    "fleet.merge_us"].percentile(50),
+                "pulse_ms_mean": 1e3 * sum(probe.pulses) / len(probe.pulses),
+                "device_peak_bytes": torch.cuda.max_memory_allocated(),
+                "launches": counts}
+            print(json.dumps({"fleet_async": summary}), flush=True)
+            log(f"{label}: {FLEET_ASYNC_REQUESTS} requests, aggregate "
+                f"{e['aggregate_qps']} qps (per replica "
+                f"{e['per_replica_qps']}), p50 {e['p50_us']} us p99 "
+                f"{e['p99_us']} us, route p50 {e['route_p50_us']} us, "
+                f"swaps {summary['swaps']} ({on_ticks} on request ticks, "
+                f"each verified), swaps_colocated {res.swaps_colocated}, "
+                f"rows moved {sum(summary['rows_moved']):,}, merge p50 "
+                f"{summary['merge_p50_us']:.0f} us, a pulse "
+                f"{summary['pulse_ms_mean']:.2f} ms, {wall:.1f}s")
+            by_path[label] = counts
+            del fleet, reps, server
+            torch.cuda.empty_cache()
+    finally:
+        probe.close()
+    return by_path
+
+
+def fleet_reference_record(torch, kernels_mod, tmp: str) -> dict:
+    """Phase 18 (d): ``python -m repro_torch.launch.fleet --emit
+    TMP/BENCH_fleet.json`` through its ``main`` (the reference record's
+    configuration: smoke dlrm-rm2, 1, 2, 4 and 8 replicas, 256 requests)
+    on the card, through the schema tool; the counts set to 0 just
+    before and read just after."""
+    from repro_torch.kernels.dequant_bag import kernel
+    from repro_torch.kernels.hashed_gather import kernel as hg_kernel
+    from repro_torch.launch import fleet as fleet_cli
+
+    path = os.path.join(tmp, "BENCH_fleet.json")
+    kernels_mod.reset_launches()
+    t0 = time.perf_counter()
+    rec = fleet_cli.main(["--emit", path])
+    wall = time.perf_counter() - t0
+    counts = path_counts(kernels_mod, kernel, hg_kernel)
+    written = check_files([path])[path][0]
+    if (written != json.loads(json.dumps(rec))
+            or counts["dequant_bag_by_dtype"]["tiered"] <= 0
+            or counts["quantize_rowwise"] <= 0):
+        raise SystemExit(f"fleet_smoke: unexpected record or launches "
+                         f"{counts}")
+    keys = ("replicas", "aggregate_qps", "per_replica_qps", "p50_us",
+            "p99_us", "route_p50_us", "router_overhead_frac", "merges",
+            "divergence_premerge", "divergence", "swaps_colocated")
+    print(json.dumps({"fleet_smoke": {
+        "wall_s": wall, "sweep": [{k: e[k] for k in keys}
+                                  for e in rec["sweep"]],
+        "launches": counts}}), flush=True)
+    log(f"fleet_smoke: a valid bench_fleet/v1 record in {wall:.1f}s, "
+        f"{[(e['replicas'], e['aggregate_qps'], e['p50_us']) for e in rec['sweep']]}"
+        f" (replicas, aggregate qps, p50 us), launches {counts}")
+    return counts
+
+
+def fleet_phase(torch, kernels_mod, counters) -> dict:
+    """Phase 18: the serving fleet; returns each path's counts."""
+    by_path = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, arch, replicas in FLEET_SYNC:
+            by_path[label] = fleet_sync(torch, kernels_mod, counters, label,
+                                        arch, replicas, tmp)
+            torch.cuda.empty_cache()
+        by_path.update(fleet_async(torch, kernels_mod, counters))
+        by_path["fleet_smoke"] = fleet_reference_record(torch, kernels_mod,
+                                                        tmp)
+    torch.cuda.empty_cache()
+    return by_path
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--trace", metavar="PATH",
@@ -3564,6 +4047,10 @@ def main() -> int:
                     help="build the kernels and run phase 17 alone (a "
                          "quick check of the hier store; prints no kernels "
                          "line and no ok line)")
+    ap.add_argument("--fleet-only", action="store_true",
+                    help="build the kernels and run phase 18 alone (a "
+                         "quick check of the serving fleet; prints no "
+                         "kernels line and no ok line)")
     args = ap.parse_args()
 
     import torch
@@ -3616,6 +4103,13 @@ def main() -> int:
                     hg_kernel.launches, rq_kernel.launches)
         by_path = hier_phase(torch, serve, kernels_mod, counters)
         log(f"phase 17 alone: {sorted(by_path)}")
+        return 0
+    if args.fleet_only:
+        counters = (kernel.launches, kernel.bag_grad_launches,
+                    bm_kernel.launches, cin_kernel.launches,
+                    hg_kernel.launches, rq_kernel.launches)
+        by_path = fleet_phase(torch, kernels_mod, counters)
+        log(f"phase 18 alone: {sorted(by_path)}")
         return 0
 
     worst = check_kernels(torch, ops, ref)
@@ -3855,6 +4349,13 @@ def main() -> int:
         record_path(kernels, grad_entry, quant_by_path, rowgrid_by_path,
                     label, counts)
     torch.cuda.empty_cache()
+
+    # phase 18: the serving fleet at full width, then its smoke record
+    for label, counts in fleet_phase(torch, kernels_mod, counters).items():
+        record_path(kernels, grad_entry, quant_by_path, rowgrid_by_path,
+                    label, counts,
+                    arch=("xdeepfm" if "xdeepfm" in label else "wide-deep"
+                          if "wide-deep" in label else "dlrm-rm2"))
     for k in kernels:
         k["launches"] = sum(k["launches_by_path"].values())
     grad_entry["launches"] = sum(grad_entry["launches_by_path"].values())

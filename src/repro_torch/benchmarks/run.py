@@ -25,7 +25,9 @@ through ``benchmarks.manifest.COMMITTED_BENCH`` as the reference does:
 pipeline's record (a false ``verify_*`` exits non-zero after writing),
 ``BENCH_hash.json`` the hashed sweep.  ``BENCH_kernel.json`` raises
 ``NotImplementedError`` (item 9), ``BENCH_fleet.json`` exits naming its
-driver (item 8, the fleet), any other name exits listing the manifest.
+own command (``python -m repro_torch.launch.fleet --emit
+BENCH_fleet.json``, as the reference's runner does), any other name
+exits listing the manifest.
 ``--emit-pipeline PATH`` is ``--emit`` of the pipeline's record to
 ``PATH``.  The path is the caller's: nothing is written where it did not
 say (the repository's ``BENCH_*.json`` are the JAX package's records).
@@ -49,7 +51,6 @@ WAITING = {
 # the manifest's records whose modules are not ported yet
 EMIT_WAITING = {
     "BENCH_kernel.json": "item 9, benchmarks/kernels.py with autotune",
-    "BENCH_fleet.json": "item 8, the fleet (launch/fleet.py)",
 }
 
 
@@ -107,9 +108,8 @@ def emit_record(name: str, path: str, args: argparse.Namespace,
         raise SystemExit(f"--emit {name}: not a committed benchmark record "
                          f"(manifest: {', '.join(sorted(COMMITTED_BENCH))})")
     if name == "BENCH_fleet.json":
-        raise SystemExit(f"{name} is written by its own driver "
-                         f"(`{COMMITTED_BENCH[name][1]}`), not ported yet: "
-                         f"ROADMAP Queue 1 {EMIT_WAITING[name]}")
+        raise SystemExit(f"{name} is emitted by its own command: "
+                         f"`{COMMITTED_BENCH[name][1]}`")
     if name in EMIT_WAITING:
         raise NotImplementedError(f"--emit {name}: not ported yet, ROADMAP "
                                   f"Queue 1 {EMIT_WAITING[name]}")

@@ -21,7 +21,8 @@ where its caller runs it:
 * eager (the online server's fold, ``OnlineServer.observe`` ->
   ``PackedBackend.fold_priority`` -> ``serve_update`` with no ``jit``):
   each op rounds on its own, ``(1 - beta) * w + beta * target``, which
-  ``serve_fold`` computes.  The two differ
+  ``serve_fold`` computes (through ``fold_counts``, which the fleet's
+  pooled merge of replica counts shares).  The two differ
   in the last bit for some rows, and tiers are cut from these scores.
 
 Both flush subnormal results to zero, as XLA does: with 1 - beta = 0.01
@@ -126,8 +127,21 @@ def serve_fold(w: torch.Tensor, indices: torch.Tensor,
                valid: torch.Tensor | None = None) -> torch.Tensor:
     """The online server's Eq. 7 fold, as the eager reference runs it
     (``serve_update`` outside ``jit``): accesses enter as c- (c+ = 0),
-    and the EMA rounds each op on its own.  ``serve_update`` keeps the
-    jitted FMA form for the training accumulator.
+    and the EMA rounds each op on its own (``fold_counts``).
+    ``serve_update`` keeps the jitted FMA form for the training
+    accumulator."""
+    return fold_counts(w, access_counts(indices, w.shape[0], valid), cfg)
+
+
+def fold_counts(w: torch.Tensor, c: torch.Tensor,
+                cfg: PriorityConfig = PriorityConfig()) -> torch.Tensor:
+    """One eager Eq. 7 step with c+ = 0 and c- = ``c`` (fp32 (vocab,)
+    counts): ``hardshrink(decay * w + beta * c)``, each op rounded on its
+    own, as the reference's un-jitted ``priority_update(w, 0, c)``
+    computes it.  The online fold (``serve_fold``) and the fleet's pooled
+    merge (``serve.fleet.Fleet.merge_priorities``) share it.  Returns a
+    new tensor: ``w`` is never written, so one result can be handed to
+    many owners.
 
     With c+ = 0 the target ``alpha * 0 + c`` is the count ``c`` exactly,
     so it is not computed (two passes over (V,) fewer).
@@ -140,7 +154,6 @@ def serve_fold(w: torch.Tensor, indices: torch.Tensor,
     absorbed by ``beta * c >= beta`` anyway, so flushing the sum flushes
     exactly what the reference flushes.
     """
-    c = access_counts(indices, w.shape[0], valid)
     f32 = dict(dtype=torch.float32, device=w.device)
     decay = torch.tensor(1.0 - cfg.beta, **f32)
     return torch.nn.functional.hardshrink(

@@ -13,7 +13,8 @@ Micro-batching (``MicroBatcher``, ``run_microbatched_loop``,
 point for every backend, behind ``--serve-batch``): single-user requests
 accumulate into fixed-shape (N, F) batches, padded with row 0 and a
 validity mask when the stream ends mid-batch, and each batch runs one
-forward, one vectorised fold and one cache pass.  The staged branch of
+forward, one vectorised fold and one cache pass (``microbatch_serve_fn``,
+which the fleet's replicas run too).  The staged branch of
 ``serve_forward`` (``_serve_forward_staged``, for a backend whose misses
 stage through the host: the hier store) splits each batch's forward into
 the host stage (``HierStore.stage``: the levels resolved, the warm and
@@ -414,6 +415,51 @@ def run_microbatched_loop(server: OnlineServer,
         stats=server.stats.as_dict())
 
 
+def microbatch_serve_fn(server: OnlineServer, model, spec, params, *,
+                        num_dense: int = 0, fuse_matmul: bool = False,
+                        served: dict | None = None
+                        ) -> Callable[[MicroBatch], torch.Tensor]:
+    """The micro-batched loops' ``serve_fn(mb) -> logits``: batch ``r``
+    (a counter of this closure) goes to the device with dense features
+    from seed ``20_000 + r`` (``serve.synth``), runs the cache-first
+    forward through ``model.head`` or the fused head (``serve.lookup``,
+    drained by the span's ``sync``) and folds into the server
+    (``serve.combine``: ``server.observe`` with the batch's device mask
+    and its live lookups counted on the host).
+    ``serve_forward_microbatched`` and each replica of ``launch.fleet``
+    run it.
+    ``served``, when given, receives the batch's ``packed`` (the store
+    the forward read), ``gidx``, ``emb`` (None when the fused head took
+    none) and ``logits``."""
+    fwd = _forward(server, model, spec, fuse_matmul)
+    device = server.device
+    counter = {"b": 0}
+
+    def serve_fn(mb: MicroBatch) -> torch.Tensor:
+        r = counter["b"]
+        counter["b"] += 1
+        with obs.span("serve.synth"):
+            b = request_batch(mb.indices, r, num_dense, device,
+                              dense_seed=20_000)
+            # one upload of the batcher's mask serves the hit count and
+            # the fold; the lookups are counted on the host
+            valid = torch.from_numpy(mb.valid).to(device)[:, None]
+        with torch.inference_mode():
+            with obs.span("serve.lookup") as sp:
+                packed = server.packed
+                out, hits, gidx, emb = fwd(packed, server.cache, params, b,
+                                           valid)
+                sp.sync(out)
+            if served is not None:
+                served.update(packed=packed, gidx=gidx, emb=emb,
+                              logits=out)
+            with obs.span("serve.combine"):
+                server.observe(gidx, int(hits), valid=valid, count=mb.count,
+                               lookups=int(mb.valid.sum()) * gidx.shape[1])
+        return out
+    return serve_fn
+
+
 def serve_forward_microbatched(server: OnlineServer, model, spec, params, *,
                                serve_batch: int, requests: int,
                                drift: float = 4.0, num_dense: int = 0,
@@ -435,32 +481,11 @@ def serve_forward_microbatched(server: OnlineServer, model, spec, params, *,
     repacked since), the batch's global ids and the embeddings it was
     served (None when the fused head took none).
     """
-    fwd = _forward(server, model, spec, fuse_matmul)
-    device = server.device
-    counter = {"b": 0}
     served: dict = {}
-
-    def serve_fn(mb: MicroBatch):
-        r = counter["b"]
-        counter["b"] += 1
-        with obs.span("serve.synth"):
-            b = request_batch(mb.indices, r, num_dense, device,
-                              dense_seed=20_000)
-            # one upload of the batcher's mask serves the hit count and
-            # the fold; the lookups are counted on the host
-            valid = torch.from_numpy(mb.valid).to(device)[:, None]
-        with torch.inference_mode():
-            with obs.span("serve.lookup") as sp:
-                packed = server.packed
-                out, hits, gidx, emb = fwd(packed, server.cache, params, b,
-                                           valid)
-                sp.sync(out)
-            if audit is not None:
-                served.update(packed=packed, gidx=gidx, emb=emb)
-            with obs.span("serve.combine"):
-                server.observe(gidx, int(hits), valid=valid, count=mb.count,
-                               lookups=int(mb.valid.sum()) * gidx.shape[1])
-        return out
+    serve_fn = microbatch_serve_fn(server, model, spec, params,
+                                   num_dense=num_dense,
+                                   fuse_matmul=fuse_matmul,
+                                   served=None if audit is None else served)
 
     def after(retiered: bool) -> None:
         if not retiered:

@@ -232,7 +232,8 @@ def test_run_at_tiny_budgets_gives_the_reference_rows(name, monkeypatch):
 # ------------------------------------------------------------------ runner
 
 def test_runner_refuses_what_is_not_ported(tmp_path):
-    """Every refusal names its ROADMAP item; a refused ``--emit`` writes
+    """Every refusal names its ROADMAP item (``BENCH_fleet.json``: its own
+    command, as the reference's runner does); a refused ``--emit`` writes
     nothing (the paths are under ``tmp_path``)."""
     assert set(trun.WAITING) == {"qps_sharded", "roofline"}
     for name in trun.WAITING:
@@ -241,7 +242,8 @@ def test_runner_refuses_what_is_not_ported(tmp_path):
     with pytest.raises(NotImplementedError, match="item 9"):
         trun.main(["--emit", str(tmp_path / "BENCH_kernel.json"),
                    "--device", "cpu"])
-    with pytest.raises(SystemExit, match="item 8"):
+    with pytest.raises(SystemExit,
+                       match=r"python -m repro_torch\.launch\.fleet --emit"):
         trun.main(["--emit", str(tmp_path / "BENCH_fleet.json"),
                    "--device", "cpu"])
     with pytest.raises(SystemExit, match="manifest: BENCH_fleet.json"):
