@@ -19,8 +19,13 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    cases (int32 and int64 ids, K 1/8/40, fp16 half tiers, empty int8 and
    fp32 tiers, NaN and inf weights: NaN bags) against the per-tier
    composition through the plain bag and through three single-tier
-   launches; bag_grad at K = 1 and 8, with and without scales, 40%
-   masked slots, heavy duplicates, B that no block divides, D = 64, 33
+   launches; its shard window on the window cases (stores cut 2, 3 and 4
+   ways at the reference's stride ceil(V_t / n), a one-row last shard and
+   empty last windows, an empty int8 tier, int32 and int64 ids, K 1 / 8 /
+   40, NaN and inf weights on slots outside the window: NaN bags in every
+   shard), each shard's launch against the windowed per-shard composition
+   through the plain bag and through three single-tier launches; bag_grad
+   at K = 1 and 8, with and without scales, 40% masked slots, heavy duplicates, B that no block divides, D = 64, 33
    and 200, B = 0, and on its schedules (``kernels/cases.py``: one row of
    65,536 slots, runs at the heavy-run threshold and one either side,
    zero coefficients over a NaN cotangent, D 1/8/10/64/128 off 16-byte
@@ -159,9 +164,11 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    bounds, their plain versions and ``F.embedding_bag`` over the
    dequantized pool;
 11. pipeline: ``python -m repro_torch.launch.pipeline --model full
-   --max-ind-range 24000000 --batch 65536 --steps 40`` through its
-   ``main``: dlrm-rm2 at its published widths over 124,185,088 rows
-   trained 40 steps (one checkpoint of the ~33 GB train state), gradcheck,
+   --max-ind-range 12000000 --batch 65536 --steps 40`` through its
+   ``main``: dlrm-rm2 at its published widths over 64,184,832 rows (every
+   field capped at 12M rows: a cut of rows, not widths, from the train
+   cell's 124,185,088 for the time limit) trained 40 steps (one checkpoint
+   of the ~17 GB train state), gradcheck,
    Taylor field pruning to 85% of the table bytes with a 16-step masked
    finetune, Eq. 8 quantization at a 50% budget, pack and its
    ``packed_store/v1`` checkpoint round trip, eval of 8 held-out batches
@@ -180,8 +187,8 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    stage seconds, the peak memory and each checkpoint's bytes and write
    rate;
 12. hashed pipeline: the same pipeline with ``--store-backend hashed``
-   over the same 124,185,088 rows (batch 65,536, 40 steps), the pool
-   fitted at ratio 100 in 30 row chunks (``store.hashed.fit_chunk_rows``):
+   over the same 64,184,832 rows (batch 65,536, 40 steps), the pool
+   fitted at ratio 100 in 16 row chunks (``store.hashed.fit_chunk_rows``):
    the fit's hashed_gather (ids entry: 13 a chunk, then the residual's
    gathers) and bag_grad (14 a chunk) launches, the ids entry in the eval
    and the serve; each chunk's scatter in the fit's first adj held bit
@@ -250,9 +257,10 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    each (the runner's ``qps`` and ``hashed`` jobs launch kernels);
 16. the hashed train step and the runner's records, each with the counts
    set to 0 just before and read just after: (a) ``python -m
-   repro_torch.benchmarks.run --emit TMP/BENCH_hash.json`` at the
-   reference's full budgets (ratios 1, 4, 20, 100 and 1000, 700 steps
-   each and the dense arm's, 96 requests by 8, 16 eval batches): the
+   repro_torch.benchmarks.run --fast --emit TMP/BENCH_hash.json`` at the
+   reference's reduced budgets (ratios 4 and 100, 120 steps each and the
+   dense arm's, 32 requests by 8, 4 eval batches; cut from its full ones
+   for the time limit): the
    record passes ``tools/check_bench_schema.py``; hashed_gather's plan
    entry and bag_grad launch once a hashed step, dequant_bag and
    bag_grad once a dense step, quantize_rowwise once a ``quantize_pool``,
@@ -331,13 +339,52 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    the rows moved and the device memory.  ``--fleet-only`` builds the
    kernels and runs this phase alone (no kernels line, no ok line).
 
+19. the mesh (``repro_torch.dist``: mesh N is N row shards on this one
+   card, each a view of the store), each run with the counts set to 0 just
+   before and read just after: (a) beside phase 4, on its live dlrm-rm2
+   pack (204,185,088 x 64, nothing cut), meshes 1, 2 and 4 with no copy,
+   16 requests of batch 512 through ``sharded_lookup`` at each: the tiered
+   entry N times a request and nothing else; every request's embeddings
+   bit-equal to the plain ``lookup``, logits within 1e-4 * max(1, |ref|)
+   of mesh 1's; the device memory allocated equal at every mesh; a
+   training batch's 65,536 x 26 uniform ids at mesh 4 bit-equal to the
+   plain ``lookup`` with slots in every (tier, shard) cell; a windowed
+   launch, the sharded lookup and the shard sum timed; (b) ``launch.serve
+   --online --fuse-matmul --model full --mesh 4`` for wide&deep and
+   xDeepFM at phase 8's arguments: bag_matmul 12 times a request, cin 3
+   times, the tiered entry 4 times a packed lookup; each request's logits
+   within 1e-4 * max(1, |ref|) of phase 8's (mesh 1), the re-tiers and
+   rows moved phase 8's, the cache's rows bit-equal to the plain ``lookup``
+   of the live pack; (c) the hashed wide&deep store at ``--mesh 4``: the
+   plan entry 4 times a request, 1,048,576 rows within 1e-6 * max(1,
+   |ref|) of the unsharded gather (bit-equality reported); the hier
+   wide&deep store at phase 17's budgets, 256 requests by 8, ``--mesh 4
+   --verify-hier``, audited as phase 17, its hot level (the card's four
+   shards, views of it) within ``--hbm-budget-mb``; (d) the compressed train step at
+   the train cell (124,185,088 rows, batch 65,536) over a 4-shard mesh for
+   3 steps from phase 5's seed: the forward and bag_grad 4 times a step;
+   after each step the table, adagrad accumulator, priority and access
+   EMA (64-bit digests of every bit, ``digest``) and the loss equal phase
+   5's; (e) ``launch.pipeline --mesh 2 --fast --max-ind-range 1000000``
+   (7,116,800 rows x 64, the 512-padded total) packed and hashed, through
+   ``pipeline_phase`` (launch counts x 2, the served lookups bit-equal to
+   the plain gather);
+   (f) ``python -m repro_torch.benchmarks.qps_sharded --emit-dir TMP``
+   (smoke dlrm-rm2, meshes 1, 2, 4): each record through the schema tool.
+   Prints p50 / p99 a request at each mesh, launches a request, the shard
+   sum's ms, ms a train step at mesh 1 and 4 and the peaks as one JSON
+   ``mesh`` line.  ``--mesh-only`` builds the kernels and runs phase 2's
+   window cases and phase 19 alone, its mesh-1 references included (no
+   kernels line, no ok line).
+
 Prints the card's name and power limit, the serve, train, both online,
 both hashed and both pipeline records, one JSON ``kernels`` line
 (dequant_bag per tier dtype and its tiered entry, bag_grad, bag_matmul
 per arch, cin, hashed_gather and hashed_gather_ids per pool dtype,
 quantize_rowwise, dequant_bag_rowgrid per tier dtype, bag_grad_rowgrid;
 each with its launches on every path, phase 13's to 18's runs
-included; the run fails if a kernel of a main path launched no time on
+included, phase 19's mesh paths too; the run fails if a kernel of a main
+path launched no time on
 it, hashed_gather's fp32 plan entry, the hashed train step's forward,
 among them), and
 as the last line
@@ -408,8 +455,11 @@ REQUESTS = 16
 TRAIN_STEPS = 9
 MAX_IND_RANGE = 24_000_000
 # the full-width pipeline: 40 steps, so that one checkpoint of the train
-# state is written (the reference's ckpt_every 40)
+# state is written (the reference's ckpt_every 40), every field capped at
+# 12M rows (64,184,832 rows: its two branches' checkpoints, packs and fit
+# at 124M rows took ~235 s of the 1200 s limit)
 PIPELINE_STEPS = 40
+PIPELINE_MAX_IND_RANGE = 12_000_000
 # phase 13: a snapshot line every 4 of wide&deep's 16 requests; the
 # bench_qps/v1 sweep at the reference's serve batches
 METRICS_EVERY = 4
@@ -448,6 +498,15 @@ FLEET_SYNC = (("fleet_wide-deep", "wide-deep", "1,2,4,8"),
               ("fleet_xdeepfm", "xdeepfm", "1,2,4"))
 FLEET_ASYNC_REPLICAS = (1, 2, 4)
 FLEET_ASYNC_REQUESTS = 1024
+# phase 19: the mesh on the one card, N logical row shards of a store;
+# the train cell's first 3 steps at mesh 4 beside phase 5's, the pipeline
+# at --fast with every field capped at 1,000,000 rows (7,116,800 rows x
+# 64: a full-width pipeline writes a 33 GB train checkpoint, ~50 s)
+MESHES = (1, 2, 4)
+MESH_N = 4
+MESH_TRAIN_STEPS = 3
+MESH_PIPELINE_ROWS = 1_000_000
+SHARD_SUM_ITERS = 50
 
 
 T0 = time.monotonic()
@@ -1079,7 +1138,7 @@ def train_full(torch, kernel, autodiff, setup_mod, arch) -> tuple:
     log(f"train setup: {vocab:,} rows x {dim}, batch {batch}, "
         f"{build_s:.1f}s; reduced: {tr.reduced}")
 
-    losses, step_ms, stages = [], [], []
+    losses, step_ms, stages, digests = [], [], [], []
     kernel.reset_launches()
     for b in batches:
         marks = []
@@ -1098,6 +1157,9 @@ def train_full(torch, kernel, autodiff, setup_mod, arch) -> tuple:
         losses.append(float(m["loss"]))
         stages.append({name: a.elapsed_time(e) for (_, a), (name, e)
                        in zip(marks, marks[1:])})
+        if len(digests) < MESH_TRAIN_STEPS:
+            # phase 19(d)'s mesh-1 reference, outside the step's window
+            digests.append(state_digests(torch, state))
     launches = {"dequant_bag": kernel.total_launches(),
                 "bag_grad": kernel.bag_grad_launches["float32"]}
     peak = torch.cuda.max_memory_allocated()
@@ -1122,7 +1184,7 @@ def train_full(torch, kernel, autodiff, setup_mod, arch) -> tuple:
         "stage_ms_p50": {n: float(np.median([st[n] for st in stages[1:]]))
                          for n in names},
         "kernel_launches": launches,
-        "max_memory_allocated_bytes": peak,
+        "max_memory_allocated_bytes": peak, "digests": digests,
         "device_name": torch.cuda.get_device_name(0), "setup_s": build_s}}
     log(f"train check: {TRAIN_STEPS} steps, losses {losses[0]:.4f} -> "
         f"{losses[-1]:.4f}, one launch of each kernel a step, gather "
@@ -2465,6 +2527,7 @@ def pipeline_audit(torch, kernels_mod, label: str) -> tuple:
     versions launch no kernel (checked), so the run's counts stay the
     main path's."""
     from repro_torch.core import packed_store as ps
+    from repro_torch.dist.packed import ShardedPack, unshard_packed
     from repro_torch.kernels.dequant_bag import ref as db_ref
     from repro_torch.kernels.hashed_gather import ref as hg_ref
     from repro_torch.kernels.hashed_gather.ops import slot_plan
@@ -2496,6 +2559,8 @@ def pipeline_audit(torch, kernels_mod, label: str) -> tuple:
 
     def audit(stage, store, gidx, emb):
         before = kernels_mod.launch_counts()
+        if isinstance(store, ShardedPack):      # --mesh: the shards' pack
+            store = unshard_packed(store)
         with torch.inference_mode():
             if isinstance(store, ps.PackedStore):
                 plain = ps.lookup(store, gidx)
@@ -2526,12 +2591,14 @@ def pipeline_audit(torch, kernels_mod, label: str) -> tuple:
 
 
 def pipeline_phase(torch, kernels_mod, kernel, pipeline, argv: list,
-                   label: str) -> tuple[dict, dict]:
+                   label: str, mesh: int = 1) -> tuple[dict, dict]:
     """Phases 11 and 12: ``repro_torch.launch.pipeline`` as its CLI runs,
     with the counts set to 0 just before and read just after, and its
     served lookups held to the plain gather (``pipeline_audit``).
     Returns (the record, the run's launches by kernel and, for
-    dequant_bag, by payload dtype)."""
+    dequant_bag, by payload dtype).  Phase 19(e) runs it with ``--mesh
+    mesh`` in ``argv``: the train, finetune and eval gathers then launch
+    ``mesh`` times, the hashed serve its plan entry a shard."""
     from repro_torch.kernels.hashed_gather import kernel as hg_kernel
     from repro_torch.store.hashed import CG_ITERS, FIT_CHUNK_ROWS
 
@@ -2554,8 +2621,10 @@ def pipeline_phase(torch, kernels_mod, kernel, pipeline, argv: list,
     wanted = [
         rec["device"] == "cuda", steps == rec["train_steps"],
         {k: counts[k] for k in summed} == summed,
-        kl["train"]["dequant_bag"] == steps, kl["train"]["bag_grad"] == steps,
-        kl["finetune"]["dequant_bag"] == ft, kl["finetune"]["bag_grad"] == ft,
+        kl["train"]["dequant_bag"] == mesh * steps,
+        kl["train"]["bag_grad"] == mesh * steps,
+        kl["finetune"]["dequant_bag"] == mesh * ft,
+        kl["finetune"]["bag_grad"] == mesh * ft, rec["mesh"] == mesh,
         ft > 0, kl["gradcheck"]["bag_grad"] == 1,
         counts["dequant_bag_rowgrid"] == counts["bag_grad_rowgrid"] == 0,
         seen["eval"]["batches"] == 1,
@@ -2567,12 +2636,16 @@ def pipeline_phase(torch, kernels_mod, kernel, pipeline, argv: list,
     by_dtype, by_entry = (counts["dequant_bag_by_dtype"],
                           counts["hashed_gather_by_entry"])
     lookups = sum(kl[s]["dequant_bag"] for s in ("pack", "eval", "serve"))
+    # under a mesh the hashed serve gathers through the plan entry, one
+    # launch a shard
+    plan = by_entry["float32"]
     wanted += [
         by_dtype["int8"] == by_dtype["bfloat16"] == by_dtype["float16"] == 0,
         by_dtype["tiered"] == lookups,
         by_dtype["float32"] + by_dtype["tiered"] == counts["dequant_bag"],
-        by_entry["int8"] == by_entry["float32"] == by_entry["ids_int8"] == 0,
-        by_entry["ids_float32"] == counts["hashed_gather"]]
+        by_entry["int8"] == by_entry["ids_int8"] == 0,
+        plan == 0 if mesh == 1 else plan % mesh == 0,
+        by_entry["ids_float32"] + plan == counts["hashed_gather"]]
     if hashed:
         # the fit: 1 + CG_ITERS fwd and 2 + CG_ITERS adj passes over its
         # chunks, then fit_residual's gathers
@@ -2586,9 +2659,10 @@ def pipeline_phase(torch, kernels_mod, kernel, pipeline, argv: list,
                    0.0 < rec["fit_relative_residual"] < 1.0,
                    kl["serve"]["hashed_gather"] > 0]
     else:
+        cfg = (pipeline.fast_config() if "--fast" in argv
+               else pipeline.PipelineConfig())
         wanted += [kl["pack"]["quantize_rowwise"] > 0,
-                   kl["eval"]["dequant_bag"]
-                   == pipeline.PipelineConfig().eval_batches,
+                   kl["eval"]["dequant_bag"] == mesh * cfg.eval_batches,
                    kl["serve"]["dequant_bag"] > 0]
     if not all(wanted):
         raise SystemExit(f"pipeline {label}: unexpected launches, record "
@@ -3045,8 +3119,8 @@ def time_train_gather(torch, F, kernel_fn, hg_ref, pool, slots, coeff,
 
 
 def bench_hash(torch, kernels_mod, counters, path: str) -> dict:
-    """Phase 16 (a): ``python -m repro_torch.benchmarks.run --emit
-    path/BENCH_hash.json`` through its ``main`` at the reference's full
+    """Phase 16 (a): ``python -m repro_torch.benchmarks.run --fast --emit
+    path/BENCH_hash.json`` through its ``main`` at the reference's reduced
     budgets, with the counts set to 0 just before and read just after;
     the record through the unchanged schema tool; each kernel's launches
     as the sweep's steps, materialisations and requests make them."""
@@ -3062,7 +3136,7 @@ def bench_hash(torch, kernels_mod, counters, path: str) -> dict:
     audit = hash_step_audit(torch, counters, flush, seen)
     kernels_mod.reset_launches()
     t0 = time.perf_counter()
-    out = bench_run.main(["--emit", path], audit=audit)
+    out = bench_run.main(["--fast", "--emit", path], audit=audit)
     wall = time.perf_counter() - t0
     counts = path_counts(kernels_mod, kernel, hg_kernel)
     rec = out["BENCH_hash.json"]["record"]
@@ -3078,9 +3152,9 @@ def bench_hash(torch, kernels_mod, counters, path: str) -> dict:
     wanted = {
         "record as written": written == json.loads(json.dumps(rec)),
         "device": rec["device"] == "cuda",
-        "full budgets": (tuple(e["ratio_target"] for e in sweep),
-                         steps, rec["requests"])
-        == (hashed.FULL_RATIOS, 700, 96),
+        "reduced budgets": (tuple(e["ratio_target"] for e in sweep),
+                            steps, rec["requests"])
+        == (hashed.FAST_RATIOS, 120, 32),
         "plan entry a hashed step": by_entry["float32"] == n * steps,
         "bag_grad a step": counts["bag_grad"] == (n + 1) * steps,
         "dequant_bag a dense step": (by_dtype["float32"], counts[
@@ -3122,7 +3196,7 @@ def bench_hash(torch, kernels_mod, counters, path: str) -> dict:
                "device_name": rec["device_name"]}
     print(json.dumps({"bench_hash": summary}), flush=True)
     log(f"bench_hash: a valid bench_hash/v1 record in {wall:.1f}s at the "
-        f"reference's budgets ({n} ratios x {steps} steps + the dense arm; "
+        f"reference's --fast budgets ({n} ratios x {steps} steps + the dense arm; "
         f"{step_ms['dense']:.2f} / {step_ms['hashed_100']:.2f} ms a dense / "
         f"hashed step); AUC fp32 {rec['auc_fp32']}, by ratio "
         f"{[(e['ratio_target'], e['auc'], e['auc_combined']) for e in sweep]}"
@@ -3417,8 +3491,8 @@ def hier_serve(torch, serve, kernels_mod, counters, label: str, argv: list,
     which swaps published a new cold generation.  Returns (record, the
     path's counts, the audit's stats, the commits)."""
     from repro_torch.core import packed_store as ps
+    from repro_torch.dist.packed import ShardedPack
     from repro_torch.kernels.dequant_bag import kernel
-    from repro_torch.kernels.dequant_bag import ops as dq_ops
     from repro_torch.kernels.hashed_gather import kernel as hg_kernel
     from repro_torch.kernels.rowwise_quant import kernel as rq_kernel
     from repro_torch.serve import shadow
@@ -3434,8 +3508,10 @@ def hier_serve(torch, serve, kernels_mod, counters, label: str, argv: list,
             if (stats["batches"] - 1) % HIER_AUDIT_EVERY:
                 return
             with Uncounted(audited), torch.inference_mode():
-                fused = dq_ops.packed_lookup_fused(hot, sb.hot_local)
-                plain = ps.lookup(hot, sb.hot_local)
+                # the hot level's gather: fused, or sharded under a mesh
+                fused = server.lookup_fn()(hot, sb.hot_local)
+                plain = ps.lookup(hot.base if isinstance(hot, ShardedPack)
+                                  else hot, sb.hot_local)
             want = torch.from_numpy(server.hier.gather_fp32_host(
                 gidx.cpu().numpy()))
             if not (bits_equal(fused, plain) and bits_equal(emb.cpu(), want)):
@@ -4022,6 +4098,519 @@ def fleet_reference_record(torch, kernels_mod, tmp: str) -> dict:
     return counts
 
 
+def check_window_cases(torch, ops, ref, cases) -> float:
+    """Phase 2: the tiered entry's shard window on ``cases.window_cases``
+    (stores cut 2, 3 and 4 ways at the reference's stride, a one-row last
+    shard and empty windows, an empty int8 tier, int32 and int64 ids, K 1 /
+    8 / 40, NaN and inf weights on slots outside the window): each shard's
+    windowed launch against the windowed plain version (the reference's
+    per-shard composition through the plain bag) and through three
+    single-tier launches, bit for bit (NaN bags alike)."""
+    from repro_torch.core.packed_store import PackedStore
+    from repro_torch.dist import make_mesh
+    from repro_torch.dist import packed as dp
+
+    worst, launches = 0.0, 0
+    for c in cases.window_cases(torch.device("cuda")):
+        packed = PackedStore(*c.leaves)
+        sp = dp.shard_packed(packed, make_mesh(c.shards))
+        for shard, firsts in zip(sp.shards, sp.firsts):
+            got = ops.packed_bag_lookup(shard, c.ids, c.weights,
+                                        firsts=firsts)
+            plain = ops.packed_bag_lookup_tiers(
+                shard, c.ids, c.weights, bag=ref.dequant_bag_ref,
+                firsts=firsts)
+            composed = ops.packed_bag_lookup_tiers(shard, c.ids, c.weights,
+                                                   firsts=firsts)
+            torch.cuda.synchronize()
+            if not (scales_equal(got, plain) and scales_equal(got, composed)):
+                raise SystemExit(f"dequant_bag[tiered] window != the "
+                                 f"per-shard composition on case {c.name}, "
+                                 f"shard window {firsts}")
+            live = torch.isfinite(plain)
+            if bool(live.any()):
+                worst = max(worst, float((got[live] - plain[live]).abs()
+                                         .max()))
+            launches += 1
+    log(f"kernel check: dequant_bag[tiered]'s shard window bit-equal to the "
+        f"plain and the three-launch per-shard composition on "
+        f"{len(cases.WINDOW_CASE_NAMES)} window cases ({launches} shard "
+        f"launches; max abs err {worst})")
+    return worst
+
+
+def digest(torch, t) -> int:
+    """A 64-bit fingerprint of every bit of ``t``: each 32-bit word times a
+    weight of its row and column, summed mod 2^64 on the card in 2M-row
+    blocks.  Equal tensors give equal digests; a flipped bit changes it."""
+    rows = t.shape[0]
+    words = t.reshape(rows, -1).view(torch.int32)
+    colw = torch.arange(words.shape[1], device=t.device,
+                        dtype=torch.int64) * 7919 + 1
+    acc = torch.zeros((), dtype=torch.int64, device=t.device)
+    for r0 in range(0, rows, 1 << 21):
+        r1 = min(rows, r0 + (1 << 21))
+        roww = torch.arange(r0, r1, device=t.device,
+                            dtype=torch.int64) * 1000003 + 12345
+        acc += ((words[r0:r1].to(torch.int64) * roww[:, None])
+                * colw[None, :]).sum()
+    return int(acc)
+
+
+def state_digests(torch, state) -> dict:
+    """Phase 5 and 19(d): digests of the row-aligned training state after a
+    step (the table, the adagrad accumulator, the priority, the access
+    EMA)."""
+    return {"table": digest(torch, state.params["embed_table"]),
+            "adagrad": digest(torch, state.opt[1]),
+            "priority": digest(torch, state.priority),
+            "access": digest(torch, state.accum.access)}
+
+
+def mesh_dlrm(torch, serve, served, kernels_mod, kernel, hg_kernel, ops,
+              flush) -> tuple:
+    """Phase 19(a): the full-width dlrm-rm2 pack (204,185,088 x 64) sharded
+    with no copy at meshes 1, 2 and 4 (row views; ``indirect`` held once)
+    and 16 requests of batch 512 served through ``sharded_lookup`` at each
+    (``launch.serve``'s timed loop), the counts set to 0 just before and
+    read just after: the tiered entry N times a request, nothing else.
+    Then, outside the counts: every request's embeddings against the
+    plain ``lookup`` bit for bit, its logits within 1e-4 * max(1, |ref|)
+    of mesh 1's; the device memory allocated beside mesh 1's; a training
+    batch's 65,536 x 26 uniform ids through ``sharded_lookup`` at mesh 4
+    against the plain ``lookup`` with slots in every tier and shard; one
+    windowed launch, a sharded lookup and the shard sum timed (CUDA
+    events).  Returns (summary, counts by path, the tiered entry's mesh
+    timings)."""
+    import numpy as np
+
+    from repro_torch.configs.common import RECSYS_SHAPES
+    from repro_torch.core import packed_store as ps
+    from repro_torch.core.packed_store import _IDX_MASK, _TIER_SHIFT
+    from repro_torch.dist import make_mesh, psum
+    from repro_torch.dist import packed as dp
+    from repro_torch.models.embedding import globalize
+
+    dev = torch.device("cuda")
+    packed, model, params = served.packed, served.model, served.params
+    make = served.make_request
+    summary, by_path, timing, ref_logits, alloc = {}, {}, {}, None, {}
+    for n in MESHES:
+        mesh = make_mesh(n)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        sp = dp.shard_packed(packed, mesh)
+        torch.cuda.synchronize()
+        alloc[n] = torch.cuda.memory_allocated()
+        kernels_mod.reset_launches()
+        lat = serve.time_requests(model, params, sp, make, REQUESTS, dev)
+        counts = path_counts(kernels_mod, kernel, hg_kernel)
+        dq = counts["dequant_bag_by_dtype"]
+        others = {k: v for k, v in counts.items()
+                  if isinstance(v, int) and k != "dequant_bag" and v}
+        if (dq["tiered"] != n * REQUESTS or others
+                or any(v for t, v in dq.items() if t != "tiered")):
+            raise SystemExit(f"mesh {n} dlrm-rm2: the tiered entry did not "
+                             f"launch {n} times a request and nothing else: "
+                             f"{counts}")
+        by_path[f"mesh{n}_dlrm-rm2"] = counts
+        logits = []
+        with torch.inference_mode():
+            for r in range(REQUESTS):
+                batch = {k: v.to(dev) for k, v in make(r).items()}
+                gidx = globalize(batch["indices"], model.spec)
+                emb = dp.sharded_lookup(sp, gidx)
+                if not bits_equal(emb, ps.lookup(packed, gidx)):
+                    raise SystemExit(f"mesh {n} request {r}: embeddings != "
+                                     "the plain lookup")
+                logits.append(model.head(params, emb, batch))
+        if ref_logits is None:
+            ref_logits = logits
+        worst = 0.0
+        for a, b in zip(logits, ref_logits):
+            diff = (a - b).abs()
+            lim = 1e-4 * b.abs().clamp_min(1.0)
+            if not bool((diff <= lim).all()):
+                raise SystemExit(f"mesh {n}: logits off mesh 1's by "
+                                 f"{float(diff.max())}")
+            worst = max(worst, float(diff.max()))
+        # one request's lookup: the N windowed launches, the sharded lookup
+        # (launches and shard sum) and the shard sum alone
+        batch = {k: v.to(dev) for k, v in make(0).items()}
+        gidx = globalize(batch["indices"], model.spec)
+        ids = gidx.reshape(-1, 1)
+        window_ms = time_launches(torch, ops.packed_bag_lookup, [
+            (sh, ids, None, f) for sh, f in zip(sp.shards, sp.firsts)]
+            * (SHARD_SUM_ITERS // n), flush)
+        lookup_ms = time_launches(torch, dp.sharded_lookup,
+                                  [(sp, gidx)] * SHARD_SUM_ITERS, flush)
+        parts = [ops.packed_bag_lookup(sh, ids, None, firsts=f)
+                 for sh, f in zip(sp.shards, sp.firsts)]
+        firsts = [p.clone() for p in parts[:1] * SHARD_SUM_ITERS]
+        sum_ms = time_launches(torch, lambda p0: psum([p0, *parts[1:]],
+                                                      mesh),
+                               [(p,) for p in firsts], flush)
+        del parts, firsts
+        lat_us = np.asarray(lat[1:]) * 1e6
+        summary[n] = {"p50_us": float(np.percentile(lat_us, 50)),
+                      "p99_us": float(np.percentile(lat_us, 99)),
+                      "launches_a_request": dq["tiered"] / REQUESTS,
+                      "logits_max_abs_diff_vs_mesh1": worst,
+                      "allocated_bytes": alloc[n],
+                      "allocated_by_sharding_bytes": alloc[n] - before,
+                      "window_launch_ms": window_ms,
+                      "sharded_lookup_ms": lookup_ms,
+                      "shard_sum_ms": sum_ms}
+        timing[n] = {k: summary[n][k] for k in ("window_launch_ms",
+                                                "sharded_lookup_ms",
+                                                "shard_sum_ms")}
+        if n == MESH_N:
+            # a training batch's uniform ids: slots in every tier and shard
+            m = RECSYS_SHAPES["train_batch"]["batch"]
+            spec = model.spec
+            gen = torch.Generator(device=dev).manual_seed(0)
+            with torch.inference_mode():
+                tids = torch.randint(0, 1 << 62, (m, spec.num_fields),
+                                     generator=gen, device=dev) % torch.tensor(
+                                         spec.cardinalities, device=dev)
+                tg = globalize(tids, spec)
+                emb = dp.sharded_lookup(sp, tg)
+                plain = ps.lookup(packed, tg)
+                code = packed.indirect[tg.to(torch.int64)].reshape(-1)
+                tier = (code >> _TIER_SHIFT).to(torch.int64)
+                stride = torch.tensor([dp.shard_stride(r, n)
+                                       for r in sp.tier_rows], device=dev)
+                shard = (code & _IDX_MASK).to(torch.int64) // stride[tier]
+                cells = torch.bincount(tier * n + shard,
+                                       minlength=3 * n).tolist()
+            if not bits_equal(emb, plain) or min(cells) <= 0:
+                raise SystemExit(f"mesh {n}: a training batch's lookup != "
+                                 f"the plain one, or a (tier, shard) cell "
+                                 f"has no slot: {cells}")
+            summary[n]["train_batch_slots_by_tier_and_shard"] = cells
+            del tids, tg, emb, plain, code, tier, shard
+        del sp
+        torch.cuda.empty_cache()
+        log(f"mesh {n} dlrm-rm2: {REQUESTS} requests, p50 "
+            f"{summary[n]['p50_us']:.0f} us p99 {summary[n]['p99_us']:.0f} "
+            f"us, {n} tiered launches a request, embeddings bit-equal to the "
+            f"plain lookup, logits within {worst:.3g} of mesh 1's; a "
+            f"window launch {window_ms:.4f} ms, the sharded lookup "
+            f"{lookup_ms:.4f} ms, the shard sum {sum_ms:.4f} ms; "
+            f"{alloc[n] - before} bytes allocated by the sharding")
+    if abs(alloc[MESH_N] - alloc[1]) > 8 << 20:
+        raise SystemExit(f"mesh {MESH_N} allocates {alloc[MESH_N]} bytes, "
+                         f"mesh 1 {alloc[1]}: the shards are not views")
+    return summary, by_path, timing
+
+
+def mesh_online(torch, serve, kernels_mod, kernel, hg_kernel, arch: str,
+                n: int, ref_logits: list | None, ref_rec: dict | None
+                ) -> tuple:
+    """Phase 19(b): ``launch.serve --online --fuse-matmul --model full
+    --mesh n`` (phase 8's arguments), the counts set to 0 just before and
+    read just after: bag_matmul 3 x n times a request, cin 3 times a
+    request on xDeepFM, the tiered entry n times a packed lookup (each
+    cache build, and each request on xDeepFM), no single-tier launch.
+    Each request's fused logits within 1e-4 * max(1, |ref|) of
+    ``ref_logits`` (mesh 1's, phase 8); the re-tiers and rows moved
+    those of ``ref_rec``; after the run the cache's rows equal the plain
+    ``lookup`` of the live pack bit for bit.  Returns (record, counts,
+    logits)."""
+    from repro_torch import configs
+    from repro_torch.configs.common import RECSYS_SHAPES
+    from repro_torch.core import packed_store as ps
+    from repro_torch.dist.packed import ShardedPack
+
+    argv = ["--arch", arch, "--online", "--fuse-matmul", "--model", "full",
+            "--batch", str(RECSYS_SHAPES["serve_p99"]["batch"]),
+            "--requests", str(REQUESTS), "--retier-every", "2",
+            "--cache-rows", "256", "--drift", "4.0", "--mesh", str(n)]
+    logits, worst = [], {"abs": 0.0}
+
+    def make_audit(server, model, params):
+        def audit(r, idx):
+            def after(out, emb):
+                if out.shape != (idx.shape[0],) or not bool(
+                        torch.isfinite(out).all()):
+                    raise SystemExit(f"mesh {n} {arch} request {r}: bad "
+                                     f"logits {tuple(out.shape)}")
+                got = out.cpu()
+                if ref_logits is not None:
+                    ref = ref_logits[r]
+                    diff = (got - ref).abs()
+                    if not bool((diff <= 1e-4 * ref.abs().clamp_min(1.0))
+                                .all()):
+                        raise SystemExit(f"mesh {n} {arch} request {r}: "
+                                         f"logits off mesh 1's by "
+                                         f"{float(diff.max())}")
+                    worst["abs"] = max(worst["abs"], float(diff.max()))
+                logits.append(got)
+            return after
+        return audit
+
+    kernels_mod.reset_launches()
+    served = serve.run(serve.parse_args(argv), make_audit=make_audit)
+    counts = path_counts(kernels_mod, kernel, hg_kernel)
+    rec, server = served.record, served.server
+    layers = len(getattr(configs.get(arch).cfg, "cin_layers", ()))
+    lookups = (REQUESTS if arch == "xdeepfm" else 0) + 1 + server.stats.retiers
+    dq = counts["dequant_bag_by_dtype"]
+    if (counts["bag_matmul"] != 3 * n * REQUESTS
+            or counts["cin"] != layers * REQUESTS
+            or dq["tiered"] != n * lookups
+            or any(v for t, v in dq.items() if t != "tiered")
+            or rec["mesh"] != n or len(logits) != REQUESTS
+            or (n > 1) != isinstance(server.packed, ShardedPack)):
+        raise SystemExit(f"mesh {n} {arch}: launches {counts}, record "
+                         f"{rec['kernel_launches']}, {lookups} lookups")
+    if ref_rec is not None and (rec["retiers"], rec["rows_moved"]) != (
+            ref_rec["retiers"], ref_rec["rows_moved"]):
+        raise SystemExit(f"mesh {n} {arch}: re-tiers {rec['retiers']} moved "
+                         f"{rec['rows_moved']}, mesh 1 {ref_rec['retiers']} / "
+                         f"{ref_rec['rows_moved']}")
+    cache = server.cache
+    with torch.inference_mode():
+        plain = ps.lookup(server.host_packed, cache.ids)
+    if not bits_equal(cache.rows[:cache.capacity], plain):
+        raise SystemExit(f"mesh {n} {arch}: the cache's rows != the plain "
+                         "lookup of the live pack")
+    summary = {k: rec[k] for k in ("p50_us", "p99_us", "steady_qps",
+                                   "retiers", "rows_moved", "hits",
+                                   "lookups", "build_s")}
+    summary.update({"arch": arch, "mesh": n, "path_launches": counts,
+                    "logits_max_abs_diff_vs_mesh1": worst["abs"]})
+    print(json.dumps({"mesh_online": summary}), flush=True)
+    log(f"mesh {n} {arch} online: p50 {rec['p50_us']:.0f} us p99 "
+        f"{rec['p99_us']:.0f} us, {rec['retiers']} re-tiers moved "
+        f"{rec['rows_moved']:,} rows under the mesh, bag_matmul "
+        f"{counts['bag_matmul']} and tiered {dq['tiered']} launches, logits "
+        f"within {worst['abs']:.3g} of mesh 1's, cache rows bit-equal to the "
+        f"plain lookup")
+    del served, server
+    return rec, counts, logits
+
+
+def mesh_hashed(torch, serve, kernels_mod, kernel, hg_kernel) -> tuple:
+    """Phase 19(c): the hashed wide&deep store at full width (22,216,192 x
+    32 fitted at ratio 100) with ``--mesh 4``, the counts set to 0 just
+    before and read just after: the plan entry 4 times a request (the
+    sharded request path), the ids entry at the fit and the cache
+    builds.  Then 1,048,576 uniform ids through the sharded gather
+    against the unsharded one: within 1e-6 * max(1, |ref|) (the shard
+    partials round on their own; with two draws a chunk they keep the
+    bits, which the summary reports).  Returns (summary, counts)."""
+    from repro_torch.configs.common import RECSYS_SHAPES
+    from repro_torch.store import hashed as H
+
+    argv = ["--arch", "wide-deep", "--online", "--store-backend", "hashed",
+            "--model", "full", "--batch",
+            str(RECSYS_SHAPES["serve_p99"]["batch"]), "--requests",
+            str(REQUESTS), "--retier-every", "2", "--cache-rows", "256",
+            "--drift", "4.0", "--mesh", str(MESH_N)]
+    kernels_mod.reset_launches()
+    served = serve.run(serve.parse_args(argv))
+    counts = path_counts(kernels_mod, kernel, hg_kernel)
+    rec, backend = served.record, served.server.backend
+    by_entry = counts["hashed_gather_by_entry"]
+    in_loop = rec["kernel_launches"]["hashed_gather"]
+    if (by_entry["float32"] != MESH_N * REQUESTS
+            or in_loop != MESH_N * REQUESTS + rec["retiers"]
+            or by_entry["int8"] or by_entry["ids_int8"]):
+        raise SystemExit(f"mesh hashed: launches {counts}, in the loop "
+                         f"{in_loop}, {rec['retiers']} re-tiers")
+    dev = backend.device
+    gen = torch.Generator(device=dev).manual_seed(1)
+    with torch.inference_mode():
+        ids = torch.randint(0, backend.vocab, (1 << 20,), generator=gen,
+                            device=dev)
+        got = backend.lookup_fn()(backend.packed, ids)
+        ref = H.hashed_lookup(backend.hs, backend.hcfg, ids)
+        diff = (got - ref).abs()
+        ok = bool((diff <= 1e-6 * ref.abs().clamp_min(1.0)).all())
+        same = bits_equal(got, ref)
+    if not ok:
+        raise SystemExit(f"mesh hashed: sharded rows off the unsharded ones "
+                         f"by {float(diff.max())}")
+    summary = {k: rec[k] for k in ("p50_us", "p99_us", "retiers", "hits",
+                                   "pool_slots", "fit_s")}
+    summary.update({"mesh": MESH_N, "rows_checked": int(ids.numel()),
+                    "max_abs_diff_vs_mesh1": float(diff.max()),
+                    "bit_equal_to_mesh1": same, "path_launches": counts})
+    print(json.dumps({"mesh_hashed": summary}), flush=True)
+    log(f"mesh {MESH_N} hashed wide&deep: p50 {rec['p50_us']:.0f} us, the "
+        f"plan entry {by_entry['float32']} times ({MESH_N} a request), "
+        f"{ids.numel():,} rows within {float(diff.max()):.3g} of the "
+        f"unsharded gather (bit-equal: {same})")
+    del served, backend, got, ref, diff
+    return summary, counts
+
+
+def train_mesh(torch, kernel, setup_mod, arch, n: int) -> dict:
+    """Phase 19(d): the compressed train step at the train cell
+    (124,185,088 rows, batch 65,536) over an n-shard mesh for
+    ``MESH_TRAIN_STEPS`` steps from phase 5's seed, the counts set to 0
+    just before and read just after (the forward and bag_grad n times a
+    step); after each step, outside its window, the state's digests."""
+    import numpy as np
+
+    from repro_torch.configs.common import RECSYS_SHAPES
+    from repro_torch.dist import make_mesh
+
+    dev = torch.device("cuda")
+    batch = RECSYS_SHAPES["train_batch"]["batch"]
+    torch.cuda.reset_peak_memory_stats()
+    tr = setup_mod.build_recsys_training(
+        arch, batch=batch, device=dev, model="full",
+        max_ind_range=MAX_IND_RANGE, mesh=None if n == 1 else make_mesh(n))
+    batches = [tr.batch_fn(s) for s in range(MESH_TRAIN_STEPS)]
+    state = tr.state
+    losses, step_ms, digests = [], [], []
+    kernel.reset_launches()
+    for b in batches:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = tr.step(state, b)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        launches = {"dequant_bag": kernel.launches["float32"],
+                    "bag_grad": kernel.bag_grad_launches["float32"]}
+        losses.append(float(m["loss"]))
+        digests.append(state_digests(torch, state))
+    peak = torch.cuda.max_memory_allocated()
+    want = n * MESH_TRAIN_STEPS
+    if (launches != {"dequant_bag": want, "bag_grad": want}
+            or kernel.total_launches() != want
+            or not all(np.isfinite(losses))):
+        raise SystemExit(f"mesh {n} train: launches {launches} (want {n} a "
+                         f"step), losses {losses}")
+    del tr, state, batches
+    torch.cuda.empty_cache()
+    return {"mesh": n, "losses": losses, "step_ms": step_ms,
+            "digests": digests, "kernel_launches": launches,
+            "max_memory_allocated_bytes": peak}
+
+
+def mesh_qps_sharded(torch, kernels_mod, kernel, hg_kernel, tmp: str
+                     ) -> tuple:
+    """Phase 19(f): ``python -m repro_torch.benchmarks.qps_sharded
+    --emit-dir TMP`` (the reference record's configuration: smoke
+    dlrm-rm2, meshes 1, 2, 4, serve batches 1 and 8, 48 requests) in
+    process, the counts around it; each record through the unchanged
+    schema tool in a subprocess."""
+    from repro_torch.benchmarks import qps_sharded
+    kernels_mod.reset_launches()
+    recs = qps_sharded.main(["--emit-dir", tmp])
+    counts = path_counts(kernels_mod, kernel, hg_kernel)
+    paths = [os.path.join(tmp, f"BENCH_qps_mesh{n}.json") for n in MESHES]
+    check_files(paths)
+    if (sorted(recs) != list(MESHES)
+            or counts["dequant_bag_by_dtype"]["tiered"] <= 0
+            or any(recs[n]["mesh"] != n for n in MESHES)):
+        raise SystemExit(f"qps_sharded: records {sorted(recs)}, launches "
+                         f"{counts}")
+    summary = {n: [{k: e[k] for k in ("serve_batch", "p50_us", "p99_us",
+                                      "steady_qps", "retiers")}
+                   for e in recs[n]["sweep"]] for n in MESHES}
+    print(json.dumps({"qps_sharded": summary}), flush=True)
+    log(f"qps_sharded: {len(paths)} bench_qps/v1 records valid: {summary}")
+    return summary, counts
+
+
+def mesh_phase(torch, serve, pipeline, kernels_mod, kernel, hg_kernel,
+               setup_mod, counters, online_refs: dict,
+               train_ref: dict | None) -> tuple:
+    """Phase 19 (b)-(f); (a) runs beside phase 4, on its live pack.
+    ``online_refs`` holds phase 8's (logits, record) by arch and
+    ``train_ref`` phase 5's digests; without them (``--mesh-only``) mesh 1
+    runs here first.  Returns (summary, counts by path)."""
+    from repro_torch import configs
+
+    summary, by_path = {}, {}
+    for arch in ONLINE_ARCHS:
+        if arch not in online_refs:
+            rec, _, logits = mesh_online(torch, serve, kernels_mod, kernel,
+                                         hg_kernel, arch, 1, None, None)
+            online_refs[arch] = (logits, rec)
+            torch.cuda.empty_cache()
+        ref_logits, ref_rec = online_refs[arch]
+        rec, counts, _ = mesh_online(torch, serve, kernels_mod, kernel,
+                                     hg_kernel, arch, MESH_N, ref_logits,
+                                     ref_rec)
+        by_path[f"mesh{MESH_N}_online_{arch}"] = counts
+        summary[f"online_{arch}"] = {
+            "mesh1": {k: ref_rec[k] for k in ("p50_us", "p99_us")},
+            f"mesh{MESH_N}": {k: rec[k] for k in ("p50_us", "p99_us")},
+            "bag_matmul_a_request": counts["bag_matmul"] / REQUESTS}
+        torch.cuda.empty_cache()
+    summary["hashed"], by_path[f"mesh{MESH_N}_hashed"] = mesh_hashed(
+        torch, serve, kernels_mod, kernel, hg_kernel)
+    torch.cuda.empty_cache()
+    wd_mb = hier_budget_mb(torch, serve, "wide-deep", HIER_FRACTION)
+    argv = ["--arch", "wide-deep", "--serve-batch", "8", "--cache-rows",
+            "256", "--retier-every", "64", "--drift", "4.0",
+            "--hbm-budget-mb", repr(wd_mb), "--host-budget-mb", repr(wd_mb),
+            "--requests", str(HIER_REQUESTS), "--mesh", str(MESH_N)]
+    with tempfile.TemporaryDirectory() as tmp:
+        rec, counts, _, _ = hier_serve(
+            torch, serve, kernels_mod, counters,
+            f"mesh{MESH_N}_hier_wide-deep", argv, os.path.join(tmp, "cold"))
+    by_path[f"mesh{MESH_N}_hier_wide-deep"] = counts
+    # the card's budget holds all its shards: the hot level once
+    if rec["level_bytes"]["hot"] > rec["hbm_budget_mb"] * 2 ** 20:
+        raise SystemExit(f"mesh {MESH_N} hier: the hot level's "
+                         f"{rec['level_bytes']['hot']:,} bytes exceed "
+                         f"--hbm-budget-mb {rec['hbm_budget_mb']}")
+    summary["hier_wide-deep"] = {k: rec[k] for k in (
+        "p50_us", "p99_us", "level_rows", "level_bytes", "migrations",
+        "verify_s")}
+    torch.cuda.empty_cache()
+
+    arch = configs.get("dlrm-rm2")
+    if train_ref is None:
+        train_ref = train_mesh(torch, kernel, setup_mod, arch, 1)
+    got = train_mesh(torch, kernel, setup_mod, arch, MESH_N)
+    for step, (a, b) in enumerate(zip(got["digests"], train_ref["digests"])):
+        if a != b or got["losses"][step] != train_ref["losses"][step]:
+            raise SystemExit(f"mesh {MESH_N} train step {step}: state "
+                             f"digests {a} or loss {got['losses'][step]} != "
+                             f"mesh 1's {b} / {train_ref['losses'][step]}")
+    by_path[f"mesh{MESH_N}_train"] = {
+        "dequant_bag": got["kernel_launches"]["dequant_bag"],
+        "bag_grad": got["kernel_launches"]["bag_grad"]}
+    summary["train"] = {
+        "mesh1": {"step_ms": train_ref["step_ms"][:MESH_TRAIN_STEPS],
+                  "max_memory_allocated_bytes":
+                  train_ref["max_memory_allocated_bytes"]},
+        f"mesh{MESH_N}": {"step_ms": got["step_ms"],
+                          "max_memory_allocated_bytes":
+                          got["max_memory_allocated_bytes"]},
+        "losses": got["losses"], "bit_equal_steps": len(got["digests"])}
+    log(f"mesh {MESH_N} train: {MESH_TRAIN_STEPS} steps at "
+        f"{got['step_ms']} ms (mesh 1 {train_ref['step_ms'][:3]}), table, "
+        f"adagrad, priority, access EMA and loss bit-equal to mesh 1's after "
+        f"each step; peak {got['max_memory_allocated_bytes'] / 1e9:.2f} GB "
+        f"(mesh 1 {train_ref['max_memory_allocated_bytes'] / 1e9:.2f} GB)")
+
+    for label, extra in (("mesh2_pipeline", []),
+                         ("mesh2_pipeline_hashed",
+                          ["--store-backend", "hashed"])):
+        rec, counts = pipeline_phase(
+            torch, kernels_mod, kernel, pipeline,
+            ["--mesh", "2", "--fast", "--max-ind-range",
+             str(MESH_PIPELINE_ROWS), *extra], label, mesh=2)
+        by_path[label] = counts
+        summary[label] = {k: rec[k] for k in ("rows", "train_loss_last",
+                                              "eval_auc_packed",
+                                              "stage_seconds")}
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        summary["qps_sharded"], by_path["qps_sharded"] = mesh_qps_sharded(
+            torch, kernels_mod, kernel, hg_kernel, tmp)
+    torch.cuda.empty_cache()
+    return summary, by_path
+
+
 def fleet_phase(torch, kernels_mod, counters) -> dict:
     """Phase 18: the serving fleet; returns each path's counts."""
     by_path = {}
@@ -4050,6 +4639,11 @@ def main() -> int:
     ap.add_argument("--fleet-only", action="store_true",
                     help="build the kernels and run phase 18 alone (a "
                          "quick check of the serving fleet; prints no "
+                         "kernels line and no ok line)")
+    ap.add_argument("--mesh-only", action="store_true",
+                    help="build the kernels and run phase 19 alone, with "
+                         "its mesh-1 references and phase 2's window "
+                         "cases (a quick check of the mesh; prints no "
                          "kernels line and no ok line)")
     args = ap.parse_args()
 
@@ -4111,9 +4705,27 @@ def main() -> int:
         by_path = fleet_phase(torch, kernels_mod, counters)
         log(f"phase 18 alone: {sorted(by_path)}")
         return 0
+    if args.mesh_only:
+        counters = (kernel.launches, kernel.bag_grad_launches,
+                    bm_kernel.launches, cin_kernel.launches,
+                    hg_kernel.launches, rq_kernel.launches)
+        check_window_cases(torch, ops, ref, cases)
+        served = serve.run(serve.parse_args(["--model", "full", "--batch",
+                                             "512", "--requests", "2"]))
+        flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+        dlrm, by_path, _ = mesh_dlrm(torch, serve, served, kernels_mod,
+                                     kernel, hg_kernel, ops, flush)
+        del served, flush
+        torch.cuda.empty_cache()
+        rest, more = mesh_phase(torch, serve, pipeline, kernels_mod, kernel,
+                                hg_kernel, setup_mod, counters, {}, None)
+        print(json.dumps({"mesh": {"dlrm-rm2": dlrm, **rest}}), flush=True)
+        log(f"phase 19 alone: {sorted({**by_path, **more})}")
+        return 0
 
     worst = check_kernels(torch, ops, ref)
-    worst_cases = check_gather_cases(torch, kernel, ops, ref, cases)
+    worst_cases = max(check_gather_cases(torch, kernel, ops, ref, cases),
+                      check_window_cases(torch, ops, ref, cases))
     worst_grad = max(check_bag_grad(torch, ops, ref),
                      check_bag_grad_schedules(torch, kernel, ref))
     worst_bm = check_bag_matmul(torch, bm_ops, bm_ref)
@@ -4135,6 +4747,11 @@ def main() -> int:
     quant_entry = measure_quantize(torch, served, rq_kernel, rq_ref, flush,
                                    worst_rq)
     quant_by_path = {"serve": launches["quantize_rowwise"], "train": 0}
+    # phase 19(a) on this live pack: meshes 1, 2, 4 of row views
+    mesh_dlrm_summary, mesh_dlrm_counts, mesh_timing = mesh_dlrm(
+        torch, serve, served, kernels_mod, kernel, hg_kernel, ops, flush)
+    next(k for k in kernels if k["name"] == "dequant_bag[tiered]")[
+        "mesh_request"] = mesh_timing
     del flush
     if args.trace:
         trace(torch, serve, served, 8, args.trace)
@@ -4262,17 +4879,18 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # the SHARK pipeline at full width (with its metrics stream, checked in
-    # phase 13), then its hashed branch over the same 124,185,088 rows
+    # phase 13), then its hashed branch over the same 64,184,832 rows
     metrics_dir = tempfile.TemporaryDirectory()
     pipeline_metrics = os.path.join(metrics_dir.name, "pipeline.jsonl")
     pipeline_recs = {}
     for label, argv in (
             ("pipeline", ["--model", "full", "--max-ind-range",
-                          str(MAX_IND_RANGE), "--batch", "65536", "--steps",
+                          str(PIPELINE_MAX_IND_RANGE), "--batch", "65536",
+                          "--steps",
                           str(PIPELINE_STEPS), "--metrics-out",
                           pipeline_metrics]),
             ("pipeline_hashed", ["--model", "full", "--max-ind-range",
-                                 str(MAX_IND_RANGE),
+                                 str(PIPELINE_MAX_IND_RANGE),
                                  "--batch", "65536", "--steps",
                                  str(PIPELINE_STEPS), "--store-backend",
                                  "hashed"])):
@@ -4352,6 +4970,31 @@ def main() -> int:
 
     # phase 18: the serving fleet at full width, then its smoke record
     for label, counts in fleet_phase(torch, kernels_mod, counters).items():
+        record_path(kernels, grad_entry, quant_by_path, rowgrid_by_path,
+                    label, counts,
+                    arch=("xdeepfm" if "xdeepfm" in label else "wide-deep"
+                          if "wide-deep" in label else "dlrm-rm2"))
+
+    # phase 19: the mesh ((a) ran beside phase 4)
+    mesh_summary, mesh_counts = mesh_phase(
+        torch, serve, pipeline, kernels_mod, kernel, hg_kernel, setup_mod,
+        counters, {arch: (online_logits[arch], online_recs[arch])
+                   for arch in ONLINE_ARCHS}, train_rec["train"])
+    print(json.dumps({"mesh": {"dlrm-rm2": mesh_dlrm_summary,
+                               **mesh_summary}}), flush=True)
+    for label, counts in {**mesh_dlrm_counts, **mesh_counts}.items():
+        if label == f"mesh{MESH_N}_train":
+            # the train step: the float32 forward and bag_grad only
+            full = {k: 0 for k in mesh_dlrm_counts["mesh1_dlrm-rm2"]
+                    if isinstance(mesh_dlrm_counts["mesh1_dlrm-rm2"][k],
+                                  int)}
+            full.update(counts)
+            full["dequant_bag_by_dtype"] = {
+                t: (counts["dequant_bag"] if t == "float32" else 0)
+                for t in kernel.launches}
+            full["hashed_gather_by_entry"] = {t: 0 for t in
+                                              hg_kernel.launches}
+            counts = full
         record_path(kernels, grad_entry, quant_by_path, rowgrid_by_path,
                     label, counts,
                     arch=("xdeepfm" if "xdeepfm" in label else "wide-deep"

@@ -10,7 +10,9 @@ flags (``repro_torch.kernels.build.NVCC_FLAGS``) into
 export ``dequant_bag_launch`` and ``hashed_gather_launch`` with the
 signatures of ``src/repro_torch/csrc/``; a build that also exports the
 one-launch entries (``dequant_bag_tiered_launch``,
-``hashed_gather_ids_launch``) has them timed too.  To compare a commit
+``hashed_gather_ids_launch``) has them timed too (the tiered entry with
+or without the shard windows of PR 25, read from its source, a whole
+store either way).  To compare a commit
 with its parent, unpack the parent's ``src/repro_torch/csrc`` into an
 ignored directory (``git archive PARENT src/repro_torch/csrc | tar -x -C
 build/parent``) and name both.
@@ -72,6 +74,11 @@ SIGNATURES = {
     "hashed_gather_launch": [P, I, P, P, P, P, LL, I, I, I, P],
     "hashed_gather_ids_launch": [P, I, P, P, I, P, P, LL, I, I, I, LL,
                                  ctypes.c_uint, I, P]}
+# the tiered entry with a shard window a tier (a first row before each
+# tier's row count), since PR 25; a whole store is the window (0, V_t)
+WINDOWED_TIERED = [P, P, P, LL, LL, P, I, P, LL, LL, P, LL, LL, P, I, P, P,
+                   LL, I, LL, P]
+WINDOWED = set()    # ids of the loaded tiered entries that take windows
 DTYPE_CODE = {"int8": 0, "bfloat16": 1, "float32": 2, "float16": 3}
 
 
@@ -88,10 +95,14 @@ def build(name: str, source: Path) -> dict:
                         str(path), str(source)], check=True, timeout=600,
                        capture_output=True)
     lib = ctypes.CDLL(str(path))
+    windowed = b"long long first8" in source.read_bytes()
     fns = {}
     for fn, argtypes in SIGNATURES.items():
         if hasattr(lib, fn):
             f = getattr(lib, fn)
+            if fn == "dequant_bag_tiered_launch" and windowed:
+                argtypes = WINDOWED_TIERED
+                WINDOWED.add(id(f))
             f.argtypes, f.restype = argtypes, ctypes.c_int
             fns[fn] = f
     return fns
@@ -244,13 +255,21 @@ def main() -> int:
             for n in names:
                 total[n] += ms[n]
 
+        half_code = DTYPE_CODE[str(half).removeprefix("torch.")]
+        tail = (ids.data_ptr(), 1, None, out.data_ptr(), ids.shape[0], 1, d,
+                stream)
+
         def tiered(fn):
-            call(fn, indirect.data_ptr(), payloads[0].data_ptr(),
-                 scales[0].data_ptr(), rows[0], payloads[1].data_ptr(),
-                 DTYPE_CODE[str(half).removeprefix("torch.")],
-                 scales[1].data_ptr(), rows[1], payloads[2].data_ptr(),
-                 rows[2], ids.data_ptr(), 1, None, out.data_ptr(),
-                 ids.shape[0], 1, d, stream)
+            if id(fn) in WINDOWED:     # the whole store: windows (0, V_t)
+                call(fn, indirect.data_ptr(), payloads[0].data_ptr(),
+                     scales[0].data_ptr(), 0, rows[0], payloads[1].data_ptr(),
+                     half_code, scales[1].data_ptr(), 0, rows[1],
+                     payloads[2].data_ptr(), 0, rows[2], *tail)
+            else:
+                call(fn, indirect.data_ptr(), payloads[0].data_ptr(),
+                     scales[0].data_ptr(), rows[0], payloads[1].data_ptr(),
+                     half_code, scales[1].data_ptr(), rows[1],
+                     payloads[2].data_ptr(), rows[2], *tail)
             return out
         if any("dequant_bag_tiered_launch" in builds[n] for n in names):
             ms, _ = timed(tiered, "dequant_bag_tiered_launch", composed)

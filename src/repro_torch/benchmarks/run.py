@@ -9,13 +9,14 @@ derived`` rows (``derived`` carries the table's payload as key=value
 pairs), after one ``#`` line naming the reference's jobs not ported
 yet.  The jobs are the paper's six (``table2_time``, ``table3_fquant``,
 ``fig3_thresholds``, ``table4_combined``, ``fig2_fperm``,
-``freq_error``), the offline QPS proxy ``qps`` (``benchmarks.qps.run``)
-and the hashed ratio sweep ``hashed``, at the reference's budgets
-(``--fast``: its reduced ones).  They run on ``cuda`` unless ``--device
+``freq_error``), the offline QPS proxy ``qps`` (``benchmarks.qps.run``),
+the sharded serving sweep ``qps_sharded`` (``benchmarks.qps_sharded.run``:
+meshes 1, 2, 4 of the smoke dlrm-rm2) and the hashed ratio sweep
+``hashed``, at the reference's budgets (``--fast``: its reduced ones).  They run on ``cuda`` unless ``--device
 cpu``, and raise without a GPU.  Unlike the reference, a job's exception
 is not caught: it propagates and the process exits non-zero.  ``--only``
-with a job that waits (``qps_sharded``, ``roofline``) raises
-``NotImplementedError`` naming its ROADMAP item.
+with a job that waits (``roofline``) raises ``NotImplementedError``
+naming its ROADMAP item.
 
 ``--emit PATH`` writes one record instead, dispatched on the basename
 through ``benchmarks.manifest.COMMITTED_BENCH`` as the reference does:
@@ -45,7 +46,6 @@ from typing import Callable
 
 # the reference's jobs not ported yet, with their ROADMAP Queue 1 items
 WAITING = {
-    "qps_sharded": "item 7, the mesh",
     "roofline": "item 9, autotune with benchmarks/kernels.py",
 }
 # the manifest's records whose modules are not ported yet
@@ -60,8 +60,8 @@ def jobs(fast: bool, device, audit=None
     goes to ``qps.run``."""
     from repro_torch.benchmarks import (fig2_fperm, fig3_thresholds,
                                         freq_error, hashed, qps,
-                                        table2_time, table3_fquant,
-                                        table4_combined)
+                                        qps_sharded, table2_time,
+                                        table3_fquant, table4_combined)
     return {
         "table2_time": lambda: table2_time.run(
             eval_batches=2 if fast else 4, shuffles=1 if fast else 2,
@@ -81,6 +81,9 @@ def jobs(fast: bool, device, audit=None
             finetune_steps=40 if fast else 150, device=device),
         "qps": lambda: qps.run(iters=5 if fast else 20, device=device,
                                audit=audit),
+        "qps_sharded": lambda: qps_sharded.run(
+            requests=24 if fast else 48,
+            serve_batches=(8,) if fast else (1, 8), device=device),
         "freq_error": lambda: freq_error.run(
             train_steps=100 if fast else 400, device=device),
         "hashed": lambda: hashed.run(fast=fast, device=device),

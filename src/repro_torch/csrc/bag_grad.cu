@@ -521,6 +521,8 @@ light_rows_kernel(const float* __restrict__ g,
 
 // ---- launch ---------------------------------------------------------------
 
+constexpr int kMaxDevices = 64;
+
 int sm_count() {
   static int count = 0;
   if (count == 0) {
@@ -550,12 +552,17 @@ int launch_heavy(const float* g, const int32_t* rows, const int64_t* slots,
   if (nring < 2) return (int)cudaErrorInvalidValue;
   const int smem = nring * stage_bytes + id_bytes;
   auto kernel = heavy_rows_kernel<CB>;
-  static int set_smem = 0;               // the limit, once for each size
-  if (smem != set_smem) {
+  // the limit, once for each size on each device (a function's
+  // attributes are the current device's)
+  static int set_smem[kMaxDevices] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices)
+    return (int)cudaErrorInvalidDevice;
+  if (smem != set_smem[dev]) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
-    set_smem = smem;
+    set_smem[dev] = smem;
   }
   const int blocks = sm_count() < cap ? sm_count() : cap;
   kernel<<<blocks, kHeavyThreads, smem, st>>>(g, rows, slots, coeff, out, n,

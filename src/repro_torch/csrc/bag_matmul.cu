@@ -507,6 +507,8 @@ bag_matmul_kernel(const T* __restrict__ payload,
   }
 }
 
+constexpr int kMaxDevices = 64;
+
 int sm_count() {
   static int count = 0;
   if (count == 0) {
@@ -556,9 +558,13 @@ int launch(const void* payload, const float* scales, const int32_t* indices,
                       fk * raw_stride;
   auto kernel = bag_matmul_kernel<T, SCALE_AFTER, BN, TN>;
   // the whole shared-memory carveout (so that two blocks fit) and the
-  // dynamic limit, set once for the largest slab seen
-  static size_t set_smem = 0;
-  if (smem > set_smem) {
+  // dynamic limit, set once a device for the largest slab seen there (a
+  // function's attributes are the current device's)
+  static size_t set_smem[kMaxDevices] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices)
+    return (int)cudaErrorInvalidDevice;
+  if (smem > set_smem[dev]) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
         cudaSharedmemCarveoutMaxShared);
@@ -566,7 +572,7 @@ int launch(const void* payload, const float* scales, const int32_t* indices,
       err = cudaFuncSetAttribute(
           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    set_smem = smem;
+    set_smem[dev] = smem;
   }
   const int64_t grid_b = (num_bags + kTileB - 1) / kTileB;
   const int grid_h = (h_out + BN - 1) / BN;

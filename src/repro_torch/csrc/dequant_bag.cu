@@ -33,13 +33,23 @@
 // FMA chain a tier and column in k order, its slots those of that tier
 // (the composition gives the other tiers' slots weight 0, which they
 // skip), and writes ((0 + o8) + o16) + o32 with __fadd_rn: the reference's
-// zeros + int8 + half + fp32.  A slot's local row is clamped to its
-// tier's rows as the composition clamps it.  A NaN or +-inf weight gives
-// the composition's other tiers the weight 0 * w = NaN, so they read
-// their clamped rows and the bag comes out NaN in every column; the
-// tiered entry writes that NaN without the reads.  It is bit-identical
-// to the per-tier composition (ops.packed_bag_lookup_tiers), and at K = 1
-// to packed_store.lookup.
+// zeros + int8 + half + fp32.  A NaN or +-inf weight gives the
+// composition's other tiers the weight 0 * w = NaN, so they read their
+// clamped rows and the bag comes out NaN in every column; the tiered entry
+// writes that NaN without the reads.  It is bit-identical to the per-tier
+// composition (ops.packed_bag_lookup_tiers), and at K = 1 to
+// packed_store.lookup.
+//
+// Each tier comes with a shard window: its payload and scales hold local
+// rows [first, first + rows) of the tier (rows may be 0).  A slot whose
+// local row falls outside its tier's window weighs 0 and reads nothing;
+// one inside reads row loc - first.  A whole store is the window
+// [0, V_t) (a valid store never addresses past V_t); one shard of a
+// row-sharded store (repro_torch/dist/packed.py) is the reference's
+// _local_bags_fused (repro/dist/packed.py:164-195: one dequant_bag_pallas
+// a tier a shard, other shards' slots weighted 0).  The NaN rule holds
+// in every window: the reference's mine * w is NaN in every shard's every
+// tier.
 //
 // What bounds it on an H100: bytes, and at a request's size the latency
 // of its dependent loads.  Each live slot moves D * itemsize payload
@@ -187,15 +197,24 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// One tier's leaves: payload rows, scales (null: unit), last row index
-// (the clamp) and load width.
+// One tier's leaves: payload rows, scales (null: unit), the first local
+// row the payload holds, its rows and load width.
 template <typename T>
 struct Tier {
   const T* payload;
   const float* scales;
-  int32_t last;
+  int32_t first;
+  int32_t rows;
   int w;
 };
+
+// The payload row a slot of tier t at local row loc reads, or -1 when it
+// falls outside [first, first + rows) and reads none.
+__device__ __forceinline__ int32_t row_in(int32_t loc, int32_t first,
+                                          int32_t rows) {
+  const int32_t l = loc - first;
+  return l >= 0 && l < rows ? l : -1;
+}
 
 template <typename H, typename I, int NB, int WK>
 __global__ void __launch_bounds__(kThreads)
@@ -256,24 +275,28 @@ __global__ void __launch_bounds__(kThreads)
         s[i][kk] = 1.0f;
         // a non-finite weight: the other tiers' 0 * w is NaN
         if (in[i][kk] && !isfinite(w[i][kk])) poison[i] = true;
-        // tier 3 (no valid code) weighs 0 in every tier's launch
-        const int t = code[i][kk] < 0 ? 3 : code[i][kk] >> kTierShift;
-        tier[i][kk] = t;
+        // tier 3 (no valid code, or a row outside the tier's window)
+        // weighs 0 in every tier's launch
+        int t = code[i][kk] < 0 ? 3 : code[i][kk] >> kTierShift;
         const int32_t loc = code[i][kk] & kIdxMask;
+        int32_t r = -1;
+        if (t == 0) r = row_in(loc, t8.first, t8.rows);
+        else if (t == 1) r = row_in(loc, t16.first, t16.rows);
+        else if (t == 2) r = row_in(loc, t32.first, t32.rows);
+        if (r < 0) t = 3;
+        tier[i][kk] = t;
+        const int64_t r64 = r;
         if (t == 0) {
-          const int64_t r = min(loc, t8.last);
-          read_cols<int8_t, kCols>(t8.payload + r * dim + l.c0, l.n, t8.w,
+          read_cols<int8_t, kCols>(t8.payload + r64 * dim + l.c0, l.n, t8.w,
                                    raw[i][kk]);
-          s[i][kk] = __ldg(t8.scales + r);
+          s[i][kk] = __ldg(t8.scales + r64);
         } else if (t == 1) {
-          const int64_t r = min(loc, t16.last);
-          read_cols<H, kCols>(t16.payload + r * dim + l.c0, l.n, t16.w,
+          read_cols<H, kCols>(t16.payload + r64 * dim + l.c0, l.n, t16.w,
                               raw[i][kk]);
-          s[i][kk] = __ldg(t16.scales + r);
+          s[i][kk] = __ldg(t16.scales + r64);
         } else if (t == 2) {
-          const int64_t r = min(loc, t32.last);
-          read_cols<float, kCols>(t32.payload + r * dim + l.c0, l.n, t32.w,
-                                  raw[i][kk]);
+          read_cols<float, kCols>(t32.payload + r64 * dim + l.c0, l.n,
+                                  t32.w, raw[i][kk]);
         }
       }
 #pragma unroll
@@ -405,11 +428,11 @@ int launch_tiered(const int32_t* indirect, Tier<int8_t> t8, Tier<H> t16,
 }
 
 template <typename T>
-Tier<T> tier_of(const void* payload, const void* scales, long long rows,
-                long long dim) {
+Tier<T> tier_of(const void* payload, const void* scales, long long first,
+                long long rows, long long dim) {
   return Tier<T>{static_cast<const T*>(payload),
-                 static_cast<const float*>(scales), (int32_t)(rows - 1),
-                 in_width<T>(payload, dim)};
+                 static_cast<const float*>(scales), (int32_t)first,
+                 (int32_t)rows, in_width<T>(payload, dim)};
 }
 
 template <typename H>
@@ -460,15 +483,17 @@ extern "C" int dequant_bag_launch(const void* payload, int dtype,
   return (int)cudaErrorInvalidValue;
 }
 
-// The packed store in one launch.  half_dtype: 1 = bf16, 3 = fp16 (the
-// codes of dequant_bag_launch); rows8 / rows16 / rows32 the tiers' rows
-// (>= 1: an empty tier keeps a one-row placeholder); ids64: 1 for int64
-// ids, 0 for int32; weights may be null (ones).  Returns the cudaError_t
-// of the launch (0 = success).
+// The packed store, or one shard of it, in one launch.  half_dtype: 1 =
+// bf16, 3 = fp16 (the codes of dequant_bag_launch); each tier's payload
+// and scales hold its local rows [first, first + rows) (a whole store:
+// first 0, rows V_t; rows may be 0); ids64: 1 for int64 ids, 0 for int32;
+// weights may be null (ones).  Returns the cudaError_t of the launch (0 =
+// success).
 extern "C" int dequant_bag_tiered_launch(
     const void* indirect, const void* payload8, const void* scale8,
-    long long rows8, const void* payload16, int half_dtype,
-    const void* scale16, long long rows16, const void* payload32,
+    long long first8, long long rows8, const void* payload16,
+    int half_dtype, const void* scale16, long long first16,
+    long long rows16, const void* payload32, long long first32,
     long long rows32, const void* ids, int ids64, const void* weights,
     void* out, long long num_bags, int k_slots, long long dim,
     void* stream) {
@@ -477,19 +502,23 @@ extern "C" int dequant_bag_tiered_launch(
   float* o = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (num_bags <= 0 || dim <= 0) return 0;
-  if (k_slots < 0 || rows8 < 1 || rows16 < 1 || rows32 < 1 ||
-      rows8 > kIdxMask + 1LL || rows16 > kIdxMask + 1LL ||
-      rows32 > kIdxMask + 1LL)
+  const long long cap = kIdxMask + 1LL;
+  if (k_slots < 0 || rows8 < 0 || rows16 < 0 || rows32 < 0 || first8 < 0 ||
+      first16 < 0 || first32 < 0 || first8 + rows8 > cap ||
+      first16 + rows16 > cap || first32 + rows32 > cap)
     return (int)cudaErrorInvalidValue;
-  const Tier<int8_t> t8 = tier_of<int8_t>(payload8, scale8, rows8, dim);
-  const Tier<float> t32 = tier_of<float>(payload32, nullptr, rows32, dim);
+  const Tier<int8_t> t8 = tier_of<int8_t>(payload8, scale8, first8, rows8,
+                                          dim);
+  const Tier<float> t32 = tier_of<float>(payload32, nullptr, first32, rows32,
+                                         dim);
   if (half_dtype == 1)
     return tiered_by_ids<__nv_bfloat16>(
-        ind, t8, tier_of<__nv_bfloat16>(payload16, scale16, rows16, dim),
+        ind, t8,
+        tier_of<__nv_bfloat16>(payload16, scale16, first16, rows16, dim),
         t32, ids, ids64, w, o, num_bags, k_slots, dim, st);
   if (half_dtype == 3)
     return tiered_by_ids<__half>(
-        ind, t8, tier_of<__half>(payload16, scale16, rows16, dim), t32, ids,
-        ids64, w, o, num_bags, k_slots, dim, st);
+        ind, t8, tier_of<__half>(payload16, scale16, first16, rows16, dim),
+        t32, ids, ids64, w, o, num_bags, k_slots, dim, st);
   return (int)cudaErrorInvalidValue;
 }

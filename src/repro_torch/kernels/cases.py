@@ -44,6 +44,13 @@ int8 payload over 2.1 GB with slots in rows whose byte offset passes
 (int32 and int64 ids), weighted K = 8 and K = 40 bags with zero weights,
 fp16 half tiers, D 10 and 33, an empty int8 and an empty fp32 tier (the
 one-row placeholder), and a NaN and an inf weight (their bags NaN).
+``window_cases`` holds its shard window entry: stores cut into 2, 3 or 4
+row shards at the reference's stride ``ceil(V_t / n)``, so windows cut
+every tier; a one-row last shard and empty last windows (a tier of 9
+rows over 4 shards: 3, 3, 3, 0); an empty int8 tier whose placeholder
+row only the first shard holds; int32 and int64 ids; K 1, 8 and 40; and
+NaN and inf weights, each on a slot outside all windows but one (the
+bag is NaN in every shard, as the reference's ``mine * w``).
 ``hashed_cases`` covers Z 4/5/8, T = K * NH of 1, 2 and 6, int8 and fp32
 pools of S rows that are no power of two, seeds 0 and 7, weighted K = 3
 bags with zero weights, and int64 ids past 2^32 (their low 32 bits are
@@ -418,6 +425,53 @@ def tiered_cases(device) -> list[TieredCase]:
     add("empty_int8_k1_d64", (0, 80, 40), 64, bf16, 61, 1, False)
     add("empty_fp32_k8_d10", (90, 30, 0), 10, bf16, 37, 8, True)
     add("nan_inf_weights_d64", (150, 60, 90), 64, bf16, 37, 3, True)
+    w = cases[-1].weights
+    w[5, 1], w[9, 0] = float("nan"), float("inf")
+    w[11, 2] = -float("inf")
+    return cases
+
+
+class WindowCase(NamedTuple):
+    name: str
+    leaves: tuple             # the whole store's PackedStore fields
+    shards: int               # row shards at stride ceil(V_t / shards)
+    ids: torch.Tensor         # (B, K) int32 or int64 global ids
+    weights: torch.Tensor | None  # (B, K) fp32
+
+
+WINDOW_CASE_NAMES = ("k1_d64_int64_n4", "k1_d64_int32_n3",
+                     "k8_d10_weighted_n4", "k40_d33_fp16_n2",
+                     "one_row_last_shard_n4", "empty_int8_n4",
+                     "nan_inf_weights_n4")
+
+
+def window_cases(device) -> list[WindowCase]:
+    gen = torch.Generator(device=device)
+    gen.manual_seed(25)
+    bf16, fp16 = torch.bfloat16, torch.float16
+    cases = []
+
+    def add(name, counts, d, half, n, b, k, weighted,
+            ids_dtype=torch.int64):
+        leaves = _packed_leaves(counts, d, half, gen, device)
+        v = leaves[-1].shape[0]
+        ids = torch.randint(0, v, (b, k), generator=gen, device=device,
+                            dtype=ids_dtype)
+        w = None
+        if weighted:
+            w = torch.randn((b, k), generator=gen, device=device)
+            w[torch.rand((b, k), generator=gen, device=device) < 0.3] = 0.0
+        cases.append(WindowCase(name, leaves, n, ids, w))
+
+    add("k1_d64_int64_n4", (150, 60, 90), 64, bf16, 4, 61, 1, False)
+    add("k1_d64_int32_n3", (150, 60, 90), 64, bf16, 3, 64, 1, False,
+        torch.int32)
+    add("k8_d10_weighted_n4", (200, 50, 50), 10, bf16, 4, 37, 8, True)
+    add("k40_d33_fp16_n2", (120, 120, 61), 33, fp16, 2, 37, 40, True)
+    # int8 13 rows -> 4, 4, 4, 1; half 9 -> 3, 3, 3, 0; fp32 5 -> 2, 2, 1, 0
+    add("one_row_last_shard_n4", (13, 9, 5), 64, bf16, 4, 61, 1, False)
+    add("empty_int8_n4", (0, 7, 40), 10, bf16, 4, 37, 8, True, torch.int32)
+    add("nan_inf_weights_n4", (150, 60, 90), 64, bf16, 4, 37, 3, True)
     w = cases[-1].weights
     w[5, 1], w[9, 0] = float("nan"), float("inf")
     w[11, 2] = -float("inf")

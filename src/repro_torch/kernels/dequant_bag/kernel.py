@@ -4,7 +4,9 @@
 ``repro/kernels/dequant_bag/kernel.py::dequant_bag_pallas`` on one
 payload; ``dequant_bag_tiered_cuda`` (the same source) runs it over a
 packed store's three tiers in one launch, what the reference's
-``packed_bag_lookup`` computes with one kernel call a tier;
+``packed_bag_lookup`` computes with one kernel call a tier (with a shard
+window, over one shard of a row-sharded store: the reference's
+``_local_bags_fused``);
 ``bag_grad_cuda`` (``csrc/bag_grad.cu``) replaces ``bag_grad_pallas``,
 its scatter-add backward.  ``dequant_bag_rowgrid_cuda``
 (``csrc/dequant_bag_rowgrid.cu``) and ``bag_grad_rowgrid_cuda``
@@ -132,7 +134,8 @@ def dequant_bag_cuda(payload: torch.Tensor, scales: torch.Tensor | None,
 def _tiered_launcher():
     fn = build.load("dequant_bag").dequant_bag_tiered_launch
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = [p, p, p, ll, p, i, p, ll, p, ll, p, i, p, p, ll, i, ll, p]
+    fn.argtypes = [p, p, p, ll, ll, p, i, p, ll, ll, p, ll, ll, p, i, p, p,
+                   ll, i, ll, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -141,14 +144,24 @@ def dequant_bag_tiered_cuda(indirect: torch.Tensor, payload8: torch.Tensor,
                             scale8: torch.Tensor, payload16: torch.Tensor,
                             scale16: torch.Tensor, payload32: torch.Tensor,
                             ids: torch.Tensor,
-                            weights: torch.Tensor | None = None
+                            weights: torch.Tensor | None = None,
+                            firsts: tuple[int, int, int] = (0, 0, 0)
                             ) -> torch.Tensor:
     """Launch the tiered entry over a packed store's leaves: indirect (V,)
     int32 (tier << 28 | local row), payload8 (V8, D) int8 + scale8 (V8,),
     payload16 (V16, D) bf16 or fp16 + scale16 (V16,), payload32 (V32, D)
     fp32, ids (B, K) int32 or int64 in [0, V), weights (B, K) fp32 or
     None (ones) -> (B, D) fp32.  All on one CUDA device and contiguous;
-    raises otherwise."""
+    raises otherwise.
+
+    ``firsts`` (the int8, half and fp32 tiers' first local rows) is the
+    shard window: each payload and scale holds local rows ``[first, first
+    + rows)`` of its tier (``rows`` may be 0), and a slot outside its
+    tier's window weighs 0 and reads nothing.  A whole store is the window
+    ``(0, 0, 0)``, the default.
+    """
+    if len(firsts) != 3 or min(firsts) < 0:
+        raise ValueError(f"firsts must be three rows >= 0, got {firsts}")
     dev = indirect.device
     if dev.type != "cuda":
         raise ValueError(f"dequant_bag_tiered_cuda needs CUDA tensors, got "
@@ -180,13 +193,15 @@ def dequant_bag_tiered_cuda(indirect: torch.Tensor, payload8: torch.Tensor,
     out = torch.empty((b, d), dtype=torch.float32, device=dev)
     if b == 0 or d == 0:
         return out
+    f8, f16, f32 = (int(f) for f in firsts)
     with torch.cuda.device(dev):
         rc = _tiered_launcher()(
-            indirect.data_ptr(), payload8.data_ptr(), scale8.data_ptr(),
+            indirect.data_ptr(), payload8.data_ptr(), scale8.data_ptr(), f8,
             payload8.shape[0], payload16.data_ptr(),
-            _DTYPE_CODE[payload16.dtype], scale16.data_ptr(),
-            payload16.shape[0], payload32.data_ptr(), payload32.shape[0],
-            ids.data_ptr(), int(ids.dtype == torch.int64),
+            _DTYPE_CODE[payload16.dtype], scale16.data_ptr(), f16,
+            payload16.shape[0], payload32.data_ptr(), f32,
+            payload32.shape[0], ids.data_ptr(),
+            int(ids.dtype == torch.int64),
             None if weights is None else weights.data_ptr(), out.data_ptr(),
             b, k, d, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:

@@ -8,7 +8,9 @@ dispatch: on CUDA one launch of the kernel's tiered entry, on the CPU
 ``packed_bag_lookup_tiers``, the reference's composition (one bag per
 tier with tier-local indices, slots of other tiers at weight 0, the
 three partial bags summed in the reference's order), which is the tiered
-entry's plain version and, launched on the card, its yardstick.
+entry's plain version and, launched on the card, its yardstick; with a
+shard window (``firsts``) both are one shard of a row-sharded store
+(``dist.packed``: the reference's per-shard composition).
 ``packed_lookup_fused`` is the K = 1 serving gather, bit-identical to
 ``packed_store.lookup``.  ``bag_grad`` is the scatter-add backward, with
 the same dispatch; ``plan_slots`` groups its slots once for callers that
@@ -112,43 +114,85 @@ def bag_grad_rowgrid(g: torch.Tensor, scales: torch.Tensor | None,
                             weights, vocab)
 
 
+def stand_in(payload: torch.Tensor, scales: torch.Tensor | None):
+    """``payload`` and ``scales`` as they are, or a one-row zero payload
+    with a unit scale where ``payload`` holds no row (a shard that owns
+    none of a tier or a pool: only slots of weight 0, or 0 * w, reach
+    it, as the reference's zero pad rows)."""
+    if payload.shape[0]:
+        return payload, scales
+    dev = payload.device
+    return (torch.zeros((1, *payload.shape[1:]), dtype=payload.dtype,
+                        device=dev),
+            None if scales is None else
+            torch.ones((1,), dtype=torch.float32, device=dev))
+
+
+def window_slots(tier: torch.Tensor, loc: torch.Tensor, t: int, first: int,
+                 payload: torch.Tensor, scales: torch.Tensor | None):
+    """Tier ``t``'s slots in a window: ``payload`` holds the tier's local
+    rows ``[first, first + rows)``.  Returns (the payload row each slot
+    reads, int64, clamped into the payload; ``mine``, the slots of tier
+    ``t`` inside the window; payload and scales through ``stand_in``)."""
+    li = loc.to(torch.int64) - int(first)
+    mine = (tier == t) & (li >= 0) & (li < payload.shape[0])
+    payload, scales = stand_in(payload, scales)
+    return li.clamp(0, payload.shape[0] - 1), mine, payload, scales
+
+
 def packed_bag_lookup(packed: PackedStore, indices: torch.Tensor,
-                      weights: torch.Tensor | None = None) -> torch.Tensor:
+                      weights: torch.Tensor | None = None,
+                      firsts: tuple[int, int, int] = (0, 0, 0)
+                      ) -> torch.Tensor:
     """Bag-sum lookup over a PackedStore.  indices (B, K) -> (B, D) fp32.
 
-    Optional ``weights`` (B, K) multiply per slot.  Dispatch is by the
+    Optional ``weights`` (B, K) multiply per slot.  ``firsts`` makes
+    ``packed`` one shard of a row-sharded store (``dist.packed``): each
+    tier's payload and scales hold its local rows ``[first, first +
+    rows)`` and only slots inside that window count.  Dispatch is by the
     store's device: ``packed_bag_lookup_tiers`` on the CPU, one launch
     of the tiered kernel on CUDA (bit-identical to it)."""
     if packed.payload32.device.type == "cpu":
-        return packed_bag_lookup_tiers(packed, indices, weights)
+        return packed_bag_lookup_tiers(packed, indices, weights,
+                                       firsts=firsts)
     if indices.dtype not in (torch.int32, torch.int64):
         indices = indices.to(torch.int64)
     return dequant_bag_tiered_cuda(
         packed.indirect, packed.payload8, packed.scale8, packed.payload16,
         packed.scale16, packed.payload32, indices.contiguous(),
         None if weights is None else
-        weights.to(torch.float32).contiguous())
+        weights.to(torch.float32).contiguous(), firsts=firsts)
 
 
 def packed_bag_lookup_tiers(packed: PackedStore, indices: torch.Tensor,
                             weights: torch.Tensor | None = None,
-                            bag=dequant_bag) -> torch.Tensor:
+                            bag=dequant_bag,
+                            firsts: tuple[int, int, int] = (0, 0, 0)
+                            ) -> torch.Tensor:
     """The reference's composition: one ``bag`` (default ``dequant_bag``)
     per tier over that tier's payload, with the local indices clamped into
     it and the other tiers' slots masked by weight 0 (0 * w with
     ``weights``), the partials summed as ``zeros + int8 + half + fp32``.
-    The fp32 tier passes no scales (unit scales multiply exactly)."""
+    The fp32 tier passes no scales (unit scales multiply exactly).
+
+    Tier t's payload holds local rows ``[first_t, first_t + rows_t)``
+    (``window_slots``): a whole store is the window ``(0, 0, 0)``, one
+    shard of a row-sharded store the reference's per-shard composition
+    (``_local_bags_fused``), where a slot counts where its local row
+    falls inside (``mine``, its weight ``mine * w``)."""
     tier, loc = _split(packed, indices)
     out = torch.zeros((indices.shape[0], packed.dim), dtype=torch.float32,
                       device=packed.payload32.device)
     for t, payload, scales in ((0, packed.payload8, packed.scale8),
                                (1, packed.payload16, packed.scale16),
                                (2, packed.payload32, None)):
-        w = (tier == t).to(torch.float32)
+        li, mine, payload, scales = window_slots(tier, loc, t, firsts[t],
+                                                 payload, scales)
+        w = mine.to(torch.float32)
         if weights is not None:
             w = w * weights
-        li = loc.clamp(0, payload.shape[0] - 1).to(torch.int32)
-        out = out + bag(payload, scales, li.contiguous(), w.contiguous())
+        out = out + bag(payload, scales, li.to(torch.int32).contiguous(),
+                        w.contiguous())
     return out
 
 

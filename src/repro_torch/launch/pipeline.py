@@ -64,8 +64,12 @@ timeblocks (one observation a stage; the eval's two passes are one),
 the train loop's and the server's metrics, and the serving span catalog
 pre-registered.  ``main`` closes the sink on every exit path.
 
-Not ported yet: ``--mesh N > 1`` (the row-sharded step, ROADMAP Queue 1
-item 7) raises.  The training setup is dlrm-rm2's.
+``--mesh N`` (N > 1) row-shards the run over an N-shard mesh on the run's
+device (``repro_torch.dist``): the train and finetune steps
+(``dist.packed.sharded_lookup_train``), the served-table eval
+(``sharded_lookup``) and the serve stage (the packed backend's row
+shards, or the hashed pool's), as the reference's ``--mesh``.  The table's
+rows must divide N.  The training setup is dlrm-rm2's.
 """
 
 from __future__ import annotations
@@ -88,6 +92,8 @@ from repro_torch.core import packed_store as ps
 from repro_torch.core.pruning import memory_fraction
 from repro_torch.core.qat_store import (CHUNK_ROWS, FQuantConfig, QATStore,
                                         snap_)
+from repro_torch.dist import make_mesh
+from repro_torch.dist.packed import shard_packed, sharded_lookup
 from repro_torch.core.tiers import (assign_tiers, plan_thresholds_for_ratio,
                                     tier_counts)
 from repro_torch.kernels.dequant_bag.autodiff import lookup_train
@@ -225,7 +231,9 @@ def run_pipeline(cfg: PipelineConfig, state: TrainState | None = None,
     stage ``"eval"`` the first held-out batch of the served-table eval,
     ``"serve"`` each micro-batch that did not re-tier.  ``store`` is the
     ``PackedStore`` that served (the restored pack in the eval, the
-    server's in the serve) or the hashed backend; ``gidx`` the global ids
+    server's in the serve; under ``--mesh`` the serve stage's is its
+    ``dist.packed.ShardedPack``) or the hashed backend; ``gidx`` the
+    global ids
     (B, F), ``emb`` the served embeddings (B, F, D).  It lets a caller
     hold the serving gather to a plain one on the pipeline's own inputs.
     ``fit_audit(hcfg, r0, r1, g, bags, signs, before, after)``, when
@@ -233,11 +241,8 @@ def run_pipeline(cfg: PipelineConfig, state: TrainState | None = None,
     ``adj`` (``store.hashed.fit_pool_from_table``'s ``audit``), inside the
     pack stage's seconds and the record's ``fit_s``.
     """
-    if cfg.mesh > 1:
-        raise NotImplementedError(
-            "--mesh N > 1: the row-sharded train step and serving come with "
-            "the distributed slice (ROADMAP Queue 1 item 7)")
     device = resolve_device(cfg.device)
+    mesh = make_mesh(cfg.mesh, device=device) if cfg.mesh > 1 else None
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     arch = configs.get(cfg.arch)
@@ -247,7 +252,7 @@ def run_pipeline(cfg: PipelineConfig, state: TrainState | None = None,
     setup = build_recsys_training(
         arch, batch=cfg.batch, device=device, model=cfg.model, lr=cfg.lr,
         seed=cfg.seed, max_ind_range=cfg.max_ind_range, fq_cfg=fq_train,
-        state=state)
+        state=state, mesh=mesh)
     model, spec, batch_fn = setup.model, setup.spec, setup.batch_fn
     indices_fn, state, reduced = setup.indices_fn, setup.state, setup.reduced
     train_step = setup.step
@@ -327,7 +332,7 @@ def run_pipeline(cfg: PipelineConfig, state: TrainState | None = None,
         ft_step = make_compressed_train_step(
             model.loss_from_emb, indices_fn, lambda b: b["labels"],
             "embed_table", cfg.lr, spec.num_fields, fq_cfg=fq_train,
-            with_accum=True, field_mask=mask.astype(np.float32))
+            mesh=mesh, with_accum=True, field_mask=mask.astype(np.float32))
         for i in range(cfg.finetune_steps):
             state, m = ft_step(state, batch_fn(500_000 + i))
             finetune_losses.append(float(m["loss"]))
@@ -422,11 +427,11 @@ def run_pipeline(cfg: PipelineConfig, state: TrainState | None = None,
         rec["fit_s"] = round(tb_fit.seconds, 3)
         rec["fit_chunks"] = -(-hcfg.vocab // H.fit_chunk_rows(hcfg))
         rec["fit_relative_residual"] = H.fit_residual(hs, hcfg, table)
-        src_backend = store_build("hashed", hs, hcfg)
+        src_backend = store_build("hashed", hs, hcfg, mesh=mesh)
         bytes_packed = src_backend.nbytes()
         pmgr.save(cfg.steps, src_backend.snapshot_manifest())
         restored_tree, _ = pmgr.restore(src_backend.snapshot_manifest())
-        hashed_backend = store_from_manifest(restored_tree)
+        hashed_backend = store_from_manifest(restored_tree, mesh=mesh)
         verify_pack = _bits_equal(hashed_backend.snapshot_manifest(),
                                   src_backend.snapshot_manifest())
         del src_backend, restored_tree
@@ -462,6 +467,11 @@ def run_pipeline(cfg: PipelineConfig, state: TrainState | None = None,
         if hashed_backend is not None:
             loss_packed, auc_packed = eval_quality(hashed_backend.lookup,
                                                    keep)
+        elif mesh is not None:
+            shards = shard_packed(restored_packed, mesh)
+            loss_packed, auc_packed = eval_quality(
+                lambda g: sharded_lookup(shards, g, mesh=mesh), keep)
+            del shards
         else:
             loss_packed, auc_packed = eval_quality(
                 lambda g: ps.lookup_fused(restored_packed, g), keep)
@@ -482,7 +492,7 @@ def run_pipeline(cfg: PipelineConfig, state: TrainState | None = None,
     online = OnlineConfig(cache_rows=cfg.cache_rows,
                           retier_every=cfg.retier_every)
     if hashed_backend is None:
-        server = OnlineServer(store, final_cfg, online)
+        server = OnlineServer(store, final_cfg, online, mesh=mesh)
         # direct handoff: the server's own pack of the trained store
         # must BE the pipeline's packed artifact
         handoff_ok = _bits_equal(server.host_packed, restored_packed)
@@ -550,15 +560,16 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(
         description="The SHARK pipeline: train, prune, quantize, pack, "
                     "serve.",
-        epilog="Not ported yet (later slices): --mesh N > 1 (raises).")
+        epilog="The row-sharded run: --mesh N (all N shards on --device).")
     ap.add_argument("--arch", default="dlrm-rm2", choices=("dlrm-rm2",))
     ap.add_argument("--fast", action="store_true",
                     help="CI-sized budgets (see fast_config)")
     ap.add_argument("--steps", type=int, default=None)
     ap.add_argument("--batch", type=int, default=None)
     ap.add_argument("--mesh", type=int, default=1,
-                    help="row-shard training and serving over N devices "
-                         "(not ported yet: N > 1 raises)")
+                    help="row-shard training and serving over an N-shard "
+                         "'model' mesh (repro_torch.dist; every shard on "
+                         "--device)")
     ap.add_argument("--ckpt-dir", default=PipelineConfig.ckpt_dir)
     ap.add_argument("--resume", action="store_true",
                     help="keep --ckpt-dir and resume training from the "

@@ -99,6 +99,18 @@ and host_peak_rss_bytes.  As in the reference, ``--hbm-budget-mb`` refuses
 ``--store-backend hashed``.  ``run(rows_per_shard=)`` sets the cold
 shards' rows (the reference's default 4,096; no flag, as there).
 
+``--mesh N`` (N > 1) row-shards the store over an N-shard mesh
+(``repro_torch.dist``) and serves through the sharded gathers: offline
+``dist.packed.sharded_lookup`` (one tiered dequant_bag launch a shard a
+request), online the backend's sharded ``lookup_fn`` / ``bag_matmul_fn``
+(three ``bag_matmul`` launches a shard with ``--fuse-matmul``), the hashed
+pool's ``sharded_hashed_lookup`` and the hier store's sharded hot level
+(whose planner charges the device its shards' padded bytes); a re-tier
+unshards, repacks and reshards on the device.  As on the reference's
+CPU mesh, all N shards live on the one device the run uses: the path is
+the sharded one at full width, the N launches and the shard sum run on
+one card.  The record's ``mesh`` is N.
+
 ``--metrics-out PATH`` turns the ``obs`` registry on and writes
 ``metrics_snapshot/v1`` JSONL there: one line every ``--metrics-every``
 served batches (default 16; 0 = the final line only) and one final
@@ -128,6 +140,8 @@ from repro_torch.core.packed_store import (PackedStore, build_chunked,
 from repro_torch.core.qat_store import (CHUNK_ROWS, FQuantConfig, QATStore,
                                         current_tiers, snap_)
 from repro_torch.core.tiers import plan_thresholds_for_ratio
+from repro_torch.dist import make_mesh
+from repro_torch.dist.packed import ShardedPack, shard_packed, sharded_lookup
 from repro_torch.kernels.dequant_bag import kernel as dequant_kernel
 from repro_torch.models import embedding as E
 from repro_torch.serve.loop import (SERVE_PHASES, serve_forward,
@@ -144,7 +158,7 @@ SEED = 0
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(
         description="Serve a recsys model from the packed SHARK store.",
-        epilog="Not ported yet (later slices): --mesh; --autotune-cache.")
+        epilog="Not ported yet: --autotune-cache.")
     ap.add_argument("--arch", default="dlrm-rm2", choices=configs.names())
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--batch", type=int, default=256)
@@ -153,6 +167,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "reduced test size")
     ap.add_argument("--device", default=None,
                     help="torch device; default cuda (raises when absent)")
+    ap.add_argument("--mesh", type=int, default=1,
+                    help="row-shard the store over an N-shard 'model' mesh "
+                         "(repro_torch.dist; every shard on --device)")
     ap.add_argument("--online", action="store_true",
                     help="serve through repro_torch.serve: hot-row cache + "
                          "priority fold + incremental re-tiering under a "
@@ -234,6 +251,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="snapshot cadence in served batches for "
                          "--metrics-out (0 = final snapshot only)")
     args = ap.parse_args(argv)
+    if args.mesh < 1:
+        ap.error("--mesh must be >= 1")
     if args.serve_batch > 0 and not args.online:
         ap.error("--serve-batch requires --online")
     if args.hbm_budget_mb > 0 and args.serve_batch <= 0:
@@ -276,15 +295,24 @@ class Served(NamedTuple):
     server: OnlineServer | None = None
 
 
-def serve_request(model, params: dict, packed: PackedStore,
-                  batch: dict) -> torch.Tensor:
-    """One request: field-local (B, F) indices + dense -> (B,) logits."""
+def serve_request(model, params: dict, packed, batch: dict) -> torch.Tensor:
+    """One request: field-local (B, F) indices + dense -> (B,) logits,
+    through ``sharded_lookup`` when ``packed`` is row-sharded."""
     gidx = E.globalize(batch["indices"], model.spec)
-    emb = lookup_fused(packed, gidx)
+    if isinstance(packed, ShardedPack):
+        emb = sharded_lookup(packed, gidx)
+    else:
+        emb = lookup_fused(packed, gidx)
     return model.head(params, emb, batch)
 
 
-def time_requests(model, params: dict, packed: PackedStore,
+def make_mesh_arg(n: int, device: torch.device):
+    """``--mesh N``: None at 1 (the unsharded path, as the reference CLI),
+    else N shards on ``device``."""
+    return None if n <= 1 else make_mesh(n, device=device)
+
+
+def time_requests(model, params: dict, packed,
                   make_request: Callable[[int], dict], requests: int,
                   device: torch.device, start: int = 0) -> list[float]:
     """The offline loop: requests ``start .. start + requests - 1``, each
@@ -398,6 +426,9 @@ def run(args: argparse.Namespace, make_audit: Callable | None = None,
     gen.manual_seed(SEED)
     params = model.init(gen, device, with_table=False)
     packed, cfg = build_store(spec, device)
+    mesh = make_mesh_arg(args.mesh, device)
+    if mesh is not None:
+        packed = shard_packed(packed, mesh)
     sync(device)
     build_s = time.perf_counter() - t0
     build_launches = _launches_since(launches0)
@@ -415,10 +446,11 @@ def run(args: argparse.Namespace, make_audit: Callable | None = None,
     p99 = float(np.percentile(lat_us, 99))
     name = _device_name(device)
     print(f"{args.requests} requests x{args.batch}: p50 {p50:.0f}us "
-          f"p99 {p99:.0f}us ({name})")
+          f"p99 {p99:.0f}us ({name}, mesh={args.mesh})")
     record = {"arch": args.arch, "model": args.model,
               "device": device.type, "device_name": name,
               "batch": args.batch, "requests": args.requests,
+              "mesh": args.mesh,
               "qps": args.batch / (float(np.mean(lat_us)) / 1e6),
               "p50_us": p50, "p99_us": p99,
               "packed_mib": packed_bytes / 2 ** 20,
@@ -441,10 +473,11 @@ def _launches_since(before: dict) -> dict:
 
 
 def hashed_backend(args: argparse.Namespace, spec: E.FieldSpec,
-                   store: QATStore):
+                   store: QATStore, mesh=None):
     """The hashed store of the reference CLI: a pool planned for
     ``--hash-ratio``, fitted to the snapped table (with the store's
-    priorities) and, for ``--hash-bits 8``, quantized to int8."""
+    priorities) and, for ``--hash-bits 8``, quantized to int8; its pool
+    row-sharded over ``mesh`` when given."""
     hcfg = H.HashedConfig(
         vocab=spec.total_rows, dim=spec.dim, chunk_dim=args.hash_chunk_dim,
         num_slots=H.plan_pool_slots(spec.total_rows, spec.dim,
@@ -454,7 +487,7 @@ def hashed_backend(args: argparse.Namespace, spec: E.FieldSpec,
     hs = H.fit_pool_from_table(store.table, hcfg, priority=store.priority)
     if args.hash_bits == 8:
         hs = H.quantize_pool(hs)
-    return build_backend("hashed", hs, hcfg), hcfg
+    return build_backend("hashed", hs, hcfg, mesh=mesh), hcfg
 
 
 def hier_config(args: argparse.Namespace,
@@ -483,8 +516,12 @@ def verify_hier(server: OnlineServer, sample_rows: int = 1 << 20) -> None:
     server.retier()
     hier, store, cfg = server.hier, server.store, server.cfg
     dev = server.device
+    block_fn = lookup_fused
+    if hier.mesh is not None:       # each hot block through the mesh
+        def block_fn(sub, idx, mesh=hier.mesh):
+            return sharded_lookup(shard_packed(sub, mesh), idx, mesh=mesh)
     with torch.inference_mode():
-        bad = hier.mismatch_pack(store, cfg, lookup_fused)
+        bad = hier.mismatch_pack(store, cfg, block_fn)
         ids = np.unique(np.linspace(0, hier.vocab - 1, sample_rows)
                         .astype(np.int64))
         sel = torch.from_numpy(ids).to(dev)
@@ -514,16 +551,17 @@ def run_online(args: argparse.Namespace, device: torch.device, model,
                           verify_swap=args.verify_swap)
     fp32 = spec.total_rows * spec.dim * 4
     hashed = {}
+    mesh = make_mesh_arg(args.mesh, device)
     if args.store_backend == "hashed":
         t1 = time.perf_counter()
-        backend, hcfg = hashed_backend(args, spec, store)
+        backend, hcfg = hashed_backend(args, spec, store, mesh)
         sync(device)
         hashed["fit_s"] = time.perf_counter() - t1
         del store              # the pool replaces the table
         server = OnlineServer(online=online, backend=backend)
     else:
         server = OnlineServer(
-            store, cfg, online,
+            store, cfg, online, mesh=mesh,
             hier=(hier_config(args, rows_per_shard)
                   if args.store_backend == "hier" else None))
         del store
@@ -589,9 +627,10 @@ def run_online(args: argparse.Namespace, device: torch.device, model,
           f"{result.p50_us:.0f}us p99 {result.p99_us:.0f}us steady "
           f"{result.steady_qps:.0f} qps hit-rate "
           f"{server.stats.hit_rate:.1%} retiers {server.stats.retiers} "
-          f"rows moved {server.stats.rows_moved} ({name})")
+          f"rows moved {server.stats.rows_moved} ({name}, "
+          f"mesh={args.mesh})")
     rec = {"arch": args.arch, "batch": args.batch,
-           "requests": args.requests, "mesh": 1, "online": True}
+           "requests": args.requests, "mesh": args.mesh, "online": True}
     rec.update(stream)
     rec.update(result.as_dict())
     rec.update({"cache_rows": args.cache_rows,

@@ -15,10 +15,15 @@ Its final checkpoint is about 34 GB.  ``--model smoke`` trains the
 reduced size, the reference CLI's model.  The run is on the GPU
 unless ``--device cpu`` is given.
 
+``--mesh N`` (N > 1) row-shards the table over an N-shard mesh on the
+run's device (``repro_torch.dist``): the gather and its scatter backward
+run once a shard (``dist.packed.sharded_lookup_train``); the table's rows
+must divide N.  The step is the unsharded one bit for bit.
+
 The last stdout line is a JSON record: arch, model, device,
-device_name, batch, steps_run, resumed_from, loss_first, loss_last,
-step_ms_p50, kernel_launches (per kernel), rows, reduced, stragglers,
-nan_skips.
+device_name, batch, mesh, steps_run, resumed_from, loss_first,
+loss_last, step_ms_p50, kernel_launches (per kernel), rows, reduced,
+stragglers, nan_skips, device_peak_bytes.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch import configs, resolve_device
+from repro_torch.dist import make_mesh
 from repro_torch.kernels.dequant_bag import kernel as bag_kernel
 from repro_torch.train import loop as loop_lib
 from repro_torch.train.setup import build_recsys_training
@@ -43,8 +49,8 @@ FULL_MAX_IND_RANGE = 24_000_000
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(
         description="Train a recsys model with the compressed train step.",
-        epilog="Not ported yet (later slices): --mesh, the hashed table, "
-               "and the family smoke of non-recsys archs (--smoke).")
+        epilog="Not ported yet: the hashed table and the family smoke of "
+               "non-recsys archs (--smoke).")
     ap.add_argument("--arch", default="dlrm-rm2", choices=configs.names())
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=64)
@@ -60,7 +66,13 @@ def parse_args(argv=None) -> argparse.Namespace:
                          f"{FULL_MAX_IND_RANGE:,} for full, none for smoke)")
     ap.add_argument("--device", default=None,
                     help="torch device; default cuda (raises when absent)")
-    return ap.parse_args(argv)
+    ap.add_argument("--mesh", type=int, default=1,
+                    help="row-shard the table over an N-shard 'model' mesh "
+                         "(repro_torch.dist; every shard on --device)")
+    args = ap.parse_args(argv)
+    if args.mesh < 1:
+        ap.error("--mesh must be >= 1")
+    return args
 
 
 def run(args: argparse.Namespace) -> dict:
@@ -69,13 +81,14 @@ def run(args: argparse.Namespace) -> dict:
     cap = args.max_ind_range
     if cap is None and args.model == "full":
         cap = FULL_MAX_IND_RANGE
+    mesh = None if args.mesh <= 1 else make_mesh(args.mesh, device=device)
     setup = build_recsys_training(arch, batch=args.batch, device=device,
                                   model=args.model, lr=args.lr,
-                                  max_ind_range=cap)
+                                  max_ind_range=cap, mesh=mesh)
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
     print(f"arch {args.arch} ({args.model}): {setup.spec.total_rows:,} rows "
-          f"x {setup.spec.dim} on {name}", flush=True)
+          f"x {setup.spec.dim} on {name}, mesh {args.mesh}", flush=True)
     cfg = loop_lib.LoopConfig(
         total_steps=args.steps, ckpt_every=args.ckpt_every,
         ckpt_dir=args.ckpt_dir, log_every=max(args.steps // 5, 1))
@@ -89,7 +102,7 @@ def run(args: argparse.Namespace) -> dict:
         raise SystemExit("training ended on a non-finite loss")
     return {
         "arch": args.arch, "model": args.model, "device": device.type,
-        "device_name": name, "batch": args.batch,
+        "device_name": name, "batch": args.batch, "mesh": args.mesh,
         "steps_run": len(losses), "resumed_from": result.resumed_from,
         "loss_first": losses[0] if losses else None,
         "loss_last": losses[-1] if losses else None,
@@ -99,7 +112,9 @@ def run(args: argparse.Namespace) -> dict:
             "dequant_bag": bag_kernel.total_launches(),
             "bag_grad": sum(bag_kernel.bag_grad_launches.values())},
         "rows": setup.spec.total_rows, "reduced": setup.reduced,
-        "stragglers": result.stragglers, "nan_skips": result.nan_skips}
+        "stragglers": result.stragglers, "nan_skips": result.nan_skips,
+        "device_peak_bytes": (torch.cuda.max_memory_allocated(device)
+                              if device.type == "cuda" else 0)}
 
 
 def main(argv=None) -> None:

@@ -28,8 +28,9 @@ packed, hierarchical and hashed backends):
 Entry points: ``repro_torch.launch.serve --online`` (``--hbm-budget-mb``
 for the hier store, ``--store-backend hashed``),
 ``repro_torch.launch.fleet`` (the replica sweep, ``bench_fleet/v1``) and
-``repro_torch.benchmarks.qps --online``.  Not ported yet: the mesh
-(ROADMAP Queue 1 item 7).
+``repro_torch.benchmarks.qps --online``; ``--mesh N`` of the serve CLI
+and ``repro_torch.benchmarks.qps_sharded`` serve row-sharded
+(``OnlineServer(mesh=)``, ``repro_torch.dist``).
 
 The names below are the reference's exports.  They load on first use
 (PEP 562): ``store.api`` imports ``serve.cache`` while ``serve.online``

@@ -7,7 +7,9 @@ the store (the tier-partitioned pack, or the hashed pool of
 ``store.hashed``).  Cache rows are exact copies of what the store's
 gather returns for them, so the cached gather is bit-identical to the
 plain lookup: served values do not depend on the cache's contents, only
-the hit counts do.
+the hit counts do.  Under a mesh the miss gather is the backend's sharded
+``lookup_fn`` over its row shards (``dist.packed.sharded_lookup``), with
+the hits redirected to row 0 as on one device.
 
 ``build_cache`` takes the top k by a stable descending sort, so among
 tied scores the lower row id comes first, as ``jax.lax.top_k`` does

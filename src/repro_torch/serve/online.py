@@ -3,7 +3,10 @@
 Port of ``repro/serve/online.py``: synchronous and shadow re-tiers.
 ``OnlineServer`` owns the traffic-adaptive state around one backend of
 ``store.api`` (packed; hier through ``hier=HierConfig(...)``; hashed
-through ``backend=``):
+through ``backend=``), on one device or row-sharded over ``mesh=`` (a
+``dist.Mesh``: the served store is then the backend's shards, a re-tier
+unshards, repacks and reshards on the device, and a shadow generation is
+sharded when it is staged):
 
   * the backend: the store, its lookup kernels, the priority vector and
     the re-tier (``packed_store.repack_delta`` on the device for the
@@ -119,19 +122,23 @@ class OnlineServer:
 
     def __init__(self, store=None, cfg=None,
                  online: OnlineConfig = OnlineConfig(), *, mesh=None,
-                 hier=None, backend=None):
+                 axis: str = "model", hier=None, backend=None):
         """``backend`` (a ``store.api`` backend, e.g. ``build("hashed", hs,
-        hcfg)``) is served as given; otherwise the ``(store, cfg)``
-        ``QATStore`` pair builds the ``hier`` backend under ``hier`` (a
-        ``store.hier.HierConfig``), or the ``packed`` one."""
+        hcfg, mesh=mesh)``) is served as given; otherwise the ``(store,
+        cfg)`` ``QATStore`` pair builds the ``hier`` backend under ``hier``
+        (a ``store.hier.HierConfig``), or the ``packed`` one, row-sharded
+        over ``mesh`` (a ``dist.Mesh``) when given."""
         if backend is None:
             if store is None or cfg is None:
                 raise ValueError("OnlineServer needs either backend= or the "
                                  "(store, cfg) QATStore pair")
-            backend = (build("hier", store, cfg, hier, mesh=mesh)
+            backend = (build("hier", store, cfg, hier, mesh=mesh, axis=axis)
                        if hier is not None
-                       else build("packed", store, cfg, mesh=mesh))
+                       else build("packed", store, cfg, mesh=mesh,
+                                  axis=axis))
         self.backend = backend
+        self.mesh = getattr(backend, "mesh", None)
+        self.axis = getattr(backend, "axis", axis)
         self.online = online
         self.stats = ServeStats()
         # shadow re-tier state (OnlineConfig.retier_async)

@@ -76,8 +76,9 @@ class ShadowRepack:
     """
 
     def __init__(self, packed: PackedStore, snapshot: QATStore,
-                 cfg: FQuantConfig):
+                 cfg: FQuantConfig, mesh=None, axis: str = "model"):
         self.live = packed
+        self.mesh, self.axis = mesh, axis
         self.snapshot = snapshot
         self.cfg = cfg
         self.table = snapshot.table
@@ -192,10 +193,12 @@ class ShadowRepack:
         del keep, mask
         return extract_rows(merged, perm)
 
-    def place(self) -> PackedStore:
-        """The finished store, already on the serving device (the
-        reference transfers its host result here)."""
-        return self.result
+    def place(self):
+        """The finished store as the server serves it: already on the
+        serving device (the reference transfers its host result here), row
+        sharded under the server's mesh (views, no copy, on one device)."""
+        from repro_torch.dist.packed import place_packed
+        return place_packed(self.result, self.mesh, self.axis)
 
     def verify(self) -> None:
         """Raise ``AssertionError`` unless the finished store unpacks bit
@@ -216,8 +219,10 @@ class ShadowRepack:
                 "bit-identical to pack() at the snapshot fold state")
 
     def commit(self, server, staged: PackedStore | None) -> int:
-        """Flip the server's live store to the shadow generation."""
-        server.backend.packed = self.place() if staged is None else staged
+        """Flip the server's live store to the shadow generation (``staged``
+        is ``place``'s result under the server's mesh)."""
+        b = server.backend
+        b.packed = self.place() if staged is None else staged
         return self.moved
 
     def discard(self) -> None:
@@ -317,7 +322,9 @@ class ShadowMigrate:
         return True
 
     def place(self) -> PackedStore:
-        """The new hot level, built on the serving device already."""
+        """The new hot level, built on the serving device already (the
+        hier store shards it over its mesh itself, at the commit's
+        ``place``)."""
         return self.results["hot"]
 
     def verify(self) -> None:

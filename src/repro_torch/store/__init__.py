@@ -10,8 +10,9 @@
   hashed    ``HashedStore``: ROBE-style rows materialised from a shared
             chunk pool
 
-Not ported yet: the mesh placement of every backend (ROADMAP Queue 1
-item 7).
+Every backend takes ``mesh=`` (a ``repro_torch.dist.Mesh``): the packed
+store and the hier store's hot level row-sharded (``dist.packed``), the
+hashed pool row-sharded (``dist.hashed``).
 """
 
 from repro_torch.store.api import (  # noqa: F401

@@ -1,12 +1,12 @@
 """Embedding-store backends and their registry.
 
 Port of ``repro/store/api.py`` for the flat packed, the three-level
-hierarchical and the hashed backends, on one device (``mesh=None``).
-Each answers the surface the online server and its loop dispatch on, so
-the request path has no backend branches:
+hierarchical and the hashed backends, on one device or row-sharded over a
+``dist.Mesh`` (``mesh=``).  Each answers the surface the online server
+and its loop dispatch on, so the request path has no backend branches:
 
-  identity     kind, device, vocab, dim, nbytes(), live_counts();
-               the packed and hier backends' priority
+  identity     kind, device, vocab, dim, nbytes(), live_counts(), mesh,
+               axis; the packed and hier backends' priority
   lookups      lookup(idx), bag_lookup(idx, w): eager, uncached
   serving      packed (the store the forward reads), lookup_fn(),
                bag_matmul_fn(), build_cache(k), cache_mask (the host mask
@@ -28,14 +28,21 @@ the request path has no backend branches:
 authoritative and ``packed`` is its serving pack.  The reference keeps a
 host pack and places a device copy; the port packs on the device and
 serves that pack directly, so ``host_packed`` (the pack of record, the
-reference's name) is that same device pack.  ``HierBackend``: the
+reference's name) is that same device pack.  Under a mesh ``packed`` is
+its ``dist.packed.ShardedPack`` (row views on one device), the gathers
+are ``sharded_lookup`` / ``sharded_bag_matmul``, and ``host_packed`` is
+``unshard_packed(packed)``: on one device the pack itself, so a re-tier
+(unshard, ``repack_delta``, reshard) copies no row it does not move.  ``HierBackend``: the
 ``store.hier.HierStore`` over the same ``QATStore``: the priority-hot rows
 on the device under a byte budget, the next in host RAM, the rest in
 mmap'd cold shards; a re-tier migrates rows between the levels.
 ``HashedBackend``: the ROBE-style pool of ``store.hashed``; rows
 materialise through the ``hashed_gather`` kernel, a re-tier moves no rows
 (pool slots are shared) and only refreshes the hot-row cache, whose rows
-are materialised on the card through the same kernel.  Persistence:
+are materialised on the card through the same kernel; under a mesh the
+request path's gather is ``dist.hashed.sharded_hashed_lookup`` over the
+row-sharded pool, the eager lookups and the cache rows the unsharded
+gather, as the reference's.  Persistence:
 ``snapshot_manifest`` and ``from_manifest`` (``packed_store/v1``: the
 pack and the priorities; ``hier_store/v1``; ``hashed_store/v1``),
 round-tripped through ``ckpt.CheckpointManager`` in the reference's
@@ -43,8 +50,7 @@ format.
 
 Registry: ``register_backend(name, factory)`` + ``build(name, ...)``
 over ``packed``, ``hier`` and ``hashed``; ``from_manifest`` picks the
-backend by the manifest's kind tag.  Not ported yet: the mesh (ROADMAP
-Queue 1 item 7).
+backend by the manifest's kind tag.
 """
 
 from __future__ import annotations
@@ -58,20 +64,16 @@ from repro_torch.core import packed_store as ps
 from repro_torch.core.priority import PriorityConfig, serve_fold
 from repro_torch.core.qat_store import FQuantConfig, QATStore, current_tiers
 from repro_torch.core.tiers import tier_crossings
+from repro_torch.dist import packed as DP
+from repro_torch.dist.mesh import check_mesh
 from repro_torch.kernels.dequant_bag.ops import packed_bag_lookup
 from repro_torch.serve import cache as C
 from repro_torch.store import hashed as H
 
 
-def _no_mesh(mesh, backend: str) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            f"the {backend} backend's mesh placement is not ported yet "
-            "(ROADMAP Queue 1 item 7, distributed)")
-
-
 class PackedBackend:
-    """Flat tier-partitioned store on one device."""
+    """Flat tier-partitioned store, on one device or row-sharded over a
+    mesh."""
 
     kind = "packed"
     needs_staging = False
@@ -79,13 +81,17 @@ class PackedBackend:
     hier = None
 
     def __init__(self, store: QATStore, cfg: FQuantConfig, *, mesh=None,
-                 packed: ps.PackedStore | None = None):
+                 axis: str = "model", packed: ps.PackedStore | None = None):
         """``packed`` adopts a pack of ``store`` (a restored manifest's)
-        instead of packing."""
-        _no_mesh(mesh, "packed")
+        instead of packing; ``mesh`` (a ``dist.Mesh``) row-shards it."""
+        if mesh is not None:
+            check_mesh(mesh, axis)
         self.store = store
         self.cfg = cfg
-        self.packed = ps.pack(store, cfg) if packed is None else packed
+        self.mesh = mesh
+        self.axis = axis
+        self.packed = DP.place_packed(
+            ps.pack(store, cfg) if packed is None else packed, mesh, axis)
 
     @property
     def device(self) -> torch.device:
@@ -93,9 +99,12 @@ class PackedBackend:
 
     @property
     def host_packed(self) -> ps.PackedStore:
-        """The pack of record (the reference's host pack); here the
-        device pack the forward reads."""
-        return self.packed
+        """The pack of record (the reference's host pack): the device pack
+        the forward reads, unsharded under a mesh (on one device the pack
+        the shards are views of)."""
+        if self.mesh is None:
+            return self.packed
+        return DP.unshard_packed(self.packed)
 
     @property
     def vocab(self) -> int:
@@ -130,13 +139,21 @@ class PackedBackend:
     def gather_fp32_host(self, ids) -> np.ndarray:
         """fp32 rows ``ids`` through the plain ``lookup``, on the host."""
         idx = torch.as_tensor(np.asarray(ids, np.int64), device=self.device)
-        return ps.lookup(self.packed, idx).cpu().numpy()
+        return ps.lookup(self.host_packed, idx).cpu().numpy()
 
     def lookup_fn(self) -> Callable:
-        return ps.lookup_fused
+        if self.mesh is None:
+            return ps.lookup_fused
+        mesh, axis = self.mesh, self.axis
+        return lambda pk, idx: DP.sharded_lookup(pk, idx, mesh=mesh,
+                                                 axis=axis)
 
     def bag_matmul_fn(self) -> Callable:
-        return ps.bag_matmul
+        if self.mesh is None:
+            return ps.bag_matmul
+        mesh, axis = self.mesh, self.axis
+        return lambda pk, idx, w: DP.sharded_bag_matmul(pk, idx, w,
+                                                        mesh=mesh, axis=axis)
 
     def build_cache(self, cache_rows: int) -> C.HotRowCache:
         return C.build_cache(self.packed, self.store.priority, cache_rows,
@@ -151,11 +168,15 @@ class PackedBackend:
     # -- lookups (eager) -----------------------------------------------
 
     def lookup(self, indices: torch.Tensor) -> torch.Tensor:
-        return ps.lookup_fused(self.packed, indices)
+        return self.lookup_fn()(self.packed, indices)
 
     def bag_lookup(self, indices: torch.Tensor,
                    weights: torch.Tensor | None = None) -> torch.Tensor:
-        return packed_bag_lookup(self.packed, indices, weights)
+        if self.mesh is None:
+            return packed_bag_lookup(self.packed, indices, weights)
+        return DP.sharded_bag_lookup_rect(self.packed, indices,
+                                          mesh=self.mesh, axis=self.axis,
+                                          weights=weights)
 
     # -- adaptation ----------------------------------------------------
 
@@ -183,29 +204,34 @@ class PackedBackend:
         quantize shape) keeps the protocol: the caller gives each step its
         budget."""
         from repro_torch.serve.shadow import ShadowRepack
-        sh = ShadowRepack(self.packed, self.store, self.cfg)
+        sh = ShadowRepack(self.host_packed, self.store, self.cfg, self.mesh,
+                          self.axis)
         return sh if sh.moved else None
 
     def retier(self) -> dict:
-        """Synchronous delta re-tier of the rows whose tier crossed."""
-        old = ps.packed_tiers(self.packed)
+        """Synchronous delta re-tier of the rows whose tier crossed: under
+        a mesh unshard, ``repack_delta``, reshard, on the device."""
+        live = self.host_packed
+        old = ps.packed_tiers(live)
         new = current_tiers(self.store, self.cfg)
         changed, _ = tier_crossings(old, new)
         n = int(changed.numel())
         if n:
-            self.packed = ps.repack_delta(self.packed, self.store, self.cfg,
-                                          changed)
+            self.packed = DP.place_packed(
+                ps.repack_delta(live, self.store, self.cfg, changed),
+                self.mesh, self.axis)
         return {"rows_moved": n, "changed": bool(n)}
 
     # -- persistence ---------------------------------------------------
 
     def snapshot_manifest(self) -> dict:
-        return {"kind": "packed_store/v1", "packed": self.packed,
+        return {"kind": "packed_store/v1", "packed": self.host_packed,
                 "priority": self.store.priority}
 
     @classmethod
     def from_manifest(cls, tree: dict, *, store: QATStore | None = None,
                       cfg: FQuantConfig | None = None, mesh=None,
+                      axis: str = "model",
                       device: str | torch.device | None = None):
         """Rebuild from ``snapshot_manifest`` output (or the reference's
         numpy leaves).  ``store`` / ``cfg`` re-attach the training-side
@@ -217,7 +243,7 @@ class PackedBackend:
             store = QATStore(table=ps.unpack(packed), priority=priority)
         else:
             store = store._replace(priority=priority)
-        return cls(store, cfg, mesh=mesh, packed=packed)
+        return cls(store, cfg, mesh=mesh, axis=axis, packed=packed)
 
 
 class HierBackend(PackedBackend):
@@ -231,21 +257,31 @@ class HierBackend(PackedBackend):
     host_packed = None
 
     def __init__(self, store: QATStore, cfg: FQuantConfig, hier_cfg=None, *,
-                 mesh=None, hier=None):
+                 mesh=None, axis: str = "model", hier=None):
         """``hier`` adopts a built ``HierStore`` (a restored manifest's)
-        instead of building one from ``store`` under ``hier_cfg``."""
+        instead of building one from ``store`` under ``hier_cfg``;
+        ``mesh`` row-shards its hot level (the planner then charges each
+        device its shard's bytes)."""
         from repro_torch.store.hier import build_hier
-        _no_mesh(mesh, "hier")
+        if mesh is not None:
+            check_mesh(mesh, axis)
         self.store = store
         self.cfg = cfg
+        self.mesh = mesh
+        self.axis = axis
         self.hier = (hier if hier is not None
-                     else build_hier(store, cfg, hier_cfg))
+                     else build_hier(store, cfg, hier_cfg, mesh=mesh,
+                                     axis=axis))
         self.cache_mask: np.ndarray | None = None
 
     @property
-    def packed(self) -> ps.PackedStore:
-        """The hot level on the device: what the forward's gather reads."""
-        return self.hier.hot_dev
+    def packed(self):
+        """The hot level on the device (its row shards under a mesh): what
+        the forward's gather reads."""
+        return self.hier.served
+
+    def lookup_fn(self) -> Callable:
+        return self.hier.lookup_fn()
 
     @property
     def device(self) -> torch.device:
@@ -285,7 +321,7 @@ class HierBackend(PackedBackend):
         skip = cache_mask[g] if cache_mask is not None else None
         vnp = None if valid is None else valid.cpu().numpy()
         sb = self.hier.stage(g, skip=skip, valid=vnp)
-        rows = combine_rows(self.hier.hot_dev, sb.hot_local, sb.stage_slot,
+        rows = combine_rows(self.packed, sb.hot_local, sb.stage_slot,
                             sb.staging, self.lookup_fn())
         idx = torch.as_tensor(indices).to(self.device)
         return C.cache_select(cache, idx, rows, valid=valid)
@@ -359,7 +395,8 @@ class HierBackend(PackedBackend):
     @classmethod
     def from_manifest(cls, tree: dict, *, store: QATStore | None = None,
                       cfg: FQuantConfig | None = None, hier_cfg=None,
-                      mesh=None, device: str | torch.device | None = None):
+                      mesh=None, axis: str = "model",
+                      device: str | torch.device | None = None):
         """Rebuild from ``state_tree`` output (the port's, or the
         reference's numpy leaves).  The cold shards are on disk already,
         under ``hier_cfg.store_dir``; ``store`` / ``cfg`` re-attach the
@@ -385,8 +422,9 @@ class HierBackend(PackedBackend):
             warm_ids=np.asarray(tree["warm_ids"]), cold_ids=cold_ids,
             hot_dev=as_packed(tree["hot"], dev),
             warm=as_packed(tree["warm"], torch.device("cpu")),
-            cold=cold, device=dev)
-        return cls(store, cfg, mesh=mesh, hier=hier)
+            cold=cold, device=dev, mesh=mesh, axis=axis)
+        hier.place()
+        return cls(store, cfg, mesh=mesh, axis=axis, hier=hier)
 
 
 class HashedBackend:
@@ -402,21 +440,36 @@ class HashedBackend:
     cached_lookup = PackedBackend.cached_lookup
 
     def __init__(self, hs: H.HashedStore, hcfg: H.HashedConfig, *,
-                 mesh=None):
-        _no_mesh(mesh, "hashed")
+                 mesh=None, axis: str = "model"):
+        """``mesh`` row-shards the pool for the request path
+        (``dist.hashed.shard_hashed``)."""
+        if mesh is not None:
+            check_mesh(mesh, axis)
         self.hs = hs
         self.hcfg = hcfg
+        self.mesh = mesh
+        self.axis = axis
         self.cfg = None      # no FQuantConfig: the pool is the pack
         self.store = None    # no QATStore behind this backend
+        self.device_store = None
+        self.place()
+
+    def place(self) -> None:
+        """The request path's pool: row shards under a mesh (the pool never
+        changes while serving, so once)."""
+        if self.mesh is not None:
+            from repro_torch.dist.hashed import shard_hashed
+            self.device_store = shard_hashed(self.hs, self.mesh, self.axis)
 
     @property
     def device(self) -> torch.device:
         return self.hs.pool.device
 
     @property
-    def packed(self) -> H.HashedStore:
-        """The store the forward reads (``lookup_fn``'s first argument)."""
-        return self.hs
+    def packed(self):
+        """The store the forward reads (``lookup_fn``'s first argument):
+        the ``HashedStore``, or its ``ShardedHashed`` under a mesh."""
+        return self.hs if self.mesh is None else self.device_store
 
     @property
     def vocab(self) -> int:
@@ -442,7 +495,12 @@ class HashedBackend:
 
     def lookup_fn(self) -> Callable:
         hcfg = self.hcfg
-        return lambda hs, idx: H.hashed_lookup(hs, hcfg, idx)
+        if self.mesh is None:
+            return lambda hs, idx: H.hashed_lookup(hs, hcfg, idx)
+        from repro_torch.dist.hashed import sharded_hashed_lookup
+        mesh, axis = self.mesh, self.axis
+        return lambda hs, idx: sharded_hashed_lookup(hs, hcfg, idx,
+                                                     mesh=mesh, axis=axis)
 
     def bag_matmul_fn(self) -> Callable:
         raise ValueError("fused bag->matmul serving requires a fully "
@@ -499,13 +557,13 @@ class HashedBackend:
         return H.hashed_state_tree(self.hs, self.hcfg)
 
     @classmethod
-    def from_manifest(cls, tree: dict, *, mesh=None,
+    def from_manifest(cls, tree: dict, *, mesh=None, axis: str = "model",
                       device: str | torch.device | None = None, **_):
         hcfg = H.HashedConfig(**{k: int(v)
                                  for k, v in tree["config"].items()})
         hs = H.HashedStore(*(_tensor(tree[f], device)
                              for f in H.HashedStore._fields))
-        return cls(hs, hcfg, mesh=mesh)
+        return cls(hs, hcfg, mesh=mesh, axis=axis)
 
 
 def _tensor(x, device) -> torch.Tensor:

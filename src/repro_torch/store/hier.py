@@ -43,6 +43,16 @@ results:
   where the reference copies the whole table to the host (52.3 GB).
 * A level whose id list and tiers the plan leaves as they are keeps its
   live store (the reference rebuilds it byte for byte).
+* Under a mesh (``build_hier(mesh=)``) the hot level is row-sharded over
+  it (``dist.packed.shard_packed``: row views on one device) and its
+  gather is ``sharded_lookup``.  ``hbm_budget_bytes`` is a device's: the
+  planner charges each device the bytes of all the shards it holds
+  (``plan_shards``).  With one shard a device that is the reference's
+  per-device charge; N shards on one device hold the whole level once
+  (views, one ``indirect``), so the level is mesh 1's.
+  ``hot_dev``
+  stays the unsharded level of record (the migrations build and cut it),
+  ``served`` is what the forward reads.
 * The staging buffer is one pinned host buffer a micro-batch holding the
   hot-local ids, the staging slots and the rows, copied with one
   non-blocking transfer.  PyTorch's pinned allocator does not hand the
@@ -229,10 +239,24 @@ class HierStore:
     cold: ColdShards | None
     device: torch.device = CPU
     stats: HierStats = dataclasses.field(default_factory=HierStats)
+    mesh: object = None      # a ``dist.Mesh``: the hot level row-sharded
+    axis: str = "model"
+    hot_shards: object = None  # ``hot_dev``'s ShardedPack under the mesh
 
     @property
     def vocab(self) -> int:
         return self.level.shape[0]
+
+    @property
+    def n_shards(self) -> int:
+        """The planner's ``n_shards`` (``plan_shards``)."""
+        return plan_shards(self.mesh, self.axis)
+
+    @property
+    def served(self):
+        """What the forward's gather reads: the hot level, or its row
+        shards under the mesh."""
+        return self.hot_dev if self.mesh is None else self.hot_shards
 
     def counts(self) -> dict:
         return {"hot_rows": int(self.hot_ids.size),
@@ -250,13 +274,22 @@ class HierStore:
     # -- placement -----------------------------------------------------
 
     def place(self) -> None:
-        """The hot level on the serving device (built there already)."""
-        self.hot_dev = PackedStore(*(leaf.to(self.device)
-                                     for leaf in self.hot_dev))
+        """The hot level on the serving device (built there already), row
+        sharded over the mesh when there is one."""
+        from repro_torch.dist.packed import place_packed
+        self.hot_dev = place_packed(self.hot_dev, device=self.device)
+        if self.mesh is not None:
+            self.hot_shards = place_packed(self.hot_dev, self.mesh,
+                                           self.axis)
 
     def lookup_fn(self) -> Callable:
-        """The hot level's gather: the fused serving gather."""
-        return ps.lookup_fused
+        """The hot level's gather: the fused serving gather, or
+        ``sharded_lookup`` under the mesh (over ``served``)."""
+        if self.mesh is None:
+            return ps.lookup_fused
+        from repro_torch.dist.packed import sharded_lookup
+        mesh, axis = self.mesh, self.axis
+        return lambda pk, idx: sharded_lookup(pk, idx, mesh=mesh, axis=axis)
 
     # -- lookup path ---------------------------------------------------
 
@@ -380,7 +413,7 @@ class HierStore:
         new_tiers = tiers_dev.cpu().numpy()
         plan = plan_placement(store.priority, tiers_dev, self.dim,
                               self.cfg.hbm_budget_bytes,
-                              self.cfg.host_budget_bytes)
+                              self.cfg.host_budget_bytes, self.n_shards)
         return RetierPlan(table=store.table, new_tiers=new_tiers, plan=plan,
                           crossed=new_tiers != self.tiers,
                           tiers_dev=tiers_dev)
@@ -553,23 +586,34 @@ def _slots(plan: BudgetPlan) -> np.ndarray:
     return slot
 
 
+def plan_shards(mesh=None, axis: str = "model") -> int:
+    """The planner's ``n_shards``, so that each device is charged the bytes
+    of all the shards it holds: the mesh's size over the most shards one
+    device holds.  One shard a device: the mesh's size, as the reference;
+    N shards on one device: 1, the whole level once (the shards are views
+    of it, ``indirect`` is held once)."""
+    if mesh is None:
+        return 1
+    from repro_torch.dist.mesh import check_mesh
+    return max(1, check_mesh(mesh, axis) // mesh.shards_per_device())
+
+
 def build_hier(store: QATStore, cfg: FQuantConfig, hcfg: HierConfig,
-               mesh=None) -> HierStore:
+               mesh=None, axis: str = "model") -> HierStore:
     """Plan and build the three levels from a ``QATStore`` on the serving
     device: the placement from the priorities, each level quantized from
     the table as ``pack`` would (``_quantized_level``), the hot level kept
     on the device, the warm one in host RAM, the cold one written as
-    shards under ``hcfg.store_dir``."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "the hier backend's mesh placement is not ported yet (ROADMAP "
-            "Queue 1 item 7, distributed)")
+    shards under ``hcfg.store_dir``.  ``mesh`` (a ``dist.Mesh``)
+    row-shards the hot level; the planner charges each device the shards
+    it holds (``plan_shards``)."""
     dev = store.table.device
     tiers_dev = current_tiers(store, cfg)
     tiers = tiers_dev.cpu().numpy()
     dim = store.table.shape[1]
     plan = plan_placement(store.priority, tiers_dev, dim,
-                          hcfg.hbm_budget_bytes, hcfg.host_budget_bytes)
+                          hcfg.hbm_budget_bytes, hcfg.host_budget_bytes,
+                          plan_shards(mesh, axis))
     if plan.cold_ids.size and hcfg.store_dir is None:
         raise ValueError("cold spill requires HierConfig.store_dir")
     hot = _quantized_level(store.table, plan.hot_ids, tiers, tiers_dev, cfg,
@@ -583,10 +627,13 @@ def build_hier(store: QATStore, cfg: FQuantConfig, hcfg: HierConfig,
                                            tiers_dev, cfg, CPU),
                           plan.cold_ids, hcfg.rows_per_shard)
         cold = ColdShards(hcfg.store_dir)
-    return HierStore(cfg=hcfg, dim=dim, level=plan.level, slot=_slots(plan),
+    hier = HierStore(cfg=hcfg, dim=dim, level=plan.level, slot=_slots(plan),
                      tiers=tiers, hot_ids=plan.hot_ids,
                      warm_ids=plan.warm_ids, cold_ids=plan.cold_ids,
-                     hot_dev=hot, warm=warm, cold=cold, device=dev)
+                     hot_dev=hot, warm=warm, cold=cold, device=dev,
+                     mesh=mesh, axis=axis)
+    hier.place()
+    return hier
 
 
 def combine_rows(hot_dev: PackedStore, hot_local: torch.Tensor,
@@ -606,7 +653,7 @@ def hier_lookup(hier: HierStore, indices,
     """The three-level ``lookup``: int (...,) -> fp32 (..., D), on the
     serving device."""
     sb = hier.stage(indices)
-    return combine_rows(hier.hot_dev, sb.hot_local, sb.stage_slot,
+    return combine_rows(hier.served, sb.hot_local, sb.stage_slot,
                         sb.staging, lookup_fn or hier.lookup_fn())
 
 

@@ -1,8 +1,8 @@
 """Recsys training-stage setup for the training CLI.
 
-Port of the single-device part of ``repro/train/setup.py``: a synthetic
-click-log stream matched to the model's FieldSpec, the compressed train
-step and its initial state, on one device.
+Port of ``repro/train/setup.py``: a synthetic click-log stream matched to
+the model's FieldSpec, the compressed train step and its initial state,
+on one device or row-sharded over a mesh (``place_train_state``).
 
 ``model="smoke"`` is the reference's training size (its setup always
 trains the smoke model); ``model="full"`` trains the published widths.
@@ -42,6 +42,22 @@ def tree_to(tree, device: torch.device):
     return tree
 
 
+def place_train_state(state: TrainState, mesh, axis: str = "model"
+                      ) -> TrainState:
+    """The reference's placement under a mesh: the table, the row-wise
+    adagrad accumulator, the priority and the access EMA row-sharded,
+    everything else replicated.  The port's sharded step holds the
+    row-aligned leaves whole on the mesh's one device and shards them by
+    row windows inside the gather and scatter (``dist.packed``), so the
+    placement checks that the table's rows divide the axis and moves the
+    state to the mesh's device."""
+    if mesh is None:
+        return state
+    from repro_torch.dist.packed import train_windows
+    train_windows(state.params["embed_table"].shape[0], mesh, axis)
+    return tree_to(state, mesh.device)
+
+
 class RecsysTrainSetup(NamedTuple):
     model: object
     spec: E.FieldSpec
@@ -57,15 +73,18 @@ def build_recsys_training(arch, *, batch: int, device: torch.device,
                           model: str = "smoke", lr: float = 0.05,
                           seed: int = 0, max_ind_range: int | None = None,
                           fq_cfg: FQuantConfig | None = None,
-                          state: TrainState | None = None
-                          ) -> RecsysTrainSetup:
+                          state: TrainState | None = None, mesh=None,
+                          axis: str = "model") -> RecsysTrainSetup:
     """Dataset + compressed train step + initial state on ``device``.
 
     The weights are random from ``seed`` (a generator on the device),
     unless ``state`` is given: then training starts from it (moved to
     ``device``), e.g. the reference's initial state carried across by
     ``convert.train_state_from_jax``.  The data stream is
-    ``CriteoSynth`` seeded as the reference seeds it.
+    ``CriteoSynth`` seeded as the reference seeds it.  ``mesh`` (a
+    ``dist.Mesh`` on ``device``) row-shards the step; the stacked table's
+    rows must divide its axis (raises SystemExit otherwise, as the
+    reference).
     """
     if model not in ("full", "smoke"):
         raise ValueError(f"model must be 'full' or 'smoke', got {model!r}")
@@ -86,6 +105,9 @@ def build_recsys_training(arch, *, batch: int, device: torch.device,
                 f"(fields {cut}); rows {before:,} -> {after:,}")
     net = make_dlrm(cfg)
     spec = net.spec
+    if mesh is not None and spec.total_rows % mesh.shape[axis]:
+        raise SystemExit(f"table rows {spec.total_rows} not divisible "
+                         f"by mesh axis {axis}={mesh.shape[axis]}")
     ds = CriteoSynth(CriteoConfig(
         num_fields=spec.num_fields,
         cardinalities=tuple(int(c) for c in spec.cardinalities),
@@ -99,13 +121,15 @@ def build_recsys_training(arch, *, batch: int, device: torch.device,
     step = make_compressed_train_step(
         net.loss_from_emb, indices_fn, lambda b: b["labels"],
         "embed_table", lr, spec.num_fields,
-        fq_cfg=fq_cfg if fq_cfg is not None else FQuantConfig())
+        fq_cfg=fq_cfg if fq_cfg is not None else FQuantConfig(),
+        mesh=mesh, axis=axis)
     if state is None:
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
         state = step.init_state(net.init(gen, device))
     else:
         state = tree_to(state, device)
+    state = place_train_state(state, mesh, axis)
 
     def batch_fn(s: int) -> dict:
         return {k: torch.from_numpy(v).to(device)

@@ -1,9 +1,9 @@
 """The compressed train step: serving kernels + Eq. 5-8 fold + in-training
 Taylor/access accumulation, in one backward.
 
-Port of the single-device branches of
-``repro/train/steps.py::make_compressed_train_step``: the fp32 table and
-the hashed pool.  One step computes, in the reference's order:
+Port of ``repro/train/steps.py::make_compressed_train_step``: the fp32
+table and the hashed pool, on one device or row-sharded over a mesh.  One
+step computes, in the reference's order:
 
     emb      = lookup_train(table, gidx)        dequant_bag kernel
     g_emb    = d loss / d emb                   head backward (autograd)
@@ -22,6 +22,19 @@ there is no Eq. 5-6 snap (pool slots are shared by rows), and Eq. 7 still
 folds per virtual row into a (V,) priority (the jitted reference's FMA
 form, ``priority.priority_update_from_batch``), which picks the serving
 cache.  ``TaylorAccum`` is sized by ``hashed_cfg.vocab`` and ``.dim``.
+
+With ``mesh`` (a ``dist.Mesh``) the gather / scatter pair is the
+row-sharded one (``dist.packed.sharded_lookup_train``, or
+``dist.hashed.sharded_hashed_lookup_train`` for the pool): one forward
+kernel a shard over its rows, summed in shard order, and one ``bag_grad``
+a shard into its rows of one gradient.  The table's rows must divide the
+mesh's axis (the pool's need not).  Each row's gradient sums the same
+slots in the same order in one shard, so the table's step is the
+unsharded one bit for bit; the rest of the step (adagrad, Adam, the fold,
+the accumulators) runs on the whole row-aligned state, which on the
+mesh's one device is the shards' state.  The hashed forward sums each
+chunk's draws a shard at a time, so its rows, and the loss, are the
+unsharded ones up to that rounding.
 
 The table (or pool) is updated in place (the reference's update is
 functional; at 124M x 64 a second table does not fit beside the
@@ -42,6 +55,9 @@ import torch
 from repro_torch.core import priority as priority_lib
 from repro_torch.core import qat_store
 from repro_torch.core.qat_store import FQuantConfig
+from repro_torch.dist.hashed import sharded_hashed_lookup_train
+from repro_torch.dist.mesh import check_mesh
+from repro_torch.dist.packed import sharded_lookup_train
 from repro_torch.kernels.dequant_bag.autodiff import lookup_train
 from repro_torch.kernels.hashed_gather.autodiff import hashed_lookup_train
 from repro_torch.optim import optimizers as opt_lib
@@ -63,7 +79,8 @@ def make_compressed_train_step(loss_from_emb: Callable,
                                fq_cfg: FQuantConfig | None = None,
                                dense_optimizer: opt_lib.Optimizer | None
                                = None,
-                               mesh=None, with_accum: bool = True,
+                               mesh=None, axis: str = "model",
+                               with_accum: bool = True,
                                field_mask=None, hashed_cfg=None,
                                eps: float = 1e-10) -> Callable:
     """``step(state, batch, mark=None) -> (state, metrics)``, with
@@ -71,20 +88,28 @@ def make_compressed_train_step(loss_from_emb: Callable,
 
     State: ``TrainState`` with opt = (dense_opt_state, adagrad accum (V,),
     or (S,) for a pool) and ``accum`` a ``TaylorAccum``.  ``field_mask``
-    (F,) zeroes pruned fields inside the loss.  The row-sharded (``mesh``)
-    form is a later slice of the port (ROADMAP Queue 1 item 7).
+    (F,) zeroes pruned fields inside the loss.  ``mesh`` (a ``dist.Mesh``
+    along ``axis``) runs the row-sharded gather and scatter.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh=: the row-sharded train step comes with the distributed "
-            "slice (ROADMAP Queue 1 item 7)")
     dense_optimizer = dense_optimizer or opt_lib.adam(lr)
     pcfg = (fq_cfg or FQuantConfig()).priority
-    if hashed_cfg is not None:
+    if mesh is not None:
+        check_mesh(mesh, axis)
+    if hashed_cfg is not None and mesh is not None:
+        def gather(tbl, gidx):      # plan entry + bag_grad, a shard each
+            return sharded_hashed_lookup_train(
+                tbl, gidx, num_chunks=hashed_cfg.num_chunks,
+                num_hashes=hashed_cfg.num_hashes,
+                num_slots=hashed_cfg.num_slots, seed=hashed_cfg.seed,
+                mesh=mesh, axis=axis)
+    elif hashed_cfg is not None:
         def gather(tbl, gidx):      # hashed_gather plan entry + bag_grad
             return hashed_lookup_train(
                 tbl, gidx, num_chunks=hashed_cfg.num_chunks,
                 num_hashes=hashed_cfg.num_hashes, seed=hashed_cfg.seed)
+    elif mesh is not None:
+        def gather(tbl, gidx):      # dequant_bag + bag_grad, a shard each
+            return sharded_lookup_train(tbl, gidx, mesh=mesh, axis=axis)
     else:
         gather = lookup_train       # dequant_bag + bag_grad
 

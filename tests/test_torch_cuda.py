@@ -585,6 +585,35 @@ def test_dequant_bag_tiered_cases_bit_equal_to_composition(dev, name):
         assert torch.equal(got.view(torch.int32), plain.view(torch.int32))
 
 
+@pytest.mark.parametrize("name", cases.WINDOW_CASE_NAMES)
+def test_dequant_bag_window_cases_bit_equal_to_composition(dev, name):
+    """The tiered entry's shard window, one launch a shard, against the
+    windowed per-shard composition through the plain bag and through
+    three single-tier launches (NaN bags where a weight is not finite);
+    the shards' sum in shard order is ``sharded_bag_lookup_rect``."""
+    from repro_torch.dist import make_mesh
+    from repro_torch.dist import packed as dp
+    c = {c.name: c for c in cases.window_cases(dev)}[name]
+    sp = dp.shard_packed(tps.PackedStore(*c.leaves), make_mesh(c.shards))
+    kernel.reset_launches()
+    got = [ops.packed_bag_lookup(sh, c.ids, c.weights, firsts=f)
+           for sh, f in zip(sp.shards, sp.firsts)]
+    torch.cuda.synchronize()
+    assert kernel.launches["tiered"] == kernel.total_launches() == c.shards
+    for g, sh, f in zip(got, sp.shards, sp.firsts):
+        plain = ops.packed_bag_lookup_tiers(sh, c.ids, c.weights,
+                                            bag=ref.dequant_bag_ref,
+                                            firsts=f)
+        composed = ops.packed_bag_lookup_tiers(sh, c.ids, c.weights,
+                                               firsts=f)
+        assert _nan_equal(g, plain) and _nan_equal(g, composed)
+    total = got[0]
+    for g in got[1:]:
+        total = total + g
+    assert _nan_equal(total, dp.sharded_bag_lookup_rect(sp, c.ids,
+                                                        weights=c.weights))
+
+
 @pytest.mark.parametrize("name", cases.HASH_CASE_NAMES)
 def test_hashed_gather_cases_both_entries_bit_equal_to_plain(dev, name):
     """The plan and ids entries on the hashed cases (Z 4/5/8, T 1/2/6,
@@ -950,3 +979,156 @@ def test_hier_staged_serve_audit_on_card(dev, tmp_path):
     assert kernel.launches["tiered"] == 8 + len(seen)
     assert rq_kernel.total_launches() >= 1
     serve.verify_hier(server)
+
+
+@pytest.fixture
+def devs():
+    """Up to four CUDA devices, one shard each (``make_mesh(n,
+    devices=)``); skips with fewer than two."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA devices")
+    return [torch.device("cuda", i)
+            for i in range(min(4, torch.cuda.device_count()))]
+
+
+def _mesh_store(dev, seed: int, v: int = 4099, d: int = 32):
+    """A snapped store on ``dev`` with rows in all three tiers."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    table = torch.randn((v, d), generator=g, device=dev) * 0.05
+    pri = torch.rand(v, generator=g, device=dev) * 100
+    cfg = tqs.FQuantConfig(tiers=TierConfig(20.0, 60.0), stochastic=False)
+    store = tqs.QATStore(table, pri)
+    store = store._replace(table=tqs.snap(
+        table, tqs.current_tiers(store, cfg), cfg))
+    return store, cfg, g
+
+
+def _bytes(x: torch.Tensor) -> torch.Tensor:
+    return x.contiguous().cpu().view(torch.uint8)
+
+
+def test_mesh_over_devices_serves_as_the_one_device_mesh(devs):
+    """One shard a device: each shard copied to its device, ``indirect``
+    once a device; the sharded lookup, the rectangular bag, the fused
+    first layer, ``unshard_packed`` and the hashed lookup equal the same
+    mesh size on one device bit for bit (the same partials, summed in
+    shard order on the first device); the ragged bag within 2e-5."""
+    from repro_torch.dist import make_mesh
+    from repro_torch.dist import hashed as dh
+    from repro_torch.dist import packed as dp
+    from repro_torch.store import hashed as th
+    n = len(devs)
+    store, cfg, g = _mesh_store(devs[0], 11)
+    packed = tps.pack(store, cfg)
+    one = dp.shard_packed(packed, make_mesh(n, device=devs[0]))
+    multi = dp.shard_packed(packed, make_mesh(n, devices=devs))
+    assert one.base is packed and multi.base is None
+    for sh, d in zip(multi.shards, devs):
+        assert all(leaf.device == d for leaf in sh)
+    assert all(torch.equal(_bytes(a), _bytes(b))
+               for a, b in zip(dp.unshard_packed(multi), packed))
+    v, d = packed.vocab, packed.dim
+    ids = torch.randint(0, v, (96, 7), generator=g, device=devs[0])
+    w = torch.randn((96, 7), generator=g, device=devs[0])
+    w[torch.rand((96, 7), generator=g, device=devs[0]) < 0.3] = 0.0
+    kernel.reset_launches()
+    got = dp.sharded_lookup(multi, ids)
+    torch.cuda.synchronize()
+    assert kernel.launches["tiered"] == kernel.total_launches() == n
+    assert got.device == devs[0]
+    assert torch.equal(_bytes(got), _bytes(tps.lookup(packed, ids)))
+    assert torch.equal(_bytes(got), _bytes(dp.sharded_lookup(one, ids)))
+    assert torch.equal(
+        _bytes(dp.sharded_bag_lookup_rect(multi, ids, weights=w)),
+        _bytes(dp.sharded_bag_lookup_rect(one, ids, weights=w)))
+    flat = ids.reshape(-1)
+    seg = torch.arange(96, device=devs[0]).repeat_interleave(7)
+    # the ragged bag sums with index_add_, whose CUDA atomics fix no
+    # order: the reference's own 2e-5
+    torch.testing.assert_close(
+        dp.sharded_bag_lookup(multi, flat, seg, 96, weights=w.reshape(-1)),
+        dp.sharded_bag_lookup(one, flat, seg, 96, weights=w.reshape(-1)),
+        rtol=0, atol=2e-5)
+    wm = torch.randn((7 * d, 16), generator=g, device=devs[0]) * 0.1
+    bm_kernel.reset_launches()
+    got_mm = dp.sharded_bag_matmul(multi, ids, wm, weights=w)
+    torch.cuda.synchronize()
+    assert bm_kernel.total_launches() == 3 * n
+    assert torch.equal(_bytes(got_mm), _bytes(dp.sharded_bag_matmul(
+        one, ids, wm, weights=w)))
+    hcfg = th.HashedConfig(vocab=5000, dim=32, chunk_dim=8, num_slots=1001)
+    hs = th.init_hashed(hcfg, seed=3, device=devs[0])
+    hone = dh.shard_hashed(hs, make_mesh(n, device=devs[0]))
+    hmulti = dh.shard_hashed(hs, make_mesh(n, devices=devs))
+    assert [p.device for p in hmulti.pools] == devs
+    hid = torch.randint(0, 5000, (300,), generator=g, device=devs[0])
+    hg_kernel.reset_launches()
+    got_h = dh.sharded_hashed_lookup(hmulti, hcfg, hid)
+    torch.cuda.synchronize()
+    assert hg_kernel.total_launches() == n
+    assert torch.equal(_bytes(got_h), _bytes(dh.sharded_hashed_lookup(
+        hone, hcfg, hid)))
+
+
+@pytest.mark.parametrize("retier_async", [False, True])
+def test_online_server_over_devices_as_the_one_device_mesh(devs,
+                                                           retier_async):
+    """``OnlineServer`` with one shard a device: its re-tiers (unshard onto
+    the first device, ``repack_delta``, reshard) move the same rows and
+    every request's embeddings equal the one-device mesh's bit for bit."""
+    from repro_torch.dist import make_mesh
+    from repro_torch.dist.packed import ShardedPack
+    from repro_torch.serve.online import OnlineConfig, OnlineServer
+    n = len(devs)
+    store, cfg, g = _mesh_store(devs[0], 12)
+    reqs = [torch.randint(0, store.table.shape[0], (64, 8), generator=g,
+                          device=devs[0]) for _ in range(6)]
+    ocfg = OnlineConfig(cache_rows=128, retier_every=2,
+                        retier_async=retier_async, shadow_rows_per_step=256)
+
+    def serve(mesh):
+        srv = OnlineServer(store, cfg, ocfg, mesh=mesh)
+        out = torch.stack([srv.lookup(r) for r in reqs])
+        if retier_async:
+            srv.drain_shadow()
+        assert isinstance(srv.backend.packed, ShardedPack)
+        return out, srv.stats.as_dict(), srv.backend.packed
+
+    out1, stats1, _ = serve(make_mesh(n, device=devs[0]))
+    outn, statsn, packed = serve(make_mesh(n, devices=devs))
+    assert stats1["rows_moved"] > 0
+    for k in ("requests", "lookups", "hits", "retiers", "rows_moved",
+              "swaps"):
+        assert statsn[k] == stats1[k], k
+    assert [sh.payload32.device for sh in packed.shards] == devs
+    assert torch.equal(_bytes(outn), _bytes(out1))
+
+
+def test_hier_over_devices_charges_each_card_its_shard(devs, tmp_path):
+    """``build_hier`` with one shard a device charges each card its shard,
+    as the reference charges a device (``plan_placement(n_shards=N)``),
+    where N shards on one card are charged the whole level once; the two
+    stores' lookups are equal bit for bit."""
+    from repro_torch.core.qat_store import current_tiers
+    from repro_torch.dist import make_mesh
+    from repro_torch.store import hier as th
+    from repro_torch.store.budget import plan_placement
+    n = len(devs)
+    store, cfg, g = _mesh_store(devs[0], 13)
+    b = tps.pack(store, cfg).nbytes() // 16
+    multi = th.build_hier(store, cfg, th.HierConfig(
+        b, b, 64, str(tmp_path / "m")), mesh=make_mesh(n, devices=devs))
+    one = th.build_hier(store, cfg, th.HierConfig(
+        b, b, 64, str(tmp_path / "o")), mesh=make_mesh(n, device=devs[0]))
+    plan = plan_placement(store.priority, current_tiers(store, cfg),
+                          store.table.shape[1], b, b, n_shards=n)
+    assert (multi.n_shards, one.n_shards) == (n, 1)
+    assert (multi.hot_ids == plan.hot_ids).all()
+    assert multi.hot_ids.size > one.hot_ids.size
+    assert multi.cold_ids.size
+    assert [sh.payload32.device for sh in multi.served.shards] == devs
+    ids = torch.randint(0, store.table.shape[0], (512,), generator=g,
+                        device=devs[0])
+    assert torch.equal(_bytes(th.hier_lookup(multi, ids)),
+                       _bytes(th.hier_lookup(one, ids)))

@@ -289,7 +289,9 @@ def test_build_requires_store_dir_for_cold():
     b = _budget(jst, 8)
     with pytest.raises(ValueError, match="store_dir"):
         thier.build_hier(_tstore(jst), TCFG, thier.HierConfig(b, b, ROWS))
-    with pytest.raises(NotImplementedError, match="item 7"):
+    # the mesh runs now (tests/test_torch_mesh_serve.py); a mesh that is
+    # not a repro_torch.dist.Mesh is refused
+    with pytest.raises(TypeError, match="Mesh"):
         thier.build_hier(_tstore(jst), TCFG, thier.HierConfig(b), mesh=4)
 
 

@@ -235,7 +235,7 @@ def test_runner_refuses_what_is_not_ported(tmp_path):
     """Every refusal names its ROADMAP item (``BENCH_fleet.json``: its own
     command, as the reference's runner does); a refused ``--emit`` writes
     nothing (the paths are under ``tmp_path``)."""
-    assert set(trun.WAITING) == {"qps_sharded", "roofline"}
+    assert set(trun.WAITING) == {"roofline"}
     for name in trun.WAITING:
         with pytest.raises(NotImplementedError, match="item"):
             trun.main(["--only", name, "--device", "cpu"])
@@ -254,7 +254,8 @@ def test_runner_refuses_what_is_not_ported(tmp_path):
     assert not any(tmp_path.iterdir())
     assert set(trun.jobs(True, torch.device("cpu"))) == {
         "table2_time", "table3_fquant", "fig3_thresholds",
-        "table4_combined", "fig2_fperm", "freq_error", "qps", "hashed"}
+        "table4_combined", "fig2_fperm", "freq_error", "qps", "qps_sharded",
+        "hashed"}
 
 
 def test_runner_lets_a_job_exception_propagate(monkeypatch, capsys):
@@ -266,7 +267,8 @@ def test_runner_lets_a_job_exception_propagate(monkeypatch, capsys):
     with pytest.raises(ValueError, match="job failed"):
         trun.main(["--fast", "--device", "cpu"])
     out = capsys.readouterr().out.splitlines()
-    assert out[0].startswith("# not ported yet") and "qps_sharded" in out[0]
+    assert out[0].startswith("# not ported yet") and "roofline" in out[0]
+    assert "qps_sharded" not in out[0]
     assert out[1].startswith("freq_error,") and out[1].endswith(
         "bucket=x;rows=1")
     assert not any(line.startswith("table2_time") for line in out)

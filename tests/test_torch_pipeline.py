@@ -302,8 +302,12 @@ def test_pipeline_cli_on_cpu_and_the_gpu_rule(tmp_path):
     cfg = tpipe.config_from_args(tpipe.parse_args(["--batch", "65536"]))
     assert (cfg.model, cfg.max_ind_range, cfg.batch) == ("full", 24_000_000,
                                                          65536)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        tpipe.run_pipeline(tpipe.fast_config(mesh=2, device="cpu"))
+    # --mesh runs now (tests/test_torch_mesh_serve.py); rows that do not
+    # divide the mesh are refused, as the reference's setup refuses them
+    with pytest.raises(SystemExit, match="not divisible"):
+        tpipe.run_pipeline(tpipe.fast_config(mesh=7, device="cpu",
+                                             model="smoke",
+                                             ckpt_dir=str(tmp_path)))
     if torch.cuda.is_available():
         pytest.skip("the no-GPU rule is checked where there is no GPU")
     with pytest.raises(RuntimeError, match="CUDA"):

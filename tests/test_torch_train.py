@@ -325,10 +325,21 @@ def test_field_mask_step_matches_jax():
 
 
 def test_step_refuses_unported_branches():
+    """The mesh branch runs now (tests/test_torch_dist_packed.py); a mesh
+    that is not a repro_torch.dist.Mesh is refused, and a mesh whose
+    shards span several devices trains nothing (the sharded step holds
+    the table on one device)."""
+    from repro_torch.dist import Mesh
+    from repro_torch.dist.packed import sharded_lookup_train
     from repro_torch.train.steps import make_compressed_train_step
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
+    with pytest.raises(TypeError, match="Mesh"):
         make_compressed_train_step(None, None, None, "embed_table", 0.1, 4,
                                    mesh=object())
+    spread = Mesh(["cpu", "meta"])
+    with pytest.raises(NotImplementedError, match="one device"):
+        sharded_lookup_train(torch.zeros((8, 4)),
+                             torch.zeros((2, 1), dtype=torch.int64),
+                             mesh=spread)
 
 
 def test_step_skips_nonfinite_loss():
