@@ -377,14 +377,42 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    window cases and phase 19 alone, its mesh-1 references included (no
    kernels line, no ok line).
 
+20. the kernel record, the fused head's training twin, the family smoke
+   and the examples, each run with the counts set to 0 just before and
+   read just after: (a) ``python -m repro_torch.benchmarks.kernels
+   --seed-cache --emit TMP/BENCH_kernel.json --shapes KERNEL_SHAPES`` (the
+   reference's two shapes, wide&deep's fused head 512:40:32:1024 and
+   xDeepFM's 512:39:10:400) through ``main``, the autotune cache under
+   TMP: the record through the schema tool, measured <= analytic on every
+   entry, the roofline kernel table printed (the rowgrid oracle of row 2
+   runs here, and only here); (b) every candidate tiling of every swept
+   shape, and of a wide&deep hashed request over both pools, bit-equal to
+   the analytic pick, each analytic rule equal to its Python mirror (not
+   counted: comparisons); (c) phase 8's wide&deep serve with
+   ``--autotune-cache`` of (a): the fused head reads the cache, the
+   logits bit-equal to phase 8's, both p50s printed; dlrm-rm2's offline
+   serve with the cache file present and absent, in turns, p50s printed;
+   (d) ``bag_matmul_train`` at wide&deep's widths (B 512, K 40, D 32, H
+   1024, the 22,216,192-row table): its forward bit-equal to
+   ``bag_matmul``, the table's gradient to ``bag_grad`` of the slot
+   cotangents, dw3 and dweights within 1e-5 of the float64 contractions;
+   (e) ``python -m repro_torch.launch.train --arch X --smoke`` for the four
+   recsys archs through ``run``; (f) bert4rec at ``FULL_CFG`` (5,000,002
+   items x 64, 2 blocks, 2 heads, sequence 200): one generic train step
+   with the F-Quantization hook and one forward at batch 2 (8.0 GB of
+   logits), finite, the peak memory printed; (g) the three examples
+   (``repro_torch.examples``) on the card at their defaults.
+   ``--record-only`` builds the kernels and runs phase 8's wide&deep
+   serve and phase 20 alone (no kernels line, no ok line).
+
 Prints the card's name and power limit, the serve, train, both online,
 both hashed and both pipeline records, one JSON ``kernels`` line
 (dequant_bag per tier dtype and its tiered entry, bag_grad, bag_matmul
 per arch, cin, hashed_gather and hashed_gather_ids per pool dtype,
 quantize_rowwise, dequant_bag_rowgrid per tier dtype, bag_grad_rowgrid;
 each with its launches on every path, phase 13's to 18's runs
-included, phase 19's mesh paths too; the run fails if a kernel of a main
-path launched no time on
+included, phase 19's mesh paths and phase 20's too; the run fails if a
+kernel of a main path launched no time on
 it, hashed_gather's fp32 plan entry, the hashed train step's forward,
 among them), and
 as the last line
@@ -507,6 +535,13 @@ MESH_N = 4
 MESH_TRAIN_STEPS = 3
 MESH_PIPELINE_ROWS = 1_000_000
 SHARD_SUM_ITERS = 50
+# phase 20: the kernel record at the reference's shapes, wide&deep's fused
+# head and xDeepFM's; bag_matmul_train at wide&deep's widths; the recsys
+# family smoke; the examples
+KERNEL_SHAPES = "64:8:64:32,32:4:96:16,512:40:32:1024,512:39:10:400"
+SMOKE_ARCHS = ("dlrm-rm2", "wide-deep", "xdeepfm", "bert4rec")
+EXAMPLES = ("quickstart", "compress_dlrm", "serve_quantized")
+BERT4REC_BATCH = 2
 
 
 T0 = time.monotonic()
@@ -2114,7 +2149,8 @@ def serve_online(torch, serve, kernels, counters, arch: str,
                  metrics_out: str | None = None,
                  logits_before: list | None = None,
                  shadow_rows: int | None = None,
-                 requests: int = REQUESTS) -> tuple:
+                 requests: int = REQUESTS,
+                 autotune_cache: str | None = None) -> tuple:
     """Phase 8: the online fused serve of one arch at full width, with the
     counts around it and the unfused head as each request's check.
     Returns (served, launches, each request's fused logits on the host).
@@ -2123,7 +2159,9 @@ def serve_online(torch, serve, kernels, counters, arch: str,
     Phase 14 runs it with ``--retier-async --shadow-rows shadow_rows
     --verify-swap``: every swap verified, at least two of them on request
     ticks, and each shadow chunk and verify pack counted; it serves
-    ``requests`` requests."""
+    ``requests`` requests.  Phase 20(c) runs it with ``--autotune-cache
+    autotune_cache``; its logits must equal ``logits_before`` (phase 8's,
+    no cache) bit for bit."""
     from repro_torch import configs
     from repro_torch.configs.common import RECSYS_SHAPES
     from repro_torch.core import packed_store as ps
@@ -2142,6 +2180,8 @@ def serve_online(torch, serve, kernels, counters, arch: str,
     if shadow_rows is not None:
         argv += ["--retier-async", "--shadow-rows", str(shadow_rows),
                  "--verify-swap"]
+    if autotune_cache is not None:
+        argv += ["--autotune-cache", autotune_cache]
     worst = {"abs": 0.0, "rel": 0.0}
     logits = []
     # the audit launches no quantize_rowwise, and a shadow's staging thread
@@ -2229,8 +2269,8 @@ def serve_online(torch, serve, kernels, counters, arch: str,
             len(logits) != requests or len(logits_before) != requests
             or not all(bits_equal(a, b) for a, b in zip(logits,
                                                          logits_before))):
-        raise SystemExit(f"{arch}: the fused logits with metrics on differ "
-                         "from the run with metrics off")
+        raise SystemExit(f"{arch}: the fused logits of this run ({argv}) "
+                         "differ from phase 8's")
     log(f"online {arch}: {requests} requests, fused logits within "
         f"{worst['abs']:.3g} of the unfused head ({worst['rel']:.3g} of "
         f"the limit), launches {launches}, p50 {rec['p50_us']:.0f} us, "
@@ -2487,8 +2527,10 @@ def resume_smoke() -> dict:
                                 stderr=subprocess.DEVNULL)
         try:
             deadline = time.monotonic() + 300
-            while not any(os.path.exists(os.path.join(ckpt, e,
-                                                      "manifest.json"))
+            # a published version: the manager writes manifest.json into
+            # a .tmp_* directory first and renames it to step_* after
+            while not any(e.startswith("step_") and os.path.exists(
+                    os.path.join(ckpt, e, "manifest.json"))
                           for e in os.listdir(ckpt)):
                 if proc.poll() is not None or time.monotonic() > deadline:
                     raise SystemExit("smoke trainer wrote no checkpoint "
@@ -4626,6 +4668,369 @@ def fleet_phase(torch, kernels_mod, counters) -> dict:
     return by_path
 
 
+# ---- phase 20: the kernel record, bag_matmul_train, the smoke, examples --
+
+def kernel_record(torch, kernels_mod, kernel, hg_kernel, tmp: str) -> tuple:
+    """Phase 20 (a): ``python -m repro_torch.benchmarks.kernels --seed-cache
+    --emit tmp/BENCH_kernel.json --shapes KERNEL_SHAPES`` through ``main``,
+    the cache at ``tmp/autotune.json``; the record through the unchanged
+    schema tool, measured <= analytic on every entry, the roofline's
+    kernel table printed.  Returns (record, cache path, the run's
+    launches)."""
+    from repro_torch.benchmarks import kernels as bench_kernels
+    from repro_torch.benchmarks import roofline
+    from repro_torch.kernels import autotune
+
+    cache = os.path.join(tmp, "autotune.json")
+    path = os.path.join(tmp, "BENCH_kernel.json")
+    autotune.set_cache_path(cache)
+    kernels_mod.reset_launches()
+    t0 = time.perf_counter()
+    rec = bench_kernels.main(["--seed-cache", "--emit", path, "--shapes",
+                              KERNEL_SHAPES])
+    seconds = time.perf_counter() - t0
+    counts = path_counts(kernels_mod, kernel, hg_kernel)
+    (written,) = check_stream(path)
+    slow = [(e["kernel"], e["b"], e["measured_us"], e["analytic_us"])
+            for e in rec["sweep"] if e["measured_us"] > e["analytic_us"]]
+    with open(cache) as fh:
+        entries = json.load(fh)["entries"]
+    shapes = KERNEL_SHAPES.count(":") // 3
+    if (written != json.loads(json.dumps(rec)) or slow or rec["interpret"]
+            or rec["backend"] != torch.cuda.get_device_name(0)
+            or len(rec["sweep"]) != 5 * shapes or len(entries) != 3 * shapes
+            or counts["dequant_bag_rowgrid"] <= 0 or counts["bag_grad"] <= 0
+            or counts["bag_matmul"] <= 0):
+        raise SystemExit(f"kernel record: slow {slow}, {len(entries)} cache "
+                         f"entries, launches {counts}")
+    print(roofline.kernel_markdown(path), flush=True)
+    print(json.dumps({"bench_kernel": rec}), flush=True)
+    log(f"phase 20(a): bench_kernel/v1 valid, {len(rec['sweep'])} entries, "
+        f"measured <= analytic on each, {len(entries)} cache entries, "
+        f"{seconds:.1f}s")
+    return rec, cache, counts
+
+
+def check_tilings(torch, kernel, bm_kernel, hg_kernel, hg_ops) -> int:
+    """Phase 20 (b): every candidate tiling of every swept shape (and of
+    a wide&deep hashed request) gives the analytic pick's bits, and each
+    kernel's analytic rule is its Python mirror.  Launches here are
+    comparisons: no path counts them.  Returns the tilings checked."""
+    from repro_torch.benchmarks.kernels import VOCAB, _case
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.dequant_bag import ref
+
+    dev = torch.device("cuda")
+    checked = 0
+
+    def same(name, want, got, t):
+        nonlocal checked
+        if not bits_equal(got, want):
+            raise SystemExit(f"{name}: tiling {t} differs from the analytic "
+                             "pick's output")
+        checked += 1
+
+    for shape in KERNEL_SHAPES.split(","):
+        b, k, d, h = (int(x) for x in shape.split(":"))
+        payload, scales, idx, w, w3, g = _case(b, k, d, h, dev)
+        picks = {"dequant_bag": (kernel.dequant_bag_analytic(b, k, d, dev),
+                                 kernel.dequant_bag_analytic(b, k, d)),
+                 "bag_grad": (kernel.bag_grad_analytic(d, device=dev),
+                              kernel.bag_grad_analytic(d)),
+                 "bag_matmul": (bm_kernel.bag_matmul_analytic(b, h, dev),
+                                bm_kernel.bag_matmul_analytic(b, h))}
+        for name, (card, mirror) in picks.items():
+            if card != mirror:
+                raise SystemExit(f"{name} {shape}: analytic {card} on the "
+                                 f"card, {mirror} in its mirror")
+        want = kernel.dequant_bag_cuda(payload, scales, idx, w)
+        for t in autotune.candidate_tilings("dequant_bag",
+                                            picks["dequant_bag"][0], dev,
+                                            b=b, k=k, d=d):
+            same(f"dequant_bag {shape}", want, kernel.dequant_bag_cuda(
+                payload, scales, idx, w, tiling=t), t)
+        coeff = ref.bag_grad_coeff(scales, idx, w).contiguous()
+        plan = kernel.plan_slots(idx)
+        want = kernel.bag_grad_cuda(g, idx, coeff, torch.zeros(
+            (VOCAB, d), device=dev), plan=plan)
+        for t in autotune.candidate_tilings("bag_grad", picks["bag_grad"][0],
+                                            dev, d=d):
+            same(f"bag_grad {shape}", want, kernel.bag_grad_cuda(
+                g, idx, coeff, torch.zeros((VOCAB, d), device=dev),
+                plan=plan, tiling=t), t)
+        want = bm_kernel.bag_matmul_cuda(payload, scales, idx, w, w3)
+        for t in autotune.candidate_tilings("bag_matmul",
+                                            picks["bag_matmul"][0], dev,
+                                            b=b, h=h):
+            same(f"bag_matmul {shape}", want, bm_kernel.bag_matmul_cuda(
+                payload, scales, idx, w, w3, tiling=t), t)
+    # the hashed gather at a wide&deep request: 20,480 ids, C 4, NH 2,
+    # Z 8, over an fp32 and an int8 pool, both entries
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20)
+    ids = torch.randint(0, 22_216_000, (20480, 1), generator=gen,
+                        device=dev)
+    for pool, sc in ((torch.randn((888_648, 8), generator=gen, device=dev),
+                      None),
+                     (torch.randint(-128, 128, (2_369_727, 8), generator=gen,
+                                    device=dev, dtype=torch.int8),
+                      torch.rand(2_369_727, generator=gen, device=dev))):
+        an = hg_kernel.hashed_gather_analytic(4, 8, dev)
+        if an != hg_kernel.hashed_gather_analytic(4, 8):
+            raise SystemExit(f"hashed_gather analytic {an} off its mirror")
+        want = hg_kernel.hashed_gather_ids_cuda(pool, sc, ids, None,
+                                                num_chunks=4, num_hashes=2)
+        slots, cf = hg_ops.slot_plan(ids, None, num_chunks=4, num_hashes=2,
+                                     num_slots=pool.shape[0])
+        for t in autotune.candidate_tilings("hashed_gather", an, dev,
+                                            num_chunks=4, z=8):
+            same("hashed_gather_ids", want, hg_kernel.hashed_gather_ids_cuda(
+                pool, sc, ids, None, num_chunks=4, num_hashes=2, tiling=t),
+                t)
+            same("hashed_gather", want, hg_kernel.hashed_gather_cuda(
+                pool, sc, slots, cf, num_chunks=4, tiling=t), t)
+    log(f"phase 20(b): {checked} candidate tilings bit-equal to the "
+        "analytic picks; the analytic mirrors equal the kernels' rules")
+    return checked
+
+
+def autotune_serve(torch, serve, kernels_mod, kernel, hg_kernel, counters,
+                   cache: str, tmp: str, logits_before: list,
+                   rec_before: dict) -> dict:
+    """Phase 20 (c): phase 8's wide&deep online fused serve at published
+    widths with ``--autotune-cache`` of (a): its logits bit-equal to phase
+    8's (no cache), the cache read by the fused head's launches; its p50
+    beside phase 8's; then the dlrm-rm2 offline serve's p50 with the cache
+    file present and absent, in turns.  Returns each run's launches."""
+    from repro_torch.kernels import autotune
+
+    hits0 = autotune.hits.get("bag_matmul", 0)
+    served, _, _ = serve_online(torch, serve, kernels_mod, counters,
+                                "wide-deep", logits_before=logits_before,
+                                autotune_cache=cache)
+    by_path = {"autotune_online_wide-deep": path_counts(
+        kernels_mod, kernel, hg_kernel)}
+    hits = autotune.hits.get("bag_matmul", 0) - hits0
+    rec = served.record
+    del served
+    torch.cuda.empty_cache()
+    if hits <= 0:
+        raise SystemExit("phase 20(c): the fused head read no cache entry")
+    dlrm = {}
+    for label, path in (("present", cache),
+                        ("absent", os.path.join(tmp, "absent.json"))):
+        kernels_mod.reset_launches()
+        d = serve.run(serve.parse_args([
+            "--model", "full", "--batch", "512", "--requests",
+            str(REQUESTS), "--autotune-cache", path])).record
+        by_path[f"autotune_dlrm_{label}"] = path_counts(kernels_mod, kernel,
+                                                        hg_kernel)
+        dlrm[label] = {"p50_us": d["p50_us"], "p99_us": d["p99_us"]}
+        torch.cuda.empty_cache()
+    summary = {"wide-deep": {"cache_hits_bag_matmul": hits,
+                             "p50_us": rec["p50_us"],
+                             "p50_us_phase8_no_cache": rec_before["p50_us"],
+                             "logits": "bit-equal to phase 8's"},
+               "dlrm-rm2": dlrm,
+               "device_name": torch.cuda.get_device_name(0)}
+    autotune.set_cache_path(None)
+    print(json.dumps({"autotune_serve": summary}), flush=True)
+    log(f"phase 20(c): wide&deep with the cache p50 {rec['p50_us']:.1f} us "
+        f"(phase 8 {rec_before['p50_us']:.1f}), {hits} bag_matmul cache "
+        f"hits, logits bit-equal; dlrm p50 present "
+        f"{dlrm['present']['p50_us']:.1f} / absent "
+        f"{dlrm['absent']['p50_us']:.1f} us")
+    return by_path
+
+
+def train_twin(torch, kernels_mod, kernel, hg_kernel) -> dict:
+    """Phase 20 (d): ``bag_matmul_train`` at wide&deep's widths (B 512, K
+    40, D 32, H 1024, the 22,216,192-row table): one forward and backward
+    (one bag_matmul and one bag_grad launch), the forward bit-equal to
+    ``bag_matmul``, the table's gradient to ``bag_grad`` of the slot
+    cotangents, dw3 and dweights within 1e-5 (relative to their largest
+    magnitude) of the float64 plain contractions.  Returns its
+    launches."""
+    from repro_torch import configs
+    from repro_torch.kernels.bag_matmul import bag_matmul_train
+    from repro_torch.kernels.bag_matmul import ops as bm_ops
+    from repro_torch.kernels.dequant_bag import ops
+    from repro_torch.models.embedding import globalize
+
+    dev = torch.device("cuda")
+    spec = configs.get("wide-deep").model.spec
+    v, d, k, b, h = spec.total_rows, spec.dim, spec.num_fields, 512, 1024
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(21)
+    table = torch.randn((v, d), generator=gen, device=dev) * 0.01
+    cards = torch.tensor(spec.cardinalities, device=dev)
+    local = (torch.rand((b, k), generator=gen, device=dev) * cards).long()
+    idx = globalize(local, spec).to(torch.int32)
+    w = torch.rand((b, k), generator=gen, device=dev) + 0.5
+    w3 = torch.randn((k, d, h), generator=gen, device=dev) * 0.05
+    r = torch.randn((b, h), generator=gen, device=dev)
+    tt, tw, tm = (x.clone().requires_grad_() for x in (table, w, w3))
+    kernels_mod.reset_launches()
+    t0 = time.perf_counter()
+    out = bag_matmul_train(tt, idx, tm, tw)
+    torch.sum(out * r).backward()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = path_counts(kernels_mod, kernel, hg_kernel)
+    if counts["bag_matmul"] != 1 or counts["bag_grad"] != 1:
+        raise SystemExit(f"bag_matmul_train launches {counts}")
+    with torch.no_grad():
+        fwd_ok = bits_equal(out, bm_ops.bag_matmul(table, None, idx, w, w3))
+        gk = torch.einsum("bh,kdh->bkd", r, w3)
+        dtable = ops.bag_grad(gk.reshape(b * k, d).contiguous(), None,
+                              idx.reshape(-1, 1), w.reshape(-1, 1), v)
+        grad_ok = bits_equal(tt.grad, dtable)
+        rows = table[idx.long()].double()
+        rd = r.double()
+        errs = {}
+        for name, got, want in (
+                ("dw3", tm.grad, torch.einsum(
+                    "bkd,bh->kdh", rows * w.double()[..., None], rd)),
+                ("dweights", tw.grad, torch.einsum(
+                    "bkd,kdh,bh->bk", rows, w3.double(), rd))):
+            errs[name] = float((got.double() - want).abs().max()
+                               / want.abs().max())
+    if not (fwd_ok and grad_ok) or max(errs.values()) > 1e-5:
+        raise SystemExit(f"bag_matmul_train: forward bit-equal {fwd_ok}, "
+                         f"dtable bit-equal {grad_ok}, {errs}")
+    summary = {"b": b, "k": k, "d": d, "h": h, "rows": v,
+               "forward_bit_equal": True, "dtable_bit_equal": True,
+               "rel_err": errs, "fwd_bwd_s": seconds,
+               "launches": {"bag_matmul": 1, "bag_grad": 1}}
+    print(json.dumps({"bag_matmul_train": summary}), flush=True)
+    log(f"phase 20(d): bag_matmul_train at {v:,} x {d}: forward and dtable "
+        f"bit-equal, dw3 / dweights within {errs['dw3']:.2e} / "
+        f"{errs['dweights']:.2e}")
+    del table, tt, tw, tm, out, dtable, gk
+    torch.cuda.empty_cache()
+    return counts
+
+
+def family_smoke(torch, kernels_mod, kernel, hg_kernel) -> dict:
+    """Phase 20 (e): ``python -m repro_torch.launch.train --arch X --smoke``
+    through ``run`` for the four recsys archs; finite metrics each.
+    Returns each arch's launches."""
+    from repro_torch.launch import train
+
+    by_path = {}
+    for arch in SMOKE_ARCHS:
+        kernels_mod.reset_launches()
+        m = train.run(train.parse_args(["--arch", arch, "--smoke"]))
+        by_path[f"smoke_{arch}"] = path_counts(kernels_mod, kernel,
+                                               hg_kernel)
+        if not m["finite"]:
+            raise SystemExit(f"smoke {arch}: {m}")
+    log(f"phase 20(e): the family smoke finite on {', '.join(SMOKE_ARCHS)}")
+    return by_path
+
+
+def bert4rec_full(torch, kernels_mod, kernel, hg_kernel) -> dict:
+    """Phase 20 (f): bert4rec at ``FULL_CFG`` (5,000,002 items x 64, 2
+    blocks, 2 heads, sequence 200): one generic train step with the
+    F-Quantization hook and one forward, at batch 2 (the (2, 200,
+    5,000,002) fp32 logits are 8.0 GB); both finite; the peak memory
+    printed.  Returns the run's launches."""
+    from repro_torch import configs
+    from repro_torch.data.sequences import SeqConfig, SeqSynth
+    from repro_torch.optim import rowwise_adagrad
+    from repro_torch.train import steps
+
+    dev = torch.device("cuda")
+    arch = configs.get("bert4rec")
+    model = arch.model
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = model.init(gen, dev)
+    seqs = SeqSynth(SeqConfig(num_items=arch.cfg.num_items - 2,
+                              seq_len=arch.seq_len)).batch(BERT4REC_BATCH, 0)
+    batch = {k: torch.from_numpy(a).to(dev) for k, a in seqs.items()}
+    opt = rowwise_adagrad(0.05)
+    hook = arch._fquant_hook(model)
+    step = steps.make_train_step(arch._loss_fn(model), opt, hook)
+    state = steps.init_state(params, opt, hook)
+    del params
+    torch.cuda.reset_peak_memory_stats()
+    kernels_mod.reset_launches()
+    t0 = time.perf_counter()
+    state, m = step(state, batch)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    with torch.no_grad():
+        out = model.forward(state.params, batch)
+    torch.cuda.synchronize()
+    counts = path_counts(kernels_mod, kernel, hg_kernel)
+    loss, norm = float(m["loss"]), float(m["grad_norm"])
+    finite = (math.isfinite(loss) and math.isfinite(norm)
+              and bool(torch.isfinite(out).all())
+              and bool(torch.isfinite(state.params["embed_table"]).all()))
+    summary = {"items": arch.cfg.num_items, "dim": arch.cfg.embed_dim,
+               "seq_len": arch.seq_len, "batch": BERT4REC_BATCH,
+               "table_rows": model.spec.total_rows, "loss": loss,
+               "grad_norm": norm, "forward_shape": list(out.shape),
+               "finite": finite, "step_s": step_s,
+               "device_peak_bytes": torch.cuda.max_memory_allocated(dev),
+               "device_name": torch.cuda.get_device_name(0)}
+    print(json.dumps({"bert4rec_full": summary}), flush=True)
+    if not finite or tuple(out.shape) != (BERT4REC_BATCH,):
+        raise SystemExit(f"bert4rec FULL_CFG: {summary}")
+    log(f"phase 20(f): bert4rec FULL_CFG step finite (loss {loss:.4f}), "
+        f"{step_s:.2f}s, peak {summary['device_peak_bytes'] / 1e9:.2f} GB")
+    del state, out, batch, m
+    torch.cuda.empty_cache()
+    return counts
+
+
+def examples_phase(torch, kernels_mod, kernel, hg_kernel) -> dict:
+    """Phase 20 (g): the three recsys examples through ``main`` on the card
+    at their defaults.  Returns each one's launches."""
+    import importlib
+
+    by_path = {}
+    for name in EXAMPLES:
+        mod = importlib.import_module(f"repro_torch.examples.{name}")
+        kernels_mod.reset_launches()
+        t0 = time.perf_counter()
+        out = mod.main(["--device", "cuda"])
+        by_path[f"example_{name}"] = path_counts(kernels_mod, kernel,
+                                                 hg_kernel)
+        if not all(math.isfinite(x) for x in out.values()
+                   if isinstance(x, float)):
+            raise SystemExit(f"example {name}: {out}")
+        print(json.dumps({f"example_{name}": out}), flush=True)
+        log(f"phase 20(g): {name} {time.perf_counter() - t0:.1f}s")
+        torch.cuda.empty_cache()
+    return by_path
+
+
+def kernel_record_phase(torch, serve, kernels_mod, kernel, bm_kernel,
+                        hg_kernel, hg_ops, counters, logits_before: list,
+                        rec_before: dict) -> dict:
+    """Phase 20, (a) to (g); returns each main path's launches (the
+    tiling checks of (b) are comparisons and count on no path)."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        _, cache, counts = kernel_record(torch, kernels_mod, kernel,
+                                         hg_kernel, tmp)
+        by_path = {"bench_kernel": counts}
+        check_tilings(torch, kernel, bm_kernel, hg_kernel, hg_ops)
+        by_path.update(autotune_serve(torch, serve, kernels_mod, kernel,
+                                      hg_kernel, counters, cache, tmp,
+                                      logits_before, rec_before))
+    by_path["bag_matmul_train"] = train_twin(torch, kernels_mod, kernel,
+                                             hg_kernel)
+    by_path.update(family_smoke(torch, kernels_mod, kernel, hg_kernel))
+    by_path["bert4rec_full"] = bert4rec_full(torch, kernels_mod, kernel,
+                                             hg_kernel)
+    by_path.update(examples_phase(torch, kernels_mod, kernel, hg_kernel))
+    log(f"phase 20: {time.perf_counter() - t0:.1f}s")
+    return by_path
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--trace", metavar="PATH",
@@ -4645,6 +5050,10 @@ def main() -> int:
                          "its mesh-1 references and phase 2's window "
                          "cases (a quick check of the mesh; prints no "
                          "kernels line and no ok line)")
+    ap.add_argument("--record-only", action="store_true",
+                    help="build the kernels and run phase 20 alone, after "
+                         "phase 8's wide&deep serve (its reference; prints "
+                         "no kernels line and no ok line)")
     args = ap.parse_args()
 
     import torch
@@ -4704,6 +5113,20 @@ def main() -> int:
                     hg_kernel.launches, rq_kernel.launches)
         by_path = fleet_phase(torch, kernels_mod, counters)
         log(f"phase 18 alone: {sorted(by_path)}")
+        return 0
+    if args.record_only:
+        counters = (kernel.launches, kernel.bag_grad_launches,
+                    bm_kernel.launches, cin_kernel.launches,
+                    hg_kernel.launches, rq_kernel.launches)
+        served, _, logits = serve_online(torch, serve, kernels_mod, counters,
+                                         "wide-deep")
+        rec = served.record
+        del served
+        torch.cuda.empty_cache()
+        by_path = kernel_record_phase(torch, serve, kernels_mod, kernel,
+                                      bm_kernel, hg_kernel, hg_ops, counters,
+                                      logits, rec)
+        log(f"phase 20 alone: {sorted(by_path)}")
         return 0
     if args.mesh_only:
         counters = (kernel.launches, kernel.bag_grad_launches,
@@ -4999,6 +5422,20 @@ def main() -> int:
                     label, counts,
                     arch=("xdeepfm" if "xdeepfm" in label else "wide-deep"
                           if "wide-deep" in label else "dlrm-rm2"))
+    # phase 20: the kernel record, bag_matmul_train, the family smoke, the
+    # examples
+    for label, counts in kernel_record_phase(
+            torch, serve, kernels_mod, kernel, bm_kernel, hg_kernel, hg_ops,
+            counters, online_logits["wide-deep"],
+            online_recs["wide-deep"]).items():
+        # the record's bag_matmul launches go to the wide&deep entry
+        record_path(kernels, grad_entry, quant_by_path, rowgrid_by_path,
+                    label, counts,
+                    arch=("xdeepfm" if "xdeepfm" in label else "dlrm-rm2"
+                          if label.startswith(("smoke_dlrm", "smoke_bert",
+                                               "bert4rec", "example_",
+                                               "autotune_dlrm"))
+                          else "wide-deep"))
     for k in kernels:
         k["launches"] = sum(k["launches_by_path"].values())
     grad_entry["launches"] = sum(grad_entry["launches_by_path"].values())
@@ -5007,12 +5444,22 @@ def main() -> int:
     kernels.append(quant_entry)
     for entry, key in ([(e, "dequant_bag_rowgrid") for e in rowgrid_entries]
                        + [(grad_rg_entry, "bag_grad_rowgrid")]):
-        entry["launches_by_path"] = {path: counts[key] for path, counts
-                                     in rowgrid_by_path.items()}
-        entry["launches"] = sum(entry["launches_by_path"].values())
-        if entry["launches"]:
-            raise SystemExit(f"{key} ran on a main path: "
-                             f"{entry['launches_by_path']}")
+        # the oracles run on the kernel record's ladder only (phase 20(a):
+        # dequant_bag_rowgrid at int8, counted under that entry)
+        by_path = {path: counts[key] for path, counts
+                   in rowgrid_by_path.items()}
+        if key == "dequant_bag_rowgrid" and not entry["name"].endswith(
+                "[int8]"):
+            by_path["bench_kernel"] = 0
+        entry["launches_by_path"] = by_path
+        entry["launches"] = sum(by_path.values())
+        elsewhere = {p: n for p, n in by_path.items()
+                     if n and p != "bench_kernel"}
+        if elsewhere or (key == "dequant_bag_rowgrid"
+                         and entry["name"].endswith("[int8]")
+                         and by_path["bench_kernel"] <= 0):
+            raise SystemExit(f"{key} ran off the kernel record's path, or "
+                             f"not on it: {by_path}")
         kernels.append(entry)
     # every kernel of a main path ran on it (the single-tier int8 / bf16
     # instances and the int8 plan entry run on none: the tiered and ids

@@ -12,11 +12,14 @@ yet.  The jobs are the paper's six (``table2_time``, ``table3_fquant``,
 ``freq_error``), the offline QPS proxy ``qps`` (``benchmarks.qps.run``),
 the sharded serving sweep ``qps_sharded`` (``benchmarks.qps_sharded.run``:
 meshes 1, 2, 4 of the smoke dlrm-rm2) and the hashed ratio sweep
-``hashed``, at the reference's budgets (``--fast``: its reduced ones).  They run on ``cuda`` unless ``--device
-cpu``, and raise without a GPU.  Unlike the reference, a job's exception
-is not caught: it propagates and the process exits non-zero.  ``--only``
-with a job that waits (``roofline``) raises ``NotImplementedError``
-naming its ROADMAP item.
+``hashed``, at the reference's budgets (``--fast``: its reduced ones),
+and ``roofline`` (``benchmarks.roofline.run``: the dry-run model, no
+rows until a port module writes dry-run records).  They run on ``cuda``
+unless ``--device cpu``, and raise without a GPU.  Unlike the reference,
+a job's exception is not caught: it propagates and the process exits
+non-zero.  ``--only`` with a job that waits (``WAITING``, empty now)
+raises ``NotImplementedError`` naming its ROADMAP item, and the rows
+start with a ``#`` line naming the waiting jobs while there are any.
 
 ``--emit PATH`` writes one record instead, dispatched on the basename
 through ``benchmarks.manifest.COMMITTED_BENCH`` as the reference does:
@@ -24,11 +27,11 @@ through ``benchmarks.manifest.COMMITTED_BENCH`` as the reference does:
 ``--retier-async``), ``BENCH_hier.json`` the hier store's budget sweep
 (``benchmarks.hier``, ``--retier-async``), ``BENCH_pipeline.json`` the
 pipeline's record (a false ``verify_*`` exits non-zero after writing),
-``BENCH_hash.json`` the hashed sweep.  ``BENCH_kernel.json`` raises
-``NotImplementedError`` (item 9), ``BENCH_fleet.json`` exits naming its
-own command (``python -m repro_torch.launch.fleet --emit
-BENCH_fleet.json``, as the reference's runner does), any other name
-exits listing the manifest.
+``BENCH_hash.json`` the hashed sweep, ``BENCH_kernel.json`` the kernel
+record (``benchmarks.kernels.run``, one timed window a candidate with
+``--fast``, else two); ``BENCH_fleet.json`` exits naming its own command
+(``python -m repro_torch.launch.fleet --emit BENCH_fleet.json``, as the
+reference's runner does), any other name exits listing the manifest.
 ``--emit-pipeline PATH`` is ``--emit`` of the pipeline's record to
 ``PATH``.  The path is the caller's: nothing is written where it did not
 say (the repository's ``BENCH_*.json`` are the JAX package's records).
@@ -45,13 +48,9 @@ import time
 from typing import Callable
 
 # the reference's jobs not ported yet, with their ROADMAP Queue 1 items
-WAITING = {
-    "roofline": "item 9, autotune with benchmarks/kernels.py",
-}
+WAITING: dict[str, str] = {}
 # the manifest's records whose modules are not ported yet
-EMIT_WAITING = {
-    "BENCH_kernel.json": "item 9, benchmarks/kernels.py with autotune",
-}
+EMIT_WAITING: dict[str, str] = {}
 
 
 def jobs(fast: bool, device, audit=None
@@ -60,7 +59,7 @@ def jobs(fast: bool, device, audit=None
     goes to ``qps.run``."""
     from repro_torch.benchmarks import (fig2_fperm, fig3_thresholds,
                                         freq_error, hashed, qps,
-                                        qps_sharded, table2_time,
+                                        qps_sharded, roofline, table2_time,
                                         table3_fquant, table4_combined)
     return {
         "table2_time": lambda: table2_time.run(
@@ -87,6 +86,7 @@ def jobs(fast: bool, device, audit=None
         "freq_error": lambda: freq_error.run(
             train_steps=100 if fast else 400, device=device),
         "hashed": lambda: hashed.run(fast=fast, device=device),
+        "roofline": roofline.run,
     }
 
 
@@ -139,6 +139,9 @@ def emit_record(name: str, path: str, args: argparse.Namespace,
             requests=96 if fast else 384,
             retier_every=32 if fast else 128,
             retier_async=args.retier_async, device=args.device)
+    elif name == "BENCH_kernel.json":
+        from repro_torch.benchmarks import kernels
+        rec = kernels.run(iters=1 if fast else 2, device=args.device)
     elif name == "BENCH_hier.json":
         from repro_torch.benchmarks import hier
         rec = hier.run_hier_sweep(**hier.sweep_budgets(fast),
@@ -164,8 +167,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--emit", default=None, metavar="PATH",
                     help="write the manifest record named by PATH's "
                          "basename (BENCH_qps.json, BENCH_hier.json, "
-                         "BENCH_pipeline.json, BENCH_hash.json) to PATH "
-                         "and skip the CSV jobs")
+                         "BENCH_pipeline.json, BENCH_hash.json, "
+                         "BENCH_kernel.json) to PATH and skip the CSV jobs")
     ap.add_argument("--emit-pipeline", default=None, metavar="PATH",
                     help="run the train -> prune -> quantize -> pack -> "
                          "serve pipeline and write its bench_pipeline/v1 "
@@ -203,8 +206,9 @@ def main(argv=None, audit=None) -> dict[str, dict]:
             raise SystemExit(f"--only {args.only}: no such job "
                              f"({', '.join(list(todo) + list(WAITING))})")
         todo = {args.only: todo[args.only]}
-    print("# not ported yet (ROADMAP Queue 1): "
-          + "; ".join(f"{k}: {v}" for k, v in WAITING.items()))
+    if WAITING:
+        print("# not ported yet (ROADMAP Queue 1): "
+              + "; ".join(f"{k}: {v}" for k, v in WAITING.items()))
     out = {}
     for name, job in todo.items():
         t0 = time.perf_counter()

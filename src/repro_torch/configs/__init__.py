@@ -14,6 +14,7 @@ ARCHS = {
     "dlrm-rm2": "repro_torch.configs.dlrm_rm2",
     "wide-deep": "repro_torch.configs.wide_deep",
     "xdeepfm": "repro_torch.configs.xdeepfm",
+    "bert4rec": "repro_torch.configs.bert4rec",
 }
 
 

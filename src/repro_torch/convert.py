@@ -1,4 +1,4 @@
-"""Carry weights (dlrm, wide&deep, xDeepFM), QAT, packed, hierarchical and
+"""Carry weights (dlrm, wide&deep, xDeepFM, bert4rec), QAT, packed, hierarchical and
 hashed stores, train states and the MPE / ALPT baselines' states from the
 JAX package into the port.
 
@@ -39,14 +39,17 @@ def to_tensor(x, device: str | torch.device = "cpu") -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def params_from_jax(params: Mapping, device: str | torch.device = "cpu"
-                    ) -> dict:
-    """Nested dict of numpy arrays -> the same nesting of tensors: any
-    model's params (``embed_table``, ``wide_table``, ``net.bot``/``top``
-    for dlrm, ``net.deep``/``bias`` for wide&deep, ``net.cin.w{i}``/
-    ``cin_out``/``deep`` for xDeepFM)."""
-    return {k: params_from_jax(v, device) if isinstance(v, Mapping)
-            else to_tensor(v, device) for k, v in params.items()}
+def params_from_jax(params, device: str | torch.device = "cpu"):
+    """Nested dicts and lists of numpy arrays -> the same nesting of
+    tensors: any model's params (``embed_table``, ``wide_table``,
+    ``net.bot``/``top`` for dlrm, ``net.deep``/``bias`` for wide&deep,
+    ``net.cin.w{i}``/``cin_out``/``deep`` for xDeepFM, ``net.blocks[i]``/
+    ``ln_f`` for bert4rec)."""
+    if isinstance(params, Mapping):
+        return {k: params_from_jax(v, device) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return [params_from_jax(v, device) for v in params]
+    return to_tensor(params, device)
 
 
 def packed_from_jax(leaves, device: str | torch.device = "cpu"

@@ -17,6 +17,15 @@ def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor
             + torch.log1p(torch.exp(-logits.abs())))
 
 
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor
+                 ) -> torch.Tensor:
+    """Per-position cross entropy.  logits (..., V), labels int (...)."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1,
+                        labels.to(torch.int64)[..., None])[..., 0]
+    return logz - gold
+
+
 def auc(scores: torch.Tensor, labels: torch.Tensor,
         valid: torch.Tensor | None = None) -> torch.Tensor:
     """Exact ROC-AUC with tie correction.  scores/labels: (N,) -> () fp32.

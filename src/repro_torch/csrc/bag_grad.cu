@@ -65,6 +65,11 @@
 //     starts; a batch's coefficients and g rows are one round trip, with
 //     the next batch's rows and slot ids in flight beside them.
 //
+// The light rows' group width and columns a lane are a launch argument
+// (LightTiling), which the measured autotune cache may pick; 0, 0 is the
+// analytic rule.  Every row keeps one owner lane a column, chaining its
+// run in sorted order, so a tiling changes no bit.
+//
 // Offsets are int64: row * D reaches 7.9e9 at 124M rows x 64.
 
 #include <cuda_runtime.h>
@@ -590,32 +595,52 @@ int launch_light(const float* g, const int32_t* rows, const int64_t* slots,
   return (int)cudaGetLastError();
 }
 
-int launch_light_for(int vec, const float* gp, const int32_t* rp,
-                     const int64_t* sp, const float* cp, float* op,
-                     int64_t n, int k_slots, int k_shift, int64_t dim,
-                     int heavy, int acc, cudaStream_t st) {
-  // a full warp a row with the fewest column passes at D >= 32; at
-  // smaller D one column a lane and 32 / G rows a warp
+// The light rows' tiling: G lanes a group, so block_b = 32 / G runs a
+// warp takes at once, and VEC columns a lane, so block_d = G * VEC columns
+// a group pass.  Each row's columns are still chained over its run in
+// sorted order by one lane each, so no tiling changes a bit.
+struct LightTiling {
+  int vec, g;
+};
+
+// The analytic pick: a full warp a row with the fewest column passes at D
+// >= 32; at smaller D one column a lane and 32 / G rows a warp.
+LightTiling analytic_light(int vec, int64_t dim) {
   if (dim >= 32) {
     const int64_t p1 = (dim + 31) / 32, p2 = (dim + 63) / 64,
                   p4 = (dim + 127) / 128;
-    if (vec == 4 && p4 < p2)
-      return launch_light<4, 32>(gp, rp, sp, cp, op, n, k_slots, k_shift,
-                                 dim, heavy, acc, st);
-    if (vec >= 2 && p2 < p1)
-      return launch_light<2, 32>(gp, rp, sp, cp, op, n, k_slots, k_shift,
-                                 dim, heavy, acc, st);
-    return launch_light<1, 32>(gp, rp, sp, cp, op, n, k_slots, k_shift, dim,
-                               heavy, acc, st);
+    if (vec == 4 && p4 < p2) return LightTiling{4, 32};
+    if (vec >= 2 && p2 < p1) return LightTiling{2, 32};
+    return LightTiling{1, 32};
   }
-  if (dim > 16)
-    return launch_light<1, 32>(gp, rp, sp, cp, op, n, k_slots, k_shift, dim,
-                               heavy, acc, st);
-  if (dim > 8)
-    return launch_light<1, 16>(gp, rp, sp, cp, op, n, k_slots, k_shift, dim,
-                               heavy, acc, st);
-  return launch_light<1, 8>(gp, rp, sp, cp, op, n, k_slots, k_shift, dim,
-                            heavy, acc, st);
+  if (dim > 16) return LightTiling{1, 32};
+  if (dim > 8) return LightTiling{1, 16};
+  return LightTiling{1, 8};
+}
+
+// (block_b, block_d) -> a built light tiling (G 32, 16 or 8; VEC 1, 2 or
+// 4, at most the access width `vec` that g and out allow).
+bool light_tiling_of(int block_b, int block_d, int vec, LightTiling* t) {
+  if (block_b != 1 && block_b != 2 && block_b != 4) return false;
+  t->g = 32 / block_b;
+  if (block_d % t->g != 0) return false;
+  t->vec = block_d / t->g;
+  return (t->vec == 1 || t->vec == 2 || t->vec == 4) && t->vec <= vec;
+}
+
+int launch_light_for(LightTiling t, const float* gp, const int32_t* rp,
+                     const int64_t* sp, const float* cp, float* op,
+                     int64_t n, int k_slots, int k_shift, int64_t dim,
+                     int heavy, int acc, cudaStream_t st) {
+#define LIGHT(V, G)                                                         \
+  if (t.vec == V && t.g == G)                                               \
+    return launch_light<V, G>(gp, rp, sp, cp, op, n, k_slots, k_shift, dim, \
+                              heavy, acc, st);
+  LIGHT(4, 32) LIGHT(2, 32) LIGHT(1, 32)
+  LIGHT(4, 16) LIGHT(2, 16) LIGHT(1, 16)
+  LIGHT(4, 8) LIGHT(2, 8) LIGHT(1, 8)
+#undef LIGHT
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -628,14 +653,16 @@ int launch_light_for(int vec, const float* gp, const int32_t* rp,
 // longest light stretch) take the block path.
 // scratch: int32 [4 + cap], cap = n / (heavy + 1) + 1 (the most runs that
 // can be longer than heavy).  accumulate: 0 starts each touched row's sum
-// from 0, 1 from the row's value in out.  Returns the cudaError_t of the
-// launches (0 = success).
+// from 0, 1 from the row's value in out.  block_b, block_d: the light
+// rows' tiling (see LightTiling; 0, 0 = the analytic pick; the heavy runs'
+// blocks keep theirs).  Returns the cudaError_t of the launches (0 =
+// success; an unbuilt tiling is cudaErrorInvalidValue).
 extern "C" int bag_grad_launch(const void* g, const void* rows,
                                const void* slots, const void* coeff,
                                void* out, long long n, int k_slots,
                                long long dim, int vec, int heavy,
                                void* scratch, int cap, int accumulate,
-                               void* stream) {
+                               int block_b, int block_d, void* stream) {
   const float* gp = static_cast<const float*>(g);
   const int32_t* rp = static_cast<const int32_t*>(rows);
   const int64_t* sp = static_cast<const int64_t*>(slots);
@@ -649,9 +676,13 @@ extern "C" int bag_grad_launch(const void* g, const void* rows,
     return (int)cudaErrorInvalidValue;
   const int k_shift =
       (k_slots & (k_slots - 1)) == 0 ? __builtin_ctz((unsigned)k_slots) : -1;
+  LightTiling lt = analytic_light(vec, dim);
+  if ((block_b != 0 || block_d != 0) &&
+      !light_tiling_of(block_b, block_d, vec, &lt))
+    return (int)cudaErrorInvalidValue;
 
   if (n <= heavy)                        // no run can be heavy
-    return launch_light_for(vec, gp, rp, sp, cp, op, n, k_slots, k_shift,
+    return launch_light_for(lt, gp, rp, sp, cp, op, n, k_slots, k_shift,
                             dim, heavy, accumulate, st);
   if (cap < n / (heavy + 1) + 1) return (int)cudaErrorInvalidValue;
   const cudaError_t err =
@@ -670,6 +701,18 @@ extern "C" int bag_grad_launch(const void* g, const void* rows,
                 : launch_heavy<1>(gp, rp, sp, cp, op, n, k_slots, k_shift,
                                   dim, meta, cap, accumulate, st);
   if (rc != 0) return rc;
-  return launch_light_for(vec, gp, rp, sp, cp, op, n, k_slots, k_shift, dim,
+  return launch_light_for(lt, gp, rp, sp, cp, op, n, k_slots, k_shift, dim,
                           heavy, accumulate, st);
+}
+
+// The light rows' analytic tiling for g and out of access width `vec`:
+// out[0] = runs a warp takes at once (32 / G), out[1] = columns a group
+// pass (G * VEC).
+extern "C" int bag_grad_tiling(int vec, long long dim, int* out) {
+  if (dim <= 0 || (vec != 1 && vec != 2 && vec != 4))
+    return (int)cudaErrorInvalidValue;
+  const LightTiling t = analytic_light(vec, dim);
+  out[0] = 32 / t.g;
+  out[1] = t.g * t.vec;
+  return 0;
 }

@@ -46,7 +46,9 @@
 //   * the block tile is 32 bags x 64 columns, or 32 x 32 when the larger
 //     tile would leave SMs without a block, so that the grid covers the
 //     card at B = 512 x H = 1024 (256 blocks) and at B = 512 x H = 400
-//     (208 blocks).
+//     (208 blocks).  That is the analytic pick; the entry also takes
+//     either tile by argument (the measured autotune cache's pick), and
+//     since one thread owns each output, neither changes a bit.
 //
 // Row offsets are int64.
 
@@ -586,15 +588,30 @@ int launch(const void* payload, const float* scales, const int32_t* indices,
   return (int)cudaGetLastError();
 }
 
+// The analytic block width: 32 x 64 blocks (2 x 4 outputs a thread),
+// unless that grid leaves SMs without a block: then 32 x 32 blocks (2 x 2
+// a thread); 256 threads either way.
+int analytic_block_h(int64_t num_bags, int h_out) {
+  const int64_t wide =
+      ((num_bags + kTileB - 1) / kTileB) * ((h_out + 63) / 64);
+  return wide >= sm_count() ? 64 : 32;
+}
+
+// block_b, block_h: the tiling, bags and outputs a block (0, 0 = the
+// analytic pick; built: 32 x 64 and 32 x 32).  One thread owns each
+// output and its (k, d) reduction, so the tiling changes no bit.
 template <typename T, bool SCALE_AFTER>
 int tile(const void* payload, const float* scales, const int32_t* indices,
          const float* weights, const float* w3, float* out, int64_t num_bags,
-         int k_slots, int dim, int h_out, cudaStream_t stream) {
-  // 32 x 64 blocks (2 x 4 outputs a thread), unless that grid leaves SMs
-  // without a block: then 32 x 32 blocks (2 x 2 a thread); 256 threads
-  const int64_t wide =
-      ((num_bags + kTileB - 1) / kTileB) * ((h_out + 63) / 64);
-  if (wide >= sm_count())
+         int k_slots, int dim, int h_out, int block_b, int block_h,
+         cudaStream_t stream) {
+  if (block_b == 0 && block_h == 0) {
+    block_b = kTileB;
+    block_h = analytic_block_h(num_bags, h_out);
+  }
+  if (block_b != kTileB || (block_h != 64 && block_h != 32))
+    return (int)cudaErrorInvalidValue;
+  if (block_h == 64)
     return launch<T, SCALE_AFTER, 64, 4>(payload, scales, indices, weights,
                                          w3, out, num_bags, k_slots, dim,
                                          h_out, stream);
@@ -607,24 +624,27 @@ template <typename T>
 int dispatch(const void* payload, const float* scales,
              const int32_t* indices, const float* weights, const float* w3,
              float* out, int64_t num_bags, int k_slots, int dim, int h_out,
-             int scale_after, cudaStream_t stream) {
+             int scale_after, int block_b, int block_h, cudaStream_t stream) {
   if (scale_after)
     return tile<T, true>(payload, scales, indices, weights, w3, out,
-                         num_bags, k_slots, dim, h_out, stream);
+                         num_bags, k_slots, dim, h_out, block_b, block_h,
+                         stream);
   return tile<T, false>(payload, scales, indices, weights, w3, out, num_bags,
-                        k_slots, dim, h_out, stream);
+                        k_slots, dim, h_out, block_b, block_h, stream);
 }
 
 }  // namespace
 
 // dtype: 0 = int8, 1 = bf16, 2 = fp32, 3 = fp16.  1 <= dim <= 384.
-// Returns the cudaError_t of the launch (0 = success).
+// block_b, block_h: the tiling (0, 0 = the analytic pick).  Returns the
+// cudaError_t of the launch (0 = success; an unbuilt tiling is
+// cudaErrorInvalidValue).
 extern "C" int bag_matmul_launch(const void* payload, int dtype,
                                  const void* scales, const void* indices,
                                  const void* weights, const void* w3,
                                  void* out, long long num_bags, int k_slots,
                                  int dim, int h_out, int scale_after,
-                                 void* stream) {
+                                 int block_b, int block_h, void* stream) {
   const float* s = static_cast<const float*>(scales);
   const int32_t* i = static_cast<const int32_t*>(indices);
   const float* w = static_cast<const float*>(weights);
@@ -637,16 +657,26 @@ extern "C" int bag_matmul_launch(const void* payload, int dtype,
   switch (dtype) {
     case 0:
       return dispatch<int8_t>(payload, s, i, w, m, o, num_bags, k_slots, dim,
-                              h_out, scale_after, st);
+                              h_out, scale_after, block_b, block_h, st);
     case 1:
       return dispatch<__nv_bfloat16>(payload, s, i, w, m, o, num_bags,
-                                     k_slots, dim, h_out, scale_after, st);
+                                     k_slots, dim, h_out, scale_after,
+                                     block_b, block_h, st);
     case 2:
       return dispatch<float>(payload, s, i, w, m, o, num_bags, k_slots, dim,
-                             h_out, scale_after, st);
+                             h_out, scale_after, block_b, block_h, st);
     case 3:
       return dispatch<__half>(payload, s, i, w, m, o, num_bags, k_slots, dim,
-                              h_out, scale_after, st);
+                              h_out, scale_after, block_b, block_h, st);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// The analytic tiling for a launch of this shape on the current device:
+// out[0] = bags a block, out[1] = outputs a block.
+extern "C" int bag_matmul_tiling(long long num_bags, int h_out, int* out) {
+  if (num_bags <= 0 || h_out <= 0) return (int)cudaErrorInvalidValue;
+  out[0] = kTileB;
+  out[1] = analytic_block_h(num_bags, h_out);
+  return 0;
 }

@@ -86,6 +86,13 @@
 // block by 32-bit arithmetic; row offsets are int64: the full int8 tier
 // holds ~81.7M rows x 64 = 5.2e9 elements.  Columns past 1,024 take
 // further blocks along the grid's y axis.
+//
+// The single-tier entry takes a tiling (block_b bags and block_d columns a
+// block: fewer lanes a group, or more bags a group), which the measured
+// autotune cache (repro_torch/kernels/autotune.py) may pick; 0, 0 is the
+// analytic rule above.  Each output element is one lane's FMA chain over k
+// in order whatever the tiling, so a tiling changes no bit of the result.
+// The tiered entry keeps its analytic pick.
 
 #include "gather_io.cuh"
 
@@ -336,17 +343,18 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// Lanes a bag (<= kThreads), bags a block and the grid for a launch.
+// Lanes a bag group (<= kThreads), bags a block and the grid for a launch
+// of `lanes` lanes a group, each group walking `nb` bags.
 struct Shape {
   int lanes, groups;
   dim3 grid;
   bool ok;
 };
 
-Shape shape_of(int64_t num_bags, int64_t dim, int nb) {
+Shape shape_of(int64_t num_bags, int64_t dim, int nb, int lanes) {
   Shape sh;
   const int64_t col_lanes = (dim + kCols - 1) / kCols;
-  sh.lanes = (int)(col_lanes < kThreads ? col_lanes : kThreads);
+  sh.lanes = lanes;
   sh.groups = kThreads / sh.lanes;
   const int64_t per_block = (int64_t)sh.groups * nb;
   const int64_t bx = (num_bags + per_block - 1) / per_block;
@@ -354,6 +362,12 @@ Shape shape_of(int64_t num_bags, int64_t dim, int nb) {
   sh.grid = dim3((unsigned)bx, (unsigned)by);
   sh.ok = bx <= 0x7fffffffLL && by <= 65535 && dim <= 0x7fffffffLL;
   return sh;
+}
+
+// Lanes a group for every column of a row at once (up to kThreads).
+int row_lanes(int64_t dim) {
+  const int64_t col_lanes = (dim + kCols - 1) / kCols;
+  return (int)(col_lanes < kThreads ? col_lanes : kThreads);
 }
 
 int out_width(const void* out, int64_t dim) {
@@ -375,30 +389,69 @@ int bags_at_once(int64_t num_bags, int64_t dim, int nb) {
     cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
     return n;
   }();
-  return shape_of(num_bags, dim, nb).grid.x >= 2u * (unsigned)sms ? nb : 1;
+  return shape_of(num_bags, dim, nb, row_lanes(dim)).grid.x >=
+                 2u * (unsigned)sms
+             ? nb
+             : 1;
+}
+
+// The single-tier entry's tiling: `lanes` lanes a bag group (block_d =
+// 4 * lanes columns a block) and `nb` bags a group walks at once (block_b
+// = nb * (kThreads / lanes) bags a block).  Every tiling gives each
+// output element the same FMA chain over k in one lane, so no tiling can
+// change a result: a measured pick is safe to serve.
+struct Tiling {
+  int lanes, nb;
+};
+
+// The analytic pick: a row's columns in one group; at K = 1 four bags a
+// group where that still gives every SM two blocks, else one; one bag a
+// group at K > 1 (a window of 8 slots).
+Tiling analytic_tiling(int64_t num_bags, int k_slots, int64_t dim) {
+  return Tiling{row_lanes(dim),
+                k_slots == 1 ? bags_at_once(num_bags, dim, 4) : 1};
+}
+
+// (block_b, block_d) -> a tiling; false where no kernel is built for it
+// (nb 1, 2 or 4 at K = 1; 1 or 2 at K > 1, windows of 8 and 4 slots).
+bool tiling_of(int block_b, int block_d, int k_slots, Tiling* tl) {
+  if (block_d < kCols || block_d % kCols != 0 || block_d > kCols * kThreads)
+    return false;
+  tl->lanes = block_d / kCols;
+  const int groups = kThreads / tl->lanes;
+  if (block_b < groups || block_b % groups != 0) return false;
+  tl->nb = block_b / groups;
+  return tl->nb == 1 || tl->nb == 2 || (k_slots == 1 && tl->nb == 4);
 }
 
 template <typename T>
 int launch(const void* payload, const float* scales, const int32_t* indices,
            const float* weights, float* out, int64_t num_bags, int k_slots,
-           int64_t dim, cudaStream_t stream) {
-  const int nb = k_slots == 1 ? bags_at_once(num_bags, dim, 4) : 1;
-  const Shape sh = shape_of(num_bags, dim, nb);
+           int64_t dim, int block_b, int block_d, cudaStream_t stream) {
+  Tiling tl;
+  if (block_b == 0 && block_d == 0)
+    tl = analytic_tiling(num_bags, k_slots, dim);
+  else if (!tiling_of(block_b, block_d, k_slots, &tl))
+    return (int)cudaErrorInvalidValue;
+  const Shape sh = shape_of(num_bags, dim, tl.nb, tl.lanes);
   if (!sh.ok) return (int)cudaErrorInvalidConfiguration;
   const T* p = static_cast<const T*>(payload);
   const int wi = in_width<T>(payload, dim), wo = out_width(out, dim);
-  if (nb == 4)
-    bag_kernel<T, 4, 1><<<sh.grid, kThreads, 0, stream>>>(
-        p, scales, indices, weights, out, num_bags, k_slots, (int)dim,
-        sh.lanes, sh.groups, wi, wo);
+#define BAG_LAUNCH(NB, WK)                                                  \
+  bag_kernel<T, NB, WK><<<sh.grid, kThreads, 0, stream>>>(                  \
+      p, scales, indices, weights, out, num_bags, k_slots, (int)dim,       \
+      sh.lanes, sh.groups, wi, wo)
+  if (k_slots == 1 && tl.nb == 4)
+    BAG_LAUNCH(4, 1);
+  else if (k_slots == 1 && tl.nb == 2)
+    BAG_LAUNCH(2, 1);
   else if (k_slots == 1)
-    bag_kernel<T, 1, 1><<<sh.grid, kThreads, 0, stream>>>(
-        p, scales, indices, weights, out, num_bags, k_slots, (int)dim,
-        sh.lanes, sh.groups, wi, wo);
+    BAG_LAUNCH(1, 1);
+  else if (tl.nb == 2)
+    BAG_LAUNCH(2, 4);
   else
-    bag_kernel<T, 1, 8><<<sh.grid, kThreads, 0, stream>>>(
-        p, scales, indices, weights, out, num_bags, k_slots, (int)dim,
-        sh.lanes, sh.groups, wi, wo);
+    BAG_LAUNCH(1, 8);
+#undef BAG_LAUNCH
   return (int)cudaGetLastError();
 }
 
@@ -408,7 +461,7 @@ int launch_tiered(const int32_t* indirect, Tier<int8_t> t8, Tier<H> t16,
                   float* out, int64_t num_bags, int k_slots, int64_t dim,
                   cudaStream_t stream) {
   const int nb = k_slots == 1 ? bags_at_once(num_bags, dim, 2) : 1;
-  const Shape sh = shape_of(num_bags, dim, nb);
+  const Shape sh = shape_of(num_bags, dim, nb, row_lanes(dim));
   if (!sh.ok) return (int)cudaErrorInvalidConfiguration;
   const I* i = static_cast<const I*>(ids);
   const int wo = out_width(out, dim);
@@ -453,32 +506,39 @@ int tiered_by_ids(const int32_t* indirect, Tier<int8_t> t8, Tier<H> t16,
 // tier).  vec: 1, or 16 / itemsize when every row starts on a 16-byte
 // boundary (the wrapper checks); the entry reads rows with the widest
 // loads that the payload pointer and D allow, so vec only has to be one
-// of the two.  Returns the cudaError_t of the launch (0 = success).
+// of the two.  block_b, block_d: the tiling, bags and columns a block
+// (see Tiling; 0, 0 = the analytic pick).  Returns the cudaError_t of the
+// launch (0 = success; an unbuilt tiling is cudaErrorInvalidValue).
 extern "C" int dequant_bag_launch(const void* payload, int dtype,
                                   const void* scales, const void* indices,
                                   const void* weights, void* out,
                                   long long num_bags, int k_slots,
-                                  long long dim, int vec, void* stream) {
+                                  long long dim, int vec, int block_b,
+                                  int block_d, void* stream) {
   const float* s = static_cast<const float*>(scales);
   const int32_t* i = static_cast<const int32_t*>(indices);
   const float* w = static_cast<const float*>(weights);
   float* o = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (num_bags <= 0 || dim <= 0) return 0;
-  if (k_slots < 0) return (int)cudaErrorInvalidValue;
+  if (k_slots < 0 || block_b < 0 || block_d < 0)
+    return (int)cudaErrorInvalidValue;
   const int itemsize[4] = {1, 2, 4, 2};
   if (dtype < 0 || dtype > 3 || (vec != 1 && vec != 16 / itemsize[dtype]))
     return (int)cudaErrorInvalidValue;
   switch (dtype) {
     case 0:
-      return launch<int8_t>(payload, s, i, w, o, num_bags, k_slots, dim, st);
+      return launch<int8_t>(payload, s, i, w, o, num_bags, k_slots, dim,
+                             block_b, block_d, st);
     case 1:
       return launch<__nv_bfloat16>(payload, s, i, w, o, num_bags, k_slots,
-                                   dim, st);
+                                   dim, block_b, block_d, st);
     case 2:
-      return launch<float>(payload, s, i, w, o, num_bags, k_slots, dim, st);
+      return launch<float>(payload, s, i, w, o, num_bags, k_slots, dim,
+                            block_b, block_d, st);
     case 3:
-      return launch<__half>(payload, s, i, w, o, num_bags, k_slots, dim, st);
+      return launch<__half>(payload, s, i, w, o, num_bags, k_slots, dim,
+                             block_b, block_d, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -521,4 +581,16 @@ extern "C" int dequant_bag_tiered_launch(
         ind, t8, tier_of<__half>(payload16, scale16, first16, rows16, dim),
         t32, ids, ids64, w, o, num_bags, k_slots, dim, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// The single-tier entry's analytic tiling for a launch of this shape on
+// the current device: out[0] = bags a block, out[1] = columns a block.
+extern "C" int dequant_bag_tiling(long long num_bags, int k_slots,
+                                  long long dim, int* out) {
+  if (num_bags <= 0 || dim <= 0 || k_slots < 0)
+    return (int)cudaErrorInvalidValue;
+  const Tiling tl = analytic_tiling(num_bags, k_slots, dim);
+  out[0] = tl.nb * (kThreads / tl.lanes);
+  out[1] = tl.lanes * kCols;
+  return 0;
 }

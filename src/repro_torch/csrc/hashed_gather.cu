@@ -271,22 +271,36 @@ __global__ void __launch_bounds__(kThreads)
                    w_out, acc);
 }
 
-// Threads a (bag, chunk), bags a block and the grid.
+// Threads a (bag, chunk), bags a block, threads a block and the grid.
 struct Shape {
-  int cols, lanes, bags;
+  int cols, lanes, bags, threads;
   unsigned blocks;
   bool ok;
 };
 
-Shape shape_of(int64_t num_bags, int num_chunks, int z) {
+// The analytic pick: 8 columns a thread (4 where Z <= 4) and as many whole
+// bags as kThreads threads hold.  Another tiling (block_b bags a block,
+// block_d = COLS columns a thread: 4 or 8), which the measured autotune
+// cache may pick, gives a block block_b bags' threads, rounded up to a
+// warp.  One thread owns each output column's chain over t in order
+// whatever the tiling, so no tiling changes a bit.
+Shape shape_of(int64_t num_bags, int num_chunks, int z, int block_b,
+               int block_d) {
   Shape sh;
-  sh.cols = z <= 4 ? 4 : 8;
+  sh.ok = false;
+  const bool analytic = block_b == 0 && block_d == 0;
+  sh.cols = analytic ? (z <= 4 ? 4 : 8) : block_d;
+  if (sh.cols != 4 && sh.cols != 8) return sh;
   sh.lanes = (z + sh.cols - 1) / sh.cols;
   const int64_t per_bag = (int64_t)num_chunks * sh.lanes;
-  sh.bags = per_bag <= kThreads ? (int)(kThreads / per_bag) : 0;
-  const int64_t blocks = sh.bags ? (num_bags + sh.bags - 1) / sh.bags : 0;
+  const int most = per_bag <= kThreads ? (int)(kThreads / per_bag) : 0;
+  sh.bags = analytic ? most : block_b;
+  if (sh.bags < 1 || sh.bags > most) return sh;
+  sh.threads = analytic ? kThreads
+                        : (int)((sh.bags * per_bag + 31) / 32 * 32);
+  const int64_t blocks = (num_bags + sh.bags - 1) / sh.bags;
   sh.blocks = (unsigned)blocks;
-  sh.ok = sh.bags > 0 && blocks <= 0x7fffffffLL;
+  sh.ok = blocks <= 0x7fffffffLL;
   return sh;
 }
 
@@ -311,11 +325,11 @@ int launch_plan(const Shape& sh, const void* pool, const float* scales,
       reinterpret_cast<const void*>((uintptr_t)slots | (uintptr_t)coeff),
       (long long)t * 4, 16);
   if (t <= 2)
-    plan_kernel<T, COLS, 2><<<sh.blocks, kThreads, 0, stream>>>(
+    plan_kernel<T, COLS, 2><<<sh.blocks, sh.threads, 0, stream>>>(
         p, scales, slots, coeff, out, num_bags, num_chunks, t, z, sh.lanes,
         sh.bags, wi, wp, wo);
   else
-    plan_kernel<T, COLS, 4><<<sh.blocks, kThreads, 0, stream>>>(
+    plan_kernel<T, COLS, 4><<<sh.blocks, sh.threads, 0, stream>>>(
         p, scales, slots, coeff, out, num_bags, num_chunks, t, z, sh.lanes,
         sh.bags, wi, wp, wo);
   return (int)cudaGetLastError();
@@ -331,11 +345,11 @@ int launch_ids(const Shape& sh, const void* pool, const float* scales,
   const I* i = static_cast<const I*>(ids);
   const int wi = in_width<T>(pool, COLS, z), wo = out_width(out, z);
   if (k_slots * num_hashes <= 2)
-    ids_kernel<T, I, COLS, 2><<<sh.blocks, kThreads, 0, stream>>>(
+    ids_kernel<T, I, COLS, 2><<<sh.blocks, sh.threads, 0, stream>>>(
         p, scales, i, weights, out, num_bags, k_slots, num_chunks,
         num_hashes, num_slots, salt, z, sh.lanes, sh.bags, wi, wo);
   else
-    ids_kernel<T, I, COLS, 4><<<sh.blocks, kThreads, 0, stream>>>(
+    ids_kernel<T, I, COLS, 4><<<sh.blocks, sh.threads, 0, stream>>>(
         p, scales, i, weights, out, num_bags, k_slots, num_chunks,
         num_hashes, num_slots, salt, z, sh.lanes, sh.bags, wi, wo);
   return (int)cudaGetLastError();
@@ -358,22 +372,24 @@ int ids_by_cols(const Shape& sh, const void* pool, const float* scales,
 
 }  // namespace
 
-// dtype: 0 = int8, 2 = fp32 (the codes of dequant_bag_launch).  Returns
-// the cudaError_t of the launch (0 = success).
+// dtype: 0 = int8, 2 = fp32 (the codes of dequant_bag_launch).  block_b,
+// block_d: the tiling, bags a block and columns a thread (0, 0 = the
+// analytic pick).  Returns the cudaError_t of the launch (0 = success).
 extern "C" int hashed_gather_launch(const void* pool, int dtype,
                                     const void* scales, const void* slots,
                                     const void* coeff, void* out,
                                     long long num_bags, int num_chunks,
-                                    int t, int z, void* stream) {
+                                    int t, int z, int block_b, int block_d,
+                                    void* stream) {
   const float* s = static_cast<const float*>(scales);
   const int32_t* i = static_cast<const int32_t*>(slots);
   const float* w = static_cast<const float*>(coeff);
   float* o = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (num_bags <= 0 || num_chunks <= 0 || z <= 0) return 0;
-  if (t < 0) return (int)cudaErrorInvalidValue;
-  const Shape sh = shape_of(num_bags, num_chunks, z);
-  if (!sh.ok) return (int)cudaErrorInvalidConfiguration;
+  if (t < 0 || block_b < 0 || block_d < 0) return (int)cudaErrorInvalidValue;
+  const Shape sh = shape_of(num_bags, num_chunks, z, block_b, block_d);
+  if (!sh.ok) return (int)cudaErrorInvalidValue;
   switch (dtype) {
     case 0:
       return sh.cols == 4
@@ -394,13 +410,13 @@ extern "C" int hashed_gather_launch(const void* pool, int dtype,
 // The ids entry.  ids: (B, K) int64 when ids64 is 1, int32 when 0 (each
 // id's low 32 bits are hashed); weights (B, K) fp32 or null (ones); the
 // pool has num_slots rows; salt = (seed * 0x9E3779B1) mod 2^32.  dtype
-// as hashed_gather_launch.  Returns the cudaError_t of the launch (0 =
-// success).
+// and block_b, block_d as hashed_gather_launch.  Returns the cudaError_t
+// of the launch (0 = success).
 extern "C" int hashed_gather_ids_launch(
     const void* pool, int dtype, const void* scales, const void* ids,
     int ids64, const void* weights, void* out, long long num_bags,
     int k_slots, int num_chunks, int num_hashes, long long num_slots,
-    unsigned int salt, int z, void* stream) {
+    unsigned int salt, int z, int block_b, int block_d, void* stream) {
   const float* s = static_cast<const float*>(scales);
   const float* w = static_cast<const float*>(weights);
   float* o = static_cast<float*>(out);
@@ -408,10 +424,11 @@ extern "C" int hashed_gather_ids_launch(
   if (num_bags <= 0 || num_chunks <= 0 || z <= 0) return 0;
   if (k_slots < 0 || num_hashes < 1 || num_slots < 1 ||
       num_slots > 0xffffffffLL ||
-      (long long)k_slots * num_hashes > 0x7fffffffLL)
+      (long long)k_slots * num_hashes > 0x7fffffffLL || block_b < 0 ||
+      block_d < 0)
     return (int)cudaErrorInvalidValue;
-  const Shape sh = shape_of(num_bags, num_chunks, z);
-  if (!sh.ok) return (int)cudaErrorInvalidConfiguration;
+  const Shape sh = shape_of(num_bags, num_chunks, z, block_b, block_d);
+  if (!sh.ok) return (int)cudaErrorInvalidValue;
   const uint32_t ns = (uint32_t)num_slots;
   if (dtype == 0 && ids64)
     return ids_by_cols<int8_t, int64_t>(sh, pool, s, ids, w, o, num_bags,
@@ -430,4 +447,15 @@ extern "C" int hashed_gather_ids_launch(
                                        k_slots, num_chunks, num_hashes, ns,
                                        salt, z, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// The analytic tiling of either entry for this shape: out[0] = bags a
+// block, out[1] = columns a thread.
+extern "C" int hashed_gather_tiling(int num_chunks, int z, int* out) {
+  if (num_chunks <= 0 || z <= 0) return (int)cudaErrorInvalidValue;
+  const Shape sh = shape_of(1, num_chunks, z, 0, 0);
+  if (!sh.ok) return (int)cudaErrorInvalidConfiguration;
+  out[0] = sh.bags;
+  out[1] = sh.cols;
+  return 0;
 }

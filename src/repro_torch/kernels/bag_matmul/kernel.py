@@ -37,18 +37,46 @@ def total_launches() -> int:
 def _launcher():
     fn = build.load("bag_matmul").bag_matmul_launch
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = [p, i, p, p, p, p, p, ll, i, i, i, i, p]
+    fn.argtypes = [p, i, p, p, p, p, p, ll, i, i, i, i, i, i, p]
     fn.restype = ctypes.c_int
     return fn
 
 
+# The tiling (block_b, block_h): bags and outputs a block, 32 x 64 (2 x 4
+# outputs a thread) or 32 x 32 (2 x 2); (0, 0) is the analytic pick (32 x
+# 64 unless that grid leaves SMs without a block).  One thread owns each
+# output and its whole (k, d) reduction, so both are bit-equal.
+TILE_B = 32
+H100_SMS = 132          # the plain versions' stand-in for the card's SMs
+
+
+def bag_matmul_analytic(b: int, h: int, device: torch.device | None = None
+                        ) -> tuple[int, int]:
+    """The analytic tiling at (B, H): on CUDA the kernel's own rule for
+    ``device`` (``bag_matmul_tiling``), elsewhere its mirror for an H100's
+    132 SMs."""
+    if device is not None and torch.device(device).type == "cuda":
+        from repro_torch.kernels.dequant_bag.kernel import _tiling_query
+        with torch.cuda.device(device):
+            return _tiling_query("bag_matmul", "bag_matmul_tiling",
+                                 ctypes.c_longlong(b), ctypes.c_int(h))
+    wide = -(-b // TILE_B) * -(-h // 64)
+    return TILE_B, 64 if wide >= H100_SMS else 32
+
+
+def bag_matmul_tilings(b: int = 0, h: int = 0) -> list[tuple[int, int]]:
+    """The built tilings."""
+    return [(TILE_B, 64), (TILE_B, 32)]
+
+
 def bag_matmul_cuda(payload: torch.Tensor, scales: torch.Tensor | None,
                     indices: torch.Tensor, weights: torch.Tensor,
-                    w3: torch.Tensor, *, scale_after: bool = False
-                    ) -> torch.Tensor:
+                    w3: torch.Tensor, *, scale_after: bool = False,
+                    tiling: tuple[int, int] = (0, 0)) -> torch.Tensor:
     """Launch the kernel: payload (V, D) int8|bf16|fp16|fp32, scales (V,)
     fp32 or None, indices (B, K) int32 in [0, V), weights (B, K) fp32, w3
-    (K, D, H) fp32 -> (B, H) fp32.  All on one CUDA device and
+    (K, D, H) fp32 -> (B, H) fp32, at ``tiling`` ((0, 0): the analytic
+    pick; an unbuilt tiling raises).  All on one CUDA device and
     contiguous, D <= 384; raises otherwise."""
     dev = payload.device
     if dev.type != "cuda":
@@ -86,9 +114,11 @@ def bag_matmul_cuda(payload: torch.Tensor, scales: torch.Tensor | None,
             None if scales is None else scales.data_ptr(),
             indices.data_ptr(), weights.data_ptr(), w3.data_ptr(),
             out.data_ptr(), b, k, d, h, int(bool(scale_after)),
+            int(tiling[0]), int(tiling[1]),
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"bag_matmul launch failed: cudaError {rc} "
-                           f"(B={b}, K={k}, D={d}, H={h}, {payload.dtype})")
+                           f"(B={b}, K={k}, D={d}, H={h}, {payload.dtype}, "
+                           f"tiling {tuple(tiling)})")
     launches[str(payload.dtype).removeprefix("torch.")] += 1
     return out

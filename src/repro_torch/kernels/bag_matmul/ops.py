@@ -10,6 +10,10 @@ partial (B, H) products summed as ``zeros + int8 + half + fp32``, the
 reference's order (``ops.py:143-153``).  The reference's own CPU runs
 take its unfused einsum branch instead, so the port meets them within a
 tolerance; the port's CPU path computes what its kernel computes.
+On CUDA ``bag_matmul`` resolves the kernel's tiling as the reference's
+``resolve_bm_block_sizes``: an explicit ``tiling``, then a hit in the
+measured autotune cache (key ``bag_matmul`` by payload dtype, with
+``|h=H``), then the analytic pick; every tiling is bit-equal.
 """
 
 from __future__ import annotations
@@ -17,26 +21,33 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.packed_store import PackedStore, _split
+from repro_torch.kernels import autotune
 from repro_torch.kernels.bag_matmul.kernel import bag_matmul_cuda
 from repro_torch.kernels.bag_matmul.ref import bag_matmul_ref
+from repro_torch.kernels.dequant_bag.ops import dtype_name
 
 
 def bag_matmul(payload: torch.Tensor, scales: torch.Tensor | None,
                indices: torch.Tensor, weights: torch.Tensor,
-               w3: torch.Tensor, *, scale_after: bool = False
-               ) -> torch.Tensor:
+               w3: torch.Tensor, *, scale_after: bool = False,
+               tiling: tuple[int, int] | None = None) -> torch.Tensor:
     """payload (V, D), scales (V,) or None, indices (B, K), weights (B, K),
     w3 (K, D, H) -> (B, H) fp32:
     ``out[b] = sum_k ((payload[i_bk] * s) * w_bk) @ w3[k]`` in the order of
-    ``ref.py``.  Dispatch is by ``payload``'s device."""
+    ``ref.py``.  Dispatch is by ``payload``'s device; on CUDA at
+    ``tiling``, else the autotune cache's or the analytic one."""
     if payload.device.type == "cpu":
         return bag_matmul_ref(payload, scales, indices, weights, w3,
                               scale_after=scale_after)
+    b, k = indices.shape
+    tiling = autotune.resolve_tiling(
+        "bag_matmul", dtype_name(payload.dtype), b, k, payload.shape[1],
+        tiling, extra=f"|h={w3.shape[-1]}", device=payload.device)
     return bag_matmul_cuda(payload, scales,
                            indices.to(torch.int32).contiguous(),
                            weights.to(torch.float32).contiguous(),
                            w3.to(torch.float32).contiguous(),
-                           scale_after=scale_after)
+                           scale_after=scale_after, tiling=tiling)
 
 
 def _as_w3(w: torch.Tensor, k: int, d: int) -> torch.Tensor:

@@ -61,9 +61,66 @@ def total_launches() -> int:
 def _launcher():
     fn = build.load("dequant_bag").dequant_bag_launch
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = [p, i, p, p, p, p, ll, i, ll, i, p]
+    fn.argtypes = [p, i, p, p, p, p, ll, i, ll, i, i, i, p]
     fn.restype = ctypes.c_int
     return fn
+
+
+# The single-tier entry's tiling (block_b, block_d): bags and columns a
+# block of 256 lanes, 4 columns a lane.  block_d = 4 * lanes a bag group
+# (1 to 256 lanes), block_b = nb * (256 // lanes), nb the bags a group
+# walks at once: 1, 2 or 4 at K = 1, 1 or 2 at K > 1.  (0, 0) is the
+# analytic pick.  Every tiling gives each output element one lane's FMA
+# chain over k in order, so all of them are bit-equal.
+THREADS = 256
+COLS = 4
+H100_SMS = 132          # the plain versions' stand-in for the card's SMs
+
+
+@functools.cache
+def _tiling_fn(lib: str, name: str, *argtypes):
+    fn = getattr(build.load(lib), name)
+    fn.argtypes = [*argtypes, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _tiling_query(lib: str, name: str, *args) -> tuple[int, int]:
+    """A C entry's analytic tiling, ``name(*args, int out[2])``; args are
+    ctypes scalars (their types are the entry's argtypes)."""
+    out = (ctypes.c_int * 2)()
+    rc = _tiling_fn(lib, name, *(type(a) for a in args))(*args, out)
+    if rc != 0:
+        raise RuntimeError(f"{name}{args}: cudaError {rc}")
+    return int(out[0]), int(out[1])
+
+
+def dequant_bag_analytic(b: int, k: int, d: int,
+                         device: torch.device | None = None
+                         ) -> tuple[int, int]:
+    """The single-tier entry's analytic tiling at (B, K, D): on CUDA the
+    kernel's own rule for ``device`` (``dequant_bag_tiling``); elsewhere
+    its mirror for an H100's 132 SMs."""
+    if device is not None and torch.device(device).type == "cuda":
+        with torch.cuda.device(device):
+            return _tiling_query("dequant_bag", "dequant_bag_tiling",
+                                 ctypes.c_longlong(b), ctypes.c_int(k),
+                                 ctypes.c_longlong(d))
+    lanes = min(-(-d // COLS), THREADS)
+    groups = THREADS // lanes
+    nb = 4 if k == 1 and -(-b // (groups * 4)) >= 2 * H100_SMS else 1
+    return nb * groups, lanes * COLS
+
+
+def dequant_bag_tilings(b: int, k: int, d: int) -> list[tuple[int, int]]:
+    """The single-tier entry's built tilings near its analytic lanes (that
+    many, half and a quarter), each with every built ``nb``."""
+    lanes = min(-(-d // COLS), THREADS)
+    out = []
+    for ln in sorted({lanes, max(1, lanes // 2), max(1, lanes // 4)}):
+        for nb in ((1, 2, 4) if k == 1 else (1, 2)):
+            out.append((nb * (THREADS // ln), ln * COLS))
+    return out
 
 
 def _check(name: str, t: torch.Tensor, dtype, ndim: int,
@@ -101,11 +158,12 @@ def _check_bag_inputs(fn: str, payload: torch.Tensor,
 
 
 def dequant_bag_cuda(payload: torch.Tensor, scales: torch.Tensor | None,
-                     indices: torch.Tensor, weights: torch.Tensor
-                     ) -> torch.Tensor:
+                     indices: torch.Tensor, weights: torch.Tensor,
+                     tiling: tuple[int, int] = (0, 0)) -> torch.Tensor:
     """Launch the kernel: payload (V, D) int8|bf16|fp16|fp32, scales (V,) fp32
     or None, indices (B, K) int32 in [0, V), weights (B, K) fp32 -> (B, D)
-    fp32.  All on one CUDA device and contiguous; raises otherwise."""
+    fp32, at ``tiling`` ((0, 0): the analytic pick; an unbuilt tiling
+    raises).  All on one CUDA device and contiguous; raises otherwise."""
     _check_bag_inputs("dequant_bag_cuda", payload, scales, indices, weights)
     dev = payload.device
     b, k = indices.shape
@@ -122,10 +180,12 @@ def dequant_bag_cuda(payload: torch.Tensor, scales: torch.Tensor | None,
             payload.data_ptr(), _DTYPE_CODE[payload.dtype],
             None if scales is None else scales.data_ptr(),
             indices.data_ptr(), weights.data_ptr(), out.data_ptr(),
-            b, k, d, vec, torch.cuda.current_stream(dev).cuda_stream)
+            b, k, d, vec, int(tiling[0]), int(tiling[1]),
+            torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"dequant_bag launch failed: cudaError {rc} "
-                           f"(B={b}, K={k}, D={d}, {payload.dtype})")
+                           f"(B={b}, K={k}, D={d}, {payload.dtype}, tiling "
+                           f"{tuple(tiling)})")
     launches[str(payload.dtype).removeprefix("torch.")] += 1
     return out
 
@@ -232,9 +292,61 @@ def _check_grad_inputs(fn: str, g: torch.Tensor, indices: torch.Tensor,
 def _grad_launcher():
     fn = build.load("bag_grad").bag_grad_launch
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = [p, p, p, p, p, ll, i, ll, i, i, p, i, i, p]
+    fn.argtypes = [p, p, p, p, p, ll, i, ll, i, i, p, i, i, i, i, p]
     fn.restype = ctypes.c_int
     return fn
+
+
+# bag_grad's tiling (block_b, block_d) is its light rows' (runs of at most
+# HEAVY_RUN slots): G lanes a group, block_b = 32 // G runs a warp takes
+# at once (1, 2 or 4), and VEC columns a lane (1, 2 or 4, at most the
+# access width g and out allow), block_d = G * VEC columns a group pass.
+# The heavy runs' blocks keep their own.  Each row keeps one owner lane a
+# column, chaining its run in sorted order, so all tilings are bit-equal.
+
+
+def access_width(d: int, *tensors: torch.Tensor) -> int:
+    """The widest fp32 vector (4, 2 or 1) that D and every tensor's
+    address allow."""
+    return next(v for v in (4, 2, 1)
+                if d % v == 0 and all(t.data_ptr() % (4 * v) == 0
+                                      for t in tensors))
+
+
+def bag_grad_analytic(d: int, vec: int | None = None,
+                      device: torch.device | None = None) -> tuple[int, int]:
+    """The light rows' analytic tiling at D for access width ``vec``
+    (default: D's own, 4, 2 or 1): on CUDA the kernel's own rule
+    (``bag_grad_tiling``), elsewhere its mirror."""
+    vec = vec or next(v for v in (4, 2, 1) if d % v == 0)
+    if device is not None and torch.device(device).type == "cuda":
+        with torch.cuda.device(device):
+            return _tiling_query("bag_grad", "bag_grad_tiling",
+                                 ctypes.c_int(vec), ctypes.c_longlong(d))
+    if d >= 32:
+        p1, p2, p4 = -(-d // 32), -(-d // 64), -(-d // 128)
+        v = 4 if vec == 4 and p4 < p2 else 2 if vec >= 2 and p2 < p1 else 1
+        return 1, 32 * v
+    g = 32 if d > 16 else 16 if d > 8 else 8
+    return 32 // g, g
+
+
+def bag_grad_tilings(d: int, vec: int | None = None
+                     ) -> list[tuple[int, int]]:
+    """Every built light tiling at D for access width ``vec``."""
+    vec = vec or next(v for v in (4, 2, 1) if d % v == 0)
+    return [(32 // g, g * v) for g in (32, 16, 8) for v in (1, 2, 4)
+            if v <= vec]
+
+
+def bag_grad_tiling_ok(tiling: tuple[int, int], vec: int) -> bool:
+    """Whether ``tiling`` is (0, 0) or built for access width ``vec``."""
+    bb, bd = tiling
+    if (bb, bd) == (0, 0):
+        return True
+    if bb not in (1, 2, 4) or bd % (32 // bb):
+        return False
+    return bd // (32 // bb) in (1, 2, 4) and bd // (32 // bb) <= vec
 
 
 class SlotPlan(NamedTuple):
@@ -265,7 +377,8 @@ def _check_plan(plan: SlotPlan, n: int, device: torch.device) -> None:
 def bag_grad_cuda(g: torch.Tensor, indices: torch.Tensor,
                   coeff: torch.Tensor, out: torch.Tensor,
                   plan: SlotPlan | None = None,
-                  accumulate: bool = False) -> torch.Tensor:
+                  accumulate: bool = False,
+                  tiling: tuple[int, int] = (0, 0)) -> torch.Tensor:
     """Launch the scatter-add backward into ``out`` and return it.
 
     g (B, D) fp32, indices (B, K) int32 in [0, V), coeff (B, K) fp32,
@@ -279,6 +392,8 @@ def bag_grad_cuda(g: torch.Tensor, indices: torch.Tensor,
     one stable sort here, unless ``plan`` (``plan_slots(indices)``, made
     once by a caller that scatters over the same indices again) is given;
     the kernel does the accumulation.  Nothing here waits on the device.
+    ``tiling`` is the light rows' ((0, 0): the analytic pick; one not
+    built for this launch's access width raises).
     """
     _check_grad_inputs("bag_grad_cuda", g, indices, coeff, out)
     dev = g.device
@@ -294,9 +409,10 @@ def bag_grad_cuda(g: torch.Tensor, indices: torch.Tensor,
         plan = plan_slots(indices)
     else:
         _check_plan(plan, n, dev)
-    vec = next(v for v in (4, 2, 1)
-               if d % v == 0 and g.data_ptr() % (4 * v) == 0
-               and out.data_ptr() % (4 * v) == 0)
+    vec = access_width(d, g, out)
+    if not bag_grad_tiling_ok(tiling, vec):
+        raise ValueError(f"bag_grad tiling {tuple(tiling)} is not built for "
+                         f"access width {vec}")
     # the heavy-run list: 4 counters, then room for every run that can be
     # longer than HEAVY_RUN
     cap = n // (HEAVY_RUN + 1) + 1
@@ -305,8 +421,8 @@ def bag_grad_cuda(g: torch.Tensor, indices: torch.Tensor,
         rc = _grad_launcher()(
             g.data_ptr(), plan.rows.data_ptr(), plan.slots.data_ptr(),
             coeff.data_ptr(), out.data_ptr(), n, k, d, vec, HEAVY_RUN,
-            scratch.data_ptr(), cap, int(accumulate),
-            torch.cuda.current_stream(dev).cuda_stream)
+            scratch.data_ptr(), cap, int(accumulate), int(tiling[0]),
+            int(tiling[1]), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"bag_grad launch failed: cudaError {rc} "
                            f"(B={b}, K={k}, D={d}, V={out.shape[0]})")

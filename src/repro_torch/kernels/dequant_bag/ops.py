@@ -17,6 +17,14 @@ the same dispatch; ``plan_slots`` groups its slots once for callers that
 scatter over the same indices many times.  ``dequant_bag_rowgrid`` and ``bag_grad_rowgrid`` are
 the reference's (B, K)-grid tiling oracles of the two, with the same
 dispatch; no serving or training path calls them.
+
+On CUDA ``dequant_bag`` and ``bag_grad`` resolve their kernel's tiling
+as the reference's ``resolve_block_sizes`` does (``ops.py:97-147``): an
+explicit ``tiling``, then a hit in the measured autotune cache
+(``kernels.autotune``, keys ``dequant_bag`` by payload dtype and
+``bag_grad``), then the analytic pick.  Every tiling is bit-equal, so
+the cache moves times only.  The reference's ``REPRO_DEQUANT_BLOCK_B/D``
+overrides are not ported.  The tiered entry keeps its analytic pick.
 """
 
 from __future__ import annotations
@@ -24,35 +32,51 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.packed_store import PackedStore, _split
+from repro_torch.kernels import autotune
 from repro_torch.kernels.dequant_bag.kernel import (
-    SlotPlan, bag_grad_cuda, bag_grad_rowgrid_cuda, dequant_bag_cuda,
-    dequant_bag_rowgrid_cuda, dequant_bag_tiered_cuda, plan_slots)
+    SlotPlan, access_width, bag_grad_cuda, bag_grad_rowgrid_cuda,
+    bag_grad_tiling_ok, dequant_bag_cuda, dequant_bag_rowgrid_cuda,
+    dequant_bag_tiered_cuda, plan_slots)
 from repro_torch.kernels.dequant_bag.ref import (
     bag_grad_coeff, bag_grad_ref, bag_grad_rowgrid_ref, dequant_bag_ref,
     dequant_bag_rowgrid_ref)
 
 
+def dtype_name(dtype: torch.dtype) -> str:
+    """A tensor dtype as the cache keys name it (``int8``, ``bfloat16``,
+    ...), the reference's ``str(payload.dtype)``."""
+    return str(dtype).removeprefix("torch.")
+
+
 def dequant_bag(payload: torch.Tensor, scales: torch.Tensor | None,
                 indices: torch.Tensor,
-                weights: torch.Tensor | None = None) -> torch.Tensor:
+                weights: torch.Tensor | None = None,
+                tiling: tuple[int, int] | None = None) -> torch.Tensor:
     """payload (V, D), scales (V,) or None, indices (B, K) -> (B, D) fp32.
 
     ``out[b] = sum_k (f32(payload[i_bk]) * scale[i_bk]) * w_bk`` in k
     order, zero-weight slots skipped.  Dispatch is by ``payload``'s
-    device.
+    device; on CUDA at ``tiling``, else the autotune cache's or the
+    analytic one.
     """
     if weights is None:
         weights = torch.ones(indices.shape, dtype=torch.float32,
                              device=indices.device)
     if payload.device.type == "cpu":
         return dequant_bag_ref(payload, scales, indices, weights)
-    return dequant_bag_cuda(payload, scales, indices, weights)
+    b, k = indices.shape
+    return dequant_bag_cuda(payload, scales, indices, weights,
+                            tiling=autotune.resolve_tiling(
+                                "dequant_bag", dtype_name(payload.dtype), b,
+                                k, payload.shape[1], tiling,
+                                device=payload.device))
 
 
 def bag_grad(g: torch.Tensor, scales: torch.Tensor | None,
              indices: torch.Tensor, weights: torch.Tensor | None,
              vocab: int, plan: SlotPlan | None = None,
-             out: torch.Tensor | None = None) -> torch.Tensor:
+             out: torch.Tensor | None = None,
+             tiling: tuple[int, int] | None = None) -> torch.Tensor:
     """Transpose of ``dequant_bag`` w.r.t. the payload: g (B, D) fp32,
     indices (B, K) -> dtable (vocab, D) fp32.
 
@@ -65,12 +89,20 @@ def bag_grad(g: torch.Tensor, scales: torch.Tensor | None,
     needs no grouping).  ``out`` (vocab, D) fp32, when given, is
     accumulated onto in place and returned (no zero fill): each touched
     row's chain starts from its value there, so scattering consecutive
-    runs of bags one call each sums every row as one call does.
+    runs of bags one call each sums every row as one call does.  On
+    CUDA the kernel runs at ``tiling``, else the autotune cache's (where
+    this launch's access width takes it) or the analytic one.
     """
     if g.device.type == "cpu":
         return bag_grad_ref(g, scales, indices, weights, vocab, out=out)
+    b, k = indices.shape
+    d = g.shape[1]
+    width = access_width(d, g, *(() if out is None else (out,)))
+    tiling = autotune.resolve_tiling(
+        "bag_grad", "float32", b, k, d, tiling, device=g.device,
+        valid=lambda t: bag_grad_tiling_ok(t, width))
     return _scatter_on_card(bag_grad_cuda, g, scales, indices, weights,
-                            vocab, plan=plan, out=out)
+                            vocab, plan=plan, out=out, tiling=tiling)
 
 
 def _scatter_on_card(launch, g, scales, indices, weights, vocab: int,

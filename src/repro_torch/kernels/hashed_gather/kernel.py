@@ -40,9 +40,57 @@ def total_launches() -> int:
 def _launcher():
     fn = build.load("hashed_gather").hashed_gather_launch
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = [p, i, p, p, p, p, ll, i, i, i, p]
+    fn.argtypes = [p, i, p, p, p, p, ll, i, i, i, i, i, p]
     fn.restype = ctypes.c_int
     return fn
+
+
+# Either entry's tiling (block_b, block_d): bags a block and columns a
+# thread, 4 or 8 (a (bag, chunk) takes ceil(Z / block_d) threads; a block
+# at most 256 threads, rounded up to a warp).  (0, 0) is the analytic
+# pick: 8 columns a thread (4 where Z <= 4) and as many bags as 256
+# threads hold.  One thread owns each output column's chain over t in
+# order, so every tiling is bit-equal.
+THREADS = 256
+
+
+def _most_bags(num_chunks: int, z: int, cols: int) -> int:
+    return THREADS // (num_chunks * -(-z // cols))
+
+
+def hashed_gather_analytic(num_chunks: int, z: int,
+                           device: torch.device | None = None
+                           ) -> tuple[int, int]:
+    """Either entry's analytic tiling at (C, Z): on CUDA the kernel's own
+    rule (``hashed_gather_tiling``), elsewhere its mirror."""
+    if device is not None and torch.device(device).type == "cuda":
+        from repro_torch.kernels.dequant_bag.kernel import _tiling_query
+        with torch.cuda.device(device):
+            return _tiling_query("hashed_gather", "hashed_gather_tiling",
+                                 ctypes.c_int(num_chunks), ctypes.c_int(z))
+    cols = 4 if z <= 4 else 8
+    return _most_bags(num_chunks, z, cols), cols
+
+
+def hashed_gather_tilings(num_chunks: int, z: int
+                          ) -> list[tuple[int, int]]:
+    """The built tilings: 4 or 8 columns a thread, with the most bags a
+    block holds, half and a quarter of them."""
+    out = []
+    for cols in (4, 8):
+        most = _most_bags(num_chunks, z, cols)
+        out += [(bb, cols) for bb in sorted({most, most // 2, most // 4})
+                if bb >= 1]
+    return out
+
+
+def hashed_gather_tiling_ok(tiling: tuple[int, int], num_chunks: int,
+                            z: int) -> bool:
+    """Whether ``tiling`` is (0, 0) or built at (C, Z)."""
+    bb, cols = tiling
+    if (bb, cols) == (0, 0):
+        return True
+    return cols in (4, 8) and 1 <= bb <= _most_bags(num_chunks, z, cols)
 
 
 def _check_pool(fn: str, pool: torch.Tensor, scales: torch.Tensor | None
@@ -62,11 +110,12 @@ def _check_pool(fn: str, pool: torch.Tensor, scales: torch.Tensor | None
 
 def hashed_gather_cuda(pool: torch.Tensor, scales: torch.Tensor | None,
                        slots: torch.Tensor, coeff: torch.Tensor, *,
-                       num_chunks: int) -> torch.Tensor:
+                       num_chunks: int, tiling: tuple[int, int] = (0, 0)
+                       ) -> torch.Tensor:
     """Launch the kernel: pool (S, Z) fp32|int8, scales (S,) fp32 or None
     (unit scales), slots (B, C*T) int32 in [0, S), coeff (B, C*T) fp32
-    -> (B, C*Z) fp32.  All on one CUDA device and contiguous; raises
-    otherwise."""
+    -> (B, C*Z) fp32, at ``tiling`` ((0, 0): the analytic pick).  All on
+    one CUDA device and contiguous; raises otherwise."""
     _check_pool("hashed_gather_cuda", pool, scales)
     dev = pool.device
     _check("slots", slots, torch.int32, 2, dev)
@@ -88,7 +137,7 @@ def hashed_gather_cuda(pool: torch.Tensor, scales: torch.Tensor | None,
         rc = launch(pool.data_ptr(), _DTYPE_CODE[pool.dtype],
                     None if scales is None else scales.data_ptr(),
                     slots.data_ptr(), coeff.data_ptr(), out.data_ptr(),
-                    b, num_chunks, t, z,
+                    b, num_chunks, t, z, int(tiling[0]), int(tiling[1]),
                     torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"hashed_gather launch failed: cudaError {rc} "
@@ -102,7 +151,8 @@ def hashed_gather_cuda(pool: torch.Tensor, scales: torch.Tensor | None,
 def _ids_launcher():
     fn = build.load("hashed_gather").hashed_gather_ids_launch
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = [p, i, p, p, i, p, p, ll, i, i, i, ll, ctypes.c_uint, i, p]
+    fn.argtypes = [p, i, p, p, i, p, p, ll, i, i, i, ll, ctypes.c_uint, i, i,
+                   i, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -110,13 +160,14 @@ def _ids_launcher():
 def hashed_gather_ids_cuda(pool: torch.Tensor, scales: torch.Tensor | None,
                            ids: torch.Tensor, weights: torch.Tensor | None,
                            *, num_chunks: int, num_hashes: int,
-                           seed: int = 0) -> torch.Tensor:
+                           seed: int = 0, tiling: tuple[int, int] = (0, 0)
+                           ) -> torch.Tensor:
     """Launch the ids entry: pool (S, Z) fp32|int8, scales (S,) fp32 or
     None (unit scales), ids (B, K) int32 or int64 (their low 32 bits are
     hashed), weights (B, K) fp32 or None (ones) -> (B, C*Z) fp32, what
     ``hashed_gather_cuda`` gives on ``slot_plan(ids, weights, ...)`` with
-    ``num_slots = S``.  All on one CUDA device and contiguous; raises
-    otherwise."""
+    ``num_slots = S``, at ``tiling`` (as ``hashed_gather_cuda``'s).  All on
+    one CUDA device and contiguous; raises otherwise."""
     _check_pool("hashed_gather_ids_cuda", pool, scales)
     dev = pool.device
     if ids.dtype not in (torch.int32, torch.int64):
@@ -141,8 +192,8 @@ def hashed_gather_ids_cuda(pool: torch.Tensor, scales: torch.Tensor | None,
             None if scales is None else scales.data_ptr(), ids.data_ptr(),
             int(ids.dtype == torch.int64),
             None if weights is None else weights.data_ptr(), out.data_ptr(),
-            b, k, num_chunks, num_hashes, s, salt(seed), z,
-            torch.cuda.current_stream(dev).cuda_stream)
+            b, k, num_chunks, num_hashes, s, salt(seed), z, int(tiling[0]),
+            int(tiling[1]), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"hashed_gather_ids launch failed: cudaError {rc} "
                            f"(B={b}, K={k}, C={num_chunks}, NH={num_hashes}, "

@@ -142,6 +142,7 @@ from repro_torch.core.qat_store import (CHUNK_ROWS, FQuantConfig, QATStore,
 from repro_torch.core.tiers import plan_thresholds_for_ratio
 from repro_torch.dist import make_mesh
 from repro_torch.dist.packed import ShardedPack, shard_packed, sharded_lookup
+from repro_torch.kernels import autotune
 from repro_torch.kernels.dequant_bag import kernel as dequant_kernel
 from repro_torch.models import embedding as E
 from repro_torch.serve.loop import (SERVE_PHASES, serve_forward,
@@ -157,8 +158,7 @@ SEED = 0
 
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(
-        description="Serve a recsys model from the packed SHARK store.",
-        epilog="Not ported yet: --autotune-cache.")
+        description="Serve a recsys model from the packed SHARK store.")
     ap.add_argument("--arch", default="dlrm-rm2", choices=configs.names())
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--batch", type=int, default=256)
@@ -242,6 +242,13 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="pool element width for --store-backend hashed: "
                          "32 = fp32 pool, 8 = int8 pool + per-slot scales "
                          "(the SHARK-rowwise x hashing combined mode)")
+    ap.add_argument("--autotune-cache", default=None, metavar="PATH",
+                    help="measured kernel-tiling cache to serve with "
+                         "(kernels.autotune.set_cache_path: sets "
+                         "REPRO_AUTOTUNE_CACHE for the process; seed it "
+                         "with python -m repro_torch.benchmarks.kernels "
+                         "--seed-cache).  Default: results/autotune.json "
+                         "when present")
     ap.add_argument("--metrics-out", default=None, metavar="PATH",
                     help="enable the repro_torch.obs registry and write "
                          "metrics_snapshot/v1 JSONL here (one line every "
@@ -402,6 +409,11 @@ def run(args: argparse.Namespace, make_audit: Callable | None = None,
     on from here and one snapshot is flushed before returning; the
     caller closes the sink (``obs.close_sink``), as ``main`` does."""
     device = resolve_device(args.device)
+    if args.autotune_cache is not None:
+        autotune.set_cache_path(args.autotune_cache)
+    arch = configs.get(args.arch)
+    if arch.seq_model:
+        raise SystemExit("the serve CLI serves field-based recsys archs only")
     if args.metrics_out:
         obs.enable()
         # the whole phase catalog, so snapshots carry every histogram,
@@ -409,7 +421,6 @@ def run(args: argparse.Namespace, make_audit: Callable | None = None,
         obs.ensure_histograms(f"{p}_us" for p in SERVE_PHASES)
         obs.set_sink(obs.JsonlSink(args.metrics_out,
                                    every=args.metrics_every))
-    arch = configs.get(args.arch)
     full = args.model == "full"
     model = arch.model if full else arch.smoke_model
     num_dense = arch.num_dense if full else arch.smoke_num_dense

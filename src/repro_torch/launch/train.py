@@ -24,6 +24,13 @@ The last stdout line is a JSON record: arch, model, device,
 device_name, batch, mesh, steps_run, resumed_from, loss_first,
 loss_last, step_ms_p50, kernel_launches (per kernel), rows, reduced,
 stragglers, nan_skips, device_peak_bytes.
+
+``--smoke``, and any sequence arch (bert4rec) whatever the flags, runs
+the recsys family smoke instead (``RecsysArch.smoke``: three generic
+train steps with the F-Quantization hook at the reduced size, a pack /
+unpack of the table and a forward), prints ``smoke-train metrics: ...``
+and, last, the metrics as JSON; it exits non-zero when they are not
+finite.
 """
 
 from __future__ import annotations
@@ -49,8 +56,8 @@ FULL_MAX_IND_RANGE = 24_000_000
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(
         description="Train a recsys model with the compressed train step.",
-        epilog="Not ported yet: the hashed table and the family smoke of "
-               "non-recsys archs (--smoke).")
+        epilog="Not ported yet: the GNN and LM archs and their family "
+               "smoke.")
     ap.add_argument("--arch", default="dlrm-rm2", choices=configs.names())
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=64)
@@ -69,15 +76,30 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--mesh", type=int, default=1,
                     help="row-shard the table over an N-shard 'model' mesh "
                          "(repro_torch.dist; every shard on --device)")
+    ap.add_argument("--smoke", action="store_true",
+                    help="run the reduced-config family smoke (always, for "
+                         "a sequence arch)")
     args = ap.parse_args(argv)
     if args.mesh < 1:
         ap.error("--mesh must be >= 1")
     return args
 
 
+def smoke(args: argparse.Namespace, arch) -> dict:
+    """The family smoke's metrics; SystemExit when they are not finite."""
+    metrics = arch.smoke(args.device)
+    metrics["arch"] = args.arch
+    print("smoke-train metrics:", metrics, flush=True)
+    if not metrics["finite"]:
+        raise SystemExit("non-finite smoke metrics")
+    return metrics
+
+
 def run(args: argparse.Namespace) -> dict:
-    device = resolve_device(args.device)
     arch = configs.get(args.arch)
+    if args.smoke or arch.seq_model:
+        return smoke(args, arch)
+    device = resolve_device(args.device)
     cap = args.max_ind_range
     if cap is None and args.model == "full":
         cap = FULL_MAX_IND_RANGE

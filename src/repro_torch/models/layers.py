@@ -1,5 +1,5 @@
-"""Shared layers: dense + bias, the MLP and its fused tail (plain
-functions, dict params).
+"""Shared layers: dense + bias, the MLP and its fused tail, layer norm
+(plain functions, dict params).
 
 Port of ``repro/models/layers.py``.  Params are nested dicts of tensors
 keyed as in the reference (``l{i}`` -> ``{"w": (d_in, d_out), "b":
@@ -32,14 +32,36 @@ def mlp_init(gen: torch.Generator, dims: Sequence[int],
             for i in range(len(dims) - 1)}
 
 
-def mlp(params: dict, x: torch.Tensor, final_act: bool = False
-        ) -> torch.Tensor:
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default, the tanh approximation."""
+    return torch.nn.functional.gelu(x, approximate="tanh")
+
+
+def mlp(params: dict, x: torch.Tensor, act=torch.relu,
+        final_act: bool = False) -> torch.Tensor:
     n = len(params)
     for i in range(n):
         x = dense_bias(params[f"l{i}"], x)
         if i < n - 1 or final_act:
-            x = torch.relu(x)
+            x = act(x)
     return x
+
+
+def layernorm_init(dim: int, device: torch.device) -> dict:
+    return {"g": torch.ones((dim,), device=device),
+            "b": torch.zeros((dim,), device=device)}
+
+
+def layernorm(params: dict, x: torch.Tensor, eps: float = 1e-6
+              ) -> torch.Tensor:
+    """Layer norm over the last axis in fp32 (biased variance), as the
+    reference's."""
+    x32 = x.to(torch.float32)
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.var(x32, dim=-1, keepdim=True, unbiased=False)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * params["g"].to(torch.float32)
+            + params["b"].to(torch.float32)).to(x.dtype)
 
 
 def mlp_tail(params: dict, y0: torch.Tensor, final_act: bool = False

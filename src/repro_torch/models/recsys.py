@@ -1,7 +1,7 @@
-"""Recsys models: DLRM, Wide&Deep and xDeepFM.
+"""Recsys models: DLRM, Wide&Deep, xDeepFM and BERT4Rec.
 
 Port of ``repro/models/recsys.py`` (``make_dlrm``, ``make_wide_deep``,
-``make_xdeepfm``).  Every model exposes the SHARK interface: ``init``,
+``make_xdeepfm``, ``make_bert4rec``).  Every model exposes the SHARK interface: ``init``,
 ``embed``, ``head``, ``forward``, ``loss_from_emb`` and ``spec`` (the
 stacked table); params keep the reference's nesting, so ``convert.py``
 carries them across unchanged:
@@ -10,6 +10,8 @@ carries them across unchanged:
     wide_deep  {"embed_table", "wide_table", "net": {"deep", "bias"}}
     xdeepfm    {"embed_table", "wide_table",
                 "net": {"cin": {"w0", ...}, "cin_out", "deep"}}
+    bert4rec   {"embed_table", "net": {"blocks": [{"wq", "wk", "wv", "wo",
+                "ln1", "ln2", "ffn"}, ...], "ln_f"}}
 
 ``init(gen, device, with_table=False)`` leaves the big table out (serving
 holds only its packed store); the net is drawn first, so it is the same
@@ -180,13 +182,40 @@ class XDeepFMConfig:
     mlp: tuple = (400, 400)
 
 
+class CinLayer(torch.autograd.Function):
+    """The CIN layer with a gradient: the forward is ``kernels.cin`` (the
+    kernel on the card, its bit-exact plain version on the CPU, neither
+    differentiable), the backward the three dense contractions of
+    ``out[b,o,d] = sum_{h,m} W[o,h,m] x_k[b,h,d] x_0[b,m,d]``, as the
+    reference's jnp layer differentiates."""
+
+    @staticmethod
+    def forward(ctx, w, x_k, x_0):
+        ctx.save_for_backward(w, x_k, x_0)
+        return cin_ops.cin_layer(w, x_k, x_0)
+
+    @staticmethod
+    def backward(ctx, g):
+        w, x_k, x_0 = ctx.saved_tensors
+        g = g.to(torch.float32)
+        dw = dxk = dx0 = None
+        if ctx.needs_input_grad[0]:
+            dw = torch.einsum("bod,bhd,bmd->ohm", g, x_k, x_0).to(w.dtype)
+        if ctx.needs_input_grad[1]:
+            dxk = torch.einsum("bod,ohm,bmd->bhd", g, w, x_0).to(x_k.dtype)
+        if ctx.needs_input_grad[2]:
+            dx0 = torch.einsum("bod,ohm,bhd->bmd", g, w, x_k).to(x_0.dtype)
+        return dw, dxk, dx0
+
+
 def cin_layer(w: torch.Tensor, x_k: torch.Tensor, x_0: torch.Tensor
               ) -> torch.Tensor:
     """One CIN layer: (O, H, M), (B, H, D), (B, M, D) -> (B, O, D):
     ``X^{k+1}_o = sum_{h,m} W[o,h,m] * (X^k_h o X^0_m)`` (Hadamard over
     D).  The (B, H, M, D) outer product is the hot spot: the
-    ``kernels.cin`` kernel on the card (the plain version on the CPU)."""
-    return cin_ops.cin_layer(w, x_k, x_0).to(x_k.dtype)
+    ``kernels.cin`` kernel on the card (the plain version on the CPU),
+    differentiable through ``CinLayer``."""
+    return CinLayer.apply(w, x_k, x_0).to(x_k.dtype)
 
 
 def make_xdeepfm(cfg: XDeepFMConfig) -> Model:
@@ -247,3 +276,118 @@ def make_xdeepfm(cfg: XDeepFMConfig) -> Model:
     return Model("xdeepfm", spec, init, embed, head, forward,
                  _bce_from_emb(head),
                  extras={"fused_head": fused_head, "fused_needs_emb": True})
+
+
+# ======================================================================
+# BERT4Rec (Sun et al. 2019): bidirectional sequence recommendation
+# ======================================================================
+
+@dataclasses.dataclass(frozen=True)
+class Bert4RecConfig:
+    num_items: int = 50002        # incl. [MASK]/[PAD]
+    embed_dim: int = 64
+    n_blocks: int = 2
+    n_heads: int = 2
+    seq_len: int = 200
+    d_ff_mult: int = 4
+
+
+def make_bert4rec(cfg: Bert4RecConfig) -> Model:
+    """The SHARK fields are {item table, position table}: one stacked
+    table laid out ``[items | positions | pad]`` by ``FieldSpec``.
+    ``extras``: ``encode`` (B, T) -> (B, T, D), ``item_logits`` (B, T,
+    num_items) cloze logits (tied item head), ``seq_loss`` the masked
+    cross entropy (the training objective).  The reference's gelu is
+    ``jax.nn.gelu``'s tanh form (``layers.gelu``)."""
+    spec = E.FieldSpec((cfg.num_items, cfg.seq_len), cfg.embed_dim)
+    d = cfg.embed_dim
+    hd = d // cfg.n_heads
+
+    def init(gen: torch.Generator, device: torch.device,
+             with_table: bool = True) -> dict:
+        blocks = []
+        for _ in range(cfg.n_blocks):
+            blocks.append({
+                "wq": L.dense_bias_init(gen, d, d, device),
+                "wk": L.dense_bias_init(gen, d, d, device),
+                "wv": L.dense_bias_init(gen, d, d, device),
+                "wo": L.dense_bias_init(gen, d, d, device),
+                "ln1": L.layernorm_init(d, device),
+                "ln2": L.layernorm_init(d, device),
+                "ffn": L.mlp_init(gen, (d, d * cfg.d_ff_mult, d), device),
+            })
+        params = {"net": {"blocks": blocks,
+                          "ln_f": L.layernorm_init(d, device)}}
+        if with_table:
+            table = torch.zeros((spec.total_rows, d), device=device)
+            rows = cfg.num_items + cfg.seq_len
+            table[:rows].normal_(generator=gen).mul_(0.02)
+            params["embed_table"] = table
+        return params
+
+    def _tables(params):
+        t = params["embed_table"]
+        return (t[:cfg.num_items],
+                t[cfg.num_items:cfg.num_items + cfg.seq_len])
+
+    def encode(params, inputs: torch.Tensor) -> torch.Tensor:
+        item, pos = _tables(params)
+        b, t = inputs.shape
+        x = item[inputs.to(torch.int64)] + pos[None, :t]
+        for blk in params["net"]["blocks"]:
+            h = L.layernorm(blk["ln1"], x)
+            q = L.dense_bias(blk["wq"], h).reshape(b, t, cfg.n_heads, hd)
+            k = L.dense_bias(blk["wk"], h).reshape(b, t, cfg.n_heads, hd)
+            v = L.dense_bias(blk["wv"], h).reshape(b, t, cfg.n_heads, hd)
+            s = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(hd)
+            a = torch.softmax(s, dim=-1)
+            o = torch.einsum("bhqk,bkhd->bqhd", a, v)
+            x = x + L.dense_bias(blk["wo"], o.reshape(b, t, d))
+            h = L.layernorm(blk["ln2"], x)
+            x = x + L.mlp(blk["ffn"], h, act=L.gelu)
+        return L.layernorm(params["net"]["ln_f"], x)
+
+    def item_logits(params, inputs: torch.Tensor) -> torch.Tensor:
+        """(B, T, num_items) cloze logits (tied item embedding head)."""
+        hidden = encode(params, inputs)
+        item, _ = _tables(params)
+        return torch.matmul(hidden, item.t())
+
+    # -- SHARK interface (fields = {item, position} tables) -------------
+
+    def embed(params, batch, field_mask=None) -> torch.Tensor:
+        item, pos = _tables(params)
+        inputs = batch["inputs"]
+        b, t = inputs.shape
+        e_item = item[inputs.to(torch.int64)].mean(dim=1)        # (B, D)
+        e_pos = pos[:t].mean(dim=0).expand(b, d)
+        emb = torch.stack([e_item, e_pos], dim=1)               # (B, 2, D)
+        if field_mask is not None:
+            emb = emb * field_mask.to(emb.device, emb.dtype)[None, :, None]
+        return emb
+
+    def head(params, emb, batch):
+        raise NotImplementedError(
+            "bert4rec uses sequence loss; see seq_loss/forward")
+
+    def seq_loss(params, batch) -> torch.Tensor:
+        """Masked-position cross entropy (the training objective)."""
+        logits = item_logits(params, batch["inputs"])
+        ce = metrics.softmax_xent(logits, batch["targets"])
+        m = batch["mask"]
+        return (ce * m).sum() / torch.clamp_min(m.sum(), 1.0)
+
+    def forward(params, batch, field_mask=None) -> torch.Tensor:
+        """Score of the true last item (serving: next-item score)."""
+        last = item_logits(params, batch["inputs"])[:, -1]
+        return torch.gather(last, -1, batch["targets"][:, -1:].to(
+            torch.int64))[:, 0]
+
+    def loss_from_emb(params, emb, batch):
+        del emb
+        return seq_loss(params, batch)[None]
+
+    return Model("bert4rec", spec, init, embed, head, forward,
+                 loss_from_emb,
+                 extras={"encode": encode, "item_logits": item_logits,
+                         "seq_loss": seq_loss})

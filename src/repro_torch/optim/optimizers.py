@@ -37,17 +37,24 @@ class Optimizer:
 
 
 def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
-    """``fn`` over the tensor leaves of nested dicts (same structure)."""
+    """``fn`` over the tensor leaves of nested dicts and lists (same
+    structure; a tuple is a leaf)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
     return fn(tree, *rest)
 
 
 def tree_leaves(tree: Tree) -> list[torch.Tensor]:
-    """The tensor leaves of nested dicts, in sorted-key order."""
+    """The tensor leaves of nested dicts (in sorted-key order) and lists
+    (in order)."""
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, list):
+        return [x for v in tree for x in tree_leaves(v)]
     return [tree]
 
 

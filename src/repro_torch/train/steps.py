@@ -1,7 +1,19 @@
-"""The compressed train step: serving kernels + Eq. 5-8 fold + in-training
-Taylor/access accumulation, in one backward.
+"""Train steps: the generic step with F-Quantization hooks, and the
+compressed step (serving kernels + Eq. 5-8 fold + in-training
+Taylor/access accumulation, in one backward).
 
-Port of ``repro/train/steps.py::make_compressed_train_step``: the fp32
+``make_train_step`` / ``init_state`` / ``FQuantHook`` port the
+reference's generic factory (``repro/train/steps.py:39-97``), what the
+recsys family smoke (``configs.common.RecsysArch.smoke``) runs: the loss
+and its gradients over every parameter (eager autograd), the
+optimizer's update, then the hook's ``qat_store.post_step`` (or
+``post_step_sparse``) on the table.  Where the reference splits a
+``jax.random`` key for the int8 tier's stochastic rounding, the state
+carries a ``torch.Generator`` (``rng``), so the rounding's draws differ
+from the reference's; everything else of a step is the same function.
+
+``make_compressed_train_step`` ports
+``repro/train/steps.py::make_compressed_train_step``: the fp32
 table and the hashed pool, on one device or row-sharded over a mesh.  One
 step computes, in the reference's order:
 
@@ -69,8 +81,81 @@ class TrainState(NamedTuple):
     opt: Any
     step: torch.Tensor        # int32 ()
     priority: Any = None      # fquant row priorities (or None)
-    rng: Any = None           # the reference's PRNG key leaf, uint32 (2,)
+    rng: Any = None           # the compressed step: the reference's PRNG
+                              # key leaf, uint32 (2,); the generic step: a
+                              # torch.Generator
     accum: Any = None         # train.accum.TaylorAccum (or None)
+
+
+class FQuantHook(NamedTuple):
+    """How F-Quantization attaches to a model's params."""
+    cfg: FQuantConfig
+    table_path: str                       # params key holding the table
+    indices_fn: Callable[[dict], torch.Tensor]   # batch -> row indices
+    labels_fn: Callable[[dict], torch.Tensor]    # batch -> labels
+    sparse_snap: bool = False             # touched-rows-only write path
+
+
+def init_state(params, optimizer: opt_lib.Optimizer,
+               fquant: FQuantHook | None = None, seed: int = 0
+               ) -> TrainState:
+    """The generic step's initial state: zero priorities over the hook's
+    table and a ``torch.Generator`` seeded with ``seed`` on the params'
+    device."""
+    dev = opt_lib.tree_leaves(params)[0].device
+    pri = None
+    if fquant is not None:
+        pri = torch.zeros((params[fquant.table_path].shape[0],),
+                          dtype=torch.float32, device=dev)
+    rng = torch.Generator(device=dev)
+    rng.manual_seed(seed)
+    return TrainState(params=params, opt=optimizer.init(params),
+                      step=torch.zeros((), dtype=torch.int32, device=dev),
+                      priority=pri, rng=rng)
+
+
+def make_train_step(loss_fn: Callable, optimizer: opt_lib.Optimizer,
+                    fquant: FQuantHook | None = None,
+                    with_metrics: bool = True) -> Callable:
+    """loss_fn(params, batch) -> scalar.  Returns step(state, batch) ->
+    (state, {"loss", "grad_norm"})."""
+
+    def step(state: TrainState, batch: dict):
+        with torch.enable_grad():
+            p = opt_lib.tree_map(lambda x: x.detach().requires_grad_(),
+                                 state.params)
+            leaves = opt_lib.tree_leaves(p)
+            loss = loss_fn(p, batch)
+            raw = torch.autograd.grad(loss, leaves, allow_unused=True)
+        by_id = {id(x): torch.zeros_like(x) if gr is None else gr
+                 for x, gr in zip(leaves, raw)}
+        grads = opt_lib.tree_map(lambda x: by_id[id(x)], p)
+        updates, opt = optimizer.update(grads, state.opt, state.params)
+        params = opt_lib.apply_updates(state.params, updates)
+
+        priority = state.priority
+        if fquant is not None:
+            store = qat_store.QATStore(table=params[fquant.table_path],
+                                       priority=priority)
+            if fquant.sparse_snap:
+                store = qat_store.post_step_sparse(
+                    store, fquant.indices_fn(batch), fquant.labels_fn(batch),
+                    fquant.cfg, seed=state.step)
+            else:
+                store = qat_store.post_step(
+                    store, fquant.indices_fn(batch), fquant.labels_fn(batch),
+                    fquant.cfg, draw=state.rng)
+            params = dict(params)
+            params[fquant.table_path] = store.table
+            priority = store.priority
+
+        metrics = {"loss": loss.detach()}
+        if with_metrics:
+            metrics["grad_norm"] = opt_lib.global_norm(grads)
+        return TrainState(params=params, opt=opt, step=state.step + 1,
+                          priority=priority, rng=state.rng), metrics
+
+    return step
 
 
 def make_compressed_train_step(loss_from_emb: Callable,

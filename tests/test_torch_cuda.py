@@ -1132,3 +1132,187 @@ def test_hier_over_devices_charges_each_card_its_shard(devs, tmp_path):
                         device=devs[0])
     assert torch.equal(_bytes(th.hier_lookup(multi, ids)),
                        _bytes(th.hier_lookup(one, ids)))
+
+
+# ---- tilings (the autotune cache's candidates) ---------------------------
+
+def _bits(x):
+    return x.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("dtype", ["int8", "bfloat16", "float32"])
+@pytest.mark.parametrize("b,k,d", [(64, 8, 64), (32, 4, 96), (512, 40, 32),
+                                   (20000, 1, 64), (300, 3, 10)])
+def test_dequant_bag_tilings_bit_equal_to_analytic(dev, dtype, b, k, d):
+    """Every candidate tiling of the single-tier entry gives the analytic
+    pick's bits; the mirror of the analytic rule is the kernel's."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    v = 777
+    payload = (torch.randint(-128, 128, (v, d), generator=g, device=dev,
+                             dtype=torch.int8) if dtype == "int8" else
+               (torch.randn((v, d), generator=g, device=dev)).to(
+                   getattr(torch, dtype)))
+    scales = torch.rand(v, generator=g, device=dev) * 0.01
+    idx = torch.randint(0, v, (b, k), generator=g, device=dev,
+                        dtype=torch.int32)
+    w = torch.rand((b, k), generator=g, device=dev)
+    w[torch.rand((b, k), generator=g, device=dev) < 0.3] = 0.0
+    analytic = kernel.dequant_bag_analytic(b, k, d, dev)
+    assert analytic == kernel.dequant_bag_analytic(b, k, d)
+    want = kernel.dequant_bag_cuda(payload, scales, idx, w)
+    assert torch.equal(_bits(want), _bits(kernel.dequant_bag_cuda(
+        payload, scales, idx, w, tiling=analytic)))
+    from repro_torch.kernels import autotune
+    cands = autotune.candidate_tilings("dequant_bag", analytic, dev, b=b,
+                                       k=k, d=d)
+    assert cands[0] == analytic and len(cands) > 1
+    for t in cands:
+        got = kernel.dequant_bag_cuda(payload, scales, idx, w, tiling=t)
+        assert torch.equal(_bits(got), _bits(want)), t
+
+
+@pytest.mark.parametrize("b,k,d", [(64, 8, 64), (512, 40, 32),
+                                   (4000, 1, 10), (3000, 2, 96)])
+def test_bag_grad_tilings_bit_equal_to_analytic(dev, b, k, d):
+    g = torch.Generator(device=dev)
+    g.manual_seed(4)
+    v = 500
+    grad = torch.randn((b, d), generator=g, device=dev)
+    # a zipf-ish index draw: some runs pass HEAVY_RUN
+    idx = (torch.rand((b, k), generator=g, device=dev) ** 4 * v).to(
+        torch.int32)
+    coeff = torch.rand((b, k), generator=g, device=dev)
+    analytic = kernel.bag_grad_analytic(d, device=dev)
+    assert analytic == kernel.bag_grad_analytic(d)
+    want = kernel.bag_grad_cuda(grad, idx, coeff, torch.zeros(
+        (v, d), device=dev))
+    for t in kernel.bag_grad_tilings(d):
+        got = kernel.bag_grad_cuda(grad, idx, coeff, torch.zeros(
+            (v, d), device=dev), tiling=t)
+        assert torch.equal(_bits(got), _bits(want)), t
+
+
+@pytest.mark.parametrize("dtype", ["int8", "float32"])
+@pytest.mark.parametrize("b,k,d,h", [(64, 8, 64, 32), (512, 40, 32, 1024),
+                                     (512, 39, 10, 400)])
+def test_bag_matmul_tilings_bit_equal_to_analytic(dev, dtype, b, k, d, h):
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    v = 512
+    payload = (torch.randint(-128, 128, (v, d), generator=g, device=dev,
+                             dtype=torch.int8) if dtype == "int8" else
+               torch.randn((v, d), generator=g, device=dev))
+    scales = torch.rand(v, generator=g, device=dev) * 0.01
+    idx = torch.randint(0, v, (b, k), generator=g, device=dev,
+                        dtype=torch.int32)
+    w = torch.rand((b, k), generator=g, device=dev)
+    w3 = torch.randn((k, d, h), generator=g, device=dev) * 0.1
+    analytic = bm_kernel.bag_matmul_analytic(b, h, dev)
+    assert analytic == bm_kernel.bag_matmul_analytic(b, h)
+    want = bm_kernel.bag_matmul_cuda(payload, scales, idx, w, w3)
+    for t in bm_kernel.bag_matmul_tilings():
+        got = bm_kernel.bag_matmul_cuda(payload, scales, idx, w, w3,
+                                        tiling=t)
+        assert torch.equal(_bits(got), _bits(want)), t
+
+
+@pytest.mark.parametrize("dtype", ["int8", "float32"])
+@pytest.mark.parametrize("b,c,k,nh,z", [(20480, 4, 1, 2, 8),
+                                        (300, 2, 3, 2, 5)])
+def test_hashed_gather_tilings_bit_equal_to_analytic(dev, dtype, b, c, k,
+                                                     nh, z):
+    g = torch.Generator(device=dev)
+    g.manual_seed(6)
+    s = 3001
+    pool = (torch.randint(-128, 128, (s, z), generator=g, device=dev,
+                          dtype=torch.int8) if dtype == "int8" else
+            torch.randn((s, z), generator=g, device=dev))
+    scales = torch.rand(s, generator=g, device=dev) * 0.01
+    ids = torch.randint(0, 10**6, (b, k), generator=g, device=dev)
+    w = torch.rand((b, k), generator=g, device=dev)
+    analytic = hg_kernel.hashed_gather_analytic(c, z, dev)
+    assert analytic == hg_kernel.hashed_gather_analytic(c, z)
+    want = hg_kernel.hashed_gather_ids_cuda(pool, scales, ids, w,
+                                            num_chunks=c, num_hashes=nh)
+    slots, coeff = hg_ops.slot_plan(ids, w, num_chunks=c, num_hashes=nh,
+                                    num_slots=s)
+    for t in hg_kernel.hashed_gather_tilings(c, z):
+        got = hg_kernel.hashed_gather_ids_cuda(pool, scales, ids, w,
+                                               num_chunks=c, num_hashes=nh,
+                                               tiling=t)
+        assert torch.equal(_bits(got), _bits(want)), t
+        got = hg_kernel.hashed_gather_cuda(pool, scales, slots, coeff,
+                                           num_chunks=c, tiling=t)
+        assert torch.equal(_bits(got), _bits(want)), t
+
+
+def test_cached_tiling_is_served_and_bit_equal(dev, tmp_path, monkeypatch):
+    """A seeded cache entry reaches the launch (the wrapper resolves
+    argument > cache > analytic) and changes no bit."""
+    from repro_torch.kernels import autotune
+    monkeypatch.setenv("REPRO_AUTOTUNE_CACHE", str(tmp_path / "a.json"))
+    g = torch.Generator(device=dev)
+    g.manual_seed(7)
+    payload = torch.randint(-128, 128, (300, 64), generator=g, device=dev,
+                            dtype=torch.int8)
+    scales = torch.rand(300, generator=g, device=dev)
+    idx = torch.randint(0, 300, (64, 8), generator=g, device=dev,
+                        dtype=torch.int32)
+    w = torch.rand((64, 8), generator=g, device=dev)
+    want = ops.dequant_bag(payload, scales, idx, w)
+    seen = []
+    real = kernel.dequant_bag_cuda
+    monkeypatch.setattr(ops, "dequant_bag_cuda", lambda *a, **kw: (
+        seen.append(kw["tiling"]), real(*a, **kw))[1])
+    autotune.store("dequant_bag", "int8", 64, 8, 64, 64, 16, 1.0,
+                   device=dev)
+    got = ops.dequant_bag(payload, scales, idx, w)
+    assert seen == [(64, 16)]
+    assert torch.equal(_bits(got), _bits(want))
+    ops.dequant_bag(payload, scales, idx, w, tiling=(16, 64))
+    assert seen[-1] == (16, 64)
+
+
+def test_bag_matmul_train_runs_on_the_card(dev):
+    """The forward is the bag_matmul kernel and the table's gradient the
+    bag_grad kernel, bit-equal to each launched alone."""
+    from repro_torch.kernels.bag_matmul import bag_matmul_train
+    g = torch.Generator(device=dev)
+    g.manual_seed(8)
+    b, k, d, h, v = 64, 6, 32, 96, 400
+    table = torch.randn((v, d), generator=g, device=dev)
+    idx = torch.randint(0, 50, (b, k), generator=g, device=dev,
+                        dtype=torch.int32)
+    w = torch.rand((b, k), generator=g, device=dev) + 0.5
+    w3 = torch.randn((k, d, h), generator=g, device=dev)
+    r = torch.randn((b, h), generator=g, device=dev)
+    tt = table.clone().requires_grad_()
+    bm_kernel.reset_launches()
+    kernel.reset_launches()
+    out = bag_matmul_train(tt, idx, w3, w)
+    torch.sum(out * r).backward()
+    assert bm_kernel.total_launches() == 1
+    assert kernel.bag_grad_launches["float32"] == 1
+    assert torch.equal(_bits(out), _bits(bm_ops.bag_matmul(
+        table, None, idx, w, w3)))
+    gk = torch.einsum("bh,kdh->bkd", r, w3)
+    want = ops.bag_grad(gk.reshape(b * k, d).contiguous(), None,
+                        idx.reshape(-1, 1), w.reshape(-1, 1), v)
+    assert torch.equal(_bits(tt.grad), _bits(want))
+
+
+def test_autotune_timer_reads_the_device_not_the_host(dev):
+    """A call that holds the host 1 ms around a launch of a few us still
+    times as the launch: the delay grows until the window's dispatch fits
+    in it."""
+    import time as _time
+    from repro_torch.kernels import autotune
+    x = torch.ones(1024, device=dev)
+
+    def host_heavy():
+        _time.sleep(1e-3)
+        x.add_(1.0)
+
+    us = autotune.time_us(host_heavy, iters=2, device=dev)
+    assert 0 < us < 200, us

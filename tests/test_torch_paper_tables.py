@@ -17,6 +17,8 @@ reference's rows here, the other four in ``test_torch_paper_runs.py``
 
 from __future__ import annotations
 
+import importlib.util
+import json
 import pathlib
 import sys
 
@@ -52,6 +54,11 @@ if str(ROOT) not in sys.path:
 
 from benchmarks import common as jcommon  # noqa: E402
 from benchmarks import fig2_fperm as jfig2  # noqa: E402
+
+_spec = importlib.util.spec_from_file_location(
+    "check_bench_schema", ROOT / "tools" / "check_bench_schema.py")
+_check_schema = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(_check_schema)
 
 STEPS = 3
 
@@ -231,17 +238,24 @@ def test_run_at_tiny_budgets_gives_the_reference_rows(name, monkeypatch):
 
 # ------------------------------------------------------------------ runner
 
-def test_runner_refuses_what_is_not_ported(tmp_path):
-    """Every refusal names its ROADMAP item (``BENCH_fleet.json``: its own
-    command, as the reference's runner does); a refused ``--emit`` writes
+def test_runner_refuses_what_is_not_ported(tmp_path, capsys):
+    """Nothing waits any more: ``--emit BENCH_kernel.json`` writes a valid
+    record and ``--only roofline`` runs (no dry-run records: no rows).
+    ``BENCH_fleet.json`` names its own command, as the reference's runner
+    does, and an unknown record or job exits; a refused ``--emit`` writes
     nothing (the paths are under ``tmp_path``)."""
-    assert set(trun.WAITING) == {"roofline"}
-    for name in trun.WAITING:
-        with pytest.raises(NotImplementedError, match="item"):
-            trun.main(["--only", name, "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 9"):
-        trun.main(["--emit", str(tmp_path / "BENCH_kernel.json"),
-                   "--device", "cpu"])
+    assert trun.WAITING == {} and trun.EMIT_WAITING == {}
+    path = tmp_path / "BENCH_kernel.json"
+    out = trun.main(["--emit", str(path), "--fast", "--device", "cpu"])
+    rec = json.loads(path.read_text())
+    assert out["BENCH_kernel.json"]["record"]["schema"] == "bench_kernel/v1"
+    assert _check_schema.validate(rec) == []
+    assert rec["interpret"] is True
+    path.unlink()
+    capsys.readouterr()
+    out = trun.main(["--only", "roofline", "--device", "cpu"])
+    assert out["roofline"]["rows"] == []
+    assert not capsys.readouterr().out.startswith("#")
     with pytest.raises(SystemExit,
                        match=r"python -m repro_torch\.launch\.fleet --emit"):
         trun.main(["--emit", str(tmp_path / "BENCH_fleet.json"),
@@ -255,7 +269,7 @@ def test_runner_refuses_what_is_not_ported(tmp_path):
     assert set(trun.jobs(True, torch.device("cpu"))) == {
         "table2_time", "table3_fquant", "fig3_thresholds",
         "table4_combined", "fig2_fperm", "freq_error", "qps", "qps_sharded",
-        "hashed"}
+        "hashed", "roofline"}
 
 
 def test_runner_lets_a_job_exception_propagate(monkeypatch, capsys):
@@ -267,9 +281,9 @@ def test_runner_lets_a_job_exception_propagate(monkeypatch, capsys):
     with pytest.raises(ValueError, match="job failed"):
         trun.main(["--fast", "--device", "cpu"])
     out = capsys.readouterr().out.splitlines()
-    assert out[0].startswith("# not ported yet") and "roofline" in out[0]
-    assert "qps_sharded" not in out[0]
-    assert out[1].startswith("freq_error,") and out[1].endswith(
+    # nothing waits, so no "# not ported yet" line comes first
+    assert not any(line.startswith("#") for line in out)
+    assert out[0].startswith("freq_error,") and out[0].endswith(
         "bucket=x;rows=1")
     assert not any(line.startswith("table2_time") for line in out)
 

@@ -244,3 +244,39 @@ def test_torch_threads_caps_to_the_workers_cores(monkeypatch):
     finally:
         monkeypatch.undo()
         importlib.reload(torch_threads)
+
+
+def test_kernel_record_smoke_and_example_modules_are_covered():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for mod in ("kernels/autotune.py", "kernels/bag_matmul/autodiff.py",
+                "benchmarks/kernels.py", "benchmarks/roofline.py",
+                "data/sequences.py", "configs/bert4rec.py",
+                "configs/common.py", "models/layers.py", "models/recsys.py",
+                "examples/__init__.py", "examples/common.py",
+                "examples/quickstart.py", "examples/compress_dlrm.py",
+                "examples/serve_quantized.py"):
+        assert f"src/repro_torch/{mod}" in names, mod
+    for test in ("test_torch_autotune.py", "test_torch_bench_kernel.py",
+                 "test_torch_bag_matmul_train.py", "test_torch_bert4rec.py",
+                 "test_torch_smoke.py", "test_torch_examples.py"):
+        assert ROOT / "tests" / test in PORT_TESTS, test
+
+
+def test_kernel_record_needs_a_gpu_unless_cpu_is_asked(tmp_path):
+    from repro_torch.benchmarks import kernels
+    if torch.cuda.is_available():
+        pytest.skip("the no-GPU rule is checked where there is no GPU")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        kernels.main(["--shapes", "8:2:8:4", "--emit",
+                      str(tmp_path / "k.json")])
+    assert not any(tmp_path.iterdir())
+
+
+def test_serve_and_fleet_refuse_a_sequence_arch():
+    from repro_torch.launch import fleet as tfleet
+    with pytest.raises(SystemExit, match="field-based recsys"):
+        tserve.run(tserve.parse_args(["--arch", "bert4rec", "--model",
+                                      "smoke", "--device", "cpu"]))
+    with pytest.raises(SystemExit, match="field-based recsys"):
+        tfleet.run(tfleet.parse_args(["--arch", "bert4rec", "--model",
+                                      "smoke", "--device", "cpu"]))
