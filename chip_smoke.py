@@ -400,10 +400,36 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    recsys archs through ``run``; (f) bert4rec at ``FULL_CFG`` (5,000,002
    items x 64, 2 blocks, 2 heads, sequence 200): one generic train step
    with the F-Quantization hook and one forward at batch 2 (8.0 GB of
-   logits), finite, the peak memory printed; (g) the three examples
-   (``repro_torch.examples``) on the card at their defaults.
+   logits), finite, the peak memory printed; (g) the four examples
+   (``repro_torch.examples``, ``train_lm`` among them) on the card at
+   their defaults.
    ``--record-only`` builds the kernels and runs phase 8's wide&deep
    serve and phase 20 alone (no kernels line, no ok line).
+21. the GNN and LM families at published widths, random weights from
+   seed 0, fp32 params, each run's CUDA-event ms, peak device memory and
+   ``reduced`` (each cut with its reason) on a ``family_run`` line:
+   (a) PNA (75 x 4 layers, Adam 0.01, 5 steps, then a forward) on
+   full_graph_sm (2,708 nodes x 1,433 features), molecule (128 graphs x
+   30 nodes, 64 edges) and minibatch_lg (a 232,965-node, 114.6M-edge
+   random graph built on the host, a fresh 1,024-seed 15-10 block a step
+   under ``_block_shape``'s bound, the F-Quantization hook on the
+   233,472 x 75 node table; the host seconds of the graph and of each
+   sample printed); (b) the five LMs in bf16 compute: smollm-135m whole
+   (train_4k at batch 8, 3 steps, the hook on ``embed``, Adam 3e-4,
+   ``remat="full"``), qwen3-8b whole, deepseek-coder-33b, mixtral-8x22b
+   and deepseek-v2-lite-16b cut in depth to what fits beside a prefill
+   (``LM_DEPTH``); each prefill_32k at batch 1 (qwen3-8b's and
+   deepseek-coder's at 16,384 tokens, ``LM_PREFILL_TOKENS``) and 8
+   decode_32k steps (``LM_DECODE_BATCH``), mixtral's and deepseek-v2-lite's long_500k (2
+   steps near position 524,287: a rolling 4,096-slot cache, an MLA latent
+   cache of 524,288 slots); (c) at each LM's depth, fp32 compute and
+   cache: 4 decode steps after a 256-token prefill held to prefills over
+   the longer prefixes within 1e-3 * max(1, max|ref|) (MoE capacity factor
+   num_experts / top_k); (d) ``python -m repro_torch.launch.train --arch
+   X --smoke`` for pna and the five LMs through ``run``, finite, the last
+   loss <= 1.05 x the first.  None of the eight kernels runs on these
+   paths (their launches printed, all 0).  ``--families-only`` builds the
+   kernels and runs phase 21 alone (no kernels line, no ok line).
 
 Prints the card's name and power limit, the serve, train, both online,
 both hashed and both pipeline records, one JSON ``kernels`` line
@@ -540,8 +566,36 @@ SHARD_SUM_ITERS = 50
 # family smoke; the examples
 KERNEL_SHAPES = "64:8:64:32,32:4:96:16,512:40:32:1024,512:39:10:400"
 SMOKE_ARCHS = ("dlrm-rm2", "wide-deep", "xdeepfm", "bert4rec")
-EXAMPLES = ("quickstart", "compress_dlrm", "serve_quantized")
+EXAMPLES = ("quickstart", "compress_dlrm", "serve_quantized", "train_lm")
 BERT4REC_BATCH = 2
+# phase 21: the GNN and LM families at published widths.  PNA: 5 steps a
+# cell; full_graph_sm's 2,708 nodes at an integer degree of 4 (10,832 of
+# the published 10,556 edges), minibatch_lg's 232,965 nodes at degree 492
+# (114,618,780 edges).  LMs: the depth that fits in fp32 beside a prefill
+# and a decode cache with ~10 GB to spare (absent: whole), smollm's
+# train_4k batch, each decode_32k batch, the steps
+PNA_STEPS = 5
+PNA_SM_DEGREE = 4
+PNA_LG_DEGREE = 492
+LM_ARCHS = ("smollm-135m", "qwen3-8b", "deepseek-coder-33b", "mixtral-8x22b",
+            "deepseek-v2-lite-16b")
+LM_DEPTH = {"deepseek-coder-33b": 20, "mixtral-8x22b": 4,
+            "deepseek-v2-lite-16b": 20}
+LM_TRAIN_BATCH = 8
+LM_TRAIN_STEPS = 3
+LM_DECODE_BATCH = {"smollm-135m": 64, "qwen3-8b": 4, "deepseek-coder-33b": 8,
+                   "mixtral-8x22b": 16, "deepseek-v2-lite-16b": 8}
+# prefill tokens cut from 32,768 for the whole smoke's headroom: at 32k
+# these two took 44.4 / 48.2 s on an H100 80GB HBM3 at 700 W (20 coder
+# layers), and the whole smoke 990.5 s of its 1,200 s on a host whose
+# host-bound work ran ~1.3x faster than another's (the minibatch_lg graph
+# 30.8 s against 40.2 s)
+LM_PREFILL_TOKENS = {"qwen3-8b": 16384, "deepseek-coder-33b": 16384}
+LM_DECODE_STEPS = 8
+LM_LONG_STEPS = 2
+# phase 21(c): decode against prefill at fp32
+AGREE_PREFIX = 256
+AGREE_STEPS = 4
 
 
 T0 = time.monotonic()
@@ -4986,8 +5040,8 @@ def bert4rec_full(torch, kernels_mod, kernel, hg_kernel) -> dict:
 
 
 def examples_phase(torch, kernels_mod, kernel, hg_kernel) -> dict:
-    """Phase 20 (g): the three recsys examples through ``main`` on the card
-    at their defaults.  Returns each one's launches."""
+    """Phase 20 (g): the four examples through ``main`` on the card at
+    their defaults.  Returns each one's launches."""
     import importlib
 
     by_path = {}
@@ -5031,6 +5085,444 @@ def kernel_record_phase(torch, serve, kernels_mod, kernel, bm_kernel,
     return by_path
 
 
+# ---- phase 21: the GNN and LM families at published widths -------------
+
+def timed(torch, fn, *args):
+    """``fn(*args)`` between two CUDA events: (its result, ms)."""
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    out = fn(*args)
+    e1.record()
+    e1.synchronize()
+    return out, e0.elapsed_time(e1)
+
+
+def family_run(torch, label: str, reduced: list, **fields) -> dict:
+    """One phase 21 run's line: its fields, the peak device memory since
+    the run's start (``run_start``), ``reduced`` (each cut with its
+    reason)."""
+    rec = {"run": label, **fields,
+           "device_peak_bytes": torch.cuda.max_memory_allocated(),
+           "reduced": reduced}
+    print(json.dumps({"family_run": rec}), flush=True)
+    return rec
+
+
+def run_start(torch) -> None:
+    """A phase 21 run starts: what earlier runs left goes back to the
+    card, and the peak counts from here."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def _finite(torch, *tensors) -> bool:
+    return all(bool(torch.isfinite(t).all()) for t in tensors)
+
+
+def pna_train(torch, label: str, cfg, batch_fn, loss_name: str, steps: int,
+              hook, reduced: list, extra: dict) -> dict:
+    """``steps`` generic PNA train steps (Adam at the arch's lr, 0.01;
+    ``hook``) on ``batch_fn(step)``, then a forward; times each step and
+    the forward with CUDA events."""
+    from repro_torch import configs
+    from repro_torch.models import gnn as G
+    from repro_torch.optim import optimizers as opt_lib
+    from repro_torch.train import steps as steps_lib
+
+    run_start(torch)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = G.init_params(gen, cfg, dev)
+    optimizer = opt_lib.adam(configs.get("pna").lr)
+    loss_fn = getattr(G, loss_name)
+    step = steps_lib.make_train_step(lambda p, b: loss_fn(p, cfg, b),
+                                     optimizer, hook)
+    state = steps_lib.init_state(params, optimizer, hook)
+    losses, step_ms = [], []
+    for i in range(steps):
+        batch = batch_fn(i)
+        (state, m), ms = timed(torch, step, state, batch)
+        losses.append(float(m["loss"]))
+        step_ms.append(ms)
+    with torch.no_grad():
+        out, fwd_ms = timed(torch, G.forward, state.params, cfg, batch)
+    ok = (_finite(torch, out) and all(math.isfinite(x) for x in losses)
+          and losses[-1] <= losses[0])
+    rec = family_run(torch, label, reduced, loss_first=losses[0],
+                     loss_last=losses[-1], step_ms=step_ms,
+                     forward_ms=fwd_ms, forward_shape=list(out.shape),
+                     **extra)
+    if not ok:
+        raise SystemExit(f"phase 21 {label}: {rec}")
+    return rec
+
+
+def _to_dev(torch, blk: dict) -> dict:
+    import numpy as np
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to("cuda")
+            for k, v in blk.items()}
+
+
+def pna_small(torch) -> list:
+    """Phase 21 (a) on full_graph_sm and molecule."""
+    from repro_torch import configs
+    from repro_torch.configs.common import GNN_SHAPES
+    from repro_torch.data import graphs
+
+    arch = configs.get("pna")
+    recs = []
+    # full_graph_sm: a Cora-sized random graph, every node labelled
+    sm = GNN_SHAPES["full_graph_sm"]
+    g = graphs.random_graph(sm["n_nodes"], PNA_SM_DEGREE, sm["d_feat"],
+                            seed=0)
+    src, dst = graphs.to_edge_list(g)
+    full = _to_dev(torch, {"features": g.features, "src": src, "dst": dst,
+                           "labels": g.labels})
+    recs.append(pna_train(
+        torch, "pna full_graph_sm", arch._cfg("full_graph_sm"),
+        lambda i: full, "node_loss", PNA_STEPS, None,
+        [f"random graph of {g.num_edges:,} edges (average degree "
+         f"{PNA_SM_DEGREE}) for the published {sm['n_edges']:,}: "
+         "random_graph takes an integer degree",
+         f"{PNA_STEPS} train steps, then a forward"],
+        {"nodes": g.num_nodes, "edges": g.num_edges}))
+    # molecule: 128 graphs x 30 nodes, 64 edges each
+    mol = GNN_SHAPES["molecule"]
+    mb = _to_dev(torch, graphs.molecule_batch(mol["batch"], mol["n_nodes"],
+                                              mol["n_edges"], mol["d_feat"],
+                                              seed=0))
+    recs.append(pna_train(
+        torch, "pna molecule", arch._cfg("molecule"), lambda i: mb,
+        "graph_loss", PNA_STEPS, None,
+        [f"{PNA_STEPS} train steps on one batch, then a forward"],
+        {"graphs": mol["batch"], "edges": int(mb["src"].shape[0])}))
+    log("phase 21(a): PNA on full_graph_sm and molecule")
+    return recs
+
+
+def pna_large(torch) -> dict:
+    """Phase 21 (a) on minibatch_lg: the 114.6M-edge graph built on the
+    host (after the LM runs, so that no host work overlaps their
+    timings), then a fresh 1,024-seed 15-10 block a step from it, the hook
+    on the 233,472 x 75 node table."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.configs.common import GNN_SHAPES
+    from repro_torch.data import graphs
+
+    arch = configs.get("pna")
+    lg = GNN_SHAPES["minibatch_lg"]
+    t0 = time.perf_counter()
+    g = graphs.random_graph(lg["n_nodes"], PNA_LG_DEGREE, lg["d_feat"],
+                            seed=0)
+    graph_s = time.perf_counter() - t0
+    log(f"phase 21(a): minibatch_lg graph {g.num_edges:,} edges built on "
+        f"the host in {graph_s:.1f}s")
+    cfg = arch._cfg("minibatch_lg")
+    max_nodes, max_edges, _ = arch._block_shape("minibatch_lg")
+    sampler_s, blocks = [], []
+
+    def block(i):
+        rng = np.random.default_rng(100 + i)
+        seeds = rng.choice(g.num_nodes, lg["batch_nodes"], replace=False)
+        t = time.perf_counter()
+        blk = graphs.padded_subgraph(g, seeds, lg["fanout"], seed=i)
+        sampler_s.append(time.perf_counter() - t)
+        blocks.append((len(blk["node_ids"]), len(blk["src"])))
+        if blocks[-1][0] > max_nodes or blocks[-1][1] > max_edges:
+            raise SystemExit(f"phase 21 minibatch_lg: block {blocks[-1]} "
+                             f"over {(max_nodes, max_edges)}")
+        return _to_dev(torch, blk)
+
+    return pna_train(
+        torch, "pna minibatch_lg", cfg, block, "node_loss", PNA_STEPS,
+        arch._fquant_hook(),
+        [f"{PNA_STEPS} train steps, a fresh sampled block each, then a "
+         "forward"],
+        {"nodes": g.num_nodes, "edges": g.num_edges,
+         "published_edges": lg["n_edges"],
+         "node_table": [cfg.node_vocab, cfg.d_hidden],
+         "graph_host_s": graph_s,
+         "sampler_host_s": sampler_s, "blocks_nodes_edges": blocks})
+
+
+def lm_depth_cut(cfg, layers: int | None):
+    """``cfg`` cut to ``layers`` whole layers (the first dense ones
+    kept), or unchanged."""
+    import dataclasses
+    if layers is None or layers >= cfg.n_layers:
+        return cfg
+    return dataclasses.replace(cfg, n_layers=layers)
+
+
+def cache_bytes(cfg, batch: int, slots: int) -> int:
+    """Bytes of a bf16 decode cache (``init_cache``'s default)."""
+    per = (cfg.kv_lora_rank + cfg.qk_rope_dim if cfg.attn == "mla"
+           else 2 * cfg.n_kv_heads * cfg.head_dim)
+    return cfg.n_layers * batch * slots * per * 2
+
+
+def lm_tokens(torch, cfg, batch: int, seq: int, step: int = 0):
+    from repro_torch.data.lm import LMConfig as DataConfig
+    from repro_torch.data.lm import LMSynth
+    toks = LMSynth(DataConfig(vocab=cfg.vocab, seq_len=seq)).batch(
+        batch, step)["tokens"]
+    return torch.from_numpy(toks).to("cuda")
+
+
+def lm_train(torch, arch, cfg, reduced: list) -> dict:
+    """Phase 21 (b) ``train_4k`` for smollm-135m: generic steps with the
+    hook on ``embed``, Adam at the arch's lr, ``remat="full"``."""
+    from repro_torch.configs.common import LM_SHAPES
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import optimizers as opt_lib
+    from repro_torch.train import steps as steps_lib
+
+    run_start(torch)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = T.init_params(gen, cfg, dev)
+    optimizer = opt_lib.adam(arch.lr)
+    hook = arch._fquant_hook()
+    step = steps_lib.make_train_step(
+        lambda p, b: T.lm_loss(p, cfg, b["tokens"]), optimizer, hook)
+    state = steps_lib.init_state(params, optimizer, hook)
+    del params
+    seq = LM_SHAPES["train_4k"]["seq"]
+    losses, step_ms = [], []
+    for i in range(LM_TRAIN_STEPS):
+        batch = {"tokens": lm_tokens(torch, cfg, LM_TRAIN_BATCH, seq, i)}
+        (state, m), ms = timed(torch, step, state, batch)
+        losses.append(float(m["loss"]))
+        step_ms.append(ms)
+    rec = family_run(torch, f"{arch.name} train_4k", reduced,
+                     batch=LM_TRAIN_BATCH, seq=seq, remat=cfg.remat,
+                     loss_first=losses[0], loss_last=losses[-1],
+                     step_ms=step_ms, tokens_per_s=LM_TRAIN_BATCH * seq
+                     / (min(step_ms) / 1e3))
+    if not all(math.isfinite(x) for x in losses):
+        raise SystemExit(f"phase 21 {arch.name} train_4k: {rec}")
+    del state
+    torch.cuda.empty_cache()
+    return rec
+
+
+def lm_prefill(torch, name: str, params, cfg, batch: int, seq: int,
+               reduced: list) -> dict:
+    from repro_torch.models import transformer as T
+    run_start(torch)
+    toks = lm_tokens(torch, cfg, batch, seq)
+    with torch.no_grad():
+        (logits, caches), ms = timed(torch, T.prefill, params, cfg, toks)
+    ok = _finite(torch, logits) and tuple(logits.shape) == (batch, 1,
+                                                            cfg.vocab)
+    rec = family_run(torch, f"{name} prefill_32k", reduced, batch=batch,
+                     seq=seq, layers=cfg.n_layers, prefill_ms=ms,
+                     tokens_per_s=batch * seq / (ms / 1e3))
+    if not ok:
+        raise SystemExit(f"phase 21 {name} prefill: {rec}")
+    del logits, caches, toks
+    torch.cuda.empty_cache()
+    return rec
+
+
+def lm_decode(torch, name: str, cell: str, params, cfg, batch: int,
+              slots: int, start: int, steps: int, rolling: bool,
+              reduced: list) -> dict:
+    """``steps`` decode steps from position ``start`` over a cache of
+    ``slots`` slots (filled with N(0, 0.1^2) bf16 as if prefilled)."""
+    from repro_torch.models import transformer as T
+    run_start(torch)
+    cache = T.init_cache(cfg, batch, slots, rolling=rolling, device="cuda")
+    for k, v in cache.items():
+        if k != "pos":
+            v.normal_(0.0, 0.1)
+    if rolling:        # every slot written once: the window before start
+        pos = torch.arange(start - slots, start, device="cuda",
+                           dtype=torch.int32)
+        cache["pos"].copy_(pos.roll(start % slots))
+    toks = lm_tokens(torch, cfg, batch, steps)
+    step_ms = []
+    with torch.no_grad():
+        for i in range(steps):
+            (logits, cache), ms = timed(torch, T.decode_step, params, cfg,
+                                        toks[:, i:i + 1], cache, start + i)
+            step_ms.append(ms)
+    ok = _finite(torch, logits) and tuple(logits.shape) == (batch, 1,
+                                                            cfg.vocab)
+    cache_bytes = sum(v.numel() * v.element_size() for v in cache.values())
+    rec = family_run(torch, f"{name} {cell}", reduced, batch=batch,
+                     cache_slots=slots, rolling=rolling,
+                     positions=[start, start + steps - 1],
+                     layers=cfg.n_layers, cache_bytes=cache_bytes,
+                     step_ms=step_ms,
+                     tokens_per_s=batch / (min(step_ms) / 1e3))
+    if not ok:
+        raise SystemExit(f"phase 21 {name} {cell}: {rec}")
+    del cache, logits
+    torch.cuda.empty_cache()
+    return rec
+
+
+def decode_agrees_with_prefill(torch, name: str, params, cfg) -> dict:
+    """Phase 21 (c): at fp32 compute and an fp32 cache, prefill
+    ``AGREE_PREFIX`` tokens, copy the caches into slots [0, prefix) of
+    ``init_cache``, decode ``AGREE_STEPS`` tokens; each decode step's
+    logits against the last logits of a prefill over the longer prefix,
+    within 1e-3 * max(1, max|ref|).  MoE configs at capacity factor
+    num_experts / top_k (no prefill token dropped at capacity)."""
+    import dataclasses
+
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+    n = AGREE_PREFIX
+    toks = lm_tokens(torch, cfg, 1, n + AGREE_STEPS, step=7)
+    diffs, tols = [], []
+    with torch.no_grad():
+        _, (dense, (k, v)) = T.prefill(params, cfg, toks[:, :n])
+        cache = T.init_cache(cfg, 1, n + AGREE_STEPS, dtype=torch.float32,
+                             device="cuda")
+        cache["k"][:, :, :n] = k
+        cache["v"][:, :, :n] = v
+        for i, (dk, dv) in enumerate(dense):
+            cache["dense_k"][i, :, :n] = dk
+            cache["dense_v"][i, :, :n] = dv
+        del dense, k, v
+        for i in range(AGREE_STEPS):
+            tok = toks[:, n + i:n + i + 1]
+            logits, cache = T.decode_step(params, cfg, tok, cache, n + i)
+            ref, _ = T.prefill(params, cfg, toks[:, :n + i + 1])
+            diffs.append(float((logits - ref).abs().max()))
+            tols.append(1e-3 * max(1.0, float(ref.abs().max())))
+    rec = {"model": name, "layers": cfg.n_layers, "prefix": n,
+           "steps": AGREE_STEPS, "max_abs_diff": diffs, "tolerance": tols}
+    print(json.dumps({"decode_vs_prefill": rec}), flush=True)
+    if not all(d <= t for d, t in zip(diffs, tols)):
+        raise SystemExit(f"phase 21(c) {name}: decode disagrees with "
+                         f"prefill: {rec}")
+    del cache
+    torch.cuda.empty_cache()
+    return rec
+
+
+def lm_model_phase(torch, name: str) -> list:
+    """Phase 21 (b) and (c) for one LM: its params once, at the depth
+    that fits; prefill_32k, decode_32k (and long_500k), then (c)."""
+    from repro_torch import configs
+    from repro_torch.configs.common import LM_SHAPES
+    from repro_torch.models import transformer as T
+
+    arch = configs.get(name)
+    full = arch.lm_cfg
+    layers = LM_DEPTH.get(name)
+    cfg = lm_depth_cut(full, layers)
+    depth = ([f"depth {cfg.n_layers} of {full.n_layers} layers: the "
+              f"whole model is {T.param_count(full) * 4 / 1e9:.1f} GB in "
+              "fp32; these layers leave room on the 80 GB card for the "
+              "prefill's and the decode caches' working memory"]
+             if cfg.n_layers < full.n_layers else [])
+    recs = []
+    if name == "smollm-135m":
+        recs.append(lm_train(torch, arch, cfg, depth + [
+            f"batch {LM_TRAIN_BATCH} of 256: the (B, 4095, 49152) fp32 "
+            "logits and their softmax are 6.4 GB a copy at 8",
+            f"{LM_TRAIN_STEPS} train steps"]))
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    params = T.init_params(gen, cfg, dev)
+    torch.cuda.synchronize()
+    log(f"phase 21(b): {name} params at {cfg.n_layers} layers "
+        f"({T.param_count(cfg):,}) in {time.perf_counter() - t0:.1f}s")
+    full_seq = LM_SHAPES["prefill_32k"]["seq"]
+    seq = LM_PREFILL_TOKENS.get(name, full_seq)
+    recs.append(lm_prefill(torch, name, params, cfg, 1, seq, depth + [
+        "batch 1 of 32"] + ([f"{seq:,} of {full_seq:,} tokens: the whole "
+                             "smoke's headroom under its 1,200 s on a slow "
+                             "host (LM_PREFILL_TOKENS)"]
+                            if seq < full_seq else [])))
+    batch = LM_DECODE_BATCH[name]
+    slots = LM_SHAPES["decode_32k"]["seq"]
+    recs.append(lm_decode(
+        torch, name, "decode_32k", params, cfg, batch, slots,
+        slots - LM_DECODE_STEPS, LM_DECODE_STEPS, False,
+        depth + [f"batch {batch} of 128: the bf16 cache at 128 is "
+                 f"{cache_bytes(cfg, 128, slots) / 1e9:.1f} GB, at "
+                 f"{batch} {cache_bytes(cfg, batch, slots) / 1e9:.1f} GB"
+                 + ("; MLA re-expands every cached latent a step (1.27 s a "
+                    "step at batch 16 and 14 layers on an H100)"
+                    if cfg.attn == "mla" else ""),
+                 f"{LM_DECODE_STEPS} decode steps at the cache's last "
+                 "positions, the cache filled with random values"]))
+    if arch.supports_long:
+        seq = LM_SHAPES["long_500k"]["seq"]
+        slots = arch.rolling_window or seq
+        recs.append(lm_decode(
+            torch, name, "long_500k", params, cfg, 1, slots,
+            seq - LM_LONG_STEPS, LM_LONG_STEPS,
+            arch.rolling_window is not None,
+            depth + [f"{LM_LONG_STEPS} decode steps at positions near "
+                     f"{seq - 1:,}, the cache filled with random values"]))
+    recs.append(decode_agrees_with_prefill(torch, name, params, cfg))
+    del params
+    torch.cuda.empty_cache()
+    return recs
+
+
+def families_phase(torch, kernels_mod, kernel, hg_kernel) -> dict:
+    """Phase 21, (a) to (d); returns each path's launches (none of the
+    eight kernels runs on these paths: all zeros)."""
+    from repro_torch.launch import train
+
+    t0 = time.perf_counter()
+    by_path = {}
+    kernels_mod.reset_launches()
+    pna_small(torch)
+    by_path["family_pna"] = path_counts(kernels_mod, kernel, hg_kernel)
+    for name in LM_ARCHS:
+        t1 = time.perf_counter()
+        kernels_mod.reset_launches()
+        lm_model_phase(torch, name)
+        by_path[f"family_{name}"] = path_counts(kernels_mod, kernel,
+                                                hg_kernel)
+        log(f"phase 21(b, c): {name} {time.perf_counter() - t1:.1f}s")
+    t1 = time.perf_counter()
+    kernels_mod.reset_launches()
+    pna_large(torch)
+    by_path["family_pna_minibatch_lg"] = path_counts(kernels_mod, kernel,
+                                                     hg_kernel)
+    log(f"phase 21(a): minibatch_lg {time.perf_counter() - t1:.1f}s")
+    # (d) the six family smokes through the train CLI's run
+    for name in ("pna",) + LM_ARCHS:
+        kernels_mod.reset_launches()
+        m = train.run(train.parse_args(["--arch", name, "--smoke"]))
+        by_path[f"smoke_{name}"] = path_counts(kernels_mod, kernel,
+                                               hg_kernel)
+        if not (m["finite"] and m["loss_last"] <= 1.05 * m["loss_first"]):
+            raise SystemExit(f"phase 21(d) smoke {name}: {m}")
+    log(f"phase 21(d): the family smoke finite on pna and "
+        f"{', '.join(LM_ARCHS)}")
+    launched = {path: {k: v for k, v in counts.items()
+                       if isinstance(v, int) and v}
+                for path, counts in by_path.items()}
+    launched = {p: c for p, c in launched.items() if c}
+    print(json.dumps({"family_launches": {
+        path: {k: v for k, v in counts.items() if isinstance(v, int)}
+        for path, counts in by_path.items()}}), flush=True)
+    if launched:
+        raise SystemExit(f"phase 21 launched a kernel: {launched}")
+    log(f"phase 21: {time.perf_counter() - t0:.1f}s")
+    return by_path
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--trace", metavar="PATH",
@@ -5050,6 +5542,10 @@ def main() -> int:
                          "its mesh-1 references and phase 2's window "
                          "cases (a quick check of the mesh; prints no "
                          "kernels line and no ok line)")
+    ap.add_argument("--families-only", action="store_true",
+                    help="build the kernels and run phase 21 alone (a "
+                         "quick check of the GNN and LM families; prints "
+                         "no kernels line and no ok line)")
     ap.add_argument("--record-only", action="store_true",
                     help="build the kernels and run phase 20 alone, after "
                          "phase 8's wide&deep serve (its reference; prints "
@@ -5100,6 +5596,10 @@ def main() -> int:
         if report.exists():
             log(report.read_text().strip())
 
+    if args.families_only:
+        by_path = families_phase(torch, kernels_mod, kernel, hg_kernel)
+        log(f"phase 21 alone: {sorted(by_path)}")
+        return 0
     if args.hier_only:
         counters = (kernel.launches, kernel.bag_grad_launches,
                     bm_kernel.launches, cin_kernel.launches,
@@ -5436,6 +5936,11 @@ def main() -> int:
                                                "bert4rec", "example_",
                                                "autotune_dlrm"))
                           else "wide-deep"))
+    # phase 21: the GNN and LM families at published widths (no kernel)
+    for label, counts in families_phase(torch, kernels_mod, kernel,
+                                        hg_kernel).items():
+        record_path(kernels, grad_entry, quant_by_path, rowgrid_by_path,
+                    label, counts)
     for k in kernels:
         k["launches"] = sum(k["launches_by_path"].values())
     grad_entry["launches"] = sum(grad_entry["launches_by_path"].values())

@@ -20,7 +20,9 @@ returns (the train step updates the table in place) and writes in a
 daemon thread, one save in flight at a time.  Python scalars and strings
 (a store manifest's ``kind`` tag) are 0-d arrays on disk and come back
 as the template leaf's type, as in the reference; so a ``packed_store/v1``
-or ``hashed_store/v1`` manifest round-trips.
+or ``hashed_store/v1`` manifest round-trips.  A ``torch.Generator`` leaf
+(the generic train step's rng) is stored as its uint8 state and comes
+back as a generator on the template's device.
 """
 
 from __future__ import annotations
@@ -59,7 +61,10 @@ def tree_paths(tree: Any, prefix: str = ""):
 
 
 def _to_host(leaf) -> tuple[np.ndarray, str | None]:
-    """A leaf as an npz-storable host copy and its dtype-map entry."""
+    """A leaf as an npz-storable host copy and its dtype-map entry (a
+    ``torch.Generator``, the generic step's rng: its uint8 state)."""
+    if isinstance(leaf, torch.Generator):
+        return leaf.get_state().numpy(), None
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
@@ -86,6 +91,10 @@ def _rebuild(template: Any, leaves: dict, prefix: str = "") -> Any:
 
 def _restore_leaf(key: str, arr: np.ndarray, dtype_name: str | None,
                   leaf) -> Any:
+    if isinstance(leaf, torch.Generator):
+        gen = torch.Generator(device=leaf.device)
+        gen.set_state(torch.from_numpy(np.array(arr, dtype=np.uint8)))
+        return gen
     if dtype_name is not None:
         if dtype_name != "bfloat16":
             raise TypeError(f"{key}: stored dtype {dtype_name} is not "

@@ -1,6 +1,7 @@
-"""Carry weights (dlrm, wide&deep, xDeepFM, bert4rec), QAT, packed, hierarchical and
-hashed stores, train states and the MPE / ALPT baselines' states from the
-JAX package into the port.
+"""Carry weights (dlrm, wide&deep, xDeepFM, bert4rec, PNA and the
+decoder-only LMs), QAT, packed, hierarchical and hashed stores, train
+states and the MPE / ALPT baselines' states from the JAX package into
+the port.
 
 Inputs are numpy arrays, never JAX objects, so this module imports neither
 package's JAX code: a caller brings params to the host
@@ -44,7 +45,9 @@ def params_from_jax(params, device: str | torch.device = "cpu"):
     tensors: any model's params (``embed_table``, ``wide_table``,
     ``net.bot``/``top`` for dlrm, ``net.deep``/``bias`` for wide&deep,
     ``net.cin.w{i}``/``cin_out``/``deep`` for xDeepFM, ``net.blocks[i]``/
-    ``ln_f`` for bert4rec)."""
+    ``ln_f`` for bert4rec, ``enc``/``layer_{i}``/``out`` for PNA, the
+    stacked (L, ...) ``layers`` and ``dense_layer_{i}`` of an LM, bf16
+    leaves included), and an LM's decode cache (``k``, ``v``, ``pos``)."""
     if isinstance(params, Mapping):
         return {k: params_from_jax(v, device) for k, v in params.items()}
     if isinstance(params, (list, tuple)):

@@ -151,7 +151,7 @@ def run(args: argparse.Namespace, *, state: tuple | None = None,
     released."""
     device = resolve_device(args.device)
     arch = configs.get(args.arch)
-    if arch.seq_model:
+    if arch.family != "recsys" or arch.seq_model:
         raise SystemExit("the fleet CLI serves field-based recsys archs only")
     full = args.model == "full"
     model = arch.model if full else arch.smoke_model

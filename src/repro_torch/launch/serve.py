@@ -412,7 +412,7 @@ def run(args: argparse.Namespace, make_audit: Callable | None = None,
     if args.autotune_cache is not None:
         autotune.set_cache_path(args.autotune_cache)
     arch = configs.get(args.arch)
-    if arch.seq_model:
+    if arch.family != "recsys" or arch.seq_model:
         raise SystemExit("the serve CLI serves field-based recsys archs only")
     if args.metrics_out:
         obs.enable()

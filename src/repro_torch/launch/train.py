@@ -1,6 +1,6 @@
 """Training CLI: ``python -m repro_torch.launch.train --arch dlrm-rm2``.
 
-Port of the recsys path of ``repro/launch/train.py``: the compressed
+Port of ``repro/launch/train.py``.  A field-based recsys arch runs the compressed
 train step (the dequant_bag gather, the bag_grad scatter backward,
 row-wise adagrad, Adam, the Eq. 5-8 fold, in-training Taylor/access
 accumulation) under ``train.loop.run`` with atomic versioned
@@ -25,12 +25,13 @@ device_name, batch, mesh, steps_run, resumed_from, loss_first,
 loss_last, step_ms_p50, kernel_launches (per kernel), rows, reduced,
 stragglers, nan_skips, device_peak_bytes.
 
-``--smoke``, and any sequence arch (bert4rec) whatever the flags, runs
-the recsys family smoke instead (``RecsysArch.smoke``: three generic
-train steps with the F-Quantization hook at the reduced size, a pack /
-unpack of the table and a forward), prints ``smoke-train metrics: ...``
-and, last, the metrics as JSON; it exits non-zero when they are not
-finite.
+``--smoke``, and every arch that is not a field-based recsys arch
+(bert4rec, pna and the five LMs) whatever the flags, runs its family
+smoke instead (``configs.common``: three generic train steps with the
+F-Quantization hook at the reduced size; recsys: a pack / unpack of the
+table and a forward; GNN: a forward; LM: one decode step), prints
+``smoke-train metrics: ...`` and, last, the metrics as JSON; it exits
+non-zero when they are not finite.
 """
 
 from __future__ import annotations
@@ -55,9 +56,10 @@ FULL_MAX_IND_RANGE = 24_000_000
 
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(
-        description="Train a recsys model with the compressed train step.",
-        epilog="Not ported yet: the GNN and LM archs and their family "
-               "smoke.")
+        description="Train a recsys model with the compressed train step, "
+                    "or run an arch's family smoke.",
+        epilog="bert4rec, pna and the LM archs run their family smoke "
+               "only, as in the reference.")
     ap.add_argument("--arch", default="dlrm-rm2", choices=configs.names())
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=64)
@@ -78,7 +80,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "(repro_torch.dist; every shard on --device)")
     ap.add_argument("--smoke", action="store_true",
                     help="run the reduced-config family smoke (always, for "
-                         "a sequence arch)")
+                         "an arch that is not a field-based recsys arch)")
     args = ap.parse_args(argv)
     if args.mesh < 1:
         ap.error("--mesh must be >= 1")
@@ -97,7 +99,7 @@ def smoke(args: argparse.Namespace, arch) -> dict:
 
 def run(args: argparse.Namespace) -> dict:
     arch = configs.get(args.arch)
-    if args.smoke or arch.seq_model:
+    if args.smoke or arch.family != "recsys" or arch.seq_model:
         return smoke(args, arch)
     device = resolve_device(args.device)
     cap = args.max_ind_range

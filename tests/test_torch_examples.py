@@ -1,7 +1,7 @@
-"""The port's recsys examples (``python -m repro_torch.examples.<name>``)
-run on the CPU, each with its own arguments reduced to a few steps (at
-their defaults they train 400-1,000 steps), and need a GPU unless the
-CPU is asked for."""
+"""The port's examples (``python -m repro_torch.examples.<name>``) run on
+the CPU, each with its own arguments reduced to a few steps (at their
+defaults they train 120-1,000 steps), and need a GPU unless the CPU is
+asked for."""
 
 from __future__ import annotations
 
@@ -12,7 +12,8 @@ import torch
 
 import torch_threads  # noqa: F401  (caps torch's CPU threads)
 
-from repro_torch.examples import compress_dlrm, quickstart, serve_quantized
+from repro_torch.examples import (compress_dlrm, quickstart,
+                                  serve_quantized, train_lm)
 
 
 def test_quickstart_runs_end_to_end(capsys):
@@ -47,7 +48,18 @@ def test_serve_quantized_runs_end_to_end(capsys):
     assert out["p50_us"] > 0 and 0.0 <= out["serve_auc"] <= 1.0
 
 
-@pytest.mark.parametrize("mod", [quickstart, compress_dlrm, serve_quantized],
+def test_train_lm_resumes_and_reports_tiers(capsys):
+    out = train_lm.main(["--steps", "6", "--resume-demo", "--device",
+                         "cpu"])
+    text = capsys.readouterr().out
+    assert "simulated preemption" in text and "token-embedding" in text
+    assert out["resumed_from"] == 4 and out["steps_run"] == 2
+    assert math.isfinite(out["loss_last"])
+    assert 0.0 < out["memory_ratio"] <= 1.0
+
+
+@pytest.mark.parametrize("mod", [quickstart, compress_dlrm, serve_quantized,
+                                 train_lm],
                          ids=lambda m: m.__name__.rsplit(".", 1)[1])
 def test_examples_need_a_gpu_unless_cpu_is_asked(mod):
     if torch.cuda.is_available():

@@ -280,3 +280,43 @@ def test_serve_and_fleet_refuse_a_sequence_arch():
     with pytest.raises(SystemExit, match="field-based recsys"):
         tfleet.run(tfleet.parse_args(["--arch", "bert4rec", "--model",
                                       "smoke", "--device", "cpu"]))
+
+
+def test_gnn_and_lm_modules_are_covered_by_the_import_rule():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for mod in ("models/layers.py", "models/gnn.py", "models/attention.py",
+                "models/moe.py", "models/transformer.py", "data/graphs.py",
+                "data/lm.py", "configs/common.py", "configs/pna.py",
+                "configs/smollm_135m.py", "configs/qwen3_8b.py",
+                "configs/deepseek_coder_33b.py", "configs/mixtral_8x22b.py",
+                "configs/deepseek_v2_lite_16b.py", "launch/train.py",
+                "examples/train_lm.py", "ckpt/manager.py"):
+        assert f"src/repro_torch/{mod}" in names, mod
+    for test in ("test_torch_gnn.py", "test_torch_attention.py",
+                 "test_torch_transformer.py"):
+        assert ROOT / "tests" / test in PORT_TESTS, test
+
+
+@pytest.mark.parametrize("arch", ["pna", "smollm-135m",
+                                  "deepseek-v2-lite-16b"])
+def test_family_smoke_raises_without_cuda_unless_cpu_is_asked(arch):
+    from repro_torch.launch import train as ttrain
+    if torch.cuda.is_available():
+        pytest.skip("the no-GPU rule is checked where there is no GPU")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ttrain.run(ttrain.parse_args(["--arch", arch]))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ttrain.run(ttrain.parse_args(["--arch", arch, "--smoke"]))
+    rec = ttrain.run(ttrain.parse_args(["--arch", arch, "--device", "cpu"]))
+    assert rec["finite"] is True and rec["arch"] == arch
+
+
+def test_serve_and_fleet_refuse_the_gnn_and_lm_archs():
+    from repro_torch.launch import fleet as tfleet
+    for arch in ("pna", "qwen3-8b"):
+        with pytest.raises(SystemExit, match="field-based recsys"):
+            tserve.run(tserve.parse_args(["--arch", arch, "--model",
+                                          "smoke", "--device", "cpu"]))
+        with pytest.raises(SystemExit, match="field-based recsys"):
+            tfleet.run(tfleet.parse_args(["--arch", arch, "--model",
+                                          "smoke", "--device", "cpu"]))

@@ -1,8 +1,8 @@
-"""The recsys family smoke (``RecsysArch.smoke``, ``launch.train
---smoke``) and the generic train step beside the reference's, on the CPU.
+"""The family smokes (``configs.common``, ``launch.train --smoke``) and
+the generic train step beside the reference's, on the CPU.
 
-The train CLI's ``--smoke --device cpu`` prints finite metrics for the
-four recsys archs (bert4rec always takes the smoke).  On a shared numpy
+The train CLI's ``--smoke --device cpu`` prints finite metrics for all
+ten archs (bert4rec, pna and the five LMs always take the smoke).  On a shared numpy
 batch with the reference's parameters carried across, the first step of
 ``train.steps.make_train_step`` (row-wise adagrad 0.05, the arch's
 F-Quantization hook) gives the reference's loss and gradient norm within
@@ -37,12 +37,15 @@ from repro_torch.optim import optimizers as topt
 from repro_torch.train import steps as tsteps
 
 ARCHS = ("dlrm-rm2", "wide-deep", "xdeepfm", "bert4rec")
+# the archs whose only train-CLI path is the family smoke
+SMOKE_ONLY = ("bert4rec", "pna", "smollm-135m", "qwen3-8b",
+              "deepseek-coder-33b", "mixtral-8x22b", "deepseek-v2-lite-16b")
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + SMOKE_ONLY[1:])
 def test_train_cli_smoke_is_finite(arch, capsys):
     argv = ["--arch", arch, "--device", "cpu"]
-    if arch != "bert4rec":      # a sequence arch takes the smoke anyway
+    if arch not in SMOKE_ONLY:  # these take the smoke anyway
         argv.append("--smoke")
     ttrain.main(argv)
     out = capsys.readouterr().out.splitlines()
@@ -51,7 +54,12 @@ def test_train_cli_smoke_is_finite(arch, capsys):
     rec = json.loads(out[-1])
     assert rec["finite"] is True and rec["arch"] == arch
     assert np.isfinite(rec["loss_first"]) and np.isfinite(rec["loss_last"])
-    assert rec["serve_shape"] == [4 if arch == "bert4rec" else 8]
+    if arch == "pna":           # the 16-seed block's 88 nodes x 16 classes
+        assert rec["serve_shape"] == [88, 16]
+    elif arch in SMOKE_ONLY[2:]:
+        assert rec["decode_logits_shape"] == [2, 1, 512]
+    else:
+        assert rec["serve_shape"] == [4 if arch == "bert4rec" else 8]
 
 
 def test_smoke_needs_a_gpu_unless_cpu_is_asked():
