@@ -430,6 +430,24 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    loss <= 1.05 x the first.  None of the eight kernels runs on these
    paths (their launches printed, all 0).  ``--families-only`` builds the
    kernels and runs phase 21 alone (no kernels line, no ok line).
+22. the SPMD layer (``dist.collectives``, ``optim.grad_compress``,
+   ``launch.dryrun``): (a) ``error_feedback_allreduce`` over 4 logical
+   shards of the card, each a seeded gradient of smollm-135m's parameter
+   count (``param_count``, ~134.5M fp32), 3 steps carrying the residual:
+   every quantisation launch (``rowwise_quant.cu`` at D = 256, 4 a step,
+   ``reciprocal=True``) bit-equal to the plain quantizer, each mean
+   within the half-step bound of the fp32 mean of the corrected
+   gradients, each residual ``corrected - q * s`` exactly (the fused
+   form); the exchange's CUDA-event ms a step, the D = 256 launch's ms
+   (in ``quantize_rowwise``'s ``d256``) and the wire bytes against fp32;
+   (b) ``split_kv_decode_attention`` at qwen3-8b's decode width (batch 4,
+   32 heads, head dim 128, 32,768 fp32 slots, position 16,384) over 4
+   views of one cache, within 2e-5 of the full softmax, its ms; (c) the
+   dry run through ``launch.dryrun.run`` on dlrm-rm2 serve_p99 and
+   train_batch, pna full_graph_sm and smollm-135m decode_32k into a
+   temporary directory, ``benchmarks.roofline``'s rows of the records
+   printed, no kernel launched.  ``--spmd-only`` builds the kernels and
+   runs phase 22 alone (no kernels line, no ok line).
 
 Prints the card's name and power limit, the serve, train, both online,
 both hashed and both pipeline records, one JSON ``kernels`` line
@@ -596,6 +614,16 @@ LM_LONG_STEPS = 2
 # phase 21(c): decode against prefill at fp32
 AGREE_PREFIX = 256
 AGREE_STEPS = 4
+# phase 22: the SPMD layer.  (a) the int8 gradient exchange over 4 logical
+# shards of one card, each a gradient the size of smollm-135m's whole
+# parameter vector, 3 steps with the residual carried; (b) split-KV decode
+# at qwen3-8b's decode width over 4 views of one cache; (c) the dry run's
+# cheap cells, one a family
+SPMD_SHARDS = 4
+SPMD_STEPS = 3
+SPLIT_KV = {"batch": 4, "heads": 32, "head_dim": 128, "slots": 32768}
+DRYRUN_CELLS = (("dlrm-rm2", "serve_p99"), ("dlrm-rm2", "train_batch"),
+                ("pna", "full_graph_sm"), ("smollm-135m", "decode_32k"))
 
 
 T0 = time.monotonic()
@@ -5523,6 +5551,235 @@ def families_phase(torch, kernels_mod, kernel, hg_kernel) -> dict:
     return by_path
 
 
+# ---- phase 22: the SPMD layer (dist.collectives, optim.grad_compress,
+# launch.dryrun) ------------------------------------------------------------
+
+def grad_exchange(torch, kernels_mod, kernel, hg_kernel, rq_kernel, rq_ref,
+                  smi: str) -> tuple[dict, dict, dict]:
+    """Phase 22 (a): ``optim.error_feedback_allreduce`` over 4 logical
+    shards of the card, each a seeded gradient of smollm-135m's parameter
+    count, 3 steps carrying the residual.  Every quantisation launch is
+    held bit for bit to the plain quantizer (``reciprocal=True``, as the
+    exchange calls it), every shard's mean to the fp32 mean of the
+    corrected gradients within the half-step bound, and every new residual
+    to ``corrected - q * s`` exactly (the fused form, in float64).
+    Returns (the phase's summary, the quantizer's D = 256 timing, the
+    main path's launch counts)."""
+    from repro_torch import configs
+    from repro_torch.dist import make_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import grad_compress as gc
+
+    n = T.param_count(configs.get("smollm-135m").lm_cfg)
+    w = SPMD_SHARDS
+    mesh = make_mesh(w, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(22)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+
+    # the D = 256 launch timed at the exchange's block shape (a comparison
+    # launch, before the counts are reset)
+    x = torch.randn((-(-n // 256), 256), generator=gen, device="cuda") * 1e-3
+    v, d = x.shape
+    ms = time_launches(torch, lambda a: rq_kernel.quantize_rowwise_cuda(
+        a, None, "narrow", reciprocal=True), [(x,)] * 10, flush)
+    plain_ms = time_launches(torch, lambda a: rq_ref.quantize_rowwise_ref(
+        a, None, "narrow", reciprocal=True), [(x,)] * 2, flush)
+    nbytes = v * d * 5 + v * 4
+    bound_ms, bound_by = _bound(nbytes, 5 * v * d)
+    d256 = {"shape": {"V": v, "D": d}, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+            "gb_per_s": nbytes / ms / 1e6,
+            "per": "launch (one shard's gradient of smollm-135m's "
+                   f"{n:,} parameters in 256-element blocks)"}
+    del x, flush
+    log(f"phase 22(a) quantize_rowwise at D = 256 (V={v:,}, reciprocal): "
+        f"{ms:.4f} ms, {d256['gb_per_s']:.0f} GB/s (bound {bound_ms:.4f}, "
+        f"{bound_ms / ms:.1%} of it; plain {plain_ms:.4f}) [{smi}]")
+
+    launches_seen = []
+    real = gc.quantize_rowwise
+
+    def recorded(blocks, *a, **k):
+        q, s = real(blocks, *a, **k)
+        launches_seen.append((blocks, q, s, k.get("reciprocal", False)))
+        return q, s
+
+    res = [torch.zeros(n, device="cuda") for _ in range(w)]
+    step_ms, worst_mean, fused_only = [], 0.0, 0
+    gc.quantize_rowwise = recorded
+    kernels_mod.reset_launches()
+    try:
+        for _ in range(SPMD_STEPS):
+            grads = [torch.randn(n, generator=gen, device="cuda") * 1e-2
+                     for _ in range(w)]
+            corrected = [g + r for g, r in zip(grads, res)]
+            launches_seen.clear()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            means, res = gc.error_feedback_allreduce(grads, res, mesh)
+            e1.record()
+            torch.cuda.synchronize()
+            step_ms.append(e0.elapsed_time(e1))
+            if len(launches_seen) != w:
+                raise SystemExit(f"phase 22(a): {len(launches_seen)} "
+                                 f"quantisation launches, want {w}")
+            half = torch.zeros(n, dtype=torch.float64, device="cuda")
+            for (blocks, q, s, recip), c, r in zip(launches_seen, corrected,
+                                                   res):
+                wq, ws = rq_ref.quantize_rowwise_ref(blocks, None, "narrow",
+                                                     reciprocal=recip)
+                if not (recip and torch.equal(q, wq) and bits_equal(s, ws)):
+                    raise SystemExit("phase 22(a): a quantisation launch != "
+                                     "the plain quantizer")
+                prod = (q.double() * s.double()).reshape(-1)[:n]
+                if not torch.equal(r, (c.double() - prod).float()):
+                    raise SystemExit("phase 22(a): residual != corrected - "
+                                     "dequant")
+                fused_only += int((r != c - prod.float()).sum())
+                half += (s.double() / 2).expand(-1, 256).reshape(-1)[:n]
+            exact = sum(c.double() for c in corrected) / w
+            gap = (means[0].double() - exact).abs()
+            # half a step a shard; the fp32 quotient x / s may sit 127 ulp
+            # off (1.5e-5 of a step) and the fp32 sum rounds (2^-22 of it)
+            bound = half / w * (1 + 1e-4) + exact.abs() * 2.0 ** -22 + 1e-12
+            if not (bool((gap <= bound).all())
+                    and all(m is means[0] for m in means)):
+                raise SystemExit("phase 22(a): the mean is outside the "
+                                 "half-step bound of the fp32 mean")
+            worst_mean = max(worst_mean, float((gap / bound).max()))
+            del grads, corrected, half, exact, gap, bound, prod
+    finally:
+        gc.quantize_rowwise = real
+    counts = path_counts(kernels_mod, kernel, hg_kernel)
+    if counts["quantize_rowwise"] != w * SPMD_STEPS:
+        raise SystemExit(f"phase 22(a): {counts['quantize_rowwise']} "
+                         f"quantize_rowwise launches, want {w * SPMD_STEPS}")
+    q, s = launches_seen[0][1], launches_seen[0][2]
+    wire = q.numel() * q.element_size() + s.numel() * s.element_size()
+    summary = {"shards": w, "steps": SPMD_STEPS, "elements": n,
+               "step_ms": step_ms, "quantize_ms": ms,
+               "wire_bytes_per_shard": wire, "fp32_bytes_per_shard": 4 * n,
+               "wire_ratio": wire / (4 * n),
+               "mean_gap_over_half_step_max": worst_mean,
+               "residual_differs_from_unfused": fused_only,
+               "quantize_launches": counts["quantize_rowwise"]}
+    log(f"phase 22(a) error_feedback_allreduce: {w} shards x {n:,} "
+        f"elements, {SPMD_STEPS} steps {', '.join(f'{t:.2f}' for t in step_ms)}"
+        f" ms; wire {wire:,} B a shard against {4 * n:,} fp32 "
+        f"({wire / (4 * n):.4f}x); every launch bit-equal to plain, the "
+        f"mean within {worst_mean:.3f} of its half-step bound, residuals "
+        f"exact ({fused_only:,} elements differ from the unfused "
+        f"difference) [{smi}]")
+    del means, res, launches_seen, q, s
+    torch.cuda.empty_cache()
+    return summary, d256, counts
+
+
+def split_kv_phase(torch, smi: str) -> dict:
+    """Phase 22 (b): ``dist.collectives.split_kv_decode_attention`` at
+    qwen3-8b's decode width over 4 views of one fp32 cache, held to the
+    full softmax over the valid prefix within 2e-5."""
+    from repro_torch.dist import make_mesh
+    from repro_torch.dist.collectives import split_kv_decode_attention
+
+    b, h, dh, s = (SPLIT_KV[k] for k in ("batch", "heads", "head_dim",
+                                         "slots"))
+    cache_len = s // 2
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(23)
+    q = torch.randn((b, h, dh), generator=gen, device="cuda")
+    k = torch.randn((b, s, h, dh), generator=gen, device="cuda")
+    v = torch.randn((b, s, h, dh), generator=gen, device="cuda")
+    mesh = make_mesh(SPMD_SHARDS, device="cuda")
+    scale = dh ** -0.5
+    out = split_kv_decode_attention(mesh, q, k, v, cache_len, scale)
+    ms = []
+    for _ in range(5):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        split_kv_decode_attention(mesh, q, k, v, cache_len, scale)
+        e1.record()
+        torch.cuda.synchronize()
+        ms.append(e0.elapsed_time(e1))
+    valid = slice(0, cache_len + 1)
+    sc = torch.einsum("bhd,bkhd->bhk", q.double(),
+                      k[:, valid].double()) * scale
+    ref = torch.einsum("bhk,bkhd->bhd", torch.softmax(sc, dim=-1),
+                       v[:, valid].double())
+    err = float((out.double() - ref).abs().max())
+    tol = 2e-5 * max(1.0, float(ref.abs().max()))
+    if not (out.shape == (b, h, dh) and err <= tol):
+        raise SystemExit(f"phase 22(b): split-KV off the full softmax by "
+                         f"{err} (tolerance {tol})")
+    rec = {"batch": b, "heads": h, "head_dim": dh, "slots": s,
+           "cache_len": cache_len, "shards": SPMD_SHARDS, "ms": ms,
+           "max_abs_err": err, "tolerance": tol}
+    log(f"phase 22(b) split-KV decode ({b} x {h} heads x {dh}, {s:,} fp32 "
+        f"slots, position {cache_len:,}, {SPMD_SHARDS} shards): "
+        f"{min(ms):.3f} ms (of {', '.join(f'{t:.3f}' for t in ms)}), "
+        f"{err:.2e} from the full softmax [{smi}]")
+    del q, k, v, out, sc, ref
+    torch.cuda.empty_cache()
+    return rec
+
+
+def dryrun_phase(torch, kernels_mod, kernel, hg_kernel) -> dict:
+    """Phase 22 (c): ``python -m repro_torch.launch.dryrun`` through
+    ``run``, one cheap cell a family, into a temporary directory; the
+    roofline's rows of the records printed.  Nothing runs on the card."""
+    from repro_torch.benchmarks import roofline
+    from repro_torch.launch import dryrun
+
+    kernels_mod.reset_launches()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        recs = []
+        for name, shape in DRYRUN_CELLS:
+            got, failed = dryrun.run(dryrun.parse_args(
+                ["--arch", name, "--shape", shape, "--results", tmp]))
+            if failed or len(got) != 1:
+                raise SystemExit(f"phase 22(c): dry run of {name} x {shape} "
+                                 f"failed: {failed}")
+            recs += got
+        rows = roofline.table("single", results=tmp)
+        print(roofline.markdown("single", results=tmp), flush=True)
+    secs = time.perf_counter() - t0
+    if len(rows) != len(DRYRUN_CELLS):
+        raise SystemExit(f"phase 22(c): the roofline read {len(rows)} rows")
+    counts = path_counts(kernels_mod, kernel, hg_kernel)
+    launched = {k: n for k, n in counts.items() if isinstance(n, int) and n}
+    if launched:
+        raise SystemExit(f"phase 22(c): the dry run launched {launched}")
+    log(f"phase 22(c) dry run of {len(recs)} cells: {secs:.1f}s, "
+        f"{[(r['arch'], r['shape'], r['lower_s']) for r in recs]}")
+    return {"cells": [{k: r[k] for k in ("arch", "shape", "kind", "flops",
+                                         "hbm_bytes", "lower_s",
+                                         "kernel_calls")}
+                      | {"memory": r["memory"]} for r in recs],
+            "seconds": secs, "launches": counts}
+
+
+def spmd_phase(torch, kernels_mod, kernel, hg_kernel, rq_kernel, rq_ref,
+               smi: str) -> tuple[dict, dict, dict]:
+    """Phase 22, (a) to (c); returns (the summary, the quantizer's D = 256
+    timing, each path's launches)."""
+    t0 = time.perf_counter()
+    exchange, d256, counts = grad_exchange(torch, kernels_mod, kernel,
+                                           hg_kernel, rq_kernel, rq_ref, smi)
+    by_path = {"spmd_grad_exchange": counts}
+    split_kv = split_kv_phase(torch, smi)
+    dry = dryrun_phase(torch, kernels_mod, kernel, hg_kernel)
+    by_path["spmd_dryrun"] = dry.pop("launches")
+    summary = {"grad_exchange": exchange, "split_kv": split_kv,
+               "dryrun": dry, "device": smi}
+    print(json.dumps({"spmd": summary}), flush=True)
+    log(f"phase 22: {time.perf_counter() - t0:.1f}s")
+    return summary, d256, by_path
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--trace", metavar="PATH",
@@ -5546,6 +5803,10 @@ def main() -> int:
                     help="build the kernels and run phase 21 alone (a "
                          "quick check of the GNN and LM families; prints "
                          "no kernels line and no ok line)")
+    ap.add_argument("--spmd-only", action="store_true",
+                    help="build the kernels and run phase 22 alone (a "
+                         "quick check of the SPMD layer; prints no kernels "
+                         "line and no ok line)")
     ap.add_argument("--record-only", action="store_true",
                     help="build the kernels and run phase 20 alone, after "
                          "phase 8's wide&deep serve (its reference; prints "
@@ -5599,6 +5860,12 @@ def main() -> int:
     if args.families_only:
         by_path = families_phase(torch, kernels_mod, kernel, hg_kernel)
         log(f"phase 21 alone: {sorted(by_path)}")
+        return 0
+    if args.spmd_only:
+        smi_line = smi.splitlines()[0]
+        _, _, by_path = spmd_phase(torch, kernels_mod, kernel, hg_kernel,
+                                   rq_kernel, rq_ref, smi_line)
+        log(f"phase 22 alone: {sorted(by_path)}")
         return 0
     if args.hier_only:
         counters = (kernel.launches, kernel.bag_grad_launches,
@@ -5939,6 +6206,14 @@ def main() -> int:
     # phase 21: the GNN and LM families at published widths (no kernel)
     for label, counts in families_phase(torch, kernels_mod, kernel,
                                         hg_kernel).items():
+        record_path(kernels, grad_entry, quant_by_path, rowgrid_by_path,
+                    label, counts)
+    # phase 22: the SPMD layer (the int8 gradient exchange's quantizer
+    # launches go to quantize_rowwise)
+    _, quant_entry["d256"], spmd_paths = spmd_phase(
+        torch, kernels_mod, kernel, hg_kernel, rq_kernel, rq_ref,
+        smi.splitlines()[0])
+    for label, counts in spmd_paths.items():
         record_path(kernels, grad_entry, quant_by_path, rowgrid_by_path,
                     label, counts)
     for k in kernels:

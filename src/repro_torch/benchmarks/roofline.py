@@ -19,9 +19,12 @@ artifacts (``results/dryrun/*.json`` under the checkout) and derive, per
     collective term = collective bytes / NVLink rate     [s]
 
 with the H100 SXM's data-sheet constants: 989.4 TFLOP/s dense bf16,
-3.35 TB/s HBM3, 900 GB/s NVLink.  No port module writes dry-run records
-yet (ROADMAP Queue 1 item 9, step 6), so ``run()`` returns ``[]`` until
-one does, as the reference's does with no artifacts.
+3.35 TB/s HBM3, 900 GB/s NVLink.  The records are
+``python -m repro_torch.launch.dryrun``'s (``launch/dryrun.py``: each
+cell traced on ``meta``; its per-device numbers are the global step's
+over ``num_devices``, its collectives only the port's own).  With no
+records ``run()`` returns ``[]``, as the reference's does with no
+artifacts.
 """
 
 from __future__ import annotations

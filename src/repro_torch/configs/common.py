@@ -1,20 +1,124 @@
-"""Shapes and the arch records shared by the configs.
+"""Shapes, the arch records shared by the configs, and their dry-run
+cells.
 
-Port of ``repro/configs/common.py``: each family's arch record and its
-family smoke, which the train CLI's ``--smoke`` runs.  Recsys
-(``RecsysArch.smoke``, ``:539-585``): a sequence arch's (bert4rec) only
-training path.  LM (``LMArch``, ``:298-338``) and GNN (``GNNArch``,
-``:594-724``): the only path of those families in the train CLI, as in
-the reference.  The reference's ``lowerable`` (the dry-run's abstract
-cells) is not ported.
+Port of ``repro/configs/common.py``.  An arch record owns its published
+config, ``cells()`` (its shape names), ``smoke()`` (the family smoke at a
+reduced size, which the train CLI's ``--smoke`` runs) and
+``lowerable(shape, mesh_axis_names, variant=)`` -> ``Cell``: everything
+``launch/dryrun.py`` needs.  A cell's arguments are tensors on the
+``meta`` device at full width (nothing is allocated) and its specs are
+``PartitionSpec`` trees aligned with them (``dist.sharding``).  Training
+cells run the generic train step (grad, optimizer, the F-Quantization
+hook; ``"optimized"``: the sparse snap, and recsys' sparse-table step);
+serving cells prefill, decode, serve from the packed store (the fused
+lookup, ``kernels.dequant_bag``'s tiered entry) or score candidates.
+
+Where the reference's train state has a leaf with no tensor here, the
+cell has none: the generic step's ``rng`` is a ``torch.Generator`` on a
+device and a draw source on ``meta`` (``core.rowwise_quant.meta_uniform``),
+not the reference's uint32[2] key.  The port's decode takes the position
+as a host int: the cell keeps the reference's 0-d int32 ``cache_len``
+argument for its layout and decodes at the sequence's last position (the
+port attends every cache slot whatever the position, so the count is the
+same).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+import functools
+from typing import Any, Callable
 
 import torch
+
+from repro_torch.dist import sharding as sh
+from repro_torch.dist.ctx import PartitionSpec as P
+
+META = torch.device("meta")
+
+
+def sds(shape, dtype=torch.float32) -> torch.Tensor:
+    """An abstract argument: a ``meta`` tensor (shape and dtype only)."""
+    return torch.empty(tuple(int(s) for s in shape), dtype=dtype,
+                       device=META)
+
+
+@dataclasses.dataclass
+class Cell:
+    fn: Callable
+    args: tuple            # trees of meta tensors
+    in_specs: tuple        # PartitionSpec trees, aligned with args
+    kind: str              # "train" | "prefill" | "decode" | "serve"
+    donate: tuple = ()     # argnums the step may overwrite
+    out_specs: Any = None  # PartitionSpec tree of the outputs, or a
+                           # callable outputs -> that tree
+
+
+TRAIN_METRIC_SPECS = {"loss": P(), "grad_norm": P()}
+
+
+def data_axes_of(mesh_axis_names) -> Any:
+    axes = tuple(a for a in ("pod", "data") if a in mesh_axis_names)
+    return axes if len(axes) != 1 else axes[0]
+
+
+def opt_state_specs(opt_abs, params_abs, pspecs):
+    """Spec tree of an optimizer state: moments shaped like their param
+    take its spec, row-wise accumulators keep its row axis, the rest
+    (scalars) replicate."""
+
+    def match(_, leaf, param, spec):
+        if tuple(leaf.shape) == tuple(param.shape):
+            return spec
+        if tuple(leaf.shape) == tuple(param.shape[:1]):
+            return P(spec[0]) if len(spec) else P()
+        return P()
+
+    fields = {}
+    for f in opt_abs._fields:
+        val = getattr(opt_abs, f)
+        if f == "step":
+            fields[f] = P()
+        else:
+            fields[f] = sh.tree_map_with_path(match, val, params_abs, pspecs)
+    return type(opt_abs)(**fields)
+
+
+def train_state_specs(state_abs, pspecs, table_path: str | None = None):
+    """Spec tree of a ``train.steps.TrainState``: the params', the
+    optimizer's, the priorities along the table's row axis."""
+    from repro_torch.train.steps import TrainState
+    pri_spec = None
+    if state_abs.priority is not None:
+        row_axis = None
+        if table_path is not None:
+            tspec = pspecs[table_path]
+            row_axis = tspec[0] if len(tspec) else None
+        pri_spec = P(row_axis)
+    return TrainState(
+        params=pspecs,
+        opt=opt_state_specs(state_abs.opt, state_abs.params, pspecs),
+        step=P(), priority=pri_spec, rng=None)
+
+
+class Arch:
+    """What every family's arch record answers: its name and family,
+    whether it is a sequence recsys arch (no field-based serving), its
+    sharding ruleset, its cells and their ``lowerable``."""
+    name: str = ""
+    family: str = ""
+    ruleset: str = ""
+    seq_model: bool = False
+
+    def cells(self) -> list[str]:
+        raise NotImplementedError
+
+    def lowerable(self, shape: str, mesh_axis_names=("data", "model"),
+                  variant: str = "baseline") -> Cell:
+        """variant: ``"baseline"`` (paper-faithful) or ``"optimized"``
+        (the sparse snap and sparse-table levers)."""
+        raise NotImplementedError
+
 
 RECSYS_SHAPES = {
     "train_batch": dict(batch=65536),
@@ -24,12 +128,30 @@ RECSYS_SHAPES = {
 }
 
 
-class Arch:
-    """What every family's arch record answers: its name and family, and
-    whether it is a sequence recsys arch (no field-based serving)."""
-    name: str = ""
-    family: str = ""
-    seq_model: bool = False
+# steady-state tier fractions for abstract PackedStore shapes (zipf access
+# under the paper's t8/t16 thresholds; they only set the tiers' sizes)
+TIER_FRACTIONS = (0.70, 0.25, 0.05)
+
+
+def packed_abs(total_rows: int, dim: int):
+    """A ``PackedStore`` of ``total_rows`` (512-padded) rows on ``meta``,
+    tiered by ``TIER_FRACTIONS``."""
+    from repro_torch.core.packed_store import PackedStore
+    v8 = (int(total_rows * TIER_FRACTIONS[0]) // 512) * 512
+    v16 = (int(total_rows * TIER_FRACTIONS[1]) // 512) * 512
+    v32 = total_rows - v8 - v16
+    return PackedStore(
+        payload8=sds((v8, dim), torch.int8), scale8=sds((v8,)),
+        payload16=sds((v16, dim), torch.bfloat16), scale16=sds((v16,)),
+        payload32=sds((v32, dim)), indirect=sds((total_rows,), torch.int32))
+
+
+def packed_specs(rows_axis):
+    from repro_torch.core.packed_store import PackedStore
+    return PackedStore(
+        payload8=P(rows_axis, None), scale8=P(rows_axis),
+        payload16=P(rows_axis, None), scale16=P(rows_axis),
+        payload32=P(rows_axis, None), indirect=P(rows_axis))
 
 
 @dataclasses.dataclass
@@ -44,7 +166,12 @@ class RecsysArch(Arch):
     smoke_cfg: Any = None            # the reduced one's
     seq_model: bool = False          # BERT4Rec batch format
     seq_len: int = 200
+    lr: float = 0.01                 # the dry-run cells' train step
     family: str = "recsys"
+    ruleset: str = "recsys"
+
+    def cells(self) -> list[str]:
+        return list(RECSYS_SHAPES)
 
     @property
     def has_dense(self) -> bool:
@@ -77,6 +204,134 @@ class RecsysArch(Arch):
             cfg=FQuantConfig(), table_path="embed_table",
             indices_fn=lambda b: E.globalize(b["indices"], spec),
             labels_fn=lambda b: b["labels"], sparse_snap=sparse)
+
+    # -- dry-run cells -------------------------------------------------
+
+    def _batch_abs(self, batch: int) -> dict:
+        if self.seq_model:
+            return {"inputs": sds((batch, self.seq_len), torch.int32),
+                    "targets": sds((batch, self.seq_len), torch.int32),
+                    "mask": sds((batch, self.seq_len))}
+        b = {"indices": sds((batch, self.model.spec.num_fields),
+                            torch.int32),
+             "labels": sds((batch,))}
+        if self.has_dense:
+            b["dense"] = sds((batch, self.num_dense))
+        return b
+
+    def _batch_specs(self, batch_abs: dict, mesh_axis_names) -> dict:
+        d = data_axes_of(mesh_axis_names)
+        return {k: P(d, *([None] * (v.ndim - 1)))
+                for k, v in batch_abs.items()}
+
+    def lowerable(self, shape: str, mesh_axis_names=("data", "model"),
+                  variant: str = "baseline") -> Cell:
+        from repro_torch.core.packed_store import lookup_fused, unpack
+        from repro_torch.models import embedding as E
+        from repro_torch.optim import optimizers as opt_lib
+        from repro_torch.train import steps as steps_lib
+        model = self.model
+        d = data_axes_of(mesh_axis_names)
+        info = RECSYS_SHAPES[shape]
+        params_abs = model.init(None, META)
+        pspecs = sh.param_specs(params_abs, self.ruleset, mesh_axis_names)
+
+        if shape == "train_batch":
+            batch_abs = self._batch_abs(info["batch"])
+            bspecs = self._batch_specs(batch_abs, mesh_axis_names)
+            if variant == "optimized" and not self.seq_model:
+                # sparse-table path: gradients w.r.t. the gathered rows;
+                # adagrad and the table touch <= B*F rows, not V
+                hook = self._fquant_hook(model, sparse=True)
+                step = steps_lib.make_sparse_table_train_step(
+                    model.embed, model.loss_from_emb, hook.indices_fn,
+                    hook.labels_fn, "embed_table", self.lr, fq_cfg=hook.cfg)
+                state_abs = step.init_state(params_abs)
+                table_spec = pspecs["embed_table"]
+                row_axis = table_spec[0] if len(table_spec) else None
+                opt_specs = (opt_state_specs(
+                    state_abs.opt[0],
+                    {k: v for k, v in params_abs.items()
+                     if k != "embed_table"},
+                    {k: v for k, v in pspecs.items()
+                     if k != "embed_table"}), P(row_axis))
+                sspecs = steps_lib.TrainState(
+                    params=pspecs, opt=opt_specs, step=P(),
+                    priority=P(row_axis), rng=None)
+                return Cell(step, (state_abs, batch_abs),
+                            (sspecs, bspecs), kind="train", donate=(0,),
+                            out_specs=(sspecs, TRAIN_METRIC_SPECS))
+            optimizer = opt_lib.rowwise_adagrad(self.lr)
+            hook = self._fquant_hook(model, sparse=variant == "optimized")
+            step = steps_lib.make_train_step(self._loss_fn(), optimizer,
+                                             hook)
+            state_abs = steps_lib.init_state(params_abs, optimizer, hook)
+            sspecs = train_state_specs(state_abs, pspecs, "embed_table")
+            return Cell(step, (state_abs, batch_abs), (sspecs, bspecs),
+                        kind="train", donate=(0,),
+                        out_specs=(sspecs, TRAIN_METRIC_SPECS))
+
+        if shape in ("serve_p99", "serve_bulk"):
+            spec = model.spec
+            packed = packed_abs(spec.total_rows, spec.dim)
+            batch_abs = self._batch_abs(info["batch"])
+            bspecs = self._batch_specs(batch_abs, mesh_axis_names)
+            # dense-side params only (the table is served from the store)
+            net_abs = {k: v for k, v in params_abs.items()
+                       if k != "embed_table"}
+            net_specs = {k: v for k, v in pspecs.items()
+                         if k != "embed_table"}
+
+            if self.seq_model:
+                def fn(net, packed, batch):
+                    # small vocab: dequantize the table once a batch
+                    with torch.no_grad():
+                        p = dict(net)
+                        p["embed_table"] = unpack(packed)
+                        return model.forward(p, batch)
+            else:
+                def fn(net, packed, batch):
+                    with torch.no_grad():
+                        gidx = E.globalize(batch["indices"], spec)
+                        # the port's fused serving path (the reference's
+                        # cell calls its plain ``lookup``)
+                        emb = lookup_fused(packed, gidx)   # (B, F, D)
+                        p = dict(net)
+                        p["embed_table"] = packed.payload32  # unused
+                        return model.head(p, emb, batch)
+
+            return Cell(fn, (net_abs, packed, batch_abs),
+                        (net_specs, packed_specs("model"), bspecs),
+                        kind="serve", out_specs=P(d))
+
+        if shape == "retrieval_cand":
+            n = info["n_candidates"]
+            dim = model.spec.dim
+            cand_axes = tuple(a for a in ("pod", "model")
+                              if a in mesh_axis_names)
+            batch_abs = self._batch_abs(info["batch"])
+
+            def fn(params, cand_payload, cand_scales, batch):
+                with torch.no_grad():
+                    if self.seq_model:
+                        user = model.extras["encode"](
+                            params, batch["inputs"])[:, -1]     # (1, D)
+                    else:
+                        user = model.embed(params, batch).mean(dim=1)
+                    scores = torch.einsum(
+                        "nd,bd->bn", cand_payload.to(torch.float32),
+                        user.to(torch.float32)) * cand_scales[None, :]
+                    vals, idx = torch.topk(scores, 100)
+                    return vals, idx.to(torch.int32)
+
+            return Cell(
+                fn, (params_abs, sds((n, dim), torch.int8), sds((n,)),
+                     batch_abs),
+                (pspecs, P(cand_axes, None), P(cand_axes),
+                 {k: P() for k in batch_abs}),
+                kind="serve", out_specs=(P(), P()))
+
+        raise KeyError(shape)
 
     def smoke(self, device=None) -> dict:
         """The family smoke at the reduced size: three generic train steps
@@ -173,6 +428,7 @@ class LMArch(Arch):
     fquant: bool = True              # F-Quantization on the token table
     name: str = ""
     family: str = "lm"
+    ruleset: str = "lm"
 
     def cells(self) -> list[str]:
         out = ["train_4k", "prefill_32k", "decode_32k"]
@@ -180,7 +436,7 @@ class LMArch(Arch):
             out.append("long_500k")
         return out
 
-    def _fquant_hook(self):
+    def _fquant_hook(self, sparse: bool = False):
         """The F-Quantization hook on the token table (``embed``), one
         positive label a sequence."""
         from repro_torch.core.qat_store import FQuantConfig
@@ -189,7 +445,140 @@ class LMArch(Arch):
             return None
         return FQuantHook(cfg=FQuantConfig(), table_path="embed",
                           indices_fn=lambda b: b["tokens"],
-                          labels_fn=_ones_labels("tokens"))
+                          labels_fn=_ones_labels("tokens"),
+                          sparse_snap=sparse)
+
+    # -- dry-run cells -------------------------------------------------
+
+    def _params_abs(self, cfg) -> dict:
+        from repro_torch.models import transformer as T
+        return T.init_params(None, cfg, META)
+
+    def _train_cell(self, cfg, batch: int, seq: int, mesh_axis_names,
+                    variant: str = "baseline") -> Cell:
+        from repro_torch.models import transformer as T
+        from repro_torch.optim import optimizers as opt_lib
+        from repro_torch.train import steps as steps_lib
+        d = data_axes_of(mesh_axis_names)
+        optimizer = opt_lib.adam(self.lr)
+        hook = self._fquant_hook(sparse=variant == "optimized")
+        if variant == "optimized" and cfg.moe is not None:
+            # block-local MoE dispatch: per-data-shard capacity buffers
+            cfg = dataclasses.replace(
+                cfg, moe=dataclasses.replace(cfg.moe, dispatch_blocks=32))
+        step = steps_lib.make_train_step(
+            lambda p, b: T.lm_loss(p, cfg, b["tokens"]), optimizer, hook)
+        params_abs = self._params_abs(cfg)
+        state_abs = steps_lib.init_state(params_abs, optimizer, hook)
+        pspecs = sh.param_specs(params_abs, self.ruleset, mesh_axis_names)
+        sspecs = train_state_specs(state_abs, pspecs, "embed")
+        return Cell(step, (state_abs, {"tokens": sds((batch, seq),
+                                                     torch.int32)}),
+                    (sspecs, {"tokens": P(d, None)}), kind="train",
+                    donate=(0,), out_specs=(sspecs, TRAIN_METRIC_SPECS))
+
+    def _cache_specs(self, cache_abs: dict, mesh_axis_names,
+                     shard_batch: bool, model_size: int = 16,
+                     data_size: int = 16) -> dict:
+        d = data_axes_of(mesh_axis_names) if shard_batch else None
+
+        def fits(dim: int) -> bool:
+            return dim % model_size == 0
+
+        def assign(path, leaf):
+            if "pos" in sh.pathstr(path):
+                return P()
+            db = d if (d is not None
+                       and leaf.shape[1] % data_size == 0) else None
+            if leaf.ndim == 5:    # (L, B, S, Hkv, Dh)
+                # kv heads rarely divide 16; fall back to head_dim
+                if fits(leaf.shape[3]):
+                    return P(None, db, None, "model", None)
+                if fits(leaf.shape[4]):
+                    return P(None, db, None, None, "model")
+                return P(None, db, None, None, None)
+            if leaf.ndim == 4:    # (L, B, S, R) MLA latent
+                if fits(leaf.shape[3]):
+                    return P(None, db, None, "model")
+                return P(None, db, None, None)
+            return P()
+
+        return sh.tree_map_with_path(assign, cache_abs)
+
+    def _serve_out_specs(self, out, mesh_axis_names, shard_batch: bool):
+        """(logits, caches...) output specs: vocab-sharded logits, cache
+        dims sharded as the input cache's rules."""
+        d = data_axes_of(mesh_axis_names) if shard_batch else None
+        vocab_ok = self.lm_cfg.vocab % 16 == 0
+
+        def assign(path, leaf):
+            if path[0] == 0:     # logits (B, 1|T, V)
+                return P(d, None, "model" if vocab_ok else None)
+            if "pos" in sh.pathstr(path):
+                return P()
+            shp = leaf.shape
+            if leaf.ndim == 5:
+                if shp[3] % 16 == 0:
+                    return P(None, d, None, "model", None)
+                if shp[4] % 16 == 0:
+                    return P(None, d, None, None, "model")
+                return P(None, d, None, None, None)
+            if leaf.ndim == 4:   # (L, B, T, R) stacked latent
+                return P(None, d, None,
+                         "model" if shp[3] % 16 == 0 else None)
+            if leaf.ndim == 3:   # (B, T, R) unstacked (first-dense cache)
+                return P(d, None, "model" if shp[2] % 16 == 0 else None)
+            return P()
+
+        return sh.tree_map_with_path(assign, out)
+
+    def lowerable(self, shape: str, mesh_axis_names=("data", "model"),
+                  variant: str = "baseline") -> Cell:
+        from repro_torch.models import transformer as T
+        cfg = self.lm_cfg
+        d = data_axes_of(mesh_axis_names)
+        info = LM_SHAPES[shape]
+        if shape == "train_4k":
+            return self._train_cell(cfg, info["batch"], info["seq"],
+                                    mesh_axis_names, variant)
+
+        params_abs = self._params_abs(cfg)
+        pspecs = sh.param_specs(params_abs, self.ruleset, mesh_axis_names)
+
+        if shape == "prefill_32k":
+            def fn(p, toks):
+                with torch.no_grad():
+                    return T.prefill(p, cfg, toks)
+            toks = sds((info["batch"], info["seq"]), torch.int32)
+            return Cell(fn, (params_abs, toks), (pspecs, P(d, None)),
+                        kind="prefill", out_specs=functools.partial(
+                            self._serve_out_specs,
+                            mesh_axis_names=mesh_axis_names,
+                            shard_batch=True))
+
+        # decode shapes
+        batch = info["batch"]
+        rolling = bool(shape == "long_500k" and self.rolling_window)
+        cache_len_max = self.rolling_window if rolling else info["seq"]
+        cache_abs = T.init_cache(cfg, batch, cache_len_max, torch.bfloat16,
+                                 rolling=rolling, device=META)
+        cspecs = self._cache_specs(cache_abs, mesh_axis_names,
+                                   shard_batch=batch > 1)
+        position = info["seq"] - 1
+
+        def fn(p, tok, cache, cache_len):
+            del cache_len   # a host int in the port: the last position
+            with torch.no_grad():
+                return T.decode_step(p, cfg, tok, cache, position)
+
+        tok_spec = P(d, None) if batch > 1 else P()
+        args = (params_abs, sds((batch, 1), torch.int32), cache_abs,
+                sds((), torch.int32))
+        return Cell(fn, args, (pspecs, tok_spec, cspecs, P()),
+                    kind="decode", donate=(2,), out_specs=functools.partial(
+                        self._serve_out_specs,
+                        mesh_axis_names=mesh_axis_names,
+                        shard_batch=batch > 1))
 
     def smoke(self, device=None) -> dict:
         """The family smoke at the reduced size: three generic train steps
@@ -250,6 +639,7 @@ class GNNArch(Arch):
     lr: float = 0.01
     name: str = "pna"
     family: str = "gnn"
+    ruleset: str = "gnn"
 
     def cells(self) -> list[str]:
         return list(GNN_SHAPES)
@@ -284,14 +674,63 @@ class GNNArch(Arch):
                     info["batch"] * info["n_edges"], info["batch"])
         return info["n_nodes"], info["n_edges"], info["n_nodes"]
 
-    def _fquant_hook(self):
+    def _fquant_hook(self, sparse: bool = False):
         """The F-Quantization hook on the node-id table, one positive
         label a block node (1-D indices)."""
         from repro_torch.core.qat_store import FQuantConfig
         from repro_torch.train.steps import FQuantHook
         return FQuantHook(cfg=FQuantConfig(), table_path="embed_table",
                           indices_fn=lambda b: b["node_ids"],
-                          labels_fn=_ones_labels("node_ids"))
+                          labels_fn=_ones_labels("node_ids"),
+                          sparse_snap=sparse)
+
+    def lowerable(self, shape: str, mesh_axis_names=("data", "model"),
+                  variant: str = "baseline") -> Cell:
+        from repro_torch.models import gnn as G
+        from repro_torch.optim import optimizers as opt_lib
+        from repro_torch.train import steps as steps_lib
+        cfg = self._cfg(shape)
+        info = GNN_SHAPES[shape]
+        d = data_axes_of(mesh_axis_names)
+        # ragged graph arrays padded to mesh-divisible sizes (padding
+        # edges point at a dummy node / carry zero weight in a real run)
+        n_nodes, n_edges, n_seeds = (-(-n // 512) * 512
+                                     for n in self._block_shape(shape))
+        batch_abs = {"features": sds((n_nodes, info["d_feat"])),
+                     "src": sds((n_edges,), torch.int32),
+                     "dst": sds((n_edges,), torch.int32)}
+        bspecs = {"features": P(d, None), "src": P(d), "dst": P(d)}
+        if shape == "molecule":
+            batch_abs["graph_ids"] = sds((n_nodes,), torch.int32)
+            batch_abs["labels"] = sds((n_seeds,))
+            bspecs["graph_ids"] = P(d)
+            bspecs["labels"] = P(d)
+
+            def loss_fn(p, b):
+                return G.graph_loss(p, cfg, b)
+        else:
+            batch_abs["labels"] = sds((n_seeds,), torch.int32)
+            bspecs["labels"] = P(d)
+            if shape == "minibatch_lg":
+                batch_abs["node_ids"] = sds((n_nodes,), torch.int32)
+                batch_abs["seed_local"] = sds((n_seeds,), torch.int32)
+                bspecs["node_ids"] = P(d)
+                bspecs["seed_local"] = P(d)
+
+            def loss_fn(p, b):
+                return G.node_loss(p, cfg, b)
+
+        params_abs = G.init_params(None, cfg, META)
+        pspecs = sh.param_specs(params_abs, self.ruleset, mesh_axis_names)
+        optimizer = opt_lib.adam(self.lr)
+        hook = (self._fquant_hook(sparse=variant == "optimized")
+                if cfg.node_vocab else None)
+        step = steps_lib.make_train_step(loss_fn, optimizer, hook)
+        state_abs = steps_lib.init_state(params_abs, optimizer, hook)
+        sspecs = train_state_specs(state_abs, pspecs, "embed_table")
+        return Cell(step, (state_abs, batch_abs), (sspecs, bspecs),
+                    kind="train", donate=(0,),
+                    out_specs=(sspecs, TRAIN_METRIC_SPECS))
 
     def smoke(self, device=None) -> dict:
         """The family smoke at the reduced size: a 400-node graph, one

@@ -34,4 +34,4 @@ SMOKE = LMConfig(
 
 def arch() -> LMArch:
     return LMArch(name="deepseek-v2-lite-16b", lm_cfg=FULL,
-                  smoke_cfg=SMOKE, supports_long=True)
+                  smoke_cfg=SMOKE, supports_long=True, ruleset="lm_ep")

@@ -47,6 +47,12 @@ def uniform_source(draw: Draw) -> Uniform:
     return draw
 
 
+def meta_uniform(shape: tuple) -> torch.Tensor:
+    """The draw source of a step traced on ``meta`` (a dry run): uniforms
+    of ``shape`` with no values, where no generator can live."""
+    return torch.empty(shape, dtype=torch.float32, device="meta")
+
+
 def stochastic_round(x: torch.Tensor, draw: Draw) -> torch.Tensor:
     """Unbiased rounding: floor(x) + (u < frac(x)), u from ``draw``."""
     lo = torch.floor(x)

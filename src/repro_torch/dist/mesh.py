@@ -22,6 +22,7 @@ from typing import Iterable, Sequence
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core import op_counter
 
 
 def _indexed(device) -> torch.device:
@@ -108,4 +109,8 @@ def psum(parts: Iterable[torch.Tensor], mesh: Mesh) -> torch.Tensor:
         out = p if out is None else out.add_(p)
     if out is None:
         raise ValueError("psum of no partials")
+    if op_counter.counting():
+        # an all-reduce: the sum on every shard (counted under a dry run)
+        op_counter.report_collective(
+            "all-reduce", mesh.size * out.numel() * out.element_size())
     return out

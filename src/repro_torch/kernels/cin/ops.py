@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import op_counter
 from repro_torch.kernels.cin.kernel import cin_layer_cuda
 from repro_torch.kernels.cin.ref import cin_layer_ref
 
@@ -20,6 +21,13 @@ def cin_layer(w: torch.Tensor, x_k: torch.Tensor, x_0: torch.Tensor
     Dispatch is by ``x_k``'s device."""
     if x_k.device.type == "cpu":
         return cin_layer_ref(w, x_k, x_0)
+    if op_counter.on_meta(x_k):
+        (o, h, m), (b, _, d) = w.shape, x_k.shape
+        # operations: 2 B O H M D; bytes: the three inputs, the output
+        op_counter.report_kernel(
+            "cin", (w, x_k, x_0), flops=2.0 * b * o * h * m * d,
+            nbytes=4 * (w.numel() + x_k.numel() + x_0.numel() + b * o * d))
+        return op_counter.meta_like((b, o, d))
     return cin_layer_cuda(w.to(torch.float32).contiguous(),
                           x_k.to(torch.float32).contiguous(),
                           x_0.to(torch.float32).contiguous())

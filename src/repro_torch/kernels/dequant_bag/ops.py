@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import op_counter
 from repro_torch.core.packed_store import PackedStore, _split
 from repro_torch.kernels import autotune
 from repro_torch.kernels.dequant_bag.kernel import (
@@ -65,6 +66,9 @@ def dequant_bag(payload: torch.Tensor, scales: torch.Tensor | None,
     if payload.device.type == "cpu":
         return dequant_bag_ref(payload, scales, indices, weights)
     b, k = indices.shape
+    if op_counter.on_meta(payload):
+        return _meta_bag("dequant_bag", payload, scales, indices,
+                         inputs=(payload, scales, indices, weights))
     return dequant_bag_cuda(payload, scales, indices, weights,
                             tiling=autotune.resolve_tiling(
                                 "dequant_bag", dtype_name(payload.dtype), b,
@@ -97,12 +101,33 @@ def bag_grad(g: torch.Tensor, scales: torch.Tensor | None,
         return bag_grad_ref(g, scales, indices, weights, vocab, out=out)
     b, k = indices.shape
     d = g.shape[1]
+    if op_counter.on_meta(g):
+        # g, the ids, one coefficient a slot; every output row written
+        op_counter.report_kernel(
+            "bag_grad", (g, scales, indices, weights, out),
+            nbytes=g.numel() * 4 + indices.numel()
+            * (indices.element_size() + 4) + vocab * d * 4)
+        return op_counter.meta_like((vocab, d)) if out is None else out
     width = access_width(d, g, *(() if out is None else (out,)))
     tiling = autotune.resolve_tiling(
         "bag_grad", "float32", b, k, d, tiling, device=g.device,
         valid=lambda t: bag_grad_tiling_ok(t, width))
     return _scatter_on_card(bag_grad_cuda, g, scales, indices, weights,
                             vocab, plan=plan, out=out, tiling=tiling)
+
+
+def _meta_bag(name: str, payload: torch.Tensor, scales, indices,
+              inputs, ids_bytes: int = 0) -> torch.Tensor:
+    """A bag op on ``meta``: a (B, D) fp32 result, and the bytes of its
+    bound reported (the ids and weights, each slot's row and scale as if
+    no row repeats, the output, plus ``ids_bytes``); nothing runs."""
+    b, k = indices.shape
+    d = payload.shape[1]
+    row = d * payload.element_size() + (0 if scales is None else 4)
+    op_counter.report_kernel(
+        name, inputs, nbytes=b * k * (indices.element_size() + 4 + row)
+        + ids_bytes + b * d * 4)
+    return op_counter.meta_like((b, d))
 
 
 def _scatter_on_card(launch, g, scales, indices, weights, vocab: int,
@@ -187,6 +212,11 @@ def packed_bag_lookup(packed: PackedStore, indices: torch.Tensor,
     if packed.payload32.device.type == "cpu":
         return packed_bag_lookup_tiers(packed, indices, weights,
                                        firsts=firsts)
+    if op_counter.on_meta(packed.payload32):
+        # every id's indirect word, its row read at the widest tier's width
+        return _meta_bag("dequant_bag_tiered", packed.payload32, None,
+                         indices, (*packed, indices, weights),
+                         ids_bytes=indices.numel() * 4)
     if indices.dtype not in (torch.int32, torch.int64):
         indices = indices.to(torch.int64)
     return dequant_bag_tiered_cuda(

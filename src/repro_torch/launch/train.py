@@ -20,6 +20,8 @@ run's device (``repro_torch.dist``): the gather and its scatter backward
 run once a shard (``dist.packed.sharded_lookup_train``); the table's rows
 must divide N.  The step is the unsharded one bit for bit.
 
+The run first prints the arch and the elastic mesh over the devices
+present (``launch.mesh.make_elastic_mesh``), as the reference's CLI does.
 The last stdout line is a JSON record: arch, model, device,
 device_name, batch, mesh, steps_run, resumed_from, loss_first,
 loss_last, step_ms_p50, kernel_launches (per kernel), rows, reduced,
@@ -48,6 +50,7 @@ import torch
 from repro_torch import configs, resolve_device
 from repro_torch.dist import make_mesh
 from repro_torch.kernels.dequant_bag import kernel as bag_kernel
+from repro_torch.launch.mesh import device_count, make_elastic_mesh
 from repro_torch.train import loop as loop_lib
 from repro_torch.train.setup import build_recsys_training
 
@@ -99,6 +102,9 @@ def smoke(args: argparse.Namespace, arch) -> dict:
 
 def run(args: argparse.Namespace) -> dict:
     arch = configs.get(args.arch)
+    elastic = make_elastic_mesh(model_parallel=1)
+    print(f"arch {arch.name} ({arch.family}); mesh {elastic.shape}; "
+          f"devices {device_count()}", flush=True)
     if args.smoke or arch.family != "recsys" or arch.seq_model:
         return smoke(args, arch)
     device = resolve_device(args.device)

@@ -20,10 +20,13 @@ training, prefill and decode:
     (kv_lora_rank) and a shared ``k_rope``; the decode cache holds only
     (c_kv, k_rope).
 
-The reference's sharding annotations (``ctx.constrain``) are no-ops on
-one device and are left out.  Decode writes the new token's keys into
-the cache IN PLACE (the reference returns updated copies; a 48 GB cache
-has no room for a second one) and returns the cache tensors it wrote.
+The reference's sharding annotations stay where it has them
+(``dist.ctx.constrain``: an identity unless a dry run configures a mesh,
+and then a rank check); the reference constrains the keys and values
+stacked by chunk, the port each chunk as it takes it.  Decode writes the
+new token's keys into the cache IN PLACE (the reference returns updated
+copies; a 48 GB cache has no room for a second one) and returns the cache
+tensors it wrote.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ import math
 
 import torch
 
+from repro_torch.dist import ctx
 from repro_torch.models import layers as L
 
 NEG_INF = -1e30
@@ -71,6 +75,12 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     inplace = not (torch.is_grad_enabled()
                    and (q.requires_grad or k.requires_grad
                         or v.requires_grad))
+    # decode and training alike leave the head / head-dim axes to the
+    # partitioner (the reference pins them only with its attn_pin hint)
+    hd = (ctx.UNC, ctx.UNC)
+    q = ctx.constrain(q, "batch", None, *hd)
+    k = ctx.constrain(k, "batch", None, *hd)
+    v = ctx.constrain(v, "batch", None, *hd)
     qg = q.reshape(b, tq, hkv, g, dh).to(torch.float32) * scale
     qg = qg.permute(0, 2, 3, 1, 4).reshape(b, hkv, g * tq, dh)
 
@@ -79,7 +89,9 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     acc = torch.zeros((b, hkv, g, tq, dv), dtype=torch.float32, device=dev)
     for c0 in range(0, tk, chunk):
         c1 = min(c0 + chunk, tk)
-        k_i, v_i, p_i = k[:, c0:c1], v[:, c0:c1], kv_positions[c0:c1]
+        k_i = ctx.constrain(k[:, c0:c1], "batch", None, *hd)
+        v_i = ctx.constrain(v[:, c0:c1], "batch", None, *hd)
+        p_i = kv_positions[c0:c1]
         valid = None if kv_valid is None else kv_valid[:, c0:c1]
         pad = chunk - (c1 - c0)
         if pad:
@@ -110,7 +122,9 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         l = l * corr + p.sum(dim=-1)
         pv = torch.matmul(p.view(b, hkv, g * tq, chunk),
                           v_i.to(torch.float32).permute(0, 2, 1, 3))
-        acc = acc * corr[..., None] + pv.view(b, hkv, g, tq, dv)
+        acc = ctx.constrain(acc * corr[..., None]
+                            + pv.view(b, hkv, g, tq, dv),
+                            "batch", *hd, None, ctx.UNC)
         m = m_new
     out = acc / torch.clamp_min(l, 1e-30)[..., None]   # (B,Hkv,G,Tq,Dv)
     out = out.permute(0, 3, 1, 2, 4).reshape(b, tq, hq, dv)

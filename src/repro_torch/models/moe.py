@@ -26,6 +26,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.dist import ctx
 from repro_torch.models import layers as L
 
 
@@ -102,7 +103,7 @@ def moe_ffn(params: dict, cfg: MoEConfig, x: torch.Tensor
     nloc = n // nb
     assert n % nb == 0, (n, nb)
     dev = x.device
-    tokens = x.reshape(nb, nloc, d)
+    tokens = ctx.constrain(x.reshape(nb, nloc, d), "batch", None, None)
     logits = torch.matmul(tokens.to(torch.float32), params["router"]["w"])
     experts, weights, aux = _routing(logits.reshape(n, -1), cfg)
 
@@ -133,7 +134,8 @@ def moe_ffn(params: dict, cfg: MoEConfig, x: torch.Tensor
         nb, l_blk, d)) * keep[..., None].to(x.dtype)
     buf = torch.zeros((nb, e * cap, d), dtype=x.dtype, device=dev) \
         .scatter_add(1, slot[..., None].expand(nb, l_blk, d), gathered)
-    buf = buf.reshape(nb, e, cap, d).to(torch.float32)
+    buf = ctx.constrain(buf.reshape(nb, e, cap, d), "batch", None, None,
+                        None).to(torch.float32)
 
     # the batched expert SwiGLU, fp32 products as the reference's einsums
     g = torch.matmul(buf, params["gate"].to(torch.float32))
@@ -158,4 +160,5 @@ def moe_ffn(params: dict, cfg: MoEConfig, x: torch.Tensor
 
     if cfg.num_shared:
         out = out + L.swiglu(params["shared"], tokens)
+    out = ctx.constrain(out, "batch", None, None)
     return out.reshape(b, t, d), aux

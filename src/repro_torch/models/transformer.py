@@ -32,6 +32,7 @@ import torch
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.core import metrics
+from repro_torch.dist import ctx
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
@@ -163,19 +164,20 @@ def _rope(cfg: LMConfig, device) -> torch.Tensor:
 def _layer_fwd(layer: dict, cfg: LMConfig, x: torch.Tensor, rope,
                positions: torch.Tensor, dense_ffn: bool):
     """Pre-norm block.  Returns (x, aux_loss, kv_cache_parts)."""
+    x = ctx.constrain(x, "batch", None, None)
     h = L.rmsnorm(layer["ln1"], x)
     if cfg.attn == "mla":
         a, cache = A.mla_attend(layer["attn"], cfg.mla(), h, rope, positions)
     else:
         a, cache = A.gqa_attend(layer["attn"], cfg.gqa(), h, rope, positions)
-    x = x + a
+    x = ctx.constrain(x + a, "batch", None, None)
     h = L.rmsnorm(layer["ln2"], x)
     if cfg.moe is not None and not dense_ffn:
         f, aux = M.moe_ffn(layer["moe"], cfg.moe, h)
     else:
         f = L.swiglu(layer["ffn"], h)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x + f, aux, cache
+    return ctx.constrain(x + f, "batch", None, None), aux, cache
 
 
 _PLAIN_DOTS = (torch.ops.aten.mm.default,)

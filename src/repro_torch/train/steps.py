@@ -66,6 +66,7 @@ import torch
 
 from repro_torch.core import priority as priority_lib
 from repro_torch.core import qat_store
+from repro_torch.core import rowwise_quant as rq
 from repro_torch.core.qat_store import FQuantConfig
 from repro_torch.dist.hashed import sharded_hashed_lookup_train
 from repro_torch.dist.mesh import check_mesh
@@ -101,14 +102,18 @@ def init_state(params, optimizer: opt_lib.Optimizer,
                ) -> TrainState:
     """The generic step's initial state: zero priorities over the hook's
     table and a ``torch.Generator`` seeded with ``seed`` on the params'
-    device."""
+    device (on ``meta``, a dry run's, the draw source
+    ``rowwise_quant.meta_uniform``)."""
     dev = opt_lib.tree_leaves(params)[0].device
     pri = None
     if fquant is not None:
         pri = torch.zeros((params[fquant.table_path].shape[0],),
                           dtype=torch.float32, device=dev)
-    rng = torch.Generator(device=dev)
-    rng.manual_seed(seed)
+    if dev.type == "meta":
+        rng = rq.meta_uniform
+    else:
+        rng = torch.Generator(device=dev)
+        rng.manual_seed(seed)
     return TrainState(params=params, opt=optimizer.init(params),
                       step=torch.zeros((), dtype=torch.int32, device=dev),
                       priority=pri, rng=rng)
@@ -155,6 +160,92 @@ def make_train_step(loss_fn: Callable, optimizer: opt_lib.Optimizer,
         return TrainState(params=params, opt=opt, step=state.step + 1,
                           priority=priority, rng=state.rng), metrics
 
+    return step
+
+
+def make_sparse_table_train_step(embed_fn: Callable, loss_from_emb: Callable,
+                                 indices_fn: Callable, labels_fn: Callable,
+                                 table_path: str, lr: float,
+                                 fq_cfg: FQuantConfig | None = None,
+                                 dense_optimizer: opt_lib.Optimizer | None
+                                 = None, eps: float = 1e-10) -> Callable:
+    """A recsys step whose table update touches only the batch's rows.
+
+    Port of ``repro/train/steps.py::make_sparse_table_train_step`` (the
+    dry run's ``"optimized"`` recsys train cell).  The gradient is taken
+    w.r.t. the gathered rows, not the (V, D) table:
+
+        emb = table[idx]                             (B, F, D)
+        accum[idx] += mean(g_emb^2, -1)              touched rows only
+        table[idx] += -lr g_emb / (sqrt(accum[idx]) + eps)
+        the dense params by ``dense_optimizer`` (Adam by default)
+        Eq. 7 priorities + the sparse snap
+
+    The accumulator and the table are updated in place (``index_add_``:
+    a repeated row's terms add in the batch's order).  State:
+    ``TrainState`` with opt = (dense_opt_state, accum (V,)).
+    """
+    del embed_fn   # the rows are gathered here, as the reference does
+    dense_optimizer = dense_optimizer or opt_lib.adam(lr)
+
+    def init_state(params) -> TrainState:
+        table = params[table_path]
+        dense = {k: v for k, v in params.items() if k != table_path}
+        dev = table.device
+        vocab = table.shape[0]
+        opt = (dense_optimizer.init(dense),
+               torch.full((vocab,), 0.1, dtype=torch.float32, device=dev))
+        pri = (torch.zeros((vocab,), dtype=torch.float32, device=dev)
+               if fq_cfg else None)
+        return TrainState(params=params, opt=opt,
+                          step=torch.zeros((), dtype=torch.int32,
+                                           device=dev), priority=pri)
+
+    def step(state: TrainState, batch: dict):
+        params = state.params
+        table = params[table_path]
+        dense = {k: v for k, v in params.items() if k != table_path}
+        gidx = indices_fn(batch)
+        flat = gidx.reshape(-1).to(torch.int64)
+        with torch.enable_grad():
+            rows = table[flat].reshape(gidx.shape + (table.shape[1],)
+                                       ).requires_grad_()
+            dense_in = opt_lib.tree_map(
+                lambda x: x.detach().requires_grad_(), dense)
+            p = dict(dense_in)
+            p[table_path] = table       # heads must not touch the table
+            loss = loss_from_emb(p, rows, batch).mean()
+            leaves = opt_lib.tree_leaves(dense_in)
+            grads = torch.autograd.grad(loss, leaves + [rows])
+        by_id = {id(x): gr for x, gr in zip(leaves, grads)}
+        g_dense = opt_lib.tree_map(lambda x: by_id[id(x)], dense_in)
+
+        dense_opt_state, accum = state.opt
+        g_rows = grads[-1].reshape(-1, table.shape[1])
+        accum.index_add_(0, flat, torch.mean(torch.square(g_rows), dim=-1))
+        denom = torch.sqrt(accum[flat]) + eps
+        table.index_add_(0, flat, -lr * g_rows / denom[:, None])
+
+        upd, dense_opt_state = dense_optimizer.update(g_dense,
+                                                      dense_opt_state, dense)
+        dense = opt_lib.apply_updates(dense, upd)
+
+        priority = state.priority
+        if fq_cfg is not None:
+            store = qat_store.post_step_sparse(
+                qat_store.QATStore(table=table, priority=priority), gidx,
+                labels_fn(batch), fq_cfg, seed=state.step)
+            priority = store.priority
+
+        params = dict(dense)
+        params[table_path] = table
+        return (TrainState(params=params, opt=(dense_opt_state, accum),
+                           step=state.step + 1, priority=priority,
+                           rng=state.rng),
+                {"loss": loss.detach(),
+                 "grad_norm": opt_lib.global_norm(g_dense)})
+
+    step.init_state = init_state
     return step
 
 

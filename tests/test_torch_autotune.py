@@ -223,8 +223,11 @@ def _capture(monkeypatch, module, name):
 def test_wrappers_resolve_argument_then_cache_then_analytic(cache,
                                                             monkeypatch):
     """The ops' dispatch off the CPU (a meta tensor stands in for a CUDA
-    one): the launch gets the explicit tiling, else the cache's, else
-    (0, 0)."""
+    one, the dry run's meta branch patched away: ``tests/test_torch_
+    dryrun.py`` holds that branch): the launch gets the explicit tiling,
+    else the cache's, else (0, 0)."""
+    from repro_torch.core import op_counter
+    monkeypatch.setattr(op_counter, "on_meta", lambda t: False)
     meta = torch.device("meta")
     payload = torch.empty((100, 64), dtype=torch.int8, device=meta)
     idx = torch.empty((64, 8), dtype=torch.int32, device=meta)

@@ -1316,3 +1316,137 @@ def test_autotune_timer_reads_the_device_not_the_host(dev):
 
     us = autotune.time_us(host_heavy, iters=2, device=dev)
     assert 0 < us < 200, us
+
+
+# ---- the SPMD layer: the int8 gradient exchange and split-KV decode ----
+
+def _exchange(mesh, n: int, steps: int, dev_of):
+    """``error_feedback_allreduce`` over ``mesh`` for ``steps`` steps of
+    seeded gradients (numpy, so every device gets the same), the residual
+    carried: each step's (means, residuals) on the CPU."""
+    import numpy as np
+
+    from repro_torch.optim import error_feedback_allreduce
+    rng = np.random.default_rng(5)
+    w = mesh.size
+    res = [torch.zeros(n, device=dev_of(i)) for i in range(w)]
+    out = []
+    for _ in range(steps):
+        grads = [torch.from_numpy((rng.standard_normal(n) * 1e-2).astype(
+            np.float32)).to(dev_of(i)) for i in range(w)]
+        means, res = error_feedback_allreduce(grads, res, mesh)
+        out.append(([m.cpu() for m in means], [r.cpu() for r in res]))
+    return out
+
+
+def test_grad_exchange_on_card_bit_equal_to_the_cpu(dev):
+    """Phase 22(a) at a small size: 4 logical shards on the card, 3 steps;
+    4 quantizer launches a step, and every mean and residual equal to the
+    CPU run (the plain quantizer) bit for bit."""
+    from repro_torch.dist import make_mesh
+    n = 1_000_003
+    rq_kernel.reset_launches()
+    card = _exchange(make_mesh(4, device=dev), n, 3, lambda i: dev)
+    assert rq_kernel.total_launches() == 4 * 3
+    cpu = _exchange(make_mesh(4, device="cpu"), n, 3, lambda i: "cpu")
+    for (cm, cr), (pm, pr) in zip(card, cpu):
+        for a, b in zip(cm + cr, pm + pr):
+            assert torch.equal(a, b)
+
+
+def _split_kv_inputs(dev, b=2, s=4096, h=8, d=64):
+    g = torch.Generator(device=dev)
+    g.manual_seed(9)
+    return (torch.randn((b, h, d), generator=g, device=dev),
+            torch.randn((b, s, h, d), generator=g, device=dev),
+            torch.randn((b, s, h, d), generator=g, device=dev))
+
+
+def _full_softmax(q, k, v, cache_len: int, scale: float):
+    sc = torch.einsum("bhd,bkhd->bhk", q.double(),
+                      k[:, :cache_len + 1].double()) * scale
+    return torch.einsum("bhk,bkhd->bhd", torch.softmax(sc, dim=-1),
+                        v[:, :cache_len + 1].double())
+
+
+def test_split_kv_on_card_matches_the_full_softmax(dev):
+    """Phase 22(b) at a small size: 4 views of one cache on the card,
+    within 2e-5 of the full softmax and of the CPU run."""
+    from repro_torch.dist import make_mesh
+    from repro_torch.dist.collectives import split_kv_decode_attention
+    q, k, v = _split_kv_inputs(dev)
+    out = split_kv_decode_attention(make_mesh(4, device=dev), q, k, v, 2047,
+                                    0.125)
+    assert out.device.type == "cuda"
+    torch.testing.assert_close(out.double(), _full_softmax(q, k, v, 2047,
+                                                           0.125),
+                               rtol=2e-5, atol=2e-5)
+    cpu = split_kv_decode_attention(make_mesh(4, device="cpu"), q.cpu(),
+                                    k.cpu(), v.cpu(), 2047, 0.125)
+    torch.testing.assert_close(out.cpu(), cpu, rtol=2e-5, atol=2e-5)
+
+
+def test_grad_exchange_over_devices_as_the_one_device_mesh(devs):
+    """One shard a card (``make_mesh(n, devices=)``): each card's payloads
+    copied to every card, each card's mean and every residual equal to the
+    one-card mesh's bit for bit."""
+    from repro_torch.dist import make_mesh
+    n, w = 1_000_003, len(devs)
+    one = _exchange(make_mesh(w, device=devs[0]), n, 2, lambda i: devs[0])
+    many = _exchange(make_mesh(w, devices=devs), n, 2, lambda i: devs[i])
+    for (om, orr), (mm, mr) in zip(one, many):
+        for a, b in zip(om + orr, mm + mr):
+            assert torch.equal(a, b)
+
+
+def test_split_kv_over_devices_as_the_one_device_mesh(devs):
+    """Shard i's cache slots on card i: within 2e-5 of the one-card mesh
+    and of the full softmax, the result on the first card."""
+    from repro_torch.dist import make_mesh
+    from repro_torch.dist.collectives import (shard_sequence,
+                                              split_kv_decode_attention)
+    q, k, v = _split_kv_inputs(devs[0])
+    w = len(devs)
+    mesh = make_mesh(w, devices=devs)
+    ks, vs = shard_sequence(mesh, k), shard_sequence(mesh, v)
+    assert [x.device for x in ks] == list(mesh.devices)
+    out = split_kv_decode_attention(mesh, q, ks, vs, 3000, 0.125)
+    one = split_kv_decode_attention(make_mesh(w, device=devs[0]), q, k, v,
+                                    3000, 0.125)
+    assert out.device == mesh.device
+    torch.testing.assert_close(out, one, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(out.double(), _full_softmax(q, k, v, 3000,
+                                                           0.125),
+                               rtol=2e-5, atol=2e-5)
+
+
+def test_kernel_ops_on_cuda_launch_their_kernels(dev):
+    """The CUDA side of the ops' dispatch, unchanged beside the dry run's
+    ``meta`` branch: a CUDA tensor launches the kernel, once."""
+    from repro_torch import kernels as kernels_mod
+    ids = torch.zeros((4, 3), dtype=torch.int32, device=dev)
+    w = torch.ones((4, 3), device=dev)
+    calls = {
+        "dequant_bag": lambda: ops.dequant_bag(
+            torch.zeros((6, 8), device=dev), None, ids, w),
+        "bag_grad": lambda: ops.bag_grad(torch.zeros((4, 8), device=dev),
+                                         None, ids, w, 6),
+        "bag_matmul": lambda: bm_ops.bag_matmul(
+            torch.zeros((6, 8), device=dev), None, ids, w,
+            torch.zeros((3, 8, 5), device=dev)),
+        "cin": lambda: cin_ops.cin_layer(
+            torch.zeros((5, 3, 3), device=dev),
+            torch.zeros((4, 3, 8), device=dev),
+            torch.zeros((4, 3, 8), device=dev)),
+        "hashed_gather": lambda: hg_ops.hashed_gather_ids(
+            torch.zeros((16, 4), device=dev), None, ids, num_chunks=2,
+            num_hashes=2),
+        "quantize_rowwise": lambda: rq_ops.quantize_rowwise(
+            torch.zeros((6, 256), device=dev)),
+    }
+    for name, call in calls.items():
+        before = kernels_mod.launch_counts()[name]
+        out = call()
+        assert kernels_mod.launch_counts()[name] == before + 1, name
+        first = out[0] if isinstance(out, tuple) else out
+        assert first.device.type == "cuda", name

@@ -108,7 +108,12 @@ def test_packed_bag_lookup_k4_masked_bit_equal_to_pallas_interpret():
     np.testing.assert_array_equal(bits(want), bits(got))
 
 
-def test_cuda_wrapper_refuses_cpu_tensors():
+def test_cuda_wrapper_refuses_cpu_tensors(monkeypatch):
+    """The wrapper refuses a CPU tensor, and the op sends every tensor that
+    is neither on the CPU nor on ``meta`` to it (a meta tensor stands in
+    for one once the dry run's meta branch is patched away; unpatched, the
+    op on meta returns the (B, D) shape and launches nothing)."""
+    from repro_torch.core import op_counter
     rng = np.random.default_rng(5)
     payload = torch.from_numpy(_payload("int8", 8, 16, rng))
     idx = torch.zeros((2, 1), dtype=torch.int32)
@@ -116,6 +121,10 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     tkernel.reset_launches()
     with pytest.raises(ValueError, match="CUDA"):
         tkernel.dequant_bag_cuda(payload, torch.ones(8), idx, w)
+    out = tops.dequant_bag(payload.to("meta"), None, idx.to("meta"),
+                           w.to("meta"))
+    assert out.device.type == "meta" and out.shape == (2, 16)
+    monkeypatch.setattr(op_counter, "on_meta", lambda t: False)
     with pytest.raises(ValueError, match="CUDA"):      # not a CPU tensor
         tops.dequant_bag(payload.to("meta"), None, idx.to("meta"),
                          w.to("meta"))

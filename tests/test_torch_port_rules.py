@@ -48,6 +48,25 @@ def test_port_imports_no_jax_and_no_reference(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
 
 
+LOWER_LAYERS = ("core", "kernels", "dist", "optim", "models")
+
+
+@pytest.mark.parametrize("layer", LOWER_LAYERS)
+def test_lower_layers_import_no_entry_point(layer):
+    """The kernels, ``dist``, ``optim``, ``core`` and the models reach the
+    dry run's counter through ``core.op_counter``, never through
+    ``repro_torch.launch``, the package of entry points."""
+    for path in sorted((ROOT / "src" / "repro_torch" / layer).rglob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            names = ([a.name for a in node.names]
+                     if isinstance(node, ast.Import) else
+                     [node.module or ""]
+                     if isinstance(node, ast.ImportFrom) else [])
+            for n in names:
+                assert not n.startswith("repro_torch.launch"), (
+                    f"{path.relative_to(ROOT)} imports {n}")
+
+
 def test_resolve_device_rule():
     assert repro_torch.resolve_device("cpu") == torch.device("cpu")
     if torch.cuda.is_available():
@@ -320,3 +339,96 @@ def test_serve_and_fleet_refuse_the_gnn_and_lm_archs():
         with pytest.raises(SystemExit, match="field-based recsys"):
             tfleet.run(tfleet.parse_args(["--arch", arch, "--model",
                                           "smoke", "--device", "cpu"]))
+
+
+def test_spmd_and_dryrun_modules_are_covered_by_the_import_rule():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for mod in ("dist/ctx.py", "dist/sharding.py", "dist/collectives.py",
+                "optim/grad_compress.py", "launch/mesh.py",
+                "launch/dryrun.py", "launch/op_analysis.py",
+                "core/op_counter.py"):
+        assert f"src/repro_torch/{mod}" in names, mod
+    for test in ("test_torch_sharding.py", "test_torch_collectives.py",
+                 "test_torch_dryrun.py"):
+        assert ROOT / "tests" / test in PORT_TESTS, test
+
+
+def test_dryrun_allocates_no_device_memory_and_needs_no_gpu(tmp_path):
+    """dlrm-rm2's train cell holds a 52.3 GB table and its 52.3 GB
+    gradient at full width: traced on ``meta``, the process grows by far
+    less, CUDA is never initialised, and every argument and output stays
+    on ``meta``."""
+    import resource
+
+    from repro_torch.dist import sharding as sh
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+    arch = repro_torch.configs.get("dlrm-rm2")
+    before = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    rec = dryrun.run_cell(arch, "train_batch", make_production_mesh(),
+                          "single", str(tmp_path))
+    grown = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss - before
+    assert grown * 1024 < 1 << 30          # ru_maxrss is in KiB
+    assert rec["memory"]["argument_bytes"] * 256 > 100e9
+    assert not torch.cuda.is_initialized()
+    cell = arch.lowerable("serve_p99")
+    for _, leaf in sh.tree_leaves_with_path(cell.args):
+        assert leaf.device.type == "meta"
+    assert cell.fn(*cell.args).device.type == "meta"
+
+
+def _dispatch_cases():
+    """(module, op name, plain name, CUDA wrapper name, CPU arguments)."""
+    from repro_torch.core.packed_store import PackedStore
+    from repro_torch.kernels.bag_matmul import ops as bm
+    from repro_torch.kernels.cin import ops as cin
+    from repro_torch.kernels.dequant_bag import ops as db
+    from repro_torch.kernels.hashed_gather import ops as hg
+    from repro_torch.kernels.rowwise_quant import ops as rq
+    ids = torch.zeros((4, 3), dtype=torch.int32)
+    w = torch.ones((4, 3))
+    store = PackedStore(torch.zeros((2, 8), dtype=torch.int8), torch.ones(2),
+                        torch.zeros((2, 8), dtype=torch.bfloat16),
+                        torch.ones(2), torch.zeros((2, 8)),
+                        torch.zeros((6,), dtype=torch.int32))
+    return [
+        (db, "dequant_bag", "dequant_bag_ref", "dequant_bag_cuda",
+         (torch.zeros((6, 8)), None, ids, w)),
+        (db, "bag_grad", "bag_grad_ref", "bag_grad_cuda",
+         (torch.zeros((4, 8)), None, ids, w, 6)),
+        (db, "packed_bag_lookup", "packed_bag_lookup_tiers",
+         "dequant_bag_tiered_cuda", (store, ids)),
+        (bm, "bag_matmul", "bag_matmul_ref", "bag_matmul_cuda",
+         (torch.zeros((6, 8)), None, ids, w, torch.zeros((3, 8, 5)))),
+        (cin, "cin_layer", "cin_layer_ref", "cin_layer_cuda",
+         (torch.zeros((5, 3, 3)), torch.zeros((4, 3, 8)),
+          torch.zeros((4, 3, 8)))),
+        (hg, "hashed_gather_ids", "hashed_gather_ids_ref",
+         "hashed_gather_ids_cuda", (torch.zeros((16, 4)), None, ids)),
+        (rq, "quantize_rowwise", "quantize_rowwise_ref",
+         "quantize_rowwise_cuda", (torch.zeros((6, 256)),)),
+    ]
+
+
+def test_kernel_ops_dispatch_cpu_to_the_plain_version(monkeypatch):
+    """A CPU tensor still takes the plain version, once, and never the
+    CUDA wrapper (the CUDA side, the kernel or a raise, is held on the
+    card by ``tests/test_torch_cuda.py``); the ``meta`` branch the dry run
+    added sits beside these, not in their way."""
+    for mod, op, plain, wrapper, args in _dispatch_cases():
+        calls = []
+        real = getattr(mod, plain)
+
+        def spy(*a, _real=real, _calls=calls, **k):
+            _calls.append(1)
+            return _real(*a, **k)
+
+        def never(*a, **k):
+            raise AssertionError(f"{op} launched on the CPU")
+
+        monkeypatch.setattr(mod, plain, spy)
+        monkeypatch.setattr(mod, wrapper, never)
+        kw = ({"num_chunks": 2, "num_hashes": 2}
+              if op == "hashed_gather_ids" else {})
+        getattr(mod, op)(*args, **kw)
+        assert calls == [1], op
