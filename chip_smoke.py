@@ -362,10 +362,15 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    --verify-hier``, audited as phase 17, its hot level (the card's four
    shards, views of it) within ``--hbm-budget-mb``; (d) the compressed train step at
    the train cell (124,185,088 rows, batch 65,536) over a 4-shard mesh for
-   3 steps from phase 5's seed: the forward and bag_grad 4 times a step;
-   after each step the table, adagrad accumulator, priority and access
-   EMA (64-bit digests of every bit, ``digest``) and the loss equal phase
-   5's; (e) ``launch.pipeline --mesh 2 --fast --max-ind-range 1000000``
+   3 steps from phase 5's seed, the state placed a row shard a shard
+   (``place_train_state``: row views on the one card) and the gather,
+   scatter, adagrad, snap and EMAs run a shard at a time: the forward and
+   bag_grad 4 times a step; after each step the table, adagrad
+   accumulator, priority and access EMA (64-bit digests of every bit,
+   ``digest``) and the loss equal phase 5's, and its peak (above what
+   was allocated before it) within 1 GB of phase 5's (no whole
+   gradient, no second state); (e)
+   ``launch.pipeline --mesh 2 --fast --max-ind-range 1000000``
    (7,116,800 rows x 64, the 512-padded total) packed and hashed, through
    ``pipeline_phase`` (launch counts x 2, the served lookups bit-equal to
    the plain gather);
@@ -1243,6 +1248,7 @@ def train_full(torch, kernel, autodiff, setup_mod, arch) -> tuple:
     dev = torch.device("cuda")
     batch = RECSYS_SHAPES["train_batch"]["batch"]
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     tr = setup_mod.build_recsys_training(
         arch, batch=batch, device=dev, model="full",
@@ -1301,7 +1307,8 @@ def train_full(torch, kernel, autodiff, setup_mod, arch) -> tuple:
         "stage_ms_p50": {n: float(np.median([st[n] for st in stages[1:]]))
                          for n in names},
         "kernel_launches": launches,
-        "max_memory_allocated_bytes": peak, "digests": digests,
+        "max_memory_allocated_bytes": peak, "base_allocated_bytes": base,
+        "digests": digests,
         "device_name": torch.cuda.get_device_name(0), "setup_s": build_s}}
     log(f"train check: {TRAIN_STEPS} steps, losses {losses[0]:.4f} -> "
         f"{losses[-1]:.4f}, one launch of each kernel a step, gather "
@@ -4284,11 +4291,12 @@ def digest(torch, t) -> int:
 def state_digests(torch, state) -> dict:
     """Phase 5 and 19(d): digests of the row-aligned training state after a
     step (the table, the adagrad accumulator, the priority, the access
-    EMA)."""
-    return {"table": digest(torch, state.params["embed_table"]),
-            "adagrad": digest(torch, state.opt[1]),
-            "priority": digest(torch, state.priority),
-            "access": digest(torch, state.accum.access)}
+    EMA), a placed leaf's gathered whole."""
+    from repro_torch.dist.packed import whole
+    return {"table": digest(torch, whole(state.params["embed_table"])),
+            "adagrad": digest(torch, whole(state.opt[1])),
+            "priority": digest(torch, whole(state.priority)),
+            "access": digest(torch, whole(state.accum.access))}
 
 
 def mesh_dlrm(torch, serve, served, kernels_mod, kernel, hg_kernel, ops,
@@ -4584,6 +4592,7 @@ def train_mesh(torch, kernel, setup_mod, arch, n: int) -> dict:
     dev = torch.device("cuda")
     batch = RECSYS_SHAPES["train_batch"]["batch"]
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     tr = setup_mod.build_recsys_training(
         arch, batch=batch, device=dev, model="full",
         max_ind_range=MAX_IND_RANGE, mesh=None if n == 1 else make_mesh(n))
@@ -4612,7 +4621,7 @@ def train_mesh(torch, kernel, setup_mod, arch, n: int) -> dict:
     torch.cuda.empty_cache()
     return {"mesh": n, "losses": losses, "step_ms": step_ms,
             "digests": digests, "kernel_launches": launches,
-            "max_memory_allocated_bytes": peak}
+            "max_memory_allocated_bytes": peak, "base_allocated_bytes": base}
 
 
 def mesh_qps_sharded(torch, kernels_mod, kernel, hg_kernel, tmp: str
@@ -4699,6 +4708,16 @@ def mesh_phase(torch, serve, pipeline, kernels_mod, kernel, hg_kernel,
             raise SystemExit(f"mesh {MESH_N} train step {step}: state "
                              f"digests {a} or loss {got['losses'][step]} != "
                              f"mesh 1's {b} / {train_ref['losses'][step]}")
+    # the placed state holds no whole gradient and no second table: the
+    # peaks above what each run found allocated within 1 GB
+    peak_gap = ((got["max_memory_allocated_bytes"]
+                 - got["base_allocated_bytes"])
+                - (train_ref["max_memory_allocated_bytes"]
+                   - train_ref["base_allocated_bytes"]))
+    if abs(peak_gap) > 1e9:
+        raise SystemExit(f"mesh {MESH_N} train: peak "
+                         f"{got['max_memory_allocated_bytes']:,} bytes, "
+                         f"{peak_gap:,} from mesh 1's (limit 1 GB)")
     by_path[f"mesh{MESH_N}_train"] = {
         "dequant_bag": got["kernel_launches"]["dequant_bag"],
         "bag_grad": got["kernel_launches"]["bag_grad"]}
@@ -4709,7 +4728,8 @@ def mesh_phase(torch, serve, pipeline, kernels_mod, kernel, hg_kernel,
         f"mesh{MESH_N}": {"step_ms": got["step_ms"],
                           "max_memory_allocated_bytes":
                           got["max_memory_allocated_bytes"]},
-        "losses": got["losses"], "bit_equal_steps": len(got["digests"])}
+        "losses": got["losses"], "bit_equal_steps": len(got["digests"]),
+        "peak_gap_bytes": peak_gap}
     log(f"mesh {MESH_N} train: {MESH_TRAIN_STEPS} steps at "
         f"{got['step_ms']} ms (mesh 1 {train_ref['step_ms'][:3]}), table, "
         f"adagrad, priority, access EMA and loss bit-equal to mesh 1's after "

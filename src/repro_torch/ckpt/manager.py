@@ -23,6 +23,12 @@ as the template leaf's type, as in the reference; so a ``packed_store/v1``
 or ``hashed_store/v1`` manifest round-trips.  A ``torch.Generator`` leaf
 (the generic train step's rng) is stored as its uint8 state and comes
 back as a generator on the template's device.
+
+Checkpoints are elastic, as the reference's loop promises: a placed
+train state (``dist.packed.RowShards`` leaves, a row shard a device)
+saves each row-aligned leaf whole, the same file a mesh-1 save of the
+state writes, and ``restore`` places each such leaf onto the template's
+mesh, whatever its size, when its axis divides the rows.
 """
 
 from __future__ import annotations
@@ -37,6 +43,8 @@ from typing import Any
 
 import numpy as np
 import torch
+
+from repro_torch.dist.packed import RowShards, place_rows
 
 
 def _is_namedtuple(x) -> bool:
@@ -62,15 +70,22 @@ def tree_paths(tree: Any, prefix: str = ""):
 
 def _to_host(leaf) -> tuple[np.ndarray, str | None]:
     """A leaf as an npz-storable host copy and its dtype-map entry (a
-    ``torch.Generator``, the generic step's rng: its uint8 state)."""
+    ``torch.Generator``, the generic step's rng: its uint8 state; a placed
+    ``RowShards`` leaf: the whole, its shards copied into one host array,
+    so the file is a mesh-1 save's)."""
     if isinstance(leaf, torch.Generator):
         return leaf.get_state().numpy(), None
-    if isinstance(leaf, torch.Tensor):
+    if isinstance(leaf, RowShards):
+        t = torch.empty(leaf.shape, dtype=leaf.dtype)
+        for shard, (f, r) in zip(leaf.shards, leaf.windows):
+            t[f:f + r].copy_(shard.detach())
+    elif isinstance(leaf, torch.Tensor):
         t = leaf.detach().to("cpu", copy=True)
-        if t.dtype == torch.bfloat16:
-            return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
-        return t.numpy(), None
-    return np.array(leaf), None
+    else:
+        return np.array(leaf), None
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
+    return t.numpy(), None
 
 
 def _rebuild(template: Any, leaves: dict, prefix: str = "") -> Any:
@@ -89,34 +104,48 @@ def _rebuild(template: Any, leaves: dict, prefix: str = "") -> Any:
     return leaves[prefix]
 
 
-def _restore_leaf(key: str, arr: np.ndarray, dtype_name: str | None,
-                  leaf) -> Any:
-    if isinstance(leaf, torch.Generator):
-        gen = torch.Generator(device=leaf.device)
-        gen.set_state(torch.from_numpy(np.array(arr, dtype=np.uint8)))
-        return gen
+def _host_tensor(key: str, arr: np.ndarray, dtype_name: str | None,
+                 shape, dtype: torch.dtype) -> torch.Tensor:
+    """A stored array as a host tensor, its shape and dtype checked
+    against the template leaf's."""
     if dtype_name is not None:
         if dtype_name != "bfloat16":
             raise TypeError(f"{key}: stored dtype {dtype_name} is not "
                             "supported by the port")
         t = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)
                              ).view(torch.bfloat16)
-    elif isinstance(leaf, torch.Tensor):
-        t = torch.from_numpy(arr if arr.flags.writeable else np.array(arr))
-    elif isinstance(leaf, (int, float, bool)):
-        return type(leaf)(arr.item())
-    elif isinstance(leaf, str):
-        return str(arr.item())
     else:
-        return np.array(arr)
-    if tuple(t.shape) != tuple(leaf.shape):
+        t = torch.from_numpy(arr if arr.flags.writeable else np.array(arr))
+    if tuple(t.shape) != tuple(shape):
         raise ValueError(f"shape mismatch for {key}: ckpt "
-                         f"{tuple(t.shape)} vs template "
-                         f"{tuple(leaf.shape)}")
-    if t.dtype != leaf.dtype:
+                         f"{tuple(t.shape)} vs template {tuple(shape)}")
+    if t.dtype != dtype:
         raise TypeError(f"dtype mismatch for {key}: ckpt {t.dtype} vs "
-                        f"template {leaf.dtype}")
-    return t.to(leaf.device)
+                        f"template {dtype}")
+    return t
+
+
+def _restore_leaf(key: str, arr: np.ndarray, dtype_name: str | None,
+                  leaf) -> Any:
+    if isinstance(leaf, torch.Generator):
+        gen = torch.Generator(device=leaf.device)
+        gen.set_state(torch.from_numpy(np.array(arr, dtype=np.uint8)))
+        return gen
+    if isinstance(leaf, RowShards):
+        # elastic: the whole leaf placed onto the template's mesh
+        return place_rows(_host_tensor(key, arr, dtype_name, leaf.shape,
+                                       leaf.dtype), leaf.mesh, leaf.axis)
+    if isinstance(leaf, torch.Tensor):
+        return _host_tensor(key, arr, dtype_name, leaf.shape,
+                            leaf.dtype).to(leaf.device)
+    if dtype_name is not None:
+        raise TypeError(f"{key}: a {dtype_name} array for a "
+                        f"{type(leaf).__name__} leaf")
+    if isinstance(leaf, (int, float, bool)):
+        return type(leaf)(arr.item())
+    if isinstance(leaf, str):
+        return str(arr.item())
+    return np.array(arr)
 
 
 class CheckpointManager:

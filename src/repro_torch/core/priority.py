@@ -81,8 +81,8 @@ def priority_update(w: torch.Tensor, c_pos: torch.Tensor,
 
     Subnormal results are flushed to zero, as the reference's XLA
     flushes them (see ``serve_fold``)."""
-    decay = torch.tensor(1.0 - cfg.beta, dtype=torch.float32,
-                         device=w.device)
+    decay = torch.full((), 1.0 - cfg.beta, dtype=torch.float32,
+                       device=w.device)
     out = torch.empty_like(w)
     for r0 in range(0, w.shape[0], _CHUNK):
         sl = slice(r0, r0 + _CHUNK)

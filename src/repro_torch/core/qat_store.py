@@ -139,7 +139,8 @@ def _sr_quant(rows: torch.Tensor, noise: torch.Tensor, cfg: FQuantConfig
 
 def post_step_sparse(store: QATStore, indices: torch.Tensor,
                      labels: torch.Tensor, cfg: FQuantConfig, seed,
-                     valid: torch.Tensor | None = None) -> QATStore:
+                     valid: torch.Tensor | None = None,
+                     first: int = 0) -> QATStore:
     """Touched-rows-only write path (the training step's).
 
     Eq. 7 decays every row's priority (an O(V) vector op); the Eq. 5-6
@@ -148,6 +149,13 @@ def post_step_sparse(store: QATStore, indices: torch.Tensor,
     The int8 scale is the jitted reference's (``reciprocal=True``, see
     ``rowwise_quant``): the reference runs this path inside its jitted
     train step.
+
+    ``first`` is the global row of ``store``'s row 0: a row shard's step
+    (``train.steps`` under a placed state) passes its own slots' local
+    rows, and the rounding's noise is keyed by their global rows
+    ``indices + first``, so each shard snaps its rows as the whole table
+    does.  Every index is written, so a shard passes only the slots it
+    owns.
     """
     pri = priority_update_from_batch(store.priority, indices, labels,
                                      cfg.priority, valid=valid)
@@ -155,7 +163,7 @@ def post_step_sparse(store: QATStore, indices: torch.Tensor,
     flat = indices.reshape(-1).to(torch.int64)
     rows = store.table[flat]
     if cfg.stochastic:
-        noise = _hash_uniform(flat, seed, store.table.shape[1])
+        noise = _hash_uniform(flat + first, seed, store.table.shape[1])
         q8 = rq.dequantize_rowwise(*_sr_quant(rows, noise, cfg))
     else:
         q8 = rq.fake_quant_rowwise(rows, cfg.bits, mode=cfg.mode,

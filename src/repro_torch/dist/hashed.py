@@ -21,9 +21,11 @@ each chunk is one rounding of the two draws' sum in either order, so
 there the sharded rows keep the unsharded bits.
 
 ``sharded_hashed_lookup_train`` is the differentiable twin
-(``ShardedHashedTrain``): the plan entry a shard forward, and backward
-``bag_grad`` a shard into that shard's rows of one (S, Z) pool gradient,
-so each pool row's chain is the unsharded one bit for bit.
+(``ShardedHashedTrain``): the pool stays whole on the mesh's first device
+(the reference places only the recsys table), each shard's window goes to
+its device for the plan entry forward, and backward ``bag_grad`` a shard
+on its device gives that shard's rows of the one (S, Z) pool gradient, so
+each pool row's chain is the unsharded one bit for bit.
 """
 
 from __future__ import annotations
@@ -118,21 +120,34 @@ def sharded_hashed_lookup(hs: ShardedHashed, cfg, indices: torch.Tensor, *,
     return psum(parts(), hs.mesh).reshape(*idx.shape, cfg.dim)
 
 
+def _window(pool: torch.Tensor, first: int, rows: int, dev: torch.device
+            ) -> torch.Tensor:
+    """Shard rows ``[first, first + rows)`` of the whole pool on ``dev``:
+    a view on the pool's device, a copy on another."""
+    return pool[first:first + rows].to(dev)
+
+
 class ShardedHashedTrain(torch.autograd.Function):
-    """pool (S, Z) fp32 on the mesh's one device, slots / coeff (B, C*T)
-    -> (B, C*Z): the plan entry a shard forward (other shards'
-    coefficients zeroed), summed in shard order; backward one zero (S, Z)
-    gradient and ``bag_grad`` a shard into its rows on the (B*C, T)
-    reshape, as ``HashedTrain``'s.  The coefficients get no gradient (the
-    training gather's are the plan's signs)."""
+    """pool (S, Z) fp32, held whole on the mesh's first device (the
+    reference keeps the hashed state replicated), slots / coeff (B, C*T)
+    -> (B, C*Z): the plan entry a shard forward on the shard's device, over
+    its window of the pool (``_window``) with other shards' coefficients
+    zeroed, summed in shard order; backward ``bag_grad`` a shard on its
+    device on the (B*C, T) reshape, as ``HashedTrain``'s, each shard's
+    rows copied into the one (S, Z) pool gradient.  The coefficients get
+    no gradient (the training gather's are the plan's signs)."""
 
     @staticmethod
     def forward(ctx, pool, slots, coeff, num_chunks, windows, mesh):
-        local = [_local_coeff(slots, coeff, f, r) for f, r in windows]
-        parts = (hashed_gather(stand_in(pool[f:f + r], None)[0], None, lc,
-                               cm, num_chunks=num_chunks)
-                 for (f, r), (lc, cm) in zip(windows, local))
-        ctx.save_for_backward(*(x for pair in local for x in pair))
+        sl, co, local = {}, {}, []
+        for (f, r), dev in zip(windows, mesh.devices):
+            local.append(_local_coeff(_on(slots, dev, sl), _on(coeff, dev, co),
+                                      f, r))
+        parts = (hashed_gather(stand_in(_window(pool, f, r, dev), None)[0],
+                               None, lc, cm, num_chunks=num_chunks)
+                 for (f, r), dev, (lc, cm) in zip(windows, mesh.devices,
+                                                  local))
+        ctx.local = local
         ctx.windows = windows
         ctx.num_chunks = num_chunks
         ctx.shape = pool.shape
@@ -142,17 +157,17 @@ class ShardedHashedTrain(torch.autograd.Function):
     def backward(ctx, g):
         from repro_torch.kernels.dequant_bag.ops import bag_grad
         nc = ctx.num_chunks
-        saved = ctx.saved_tensors
         g = g.to(torch.float32).contiguous()
         b, z = g.shape[0], ctx.shape[1]
         g2 = g.reshape(b * nc, z)
         grad = torch.zeros(ctx.shape, dtype=torch.float32, device=g.device)
-        for i, (f, r) in enumerate(ctx.windows):
-            lc, cm = saved[2 * i], saved[2 * i + 1]
+        gs = {}
+        for (f, r), (lc, cm) in zip(ctx.windows, ctx.local):
             t = lc.shape[1] // nc
             if r:
-                bag_grad(g2, None, lc.reshape(b * nc, t),
-                         cm.reshape(b * nc, t), r, out=grad[f:f + r])
+                grad[f:f + r] = bag_grad(_on(g2, lc.device, gs), None,
+                                         lc.reshape(b * nc, t),
+                                         cm.reshape(b * nc, t), r)
         return grad, None, None, None, None, None
 
 

@@ -28,11 +28,16 @@ reference makes one kernel call a tier a shard (``_local_bags_fused``).
 ``_local_rows`` is the reference's gather/where oracle.  ``psum`` adds
 the shards' partials in shard order on the mesh's first device.
 
-``sharded_lookup_train`` is the training twin over the fp32 table: each
-shard runs the ``dequant_bag`` forward on its rows, and the backward
-runs ``bag_grad`` a shard into that shard's rows of ONE preallocated
-(V, D) gradient (the kernel's accumulate form), so no per-shard
-full-size gradient ever exists.
+``sharded_lookup_train`` is the training twin over the fp32 table,
+placed as the reference's ``place_train_state`` places it: a
+``RowShards`` leaf (``place_rows``) holds shard ``i``'s rows on
+``mesh.devices[i]``, row views of one table on a one-device mesh and
+tensors of their own across devices.  Each shard runs the ``dequant_bag``
+forward on its rows on its device, and the backward runs ``bag_grad`` a
+shard into that shard's own (rows, D) gradient, so no (V, D) gradient
+exists on any device.  ``train_plan`` builds each shard's slots once a
+step and ``owned_slots`` hands each shard its own slots for the per-shard
+post-step.
 """
 
 from __future__ import annotations
@@ -343,13 +348,6 @@ def sharded_bag_matmul(packed: ShardedPack, indices: torch.Tensor,
     return psum(parts, packed.mesh)
 
 
-class ShardPlan(NamedTuple):
-    """Each shard's local K = 1 slots over a row-sharded table: the local
-    row (int32) and the mine mask as weights (fp32)."""
-    local: tuple
-    mine: tuple
-
-
 def spread_rows(local: torch.Tensor, mine: torch.Tensor, glob: torch.Tensor,
                 rows: int) -> torch.Tensor:
     """Local rows for a shard's kernels: the shard's own slots keep theirs,
@@ -362,85 +360,212 @@ def spread_rows(local: torch.Tensor, mine: torch.Tensor, glob: torch.Tensor,
         torch.int32).contiguous()
 
 
-def _train_plan(flat: torch.Tensor, windows) -> ShardPlan:
-    local, mine = [], []
-    for first, rows in windows:
-        li = flat - first
+def train_windows(rows: int, mesh: Mesh, axis: str = "model",
+                  divide: bool = True) -> tuple:
+    """Each shard's (first row, rows) of a training table or pool of
+    ``rows`` rows; ``divide`` requires the axis to divide the rows, as the
+    reference's table placement does."""
+    n = check_mesh(mesh, axis)
+    if divide and rows % n:
+        raise ValueError(f"table rows {rows} not divisible by mesh axis "
+                         f"{axis}={n}")
+    return tuple(shard_window(rows, n, i) for i in range(n))
+
+
+class RowShards:
+    """A row-aligned training leaf (the table, its row-wise adagrad
+    accumulator, the Eq. 7 priority, the access EMA) placed a shard a
+    device, as the reference's ``P(axis, None)`` / ``P(axis)``:
+    ``shards[i]`` holds rows ``windows[i]`` on ``mesh.devices[i]``.
+
+    ``base`` is the whole leaf when every shard is a row view of it (a
+    one-device mesh: placing copies nothing), else None.  The train step
+    reads and writes the shards only; ``whole()`` gathers the leaf (the
+    base itself, or the shards concatenated on the mesh's first
+    device)."""
+
+    def __init__(self, shards, mesh: Mesh, axis: str = "model",
+                 base: torch.Tensor | None = None):
+        self.shards = tuple(shards)
+        if len(self.shards) != check_mesh(mesh, axis):
+            raise ValueError(f"{len(self.shards)} shards for a mesh of "
+                             f"{mesh.size}")
+        self.windows = train_windows(sum(int(s.shape[0])
+                                         for s in self.shards), mesh, axis)
+        for i, (s, (_, r), d) in enumerate(zip(self.shards, self.windows,
+                                               mesh.devices)):
+            if s.shape[0] != r or s.device != d:
+                raise ValueError(f"shard {i}: {s.shape[0]} rows on "
+                                 f"{s.device}, expected {r} on {d}")
+        self.mesh = mesh
+        self.axis = axis
+        self.base = base
+
+    @property
+    def shape(self) -> torch.Size:
+        f, r = self.windows[-1]
+        return torch.Size((f + r, *self.shards[0].shape[1:]))
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.shards[0].dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.mesh.device
+
+    def whole(self) -> torch.Tensor:
+        if self.base is not None:
+            return self.base
+        return torch.cat([s.to(self.mesh.device) for s in self.shards])
+
+    def like(self, shards) -> "RowShards":
+        """New shards in this placement (an out-of-place update's)."""
+        return RowShards(shards, self.mesh, self.axis)
+
+
+def place_rows(x: torch.Tensor, mesh: Mesh, axis: str = "model"
+               ) -> RowShards:
+    """``x`` row-sharded over ``axis`` at ``train_windows``: on a
+    one-device mesh row views of ``x`` moved there (its ``base``); else
+    each window copied to its shard's device, the shard on ``x``'s own
+    device included, so that no shard pins the whole."""
+    windows = train_windows(x.shape[0], mesh, axis)
+    if len(mesh.distinct_devices()) == 1:
+        x = x.to(mesh.device)
+        return RowShards([x[f:f + r] for f, r in windows], mesh, axis,
+                         base=x)
+    return RowShards([x[f:f + r].to(d, copy=True)
+                      for (f, r), d in zip(windows, mesh.devices)],
+                     mesh, axis)
+
+
+def whole(x):
+    """A ``RowShards`` leaf gathered whole; any other leaf as it is."""
+    return x.whole() if isinstance(x, RowShards) else x
+
+
+class TrainPlan(NamedTuple):
+    """A batch's K = 1 slots over a placed table, built once a step.
+
+    ``local`` / ``mine``: each shard's local rows (int32, ``spread_rows``)
+    and mine mask as weights (fp32), (N, 1) on the shard's device, for its
+    kernels.  ``order`` / ``counts``: on the mesh's first device, the slot
+    ids grouped by owning shard (shard 0's first, each group in slot
+    order) and the slots each shard owns, for the per-shard post-step
+    (``owned_slots``)."""
+    local: tuple
+    mine: tuple
+    order: torch.Tensor
+    counts: torch.Tensor
+
+
+def train_plan(flat: torch.Tensor, windows, mesh: Mesh) -> TrainPlan:
+    """flat (N, 1) int64 global rows on the mesh's first device ->
+    ``TrainPlan``: each shard's local rows and mask computed on its own
+    device from a copy of the ids.  Nothing here waits on a device."""
+    ids, local, mine = {}, [], []
+    for (first, rows), dev in zip(windows, mesh.devices):
+        f = _on(flat, dev, ids)
+        li = f - first
         m = (li >= 0) & (li < rows)
-        local.append(spread_rows(li, m, flat, rows))
+        local.append(spread_rows(li, m, f, rows))
         mine.append(m.to(torch.float32).contiguous())
-    return ShardPlan(tuple(local), tuple(mine))
+    owner = torch.div(flat.reshape(-1), windows[0][1], rounding_mode="floor")
+    counts = torch.zeros(len(windows), dtype=torch.int64, device=flat.device)
+    return TrainPlan(tuple(local), tuple(mine),
+                     torch.argsort(owner, stable=True),
+                     counts.scatter_add_(0, owner, torch.ones_like(owner)))
+
+
+def owned_slots(plan: TrainPlan, mesh: Mesh, sizes, *values: torch.Tensor
+                ) -> list[tuple]:
+    """Each shard's own slots of the (N,) ``values`` (on the mesh's first
+    device), in slot order, on the shard's device: one tuple a shard.
+    ``sizes`` is ``plan.counts`` read on the host (a step reads it with
+    its loss, in one wait)."""
+    groups = [torch.split(v.reshape(-1)[plan.order], list(sizes))
+              for v in values]
+    return [tuple(g[i].to(dev) for g in groups)
+            for i, dev in enumerate(mesh.devices)]
 
 
 class ShardedBagTrain(torch.autograd.Function):
-    """The K = 1 training gather over a row-sharded fp32 table: table (V,
-    D) on the mesh's one device, flat ids (N, 1) -> (N, D).  Forward: one
+    """The K = 1 training gather over a placed fp32 table: ``plan`` (a
+    ``TrainPlan``) and one (rows, D) table shard a mesh shard, each on its
+    device -> (N, D) on the mesh's first device.  Forward: one
     ``dequant_bag`` a shard over its rows with its mine mask as weights,
-    summed in shard order.  Backward: one zero (V, D) gradient and one
-    ``bag_grad`` a shard into its rows (accumulating onto the zeros, so
-    each row's chain is the unsharded one: all its slots lie in one
-    shard, in (b, k) order)."""
+    on its device, summed in shard order by ``psum``.  Backward: the
+    cotangent copied to each shard's device and one ``bag_grad`` a shard
+    into that shard's own (rows, D) gradient, so no (V, D) tensor exists
+    on any device.  Each row's slots all lie in one shard, in (b, k)
+    order, so each shard's gradient rows are the unsharded ones bit for
+    bit."""
 
     @staticmethod
-    def forward(ctx, table, flat, windows, mesh):
+    def forward(ctx, plan, mesh, *shards):
         from repro_torch.kernels.dequant_bag.ops import dequant_bag
-        plan = _train_plan(flat.to(torch.int64), windows)
-        parts = (dequant_bag(table[f:f + r], None, li, m)
-                 for (f, r), li, m in zip(windows, plan.local, plan.mine))
-        ctx.save_for_backward(*plan.local, *plan.mine)
-        ctx.windows = windows
-        ctx.shape = table.shape
+        parts = (dequant_bag(sh, None, li, m)
+                 for sh, li, m in zip(shards, plan.local, plan.mine))
+        ctx.plan = plan
+        ctx.rows = tuple(int(sh.shape[0]) for sh in shards)
         return psum(parts, mesh)
 
     @staticmethod
     def backward(ctx, g):
         from repro_torch.kernels.dequant_bag.ops import bag_grad
-        n = len(ctx.windows)
-        saved = ctx.saved_tensors
-        local, mine = saved[:n], saved[n:]
         g = g.to(torch.float32).contiguous()
-        grad = torch.zeros(ctx.shape, dtype=torch.float32, device=g.device)
-        for (f, r), li, m in zip(ctx.windows, local, mine):
-            if r:
-                bag_grad(g, None, li, m, r, out=grad[f:f + r])
-        return grad, None, None, None
+        gs = {}
+        grads = tuple(bag_grad(_on(g, li.device, gs), None, li, m, r)
+                      for li, m, r in zip(ctx.plan.local, ctx.plan.mine,
+                                          ctx.rows))
+        return (None, None, *grads)
 
 
-def train_windows(rows: int, mesh: Mesh, axis: str = "model",
-                  divide: bool = True) -> tuple:
-    """Each shard's (first row, rows) of a training table or pool of
-    ``rows`` rows; ``divide`` requires the axis to divide the rows, as the
-    reference's table placement does.  The sharded train paths hold the
-    table on one device (the mesh's devices must all be one)."""
-    n = check_mesh(mesh, axis)
-    if divide and rows % n:
-        raise ValueError(f"table rows {rows} not divisible by mesh axis "
-                         f"{axis}={n}")
-    if len(mesh.distinct_devices()) != 1:
-        raise NotImplementedError(
-            "the sharded train step holds the table on one device: a mesh "
-            "over several devices serves, but does not train")
-    return tuple(shard_window(rows, n, i) for i in range(n))
+class _SplitRows(torch.autograd.Function):
+    """A whole table -> its ``place_rows`` shards; backward the shards'
+    gradients concatenated into the table's one (V, D) gradient."""
+
+    @staticmethod
+    def forward(ctx, table, mesh, axis):
+        ctx.device = table.device
+        return place_rows(table, mesh, axis).shards
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return torch.cat([g.to(ctx.device) for g in grads]), None, None
 
 
-def sharded_lookup_train(table: torch.Tensor, indices: torch.Tensor, *,
-                         mesh: Mesh, axis: str = "model") -> torch.Tensor:
+def sharded_lookup_train(table, indices: torch.Tensor, *,
+                         mesh: Mesh | None = None, axis: str = "model"
+                         ) -> torch.Tensor:
     """Differentiable row-sharded gather over the fp32 training table:
-    int (...,) -> fp32 (..., D).  The training twin of ``sharded_lookup``
-    (``ShardedBagTrain``): ``dequant_bag`` a shard forward, ``bag_grad`` a
-    shard into its rows of one gradient backward.  The mesh's axis must
-    divide ``table.shape[0]`` (``FieldSpec.total_rows`` is 512-padded for
-    exactly this)."""
-    windows = train_windows(table.shape[0], mesh, axis)
-    out = ShardedBagTrain.apply(table, indices.reshape(-1, 1), windows,
-                                mesh)
+    int (...,) -> fp32 (..., D) on the mesh's first device.  The training
+    twin of ``sharded_lookup`` (``ShardedBagTrain``).  ``table`` is a
+    ``RowShards`` (its shards get the gradients, each its own) or a whole
+    table over ``mesh`` (placed by ``place_rows``; its gradient is the
+    shards' concatenated).  The mesh's axis must divide the rows
+    (``FieldSpec.total_rows`` is 512-padded for exactly this)."""
+    if isinstance(table, RowShards):
+        mesh, windows, shards = table.mesh, table.windows, table.shards
+    else:
+        windows = train_windows(table.shape[0], mesh, axis)
+        shards = _SplitRows.apply(table, mesh, axis)
+    flat = indices.reshape(-1, 1).to(torch.int64).to(mesh.device)
+    out = ShardedBagTrain.apply(train_plan(flat, windows, mesh), mesh,
+                                *shards)
     return out.reshape(*indices.shape, table.shape[1])
 
 
 __all__ = [
+    "RowShards",
+    "ShardedBagTrain",
     "ShardedPack",
+    "TrainPlan",
+    "owned_slots",
     "packed_pspecs",
     "place_packed",
+    "place_rows",
     "shard_nbytes",
     "shard_packed",
     "shard_window",
@@ -449,5 +574,8 @@ __all__ = [
     "sharded_bag_matmul",
     "sharded_lookup",
     "sharded_lookup_train",
+    "train_plan",
+    "train_windows",
     "unshard_packed",
+    "whole",
 ]

@@ -65,11 +65,14 @@ the train loop's and the server's metrics, and the serving span catalog
 pre-registered.  ``main`` closes the sink on every exit path.
 
 ``--mesh N`` (N > 1) row-shards the run over an N-shard mesh on the run's
-device (``repro_torch.dist``): the train and finetune steps
-(``dist.packed.sharded_lookup_train``), the served-table eval
-(``sharded_lookup``) and the serve stage (the packed backend's row
-shards, or the hashed pool's), as the reference's ``--mesh``.  The table's
-rows must divide N.  The training setup is dlrm-rm2's.
+device (``repro_torch.dist``): the train and finetune steps over the
+placed state (``train.setup.place_train_state``, row views on the one
+device), the served-table eval (``sharded_lookup``) and the serve stage
+(the packed backend's row shards, or the hashed pool's), as the
+reference's ``--mesh``.  The table's rows must divide N.  The training
+setup is dlrm-rm2's.  A ``--device`` list of several cards is refused
+(NotImplementedError): the pipeline over several cards is ROADMAP.md
+Queue 1 item 11 (``launch.train`` trains over them).
 """
 
 from __future__ import annotations
@@ -93,10 +96,11 @@ from repro_torch.core.pruning import memory_fraction
 from repro_torch.core.qat_store import (CHUNK_ROWS, FQuantConfig, QATStore,
                                         snap_)
 from repro_torch.dist import make_mesh
-from repro_torch.dist.packed import shard_packed, sharded_lookup
+from repro_torch.dist.packed import shard_packed, sharded_lookup, whole
 from repro_torch.core.tiers import (assign_tiers, plan_thresholds_for_ratio,
                                     tier_counts)
 from repro_torch.kernels.dequant_bag.autodiff import lookup_train
+from repro_torch.launch.mesh import device_list
 from repro_torch.obs.trace import timeblock
 from repro_torch.serve.loop import SERVE_PHASES, serve_forward
 from repro_torch.serve.online import OnlineConfig, OnlineServer
@@ -156,6 +160,7 @@ def _bits_equal(tree_a, tree_b) -> bool:
     if len(la) != len(lb):
         return False
     for a, b in zip(la, lb):
+        a, b = whole(a), whole(b)
         if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
             if not (isinstance(a, torch.Tensor)
                     and isinstance(b, torch.Tensor)
@@ -241,7 +246,13 @@ def run_pipeline(cfg: PipelineConfig, state: TrainState | None = None,
     ``adj`` (``store.hashed.fit_pool_from_table``'s ``audit``), inside the
     pack stage's seconds and the record's ``fit_s``.
     """
-    device = resolve_device(cfg.device)
+    if len(set(device_list(cfg.device))) > 1:
+        raise NotImplementedError(
+            "the pipeline runs on one device (--mesh N puts its N shards "
+            "there): training over several cards is launch.train's; the "
+            "pipeline over several cards (pack from a placed table, then "
+            "serve over the cards) is ROADMAP.md Queue 1 item 11")
+    device = resolve_device(device_list(cfg.device)[0])
     mesh = make_mesh(cfg.mesh, device=device) if cfg.mesh > 1 else None
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
@@ -287,8 +298,10 @@ def run_pipeline(cfg: PipelineConfig, state: TrainState | None = None,
         # report the restored state's loss on one batch
         with torch.inference_mode():
             b = batch_fn(cfg.steps)
+            params = dict(state.params,
+                          embed_table=whole(state.params["embed_table"]))
             loss_first = loss_last = float(model.loss_from_emb(
-                state.params, model.embed(state.params, b), b).mean())
+                params, model.embed(params, b), b).mean())
     rec["train_loss_first"] = round(float(loss_first), 5)
     rec["train_loss_last"] = round(float(loss_last), 5)
     rec["train_losses"] = [float(x) for x in train_losses]
@@ -308,7 +321,7 @@ def run_pipeline(cfg: PipelineConfig, state: TrainState | None = None,
               for k, v in gb.items()}
         l0 = kernels.launch_counts()
         grad_err, grad_scale = gradcheck(
-            model, state.params, state.params["embed_table"],
+            model, state.params, whole(state.params["embed_table"]),
             indices_fn(gb), gb)
         launches["gradcheck"] = _launches_since(l0)
     stage_s["gradcheck"] = round(tb.seconds, 3)
@@ -342,8 +355,10 @@ def run_pipeline(cfg: PipelineConfig, state: TrainState | None = None,
     # physically drop pruned fields: zero their rows and priorities, in
     # place (zero priority -> coldest tier; zero rows quantize to zeros,
     # so masked serving and zero-row serving agree exactly)
-    table = state.params["embed_table"]
-    priority = state.priority
+    # (a placed state's leaves gathered: on the one device the table is
+    # the shards' base, no copy)
+    table = whole(state.params["embed_table"])
+    priority = whole(state.priority)
     offsets = spec.offsets()
     for f in pruned:
         lo = int(offsets[f])
@@ -560,7 +575,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(
         description="The SHARK pipeline: train, prune, quantize, pack, "
                     "serve.",
-        epilog="The row-sharded run: --mesh N (all N shards on --device).")
+        epilog="The row-sharded run: --mesh N (all N shards on --device; "
+               "a list of several cards is refused, ROADMAP.md Queue 1 "
+               "item 11).")
     ap.add_argument("--arch", default="dlrm-rm2", choices=("dlrm-rm2",))
     ap.add_argument("--fast", action="store_true",
                     help="CI-sized budgets (see fast_config)")

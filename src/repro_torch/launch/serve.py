@@ -106,10 +106,15 @@ request), online the backend's sharded ``lookup_fn`` / ``bag_matmul_fn``
 (three ``bag_matmul`` launches a shard with ``--fuse-matmul``), the hashed
 pool's ``sharded_hashed_lookup`` and the hier store's sharded hot level
 (whose planner charges the device its shards' padded bytes); a re-tier
-unshards, repacks and reshards on the device.  As on the reference's
-CPU mesh, all N shards live on the one device the run uses: the path is
-the sharded one at full width, the N launches and the shard sum run on
-one card.  The record's ``mesh`` is N.
+unshards, repacks and reshards on the device.  With one ``--device``,
+as on the reference's CPU mesh, all N shards live on it: the path is the
+sharded one at full width, the N launches and the shard sum run on one
+card.  ``--device`` may instead list one card a shard
+(``--device cuda:0,cuda:1,cuda:2,cuda:3 --mesh 4``, parsed by
+``launch.mesh``, as the train CLI's): the store is built on the first,
+each shard copied to its card, the partials summed on the first (the
+reference's ``--mesh N`` over N devices); a listed card that is absent
+raises.  The record's ``mesh`` is N.
 
 ``--metrics-out PATH`` turns the ``obs`` registry on and writes
 ``metrics_snapshot/v1`` JSONL there: one line every ``--metrics-every``
@@ -133,17 +138,17 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from repro_torch import configs, kernels, obs, resolve_device, sync
+from repro_torch import configs, kernels, obs, sync
 from repro_torch.core.packed_store import (PackedStore, build_chunked,
                                            live_counts, lookup, lookup_fused,
                                            pack, packed_tiers)
 from repro_torch.core.qat_store import (CHUNK_ROWS, FQuantConfig, QATStore,
                                         current_tiers, snap_)
 from repro_torch.core.tiers import plan_thresholds_for_ratio
-from repro_torch.dist import make_mesh
 from repro_torch.dist.packed import ShardedPack, shard_packed, sharded_lookup
 from repro_torch.kernels import autotune
 from repro_torch.kernels.dequant_bag import kernel as dequant_kernel
+from repro_torch.launch.mesh import check_device_arg, mesh_from_args
 from repro_torch.models import embedding as E
 from repro_torch.serve.loop import (SERVE_PHASES, serve_forward,
                                     serve_forward_loop,
@@ -166,10 +171,12 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="full = the published widths, smoke = the "
                          "reduced test size")
     ap.add_argument("--device", default=None,
-                    help="torch device; default cuda (raises when absent)")
+                    help="torch device, or a comma-separated list of one a "
+                         "--mesh shard; default cuda (raises when absent)")
     ap.add_argument("--mesh", type=int, default=1,
                     help="row-shard the store over an N-shard 'model' mesh "
-                         "(repro_torch.dist; every shard on --device)")
+                         "(repro_torch.dist; every shard on --device, or "
+                         "shard i on its i-th entry)")
     ap.add_argument("--online", action="store_true",
                     help="serve through repro_torch.serve: hot-row cache + "
                          "priority fold + incremental re-tiering under a "
@@ -260,6 +267,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     args = ap.parse_args(argv)
     if args.mesh < 1:
         ap.error("--mesh must be >= 1")
+    check_device_arg(ap, args)
     if args.serve_batch > 0 and not args.online:
         ap.error("--serve-batch requires --online")
     if args.hbm_budget_mb > 0 and args.serve_batch <= 0:
@@ -313,10 +321,11 @@ def serve_request(model, params: dict, packed, batch: dict) -> torch.Tensor:
     return model.head(params, emb, batch)
 
 
-def make_mesh_arg(n: int, device: torch.device):
-    """``--mesh N``: None at 1 (the unsharded path, as the reference CLI),
-    else N shards on ``device``."""
-    return None if n <= 1 else make_mesh(n, device=device)
+def make_mesh_arg(args: argparse.Namespace):
+    """``--mesh N`` over ``--device`` (``launch.mesh.mesh_from_args``):
+    None at 1 (the unsharded path, as the reference CLI), else N shards on
+    the one device or one on each listed card."""
+    return mesh_from_args(args.device, args.mesh)[1]
 
 
 def time_requests(model, params: dict, packed,
@@ -408,7 +417,7 @@ def run(args: argparse.Namespace, make_audit: Callable | None = None,
     cold shard rows.  With ``--metrics-out`` the registry is
     on from here and one snapshot is flushed before returning; the
     caller closes the sink (``obs.close_sink``), as ``main`` does."""
-    device = resolve_device(args.device)
+    device = mesh_from_args(args.device, args.mesh)[0]
     if args.autotune_cache is not None:
         autotune.set_cache_path(args.autotune_cache)
     arch = configs.get(args.arch)
@@ -437,7 +446,7 @@ def run(args: argparse.Namespace, make_audit: Callable | None = None,
     gen.manual_seed(SEED)
     params = model.init(gen, device, with_table=False)
     packed, cfg = build_store(spec, device)
-    mesh = make_mesh_arg(args.mesh, device)
+    mesh = make_mesh_arg(args)
     if mesh is not None:
         packed = shard_packed(packed, mesh)
     sync(device)
@@ -562,7 +571,7 @@ def run_online(args: argparse.Namespace, device: torch.device, model,
                           verify_swap=args.verify_swap)
     fp32 = spec.total_rows * spec.dim * 4
     hashed = {}
-    mesh = make_mesh_arg(args.mesh, device)
+    mesh = make_mesh_arg(args)
     if args.store_backend == "hashed":
         t1 = time.perf_counter()
         backend, hcfg = hashed_backend(args, spec, store, mesh)

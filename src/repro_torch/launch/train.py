@@ -8,24 +8,34 @@ checkpoints.  Rerun the same command after a kill and it resumes at the
 newest checkpoint in ``--ckpt-dir``.
 
 ``--model full`` (the default) trains dlrm-rm2 at its published widths
-(26 fields x 64, MLPs 13-512-256-64 and 415-512-512-256-1) with every
-field capped at ``--max-ind-range`` rows (default 24,000,000: 124,185,088
-rows, the most one 80 GB card holds beside the dense table gradient).
-Its final checkpoint is about 34 GB.  ``--model smoke`` trains the
-reduced size, the reference CLI's model.  The run is on the GPU
-unless ``--device cpu`` is given.
+(26 fields x 64, MLPs 13-512-256-64 and 415-512-512-256-1).  On one card
+every field is capped at ``--max-ind-range`` rows (default 24,000,000:
+124,185,088 rows, the most one 80 GB card holds beside the dense table
+gradient; its final checkpoint is about 34 GB).  Over two or more cards
+the default is no cap: all 204,185,088 rows, nothing in ``reduced``.
+``--model smoke`` trains the reduced size, the reference CLI's model.
+The run is on the GPU unless ``--device cpu`` is given.
 
-``--mesh N`` (N > 1) row-shards the table over an N-shard mesh on the
-run's device (``repro_torch.dist``): the gather and its scatter backward
-run once a shard (``dist.packed.sharded_lookup_train``); the table's rows
-must divide N.  The step is the unsharded one bit for bit.
+``--mesh N`` (N > 1) places the train state over an N-shard mesh
+(``repro_torch.dist``, ``train.setup.place_train_state``): the table,
+its adagrad accumulator, the priority and the access EMA a row shard a
+shard, and the step runs its gather, scatter, adagrad, snap and EMAs a
+shard at a time.  ``--device`` names the cards: one device holds every
+shard (the reference's CPU mesh), and a comma-separated list of N
+(``--device cuda:0,cuda:1,cuda:2,cuda:3 --mesh 4``) puts shard i on the
+i-th; a listed card that is absent raises.  The table's rows must divide
+N.  The step is the unsharded one bit for bit, on one card or several,
+and a checkpoint is a mesh-1 checkpoint: a rerun may resume it at
+another ``--mesh``.
 
 The run first prints the arch and the elastic mesh over the devices
 present (``launch.mesh.make_elastic_mesh``), as the reference's CLI does.
 The last stdout line is a JSON record: arch, model, device,
-device_name, batch, mesh, steps_run, resumed_from, loss_first,
-loss_last, step_ms_p50, kernel_launches (per kernel), rows, reduced,
-stragglers, nan_skips, device_peak_bytes.
+device_name, devices (one a shard's device, as listed), batch, mesh,
+steps_run, resumed_from, loss_first, loss_last, step_ms_p50 (to the end
+of every card's work), kernel_launches (per kernel), rows, reduced,
+stragglers, nan_skips, device_peak_bytes (the largest card's) and
+device_peak_bytes_each (one a distinct device).
 
 ``--smoke``, and every arch that is not a field-based recsys arch
 (bert4rec, pna and the five LMs) whatever the flags, runs its family
@@ -47,10 +57,11 @@ import tempfile
 import numpy as np
 import torch
 
-from repro_torch import configs, resolve_device
-from repro_torch.dist import make_mesh
+from repro_torch import configs
 from repro_torch.kernels.dequant_bag import kernel as bag_kernel
-from repro_torch.launch.mesh import device_count, make_elastic_mesh
+from repro_torch.launch.mesh import (check_device_arg, device_count,
+                                     device_list, make_elastic_mesh,
+                                     mesh_from_args)
 from repro_torch.train import loop as loop_lib
 from repro_torch.train.setup import build_recsys_training
 
@@ -77,22 +88,25 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="cap on every field's rows (default "
                          f"{FULL_MAX_IND_RANGE:,} for full, none for smoke)")
     ap.add_argument("--device", default=None,
-                    help="torch device; default cuda (raises when absent)")
+                    help="torch device, or a comma-separated list of one a "
+                         "--mesh shard; default cuda (raises when absent)")
     ap.add_argument("--mesh", type=int, default=1,
-                    help="row-shard the table over an N-shard 'model' mesh "
-                         "(repro_torch.dist; every shard on --device)")
+                    help="place the train state over an N-shard 'model' "
+                         "mesh (repro_torch.dist; every shard on --device, "
+                         "or shard i on its i-th entry)")
     ap.add_argument("--smoke", action="store_true",
                     help="run the reduced-config family smoke (always, for "
                          "an arch that is not a field-based recsys arch)")
     args = ap.parse_args(argv)
     if args.mesh < 1:
         ap.error("--mesh must be >= 1")
+    check_device_arg(ap, args)
     return args
 
 
 def smoke(args: argparse.Namespace, arch) -> dict:
     """The family smoke's metrics; SystemExit when they are not finite."""
-    metrics = arch.smoke(args.device)
+    metrics = arch.smoke(device_list(args.device)[0])
     metrics["arch"] = args.arch
     print("smoke-train metrics:", metrics, flush=True)
     if not metrics["finite"]:
@@ -107,11 +121,11 @@ def run(args: argparse.Namespace) -> dict:
           f"devices {device_count()}", flush=True)
     if args.smoke or arch.family != "recsys" or arch.seq_model:
         return smoke(args, arch)
-    device = resolve_device(args.device)
+    device, mesh = mesh_from_args(args.device, args.mesh)
+    cards = [device] if mesh is None else mesh.distinct_devices()
     cap = args.max_ind_range
-    if cap is None and args.model == "full":
+    if cap is None and args.model == "full" and len(cards) < 2:
         cap = FULL_MAX_IND_RANGE
-    mesh = None if args.mesh <= 1 else make_mesh(args.mesh, device=device)
     setup = build_recsys_training(arch, batch=args.batch, device=device,
                                   model=args.model, lr=args.lr,
                                   max_ind_range=cap, mesh=mesh)
@@ -128,6 +142,8 @@ def run(args: argparse.Namespace) -> dict:
         metrics_cb=lambda s, m: print(f"step {s}: loss "
                                       f"{float(m['loss']):.4f}", flush=True))
     losses = result.losses
+    peaks = [torch.cuda.max_memory_allocated(d) if d.type == "cuda" else 0
+             for d in cards]
     if losses and not math.isfinite(losses[-1]):
         raise SystemExit("training ended on a non-finite loss")
     return {
@@ -142,9 +158,9 @@ def run(args: argparse.Namespace) -> dict:
             "dequant_bag": bag_kernel.total_launches(),
             "bag_grad": sum(bag_kernel.bag_grad_launches.values())},
         "rows": setup.spec.total_rows, "reduced": setup.reduced,
+        "devices": [str(d) for d in (mesh.devices if mesh else [device])],
         "stragglers": result.stragglers, "nan_skips": result.nan_skips,
-        "device_peak_bytes": (torch.cuda.max_memory_allocated(device)
-                              if device.type == "cuda" else 0)}
+        "device_peak_bytes": max(peaks), "device_peak_bytes_each": peaks}
 
 
 def main(argv=None) -> None:

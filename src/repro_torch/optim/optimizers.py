@@ -69,11 +69,12 @@ def global_norm(tree: Tree) -> torch.Tensor:
 
 def _resolve_lr(lr, step: torch.Tensor) -> torch.Tensor:
     """The learning rate at ``step`` as an fp32 0-d tensor on its device
-    (``lr`` a float or a schedule ``step -> lr``)."""
+    (``lr`` a float or a schedule ``step -> lr``).  A float is filled in
+    on the device: no copy from the host, so no wait on the card."""
     if callable(lr):
         return torch.as_tensor(lr(step), dtype=torch.float32,
                                device=step.device)
-    return torch.tensor(lr, dtype=torch.float32, device=step.device)
+    return torch.full((), lr, dtype=torch.float32, device=step.device)
 
 
 class AdamState(NamedTuple):
@@ -103,8 +104,8 @@ def adam(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
         nu = tree_map(lambda v, g: b2 * v + (1 - b2)
                       * torch.square(g.to(torch.float32)), state.nu, grads)
         stepf = step.to(torch.float32)
-        bc1 = 1 - torch.pow(torch.tensor(b1, device=stepf.device), stepf)
-        bc2 = 1 - torch.pow(torch.tensor(b2, device=stepf.device), stepf)
+        bc1 = 1 - torch.pow(torch.full((), b1, device=stepf.device), stepf)
+        bc2 = 1 - torch.pow(torch.full((), b2, device=stepf.device), stepf)
 
         def upd_fn(m, v, p):
             u = -eta * (m / bc1) / (torch.sqrt(v / bc2) + eps)

@@ -43,7 +43,18 @@ def update_accum(acc: TaylorAccum, gidx: torch.Tensor, emb: torch.Tensor,
                  valid: torch.Tensor | None = None) -> TaylorAccum:
     """Fold one batch: gidx (B, F) global rows, emb (B, F, D) gathered
     embeddings, g_emb (B, F, D) the loss cotangent w.r.t. ``emb``;
-    ``valid`` (B,) masks padded samples out of every statistic."""
+    ``valid`` (B,) masks padded samples out of every statistic.  The
+    Taylor fold (``update_taylor``) and the access EMA; a placed state's
+    step runs the two apart, the EMA a row shard at a time."""
+    vmask = None if valid is None else valid[:, None].expand(gidx.shape)
+    return update_taylor(acc, emb, g_emb, valid)._replace(
+        access=serve_update(acc.access, gidx, pcfg, valid=vmask))
+
+
+def update_taylor(acc: TaylorAccum, emb: torch.Tensor, g_emb: torch.Tensor,
+                  valid: torch.Tensor | None = None) -> TaylorAccum:
+    """``update_accum``'s field score, embedding mean and count (``access``
+    as it is): from the batch's (B, F, D) ``emb`` and ``g_emb`` only."""
     b = emb.shape[0]
     if valid is not None:
         m = valid.to(torch.float32)
@@ -53,7 +64,7 @@ def update_accum(acc: TaylorAccum, gidx: torch.Tensor, emb: torch.Tensor,
         batch_mean = emb_stat.sum(dim=0) / torch.clamp_min(n, 1.0)
     else:
         g_stat = g_emb
-        n = torch.tensor(float(b), dtype=torch.float32, device=emb.device)
+        n = torch.full((), float(b), dtype=torch.float32, device=emb.device)
         batch_mean = emb.mean(dim=0)
     delta = acc.emb_mean[None, :, :] - emb
     score = torch.einsum("bfd,bfd->f", g_stat, delta)
@@ -61,12 +72,9 @@ def update_accum(acc: TaylorAccum, gidx: torch.Tensor, emb: torch.Tensor,
     denom = torch.clamp_min(new_count, 1.0)
     w_old = torch.where(new_count > 0, acc.count / denom, 0.0)
     w_new = torch.where(new_count > 0, n / denom, 0.0)
-    vmask = None if valid is None else valid[:, None].expand(gidx.shape)
-    return TaylorAccum(
-        field_score=acc.field_score + score,
-        emb_mean=w_old * acc.emb_mean + w_new * batch_mean,
-        access=serve_update(acc.access, gidx, pcfg, valid=vmask),
-        count=new_count)
+    return acc._replace(field_score=acc.field_score + score,
+                        emb_mean=w_old * acc.emb_mean + w_new * batch_mean,
+                        count=new_count)
 
 
 def field_scores(acc: TaylorAccum) -> torch.Tensor:

@@ -14,10 +14,11 @@ Port of ``repro/train/loop.py``:
     step returns it untouched, see ``train.steps``) and is counted;
     ``max_consecutive_nans`` in a row abort.
 
-A step is timed from its call to ``torch.cuda.synchronize()`` on the
-card (the loss readback alone would leave its tail kernels out), as the
-``train.step`` timeblock.  With metrics on (``obs``) the loop records
-the reference's metrics: ``train.step_us``, the ``train.steps`` and
+A step is timed from its call to ``torch.cuda.synchronize()`` on every
+card the state lives on (``state_devices``: a placed state's shards run
+on their own cards, and the loss readback alone would leave the tail
+kernels out), as the ``train.step`` timeblock.  With metrics on
+(``obs``) the loop records the reference's metrics: ``train.step_us``, the ``train.steps`` and
 ``train.stragglers`` counters, the ``train.loss`` gauge, one
 ``obs.tick()`` a step, and the ``train.ckpt_save`` / ``train.ckpt_drain``
 spans.
@@ -34,7 +35,8 @@ import numpy as np
 import torch
 
 from repro_torch import obs
-from repro_torch.ckpt.manager import CheckpointManager
+from repro_torch.ckpt.manager import CheckpointManager, tree_paths
+from repro_torch.dist.packed import RowShards
 from repro_torch.train.steps import TrainState
 
 
@@ -63,6 +65,21 @@ class LoopResult:
                               # CheckpointManager.writes of this run
 
 
+def state_devices(state) -> list[torch.device]:
+    """The CUDA devices a train state lives on, each once: every tensor
+    leaf's and every shard of a placed (``RowShards``) leaf's."""
+    devs = []
+    for _, leaf in tree_paths(state):
+        if isinstance(leaf, RowShards):
+            found = leaf.mesh.distinct_devices()
+        elif isinstance(leaf, torch.Tensor):
+            found = [leaf.device]
+        else:
+            found = []
+        devs += [d for d in found if d.type == "cuda" and d not in devs]
+    return devs
+
+
 def run(state: TrainState, step_fn: Callable, batch_fn: Callable,
         cfg: LoopConfig, metrics_cb: Callable | None = None) -> LoopResult:
     """batch_fn(step: int) -> batch dict on the device; step_fn(state,
@@ -76,11 +93,11 @@ def run(state: TrainState, step_fn: Callable, batch_fn: Callable,
         resumed_from = restored_step
     except FileNotFoundError:
         pass
-    dev = state.step.device
+    cards = state_devices(state)
 
     def sync():
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        for d in cards:
+            torch.cuda.synchronize(d)
 
     losses, step_seconds = [], []
     durations: list[float] = []

@@ -2,16 +2,20 @@
 
 Port of ``repro/train/setup.py``: a synthetic click-log stream matched to
 the model's FieldSpec, the compressed train step and its initial state,
-on one device or row-sharded over a mesh (``place_train_state``).
+on one device or placed over a mesh (``place_train_state``: the
+row-aligned leaves a shard a device, as the reference places them).
 
 ``model="smoke"`` is the reference's training size (its setup always
 trains the smoke model); ``model="full"`` trains the published widths.
 ``max_ind_range`` caps every field's cardinality, as the DLRM
 reference's ``--max-ind-range`` flag does (facebookresearch/dlrm,
 ``dlrm_s_pytorch.py``): at full width the table, its dense gradient
-and the (V,) state must fit one 80 GB card, and 204,185,088 rows do not
-(2 x 52.3 GB), so ``launch/train.py`` caps each field at 24,000,000 rows
-(124,185,088 rows).  The cut is listed under ``reduced``.
+and the (V,) state must fit the cards that hold them.  On one 80 GB card
+204,185,088 rows do not (2 x 52.3 GB), so ``launch/train.py`` caps each
+field at 24,000,000 rows there (124,185,088 rows); placed over two or
+four cards they do (a quarter of the table and of its gradient a card at
+mesh 4), and the CLI trains them uncut.  A cut is listed under
+``reduced``.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import torch
 
 from repro_torch.core.qat_store import FQuantConfig
 from repro_torch.data.criteo import CriteoConfig, CriteoSynth
+from repro_torch.dist.packed import place_rows, whole
 from repro_torch.models import embedding as E
 from repro_torch.models.recsys import make_dlrm
 from repro_torch.train.steps import TrainState, make_compressed_train_step
@@ -44,18 +49,35 @@ def tree_to(tree, device: torch.device):
 
 def place_train_state(state: TrainState, mesh, axis: str = "model"
                       ) -> TrainState:
-    """The reference's placement under a mesh: the table, the row-wise
-    adagrad accumulator, the priority and the access EMA row-sharded,
-    everything else replicated.  The port's sharded step holds the
-    row-aligned leaves whole on the mesh's one device and shards them by
-    row windows inside the gather and scatter (``dist.packed``), so the
-    placement checks that the table's rows divide the axis and moves the
-    state to the mesh's device."""
+    """The reference's placement under a mesh
+    (``repro/train/setup.py::place_train_state``): the table, the row-wise
+    adagrad accumulator, the priority and the access EMA row-sharded
+    (``dist.packed.place_rows``: shard ``i`` on ``mesh.devices[i]``, row
+    views on a one-device mesh, copies of their own across devices),
+    everything else (the dense params, Adam's state, ``step``, ``rng``
+    and the rest of the accumulator) replicated on the mesh's first
+    device.  A leaf placed already is gathered whole and placed anew (an
+    elastic move to another mesh).  The table's rows must divide the
+    axis (ValueError otherwise)."""
     if mesh is None:
         return state
-    from repro_torch.dist.packed import train_windows
-    train_windows(state.params["embed_table"].shape[0], mesh, axis)
-    return tree_to(state, mesh.device)
+    dev = mesh.device
+
+    def rows(x):
+        return None if x is None else place_rows(whole(x), mesh, axis)
+
+    params = tree_to({k: v for k, v in state.params.items()
+                      if k != "embed_table"}, dev)
+    params["embed_table"] = rows(state.params["embed_table"])
+    dense_opt, accum_sq = state.opt
+    accum = state.accum
+    if accum is not None:
+        accum = tree_to(accum._replace(access=None), dev)._replace(
+            access=rows(accum.access))
+    return TrainState(params=params,
+                      opt=(tree_to(dense_opt, dev), rows(accum_sq)),
+                      step=state.step.to(dev), priority=rows(state.priority),
+                      rng=tree_to(state.rng, dev), accum=accum)
 
 
 class RecsysTrainSetup(NamedTuple):
@@ -82,8 +104,11 @@ def build_recsys_training(arch, *, batch: int, device: torch.device,
     ``device``), e.g. the reference's initial state carried across by
     ``convert.train_state_from_jax``.  The data stream is
     ``CriteoSynth`` seeded as the reference seeds it.  ``mesh`` (a
-    ``dist.Mesh`` on ``device``) row-shards the step; the stacked table's
-    rows must divide its axis (raises SystemExit otherwise, as the
+    ``dist.Mesh`` whose first device is ``device``) row-shards the step:
+    the state is made whole on ``device``, so its bits are mesh 1's, then
+    placed (``place_train_state``: each row-aligned leaf's shards copied
+    to their devices and the whole freed).  The stacked table's rows must
+    divide the mesh's axis (raises SystemExit otherwise, as the
     reference).
     """
     if model not in ("full", "smoke"):
@@ -129,7 +154,7 @@ def build_recsys_training(arch, *, batch: int, device: torch.device,
         state = step.init_state(net.init(gen, device))
     else:
         state = tree_to(state, device)
-    state = place_train_state(state, mesh, axis)
+    state = place_train_state(state, mesh, axis)   # the whole is freed
 
     def batch_fn(s: int) -> dict:
         return {k: torch.from_numpy(v).to(device)

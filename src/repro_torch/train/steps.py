@@ -35,18 +35,25 @@ folds per virtual row into a (V,) priority (the jitted reference's FMA
 form, ``priority.priority_update_from_batch``), which picks the serving
 cache.  ``TaylorAccum`` is sized by ``hashed_cfg.vocab`` and ``.dim``.
 
-With ``mesh`` (a ``dist.Mesh``) the gather / scatter pair is the
-row-sharded one (``dist.packed.sharded_lookup_train``, or
-``dist.hashed.sharded_hashed_lookup_train`` for the pool): one forward
-kernel a shard over its rows, summed in shard order, and one ``bag_grad``
-a shard into its rows of one gradient.  The table's rows must divide the
-mesh's axis (the pool's need not).  Each row's gradient sums the same
-slots in the same order in one shard, so the table's step is the
-unsharded one bit for bit; the rest of the step (adagrad, Adam, the fold,
-the accumulators) runs on the whole row-aligned state, which on the
-mesh's one device is the shards' state.  The hashed forward sums each
-chunk's draws a shard at a time, so its rows, and the loss, are the
-unsharded ones up to that rounding.
+With ``mesh`` (a ``dist.Mesh``) the step takes the state as the
+reference's ``place_train_state`` places it (``train.setup``): the
+table, its adagrad accumulator, the priority and the access EMA are
+``dist.packed.RowShards``, shard ``i`` on ``mesh.devices[i]`` (row views
+of one tensor on a one-device mesh), the rest on the mesh's first
+device.  The gather runs a ``dequant_bag`` a shard on its device, summed
+in shard order, and the backward a ``bag_grad`` a shard into that
+shard's own gradient (``dist.packed.ShardedBagTrain``); adagrad, the
+Eq. 7 decay, the snap of the shard's own slots (its noise keyed by the
+global rows) and the access EMA then run a shard at a time, and the
+head, Adam and the Taylor fold once.  The table's rows must divide the
+mesh's axis.  Each row's arithmetic is the unsharded step's, so every
+leaf is the mesh-1 step's bit for bit, on one device or several.  The
+hashed pool stays whole on the mesh's first device (the reference
+places only the table): ``dist.hashed.sharded_hashed_lookup_train`` runs
+its plan entry and ``bag_grad`` a shard, and the rest of the step is the
+unsharded one.  The hashed forward sums each chunk's draws a shard at a
+time, so its rows, and the loss, are the unsharded ones up to that
+rounding.
 
 The table (or pool) is updated in place (the reference's update is
 functional; at 124M x 64 a second table does not fit beside the
@@ -70,7 +77,8 @@ from repro_torch.core import rowwise_quant as rq
 from repro_torch.core.qat_store import FQuantConfig
 from repro_torch.dist.hashed import sharded_hashed_lookup_train
 from repro_torch.dist.mesh import check_mesh
-from repro_torch.dist.packed import sharded_lookup_train
+from repro_torch.dist.packed import (RowShards, ShardedBagTrain,
+                                     owned_slots, train_plan)
 from repro_torch.kernels.dequant_bag.autodiff import lookup_train
 from repro_torch.kernels.hashed_gather.autodiff import hashed_lookup_train
 from repro_torch.optim import optimizers as opt_lib
@@ -265,7 +273,9 @@ def make_compressed_train_step(loss_from_emb: Callable,
     State: ``TrainState`` with opt = (dense_opt_state, adagrad accum (V,),
     or (S,) for a pool) and ``accum`` a ``TaylorAccum``.  ``field_mask``
     (F,) zeroes pruned fields inside the loss.  ``mesh`` (a ``dist.Mesh``
-    along ``axis``) runs the row-sharded gather and scatter.
+    along ``axis``) runs the row-sharded step over a placed state
+    (``train.setup.place_train_state``; ``init_state`` returns the whole
+    state, to be placed).
     """
     dense_optimizer = dense_optimizer or opt_lib.adam(lr)
     pcfg = (fq_cfg or FQuantConfig()).priority
@@ -283,11 +293,9 @@ def make_compressed_train_step(loss_from_emb: Callable,
             return hashed_lookup_train(
                 tbl, gidx, num_chunks=hashed_cfg.num_chunks,
                 num_hashes=hashed_cfg.num_hashes, seed=hashed_cfg.seed)
-    elif mesh is not None:
-        def gather(tbl, gidx):      # dequant_bag + bag_grad, a shard each
-            return sharded_lookup_train(tbl, gidx, mesh=mesh, axis=axis)
     else:
         gather = lookup_train       # dequant_bag + bag_grad
+    placed = mesh is not None and hashed_cfg is None
 
     def init_state(params) -> TrainState:
         table = params[table_path]
@@ -314,8 +322,41 @@ def make_compressed_train_step(loss_from_emb: Callable,
                                           device=dev),
                           accum=acc)
 
+    def head(emb_out, dense, table, batch):
+        """Loss, the gathered rows, the dense gradients and the rows'
+        cotangent."""
+        emb = emb_out.detach().requires_grad_()
+        dense_in = opt_lib.tree_map(
+            lambda x: x.detach().requires_grad_(), dense)
+        e = emb
+        if field_mask is not None:
+            e = e * torch.as_tensor(field_mask, dtype=torch.float32,
+                                    device=e.device)[None, :, None]
+        p = dict(dense_in)
+        p[table_path] = table       # heads must not touch the table
+        loss = loss_from_emb(p, e, batch).mean()
+        leaves = opt_lib.tree_leaves(dense_in)
+        grads = torch.autograd.grad(loss, leaves + [emb])
+        by_id = {id(x): gr for x, gr in zip(leaves, grads)}
+        g_dense = opt_lib.tree_map(lambda x: by_id[id(x)], dense_in)
+        return loss.detach(), emb.detach(), g_dense, grads[-1]
+
+    def skipped(state, loss):
+        """A non-finite loss: the state as it was, before any update."""
+        return state, {"loss": loss,
+                       "grad_norm": torch.full_like(loss, torch.nan)}
+
+    def updated(state, dense, table, opt, priority, acc, loss, g_dense):
+        params = dict(dense)
+        params[table_path] = table
+        return (TrainState(params=params, opt=opt, step=state.step + 1,
+                           priority=priority, rng=state.rng, accum=acc),
+                {"loss": loss, "grad_norm": opt_lib.global_norm(g_dense)})
+
     def step(state: TrainState, batch: dict,
              mark: Callable[[str], None] | None = None):
+        if placed:
+            return sharded_step(state, batch, mark or (lambda stage: None))
         mark = mark or (lambda stage: None)
         params = state.params
         table = params[table_path]
@@ -326,25 +367,9 @@ def make_compressed_train_step(loss_from_emb: Callable,
             leaf = table.detach().requires_grad_()
             emb_out = gather(leaf, gidx)               # the gather kernel
             mark("gather")
-            emb = emb_out.detach().requires_grad_()
-            dense_in = opt_lib.tree_map(
-                lambda x: x.detach().requires_grad_(), dense)
-            e = emb
-            if field_mask is not None:
-                e = e * torch.as_tensor(field_mask, dtype=torch.float32,
-                                        device=e.device)[None, :, None]
-            p = dict(dense_in)
-            p[table_path] = table       # heads must not touch the table
-            loss = loss_from_emb(p, e, batch).mean()
-            leaves = opt_lib.tree_leaves(dense_in)
-            grads = torch.autograd.grad(loss, leaves + [emb])
-            loss = loss.detach()
+            loss, emb, g_dense, g_emb = head(emb_out, dense, table, batch)
             if not bool(torch.isfinite(loss)):
-                return state, {"loss": loss,
-                               "grad_norm": torch.full_like(loss, torch.nan)}
-            by_id = {id(x): gr for x, gr in zip(leaves, grads)}
-            g_dense = opt_lib.tree_map(lambda x: by_id[id(x)], dense_in)
-            g_emb = grads[-1]
+                return skipped(state, loss)
             mark("head")
             (g_table,) = torch.autograd.grad(emb_out, leaf, g_emb)
         del emb_out, leaf
@@ -376,18 +401,99 @@ def make_compressed_train_step(loss_from_emb: Callable,
 
         acc = state.accum
         if acc is not None:
-            acc = accum_lib.update_accum(acc, gidx, emb.detach(), g_emb,
-                                         pcfg)
+            acc = accum_lib.update_accum(acc, gidx, emb, g_emb, pcfg)
         mark("accum")
 
-        params = dict(dense)
-        params[table_path] = table
-        new_state = TrainState(params=params,
-                               opt=(dense_opt_state, accum_sq),
-                               step=state.step + 1, priority=priority,
-                               rng=state.rng, accum=acc)
-        return new_state, {"loss": loss,
-                           "grad_norm": opt_lib.global_norm(g_dense)}
+        return updated(state, dense, table, (dense_opt_state, accum_sq),
+                       priority, acc, loss, g_dense)
+
+    def sharded_step(state: TrainState, batch: dict,
+                     mark: Callable[[str], None]):
+        """The step over a placed state (``train.setup.place_train_state``):
+        the table, its adagrad accumulator, the priority and the access
+        EMA are ``RowShards``, each shard on its device; the rest lives on
+        the mesh's first device.  The gather and scatter run a shard on
+        its device (``ShardedBagTrain``), and so do adagrad, the Eq. 7
+        decay, the snap of the shard's own slots and the access EMA; the
+        head, Adam and the Taylor fold run once.  Each row's arithmetic
+        is the unsharded step's, so every leaf is bit for bit the
+        one-device mesh-1 step's.  The per-shard loops wait on no device:
+        the step's one host read, after the head, takes the loss's
+        finiteness and the slots each shard owns together."""
+        params = state.params
+        table = params[table_path]
+        if not isinstance(table, RowShards):
+            raise TypeError("the sharded step takes a placed state "
+                            "(train.setup.place_train_state), got a "
+                            f"{type(table).__name__} table")
+        if table.mesh.size != mesh.size:
+            raise ValueError(f"state placed over {table.mesh.size} shards, "
+                             f"step built for {mesh.size}")
+        smesh, windows = table.mesh, table.windows
+        dense = {k: v for k, v in params.items() if k != table_path}
+        gidx = indices_fn(batch)                       # (B, F) global
+        flat = gidx.reshape(-1, 1).to(torch.int64)
+        plan = train_plan(flat, windows, smesh)
+
+        with torch.enable_grad():
+            leaves = [s.detach().requires_grad_() for s in table.shards]
+            emb_out = ShardedBagTrain.apply(plan, smesh, *leaves).reshape(
+                *gidx.shape, table.shape[1])
+            mark("gather")
+            loss, emb, g_dense, g_emb = head(emb_out, dense, table, batch)
+            # the step's one host read: the loss's finiteness and the
+            # slots each shard owns, together
+            finite, *sizes = torch.cat([
+                torch.isfinite(loss).reshape(1).to(torch.int64),
+                plan.counts]).tolist()
+            if not finite:
+                return skipped(state, loss)
+            labels = labels_fn(batch)
+            owned = owned_slots(plan, smesh, sizes, flat,
+                                labels[:, None].expand(gidx.shape))
+            mark("head")
+            g_shards = list(torch.autograd.grad(emb_out, leaves, g_emb))
+        del emb_out, leaves
+        mark("scatter")
+
+        steps = {d: state.step.to(d) for d in smesh.distinct_devices()}
+        dense_opt_state, accum_sq = state.opt
+        for i, dev in enumerate(smesh.devices):
+            g, g_shards[i] = g_shards[i], None
+            opt_lib.rowwise_adagrad_table_update(
+                table.shards[i], accum_sq.shards[i], g, lr, step=steps[dev],
+                eps=eps)
+            del g
+        mark("adagrad")
+
+        upd, dense_opt_state = dense_optimizer.update(g_dense,
+                                                      dense_opt_state, dense)
+        dense = opt_lib.apply_updates(dense, upd)
+        mark("adam")
+
+        local = [glob - first for (glob, _), (first, _)
+                 in zip(owned, windows)]
+        priority = state.priority
+        if fq_cfg is not None:
+            priority = priority.like([
+                qat_store.post_step_sparse(
+                    qat_store.QATStore(table=tbl, priority=pri), loc, lab,
+                    fq_cfg, seed=steps[dev], first=first).priority
+                for tbl, pri, loc, (_, lab), (first, _), dev
+                in zip(table.shards, priority.shards, local, owned,
+                       windows, smesh.devices)])
+        mark("post_step_sparse")
+
+        acc = state.accum
+        if acc is not None:
+            acc = accum_lib.update_taylor(acc, emb, g_emb)._replace(
+                access=acc.access.like([
+                    priority_lib.serve_update(a, loc, pcfg)
+                    for a, loc in zip(acc.access.shards, local)]))
+        mark("accum")
+
+        return updated(state, dense, table, (dense_opt_state, accum_sq),
+                       priority, acc, loss, g_dense)
 
     step.init_state = init_state
     return step

@@ -1450,3 +1450,141 @@ def test_kernel_ops_on_cuda_launch_their_kernels(dev):
         assert kernels_mod.launch_counts()[name] == before + 1, name
         first = out[0] if isinstance(out, tuple) else out
         assert first.device.type == "cuda", name
+
+
+def _bits(x) -> torch.Tensor:
+    from repro_torch.dist.packed import whole
+    return whole(x).detach().contiguous().cpu().view(torch.uint8)
+
+
+def _train_leaves(state) -> list:
+    return [state.params["embed_table"], state.opt[1], state.priority,
+            state.accum.access, state.accum.field_score]
+
+
+def _train_steps(mesh, steps: int, dev, state=None):
+    """dlrm-rm2 smoke over ``mesh`` for ``steps`` steps: (setup, state,
+    losses, (forward, bag_grad) launches a step)."""
+    tr = setup.build_recsys_training(configs.get("dlrm-rm2"), batch=256,
+                                     device=dev, model="smoke", mesh=mesh,
+                                     state=state)
+    st, losses, launches = tr.state, [], []
+    for s in range(steps):
+        kernel.reset_launches()
+        st, m = tr.step(st, tr.batch_fn(s))
+        losses.append(float(m["loss"]))
+        launches.append((kernel.launches["float32"],
+                         kernel.bag_grad_launches["float32"]))
+    return tr, st, losses, launches
+
+
+def test_train_over_devices_as_the_one_device_mesh(devs):
+    """dlrm-rm2 smoke, the state placed one row shard a card
+    (``make_mesh(n, devices=)``): shard i of the table, the adagrad
+    accumulator, the priority and the access EMA on card i, each a tensor
+    of its own; three steps, the forward and bag_grad once a shard a step;
+    every row-aligned leaf, the field score and the loss equal to
+    ``make_mesh(n)`` on the first card bit for bit after each step."""
+    from repro_torch.dist import make_mesh
+    from repro_torch.dist.packed import RowShards
+    n = len(devs)
+    _, one, l1, _ = _train_steps(make_mesh(n, device=devs[0]), 3, devs[0])
+    tr, many, ln, launches = _train_steps(make_mesh(n, devices=devs), 3,
+                                          devs[0])
+    table = many.params["embed_table"]
+    assert isinstance(table, RowShards) and table.base is None
+    for leaf in _train_leaves(many)[:4]:
+        assert [s.device for s in leaf.shards] == devs
+    assert launches == [(n, n)] * 3
+    assert ln == l1
+    for a, b in zip(_train_leaves(one), _train_leaves(many)):
+        assert torch.equal(_bits(a), _bits(b))
+
+
+def test_train_checkpoint_over_devices_restores_onto_fewer_cards(devs,
+                                                                 tmp_path):
+    """A state placed over n cards, saved after two steps, writes the
+    arrays the one-card mesh's save writes; restored onto two cards, its
+    next step equals the n-card state's next step bit for bit."""
+    import numpy as np
+
+    from repro_torch.ckpt.manager import CheckpointManager
+    from repro_torch.dist import make_mesh
+    n = len(devs)
+    tr, many, _, _ = _train_steps(make_mesh(n, devices=devs), 2, devs[0])
+    _, one, _, _ = _train_steps(make_mesh(n, device=devs[0]), 2, devs[0])
+    for label, st in (("many", many), ("one", one)):
+        CheckpointManager(str(tmp_path / label)).save(2, st)
+    files = [np.load(tmp_path / label / f"step_{2:010d}" / "host_0.npz")
+             for label in ("many", "one")]
+    assert sorted(files[0].files) == sorted(files[1].files)
+    for k in files[0].files:
+        assert files[0][k].tobytes() == files[1][k].tobytes(), k
+    batch = tr.batch_fn(2)
+    want, wm = tr.step(many, batch)
+    two = setup.build_recsys_training(
+        configs.get("dlrm-rm2"), batch=256, device=devs[0], model="smoke",
+        mesh=make_mesh(2, devices=devs[:2]))
+    restored, step = CheckpointManager(str(tmp_path / "many")).restore(
+        two.state)
+    assert step == 2
+    assert [s.device for s in restored.params["embed_table"].shards] == (
+        devs[:2])
+    got, gm = two.step(restored, batch)
+    assert float(gm["loss"]) == float(wm["loss"])
+    for a, b in zip(_train_leaves(want), _train_leaves(got)):
+        assert torch.equal(_bits(a), _bits(b))
+
+
+def test_hashed_train_over_devices_as_the_one_device_mesh(devs):
+    """The hashed step (``make_compressed_train_step(hashed_cfg=,
+    mesh=)``): the pool whole on the first card, each shard's window
+    copied to its card for the plan entry, its ``bag_grad`` rows copied
+    back into the one pool gradient; three steps equal to the one-card
+    mesh's bit for bit (pool, its accumulator, priority, access EMA,
+    loss), the plan entry once a shard a step."""
+    from repro_torch.dist import make_mesh
+    from repro_torch.models import embedding as E
+    from repro_torch.models import recsys as R
+    from repro_torch.optim import optimizers as opt
+    from repro_torch.store import hashed as H
+    from repro_torch.train.steps import make_compressed_train_step
+    cards = (50, 80, 30, 120)
+    dim, n = 16, len(devs)
+    vocab = sum(cards)
+    hcfg = H.HashedConfig(vocab=vocab, dim=dim, chunk_dim=8, num_hashes=4,
+                          num_slots=H.plan_pool_slots(vocab, dim, 8, 4.0))
+    model = R.make_dlrm(R.DLRMConfig(cardinalities=cards, embed_dim=dim,
+                                     num_dense=4, bot_mlp=(32, dim),
+                                     top_mlp=(64, 1)))
+    g = torch.Generator(device=devs[0])
+    g.manual_seed(5)
+    batches = [{"indices": torch.stack([torch.randint(
+        0, c, (128,), generator=g, device=devs[0]) for c in cards], 1),
+        "dense": torch.randn((128, 4), generator=g, device=devs[0]),
+        "labels": torch.randint(0, 2, (128,), generator=g,
+                                device=devs[0]).float()} for _ in range(3)]
+
+    def run(mesh):
+        step = make_compressed_train_step(
+            model.loss_from_emb, lambda b: E.globalize(b["indices"],
+                                                       model.spec),
+            lambda b: b["labels"], "embed_table", 0.2, len(cards),
+            hashed_cfg=hcfg, dense_optimizer=opt.adam(0.05), mesh=mesh)
+        gen = torch.Generator(device=devs[0])
+        gen.manual_seed(0)
+        params = dict(model.init(gen, devs[0]))
+        params["embed_table"] = H.init_hashed(hcfg, seed=0,
+                                              device=devs[0]).pool
+        st, out = step.init_state(params), []
+        for b in batches:
+            hg_kernel.reset_launches()
+            st, m = step(st, b)
+            out.append((float(m["loss"]), hg_kernel.total_launches()))
+        return st, out
+
+    one, o1 = run(make_mesh(n, device=devs[0]))
+    many, on = run(make_mesh(n, devices=devs))
+    assert on == o1 and all(k == n for _, k in on)
+    for a, b in zip(_train_leaves(one), _train_leaves(many)):
+        assert torch.equal(_bits(a), _bits(b))

@@ -316,9 +316,11 @@ def test_sharded_train_step_bit_equal_to_mesh1_and_near_jax():
     arch = tconfigs.get("dlrm-rm2")
     states = {}
     for n, m in ((1, None), (4, mesh)):
-        setup = tbuild(arch, batch=32, device=CPU, model="smoke", mesh=m)
-        states[n] = (setup, train_state_from_jax(jax.device_get(
-            jsetup.state)))
+        # mesh 4 places the reference's state (``place_train_state``)
+        setup = tbuild(arch, batch=32, device=CPU, model="smoke", mesh=m,
+                       state=train_state_from_jax(jax.device_get(
+                           jsetup.state)))
+        states[n] = (setup, setup.state)
     jstate, jstep = jsetup.state, jax.jit(jsetup.step)
     for s in range(2):
         nb = jsetup.ds.batch(32, s)
@@ -330,13 +332,14 @@ def test_sharded_train_step_bit_equal_to_mesh1_and_near_jax():
             got[n] = (state, float(m["loss"]))
         (s1, l1), (s4, l4) = got[1], got[4]
         assert l1 == l4
+        # the mesh-4 state's placed leaves read gathered whole
         for a, b in ((s1.params["embed_table"], s4.params["embed_table"]),
                      (s1.opt[1], s4.opt[1]), (s1.priority, s4.priority),
                      (s1.accum.access, s4.accum.access)):
-            np.testing.assert_array_equal(bits(a), bits(b))
+            np.testing.assert_array_equal(bits(a), bits(tdp.whole(b)))
         want = float(jm["loss"])
         assert abs(l4 - want) <= 1e-5 * max(1.0, abs(want))
-        np.testing.assert_array_equal(bits(s4.priority),
+        np.testing.assert_array_equal(bits(tdp.whole(s4.priority)),
                                       bits(jstate.priority))
 
 

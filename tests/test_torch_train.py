@@ -325,21 +325,27 @@ def test_field_mask_step_matches_jax():
 
 
 def test_step_refuses_unported_branches():
-    """The mesh branch runs now (tests/test_torch_dist_packed.py); a mesh
-    that is not a repro_torch.dist.Mesh is refused, and a mesh whose
-    shards span several devices trains nothing (the sharded step holds
-    the table on one device)."""
-    from repro_torch.dist import Mesh
-    from repro_torch.dist.packed import sharded_lookup_train
-    from repro_torch.train.steps import make_compressed_train_step
+    """The mesh branch runs on one device or several
+    (tests/test_torch_dist_packed.py, tests/test_torch_train_mesh.py): a
+    mesh whose shards span several devices gets its row windows; a mesh
+    that is not a repro_torch.dist.Mesh is refused, and so is a state
+    that was not placed (``place_train_state``) given to the sharded
+    step."""
+    from repro_torch.dist import Mesh, make_mesh
+    from repro_torch.dist.packed import train_windows
+    from repro_torch.train.steps import (TrainState,
+                                         make_compressed_train_step)
     with pytest.raises(TypeError, match="Mesh"):
         make_compressed_train_step(None, None, None, "embed_table", 0.1, 4,
                                    mesh=object())
     spread = Mesh(["cpu", "meta"])
-    with pytest.raises(NotImplementedError, match="one device"):
-        sharded_lookup_train(torch.zeros((8, 4)),
-                             torch.zeros((2, 1), dtype=torch.int64),
-                             mesh=spread)
+    assert train_windows(8, spread) == ((0, 4), (4, 4))
+    step = make_compressed_train_step(None, None, None, "embed_table", 0.1,
+                                      4, mesh=make_mesh(2, device="cpu"))
+    whole = TrainState(params={"embed_table": torch.zeros((8, 4))},
+                       opt=None, step=torch.zeros((), dtype=torch.int32))
+    with pytest.raises(TypeError, match="placed state"):
+        step(whole, {})
 
 
 def test_step_skips_nonfinite_loss():
