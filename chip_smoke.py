@@ -164,11 +164,11 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    bounds, their plain versions and ``F.embedding_bag`` over the
    dequantized pool;
 11. pipeline: ``python -m repro_torch.launch.pipeline --model full
-   --max-ind-range 12000000 --batch 65536 --steps 40`` through its
-   ``main``: dlrm-rm2 at its published widths over 64,184,832 rows (every
-   field capped at 12M rows: a cut of rows, not widths, from the train
+   --max-ind-range 6000000 --batch 65536 --steps 40`` through its
+   ``main``: dlrm-rm2 at its published widths over 34,184,704 rows (every
+   field capped at 6M rows: a cut of rows, not widths, from the train
    cell's 124,185,088 for the time limit) trained 40 steps (one checkpoint
-   of the ~17 GB train state), gradcheck,
+   of the ~9.2 GB train state), gradcheck,
    Taylor field pruning to 85% of the table bytes with a 16-step masked
    finetune, Eq. 8 quantization at a 50% budget, pack and its
    ``packed_store/v1`` checkpoint round trip, eval of 8 held-out batches
@@ -187,8 +187,8 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    stage seconds, the peak memory and each checkpoint's bytes and write
    rate;
 12. hashed pipeline: the same pipeline with ``--store-backend hashed``
-   over the same 64,184,832 rows (batch 65,536, 40 steps), the pool
-   fitted at ratio 100 in 16 row chunks (``store.hashed.fit_chunk_rows``):
+   over the same 34,184,704 rows (batch 65,536, 40 steps), the pool
+   fitted at ratio 100 in 9 row chunks (``store.hashed.fit_chunk_rows``):
    the fit's hashed_gather (ids entry: 13 a chunk, then the residual's
    gathers) and bag_grad (14 a chunk) launches, the ids entry in the eval
    and the serve; each chunk's scatter in the fit's first adj held bit
@@ -370,10 +370,17 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    ``digest``) and the loss equal phase 5's, and its peak (above what
    was allocated before it) within 1 GB of phase 5's (no whole
    gradient, no second state); (e)
-   ``launch.pipeline --mesh 2 --fast --max-ind-range 1000000``
-   (7,116,800 rows x 64, the 512-padded total) packed and hashed, through
+   ``launch.pipeline --fast --max-ind-range 1000000`` (7,116,800 rows x
+   64, the 512-padded total) at mesh 1, then with ``--mesh 2`` packed and
+   hashed, every stage from the placed state (the one-card case of the
+   pipeline over a ``--device`` list: prune a shard at a time, the fp32
+   eval one float32 dequant_bag a shard a batch, the snap a shard at a
+   time, the packs and the fit reading the table in row blocks), through
    ``pipeline_phase`` (launch counts x 2, the served lookups bit-equal to
-   the plain gather);
+   the plain gather); the packed mesh-2 record equal to mesh 1's on the
+   losses, the gradcheck's error, the tier rows, the bytes, the eval
+   losses and AUCs, the re-tiers, the hit rate and the final pack's
+   64-bit digest (``MESH_PIPELINE_SAME``);
    (f) ``python -m repro_torch.benchmarks.qps_sharded --emit-dir TMP``
    (smoke dlrm-rm2, meshes 1, 2, 4): each record through the schema tool.
    Prints p50 / p99 a request at each mesh, launches a request, the shard
@@ -533,10 +540,11 @@ TRAIN_STEPS = 9
 MAX_IND_RANGE = 24_000_000
 # the full-width pipeline: 40 steps, so that one checkpoint of the train
 # state is written (the reference's ckpt_every 40), every field capped at
-# 12M rows (64,184,832 rows: its two branches' checkpoints, packs and fit
-# at 124M rows took ~235 s of the 1200 s limit)
+# 6M rows (34,184,704 rows: its two branches' checkpoints, packs and fit
+# took ~130 s of the 1200 s limit at 12M rows on a slow host; the pipeline
+# at 124,185,088 and all 204,185,088 rows is scripts/pipeline_cards.py's)
 PIPELINE_STEPS = 40
-PIPELINE_MAX_IND_RANGE = 12_000_000
+PIPELINE_MAX_IND_RANGE = 6_000_000
 # phase 13: a snapshot line every 4 of wide&deep's 16 requests; the
 # bench_qps/v1 sweep at the reference's serve batches
 METRICS_EVERY = 4
@@ -583,6 +591,13 @@ MESHES = (1, 2, 4)
 MESH_N = 4
 MESH_TRAIN_STEPS = 3
 MESH_PIPELINE_ROWS = 1_000_000
+# phase 19(e)'s mesh-2 pipeline record equals mesh 1's on these keys
+# (tests/test_torch_pipeline_mesh.py's), the final pack's digest included
+MESH_PIPELINE_SAME = (
+    "train_losses", "finetune_losses", "gradcheck_max_abs_err",
+    "tier_rows_int8", "tier_rows_half", "tier_rows_fp32", "bytes_packed",
+    "eval_loss_fp32", "eval_loss_packed", "eval_auc_fp32", "eval_auc_packed",
+    "retiers", "cache_hit_rate", "final_pack_digest")
 SHARD_SUM_ITERS = 50
 # phase 20: the kernel record at the reference's shapes, wide&deep's fused
 # head and xDeepFM's; bag_matmul_train at wide&deep's widths; the recsys
@@ -2729,7 +2744,9 @@ def pipeline_phase(torch, kernels_mod, kernel, pipeline, argv: list,
     Returns (the record, the run's launches by kernel and, for
     dequant_bag, by payload dtype).  Phase 19(e) runs it with ``--mesh
     mesh`` in ``argv``: the train, finetune and eval gathers then launch
-    ``mesh`` times, the hashed serve its plan entry a shard."""
+    ``mesh`` times, the fp32 eval one float32 ``dequant_bag`` a shard a
+    batch (``sharded_lookup_train``'s forward over the placed table), the
+    hashed serve its plan entry a shard."""
     from repro_torch.kernels.hashed_gather import kernel as hg_kernel
     from repro_torch.store.hashed import CG_ITERS, FIT_CHUNK_ROWS
 
@@ -2766,13 +2783,19 @@ def pipeline_phase(torch, kernels_mod, kernel, pipeline, argv: list,
     # gather the ids entry on the fp32 pool
     by_dtype, by_entry = (counts["dequant_bag_by_dtype"],
                           counts["hashed_gather_by_entry"])
+    cfg = (pipeline.fast_config() if "--fast" in argv
+           else pipeline.PipelineConfig())
+    # under a mesh the fp32 eval reads the placed table through the
+    # float32 instance, one launch a shard a batch (its eval share)
+    fp32_eval = mesh * cfg.eval_batches if mesh > 1 else 0
     lookups = sum(kl[s]["dequant_bag"] for s in ("pack", "eval", "serve"))
     # under a mesh the hashed serve gathers through the plan entry, one
     # launch a shard
     plan = by_entry["float32"]
     wanted += [
         by_dtype["int8"] == by_dtype["bfloat16"] == by_dtype["float16"] == 0,
-        by_dtype["tiered"] == lookups,
+        by_dtype["tiered"] == lookups - fp32_eval,
+        kl["eval"]["dequant_bag"] >= fp32_eval,
         by_dtype["float32"] + by_dtype["tiered"] == counts["dequant_bag"],
         by_entry["int8"] == by_entry["ids_int8"] == 0,
         plan == 0 if mesh == 1 else plan % mesh == 0,
@@ -2790,10 +2813,9 @@ def pipeline_phase(torch, kernels_mod, kernel, pipeline, argv: list,
                    0.0 < rec["fit_relative_residual"] < 1.0,
                    kl["serve"]["hashed_gather"] > 0]
     else:
-        cfg = (pipeline.fast_config() if "--fast" in argv
-               else pipeline.PipelineConfig())
         wanted += [kl["pack"]["quantize_rowwise"] > 0,
-                   kl["eval"]["dequant_bag"] == mesh * cfg.eval_batches,
+                   kl["eval"]["dequant_bag"]
+                   == mesh * cfg.eval_batches + fp32_eval,
                    kl["serve"]["dequant_bag"] > 0]
     if not all(wanted):
         raise SystemExit(f"pipeline {label}: unexpected launches, record "
@@ -4736,17 +4758,35 @@ def mesh_phase(torch, serve, pipeline, kernels_mod, kernel, hg_kernel,
         f"each step; peak {got['max_memory_allocated_bytes'] / 1e9:.2f} GB "
         f"(mesh 1 {train_ref['max_memory_allocated_bytes'] / 1e9:.2f} GB)")
 
+    # (e): the pipeline at mesh 1, then at mesh 2 (every stage from the
+    # placed state, the one-device case of the pipeline over cards), held
+    # to mesh 1's record and final pack
+    cut = ["--fast", "--max-ind-range", str(MESH_PIPELINE_ROWS)]
+    one, by_path["mesh1_pipeline"] = pipeline_phase(
+        torch, kernels_mod, kernel, pipeline, cut, "mesh1_pipeline")
+    torch.cuda.empty_cache()
     for label, extra in (("mesh2_pipeline", []),
                          ("mesh2_pipeline_hashed",
                           ["--store-backend", "hashed"])):
         rec, counts = pipeline_phase(
             torch, kernels_mod, kernel, pipeline,
-            ["--mesh", "2", "--fast", "--max-ind-range",
-             str(MESH_PIPELINE_ROWS), *extra], label, mesh=2)
+            ["--mesh", "2", *cut, *extra], label, mesh=2)
         by_path[label] = counts
         summary[label] = {k: rec[k] for k in ("rows", "train_loss_last",
                                               "eval_auc_packed",
                                               "stage_seconds")}
+        if label == "mesh2_pipeline":
+            differ = {k: (rec[k], one[k]) for k in MESH_PIPELINE_SAME
+                      if rec[k] != one[k]}
+            if differ:
+                raise SystemExit(f"pipeline mesh 2 != mesh 1 on {differ}")
+            summary[label]["equal_to_mesh1"] = list(MESH_PIPELINE_SAME)
+            summary["mesh1_pipeline"] = {
+                k: one[k] for k in ("rows", "stage_seconds",
+                                    "final_pack_digest")}
+            log(f"pipeline mesh 2: {len(MESH_PIPELINE_SAME)} record keys "
+                f"and the final pack's digest {rec['final_pack_digest']} "
+                f"equal to mesh 1's")
         torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         summary["qps_sharded"], by_path["qps_sharded"] = mesh_qps_sharded(
@@ -6089,7 +6129,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # the SHARK pipeline at full width (with its metrics stream, checked in
-    # phase 13), then its hashed branch over the same 64,184,832 rows
+    # phase 13), then its hashed branch over the same 34,184,704 rows
     metrics_dir = tempfile.TemporaryDirectory()
     pipeline_metrics = os.path.join(metrics_dir.name, "pipeline.jsonl")
     pipeline_recs = {}

@@ -19,7 +19,8 @@ holds only real local rows), so the port does not allocate them: the last
 shard's rows are fewer, possibly none.  On one device (``make_mesh(n)``)
 each shard is a row view of the store, so sharding copies nothing and
 ``unshard_packed`` is the store itself; on distinct devices each shard is
-copied to its own.
+copied to its own, shard 0 too, so that no card pins the whole store
+(``shares_device`` says which).
 
 Step 2 is one launch a shard of the dequant-bag kernel's tiered entry
 with the shard's window (``dequant_bag_tiered_cuda(firsts=)``; on the CPU
@@ -37,7 +38,11 @@ forward on its rows on its device, and the backward runs ``bag_grad`` a
 shard into that shard's own (rows, D) gradient, so no (V, D) gradient
 exists on any device.  ``train_plan`` builds each shard's slots once a
 step and ``owned_slots`` hands each shard its own slots for the per-shard
-post-step.
+post-step.  The stages after training read a placed table through the
+same leaf: ``x[r0:r1]`` (a row block) and ``x[ids]`` (a row gather) read
+each row from the shard that owns it and assemble the rows on the mesh's
+first device, and ``row_pieces`` hands a stage each shard's window to
+write in place on its own device.
 """
 
 from __future__ import annotations
@@ -120,15 +125,25 @@ class ShardedPack:
         return int(total)
 
 
+def shares_device(mesh: Mesh) -> bool:
+    """True when every shard of ``mesh`` lives on one device: placing a
+    leaf (``place_rows``) or a store (``shard_packed``) then makes row
+    views of it, else a copy a shard."""
+    return len(mesh.distinct_devices()) == 1
+
+
 def shard_packed(packed: PackedStore, mesh: Mesh,
                  axis: str = "model") -> ShardedPack:
-    """Row-shard ``packed`` over ``axis`` at the reference's stride: views
-    on the store's device, copies on others; ``indirect`` once a distinct
-    device."""
+    """Row-shard ``packed`` over ``axis`` at the reference's stride.  On a
+    one-device mesh the shards are views (copies when the store lies on
+    another device); across devices every shard's windows are copies,
+    shard 0's on the store's own device too, so no shard pins the whole
+    store.  ``indirect`` once a distinct device."""
     if isinstance(packed, ShardedPack):
         packed = unshard_packed(packed)
     n = check_mesh(mesh, axis)
     src = packed.indirect.device
+    copy = not shares_device(mesh)
     rows = [packed.payload8.shape[0], packed.payload16.shape[0],
             packed.payload32.shape[0]]
     indirect = {d: packed.indirect.to(d) for d in mesh.distinct_devices()}
@@ -138,14 +153,15 @@ def shard_packed(packed: PackedStore, mesh: Mesh,
 
         def cut(x, t):
             f, c = win[t]
-            return x[f:f + c].to(dev)
+            return x[f:f + c].to(dev, copy=copy)
         shards.append(PackedStore(
             payload8=cut(packed.payload8, 0), scale8=cut(packed.scale8, 0),
             payload16=cut(packed.payload16, 1),
             scale16=cut(packed.scale16, 1),
             payload32=cut(packed.payload32, 2), indirect=indirect[dev]))
         firsts.append(tuple(f for f, _ in win))
-    base = packed if all(d == src for d in mesh.devices) else None
+    base = (packed if not copy and all(d == src for d in mesh.devices)
+            else None)
     return ShardedPack(shards, firsts, rows, mesh, base)
 
 
@@ -382,7 +398,9 @@ class RowShards:
     one-device mesh: placing copies nothing), else None.  The train step
     reads and writes the shards only; ``whole()`` gathers the leaf (the
     base itself, or the shards concatenated on the mesh's first
-    device)."""
+    device).  The later stages read rows without the whole: ``x[r0:r1]``
+    (``rows``) and ``x[ids]`` (``gather``), each row from its shard,
+    through the shards even when they are views."""
 
     def __init__(self, shards, mesh: Mesh, axis: str = "model",
                  base: torch.Tensor | None = None):
@@ -423,6 +441,52 @@ class RowShards:
         """New shards in this placement (an out-of-place update's)."""
         return RowShards(shards, self.mesh, self.axis)
 
+    def rows(self, r0: int, r1: int) -> torch.Tensor:
+        """Rows [r0, r1) on the mesh's first device: each shard's part of
+        the block copied from its device, in row order."""
+        dev = self.mesh.device
+        parts = []
+        for s, (f, r) in zip(self.shards, self.windows):
+            lo, hi = max(r0, f), min(r1, f + r)
+            if lo < hi:
+                parts.append(s[lo - f:hi - f].to(dev))
+        if not parts:
+            return torch.empty((0, *self.shape[1:]), dtype=self.dtype,
+                               device=dev)
+        return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+    def gather(self, ids: torch.Tensor) -> torch.Tensor:
+        """Rows ``ids`` (any shape of int) -> (*ids.shape, ...) on the mesh's
+        first device: each shard gathers the ids it owns on its own device
+        and its rows are written into their slots.  An id out of range
+        raises, as a tensor's gather does."""
+        dev = self.mesh.device
+        flat = ids.reshape(-1).to(torch.int64).to(dev)
+        v = self.shape[0]
+        if flat.numel() and not bool(((flat >= 0) & (flat < v)).all()):
+            raise IndexError(f"row id out of range for {v} rows")
+        out = torch.empty((flat.numel(), *self.shape[1:]), dtype=self.dtype,
+                          device=dev)
+        owner = torch.div(flat, self.windows[0][1], rounding_mode="floor")
+        for i, (s, (f, _)) in enumerate(zip(self.shards, self.windows)):
+            sel = torch.nonzero(owner == i).reshape(-1)
+            if sel.numel():
+                out[sel] = s[(flat[sel] - f).to(s.device)].to(dev)
+        return out.reshape(*ids.shape, *self.shape[1:])
+
+    def __getitem__(self, key):
+        """``x[r0:r1]`` -> ``rows``, ``x[ids]`` (an integer tensor) ->
+        ``gather``; nothing else (a placed leaf is written through its
+        shards, ``row_pieces``)."""
+        if isinstance(key, slice) and key.step in (None, 1):
+            r0, r1, _ = key.indices(self.shape[0])
+            return self.rows(r0, max(r0, r1))
+        if isinstance(key, torch.Tensor) and not (
+                key.is_floating_point() or key.dtype == torch.bool):
+            return self.gather(key)
+        raise TypeError(f"a RowShards leaf reads a row block or an id "
+                        f"tensor, not {key!r}")
+
 
 def place_rows(x: torch.Tensor, mesh: Mesh, axis: str = "model"
                ) -> RowShards:
@@ -431,7 +495,7 @@ def place_rows(x: torch.Tensor, mesh: Mesh, axis: str = "model"
     each window copied to its shard's device, the shard on ``x``'s own
     device included, so that no shard pins the whole."""
     windows = train_windows(x.shape[0], mesh, axis)
-    if len(mesh.distinct_devices()) == 1:
+    if shares_device(mesh):
         x = x.to(mesh.device)
         return RowShards([x[f:f + r] for f, r in windows], mesh, axis,
                          base=x)
@@ -443,6 +507,15 @@ def place_rows(x: torch.Tensor, mesh: Mesh, axis: str = "model"
 def whole(x):
     """A ``RowShards`` leaf gathered whole; any other leaf as it is."""
     return x.whole() if isinstance(x, RowShards) else x
+
+
+def row_pieces(x) -> list[tuple[int, torch.Tensor]]:
+    """(first global row, rows) of each shard of a ``RowShards`` leaf, on
+    its own device (views of the base on one device); a tensor is one
+    piece from row 0.  Writes to a piece land in the leaf."""
+    if isinstance(x, RowShards):
+        return [(f, s) for s, (f, _) in zip(x.shards, x.windows)]
+    return [(0, x)]
 
 
 class TrainPlan(NamedTuple):
@@ -566,9 +639,11 @@ __all__ = [
     "packed_pspecs",
     "place_packed",
     "place_rows",
+    "row_pieces",
     "shard_nbytes",
     "shard_packed",
     "shard_window",
+    "shares_device",
     "sharded_bag_lookup",
     "sharded_bag_lookup_rect",
     "sharded_bag_matmul",

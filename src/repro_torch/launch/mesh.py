@@ -89,6 +89,16 @@ def device_list(spec: str | None) -> list[str]:
     return names
 
 
+def card_count(spec: str | None) -> int:
+    """How many distinct devices ``--device spec`` names, read from the
+    names alone (no card is touched): a bare ``cuda`` is card 0, the
+    current device of a fresh process."""
+    def key(x):
+        d = torch.device("cuda" if x is None else x)
+        return d.type, d.index or 0
+    return len({key(x) for x in device_list(spec)})
+
+
 def check_device_arg(ap, args) -> None:
     """Parse-time check of ``--device`` against ``--mesh``: a list of
     several devices needs exactly one a shard (``ap.error`` otherwise)."""

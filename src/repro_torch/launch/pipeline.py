@@ -64,15 +64,35 @@ timeblocks (one observation a stage; the eval's two passes are one),
 the train loop's and the server's metrics, and the serving span catalog
 pre-registered.  ``main`` closes the sink on every exit path.
 
-``--mesh N`` (N > 1) row-shards the run over an N-shard mesh on the run's
-device (``repro_torch.dist``): the train and finetune steps over the
-placed state (``train.setup.place_train_state``, row views on the one
-device), the served-table eval (``sharded_lookup``) and the serve stage
-(the packed backend's row shards, or the hashed pool's), as the
-reference's ``--mesh``.  The table's rows must divide N.  The training
-setup is dlrm-rm2's.  A ``--device`` list of several cards is refused
-(NotImplementedError): the pipeline over several cards is ROADMAP.md
-Queue 1 item 11 (``launch.train`` trains over them).
+``--mesh N`` (N > 1) row-shards the run over an N-shard mesh, every shard
+on ``--device`` or shard ``i`` on the ``i``-th card of a ``--device``
+list (``launch.mesh.mesh_from_args``), as the reference's ``--mesh``
+over N devices.  Every stage works from the placed state that
+``train.setup.place_train_state`` leaves (``dist.packed.RowShards``
+leaves, a shard a card; row views of one table on one device, the same
+code path): the train and finetune steps a shard at a time; the
+gradcheck's sub-table and the resumed state's loss gathered from the
+shards that own the rows; the prune zeroing each shard's window on its
+card; the fp32 eval through ``sharded_lookup_train``'s forward (one
+``dequant_bag`` a shard a batch); the Eq. 8 plan from the priorities
+gathered on the first card, the snap a shard at a time; the packs
+(``ps.pack``, the server's, its re-tiers' ``repack_delta``) and the
+hashed fit reading the table in ``CHUNK_ROWS`` / ``FIT_CHUNK_ROWS``
+blocks from the shards that own them; the served eval and the serve
+stage over the packed backend's row shards (or the hashed pool's).  No
+stage after the set-up makes the whole fp32 table on one device; the
+packs (one whole pack at 204,185,088 rows and a ratio of ~0.28 is ~15 GB)
+live on the mesh's first card, as the server's pack of record.  The
+table's rows must divide N; the training setup is dlrm-rm2's.  Over two
+or more distinct cards ``--model full`` runs all 204,185,088 rows; on
+one card every field is capped at ``FULL_MAX_IND_RANGE``.  Checkpoints
+are elastic: ``--resume`` over another device list restores onto its
+mesh.  The record adds ``devices`` (a shard's each),
+``setup_peak_bytes_each``, ``stage_peak_bytes_each`` and
+``device_peak_bytes_each`` (each distinct card's peak during the set-up,
+during the stages after it, and over the whole run) and
+``final_pack_digest`` (``store_digest`` of the served store after the
+final re-tier).
 """
 
 from __future__ import annotations
@@ -88,19 +108,21 @@ import tempfile
 import numpy as np
 import torch
 
-from repro_torch import configs, kernels, obs, resolve_device, sync
+from repro_torch import configs, kernels, obs, sync
 from repro_torch.ckpt.manager import CheckpointManager, tree_paths
 from repro_torch.core import metrics as metrics_lib
 from repro_torch.core import packed_store as ps
 from repro_torch.core.pruning import memory_fraction
 from repro_torch.core.qat_store import (CHUNK_ROWS, FQuantConfig, QATStore,
                                         snap_)
-from repro_torch.dist import make_mesh
-from repro_torch.dist.packed import shard_packed, sharded_lookup, whole
+from repro_torch.dist.packed import (RowShards, row_pieces, shard_packed,
+                                     sharded_lookup, sharded_lookup_train,
+                                     whole)
 from repro_torch.core.tiers import (assign_tiers, plan_thresholds_for_ratio,
                                     tier_counts)
 from repro_torch.kernels.dequant_bag.autodiff import lookup_train
-from repro_torch.launch.mesh import device_list
+from repro_torch.launch.mesh import (card_count, check_device_arg,
+                                     mesh_from_args)
 from repro_torch.obs.trace import timeblock
 from repro_torch.serve.loop import SERVE_PHASES, serve_forward
 from repro_torch.serve.online import OnlineConfig, OnlineServer
@@ -121,7 +143,7 @@ class PipelineConfig:
     steps: int = 120
     batch: int = 64
     lr: float = 0.05
-    mesh: int = 1
+    mesh: int = 1                # shards: on ``device``, or one a listed card
     ckpt_dir: str = os.path.join(tempfile.gettempdir(),
                                  "repro_torch_pipeline")
     ckpt_every: int = 40
@@ -141,7 +163,8 @@ class PipelineConfig:
     hash_ratio: float = 100.0    # fp32/pool target (store_backend=hashed)
     model: str = "smoke"         # "smoke" | "full" (published widths)
     max_ind_range: int | None = None  # cap on every field's rows
-    device: str | None = None    # None = cuda (raises when absent)
+    device: str | None = None    # None = cuda (raises when absent); a
+                                 # comma-separated list: a card a shard
 
 
 def fast_config(**overrides) -> PipelineConfig:
@@ -154,25 +177,79 @@ def fast_config(**overrides) -> PipelineConfig:
 
 def _bits_equal(tree_a, tree_b) -> bool:
     """Leaf for leaf: tensors of one dtype and shape with the same bytes;
-    other leaves equal."""
+    other leaves equal.  Two placed leaves of one placement compare shard
+    by shard, on their own devices."""
     la = [leaf for _, leaf in tree_paths(tree_a)]
     lb = [leaf for _, leaf in tree_paths(tree_b)]
     if len(la) != len(lb):
         return False
     for a, b in zip(la, lb):
-        a, b = whole(a), whole(b)
-        if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
-            if not (isinstance(a, torch.Tensor)
-                    and isinstance(b, torch.Tensor)
-                    and a.dtype == b.dtype and a.shape == b.shape):
-                return False
-            bytes_a = a.detach().reshape(-1).view(torch.uint8)
-            bytes_b = b.detach().reshape(-1).to(a.device).view(torch.uint8)
-            if not torch.equal(bytes_a, bytes_b):
-                return False
-        elif a != b:
+        if (isinstance(a, RowShards) and isinstance(b, RowShards)
+                and a.windows == b.windows):
+            a, b = a.shards, b.shards
+        else:
+            a, b = [whole(a)], [whole(b)]
+        if not all(_leaf_bits_equal(x, y) for x, y in zip(a, b)):
             return False
     return True
+
+
+def _leaf_bits_equal(a, b) -> bool:
+    if not (isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor)):
+        return a == b
+    if not (isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor)
+            and a.dtype == b.dtype and a.shape == b.shape):
+        return False
+    return torch.equal(a.detach().reshape(-1).view(torch.uint8),
+                       b.detach().reshape(-1).to(a.device).view(torch.uint8))
+
+
+DIGEST_BLOCK = 1 << 25
+
+
+def store_digest(tree) -> int:
+    """A 64-bit digest of a store's bytes (a ``PackedStore``, a hashed
+    store's pool): each leaf's bytes, each times a weight of its position
+    and its leaf, summed mod 2^64 on the leaf's device in blocks of
+    ``DIGEST_BLOCK`` bytes.  Equal stores give equal digests on any
+    device."""
+    total = 0
+    for li, (_, leaf) in enumerate(tree_paths(tree)):
+        if not isinstance(leaf, torch.Tensor):
+            continue
+        b = leaf.detach().contiguous().reshape(-1).view(torch.uint8)
+        acc = torch.zeros((), dtype=torch.int64, device=b.device)
+        for i0 in range(0, b.numel(), DIGEST_BLOCK):
+            i1 = min(b.numel(), i0 + DIGEST_BLOCK)
+            w = torch.arange(i0, i1, dtype=torch.int64, device=b.device)
+            acc += (b[i0:i1].to(torch.int64) * (w * 1000003 + 7919 * li
+                                                 + 12345)).sum()
+        total = (total + int(acc)) % 2 ** 64
+    return total
+
+
+def table_rows(table, g: torch.Tensor) -> torch.Tensor:
+    """fp32 rows ``g`` (any shape) of the trained table: a tensor's plain
+    gather, or a placed table's through ``sharded_lookup_train``'s forward
+    (one ``dequant_bag`` a shard over the ids it owns, on its card, the
+    partials summed on the mesh's first device: each row exactly once)."""
+    if isinstance(table, RowShards):
+        return sharded_lookup_train(table, g)
+    return table[g.to(torch.int64)]
+
+
+def _peaks(cards) -> list[int]:
+    """Each card's ``max_memory_allocated`` since its last reset; 0 for
+    the CPU."""
+    return [torch.cuda.max_memory_allocated(d) if d.type == "cuda" else 0
+            for d in cards]
+
+
+def _reset_peaks(cards) -> None:
+    for d in cards:
+        if d.type == "cuda":
+            torch.zeros(1, device=d)    # the card's allocator, first
+            torch.cuda.reset_peak_memory_stats(d)
 
 
 def unpacked_equal(a: ps.PackedStore, b: ps.PackedStore) -> bool:
@@ -246,16 +323,9 @@ def run_pipeline(cfg: PipelineConfig, state: TrainState | None = None,
     ``adj`` (``store.hashed.fit_pool_from_table``'s ``audit``), inside the
     pack stage's seconds and the record's ``fit_s``.
     """
-    if len(set(device_list(cfg.device))) > 1:
-        raise NotImplementedError(
-            "the pipeline runs on one device (--mesh N puts its N shards "
-            "there): training over several cards is launch.train's; the "
-            "pipeline over several cards (pack from a placed table, then "
-            "serve over the cards) is ROADMAP.md Queue 1 item 11")
-    device = resolve_device(device_list(cfg.device)[0])
-    mesh = make_mesh(cfg.mesh, device=device) if cfg.mesh > 1 else None
-    if device.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(device)
+    device, mesh = mesh_from_args(cfg.device, cfg.mesh)
+    cards = [device] if mesh is None else mesh.distinct_devices()
+    _reset_peaks(cards)
     arch = configs.get(cfg.arch)
     full = cfg.model == "full"
     num_dense = arch.num_dense if full else arch.smoke_num_dense
@@ -268,6 +338,12 @@ def run_pipeline(cfg: PipelineConfig, state: TrainState | None = None,
     indices_fn, state, reduced = setup.indices_fn, setup.state, setup.reduced
     train_step = setup.step
     del setup
+    # the set-up made the whole state on the first card and placed it:
+    # its peaks apart, then a fresh window for the stages
+    setup_peaks = _peaks(cards)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    _reset_peaks(cards)
 
     rec: dict = {"schema": "bench_pipeline/v1", "benchmark": "pipeline",
                  "arch": cfg.arch, "mesh": cfg.mesh,
@@ -298,10 +374,9 @@ def run_pipeline(cfg: PipelineConfig, state: TrainState | None = None,
         # report the restored state's loss on one batch
         with torch.inference_mode():
             b = batch_fn(cfg.steps)
-            params = dict(state.params,
-                          embed_table=whole(state.params["embed_table"]))
+            emb = table_rows(state.params["embed_table"], indices_fn(b))
             loss_first = loss_last = float(model.loss_from_emb(
-                params, model.embed(params, b), b).mean())
+                state.params, emb, b).mean())
     rec["train_loss_first"] = round(float(loss_first), 5)
     rec["train_loss_last"] = round(float(loss_last), 5)
     rec["train_losses"] = [float(x) for x in train_losses]
@@ -321,7 +396,7 @@ def run_pipeline(cfg: PipelineConfig, state: TrainState | None = None,
               for k, v in gb.items()}
         l0 = kernels.launch_counts()
         grad_err, grad_scale = gradcheck(
-            model, state.params, whole(state.params["embed_table"]),
+            model, state.params, state.params["embed_table"],
             indices_fn(gb), gb)
         launches["gradcheck"] = _launches_since(l0)
     stage_s["gradcheck"] = round(tb.seconds, 3)
@@ -354,18 +429,21 @@ def run_pipeline(cfg: PipelineConfig, state: TrainState | None = None,
 
     # physically drop pruned fields: zero their rows and priorities, in
     # place (zero priority -> coldest tier; zero rows quantize to zeros,
-    # so masked serving and zero-row serving agree exactly)
-    # (a placed state's leaves gathered: on the one device the table is
-    # the shards' base, no copy)
-    table = whole(state.params["embed_table"])
-    priority = whole(state.priority)
+    # so masked serving and zero-row serving agree exactly); a placed
+    # leaf a shard at a time, each its window's part on its own card
+    table, shard_priority = state.params["embed_table"], state.priority
     offsets = spec.offsets()
     for f in pruned:
         lo = int(offsets[f])
         hi = lo + int(spec.cardinalities[f])
-        table[lo:hi] = 0.0
-        priority[lo:hi] = 0.0
-    sync(device)
+        for leaf in (table, shard_priority):
+            for first, part in row_pieces(leaf):
+                a = max(lo, first) - first
+                b = min(hi, first + part.shape[0]) - first
+                if a < b:
+                    part[a:b] = 0.0
+    for d in cards:
+        sync(d)
     stage_s["prune"] = round(tb.stop(), 3)
     rec["fields_total"] = int(spec.num_fields)
     rec["fields_pruned"] = int(pruned.size)
@@ -373,7 +451,7 @@ def run_pipeline(cfg: PipelineConfig, state: TrainState | None = None,
         memory_fraction(mask, table_bytes), 4)
     serve_params = {k: v for k, v in state.params.items()
                     if k != "embed_table"}
-    state = None                  # the table lives on as ``table``
+    state = None        # ``table`` and ``shard_priority`` live on
 
     # quality on held-out batches: the fp32 table now, the served one
     # after the pack (the masked forward reads no pruned row, so zeroing
@@ -399,22 +477,32 @@ def run_pipeline(cfg: PipelineConfig, state: TrainState | None = None,
 
     # the eval stage is two passes, one either side of the pack; its
     # timeblocks record nothing, the stage is observed once below
+    l0 = kernels.launch_counts()
     with timeblock() as tb_eval:
-        loss_fp32, auc_fp32 = eval_quality(
-            lambda g: table[g.to(torch.int64)])
+        loss_fp32, auc_fp32 = eval_quality(lambda g: table_rows(table, g))
+    launches_fp32_eval = _launches_since(l0)
 
     # -------------------------------------------------------- quantize
+    # the Eq. 8 plan reads every priority (gathered on the first card: on
+    # one device the shards' base itself); assign and snap are row-wise,
+    # a shard at a time on its card
     tb = timeblock("pipeline.quantize").start()
+    priority = whole(shard_priority)
     tier_cfg = plan_thresholds_for_ratio(priority, spec.dim,
                                          cfg.target_ratio)
     final_cfg = FQuantConfig(tiers=tier_cfg, stochastic=False)
-    tiers = assign_tiers(priority, tier_cfg)
-    snap_(table, tiers, final_cfg)
+    counts = [0, 0, 0]
+    for (_, part), (_, pri) in zip(row_pieces(table),
+                                   row_pieces(shard_priority)):
+        tiers = assign_tiers(pri, tier_cfg)
+        snap_(part, tiers, final_cfg)
+        counts = [a + b for a, b in zip(counts, tier_counts(tiers))]
+        del tiers
+    del shard_priority
     store = QATStore(table=table, priority=priority)
-    sync(device)
+    for d in cards:
+        sync(d)
     stage_s["quantize"] = round(tb.stop(), 3)
-    counts = tier_counts(tiers)
-    del tiers
     rec["tier_rows_int8"] = int(counts[0])
     rec["tier_rows_half"] = int(counts[1])
     rec["tier_rows_fp32"] = int(counts[2])
@@ -490,7 +578,8 @@ def run_pipeline(cfg: PipelineConfig, state: TrainState | None = None,
         else:
             loss_packed, auc_packed = eval_quality(
                 lambda g: ps.lookup_fused(restored_packed, g), keep)
-        launches["eval"] = _launches_since(l0)
+        launches["eval"] = {k: v + launches_fp32_eval[k]
+                            for k, v in _launches_since(l0).items()}
     obs.observe("pipeline.eval_us", (tb_eval.seconds + tb.seconds) * 1e6)
     stage_s["eval"] = round(tb_eval.seconds + tb.seconds, 3)
     if audit is not None:
@@ -529,13 +618,18 @@ def run_pipeline(cfg: PipelineConfig, state: TrainState | None = None,
     # pool comes through serving untouched)
     server.retier()
     if hashed_backend is None:
-        verify_serve = unpacked_equal(server.host_packed,
-                                      ps.pack(server.store, final_cfg))
+        served = server.host_packed
+        verify_serve = unpacked_equal(served, ps.pack(server.store,
+                                                      final_cfg))
     else:
-        verify_serve = _bits_equal(server.backend.hs.pool, hs.pool)
+        served = server.backend.hs.pool
+        verify_serve = _bits_equal(served, hs.pool)
     launches["serve"] = _launches_since(l0)
-    sync(device)
+    for d in cards:
+        sync(d)
     stage_s["serve"] = round(tb.stop(), 3)
+    rec["final_pack_digest"] = store_digest(served)
+    del served
     rec["serve_requests"] = int(cfg.serve_requests)
     rec["serve_batch"] = int(cfg.serve_batch)
     rec["steady_qps"] = round(loop_res.steady_qps, 1)
@@ -546,6 +640,9 @@ def run_pipeline(cfg: PipelineConfig, state: TrainState | None = None,
     rec["verify_accum_checkpointed"] = bool(accum_ckpt_ok)
     rec["store_backend"] = cfg.store_backend
     rec["stage_seconds"] = stage_s
+    # each card's peak over the stages, and over the whole run
+    stage_peaks = _peaks(cards)
+    peaks = [max(a, b) for a, b in zip(setup_peaks, stage_peaks)]
     rec.update({
         "model": cfg.model, "device": device.type,
         "device_name": (torch.cuda.get_device_name(device)
@@ -555,9 +652,12 @@ def run_pipeline(cfg: PipelineConfig, state: TrainState | None = None,
         "serve_p50_us": loop_res.p50_us, "serve_p99_us": loop_res.p99_us,
         "kernel_launches": launches,
         "checkpoints": {"train": ckpt_writes, "pack": pmgr.writes},
+        "devices": [str(d) for d in (mesh.devices if mesh else [device])],
+        "setup_peak_bytes_each": setup_peaks,
+        "stage_peak_bytes_each": stage_peaks,
+        "device_peak_bytes_each": peaks,
         "max_memory_allocated_bytes": (
-            torch.cuda.max_memory_allocated(device)
-            if device.type == "cuda" else None)})
+            peaks[0] if device.type == "cuda" else None)})
     return rec
 
 
@@ -575,18 +675,19 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(
         description="The SHARK pipeline: train, prune, quantize, pack, "
                     "serve.",
-        epilog="The row-sharded run: --mesh N (all N shards on --device; "
-               "a list of several cards is refused, ROADMAP.md Queue 1 "
-               "item 11).")
+        epilog="The row-sharded run: --mesh N, all N shards on --device "
+               "or shard i on the i-th card of a --device list "
+               "(cuda:0,cuda:1,...); over two or more cards --model full "
+               "runs every row.")
     ap.add_argument("--arch", default="dlrm-rm2", choices=("dlrm-rm2",))
     ap.add_argument("--fast", action="store_true",
                     help="CI-sized budgets (see fast_config)")
     ap.add_argument("--steps", type=int, default=None)
     ap.add_argument("--batch", type=int, default=None)
     ap.add_argument("--mesh", type=int, default=1,
-                    help="row-shard training and serving over an N-shard "
-                         "'model' mesh (repro_torch.dist; every shard on "
-                         "--device)")
+                    help="row-shard every stage over an N-shard 'model' "
+                         "mesh (repro_torch.dist; every shard on --device, "
+                         "or shard i on its i-th entry)")
     ap.add_argument("--ckpt-dir", default=PipelineConfig.ckpt_dir)
     ap.add_argument("--resume", action="store_true",
                     help="keep --ckpt-dir and resume training from the "
@@ -609,10 +710,11 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "reduced test size")
     ap.add_argument("--max-ind-range", type=int, default=None,
                     help="cap on every field's rows (default "
-                         f"{FULL_MAX_IND_RANGE:,} for full, none for "
-                         "smoke)")
+                         f"{FULL_MAX_IND_RANGE:,} for full on one card, "
+                         "none over two or more cards or for smoke)")
     ap.add_argument("--device", default=None,
-                    help="torch device; default cuda (raises when absent)")
+                    help="torch device, or a comma-separated list of one a "
+                         "--mesh shard; default cuda (raises when absent)")
     ap.add_argument("--metrics-out", default=None, metavar="PATH",
                     help="enable the repro_torch.obs registry and write "
                          "metrics_snapshot/v1 JSONL here (a line every "
@@ -621,12 +723,20 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--metrics-every", type=int, default=16,
                     help="snapshot cadence in ticks for --metrics-out (0 = "
                          "final snapshot only)")
-    return ap.parse_args(argv)
+    args = ap.parse_args(argv)
+    if args.mesh < 1:
+        ap.error("--mesh must be >= 1")
+    check_device_arg(ap, args)
+    return args
 
 
 def config_from_args(args: argparse.Namespace) -> PipelineConfig:
+    """The run's config; ``--model full`` caps every field at
+    ``FULL_MAX_IND_RANGE`` rows unless the mesh spans two or more
+    distinct cards (``launch.train``'s rule)."""
     cap = args.max_ind_range
-    if cap is None and args.model == "full":
+    if (cap is None and args.model == "full"
+            and card_count(args.device) < 2):
         cap = FULL_MAX_IND_RANGE
     overrides = dict(arch=args.arch, mesh=args.mesh, ckpt_dir=args.ckpt_dir,
                      resume=args.resume, target_ratio=args.target_ratio,

@@ -38,9 +38,10 @@ class HotRowCache(NamedTuple):
         return self.ids.shape[0]
 
 
-def empty_cache(vocab: int, dim: int, device="cpu") -> HotRowCache:
-    """Disabled cache: every lookup misses (rows kept (1, D) so gathers
-    stay well-formed)."""
+def empty_cache(vocab: int, dim: int, device) -> HotRowCache:
+    """Disabled cache on ``device`` (the store's; no default, so no caller
+    leaves one on the CPU by omission): every lookup misses (rows kept
+    (1, D) so gathers stay well-formed)."""
     return HotRowCache(
         ids=torch.zeros((0,), dtype=torch.int32, device=device),
         rows=torch.zeros((1, dim), dtype=torch.float32, device=device),

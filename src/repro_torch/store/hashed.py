@@ -160,7 +160,10 @@ def fit_pool_from_table(table: torch.Tensor, cfg: HashedConfig,
                         cg_iters: int = CG_ITERS,
                         audit=None) -> HashedStore:
     """Least-squares fit of an fp32 pool to ``table`` (V, D), on the
-    table's device: ``cg_iters`` conjugate-gradient steps on the normal
+    table's device (a placed ``dist.packed.RowShards`` table: its mesh's
+    first device, each chunk read from the shards that own its rows, so
+    the fit equals the whole table's bit for bit and no device holds the
+    whole): ``cg_iters`` conjugate-gradient steps on the normal
     equations from the scatter-mean seed (already exact when draws never
     collide).  The residual at high compression is the hashing scheme's
     own loss, not the solver's.
@@ -180,7 +183,6 @@ def fit_pool_from_table(table: torch.Tensor, cfg: HashedConfig,
     v, d = table.shape
     c, z, nh, s = cfg.num_chunks, cfg.chunk_dim, cfg.num_hashes, cfg.num_slots
     dev = table.device
-    x = table.to(torch.float32)
     step = fit_chunk_rows(cfg)
     bounds = [(r0, min(v, r0 + step)) for r0 in range(0, v, step)]
 
@@ -221,7 +223,7 @@ def fit_pool_from_table(table: torch.Tensor, cfg: HashedConfig,
         counts += torch.bincount(
             (kept[0] if kept else plan(r0, r1)[0]).reshape(-1)
             .to(torch.int64), minlength=s).to(torch.float32)
-    b = adj(lambda r0, r1: x[r0:r1], check=audit)
+    b = adj(lambda r0, r1: table[r0:r1].to(torch.float32), check=audit)
     pool = b / counts.clamp_min(1.0)[:, None]      # scatter-mean seed
     if cg_iters > 0:
         def gram(p):
@@ -247,7 +249,8 @@ def fit_pool_from_table(table: torch.Tensor, cfg: HashedConfig,
 def fit_residual(hs: HashedStore, cfg: HashedConfig,
                  table: torch.Tensor) -> float:
     """``||fwd(pool) - table|| / ||table||`` over every row, in row chunks
-    (the pool read back through the serving gather; 1 for a zero pool)."""
+    of ``table`` (a tensor or a placed ``RowShards``; the pool read back
+    through the serving gather; 1 for a zero pool)."""
     num = torch.zeros((), dtype=torch.float64, device=table.device)
     den = torch.zeros((), dtype=torch.float64, device=table.device)
     for r0 in range(0, table.shape[0], FIT_CHUNK_ROWS):

@@ -1588,3 +1588,67 @@ def test_hashed_train_over_devices_as_the_one_device_mesh(devs):
     assert on == o1 and all(k == n for _, k in on)
     for a, b in zip(_train_leaves(one), _train_leaves(many)):
         assert torch.equal(_bits(a), _bits(b))
+
+
+def test_shard_packed_over_devices_copies_every_window(devs):
+    """Across cards every shard's payloads and scales are copies of its
+    own window, shard 0's on the store's card too: no shard's storage is
+    larger than its window, so no card keeps the whole store alive once
+    the caller drops it; on one card they stay views of the store."""
+    from repro_torch.dist import make_mesh
+    from repro_torch.dist import packed as dp
+    store, cfg, _ = _mesh_store(devs[0], 13)
+    packed = tps.pack(store, cfg)
+    whole = {leaf.untyped_storage().data_ptr() for leaf in packed}
+    multi = dp.shard_packed(packed, make_mesh(len(devs), devices=devs))
+    assert multi.base is None
+    for sh, d in zip(multi.shards, devs):
+        for leaf in list(sh)[:5]:
+            assert leaf.device == d
+            assert leaf.untyped_storage().nbytes() == (
+                leaf.numel() * leaf.element_size())
+            assert leaf.untyped_storage().data_ptr() not in whole
+    one = dp.shard_packed(packed, make_mesh(len(devs), device=devs[0]))
+    assert one.base is packed
+    assert all(torch.equal(_bytes(a), _bytes(b))
+               for a, b in zip(dp.unshard_packed(multi), packed))
+
+
+@pytest.mark.parametrize("backend", ["packed", "hashed"])
+def test_pipeline_over_devices_as_the_one_device_mesh(devs, tmp_path,
+                                                      backend):
+    """``launch.pipeline --device cuda:0,...,cuda:n-1 --mesh n`` (smoke
+    size, ``--fast``): every verify flag true; the losses, the gradcheck's
+    error, the tier rows, the bytes, the eval losses and AUCs, the
+    re-tiers, the hit rate, the final store's digest and every stage's
+    launches equal to ``--mesh n`` on the first card's; the fp32 eval one
+    float32 ``dequant_bag`` a shard a batch; a peak reported a card."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import pipeline
+    n = len(devs)
+    recs = {}
+    for label, device in (("one", str(devs[0])),
+                          ("many", ",".join(str(d) for d in devs))):
+        with contextlib.redirect_stdout(io.StringIO()):
+            recs[label] = pipeline.main([
+                "--model", "smoke", "--fast", "--mesh", str(n), "--device",
+                device, "--store-backend", backend, "--ckpt-dir",
+                str(tmp_path / label)])
+        torch.cuda.empty_cache()
+    one, many = recs["one"], recs["many"]
+    assert pipeline.verify_failures(many) == []
+    for k in ("train_losses", "finetune_losses", "gradcheck_max_abs_err",
+              "tier_rows_int8", "tier_rows_half", "tier_rows_fp32",
+              "bytes_packed", "eval_loss_fp32", "eval_loss_packed",
+              "eval_auc_fp32", "eval_auc_packed", "retiers",
+              "cache_hit_rate", "final_pack_digest", "kernel_launches"):
+        assert many[k] == one[k], k
+    assert many["devices"] == [str(d) for d in devs]
+    assert one["devices"] == [str(devs[0])] * n
+    assert len(many["device_peak_bytes_each"]) == n
+    assert all(p > 0 for p in many["stage_peak_bytes_each"])
+    fast = pipeline.fast_config()
+    kl = many["kernel_launches"]["eval"]["dequant_bag"]
+    assert kl == n * fast.eval_batches * (2 if backend == "packed" else 1)

@@ -22,7 +22,7 @@ from repro_torch.launch import serve as tserve
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "scripts").glob("*.py"))
 
 
 def _imported_roots(path: Path) -> set[str]:

@@ -17,6 +17,8 @@ there.  The cards themselves: ``tests/test_torch_cuda.py::
 
 from __future__ import annotations
 
+import contextlib
+import io
 import os
 
 import jax
@@ -294,14 +296,14 @@ def test_hashed_step_from_cloned_windows_near_mesh1_and_jax(monkeypatch):
 
 
 def test_device_lists_parse_and_absent_cards_raise(tmp_path):
-    """(e) ``--device`` as a list: the train and serve CLIs parse ``cpu,cpu
-    --mesh 2`` (shard i on the i-th entry), a list whose length is not
-    ``--mesh`` errors, a card that is not present raises (nothing falls
-    back to fewer cards or to the CPU), and the pipeline refuses a list of
-    several devices.  The train CLI at ``--device cpu,cpu --mesh 2``
-    trains and checkpoints; the rerun at mesh 1 resumes it, and its last
-    loss equals a mesh-1 run's."""
-    for cli in (ttrain, tserve):
+    """(e) ``--device`` as a list: the train, serve and pipeline CLIs
+    parse ``cpu,cpu --mesh 2`` (shard i on the i-th entry), a list whose
+    length is not ``--mesh`` errors, a card that is not present raises
+    (nothing falls back to fewer cards or to the CPU), and the pipeline
+    over a list of several devices runs to its end.  The train CLI at
+    ``--device cpu,cpu --mesh 2`` trains and checkpoints; the rerun at mesh
+    1 resumes it, and its last loss equals a mesh-1 run's."""
+    for cli in (ttrain, tserve, tpipe):
         args = cli.parse_args(["--device", "cpu,cpu", "--mesh", "2",
                                "--model", "smoke"])
         dev, mesh = tlmesh.mesh_from_args(args.device, args.mesh)
@@ -323,10 +325,12 @@ def test_device_lists_parse_and_absent_cards_raise(tmp_path):
                 f"cuda:{torch.cuda.device_count()}", 1)
     with pytest.raises(ValueError):
         tlmesh.mesh_from_args("cpu,cpu", 3)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tpipe.run_pipeline(tpipe.fast_config(
-            device="cuda:0,cuda:1", mesh=2, model="smoke",
-            ckpt_dir=str(tmp_path / "p")))
+    with contextlib.redirect_stdout(io.StringIO()):
+        prec = tpipe.main(["--device", "cpu,cpu", "--mesh", "2", "--model",
+                           "smoke", "--fast", "--ckpt-dir",
+                           str(tmp_path / "p")])
+    assert prec["devices"] == ["cpu", "cpu"] and prec["mesh"] == 2
+    assert tpipe.verify_failures(prec) == [] and prec["reduced"] == []
 
     def train(argv):
         return ttrain.run(ttrain.parse_args(
