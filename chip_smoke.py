@@ -26,11 +26,14 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    shard), each shard's launch against the windowed per-shard composition
    through the plain bag and through three single-tier launches; bag_grad
    at K = 1 and 8, with and without scales, 40% masked slots, heavy duplicates, B that no block divides, D = 64, 33
-   and 200, B = 0, and on its schedules (``kernels/cases.py``: one row of
-   65,536 slots, runs at the heavy-run threshold and one either side,
-   zero coefficients over a NaN cotangent, D 1/8/10/64/128 off 16-byte
-   alignment), with and without a precomputed grouping, also against
-   bag_grad_rowgrid; bag_matmul for every payload dtype, K = 1 and K > 1,
+   and 200, B = 0, and on its schedules and the (B, K)-grid oracle's
+   (``kernels/cases.py``: one row of 65,536 slots, runs at the heavy-run
+   threshold and one either side, zero coefficients over a NaN
+   cotangent, D 1/8/10/33/64/128/200 off 16-byte alignment; one row's
+   65,536 slots beside other rows of its bucket, every slot in one
+   bucket, rows repeating inside and across the oracle's 32-slot windows,
+   runs of rows sharing a bucket at K = 3, B = 0), with and without a
+   precomputed grouping, also against bag_grad_rowgrid; bag_matmul for every payload dtype, K = 1 and K > 1,
    30% dead slots, with and without ``scale_after``, B and H that no tile
    divides, D = 200 and the full-width shapes of wide&deep (B 512, K 40,
    D 32, H 1024) and xDeepFM (B 512, K 39, D 10, H 400), and on B
@@ -58,6 +61,9 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    dtype, D = 64 and 33, K = 1 and 8, B = 0, and a NaN row (a NaN scale
    for int8) in a zero-weight slot, where the rowgrid forms give NaN bags
    and the tiled forms finite ones, each equal to its own plain version;
+   its vector path at D 1/10/33/200 (a payload off 16-byte alignment at
+   D 10) and K 1-8 with an inf row (an inf scale for int8) under a zero
+   weight, and on the gather cases (the 2.1 GB int8 payload included);
    bag_grad_rowgrid at bag_grad's shapes and a NaN cotangent under zero
    coefficients (skipped by both);
 3. serve: ``repro_torch.launch.serve`` at ``--model full`` — dlrm-rm2 at
@@ -95,18 +101,24 @@ Phases, each of which stops the run with a non-zero exit when it fails:
 6. measure training: dequant_bag at the training forward (one batch's
    1,703,936 slots over the 124,185,088-row table) bit for bit against
    its plain version and ``F.embedding_bag``, timed beside both and its
-   bound; bag_grad on the real duplicate pattern of one
+   bound, and dequant_bag_rowgrid on the same slots (bit-equal to it,
+   timed before and after the library call); bag_grad on the real
+   duplicate pattern of one
    training batch (1,703,936 slots, rows renumbered by rank so that the
    plain version's dense output fits beside the kernel's) bit for bit,
    then timed at the training shapes (the full 124,185,088-row output),
    with its sort and with the slots grouped beforehand, beside the zero
    fill, its byte bound and chain bound (the longest row's slots x the FMA
    latency at the card's top clock), the plain version and ``index_add_``;
-   bag_grad_rowgrid on the same slots (bit-equal to bag_grad, one serial
-   launch timed at the full vocab) and at the pipeline gradcheck's shape
+   bag_grad_rowgrid on the same slots (bit-equal to bag_grad; 10
+   launches timed at the full vocab, twice, around bag_grad and
+   ``index_add_`` timed again) and at the pipeline gradcheck's shape
    (8 samples x 26 fields into the rows they touch: bit-equal to its plain
    version and to bag_grad, timed beside both, its bound and
-   ``index_add_``);
+   ``index_add_``).  ``--rowgrid-only`` builds the kernels and runs phase
+   2's bag_grad schedule and oracle checks and this phase's timings at
+   phase 5's first batch, drawn from the data stream without the train
+   state (prints a ``rowgrid`` line, no kernels line, no ok line);
 7. resume: ``python -m repro_torch.launch.train --model smoke`` is killed
    after its first checkpoint and rerun; the rerun must resume from it;
 8. online fused serve: ``repro_torch.launch.serve --online --fuse-matmul``
@@ -789,11 +801,13 @@ def check_bag_grad(torch, ops, ref) -> float:
 
 
 def check_bag_grad_schedules(torch, kernel, ref) -> float:
-    """Phase 2: bag_grad's schedules (one row of every slot, runs at the
+    """Phase 2: bag_grad's schedules and the (B, K)-grid oracle's
+    (``cases.bag_grad_cases``: one row of every slot, runs at the
     heavy-run threshold and one either side, zero coefficients over a NaN
-    cotangent, D 1-128 off 16-byte alignment), each with and without a
-    precomputed grouping, bit for bit against its plain version and the
-    (B, K)-grid oracle."""
+    cotangent, D 1-200 off 16-byte alignment; a hot row's bucket, every
+    slot in one bucket, rows repeating inside and across the oracle's
+    windows, K 3, B 0), each with and without a precomputed grouping, bit
+    for bit against the plain version and the oracle."""
     from repro_torch.kernels import cases
     dev = torch.device("cuda")
     worst, n = 0.0, 0
@@ -819,8 +833,11 @@ def check_bag_grad_schedules(torch, kernel, ref) -> float:
     log(f"kernel check: bag_grad bit-equal to plain and to "
         f"bag_grad_rowgrid in {n} schedule cases (one row of 65,536 slots; "
         f"runs of {kernel.HEAVY_RUN} +- 1 and {16 * kernel.HEAVY_RUN} + 0/1 "
-        f"slots; 30% zero coefficients over a NaN cotangent; D 1/8/10/64/"
-        f"128 off 16-byte alignment; each with and without a precomputed "
+        f"slots; 30% zero coefficients over a NaN cotangent; D 1/8/10/33/"
+        f"64/128/200 off 16-byte alignment; the oracle's buckets: one row's "
+        f"65,536 slots beside rows of its bucket, every slot in one bucket, "
+        f"runs of rows sharing a bucket, rows repeating inside and across "
+        f"32-slot windows, K 3, B 0; each with and without a precomputed "
         f"grouping; max abs err {worst})")
     return worst
 
@@ -883,10 +900,72 @@ def check_rowgrid(torch, ops, ref) -> tuple[float, float]:
                 and bits_equal(got[1::2], tiled[1::2])):
             raise SystemExit(f"dequant_bag_rowgrid NaN rule broken: {dtype}")
         n_dq += 1
+    # the vector path: every dtype at K 1-8 over ragged and wide D (a
+    # lane's last columns partial, G capped at 32 lanes), a payload off
+    # 16-byte alignment, and an inf row (an inf scale for int8) under a
+    # zero weight: NaN bags in the rowgrid forms only
+    for dtype in (torch.int8, torch.bfloat16, torch.float16,
+                  torch.float32):
+        for d in (1, 10, 33, 200):
+            v = 997
+            payload = _payload(torch, dtype, v, d, g, dev)
+            if d == 10:               # one element off 16-byte alignment
+                flat = torch.empty(v * d + 1, dtype=dtype, device=dev)
+                payload = flat[1:].view(v, d).copy_(payload)
+            scales = torch.rand(v, generator=g, device=dev) * 0.01
+            for k in range(1, 9):
+                b, bad = 37 + 8 * k, 5
+                idx = torch.randint(0, v, (b, k), generator=g, device=dev,
+                                    dtype=torch.int32)
+                idx[idx == bad] = bad + 1
+                w = torch.rand((b, k), generator=g, device=dev) + 0.5
+                w[torch.rand((b, k), generator=g, device=dev) < 0.3] = 0.0
+                idx[::3, k - 1], w[::3, k - 1] = bad, 0.0
+                sc = scales.clone()
+                if dtype == torch.int8:
+                    sc[bad] = float("inf")
+                else:
+                    payload[bad] = float("inf")
+                got = ops.dequant_bag_rowgrid(payload, sc, idx, w)
+                want = ref.dequant_bag_rowgrid_ref(payload, sc, idx, w)
+                tiled = ops.dequant_bag(payload, sc, idx, w)
+                torch.cuda.synchronize()
+                if not (scales_equal(got, want)
+                        and bool(torch.isnan(got[::3]).all())
+                        and bits_equal(got[torch.isfinite(got).all(1)],
+                                       tiled[torch.isfinite(got).all(1)])
+                        and int(torch.isfinite(got).all(1).sum())
+                        == b - len(range(0, b, 3))):
+                    raise SystemExit(f"dequant_bag_rowgrid != plain or tiled "
+                                     f"on the vector path: {dtype} D={d} "
+                                     f"K={k}")
+                live = torch.isfinite(got)
+                worst_dq = max(worst_dq, float((got[live] - want[live])
+                                               .abs().max()))
+                n_dq += 1
+    # the tiled kernel's gather cases (every dtype at D 1/10/32/33/64/128,
+    # K 1/8/40, payloads off 16-byte alignment, a NaN row under zero
+    # weights, the 2.1 GB int8 payload read past 2^31 bytes)
+    from repro_torch.kernels import cases
+    gather = cases.gather_cases(dev)
+    for c in gather:
+        args = (c.payload, c.scales, c.indices, c.weights)
+        got = ops.dequant_bag_rowgrid(*args)
+        want = ref.dequant_bag_rowgrid_ref(*args)
+        tiled = ops.dequant_bag(*args)
+        torch.cuda.synchronize()
+        fin = torch.isfinite(got).all(1)
+        if not (scales_equal(got, want) and bits_equal(got[fin], tiled[fin])):
+            raise SystemExit(f"dequant_bag_rowgrid != plain or tiled on case "
+                             f"{c.name}")
+        n_dq += 1
+    del gather
     log(f"kernel check: dequant_bag_rowgrid bit-equal to its plain version "
-        f"and to dequant_bag in {n_dq} cases (4 dtypes, D 64/33, K 1/8, B 0;"
-        f" a NaN row in a zero-weight slot: NaN bags in both rowgrid forms, "
-        f"finite in both tiled forms; max abs err {worst_dq})")
+        f"and to dequant_bag in {n_dq} cases (4 dtypes, D 1/10/33/64/200, K "
+        f"1-8, B 0, a payload off 16-byte alignment; the "
+        f"{len(cases.GATHER_CASE_NAMES) + 1} gather cases; a NaN or inf row "
+        f"in a zero-weight slot: NaN bags in both rowgrid forms, finite in "
+        f"both tiled forms; max abs err {worst_dq})")
 
     worst_grad, n_grad = 0.0, 0
     shapes = ((4096, 1, 1_000_000), (1001, 8, 5000), (1001, 8, 50),
@@ -1331,13 +1410,39 @@ def train_full(torch, kernel, autodiff, setup_mod, arch) -> tuple:
     return rec, gidx, vocab
 
 
+def train_batch_ids(torch, arch) -> tuple:
+    """Phase 5's first batch's (B, F) global rows and the table's rows,
+    from the data stream alone (``train.setup.build_recsys_training``'s
+    ``CriteoSynth`` at seed 0, fields capped at ``MAX_IND_RANGE``), with
+    no train state: ``--rowgrid-only``'s training batch."""
+    import dataclasses
+
+    from repro_torch.configs.common import RECSYS_SHAPES
+    from repro_torch.data.criteo import CriteoConfig, CriteoSynth
+    from repro_torch.models import embedding as E
+    from repro_torch.models.recsys import make_dlrm
+    cfg = dataclasses.replace(arch.cfg, cardinalities=tuple(
+        min(int(c), MAX_IND_RANGE) for c in arch.cfg.cardinalities))
+    spec = make_dlrm(cfg).spec
+    ds = CriteoSynth(CriteoConfig(
+        num_fields=spec.num_fields,
+        cardinalities=tuple(int(c) for c in spec.cardinalities),
+        num_dense=max(arch.num_dense, 1),
+        important_fields=max(1, spec.num_fields // 2), seed=0))
+    batch = ds.batch(RECSYS_SHAPES["train_batch"]["batch"], 0)
+    ids = torch.from_numpy(batch["indices"]).to("cuda")
+    return E.globalize(ids, spec), spec.total_rows
+
+
 def measure_train_forward(torch, kernel, ref, gidx, vocab: int,
                           flush) -> dict:
     """Phase 6: the single-tier kernel at the training forward's shape
     (one batch's 65,536 x 26 slots, K = 1, unit weights, no scales) over
     a (V, 64) fp32 table whose touched rows are drawn from a seed: bit for
     bit against its plain version and ``F.embedding_bag``, then timed
-    beside both and its bound."""
+    beside both and its bound; the (B, K)-grid oracle on the same slots,
+    bit-equal to it and timed beside it (twice, around the library call).
+    Returns (the tiled kernel's train_shape, the oracle's)."""
     import torch.nn.functional as F
 
     dev = gidx.device
@@ -1360,10 +1465,24 @@ def measure_train_forward(torch, kernel, ref, gidx, vocab: int,
     if not (bits_equal(got, want) and bits_equal(got, lib)):
         raise SystemExit("dequant_bag at the training shape != plain or "
                          "embedding_bag")
-    del got, want, lib
-    ms = time_launches(torch, kernel.dequant_bag_cuda, args * 5, flush)
-    library_ms = time_launches(torch, library, args * 5, flush)
+    # the (B, K)-grid oracle on the same slots (unit weights: every slot
+    # is live, so it reads what the tiled kernel reads), bit-equal to it
+    oracle = kernel.dequant_bag_rowgrid_cuda(*args[0])
+    torch.cuda.synchronize()
+    if not bits_equal(oracle, got):
+        raise SystemExit("dequant_bag_rowgrid at the training shape != "
+                         "dequant_bag")
+    del got, want, lib, oracle
+    reps = args * 10
+    ms = time_launches(torch, kernel.dequant_bag_cuda, reps, flush)
+    rowgrid_ms = time_launches(torch, kernel.dequant_bag_rowgrid_cuda, reps,
+                               flush)
+    library_ms = time_launches(torch, library, reps, flush)
+    rowgrid_ms_again = time_launches(
+        torch, kernel.dequant_bag_rowgrid_cuda, reps, flush)
     plain_ms = time_once(torch, ref.dequant_bag_ref, *args[0])
+    rowgrid_plain_ms = time_once(torch, ref.dequant_bag_rowgrid_ref,
+                                 *args[0])
     n = idx.numel()
     # each slot's index and weight, each distinct row once, the output
     nbytes = n * 8 + distinct.numel() * 256 + n * 256
@@ -1372,12 +1491,41 @@ def measure_train_forward(torch, kernel, ref, gidx, vocab: int,
         f"{vocab:,} rows, {distinct.numel():,} distinct): {ms:.4f} ms "
         f"({bound_ms / ms:.1%} of its {bound_ms:.4f} ms bound; "
         f"embedding_bag {library_ms:.4f}, plain {plain_ms:.2f}); bit-equal "
-        f"to both")
+        f"to both; dequant_bag_rowgrid {rowgrid_ms:.4f} / "
+        f"{rowgrid_ms_again:.4f} ms ({bound_ms / rowgrid_ms:.1%} of the "
+        f"bound), bit-equal")
     del table
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms, "bytes": nbytes,
-            "slots": n, "distinct_rows": int(distinct.numel()),
-            "vocab": vocab, "per": "launch (the training forward)"}
+    shape = {"slots": n, "distinct_rows": int(distinct.numel()),
+             "vocab": vocab, "bytes": nbytes, "bound_ms": bound_ms,
+             "bound_by": bound_by, "library_ms": library_ms,
+             "per": "launch (the training forward)"}
+    return ({"ms": ms, "plain_ms": plain_ms, **shape},
+            {"ms": rowgrid_ms, "ms_again": rowgrid_ms_again,
+             "plain_ms": rowgrid_plain_ms, "tiled_ms": ms, **shape})
+
+
+def kernel_split(torch, fn, args, launches: int = 3) -> dict:
+    """Device ms a launch of each CUDA kernel that ``fn(*args)`` runs,
+    from a profiler window over ``launches`` calls (names cut at their
+    template arguments); empty if the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(launches):
+            fn(*args)
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.key_averages():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and e.self_device_time_total > 0):
+            name = e.key.replace("(anonymous namespace)::", "")
+            name = (name.split("(")[0].split("<")[0].split("::")[-1].split()
+                    or [name])[-1]
+            split[name] = (split.get(name, 0.0)
+                           + e.self_device_time_total / 1e3 / launches)
+    return split
 
 
 def measure_bag_grad(torch, kernel, ref, gidx, vocab: int, flush,
@@ -1438,22 +1586,27 @@ def measure_bag_grad(torch, kernel, ref, gidx, vocab: int, flush,
     if not bits_equal(out[uniq], plain[uniq]):
         raise SystemExit("bag_grad != plain at the full training vocab")
     del plain
-    # the (B, K)-grid oracle at the same shapes: one launch (a serial
-    # walk of all slots), bit-equal to the tiled kernel's rows
+    # the (B, K)-grid oracle at the same shapes, bit-equal to the tiled
+    # kernel's rows, then timed as the tiled kernel is (10 launches, each
+    # accumulating onto the same touched rows), beside it and index_add_
     tiled_rows = out[uniq].clone()
     out.zero_()
-    flush.zero_()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
     kernel.bag_grad_rowgrid_cuda(grad, idx, coeff, out)
-    e1.record()
     torch.cuda.synchronize()
-    rowgrid_ms = e0.elapsed_time(e1)
     if not bits_equal(out[uniq], tiled_rows):
         raise SystemExit("bag_grad_rowgrid != bag_grad at the full training "
                          "vocab")
     del tiled_rows
+    rowgrid_ms = time_launches(torch, kernel.bag_grad_rowgrid_cuda, reps,
+                               flush)
+    tiled_again_ms = time_launches(torch, kernel.bag_grad_cuda, reps, flush)
+    library_again_ms = time_launches(
+        torch, lambda o: o.index_add_(0, flat64, coeff * grad),
+        [(out,)] * 10, flush)
+    rowgrid_again_ms = time_launches(torch, kernel.bag_grad_rowgrid_cuda,
+                                     reps, flush)
+    # where the oracle's time goes: its kernels' device ms a launch
+    split = kernel_split(torch, kernel.bag_grad_rowgrid_cuda, reps[0])
     # bytes the function must move: g, the indices and coefficients
     # once, and each distinct touched row written once; 2 flops a
     # column per slot
@@ -1466,11 +1619,19 @@ def measure_bag_grad(torch, kernel, ref, gidx, vocab: int, flush,
         f"{zero_ms:.4f} ms, plain {plain_ms:.1f} ms, index_add_ "
         f"{library_ms:.4f} ms, bound {bound_ms:.5f} ms, chain bound "
         f"{chain_ms:.4f} ms ({depth:,} slots); bag_grad_rowgrid "
-        f"{rowgrid_ms:.1f} ms, bit-equal")
-    rowgrid_train = {"ms": rowgrid_ms, "tiled_ms": ms, "bound_ms": bound_ms,
-                     "library_ms": library_ms, "slots": n,
+        f"{rowgrid_ms:.4f} / {rowgrid_again_ms:.4f} ms (bag_grad "
+        f"{tiled_again_ms:.4f}, index_add_ {library_again_ms:.4f} between "
+        f"them), bit-equal; its kernels (profiler, ms a launch): "
+        f"{ {k: round(v, 4) for k, v in split.items()} }")
+    rowgrid_train = {"ms": rowgrid_ms, "ms_again": rowgrid_again_ms,
+                     "tiled_ms": ms, "tiled_ms_again": tiled_again_ms,
+                     "bound_ms": bound_ms, "chain_bound_ms": chain_ms,
+                     "library_ms": library_ms,
+                     "library_ms_again": library_again_ms,
+                     "kernels_ms": split, "slots": n,
                      "distinct_rows": u, "longest_row": depth,
-                     "vocab": vocab}
+                     "vocab": vocab,
+                     "per": "launch (the training batch's scatter)"}
     return rowgrid_train, {
         "name": "bag_grad", "route": "cuda", "source": SOURCE_BAG_GRAD,
         "replaces": TPU_BAG_GRAD, "launches": None, "max_abs_err": worst,
@@ -1521,15 +1682,19 @@ def measure_bag_grad_rowgrid(torch, kernel, ref, gidx, flush,
         flush)
     nbytes = n * d * 4 + n * 4 + n * 4 + u * d * 4
     bound_ms, bound_by = _bound(nbytes, 2 * n * d)
+    # its kernels' device time: the rest of a launch's ms is the host's
+    split = kernel_split(torch, kernel.bag_grad_rowgrid_cuda, reps[0])
     log(f"bag_grad_rowgrid at the gradcheck shape ({n} slots, {u} rows): "
         f"{ms:.4f} ms (tiled {tiled_ms:.4f}, plain {plain_ms:.2f}, "
         f"index_add_ {library_ms:.4f}, bound {bound_ms:.6f}); bit-equal to "
-        f"plain and tiled")
+        f"plain and tiled; its kernels (profiler, ms a launch): "
+        f"{ {k: round(v, 4) for k, v in split.items()} }")
     return {"name": "bag_grad_rowgrid", "route": "cuda",
             "source": SOURCE_GRAD_ROWGRID, "replaces": TPU_GRAD_ROWGRID,
             "launches": 0, "max_abs_err": worst, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms, "tiled_ms": tiled_ms,
+            "kernels_ms": split,
             "shape": {"slots": n, "K": 1, "D": d, "distinct_rows": u},
             "bytes": nbytes,
             "per": "launch (the pipeline gradcheck's 8 x 26 slots)"}
@@ -5871,6 +6036,12 @@ def main() -> int:
                     help="build the kernels and run phase 20 alone, after "
                          "phase 8's wide&deep serve (its reference; prints "
                          "no kernels line and no ok line)")
+    ap.add_argument("--rowgrid-only", action="store_true",
+                    help="build the kernels and run phase 2's bag_grad "
+                         "schedules and (B, K)-grid oracle checks and phase "
+                         "6's timings at one training batch's slots (drawn "
+                         "from the data stream, no train state; prints a "
+                         "rowgrid line, no kernels line and no ok line)")
     args = ap.parse_args()
 
     import torch
@@ -5973,6 +6144,28 @@ def main() -> int:
         log(f"phase 19 alone: {sorted({**by_path, **more})}")
         return 0
 
+    if args.rowgrid_only:
+        worst_grad = check_bag_grad_schedules(torch, kernel, ref)
+        worst_rg, worst_grad_rg = check_rowgrid(torch, ops, ref)
+        gidx, vocab = train_batch_ids(torch, configs.get("dlrm-rm2"))
+        flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+        fwd, fwd_rowgrid = measure_train_forward(torch, kernel, ref, gidx,
+                                                 vocab, flush)
+        torch.cuda.empty_cache()
+        rowgrid_train, grad_entry = measure_bag_grad(
+            torch, kernel, ref, gidx, vocab, flush, worst_grad)
+        grad_rg_entry = measure_bag_grad_rowgrid(torch, kernel, ref, gidx,
+                                                 flush, worst_grad_rg)
+        grad_rg_entry["train_shape"] = rowgrid_train
+        print(json.dumps({"rowgrid": {
+            "dequant_bag_rowgrid[float32]": fwd_rowgrid,
+            "dequant_bag[float32]": fwd, "bag_grad_rowgrid": grad_rg_entry,
+            "bag_grad": grad_entry, "max_abs_err": [worst_rg,
+                                                    worst_grad_rg]}}),
+              flush=True)
+        log("phases 2 and 6's rowgrid checks and timings alone")
+        return 0
+
     worst = check_kernels(torch, ops, ref)
     worst_cases = max(check_gather_cases(torch, kernel, ops, ref, cases),
                       check_window_cases(torch, ops, ref, cases))
@@ -6010,6 +6203,9 @@ def main() -> int:
 
     train_rec, gidx, vocab = train_full(torch, kernel, autodiff, setup_mod,
                                         configs.get("dlrm-rm2"))
+    if not torch.equal(train_batch_ids(torch, configs.get("dlrm-rm2"))[0],
+                       gidx):
+        raise SystemExit("the data stream's first batch != phase 5's")
     rowgrid_by_path["train"] = dict(kernel.rowgrid_launches)
     print(json.dumps(train_rec), flush=True)
     torch.cuda.empty_cache()
@@ -6021,9 +6217,13 @@ def main() -> int:
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    fwd, fwd_rowgrid = measure_train_forward(torch, kernel, ref, gidx,
+                                             vocab, flush)
     next(k for k in kernels if k["name"] == "dequant_bag[float32]")[
-        "train_shape"] = measure_train_forward(torch, kernel, ref, gidx,
-                                               vocab, flush)
+        "train_shape"] = fwd
+    next(e for e in rowgrid_entries
+         if e["name"] == "dequant_bag_rowgrid[float32]")[
+        "train_shape"] = fwd_rowgrid
     torch.cuda.empty_cache()
     rowgrid_train, grad_entry = measure_bag_grad(torch, kernel, ref, gidx,
                                                  vocab, flush, worst_grad)

@@ -16,7 +16,8 @@ shape and kernel:
 
 The ladder, as the reference's:
 
-  dequant_bag_rowgrid   the (B, K)-grid oracle (``dequant_bag_rowgrid.cu``)
+  dequant_bag_rowgrid   the (B, K)-grid oracle (``dequant_bag_rowgrid.cu``,
+                        every slot read; its Hopper design has no tiling)
   dequant_bag           the tiled gather (``dequant_bag.cu``)
   bag_grad              the scatter-add backward (``bag_grad.cu``)
   unfused_bag_matmul    K = 1 dequant_bag a field, then ``torch.matmul``
@@ -143,7 +144,7 @@ def bench_shape(b: int, k: int, d: int, h: int, *, iters: int,
     def timed(fn):
         return autotune.time_us(fn, iters=iters, device=device)
 
-    # -- the rowgrid oracle: one slot a step, every slot read ------------
+    # -- the rowgrid oracle: every slot read, no tiling to sweep ---------
     us = timed(lambda: ops.dequant_bag_rowgrid(payload, scales, idx,
                                                weights))
     entry("dequant_bag_rowgrid", "int8", [1, d], us, [1, d], us,

@@ -10,8 +10,14 @@ the same numbers; nothing here launches a kernel.
 slot; runs of exactly ``heavy`` slots (the longest a group of lanes
 walks) and one either side, and of 16 * ``heavy`` (the longest that is not
 listed first) and one more; a long run with zero coefficients and a NaN
-cotangent under them (the zeros must be skipped); D in {1, 8, 10, 64,
-128} with ``g`` and ``out`` a float off 16-byte alignment.
+cotangent under them (the zeros must be skipped); D in {1, 8, 10, 33, 64,
+128, 200} with ``g`` and ``out`` a float off 16-byte alignment.  And at
+the (B, K)-grid oracle's (rows a multiple of ``BUCKET_STRIDE`` apart
+share its bucket): one row's 65,536 slots beside rows of its bucket and
+others; every slot in one bucket; 32-slot windows written out (a row
+twice in a window, across a window's edge, absent from one window and
+back in the next, a window of one row); runs of rows sharing a bucket at
+K = 3 with 20% zero coefficients; and B = 0.
 ``bag_matmul_cases`` covers B in {1, 31, 512, 513}, K in {1, 39, 40}, D
 in {1, 10, 32, 384} and H in {1, 63, 400, 1024}, and all-dead fields
 with a NaN in ``w3`` under a dead slot (every slot is multiplied, so the
@@ -63,6 +69,11 @@ import math
 from typing import NamedTuple
 
 import torch
+
+
+# rows this far apart share a bucket of the (B, K)-grid scatter oracle
+# (kernels/dequant_bag/kernel.py: at most ROWGRID_MAX_BUCKETS buckets)
+BUCKET_STRIDE = 4096
 
 
 class GradCase(NamedTuple):
@@ -130,12 +141,55 @@ def bag_grad_cases(device, heavy: int) -> list[GradCase]:
     add("zeros_nan", idx, 64, 5, coeff=coeff)
     cases[-1].g[hot] = float("nan")
     # widths, with g and out off 16-byte alignment
-    for d in (1, 8, 10, 64, 128):
+    for d in (1, 8, 10, 33, 64, 128, 200):
         lengths = [1000, heavy + 1, heavy] + [1 + i % 7 for i in range(400)]
         lengths.append(sum(lengths) % 2)
         add(f"misaligned_d{d}", _runs([x for x in lengths if x], 2, gen,
                                       device), d, len(lengths),
             misaligned=True)
+    # The (B, K)-grid oracle's schedule: rows that are multiples of
+    # BUCKET_STRIDE share its bucket (row mod P, P a power of two dividing
+    # it).  One row's 65,536 slots beside 8,192 slots of 32 rows of its
+    # bucket and 8,192 over 4,000 other rows, all shuffled together
+    ids = torch.cat([torch.arange(33, device=device) * BUCKET_STRIDE,
+                     torch.arange(1, 4001, device=device)])
+    lengths = [65_536] + [256] * 32 + [2] * 4000 + [192]
+    ids = torch.cat([ids, torch.tensor([4001], device=device)])
+    add("hot_bucket", ids[_runs(lengths, 1, gen, device).long()].to(
+        torch.int32), 64, 32 * BUCKET_STRIDE + 1)
+    # every slot in one bucket: 64 rows of 128 slots, shuffled, so every
+    # 32-slot window repeats rows and rows leave and come back
+    ids = torch.arange(64, device=device) * BUCKET_STRIDE
+    add("one_bucket", ids[_runs([128] * 64, 2, gen, device).long()].to(
+        torch.int32), 8, 63 * BUCKET_STRIDE + 1)
+    # windows written out (rows A-H of one bucket, K = 1, every slot
+    # live): a row twice inside a window; the same row at places 31 and 32
+    # (a window's edge); a row in windows 0 and 2 but not 1; a window of
+    # one row carried on from the last; then all eight rows in turn
+    a, bb, c, d_, e, f, g_, h = range(1, 9)
+    order = ([a, bb, a, c, d_] * 6 + [d_, e]
+             + [e] + [f, g_, f, e] * 7 + [bb, bb, h]
+             + [a] * 16 + [c, h] * 8
+             + [h] * 32
+             + [a, bb, c, d_, e, f, g_, h] * 4)
+    idx = (torch.tensor(order, dtype=torch.int32, device=device)
+           * BUCKET_STRIDE).reshape(-1, 1)
+    for d in (33, 64):
+        add(f"window_edges_d{d}", idx, d, 8 * BUCKET_STRIDE + 1)
+    # runs of rows sharing a bucket, in order (not shuffled), K = 3, 20%
+    # zero coefficients (dead slots shift the windows)
+    lengths = [1 + (7 * i) % 40 for i in range(90)]
+    lengths.append(-sum(lengths) % 3 or 3)
+    rows = torch.repeat_interleave(
+        torch.arange(len(lengths), device=device) % 6,
+        torch.tensor(lengths, device=device))
+    idx = (rows * BUCKET_STRIDE).to(torch.int32).reshape(-1, 3)
+    coeff = torch.rand(idx.shape, generator=gen, device=device) + 0.5
+    coeff[torch.rand(idx.shape, generator=gen, device=device) < 0.2] = 0.0
+    add("shared_runs_k3", idx, 10, 5 * BUCKET_STRIDE + 1, coeff=coeff)
+    # no bags at all
+    add("empty", torch.zeros((0, 2), dtype=torch.int32, device=device), 64,
+        10)
     return cases
 
 

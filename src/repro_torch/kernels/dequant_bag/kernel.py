@@ -12,8 +12,10 @@ its scatter-add backward.  ``dequant_bag_rowgrid_cuda``
 (``csrc/dequant_bag_rowgrid.cu``) and ``bag_grad_rowgrid_cuda``
 (``csrc/bag_grad_rowgrid.cu``) replace ``dequant_bag_pallas_rowgrid`` and
 ``bag_grad_pallas_rowgrid``, the reference's (B, K)-grid tiling oracles
-of the two; no entry point runs them, tests and ``chip_smoke.py`` hold
-the tiled kernels to them.  ``plan_slots`` is the grouping ``bag_grad_cuda``
+of the two, each in a Hopper design of its own (vector loads a lane
+group a bag; a stable partition of the slots by row mod P and warp
+chains over 32-slot windows); no entry point runs them, tests and
+``chip_smoke.py`` hold the tiled kernels to them.  ``plan_slots`` is the grouping ``bag_grad_cuda``
 accumulates by (the stable sort of the flat indices); a caller that
 scatters over the same indices many times makes it once and passes it
 back in.  Each library is built at first call
@@ -138,8 +140,6 @@ def _check_bag_inputs(fn: str, payload: torch.Tensor,
                       scales: torch.Tensor | None, indices: torch.Tensor,
                       weights: torch.Tensor) -> None:
     dev = payload.device
-    if dev.type != "cuda":
-        raise ValueError(f"{fn} needs CUDA tensors, got {dev}")
     if payload.dtype not in _DTYPE_CODE:
         raise TypeError("payload must be int8, bfloat16, float16 or "
                         "float32, got "
@@ -155,6 +155,8 @@ def _check_bag_inputs(fn: str, payload: torch.Tensor,
         if scales.shape[0] != payload.shape[0]:
             raise ValueError(f"scales has {scales.shape[0]} rows, payload "
                              f"{payload.shape[0]}")
+    if dev.type != "cuda":           # last, so the CPU tests reach the rest
+        raise ValueError(f"{fn} needs CUDA tensors, got {dev}")
 
 
 def dequant_bag_cuda(payload: torch.Tensor, scales: torch.Tensor | None,
@@ -274,8 +276,6 @@ def dequant_bag_tiered_cuda(indirect: torch.Tensor, payload8: torch.Tensor,
 def _check_grad_inputs(fn: str, g: torch.Tensor, indices: torch.Tensor,
                        coeff: torch.Tensor, out: torch.Tensor) -> None:
     dev = g.device
-    if dev.type != "cuda":
-        raise ValueError(f"{fn} needs CUDA tensors, got {dev}")
     _check("g", g, torch.float32, 2, dev)
     _check("indices", indices, torch.int32, 2, dev)
     _check("coeff", coeff, torch.float32, 2, dev)
@@ -286,6 +286,8 @@ def _check_grad_inputs(fn: str, g: torch.Tensor, indices: torch.Tensor,
                          "disagree")
     if out.shape[1] != g.shape[1]:
         raise ValueError(f"out has {out.shape[1]} columns, g {g.shape[1]}")
+    if dev.type != "cuda":           # last, so the CPU tests reach the rest
+        raise ValueError(f"{fn} needs CUDA tensors, got {dev}")
 
 
 @functools.cache
@@ -466,11 +468,39 @@ def dequant_bag_rowgrid_cuda(payload: torch.Tensor,
     return out
 
 
+# bag_grad_rowgrid's pass 1 cuts the slots into tiles of ROWGRID_TILE and
+# partitions the live ones into rowgrid_buckets(n) buckets by row mod P
+# (csrc/bag_grad_rowgrid.cu); its scratch holds the plan, the per-tile
+# counts and each slot's row, bag and coefficient.
+ROWGRID_TILE = 4096
+ROWGRID_MAX_BUCKETS = 4096
+ROWGRID_META = 4
+
+
+def rowgrid_buckets(n: int) -> int:
+    """P for a scatter of ``n`` slots: a power of two near one bucket a
+    32-slot window, at most 4,096 (the pass-1 tile's shared histogram)."""
+    p = 1
+    while p < ROWGRID_MAX_BUCKETS and p * 32 < n:
+        p *= 2
+    return p
+
+
+def rowgrid_scratch_words(n: int, buckets: int) -> int:
+    """int32 words of ``bag_grad_rowgrid_cuda``'s scratch (the C entry's
+    ``scratch_words``, which refuses less): the meta words, three per
+    bucket (live slots, first place, the job list), a count a bucket a
+    tile, and three a slot (its row, bag and coefficient in bucket
+    order)."""
+    tiles = -(-n // ROWGRID_TILE)
+    return ROWGRID_META + 3 * buckets + tiles * buckets + 3 * n
+
+
 @functools.cache
 def _grad_rowgrid_launcher():
     fn = build.load("bag_grad_rowgrid").bag_grad_rowgrid_launch
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = [p, p, p, p, ll, i, ll, p]
+    fn.argtypes = [p, p, p, p, ll, i, ll, i, p, ll, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -479,18 +509,28 @@ def bag_grad_rowgrid_cuda(g: torch.Tensor, indices: torch.Tensor,
                           coeff: torch.Tensor, out: torch.Tensor
                           ) -> torch.Tensor:
     """Launch the (B, K)-grid scatter oracle into ``out`` and return it:
-    the inputs and contract of ``bag_grad_cuda`` (``out`` zero on entry),
-    without the sort — the kernel walks the slots in (b, k) order."""
+    the inputs and contract of ``bag_grad_cuda`` (``out`` zero on entry;
+    each touched row's chain starts from its value there), without the
+    sort by row: the kernel partitions the slots by row mod P, keeping
+    their (b, k) order, and chains each bucket's rows window by window.
+    The scratch (``rowgrid_scratch_words``) is allocated here."""
     _check_grad_inputs("bag_grad_rowgrid_cuda", g, indices, coeff, out)
     dev = g.device
     b, k = indices.shape
     d = g.shape[1]
-    if b * k == 0 or d == 0:
+    n = b * k
+    if n == 0 or d == 0:
         return out
+    if n >= 2**31 - 1:
+        raise ValueError(f"bag_grad_rowgrid_cuda takes fewer than 2**31 - 1 "
+                         f"slots, got {n}")
+    buckets = rowgrid_buckets(n)
+    words = rowgrid_scratch_words(n, buckets)
+    scratch = torch.empty(words, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         rc = _grad_rowgrid_launcher()(
             g.data_ptr(), indices.data_ptr(), coeff.data_ptr(),
-            out.data_ptr(), b * k, k, d,
+            out.data_ptr(), n, k, d, buckets, scratch.data_ptr(), words,
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"bag_grad_rowgrid launch failed: cudaError {rc} "

@@ -14,9 +14,11 @@ shard window (``firsts``) both are one shard of a row-sharded store
 ``packed_lookup_fused`` is the K = 1 serving gather, bit-identical to
 ``packed_store.lookup``.  ``bag_grad`` is the scatter-add backward, with
 the same dispatch; ``plan_slots`` groups its slots once for callers that
-scatter over the same indices many times.  ``dequant_bag_rowgrid`` and ``bag_grad_rowgrid`` are
-the reference's (B, K)-grid tiling oracles of the two, with the same
-dispatch; no serving or training path calls them.
+scatter over the same indices many times.  ``dequant_bag_rowgrid`` and
+``bag_grad_rowgrid`` are the reference's (B, K)-grid tiling oracles of the
+two, with the same dispatch (on CUDA each kernel keeps a schedule of its
+own: every slot read; no sort by row); no serving or training path calls
+them.
 
 On CUDA ``dequant_bag`` and ``bag_grad`` resolve their kernel's tiling
 as the reference's ``resolve_block_sizes`` does (``ops.py:97-147``): an
@@ -162,9 +164,10 @@ def bag_grad_rowgrid(g: torch.Tensor, scales: torch.Tensor | None,
                      indices: torch.Tensor, weights: torch.Tensor | None,
                      vocab: int) -> torch.Tensor:
     """The (B, K)-grid oracle of ``bag_grad``: the same (vocab, D)
-    gradient, one slot's read-modify-write at a time in (b, k) order.
-    Dispatch is by ``g``'s device: the plain version on the CPU; on CUDA
-    a zero fill of (vocab, D) and the kernel."""
+    gradient, each row's slots chained in (b, k) order.  Dispatch is by
+    ``g``'s device: the plain version on the CPU; on CUDA a zero fill of
+    (vocab, D) and the kernel (a partition of the slots by row mod P, no
+    sort by row)."""
     if g.device.type == "cpu":
         return bag_grad_rowgrid_ref(g, scales, indices, weights, vocab)
     return _scatter_on_card(bag_grad_rowgrid_cuda, g, scales, indices,

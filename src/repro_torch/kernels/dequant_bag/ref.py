@@ -22,8 +22,9 @@ accumulates it.
 
 ``dequant_bag_rowgrid_ref`` and ``bag_grad_rowgrid_ref`` are the plain
 versions of the (B, K)-grid tiling oracles (``csrc/dequant_bag_rowgrid.cu``,
-``csrc/bag_grad_rowgrid.cu``).  They compute the same FMA chains with one
-difference each kernel keeps from the reference: the dequant oracle reads
+``csrc/bag_grad_rowgrid.cu``), whatever schedule the kernels run on the
+card.  They compute the same FMA chains with one difference each kernel
+keeps from the reference: the dequant oracle reads
 every slot, zero weights included, so a NaN or inf row in a zero-weight
 slot turns its bag to NaN where the tiled kernel skips it; the scatter
 oracle skips ``c == 0`` slots as the tiled kernel does.

@@ -102,6 +102,64 @@ def test_strict_fp16_store_serves_on_card(dev):
                        tps.lookup(packed, idx).view(torch.int32))
 
 
+@pytest.mark.parametrize("name", (*cases.GATHER_CASE_NAMES,
+                                  cases.GATHER_BIG))
+def test_dequant_bag_rowgrid_on_gather_cases(dev, name):
+    """The oracle's vector path on the tiled kernel's cases (every dtype
+    at D 1/10/32/33/64/128, K 1/8/40, payloads off 16-byte alignment, the
+    2.1 GB int8 payload read past 2^31 bytes): bit-equal to its plain
+    version, and to the tiled kernel on every bag that reads no NaN row
+    (a NaN row under a zero weight turns the oracle's bag NaN only)."""
+    c = next(c for c in cases.gather_cases(dev) if c.name == name)
+    args = (c.payload, c.scales, c.indices, c.weights)
+    got = kernel.dequant_bag_rowgrid_cuda(*args)
+    tiled = kernel.dequant_bag_cuda(*args)
+    torch.cuda.synchronize()
+    assert _nan_equal(got, ref.dequant_bag_rowgrid_ref(*args))
+    fin = torch.isfinite(got).all(1)
+    assert torch.equal(got[fin].view(torch.int32),
+                       tiled[fin].view(torch.int32))
+    assert bool(torch.isfinite(tiled).all())
+
+
+@pytest.mark.parametrize("dtype", ["int8", "bfloat16", "float16",
+                                   "float32"])
+@pytest.mark.parametrize("d", [1, 10, 33, 200])
+@pytest.mark.parametrize("k", [1, 2, 3, 5, 8])
+def test_dequant_bag_rowgrid_inf_row_under_zero_weight(dev, dtype, d, k):
+    """An inf row (an inf scale for int8) under a zero weight: the
+    oracle's bag is NaN (inf * 0), as its plain version's; every other bag
+    equals the tiled kernel's, which skips the slot."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(14)
+    v, b, bad = 997, 45, 5
+    dt = getattr(torch, dtype)
+    payload = (torch.randint(-128, 128, (v, d), generator=g, device=dev,
+                             dtype=torch.int8) if dt == torch.int8 else
+               (torch.randn((v, d), generator=g, device=dev) * 0.1).to(dt))
+    scales = torch.rand(v, generator=g, device=dev) * 0.01
+    idx = torch.randint(0, v, (b, k), generator=g, device=dev,
+                        dtype=torch.int32)
+    idx[idx == bad] = bad + 1
+    w = torch.rand((b, k), generator=g, device=dev) + 0.5
+    w[torch.rand((b, k), generator=g, device=dev) < 0.3] = 0.0
+    idx[::3, k - 1], w[::3, k - 1] = bad, 0.0
+    if dt == torch.int8:
+        scales[bad] = float("inf")
+    else:
+        payload[bad] = float("inf")
+    got = kernel.dequant_bag_rowgrid_cuda(payload, scales, idx, w)
+    tiled = kernel.dequant_bag_cuda(payload, scales, idx, w)
+    torch.cuda.synchronize()
+    assert _nan_equal(got, ref.dequant_bag_rowgrid_ref(payload, scales, idx,
+                                                       w))
+    assert torch.isnan(got[::3]).all()
+    rest = torch.ones(b, dtype=torch.bool, device=dev)
+    rest[::3] = False
+    assert torch.equal(got[rest].view(torch.int32),
+                       tiled[rest].view(torch.int32))
+
+
 @pytest.mark.parametrize("b,k,d,v", [(1000, 1, 64, 50_000),
                                      (1000, 8, 64, 300),
                                      (37, 3, 33, 20), (300, 2, 200, 7),
@@ -126,7 +184,10 @@ def test_bag_grad_kernel_bit_equal_to_plain(dev, b, k, d, v, scaled):
 
 GRAD_CASES = ("one_row", "threshold_d64", "threshold_d8", "zeros_nan",
               "misaligned_d1", "misaligned_d8", "misaligned_d10",
-              "misaligned_d64", "misaligned_d128")
+              "misaligned_d64", "misaligned_d128", "misaligned_d33",
+              "misaligned_d200", "hot_bucket", "one_bucket",
+              "window_edges_d33", "window_edges_d64", "shared_runs_k3",
+              "empty")
 
 
 @pytest.mark.parametrize("name", GRAD_CASES)
@@ -135,9 +196,11 @@ def test_bag_grad_schedules_bit_equal_to_plain_and_rowgrid(dev, name,
                                                            grouped):
     """bag_grad's schedules (one row of every slot, runs at the heavy-run
     threshold and one either side, zero coefficients over a NaN
-    cotangent, widths off 16-byte alignment), with and without a
+    cotangent, widths off 16-byte alignment) and the (B, K)-grid
+    oracle's (a hot row's bucket, every slot in one bucket, rows across
+    and inside its 32-slot windows, K 3, B 0), with and without a
     precomputed grouping: bit-equal to the plain version and to the
-    (B, K)-grid oracle, and finite."""
+    oracle, and finite."""
     by_name = {c.name: c for c in cases.bag_grad_cases(dev,
                                                        kernel.HEAVY_RUN)}
     c = by_name[name]
@@ -148,7 +211,9 @@ def test_bag_grad_schedules_bit_equal_to_plain_and_rowgrid(dev, name,
     oracle = kernel.bag_grad_rowgrid_cuda(c.g, c.indices, c.coeff,
                                           torch.zeros_like(want))
     torch.cuda.synchronize()
-    assert kernel.bag_grad_launches["float32"] == 1
+    launched = 1 if c.indices.numel() else 0
+    assert kernel.bag_grad_launches["float32"] == launched
+    assert kernel.rowgrid_launches["bag_grad_rowgrid"] == launched
     assert bool(torch.isfinite(got).all())
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     assert torch.equal(oracle.view(torch.int32), want.view(torch.int32))
@@ -459,6 +524,64 @@ def test_dequant_bag_rowgrid_kernel_reads_zero_weight_slots(dev, dtype):
                                                        w))
     assert _nan_equal(tiled, ref.dequant_bag_ref(payload, scales, idx, w))
     assert torch.isnan(got[::2]).all() and torch.isfinite(tiled).all()
+
+
+@pytest.mark.parametrize("name", (*cases.GATHER_CASE_NAMES,
+                                  cases.GATHER_BIG))
+def test_dequant_bag_rowgrid_on_gather_cases(dev, name):
+    """The oracle's vector path on the tiled kernel's cases (every dtype
+    at D 1/10/32/33/64/128, K 1/8/40, payloads off 16-byte alignment, the
+    2.1 GB int8 payload read past 2^31 bytes): bit-equal to its plain
+    version, and to the tiled kernel on every bag that reads no NaN row
+    (a NaN row under a zero weight turns the oracle's bag NaN only)."""
+    c = next(c for c in cases.gather_cases(dev) if c.name == name)
+    args = (c.payload, c.scales, c.indices, c.weights)
+    got = kernel.dequant_bag_rowgrid_cuda(*args)
+    tiled = kernel.dequant_bag_cuda(*args)
+    torch.cuda.synchronize()
+    assert _nan_equal(got, ref.dequant_bag_rowgrid_ref(*args))
+    fin = torch.isfinite(got).all(1)
+    assert torch.equal(got[fin].view(torch.int32),
+                       tiled[fin].view(torch.int32))
+    assert bool(torch.isfinite(tiled).all())
+
+
+@pytest.mark.parametrize("dtype", ["int8", "bfloat16", "float16",
+                                   "float32"])
+@pytest.mark.parametrize("d", [1, 10, 33, 200])
+@pytest.mark.parametrize("k", [1, 2, 3, 5, 8])
+def test_dequant_bag_rowgrid_inf_row_under_zero_weight(dev, dtype, d, k):
+    """An inf row (an inf scale for int8) under a zero weight: the
+    oracle's bag is NaN (inf * 0), as its plain version's; every other bag
+    equals the tiled kernel's, which skips the slot."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(14)
+    v, b, bad = 997, 45, 5
+    dt = getattr(torch, dtype)
+    payload = (torch.randint(-128, 128, (v, d), generator=g, device=dev,
+                             dtype=torch.int8) if dt == torch.int8 else
+               (torch.randn((v, d), generator=g, device=dev) * 0.1).to(dt))
+    scales = torch.rand(v, generator=g, device=dev) * 0.01
+    idx = torch.randint(0, v, (b, k), generator=g, device=dev,
+                        dtype=torch.int32)
+    idx[idx == bad] = bad + 1
+    w = torch.rand((b, k), generator=g, device=dev) + 0.5
+    w[torch.rand((b, k), generator=g, device=dev) < 0.3] = 0.0
+    idx[::3, k - 1], w[::3, k - 1] = bad, 0.0
+    if dt == torch.int8:
+        scales[bad] = float("inf")
+    else:
+        payload[bad] = float("inf")
+    got = kernel.dequant_bag_rowgrid_cuda(payload, scales, idx, w)
+    tiled = kernel.dequant_bag_cuda(payload, scales, idx, w)
+    torch.cuda.synchronize()
+    assert _nan_equal(got, ref.dequant_bag_rowgrid_ref(payload, scales, idx,
+                                                       w))
+    assert torch.isnan(got[::3]).all()
+    rest = torch.ones(b, dtype=torch.bool, device=dev)
+    rest[::3] = False
+    assert torch.equal(got[rest].view(torch.int32),
+                       tiled[rest].view(torch.int32))
 
 
 @pytest.mark.parametrize("b,k,d,v", [(1000, 1, 64, 50_000),
